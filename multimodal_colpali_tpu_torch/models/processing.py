@@ -1,0 +1,168 @@
+"""Input processing for ColPali (counterpart of ``multimodal_colpali_tpu/models/processing.py``).
+
+The JAX package's processors are numpy-only, but importing them runs that
+package's ``__init__``, which imports JAX; so this module carries its own
+copy. Behaviour is the same:
+
+- images -> fixed 448x448 bicubic resize, rescale 1/255, normalize to
+  [-1, 1], prompt ``<image>*1024 <bos> Describe the image.\\n``;
+- queries -> ``<bos> Query: {query}`` + 10 ``<pad>`` augmentation tokens.
+
+``score_multi_vector`` runs the port's MaxSim (K1 on a CUDA device).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+try:  # Pillow resizes pages; arrays already at the model size need no resize
+    from PIL import Image
+except ImportError:  # pragma: no cover
+    Image = None
+
+from multimodal_colpali_tpu_torch.models.configs import ColPaliModelConfig
+from multimodal_colpali_tpu_torch.ops.maxsim import maxsim_scores
+
+IMAGE_PROMPT = "Describe the image."
+QUERY_PREFIX = "Query: "
+QUERY_AUGMENTATION_TOKENS = 10
+
+
+class SimpleTokenizer:
+    """Deterministic hash tokenizer for runs without a checkpoint tokenizer.
+
+    Splits on whitespace/punctuation and hashes (FNV-1a) into the vocab,
+    reserving ids 0=<pad>, 1=<eos>, 2=<bos>, image_token_id=<image>."""
+
+    def __init__(self, vocab_size: int, image_token_id: int):
+        self.vocab_size = vocab_size
+        self.pad_id = 0
+        self.eos_id = 1
+        self.bos_id = 2
+        self.image_token_id = image_token_id
+
+    def encode(self, text: str) -> List[int]:
+        pieces = re.findall(r"\w+|[^\w\s]", text.lower())
+        lo, hi = 3, self.vocab_size - 1
+        out = []
+        for p in pieces:
+            h = 2166136261
+            for ch in p.encode():  # FNV-1a, stable across runs and processes
+                h = ((h ^ ch) * 16777619) & 0xFFFFFFFF
+            out.append(lo + h % (hi - lo))
+        return out
+
+
+def _resized(img: Any, size: int, dtype) -> np.ndarray:
+    if Image is not None and isinstance(img, Image.Image):
+        im = img.convert("RGB").resize((size, size), Image.BICUBIC)
+        return np.asarray(im, dtype=dtype)
+    a = np.asarray(img)
+    if a.shape[:2] != (size, size):
+        if Image is None:
+            raise ValueError("resizing an array page needs Pillow; pass it pre-resized")
+        im = Image.fromarray(a.astype(np.uint8)).resize((size, size), Image.BICUBIC)
+        return np.asarray(im, dtype=dtype)
+    return a.astype(dtype)
+
+
+@dataclasses.dataclass
+class ImagePreprocessor:
+    """PIL or array -> normalized NHWC float32, SigLIP convention."""
+
+    image_size: int = 448
+    mean: float = 0.5
+    std: float = 0.5
+
+    def __call__(self, images: Sequence[Any]) -> np.ndarray:
+        arrs = []
+        for img in images:
+            a = _resized(img, self.image_size, np.float32)
+            a = a / 255.0
+            arrs.append((a - self.mean) / self.std)
+        return np.stack(arrs, axis=0)
+
+    def u8(self, images: Sequence[Any]) -> np.ndarray:
+        """-> resized uint8 NHWC; normalization happens on the device
+        (``ops/preprocess.normalize_images``, K3 on a CUDA device)."""
+        return np.stack([_resized(img, self.image_size, np.uint8) for img in images], axis=0)
+
+
+class ColPaliProcessor:
+    """Builds model inputs; shape-compatible with the HF processor surface."""
+
+    def __init__(self, cfg: ColPaliModelConfig, tokenizer: Optional[Any] = None,
+                 query_pad_to_multiple: int = 16):
+        self.cfg = cfg
+        self.tokenizer = tokenizer or SimpleTokenizer(cfg.text.vocab_size, cfg.image_token_id)
+        self.image_seq_length = cfg.vision.num_patches
+        self.image_preprocessor = ImagePreprocessor(cfg.vision.image_size)
+        self.query_pad_to_multiple = query_pad_to_multiple
+
+    def _ids(self, text: str) -> List[int]:
+        tok = self.tokenizer
+        if not hasattr(tok, "encode"):
+            raise TypeError("tokenizer must expose .encode()")
+        try:
+            return list(tok.encode(text, add_special_tokens=False))
+        except TypeError:
+            return list(tok.encode(text))
+
+    def _special(self, name: str, default: int) -> int:
+        return getattr(self.tokenizer, name, default)
+
+    def process_images(self, images: Sequence[Any], device_preprocess: bool = False) -> dict:
+        """-> {input_ids, attention_mask [B, S], pixel_values [B, H, W, 3]};
+        ``device_preprocess=True`` leaves the pixels as uint8."""
+        if device_preprocess:
+            pix = self.image_preprocessor.u8(images)
+        else:
+            pix = self.image_preprocessor(images)
+        seq = ([self.cfg.image_token_id] * self.image_seq_length
+               + [self._special("bos_id", 2)] + self._ids(IMAGE_PROMPT + "\n"))
+        input_ids = np.tile(np.asarray(seq, np.int32), (len(images), 1))
+        return {"input_ids": input_ids, "attention_mask": np.ones_like(input_ids),
+                "pixel_values": pix}
+
+    def process_queries(self, queries: Sequence[str]) -> dict:
+        """-> {input_ids, attention_mask [B, S]} padded to a length bucket."""
+        bos = self._special("bos_id", 2)
+        pad = self._special("pad_id", 0)
+        rows = [[bos] + self._ids(QUERY_PREFIX + q + "\n") + [pad] * QUERY_AUGMENTATION_TOKENS
+                for q in queries]
+        m = self.query_pad_to_multiple
+        max_len = -(-max(len(r) for r in rows) // m) * m
+        input_ids = np.full((len(rows), max_len), pad, np.int32)
+        attention_mask = np.zeros((len(rows), max_len), np.int32)
+        for i, r in enumerate(rows):
+            input_ids[i, : len(r)] = r
+            # the <pad> augmentation tokens are attended (query expansion)
+            attention_mask[i, : len(r)] = 1
+        return {"input_ids": input_ids, "attention_mask": attention_mask}
+
+    def score_multi_vector(self, qs: Sequence[np.ndarray], ds: Sequence[np.ndarray],
+                           device: Any = "cpu") -> np.ndarray:
+        """MaxSim scores ``[n_queries, n_docs]`` from variable-length embeddings,
+        computed on ``device``."""
+        q_pad, q_lens = pad_multivectors(qs)
+        d_pad, d_lens = pad_multivectors(ds)
+        scores = maxsim_scores(
+            torch.from_numpy(q_pad).to(device), torch.from_numpy(d_pad).to(device),
+            torch.from_numpy(q_lens).to(device), torch.from_numpy(d_lens).to(device))
+        return scores.cpu().numpy()
+
+
+def pad_multivectors(arrs: Sequence[np.ndarray],
+                     multiple: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+    """Stack variable-length [n_i, dim] arrays into [N, max_n, dim] + lengths."""
+    lens = np.asarray([a.shape[0] for a in arrs], np.int32)
+    max_n = int(max(1, -(-lens.max() // multiple) * multiple))
+    out = np.zeros((len(arrs), max_n, arrs[0].shape[-1]), np.float32)
+    for i, a in enumerate(arrs):
+        out[i, : a.shape[0]] = np.asarray(a, np.float32)
+    return out, lens
