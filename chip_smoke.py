@@ -6,18 +6,26 @@ drives ``multimodal_colpali_tpu_torch`` (never JAX) and prints one line per
 phase; any failure exits non-zero.
 
 1. Device: the card's name and power limit (nvidia-smi), the torch and CUDA
-   versions, and the build time of the kernels (nvcc for K1 and K2 into
-   ``build/kernels``, Triton for K3).
+   versions, and the build time of the kernels (nvcc for K1/K4, K2 and the
+   K5 GEMM into ``build/kernels``, all at once; Triton for K3).
 2. Kernels against their plain PyTorch versions, both on the card, at the
-   retrieval path's shapes, with the time of each.
-3. The main path at full width: ``vidore/colpali-v1.3`` with random bf16
-   weights from ``--seed`` embeds 16 synthetic 448x448 pages, indexes them
-   with ``colpali_qdrant``, answers 4 queries with ``retrieve_colpali`` (one
-   also under a ``username`` filter) and scores them with ``score_results``.
-   Every kernel's launch counter must rise during this phase.
+   main paths' shapes, with the time of each: K1 MaxSim, K4 int8 MaxSim,
+   K2 attention, K3 normalize, K5a-c fused SigLIP layer / attention block /
+   MLP block.
+3. ColPali at full width: ``vidore/colpali-v1.3`` with random bf16 weights
+   from ``--seed`` embeds 16 synthetic 448x448 pages, indexes them with
+   ``colpali_qdrant``, answers 4 queries with ``retrieve_colpali`` (one also
+   under a ``username`` filter) and scores them with ``score_results``.
+4. ColSmol at full width: ``vidore/colSmol-256M`` (random bf16 weights)
+   embeds 32 synthetic 512x512 pages, indexes them with ``colpali_qdrant``
+   into an exact, an int8, a pooled and an on_disk collection (the last
+   saved and reopened), and answers 4 queries with ``query_points`` in each;
+   it also embeds one batch through each partial fused kernel.
 
-The line before the last is a JSON object with each kernel's launches in
-phase 3, its error against the plain version and both times; the last line
+Each main path (3 and 4) sets every launch counter to 0 before it runs and
+reads them after; each kernel of the path must have run in it. The line
+before the last is a JSON object with each kernel's launches in those
+paths, its error against the plain version and both times; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
 result.
 """
@@ -27,8 +35,10 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -38,7 +48,9 @@ PACKAGE = "multimodal_colpali_tpu_torch"
 K1 = dict(b=4, nq=32, dim=128, p=4096, nt=1030)
 K2 = dict(b=8, s=1024, h=16, d=72)
 K3 = dict(b=8, size=448)
+K5 = dict(b=8, s=1024, h=768, heads=12, inter=3072)  # ColSmol's SigLIP layer
 N_PAGES, EMBED_BATCH, TOP_K = 16, 8, 5
+SMOL_PAGES, SMOL_BATCH = 32, 16
 QUERIES = [
     "what binds selectins",
     "glycan structures in biology",
@@ -126,8 +138,8 @@ def phase_kernels(torch, seed: int):
 
     # K1: MaxSim at [4, 32, 128] x [4096, 1030, 128] bf16, ragged pages, some empty
     c = K1
-    q = F.normalize(torch.randn(c["b"], c["nq"], c["dim"], generator=g, device=dev), dim=-1)
-    q = q.to(torch.bfloat16)
+    q32 = F.normalize(torch.randn(c["b"], c["nq"], c["dim"], generator=g, device=dev), dim=-1)
+    q = q32.to(torch.bfloat16)
     d = torch.empty(c["p"], c["nt"], c["dim"], dtype=torch.bfloat16, device=dev)
     for s in range(0, c["p"], 512):
         part = torch.randn(min(512, c["p"] - s), c["nt"], c["dim"], generator=g, device=dev)
@@ -161,7 +173,38 @@ def phase_kernels(torch, seed: int):
     print(f"[kernels] K1 maxsim {list(q.shape)}x{list(d.shape)} bf16: max|err| {k1_err:.3g} "
           f"(rtol 1e-3), empty pages exact, top-5 {'identical' if top_same else 'equal up to ties'}"
           f" | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
-    del d, got, want
+    del got, want
+    torch.cuda.empty_cache()
+
+    # K4: float32 queries against the same corpus quantized to int8 codes + scales
+    codes, scales = M.quantize_corpus_int8(d)
+    del d
+    torch.cuda.empty_cache()
+    got = M.maxsim_scores_int8_cuda(q32, codes, scales, q_lens, d_lens)
+    want = M.maxsim_scores_int8_reference(q32, codes, scales, q_lens, d_lens)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(got).all()), "K4: non-finite score")
+    require(torch.allclose(got[:, live], want[:, live], rtol=1e-4, atol=0),
+            "K4: scores differ from the plain version beyond rtol 1e-4")
+    require(torch.allclose(got[:, ~live].double(), empty_want.expand(-1, int((~live).sum())),
+                           rtol=1e-6, atol=0), "K4: empty pages do not score -q_len * 1e30")
+    k4_err = float((got[:, live] - want[:, live]).abs().max())
+    kv, ki = topk_with_stable_ties(got, 5)
+    pv, pi = topk_with_stable_ties(want, 5)
+    gap = (want.gather(1, ki.long()) - pv).abs()
+    require(bool((gap <= 1e-4 * pv.abs()).all()),
+            "K4: top-5 differs from the plain version beyond near-ties")
+    k_ms, p_ms = timed_pair(torch, lambda: M.maxsim_scores_int8_cuda(q32, codes, scales, q_lens,
+                                                                     d_lens),
+                            lambda: M.maxsim_scores_int8_reference(q32, codes, scales, q_lens,
+                                                                   d_lens), iters=5)
+    results["maxsim_int8"] = dict(max_abs_err=k4_err, ms=k_ms, plain_ms=p_ms)
+    top_same = bool((ki == pi).all())
+    print(f"[kernels] K4 maxsim_int8 {list(q32.shape)} f32 x {list(codes.shape)} int8 + scales: "
+          f"max|err| {k4_err:.3g} (rtol 1e-4), empty pages exact, top-5 "
+          f"{'identical' if top_same else 'equal up to near-ties'} | kernel {k_ms:.3f} ms, "
+          f"plain {p_ms:.3f} ms", flush=True)
+    del codes, scales, got, want
     torch.cuda.empty_cache()
 
     # K2: SigLIP-So400m self-attention [8, 1024, 16, 72] bf16, plus masked cases
@@ -209,6 +252,54 @@ def phase_kernels(torch, seed: int):
     results["normalize"] = dict(max_abs_err=k3_err, ms=k_ms, plain_ms=p_ms)
     print(f"[kernels] K3 normalize {list(x.shape)} u8->bf16: max {ulps} ulp, max|err| "
           f"{k3_err:.3g} | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
+    results.update(fused_layer_kernels(torch, g))
+    return results
+
+
+def fused_layer_kernels(torch, g):
+    """K5a-c at ColSmol's SigLIP layer with seeded random bf16 weights."""
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    c = K5
+    dev = torch.device("cuda")
+    h, inter = c["h"], c["inter"]
+
+    def w(o, i):
+        return (torch.randn(o, i, generator=g, device=dev) * i ** -0.5).to(torch.bfloat16)
+
+    def v(n, base=0.0):
+        return (base + 0.1 * torch.randn(n, generator=g, device=dev)).to(torch.bfloat16)
+
+    ln1, attn = [v(h, 1.0), v(h)], [w(h, h), v(h), w(h, h), v(h), w(h, h), v(h), w(h, h), v(h)]
+    ln2, mlp = [v(h, 1.0), v(h)], [w(inter, h), v(inter), w(h, inter), v(h)]
+    x = torch.randn(c["b"], c["s"], h, generator=g, device=dev).to(torch.bfloat16)
+    heads = dict(heads=c["heads"])
+    cases = {
+        "vit_layer": ("K5a", FL.fused_vit_layer_cuda, FL.fused_vit_layer_reference,
+                      ln1 + attn + ln2 + mlp, heads),
+        "attn_block": ("K5b", FL.fused_vit_attention_block_cuda,
+                       FL.fused_vit_attention_block_reference, ln1 + attn, heads),
+        "mlp_block": ("K5c", FL.fused_mlp_block_cuda, FL.fused_mlp_block_reference,
+                      ln2 + mlp, {}),
+    }
+    results = {}
+    for name, (tag, kernel, plain, args, kw) in cases.items():
+        got = kernel(x, *args, **kw)
+        want = plain(x, *args, **kw)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got.float()).all()), f"{tag}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        # tests/test_fused_layer.py's tolerance: bf16 intermediates may round apart
+        require(torch.allclose(got.float(), want.float(), rtol=3e-2, atol=3e-2),
+                f"{tag}: max|err| {err} beyond atol 3e-2 + rtol 3e-2")
+        k_ms, p_ms = timed_pair(torch, lambda: kernel(x, *args, **kw),
+                                lambda: plain(x, *args, **kw), iters=10)
+        results[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+        print(f"[kernels] {tag} {name} {list(x.shape)} bf16 I={inter} {c['heads']} heads: "
+              f"max|err| {err:.3g} (atol 3e-2 + rtol 3e-2) | kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms", flush=True)
+        del got, want
+    torch.cuda.empty_cache()
     return results
 
 
@@ -230,17 +321,26 @@ def synthetic_pages(n: int, size: int, seed: int):
     return pages
 
 
-def phase_main_path(torch, seed: int, card: str):
+def kernel_wrappers():
+    """Each kernel's wrapper, whose ``.launches`` counts its launches."""
+    from multimodal_colpali_tpu_torch.ops import attention as A
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+    from multimodal_colpali_tpu_torch.ops import maxsim as M
+    from multimodal_colpali_tpu_torch.ops import preprocess as PP
+
+    return {"maxsim": M.maxsim_scores_cuda, "attention": A.fused_attention_cuda,
+            "normalize": PP.normalize_images_triton, "maxsim_int8": M.maxsim_scores_int8_cuda,
+            "vit_layer": FL.fused_vit_layer_cuda, "attn_block": FL.fused_vit_attention_block_cuda,
+            "mlp_block": FL.fused_mlp_block_cuda}
+
+
+def phase_colpali(torch, seed: int, card: str):
     import numpy as np
     from multimodal_colpali_tpu_torch import api
     from multimodal_colpali_tpu_torch.models import load_retriever
-    from multimodal_colpali_tpu_torch.ops import attention as A
-    from multimodal_colpali_tpu_torch.ops import maxsim as M
-    from multimodal_colpali_tpu_torch.ops import preprocess as PP
     from multimodal_colpali_tpu_torch.store import VectorClient
 
-    wrappers = {"maxsim": M.maxsim_scores_cuda, "attention": A.fused_attention_cuda,
-                "normalize": PP.normalize_images_triton}
+    wrappers = kernel_wrappers()
     t0 = time.perf_counter()
     retr = load_retriever("vidore/colpali-v1.3", device="cuda", dtype=torch.bfloat16,
                           seed=seed, device_preprocess=True)
@@ -305,7 +405,10 @@ def phase_main_path(torch, seed: int, card: str):
                     f"query {qi}: retrieve_colpali {ret} vs score_results {want} beyond ties")
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in wrappers.items()}
-    require(all(n > 0 for n in launches.values()), f"a kernel did not run: {launches}")
+    path = ("maxsim", "attention", "normalize")
+    require(all(launches[k] > 0 for k in path), f"a kernel of the ColPali path did not run: "
+            f"{launches}")
+    require(launches["vit_layer"] == 0, "SigLIP-So400m took the fused-layer path")
     pages_s = N_PAGES / embed_s
     print(f"[main] vidore/colpali-v1.3 {n_params / 1e9:.2f}B params bf16 (init {init_s:.1f} s), "
           f"{N_PAGES} pages x {embs[0].shape[0]} tokens x {dim}: embed {pages_s:.2f} pages/s, "
@@ -315,6 +418,161 @@ def phase_main_path(torch, seed: int, card: str):
           f"{'identical' if exact else 'equal up to ties'}, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB | {card}", flush=True)
     print(f"[main] launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def _key(p):
+    return p.payload["document_name"], p.payload["page_no"]
+
+
+def phase_colsmol(torch, seed: int, card: str):
+    """Full-width ColSmol-256M through colpali_qdrant and query_points on the
+    exact, int8, pooled and on_disk store modes."""
+    import numpy as np
+    from multimodal_colpali_tpu_torch import api
+    from multimodal_colpali_tpu_torch.models import layers as L
+    from multimodal_colpali_tpu_torch.models import load_retriever
+    from multimodal_colpali_tpu_torch.store import (
+        Distance, FieldCondition, Filter, MatchValue, MultiVectorConfig,
+        QuantizationSearchParams, SearchParams, VectorClient, VectorParams)
+
+    wrappers = kernel_wrappers()
+    t0 = time.perf_counter()
+    retr = load_retriever("vidore/colSmol-256M", device="cuda", dtype=torch.bfloat16,
+                          seed=seed, device_preprocess=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in retr.model.parameters())
+    size = retr.processor.image_preprocessor.image_size
+    pages = synthetic_pages(SMOL_PAGES, size, seed + 1)
+    retr.embed_images(pages[:SMOL_BATCH], batch_size=SMOL_BATCH)  # warm-up
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    embs = retr.embed_images(pages, batch_size=SMOL_BATCH)
+    embed_s = time.perf_counter() - t0
+    dim = retr.model.cfg.embedding_dim
+    require(len(embs) == SMOL_PAGES, "ColSmol embed_images: wrong number of pages")
+    for e in embs:
+        require(e.ndim == 2 and e.shape[1] == dim, f"ColSmol embedding shape {e.shape}")
+        require(bool(np.isfinite(e).all()), "ColSmol: non-finite embedding")
+        require(bool(np.allclose(np.linalg.norm(e, axis=-1), 1.0, atol=1e-3)),
+                "ColSmol: valid tokens are not unit-norm")
+
+    # the partial fused kernels (K5b, K5c) through the same entry point
+    parts_cos = {}
+    for parts in ("attn", "mlp"):
+        L.set_fused_parts(parts)
+        try:
+            other = retr.embed_images(pages[:SMOL_BATCH], batch_size=SMOL_BATCH)
+        finally:
+            L.set_fused_parts("both")
+        for e in other:
+            require(bool(np.isfinite(e).all()) and
+                    bool(np.allclose(np.linalg.norm(e, axis=-1), 1.0, atol=1e-3)),
+                    f"ColSmol with fused parts {parts!r}: bad embedding")
+        parts_cos[parts] = float(np.mean([np.sum(a * b, axis=-1).mean()
+                                          for a, b in zip(other, embs)]))
+
+    users = ["alice", "bob"]
+    half = SMOL_PAGES // 2
+    datasets = [[{"image": pages[i], "filename": f"doc{i // 4}.pdf", "page_no": i % 4,
+                  "img_link": ""} for i in range(u * half, (u + 1) * half)]
+                for u in range(len(users))]
+
+    def index(client, name):
+        for user, dataset in zip(users, datasets):
+            api.colpali_qdrant(dataset, [], [], retr, retr.processor, client, name,
+                               batch_size=SMOL_BATCH, username=user)
+        require(client.count(name).count == SMOL_PAGES, f"{name}: collection is incomplete")
+
+    client = VectorClient(device="cuda")
+    api.ensure_colpali_collection(client, "exact", vector_size=dim)
+    api.ensure_colpali_collection(client, "int8", vector_size=dim, quantized=True)
+    client.create_collection("pooled", VectorParams(size=dim, distance=Distance.COSINE,
+                                                    multivector_config=MultiVectorConfig()),
+                             quantized=True, prefilter="pooled")
+    for name in ("exact", "int8", "pooled"):
+        index(client, name)
+    (REPO / "build").mkdir(exist_ok=True)
+    disk_dir = Path(tempfile.mkdtemp(prefix="smoke-on-disk-", dir=REPO / "build"))
+    try:
+        disk = VectorClient(path=str(disk_dir), device="cuda")
+        api.ensure_colpali_collection(disk, "on_disk", vector_size=dim, on_disk=True)
+        index(disk, "on_disk")
+        disk.save()
+        disk = VectorClient(path=str(disk_dir), device="cuda")  # reopened: a memory map
+        require(disk._get("on_disk").on_disk, "the reopened collection is not on_disk")
+        colls = {"exact": client, "int8": client, "pooled": client, "on_disk": disk}
+        vecs = {n: c._get(n)._vectors for n, c in colls.items()}
+        require(all(np.array_equal(np.asarray(v), vecs["exact"]) for v in vecs.values()),
+                "ColSmol: the four indexing runs embedded the pages differently")
+
+        q_embs = retr.embed_queries(QUERIES)
+        every = SearchParams(quantization=QuantizationSearchParams(
+            ignore=False, oversampling=SMOL_PAGES / TOP_K))
+        default = SearchParams(quantization=QuantizationSearchParams(ignore=False))
+        alice = Filter(must=[FieldCondition(key="username", match=MatchValue(value="alice"))])
+        full = {}   # exact scores of every page, per query
+        recall = {n: [] for n in ("int8", "pooled", "on_disk")}
+        mode_ms = {n: [] for n in colls}
+        for qi, q in enumerate(q_embs):
+            res = {}
+            for name, c in colls.items():
+                t0 = time.perf_counter()
+                res[name] = c.query_points(name, q, limit=TOP_K, search_params=every).points
+                mode_ms[name].append((time.perf_counter() - t0) * 1e3)
+                flt = c.query_points(name, q, limit=TOP_K, query_filter=alice,
+                                     search_params=every).points
+                require(len(flt) == TOP_K and all(p.payload["username"] == "alice"
+                                                  for p in flt),
+                        f"{name}: the username filter returned another user's page")
+            full[qi] = {_key(p): p.score for p in client.query_points(
+                "exact", q, limit=SMOL_PAGES).points}
+            ref = [(_key(p), p.score) for p in res["exact"]]
+            require([(_key(p), p.score) for p in res["int8"]] == ref,
+                     f"query {qi}: int8 with every page a candidate is not the exact scan "
+                     f"bit for bit")
+            require([(_key(p), p.score) for p in res["on_disk"]] ==
+                    [(_key(p), p.score) for p in res["pooled"]],
+                    f"query {qi}: on_disk differs from the device-resident pooled search")
+            for a, b in zip(res["pooled"], res["exact"]):
+                sa, sb = full[qi][_key(a)], full[qi][_key(b)]
+                require(abs(sa - sb) <= 1e-2 * abs(sb) + 1e-2,
+                        f"query {qi}: pooled top-{TOP_K} differs from exact beyond near-ties")
+            want = {_key(p) for p in res["exact"]}
+            for name in recall:
+                got = client if name != "on_disk" else disk
+                top = got.query_points(name, q, limit=TOP_K, search_params=default).points
+                recall[name].append(len(want & {_key(p) for p in top}) / TOP_K)
+    finally:
+        shutil.rmtree(disk_dir, ignore_errors=True)
+
+    api.retrieve_colpali("warm-up query", retr.processor, retr, client, "", "exact", TOP_K)
+    query_ms = []
+    for qtext in QUERIES:
+        t0 = time.perf_counter()
+        api.retrieve_colpali(qtext, retr.processor, retr, client, "", "exact", TOP_K)
+        query_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the ColSmol path did not run: {launches}")
+    print(f"[colsmol] vidore/colSmol-256M {n_params / 1e6:.1f}M params bf16 (init {init_s:.1f} s), "
+          f"{SMOL_PAGES} pages x {embs[0].shape[0]} tokens x {dim}: embed "
+          f"{SMOL_PAGES / embed_s:.2f} pages/s (batches of {SMOL_BATCH}), retrieve_colpali "
+          f"{np.mean(query_ms):.1f} ms/query (mean of {', '.join(f'{t:.1f}' for t in query_ms)}), "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB | {card}", flush=True)
+    print(f"[colsmol] every page a candidate: int8 = exact bit for bit, on_disk = pooled bit "
+          f"for bit, pooled = exact up to near-ties, filter ok | query_points ms (mean): "
+          + ", ".join(f"{n} {np.mean(t):.2f}" for n, t in mode_ms.items())
+          + f" | recall@{TOP_K} vs exact at oversampling 2.0: "
+          + ", ".join(f"{n} {np.mean(r):.3f}" for n, r in recall.items())
+          + f" | fused parts attn/mlp vs both: mean token cosine {parts_cos['attn']:.5f}/"
+          f"{parts_cos['mlp']:.5f}", flush=True)
+    print(f"[colsmol] launches {json.dumps(launches)}", flush=True)
     return launches
 
 
@@ -337,17 +595,24 @@ def main(argv=None) -> int:
 
     card = phase_device(torch, _build)
     kernels = phase_kernels(torch, args.seed)
-    launches = phase_main_path(torch, args.seed, card)
+    colpali = phase_colpali(torch, args.seed, card)
+    colsmol = phase_colsmol(torch, args.seed, card)
 
+    jax_ops = "multimodal_colpali_tpu/ops"
     meta = {
-        "maxsim": ("cuda", f"{PACKAGE}/csrc/maxsim.cu", "multimodal_colpali_tpu/ops/maxsim.py:196"),
-        "attention": ("cuda", f"{PACKAGE}/csrc/attention.cu",
-                      "multimodal_colpali_tpu/ops/attention.py:135"),
+        "maxsim": ("cuda", f"{PACKAGE}/csrc/maxsim.cu", f"{jax_ops}/maxsim.py:196"),
+        "attention": ("cuda", f"{PACKAGE}/csrc/attention.cu", f"{jax_ops}/attention.py:135"),
         "normalize": ("triton", f"{PACKAGE}/ops/_normalize_triton.py",
-                      "multimodal_colpali_tpu/ops/preprocess.py:54"),
+                      f"{jax_ops}/preprocess.py:54"),
+        "maxsim_int8": ("cuda", f"{PACKAGE}/csrc/maxsim.cu", f"{jax_ops}/maxsim.py:307"),
+        "vit_layer": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu", f"{jax_ops}/fused_layer.py:367"),
+        "attn_block": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu",
+                       f"{jax_ops}/fused_layer.py:247"),
+        "mlp_block": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu", f"{jax_ops}/fused_layer.py:440"),
     }
-    rows = [dict(name=name, route=route, source=src, replaces=rep, launches=launches[name],
-                 **kernels[name]) for name, (route, src, rep) in meta.items()]
+    rows = [dict(name=name, route=route, source=src, replaces=rep,
+                 launches=colpali[name] + colsmol[name], **kernels[name])
+            for name, (route, src, rep) in meta.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,20 @@
-"""PyTorch + CUDA port of the ColPali retrieval path of ``multimodal_colpali_tpu``.
+"""PyTorch + CUDA port of the retrieval path of ``multimodal_colpali_tpu``.
 
 The JAX package beside this one is the reference; this package mirrors its
 layout (``ops/``, ``models/``, ``store/``, ``api.py``) so each module's
 counterpart is found under the same name. It imports ``torch`` and never
 JAX, Flax or the JAX package.
 
-Kernels on the retrieval path, each beside a plain PyTorch version:
+Ported: the ColPali and ColIdefics3 (ColSmol) retrievers, the multivector
+store in its exact, int8, pooled and on_disk modes, and the retrieval API.
+Kernels on that path, each beside a plain PyTorch version:
 
 - K1 MaxSim (CUDA C++, ``csrc/maxsim.cu``, ``ops/maxsim.py``)
 - K2 attention (CUDA C++, ``csrc/attention.cu``, ``ops/attention.py``)
 - K3 uint8 normalize (Triton, ``ops/_normalize_triton.py``, ``ops/preprocess.py``)
+- K4 int8 MaxSim (CUDA C++, ``csrc/maxsim.cu``, ``ops/maxsim.py``)
+- K5a-c fused SigLIP layer, attention block and MLP block (CUDA C++ GEMMs in
+  ``csrc/fused_layer.cu`` with K2, ``ops/fused_layer.py``)
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
 the call raises. The CUDA kernels are compiled with nvcc for ``sm_90a`` into

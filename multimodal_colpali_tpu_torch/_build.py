@@ -9,7 +9,8 @@ as integers, and every entry point returns ``cudaGetLastError()`` after its
 launch, which :func:`check` turns into an exception. A failed build raises;
 nothing falls back to another implementation.
 
-Triton kernels (K3) cache their compiled form under ``build/triton`` unless
+``maxsim.cu`` holds K1 and K4, ``attention.cu`` K2, ``fused_layer.cu`` the
+GEMM that K5a-c are built from. Triton kernels (K3) cache their compiled form under ``build/triton`` unless
 ``TRITON_CACHE_DIR`` is already set.
 """
 
@@ -41,11 +42,19 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "maxsim": {
         # q, d, q_lens, d_lens, out, B, NQ, P, NT, DIM, dtype, stream
         "maxsim_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # q, codes, scales, q_lens, d_lens, out, B, NQ, P, NT, DIM, stream
+        "maxsim_int8_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "attention": {
         # q, k, v, o, kv_lens, kv_valid, B, S, H, D, scale, causal, dtype, stream
         "attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              ctypes.c_float, _I, _I, _P),
+    },
+    "fused_layer": {
+        # A, ln_g, ln_b, eps, w0, w1, w2, b0, b1, b2, resid, C, M, N, K, Nseg,
+        # epilogue, dtype, stream
+        "gemm_launch": (_P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _P),
     },
 }
 

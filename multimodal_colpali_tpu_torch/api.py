@@ -85,16 +85,21 @@ def colpali_qdrant(
 
 
 def ensure_colpali_collection(client: VectorClient, name: str, vector_size: int = 128,
-                              max_tokens: int = 1056) -> None:
+                              max_tokens: int = 1056, quantized: bool = False,
+                              on_disk: bool = False) -> None:
     """128-d COSINE multivector MAX_SIM collection
-    (reference 01_create_context_qdrant.py:208-222). The JAX package's
-    ``quantized`` and ``on_disk`` collections are not ported yet."""
+    (reference 01_create_context_qdrant.py:208-222; api.py:138-156).
+    ``on_disk`` mirrors the reference's VectorParams(on_disk=True): the
+    originals stay off the accelerator and queries rescore host-gathered
+    candidates."""
     if not client.collection_exists(name):
         client.create_collection(
             name,
             vectors_config=VectorParams(size=vector_size, distance=Distance.COSINE,
-                                        multivector_config=MultiVectorConfig()),
+                                        multivector_config=MultiVectorConfig(),
+                                        on_disk=on_disk),
             max_tokens=max_tokens,
+            quantized=quantized,
         )
 
 

@@ -15,6 +15,12 @@ enum DtypeCode : int { kFloat32 = 0, kBFloat16 = 1 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(signed char x) { return static_cast<float>(x); }
+
+// x rounded to the nearest bfloat16 (ties to even) and widened back.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);

@@ -1,9 +1,15 @@
-"""Model configurations of the ColPali encoder (counterpart of
-``multimodal_colpali_tpu/models/configs.py:15-42, :140-166``).
+"""Model configurations of the ported retrievers (counterparts of
+``multimodal_colpali_tpu/models/configs.py:15-42, :140-166`` and
+``multimodal_colpali_tpu/models/idefics3.py:32-114``).
 
-ColPali v1.x = SigLIP-So400m vision tower + Gemma-2B text tower + 128-d
-projection. ``tiny()`` is the small configuration the parity tests and the
-committed ``goldens/tiny-colpali*.npz`` use.
+- ColPali v1.x = SigLIP-So400m vision tower + Gemma-2B text tower + 128-d
+  projection.
+- ColIdefics3 / ColSmol-256M = SigLIP-768 vision tower (512 px, patch 16),
+  pixel shuffle x4 + projection, Llama text tower (576 wide, 30 layers,
+  9 heads / 3 KV heads) + 128-d projection.
+
+Each ``tiny()`` is the small configuration the parity tests and the
+committed ``goldens/tiny-*.npz`` use.
 """
 
 from __future__ import annotations
@@ -67,4 +73,58 @@ class ColPaliModelConfig:
             ),
             embedding_dim=8,
             image_token_id=vocab_size - 1,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaTextConfig:
+    """The Llama decoder of SmolVLM (idefics3.py:32-80): GQA without biases,
+    plain RMSNorm (``x / rms(x) * w``), SiLU-gated MLP, 1-D rotary."""
+
+    vocab_size: int = 49280
+    hidden_size: int = 576
+    intermediate_size: int = 1536
+    num_hidden_layers: int = 30
+    num_attention_heads: int = 9
+    num_key_value_heads: int = 3
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 100_000.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class ColIdefics3ModelConfig:
+    vision: SiglipVisionConfig = dataclasses.field(default_factory=lambda: SiglipVisionConfig(
+        hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+        num_attention_heads=12, image_size=512, patch_size=16))
+    text: LlamaTextConfig = dataclasses.field(default_factory=LlamaTextConfig)
+    embedding_dim: int = 128
+    image_token_id: int = 49190
+    scale_factor: int = 4
+
+    @property
+    def n_image_tokens(self) -> int:
+        return self.vision.num_patches // (self.scale_factor ** 2)
+
+    @classmethod
+    def colsmol_256m(cls) -> "ColIdefics3ModelConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 64) -> "ColIdefics3ModelConfig":
+        """Small config for tests and CPU parity (idefics3.py:101-114)."""
+        return cls(
+            vision=SiglipVisionConfig(hidden_size=32, intermediate_size=64,
+                                      num_hidden_layers=2, num_attention_heads=2,
+                                      image_size=32, patch_size=8),
+            text=LlamaTextConfig(vocab_size=vocab_size, hidden_size=24,
+                                 intermediate_size=48, num_hidden_layers=2,
+                                 num_attention_heads=2, num_key_value_heads=1,
+                                 rope_theta=10000.0),
+            embedding_dim=8,
+            image_token_id=vocab_size - 1,
+            scale_factor=2,
         )

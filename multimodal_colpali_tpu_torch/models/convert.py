@@ -9,20 +9,26 @@ Reads the ``"a/b/c"`` keys that ``save_params_npz`` writes
 - a conv ``kernel [kh, kw, cin, cout]`` becomes ``weight [cout, cin, kh, kw]``;
 - every other array keeps its name and layout.
 
-``params_from_flax`` checks every name and shape against the model the
-config describes and raises on anything missing, left over or misshapen.
+``params_from_flax`` checks every name and shape against the model of the
+config's family (:func:`model_class`) and raises on anything missing, left
+over or misshapen.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple, Type, Union
 
 import numpy as np
 import torch
 
+from torch import nn
+
 from multimodal_colpali_tpu_torch.models.colpali import ColPaliModel
-from multimodal_colpali_tpu_torch.models.configs import ColPaliModelConfig
+from multimodal_colpali_tpu_torch.models.configs import ColIdefics3ModelConfig, ColPaliModelConfig
+from multimodal_colpali_tpu_torch.models.idefics3 import ColIdefics3Model
+
+ModelConfig = Union[ColPaliModelConfig, ColIdefics3ModelConfig]
 
 _LAYER = re.compile(r"^layers_(\d+)$")
 
@@ -69,12 +75,21 @@ def flax_shape(name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
     return tuple(shape)
 
 
-def params_from_flax(params: Mapping[str, Any],
-                     cfg: ColPaliModelConfig) -> Dict[str, torch.Tensor]:
-    """A flax ColPali tree (flat or nested numpy) -> ``state_dict`` of CPU tensors."""
+def model_class(cfg: ModelConfig) -> Type[nn.Module]:
+    """The port's model class for a config: ColPali or ColIdefics3."""
+    if isinstance(cfg, ColIdefics3ModelConfig):
+        return ColIdefics3Model
+    if isinstance(cfg, ColPaliModelConfig):
+        return ColPaliModel
+    raise TypeError(f"no ported model for {type(cfg).__name__}")
+
+
+def params_from_flax(params: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """A flax tree (flat or nested numpy) of the config's family ->
+    ``state_dict`` of CPU tensors."""
     flat = flatten_flax(params)
-    expected = {n: tuple(p.shape) for n, p in
-                ColPaliModel(cfg, device="meta").state_dict().items()}
+    model = model_class(cfg)
+    expected = {n: tuple(p.shape) for n, p in model(cfg, device="meta").state_dict().items()}
     state: Dict[str, torch.Tensor] = {}
     seen = set()
     problems = []
@@ -91,6 +106,6 @@ def params_from_flax(params: Mapping[str, Any],
         state[name] = torch.from_numpy(t)
     problems += [f"missing parameter {n!r}" for n in expected if n not in seen]
     if problems:
-        raise ValueError("flax params do not fit the ColPali config:\n  "
+        raise ValueError(f"flax params do not fit the {model.__name__} config:\n  "
                          + "\n  ".join(problems))
     return state

@@ -55,6 +55,21 @@ class RMSNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class LlamaRMSNorm(nn.Module):
+    """Qwen2/Llama RMSNorm: ``x / rms(x) * weight`` in float32, no ``1 +``
+    (qwen2vl.py:511-521); its neutral weight is 1."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *, device, dtype):
+        super().__init__()
+        self.eps = eps
+        self.weight = empty_param(dim, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = xf.square().mean(dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + self.eps) * self.weight.float()).to(x.dtype)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm with weight and bias in float32 (layers.py:67-81)."""
 
@@ -82,6 +97,43 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# The fused SigLIP-layer path (ops/fused_layer.py, K5a-c), as the JAX
+# package's gate (layers.py:129-172): None = auto, taken for a CUDA tensor
+# whose layer shape ``layer_plan`` admits (SigLIP-768 yes, So400m no), in
+# any dtype: the kernels take bf16 and float32 and raise on anything else;
+# True forces it wherever the plan admits the shape (a CPU tensor then
+# runs the plain versions of the fused functions); False turns it off.
+# ``_FUSED_PARTS`` picks the whole-layer kernel ("both") or one of the two
+# partial kernels ("attn", "mlp").
+_FUSED_LAYER: Optional[bool] = None
+_FUSED_PARTS: str = "both"
+
+
+def set_fused_layer(enabled: Optional[bool]) -> None:
+    global _FUSED_LAYER
+    _FUSED_LAYER = None if enabled is None else bool(enabled)
+
+
+def set_fused_parts(parts: str) -> None:
+    if parts not in ("both", "attn", "mlp"):
+        raise ValueError(f"fused parts must be both/attn/mlp, got {parts!r}")
+    global _FUSED_PARTS
+    _FUSED_PARTS = parts
+
+
+def _fused_layer_enabled(x: torch.Tensor, hidden: int, inter: int, heads: int) -> bool:
+    """Whether a SigLIP layer on ``x [B, S, hidden]`` takes the fused path."""
+    if _FUSED_LAYER is False:
+        return False
+    from multimodal_colpali_tpu_torch.ops.fused_layer import layer_plan
+
+    if layer_plan(x.shape[1], hidden, inter, heads, x.element_size()) is None:
+        return False
+    if _FUSED_LAYER:
+        return True
+    return x.device.type == "cuda"
 
 
 def attention(

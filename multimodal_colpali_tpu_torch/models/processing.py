@@ -147,14 +147,19 @@ class ColPaliProcessor:
 
     def score_multi_vector(self, qs: Sequence[np.ndarray], ds: Sequence[np.ndarray],
                            device: Any = "cpu") -> np.ndarray:
-        """MaxSim scores ``[n_queries, n_docs]`` from variable-length embeddings,
-        computed on ``device``."""
-        q_pad, q_lens = pad_multivectors(qs)
-        d_pad, d_lens = pad_multivectors(ds)
-        scores = maxsim_scores(
-            torch.from_numpy(q_pad).to(device), torch.from_numpy(d_pad).to(device),
-            torch.from_numpy(q_lens).to(device), torch.from_numpy(d_lens).to(device))
-        return scores.cpu().numpy()
+        return score_multi_vector(qs, ds, device)
+
+
+def score_multi_vector(qs: Sequence[np.ndarray], ds: Sequence[np.ndarray],
+                       device: Any = "cpu") -> np.ndarray:
+    """MaxSim scores ``[n_queries, n_docs]`` from variable-length embeddings,
+    computed on ``device``."""
+    q_pad, q_lens = pad_multivectors(qs)
+    d_pad, d_lens = pad_multivectors(ds)
+    scores = maxsim_scores(
+        torch.from_numpy(q_pad).to(device), torch.from_numpy(d_pad).to(device),
+        torch.from_numpy(q_lens).to(device), torch.from_numpy(d_lens).to(device))
+    return scores.cpu().numpy()
 
 
 def pad_multivectors(arrs: Sequence[np.ndarray],

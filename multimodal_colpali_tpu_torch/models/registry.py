@@ -1,7 +1,8 @@
 """Retriever registry (counterpart of ``multimodal_colpali_tpu/models/registry.py``).
 
-``load_retriever(name, device=...)`` returns a :class:`Retriever`: a ColPali
-encoder on ``device`` plus its processor. Weights come from a flax parameter
+``load_retriever(name, device=...)`` returns a :class:`Retriever`: the
+encoder of the name's family (ColPali or ColIdefics3) on ``device`` plus its
+processor. Weights come from a flax parameter
 tree (``params=``, e.g. ``load_params_npz`` of a committed golden) or, when
 none is given, from a seeded random init made on ``device`` in the model
 dtype, so a 3B model never exists in float32 on the host.
@@ -16,30 +17,41 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from multimodal_colpali_tpu_torch.models.colpali import ColPaliModel
-from multimodal_colpali_tpu_torch.models.configs import ColPaliModelConfig
-from multimodal_colpali_tpu_torch.models.convert import flax_shape, params_from_flax
+from multimodal_colpali_tpu_torch.models.configs import ColIdefics3ModelConfig, ColPaliModelConfig
+from multimodal_colpali_tpu_torch.models.convert import (
+    ModelConfig, flax_shape, model_class, params_from_flax)
 from multimodal_colpali_tpu_torch.models.processing import ColPaliProcessor
+from multimodal_colpali_tpu_torch.models.processing_idefics3 import ColIdefics3Processor
 from multimodal_colpali_tpu_torch.ops.preprocess import normalize_images
 
-RETRIEVER_CONFIGS: Dict[str, Callable[[], ColPaliModelConfig]] = {
+RETRIEVER_CONFIGS: Dict[str, Callable[[], ModelConfig]] = {
     "vidore/colpali-v1.2": ColPaliModelConfig.colpali_v1_3,
     "vidore/colpali-v1.3": ColPaliModelConfig.colpali_v1_3,
     "vidore/colpali-v1.3-hf": ColPaliModelConfig.colpali_v1_3,
     "vidore/colpali-v1.3-merged": ColPaliModelConfig.colpali_v1_3,
     "tiny-colpali": ColPaliModelConfig.tiny,
+    "vidore/colSmol-256M": ColIdefics3ModelConfig.colsmol_256m,
+    "vidore/colidefics3-v1.0": ColIdefics3ModelConfig.colsmol_256m,
+    "tiny-colidefics3": ColIdefics3ModelConfig.tiny,
 }
 
-# Gemma's RMSNorm multiplies by (1 + w), so its neutral weight is 0.
+# Gemma's RMSNorm multiplies by (1 + w), so its neutral weight is 0; it
+# exists only in the colpali family (Llama's RMSNorm multiplies by w).
 _GEMMA_RMS_PARENTS = {"input_layernorm", "post_attention_layernorm", "norm"}
 
 
+def family_of(cfg: ModelConfig) -> str:
+    """The JAX registry's family name for a config."""
+    return "colidefics3" if isinstance(cfg, ColIdefics3ModelConfig) else "colpali"
+
+
 @torch.no_grad()
-def init_random_params_(model: torch.nn.Module, seed: int = 0) -> None:
+def init_random_params_(model: torch.nn.Module, seed: int = 0, family: str = "colpali") -> None:
     """Fill ``model`` in place, on its device and in its dtype, by the rules
     of the JAX package's ``fast_random_params`` (registry.py:264-294):
-    biases 0, Gemma RMSNorm weights 0, other norm weights 1, everything else
-    N(0, fan_in^-0.5) with ``fan_in`` the first dim of the flax layout."""
+    biases 0, Gemma RMSNorm weights 0 (colpali family only), other norm
+    weights 1, everything else N(0, fan_in^-0.5) with ``fan_in`` the first
+    dim of the flax layout."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     for name, p in model.named_parameters():
@@ -48,7 +60,8 @@ def init_random_params_(model: torch.nn.Module, seed: int = 0) -> None:
         if leaf == "bias":
             p.zero_()
         elif leaf == "weight" and p.dim() == 1:
-            p.fill_(0.0 if parent in _GEMMA_RMS_PARENTS else 1.0)
+            gemma = family == "colpali" and parent in _GEMMA_RMS_PARENTS
+            p.fill_(0.0 if gemma else 1.0)
         else:
             fan_in = flax_shape(name, tuple(p.shape))[0]
             p.normal_(0.0, float(fan_in) ** -0.5, generator=gen)
@@ -63,11 +76,12 @@ class Retriever:
     resize-only."""
 
     name: str
-    model: ColPaliModel
-    processor: ColPaliProcessor
+    model: torch.nn.Module
+    processor: Any
     device: torch.device
     dtype: torch.dtype = torch.bfloat16
     device_preprocess: bool = False
+    family: str = "colpali"
 
     def _pixels(self, pv: np.ndarray) -> torch.Tensor:
         """Host pixels -> the model's pixel input on ``device`` (registry.py:137-163)."""
@@ -114,13 +128,16 @@ def load_retriever(
     params: Optional[Mapping[str, Any]] = None,
     quantize: Optional[str] = None,
     device_preprocess: bool = False,
+    dynamic_resolution: bool = False,
 ) -> Retriever:
     """Load a late-interaction retriever by name (reference surface).
 
     ``params``: a flax parameter tree, flat (``"a/b/c"`` keys) or nested, as
     ``save_params_npz``/``load_params_npz`` write and read it. Without it the
     weights are random, drawn from a ``torch.Generator`` seeded with ``seed``
-    on ``device``."""
+    on ``device``, by the rules of the name's family. Only the fixed square
+    layout is ported: ``dynamic_resolution=True`` (idefics3 image splitting)
+    raises."""
     if name not in RETRIEVER_CONFIGS:
         raise KeyError(f"unknown retriever {name!r}; known: {sorted(RETRIEVER_CONFIGS)}")
     if quantize == "int8":
@@ -129,14 +146,21 @@ def load_retriever(
             "see ROADMAP.md, kernels K8/K9 and ops/quant")
     if quantize is not None:
         raise ValueError(f"unknown quantize mode {quantize!r}")
+    if dynamic_resolution:
+        raise NotImplementedError(
+            "dynamic_resolution (idefics3 image splitting) is not ported yet; "
+            "see ROADMAP.md")
     cfg = RETRIEVER_CONFIGS[name]()
+    family = family_of(cfg)
     device = torch.device(device)
-    model = ColPaliModel(cfg, device=device, dtype=dtype).eval()
+    model = model_class(cfg)(cfg, device=device, dtype=dtype).eval()
     if params is not None:
         model.load_state_dict(params_from_flax(params, cfg))
     else:
         warnings.warn(f"no checkpoint given for {name!r}; using random init "
                       f"(seed {seed})", stacklevel=2)
-        init_random_params_(model, seed)
-    return Retriever(name=name, model=model, processor=ColPaliProcessor(cfg, tokenizer=tokenizer),
-                     device=device, dtype=dtype, device_preprocess=bool(device_preprocess))
+        init_random_params_(model, seed, family)
+    processor_cls = ColIdefics3Processor if family == "colidefics3" else ColPaliProcessor
+    return Retriever(name=name, model=model, processor=processor_cls(cfg, tokenizer=tokenizer),
+                     device=device, dtype=dtype, device_preprocess=bool(device_preprocess),
+                     family=family)

@@ -5,8 +5,11 @@ convolution, a learned position table, pre-LN encoder layers with
 ``gelu(approximate="tanh")`` MLPs, and a final LayerNorm. Self-attention has
 no mask, so on a CUDA tensor it runs K2 (``ops/attention.py``).
 
-The JAX package's fused-layer path (K5) is taken only for SigLIP-768
-(``layer_plan``, fused_layer.py:69); So400m runs these unfused layers.
+A layer whose shape ``layer_plan`` admits (SigLIP-768, ColSmol's tower)
+takes the fused path on a CUDA tensor, as siglip.py:85-121 does on a TPU:
+K5a for the whole layer, or K5b / K5c for one half
+(``layers.set_fused_parts``). SigLIP-So400m (ColPali) is refused by the plan
+and runs the unfused layer, whose attention is K2.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from torch import nn
 
 from multimodal_colpali_tpu_torch.models import layers as L
 from multimodal_colpali_tpu_torch.models.configs import SiglipVisionConfig
+from multimodal_colpali_tpu_torch.ops import fused_layer as FL
 
 
 class SiglipMLP(nn.Module):
@@ -54,23 +58,55 @@ class SiglipAttention(nn.Module):
 class SiglipEncoderLayer(nn.Module):
     def __init__(self, cfg: SiglipVisionConfig, *, device, dtype):
         super().__init__()
+        self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
         self.layer_norm1 = L.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
         self.self_attn = SiglipAttention(cfg, **kw)
         self.layer_norm2 = L.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
         self.mlp = SiglipMLP(cfg, **kw)
 
+    def _attn_params(self):
+        a, ln = self.self_attn, self.layer_norm1
+        return (ln.weight, ln.bias, a.q_proj.weight, a.q_proj.bias, a.k_proj.weight,
+                a.k_proj.bias, a.v_proj.weight, a.v_proj.bias, a.out_proj.weight,
+                a.out_proj.bias)
+
+    def _mlp_params(self):
+        m, ln = self.mlp, self.layer_norm2
+        return ln.weight, ln.bias, m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.self_attn(self.layer_norm1(x))
+        c = self.cfg
+        parts = None
+        if L._fused_layer_enabled(x, c.hidden_size, c.intermediate_size, c.num_attention_heads):
+            parts = L._FUSED_PARTS
+        kw = dict(eps=c.layer_norm_eps)
+        if parts == "both":
+            return FL.fused_vit_layer(x, *self._attn_params(), *self._mlp_params(),
+                                      heads=c.num_attention_heads, **kw)
+        if parts == "attn":
+            x = FL.fused_vit_attention_block(x, *self._attn_params(),
+                                             heads=c.num_attention_heads, **kw)
+        else:
+            x = x + self.self_attn(self.layer_norm1(x))
+        if parts == "mlp":
+            return FL.fused_mlp_block(x, *self._mlp_params(), **kw)
         return x + self.mlp(self.layer_norm2(x))
 
 
 class SiglipVisionTower(nn.Module):
-    """pixel_values ``[B, H, W, 3]`` (NHWC, normalized) -> ``[B, P, hidden]``."""
+    """pixel_values ``[B, H, W, 3]`` (NHWC, normalized) -> ``[B, P, hidden]``.
 
-    def __init__(self, cfg: SiglipVisionConfig, *, device, dtype):
+    ``pos_index``: the row of the position table for each patch. SigLIP in
+    ColPali uses them in order (empty); Idefics3 passes its bucketized
+    fractional coordinates (siglip.py:124-155)."""
+
+    def __init__(self, cfg: SiglipVisionConfig, *, device, dtype, pos_index: tuple = ()):
         super().__init__()
         self.cfg = cfg
+        self.register_buffer("pos_index", torch.tensor(pos_index, dtype=torch.long,
+                                                       device=device) if pos_index else None,
+                             persistent=False)
         kw = dict(device=device, dtype=dtype)
         p = cfg.patch_size
         # torch conv layout [cout, cin, kh, kw]; the flax kernel is [kh, kw, cin, cout]
@@ -88,7 +124,10 @@ class SiglipVisionTower(nn.Module):
         x = F.conv2d(pixel_values.permute(0, 3, 1, 2), pe.weight.to(pixel_values.dtype),
                      pe.bias.to(pixel_values.dtype), stride=c.patch_size)
         x = x.flatten(2).transpose(1, 2)  # [B, P, hidden], row-major patch order
-        x = x + self.position_embedding.to(x.dtype)[None]
+        pos = self.position_embedding
+        if self.pos_index is not None:
+            pos = pos[self.pos_index]
+        x = x + pos.to(x.dtype)[None]
         for layer in self.layers:
             x = layer(x)
         return self.post_layernorm(x)

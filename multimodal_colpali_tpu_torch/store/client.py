@@ -65,6 +65,9 @@ class VectorClient:
     def create_collection(self, collection_name: str, vectors_config: t.VectorParams,
                           quantized: bool = False, prefilter: str = "int8",
                           max_tokens: int = 1056, **_: Any) -> bool:
+        """A multivector collection; ``quantized``, ``prefilter`` and
+        ``vectors_config.on_disk`` select the store's search mode
+        (client.py:66-87)."""
         if vectors_config.multivector_config is None:
             raise NotImplementedError(_DENSE_NOT_PORTED)
         self._collections[collection_name] = MultiVectorStore(

@@ -1,4 +1,4 @@
-"""Device-resident multi-vector page store, exact search
+"""Device-resident multi-vector page store
 (counterpart of ``multimodal_colpali_tpu/store/multivector.py``).
 
 The replacement for the reference's Qdrant ColPali collections: 128-d
@@ -12,39 +12,107 @@ COSINE multivectors with the MAX_SIM comparator.
   counts of the pages it rejects (multivector.py:331-341); MaxSim scores
   such a page about ``-NQ * 1e30`` and results under
   ``_FILTERED_SCORE_FLOOR`` are dropped.
-- **Same files.** ``save``/``load`` use the JAX store's ``vectors.npz`` +
-  ``meta.json`` format, so a store saved by either package loads in the other.
+- **Quantized search** (``quantized=True``), after Qdrant's scalar
+  quantization search params (``ignore/rescore/oversampling``, reference
+  functions.py:897-903): ``prefilter="int8"`` scans int8 codes with K4 for
+  ``ceil(limit * oversampling)`` candidates and rescores them exactly with
+  K1; ``prefilter="pooled"`` scans pooled page vectors
+  (``pooled_centroids`` per page) and rescores the candidates from the
+  originals in float32 (``ops/two_stage``).
+- **on_disk** (reference 01_create_context_qdrant.py:217): the device holds
+  only the pooled index and the token counts; a query gathers its
+  candidates' originals from host memory (a memory map after ``load``).
+- **Same files.** ``save``/``load`` use the JAX store's formats
+  (``vectors.npz``, or ``vectors.npy`` + ``lens.npy`` for on_disk, and
+  ``meta.json``), so a store saved by either package loads in the other in
+  the same mode.
 
-Only the exact scan is ported. The int8 prefilter (``quantized``), the
-pooled two-stage search, ``on_disk`` and mesh sharding raise
-``NotImplementedError``; ROADMAP.md queues them.
+Sharding the page axis over a mesh raises ``NotImplementedError`` (ROADMAP
+queue 1 item 9).
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import json
+import math
 import os
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from multimodal_colpali_tpu_torch.ops.maxsim import maxsim_scores
+from multimodal_colpali_tpu_torch.ops import two_stage
+from multimodal_colpali_tpu_torch.ops.maxsim import (
+    maxsim_scores, maxsim_scores_int8, quantize_corpus_int8)
 from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
 from multimodal_colpali_tpu_torch.store import types as t
 
 _FILTERED_SCORE_FLOOR = -1e28  # anything below this is a masked or padded page
 _PAGE_MULTIPLE = 8
+_ON_DISK_CHUNK = 8192       # pages per upload when pooling a host corpus
+_EXACT_SCAN_CHUNK = 2048    # pages per upload in the on_disk exact scan
+
+_GATHER_WORKERS = 16
+_gather_pool: Optional[cf.ThreadPoolExecutor] = None
+_gather_pool_lock = threading.Lock()
+
+
+def _pool() -> cf.ThreadPoolExecutor:
+    global _gather_pool
+    with _gather_pool_lock:
+        if _gather_pool is None:
+            _gather_pool = cf.ThreadPoolExecutor(_GATHER_WORKERS,
+                                                 thread_name_prefix="mmcp-gather")
+        return _gather_pool
+
+
+def _gather_rows(arr: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """``arr[idx]``, reading the rows of a memory-mapped corpus concurrently
+    (a copy of multivector.py:55-94).
+
+    Fancy indexing on a memmap reads the rows one after another, each a
+    blocking disk round trip with the GIL held; ``os.pread`` per row on a
+    thread pool releases the GIL during each read, so the reads overlap. The
+    rows come back in the corpus dtype. The offset
+    of each row is ``arr.offset + row * row_bytes``, which holds only for a
+    whole-file map, so a view into a memmap takes plain indexing."""
+    idx = np.asarray(idx)
+    if (not isinstance(arr, np.memmap) or arr.filename is None or len(idx) < 8
+            or isinstance(arr.base, np.memmap)):  # a view: its offset is the parent's
+        return arr[idx]
+    row_bytes = int(np.prod(arr.shape[1:], dtype=np.int64)) * arr.dtype.itemsize
+    raw = np.empty((len(idx), *arr.shape[1:]), arr.dtype)
+    fd = os.open(arr.filename, os.O_RDONLY)
+    try:
+        def read(j: int) -> None:
+            buf = os.pread(fd, row_bytes, int(arr.offset) + int(idx[j]) * row_bytes)
+            raw[j] = np.frombuffer(buf, arr.dtype).reshape(arr.shape[1:])
+
+        for f in [_pool().submit(read, j) for j in range(len(idx))]:
+            f.result()
+    finally:
+        os.close(fd)
+    return raw
+
+
+def _pad_pages(x: torch.Tensor) -> torch.Tensor:
+    """Pad the page axis to a multiple of 8 with zeros."""
+    pad = (-x.shape[0]) % _PAGE_MULTIPLE
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to the PyTorch store yet; only the exact scan "
-        f"is (see ROADMAP.md: K4 and the quantized/pooled store modes)")
+        f"{what} is not ported to the PyTorch store yet (see ROADMAP.md: the "
+        f"sharded store waits for the multi-rank port)")
 
 
 class MultiVectorStore:
-    """One named collection of multi-vector points with exact MaxSim search."""
+    """One named collection of multi-vector points with MaxSim search."""
 
     def __init__(
         self,
@@ -56,37 +124,53 @@ class MultiVectorStore:
         device: Any = "cpu",
         quantized: bool = False,
         prefilter: str = "int8",
+        pooled_centroids: int = 1,
         on_disk: bool = False,
         mesh: Any = None,
     ):
-        if quantized:
-            raise _not_ported("the quantized (int8 prefilter) store")
-        if prefilter != "int8":
-            raise _not_ported(f"prefilter={prefilter!r}")
-        if on_disk:
-            raise _not_ported("on_disk")
+        """``prefilter`` picks the quantized first stage ("int8" or
+        "pooled"); ``on_disk`` implies ``quantized`` and ``prefilter="pooled"``,
+        as in the JAX store (multivector.py:138-139)."""
         if mesh is not None:
             raise _not_ported("mesh sharding")
+        if prefilter not in ("int8", "pooled"):
+            raise ValueError(f"prefilter must be 'int8' or 'pooled', got {prefilter!r}")
         self.name = name
         self.dim = dim
         self.max_tokens = max_tokens
         self.distance = distance
         self.dtype = dtype
         self.device = torch.device(device)
+        self.quantized = quantized or on_disk
+        self.prefilter = "pooled" if on_disk else prefilter
+        self.pooled_centroids = pooled_centroids
+        self.on_disk = on_disk
 
         self._vectors = np.zeros((0, max_tokens, dim), dtype=np.float32)
         self._lens = np.zeros((0,), dtype=np.int32)
         self._ids: List[Union[int, str]] = []
         self._payloads: List[Dict[str, Any]] = []
         self._id_to_idx: Dict[Union[int, str], int] = {}
-        self._device_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._invalidate()
+
+    def _invalidate(self) -> None:
+        self._device_cache: Optional[Tuple[Optional[torch.Tensor], torch.Tensor]] = None
+        self._device_cache_int8: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._device_cache_pooled: Optional[torch.Tensor] = None
 
     # -- mutation ----------------------------------------------------------
 
     def __len__(self) -> int:
         return len(self._ids)
 
+    def _materialize(self) -> None:
+        """A corpus loaded as a memory map is copied into writable host
+        memory before it changes; ``save`` writes the disk tier again."""
+        if isinstance(self._vectors, np.memmap) or not self._vectors.flags.writeable:
+            self._vectors = np.array(self._vectors)
+
     def upsert(self, points: Sequence[t.PointStruct]) -> t.UpdateResult:
+        self._materialize()
         new_vecs, new_lens, new_rows = [], [], []
         for pt in points:
             vec = np.asarray(pt.vector, dtype=np.float32)
@@ -116,7 +200,7 @@ class MultiVectorStore:
                 self._ids.append(pt.id)
                 self._payloads.append(dict(pt.payload))
                 self._id_to_idx[pt.id] = base + off
-        self._device_cache = None
+        self._invalidate()
         return t.UpdateResult()
 
     def delete(self, ids: Optional[Sequence[Union[int, str]]] = None,
@@ -129,12 +213,13 @@ class MultiVectorStore:
         if not drop:
             return t.UpdateResult()
         keep = [i for i in range(len(self._ids)) if i not in drop]
+        self._materialize()
         self._vectors = self._vectors[keep]
         self._lens = self._lens[keep]
         self._ids = [self._ids[i] for i in keep]
         self._payloads = [self._payloads[i] for i in keep]
         self._id_to_idx = {pid: i for i, pid in enumerate(self._ids)}
-        self._device_cache = None
+        self._invalidate()
         return t.UpdateResult()
 
     def scroll(self, flt: Optional[t.Filter] = None, limit: int = 100, offset: int = 0,
@@ -155,17 +240,41 @@ class MultiVectorStore:
 
     # -- device cache ------------------------------------------------------
 
+    def _pool_pages(self, d: torch.Tensor, dl: torch.Tensor) -> torch.Tensor:
+        if self.pooled_centroids > 1:
+            return two_stage.pool_corpus_fps(d, dl, k=self.pooled_centroids)
+        return two_stage.pool_corpus(d, dl)
+
     def _ensure_device(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The padded corpus and token counts on ``device`` and, for a
+        quantized store, its int8 codes and pooled index, all derived from
+        the uploaded corpus (multivector.py:296-327)."""
         if self._device_cache is None:
-            pad = (-len(self._ids)) % _PAGE_MULTIPLE
-            vecs = np.concatenate(
-                [self._vectors, np.zeros((pad, self.max_tokens, self.dim), np.float32)])
-            lens = np.concatenate([self._lens, np.zeros((pad,), np.int32)])
-            self._device_cache = (
-                torch.from_numpy(vecs).to(self.device, self.dtype),
-                torch.from_numpy(lens).to(self.device),
-            )
+            d = _pad_pages(torch.from_numpy(self._vectors).to(self.device, self.dtype))
+            dl = _pad_pages(torch.from_numpy(self._lens).to(self.device))
+            self._device_cache = (d, dl)
+            if self.quantized:
+                self._device_cache_int8 = quantize_corpus_int8(d)
+                if self.prefilter == "pooled":
+                    self._device_cache_pooled = self._pool_pages(d, dl)
         return self._device_cache
+
+    def _ensure_device_on_disk(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """on_disk tier: the device holds only the pooled index and the
+        token counts (multivector.py:262-294). The host corpus (possibly a
+        memory map larger than RAM) streams through the device in chunks."""
+        if self._device_cache is None:
+            parts = []
+            for s in range(0, self._vectors.shape[0], _ON_DISK_CHUNK):
+                d = torch.from_numpy(np.array(self._vectors[s: s + _ON_DISK_CHUNK],
+                                              np.float32)).to(self.device, self.dtype)
+                dl = torch.from_numpy(np.asarray(self._lens[s: s + _ON_DISK_CHUNK])).to(self.device)
+                parts.append(self._pool_pages(d, dl))
+            pooled = (torch.cat(parts) if parts else
+                      torch.zeros((0, self.dim), dtype=self.dtype, device=self.device))
+            self._device_cache_pooled = _pad_pages(pooled)
+            self._device_cache = (None, _pad_pages(torch.from_numpy(self._lens).to(self.device)))
+        return self._device_cache_pooled, self._device_cache[1]
 
     def _filter_lens(self, dl: torch.Tensor, flt: Optional[t.Filter]) -> torch.Tensor:
         if flt is None:
@@ -180,10 +289,11 @@ class MultiVectorStore:
     def query(self, query: Any, limit: int = 5, query_filter: Optional[t.Filter] = None,
               search_params: Optional[t.SearchParams] = None,
               with_vectors: bool = False) -> t.QueryResponse:
-        """Exact MaxSim search for one query (``[n_q_tokens, dim]``).
+        """MaxSim search for one query (``[n_q_tokens, dim]``).
 
-        ``search_params`` is accepted for the reference's signature; an
-        unquantized collection always scans exactly, as in the JAX store."""
+        An unquantized store always scans exactly. A quantized one runs its
+        prefilter unless ``search_params.quantization.ignore`` is set; only
+        the int8 prefilter reads ``rescore`` (multivector.py:368-419)."""
         q = np.asarray(query, dtype=np.float32)
         if q.ndim != 2 or q.shape[1] != self.dim:
             raise ValueError(f"query must be [n_tokens, {self.dim}], got {q.shape}")
@@ -191,14 +301,46 @@ class MultiVectorStore:
             q = q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
         if not self._ids:
             return t.QueryResponse(points=[])
+        quant = search_params.quantization if search_params else None
+        oversampling = quant.oversampling if quant else 2.0
+        if self.on_disk:
+            if quant is not None and quant.ignore:
+                return self._query_on_disk_exact(q, limit, query_filter, with_vectors)
+            return self._query_on_disk(q, limit, query_filter, oversampling, with_vectors)
 
         d, dl = self._ensure_device()
         dl_eff = self._filter_lens(dl, query_filter)
         qt = torch.from_numpy(q[None]).to(self.device, self.dtype)
-        scores = maxsim_scores(qt, d, None, dl_eff)
-        vals, inds = topk_with_stable_ties(scores, min(limit, d.shape[0]))
+        n_pages = d.shape[0]
+        if self.quantized and not (quant and quant.ignore) and self.prefilter == "pooled":
+            n_cand = min(max(math.ceil(limit * max(oversampling, 1.0)), limit), n_pages)
+            dq, ds = self._device_cache_int8
+            vals, inds = two_stage.two_stage_maxsim_topk(
+                torch.from_numpy(q).to(self.device), q.shape[0], self._device_cache_pooled,
+                dq, ds, dl_eff, k=min(limit, n_pages), n_candidates=n_cand, d_full=d)
+        elif self.quantized and not (quant and quant.ignore):
+            n_cand = min(math.ceil(limit * max(oversampling, 1.0)), n_pages)
+            dq, ds = self._device_cache_int8
+            approx = maxsim_scores_int8(torch.from_numpy(q[None]).to(self.device), dq, ds,
+                                        None, dl_eff)
+            cv, ci = topk_with_stable_ties(approx, n_cand)
+            cand = ci[0].long()
+            if quant is None or quant.rescore:
+                exact = maxsim_scores(qt, d[cand], None, dl_eff[cand])
+                vv, vi = topk_with_stable_ties(exact, min(limit, n_cand))
+                vals, inds = vv[0], cand[vi[0].long()]
+            else:
+                vals, inds = cv[0][:limit], cand[:limit]
+        else:
+            scores = maxsim_scores(qt, d, None, dl_eff)
+            vv, vi = topk_with_stable_ties(scores, min(limit, n_pages))
+            vals, inds = vv[0], vi[0]
+        return self._response(vals.tolist(), inds.tolist(), limit, with_vectors)
+
+    def _response(self, vals: List[float], inds: List[int], limit: int,
+                  with_vectors: bool) -> t.QueryResponse:
         points = []
-        for score, idx in zip(vals[0].tolist(), inds[0].tolist()):
+        for score, idx in zip(vals, inds):
             if idx >= len(self._ids) or score < _FILTERED_SCORE_FLOOR:
                 continue  # padded or filtered-out page
             points.append(t.ScoredPoint(
@@ -207,16 +349,75 @@ class MultiVectorStore:
             ))
         return t.QueryResponse(points=points[:limit])
 
+    def _query_on_disk(self, q: np.ndarray, limit: int, query_filter: Optional[t.Filter],
+                       oversampling: float, with_vectors: bool) -> t.QueryResponse:
+        """Device pooled prefilter -> host gather of the candidates'
+        originals -> exact device rescore (multivector.py:447-516). The
+        rescore is the device-resident pooled path's, so the two agree."""
+        pooled, dl = self._ensure_device_on_disk()
+        dl_eff = self._filter_lens(dl, query_filter)
+        n_cand = min(max(math.ceil(limit * max(oversampling, 1.0)), limit), pooled.shape[0])
+        qt = torch.from_numpy(q).to(self.device)
+        cand = two_stage.coarse_topk(qt, q.shape[0], pooled, dl_eff,
+                                     n_candidates=n_cand).cpu().numpy()
+        n_real = len(self._ids)
+        safe = np.minimum(cand, max(n_real - 1, 0))
+        pages = _gather_rows(self._vectors, safe)  # corpus dtype; cast on the device
+        lens = self._lens[safe].astype(np.int32)
+        for row, idx in enumerate(cand.tolist()):
+            if idx >= n_real or (query_filter is not None
+                                 and not query_filter.matches(self._payloads[idx])):
+                lens[row] = 0  # a padded or filtered candidate scores MASK_VALUE
+        vals, order = two_stage.rescore_candidates(
+            qt, q.shape[0], torch.from_numpy(np.asarray(pages)).to(self.device).to(self.dtype),
+            torch.from_numpy(lens).to(self.device), k=min(limit, n_cand))
+        inds = cand[order.cpu().numpy()]
+        return self._response(vals.tolist(), inds.tolist(), limit, with_vectors)
+
+    def _query_on_disk_exact(self, q: np.ndarray, limit: int,
+                             query_filter: Optional[t.Filter],
+                             with_vectors: bool) -> t.QueryResponse:
+        """Exact scan of a host corpus in chunks through MaxSim (K1 on a
+        CUDA device), ranked by score then index (multivector.py:518-559)."""
+        n_real = len(self._ids)
+        qt = torch.from_numpy(q[None]).to(self.device, self.dtype)
+        lens = self._lens[:n_real].astype(np.int32)
+        if query_filter is not None:
+            for i, payload in enumerate(self._payloads):
+                if not query_filter.matches(payload):
+                    lens[i] = 0
+        scores = np.empty(n_real, dtype=np.float32)
+        for s in range(0, n_real, _EXACT_SCAN_CHUNK):
+            e = min(s + _EXACT_SCAN_CHUNK, n_real)
+            pages = torch.from_numpy(np.array(self._vectors[s:e], np.float32))
+            got = maxsim_scores(qt, pages.to(self.device, self.dtype), None,
+                                torch.from_numpy(lens[s:e]).to(self.device))
+            scores[s:e] = got[0].float().cpu().numpy()
+        order = np.lexsort((np.arange(n_real), -scores))[:min(limit, n_real)]
+        return self._response(scores[order].tolist(), order.tolist(), limit, with_vectors)
+
     # -- persistence -------------------------------------------------------
 
     def save(self, directory: str) -> None:
         os.makedirs(directory, exist_ok=True)
-        np.savez_compressed(os.path.join(directory, "vectors.npz"),
-                            vectors=self._vectors, lens=self._lens)
+        if self.on_disk:
+            # Raw .npy, so load() can memory-map the originals. Through a
+            # temporary file: self._vectors may be the memory map of the
+            # destination, which writing in place would truncate first.
+            for fname, arr in (("vectors.npy", self._vectors), ("lens.npy", self._lens)):
+                dest = os.path.join(directory, fname)
+                tmp = dest + ".tmp"
+                with open(tmp, "wb") as f:
+                    np.save(f, np.ascontiguousarray(arr))
+                os.replace(tmp, dest)
+        else:
+            np.savez_compressed(os.path.join(directory, "vectors.npz"),
+                                vectors=self._vectors, lens=self._lens)
         meta = {
             "name": self.name, "dim": self.dim, "max_tokens": self.max_tokens,
-            "distance": self.distance.value, "quantized": False,
-            "dtype": str(self.dtype).removeprefix("torch."),
+            "distance": self.distance.value, "quantized": self.quantized,
+            "prefilter": self.prefilter, "pooled_centroids": self.pooled_centroids,
+            "on_disk": self.on_disk, "dtype": str(self.dtype).removeprefix("torch."),
             "kind": "multivector", "ids": self._ids, "payloads": self._payloads,
         }
         with open(os.path.join(directory, "meta.json"), "w") as f:
@@ -229,12 +430,19 @@ class MultiVectorStore:
         store = cls(
             name=meta["name"], dim=meta["dim"], max_tokens=meta["max_tokens"],
             distance=t.Distance(meta["distance"]), quantized=meta.get("quantized", False),
-            prefilter=meta.get("prefilter", "int8"), on_disk=meta.get("on_disk", False),
+            prefilter=meta.get("prefilter", "int8"),
+            pooled_centroids=meta.get("pooled_centroids", 1),
+            on_disk=meta.get("on_disk", False),
             dtype=getattr(torch, meta.get("dtype", "bfloat16")), device=device,
         )
-        with np.load(os.path.join(directory, "vectors.npz")) as data:
-            store._vectors = data["vectors"]
-            store._lens = data["lens"]
+        if store.on_disk:
+            # a memory map: host RAM holds only the pages a query touches
+            store._vectors = np.load(os.path.join(directory, "vectors.npy"), mmap_mode="r")
+            store._lens = np.asarray(np.load(os.path.join(directory, "lens.npy")))
+        else:
+            with np.load(os.path.join(directory, "vectors.npz")) as data:
+                store._vectors = data["vectors"]
+                store._lens = data["lens"]
         store._ids = meta["ids"]
         store._payloads = meta["payloads"]
         store._id_to_idx = {pid: i for i, pid in enumerate(store._ids)}

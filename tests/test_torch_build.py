@@ -16,6 +16,7 @@ import torch
 
 from multimodal_colpali_tpu_torch import _build
 from multimodal_colpali_tpu_torch.ops import attention as A
+from multimodal_colpali_tpu_torch.ops import fused_layer as FL
 from multimodal_colpali_tpu_torch.ops import maxsim as M
 from multimodal_colpali_tpu_torch.ops import preprocess as PP
 
@@ -93,18 +94,31 @@ def test_triton_cache_defaults_into_build_dir(monkeypatch):
     assert os.environ["TRITON_CACHE_DIR"] == "/elsewhere"
 
 
+_W = torch.zeros(8, 8, dtype=torch.bfloat16)
+_V = torch.zeros(8)
+_X = torch.zeros(1, 4, 8, dtype=torch.bfloat16)
+_COUNTERS = (M.maxsim_scores_cuda, A.fused_attention_cuda, PP.normalize_images_triton,
+             M.maxsim_scores_int8_cuda, FL.fused_vit_layer_cuda,
+             FL.fused_vit_attention_block_cuda, FL.fused_mlp_block_cuda)
+
+
 @pytest.mark.parametrize("call", [
     lambda: M.maxsim_scores_cuda(torch.zeros(1, 2, 8), torch.zeros(3, 4, 8)),
     lambda: A.fused_attention_cuda(*(torch.zeros(1, 4, 2, 8),) * 3, scale=1.0),
     lambda: PP.normalize_images_triton(torch.zeros(1, 4, 4, 3, dtype=torch.uint8)),
-], ids=["maxsim", "attention", "normalize"])
+    lambda: M.maxsim_scores_int8_cuda(torch.zeros(1, 2, 8),
+                                      torch.zeros(3, 4, 8, dtype=torch.int8), torch.ones(3, 4)),
+    lambda: FL.fused_vit_layer_cuda(_X, _V, _V, *(_W, _V) * 4, _V, _V, _W, _V, _W, _V,
+                                    heads=2),
+    lambda: FL.fused_vit_attention_block_cuda(_X, _V, _V, *(_W, _V) * 4, heads=2),
+    lambda: FL.fused_mlp_block_cuda(_X, _V, _V, _W, _V, _W, _V),
+], ids=["maxsim", "attention", "normalize", "maxsim_int8", "vit_layer", "attn_block",
+        "mlp_block"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
-    counters = (M.maxsim_scores_cuda.launches, A.fused_attention_cuda.launches,
-                PP.normalize_images_triton.launches)
+    counters = [f.launches for f in _COUNTERS]
     with pytest.raises(ValueError, match="CUDA"):
         call()
-    assert counters == (M.maxsim_scores_cuda.launches, A.fused_attention_cuda.launches,
-                        PP.normalize_images_triton.launches)
+    assert counters == [f.launches for f in _COUNTERS]
 
 
 def test_dispatchers_take_plain_versions_on_cpu():
@@ -117,6 +131,13 @@ def test_dispatchers_take_plain_versions_on_cpu():
                                A.attention_reference(x, x, x, scale=0.3))
     u8 = torch.from_numpy(rng.integers(0, 256, (1, 3, 3, 3), dtype=np.uint8))
     assert torch.equal(PP.normalize_images(u8), PP.normalize_images_reference(u8))
+    codes, scales = M.quantize_corpus_int8(d)
+    assert torch.equal(M.maxsim_scores_int8(q, codes, scales),
+                       M.maxsim_scores_int8_reference(q, codes, scales))
+    xb = x.reshape(1, 6, 16).to(torch.bfloat16)
+    w, v = torch.eye(16, dtype=torch.bfloat16), torch.zeros(16)
+    args = (torch.ones(16), v, w, v, w, v)
+    assert torch.equal(FL.fused_mlp_block(xb, *args), FL.fused_mlp_block_reference(xb, *args))
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])

@@ -242,3 +242,278 @@ def test_rope_and_norms_match_jax():
     ln.bias.data.copy_(_t(bias))
     want = JL.LayerNorm().apply({"params": {"weight": _j(w), "bias": _j(bias)}}, _j(h))
     np.testing.assert_allclose(ln(_t(h)).numpy(), np.asarray(want), rtol=RTOL, atol=1e-5)
+
+
+# -- int8 MaxSim (K4's plain version) and the quantizer -----------------------------
+
+@pytest.mark.parametrize("case", ["random", "odd_p", "empty_pages", "tied"])
+def test_maxsim_int8_matches_pallas_interpret(case):
+    q, d, q_lens, d_lens = _maxsim_case(case)
+    jc, js = JM.quantize_corpus_int8(_j(d))
+    want = np.asarray(JM.maxsim_scores_int8_pallas(_j(q), jc, js, _j(q_lens), _j(d_lens),
+                                                   block_pages=4, interpret=True))
+    tc, ts = TM.quantize_corpus_int8(_t(d))
+    got = TM.maxsim_scores_int8(_t(q), tc, ts, _t(q_lens), _t(d_lens)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+    if case == "empty_pages":
+        np.testing.assert_allclose(got[:, 0], -q_lens.astype(np.float64) * 1e30, rtol=1e-6)
+
+
+def test_maxsim_int8_rounds_query_to_bf16():
+    q, d, _, _ = _maxsim_case("random")
+    tc, ts = TM.quantize_corpus_int8(_t(d))
+    a = TM.maxsim_scores_int8(_t(q), tc, ts)
+    b = TM.maxsim_scores_int8(_t(q).to(torch.bfloat16).float(), tc, ts)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_corpus_int8_bit_identical_to_jax(dtype):
+    rng = np.random.default_rng(17)
+    d = rng.standard_normal((9, 13, 32)).astype(np.float32) * 3
+    d[2, 4] = 0.0                          # all-zero token: scale 1.0
+    d[5, 1, :] = 0.5 * np.arange(32) / 31  # a token whose values round at .5
+    jc, js = JM.quantize_corpus_int8(_j(d).astype(getattr(jnp, dtype)))
+    tc, ts = TM.quantize_corpus_int8(_t(d).to(getattr(torch, dtype)))
+    assert tc.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert float(ts[2, 4]) == 1.0
+
+
+# -- two-stage search ------------------------------------------------------------------
+
+def _two_stage_corpus(seed, tied=False, p=24, nt=11, dim=16):
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((p, nt, dim)).astype(np.float32)
+    lens = rng.integers(1, nt + 1, p).astype(np.int32)
+    lens[[2, 9]] = 0
+    if tied:
+        # integer tokens, power-of-two lengths (exact means) and duplicate
+        # pages tie exactly whatever order a sum is taken in
+        d = rng.integers(-2, 3, size=d.shape).astype(np.float32)
+        lens = rng.choice([1, 2, 4, 8], p).astype(np.int32)
+        lens[[2, 9]] = 0
+        d[:, 1] = d[:, 0]  # duplicate tokens inside a page
+        for a, b in ((5, 1), (7, 3), (12, 3)):
+            d[a], lens[a] = d[b], lens[b]
+    q = rng.standard_normal((6, dim)).astype(np.float32)
+    if tied:
+        q = rng.integers(-1, 2, size=q.shape).astype(np.float32)
+    return q, d, lens
+
+
+TWO_STAGE_CASES = [("float32", False), ("bfloat16", False), ("float32", True)]
+
+
+@pytest.mark.parametrize("dtype,tied", TWO_STAGE_CASES)
+def test_pooling_matches_jax(dtype, tied):
+    from multimodal_colpali_tpu.ops import two_stage as JS
+    from multimodal_colpali_tpu_torch.ops import two_stage as TS
+
+    _, d, lens = _two_stage_corpus(1, tied)
+    jd, td = _j(d).astype(getattr(jnp, dtype)), _t(d).to(getattr(torch, dtype))
+    want = np.asarray(JS.pool_corpus(jd, _j(lens)).astype(jnp.float32))
+    got = TS.pool_corpus(td, _t(lens))
+    assert got.dtype == td.dtype
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-6, atol=1e-6)
+    assert not got[[2, 9]].any()
+    for k in (1, 3, 5):
+        want = np.asarray(JS.pool_corpus_fps(jd, _j(lens), k=k).astype(jnp.float32))
+        got = TS.pool_corpus_fps(td, _t(lens), k=k)
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype,tied", TWO_STAGE_CASES)
+@pytest.mark.parametrize("centroids", [1, 3])
+@pytest.mark.parametrize("rescore_from", ["originals", "int8"])
+def test_two_stage_topk_matches_jax(dtype, tied, centroids, rescore_from):
+    from multimodal_colpali_tpu.ops import two_stage as JS
+    from multimodal_colpali_tpu_torch.ops import two_stage as TS
+
+    q, d, lens = _two_stage_corpus(2, tied)
+    jd, td = _j(d).astype(getattr(jnp, dtype)), _t(d).to(getattr(torch, dtype))
+    jp, jc, js = JS.build_two_stage_index(jd, _j(lens), n_centroids=centroids)
+    tp, tc, ts = TS.build_two_stage_index(td, _t(lens), n_centroids=centroids)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    full = rescore_from == "originals"
+    for q_len, n_cand, k in ((6, 10, 5), (4, 24, 24), (1, 3, 3)):
+        jv, ji = JS.two_stage_maxsim_topk(_j(q), jnp.int32(q_len), jp, jc, js, _j(lens), k=k,
+                                          n_candidates=n_cand, d_full=jd if full else None)
+        tv, ti = TS.two_stage_maxsim_topk(_t(q), q_len, tp, tc, ts, _t(lens), k=k,
+                                          n_candidates=n_cand, d_full=td if full else None)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tied", TWO_STAGE_CASES)
+def test_coarse_topk_and_rescore_candidates_match_jax(dtype, tied):
+    from multimodal_colpali_tpu.ops import two_stage as JS
+    from multimodal_colpali_tpu_torch.ops import two_stage as TS
+
+    q, d, lens = _two_stage_corpus(3, tied)
+    jd, td = _j(d).astype(getattr(jnp, dtype)), _t(d).to(getattr(torch, dtype))
+    jp, tp = JS.pool_corpus(jd, _j(lens)), TS.pool_corpus(td, _t(lens))
+    for n_cand in (1, 8, 24):
+        want = np.asarray(JS.coarse_topk(_j(q), jnp.int32(5), jp, _j(lens), n_candidates=n_cand))
+        got = TS.coarse_topk(_t(q), 5, tp, _t(lens), n_candidates=n_cand)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert not {2, 9} & set(got.tolist()[:n_cand - 2])  # empty pages rank last
+    cand = np.asarray([4, 2, 5, 1, 9, 0], np.int32)
+    jv, jo = JS.rescore_candidates(_j(q), jnp.int32(6), jd[cand], _j(lens[cand]), k=6)
+    tv, to = TS.rescore_candidates(_t(q), 6, td[cand], _t(lens[cand]), k=6)
+    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-4)
+    assert tv[-2:].max() < -1e29  # the two empty pages
+
+
+# -- fused SigLIP layer (K5a-c plain versions) -------------------------------------------
+
+def _layer_weights(seed, h=256, inter=512):
+    """Flax-layout float32 weights, bf16-valued where the kernels round them."""
+    rng = np.random.default_rng(seed)
+
+    def w(i, o):
+        return (rng.standard_normal((i, o)) * i ** -0.5).astype(np.float32)
+
+    def v(n, base=0.0):
+        return (base + 0.1 * rng.standard_normal(n)).astype(np.float32)
+
+    p = dict(g1=v(h, 1.0), b1=v(h), wq=w(h, h), bq=v(h), wk=w(h, h), bk=v(h), wv=w(h, h),
+             bv=v(h), wo=w(h, h), bo=v(h), g2=v(h, 1.0), b2=v(h), w1=w(h, inter), bb1=v(inter),
+             w2=w(inter, h), bb2=v(h))
+    for k in ("wq", "wk", "wv", "wo", "w1", "w2"):
+        p[k] = np.asarray(jnp.asarray(p[k]).astype(jnp.bfloat16).astype(jnp.float32))
+    return p
+
+
+def _jax_args(p, keys):
+    return [_j(p[k]) for k in keys]
+
+
+def _port_args(p, keys):
+    # torch layout: a dense weight is the transpose of the flax kernel
+    return [_t(p[k].T.copy() if p[k].ndim == 2 else p[k]) for k in keys]
+
+
+LAYER_KEYS = ("g1", "b1", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "g2", "b2",
+              "w1", "bb1", "w2", "bb2")
+
+
+@pytest.mark.parametrize("which", ["layer", "attn", "mlp"])
+def test_fused_layer_plain_versions_match_pallas_interpret(which):
+    from multimodal_colpali_tpu.ops import fused_layer as JF
+    from multimodal_colpali_tpu_torch.ops import fused_layer as TF
+
+    p = _layer_weights(5)
+    x = np.random.default_rng(6).standard_normal((2, 256, 256)).astype(np.float32)
+    xj, xt = _j(x).astype(jnp.bfloat16), _t(x).to(torch.bfloat16)
+    if which == "layer":
+        keys = LAYER_KEYS
+        want = JF.fused_vit_layer(xj, *_jax_args(p, keys), heads=4, interpret=True)
+        got = TF.fused_vit_layer(xt, *_port_args(p, keys), heads=4)
+    elif which == "attn":
+        keys = LAYER_KEYS[:10]
+        want = JF.fused_vit_attention_block(xj, *_jax_args(p, keys), heads=4, interpret=True)
+        got = TF.fused_vit_attention_block(xt, *_port_args(p, keys), heads=4)
+    else:
+        keys = LAYER_KEYS[10:]
+        want = JF.fused_mlp_block(xj, *_jax_args(p, keys), interpret=True)
+        got = TF.fused_mlp_block(xt, *_port_args(p, keys))
+    assert got.dtype == torch.bfloat16 and got.shape == xt.shape
+    # tests/test_fused_layer.py's tolerance: bf16 intermediates round apart
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=3e-2, atol=3e-2)
+
+
+def test_layer_plans_and_gate_follow_jax():
+    from multimodal_colpali_tpu.ops import fused_layer as JF
+    from multimodal_colpali_tpu_torch.ops import fused_layer as TF
+
+    shapes = [(1024, 768, 3072, 12), (1024, 1152, 4304, 16), (256, 256, 512, 4),
+              (16, 768, 3072, 12), (1024, 768, 3072, 10)]
+    for s, h, inter, heads in shapes:
+        for db in (2, 4):
+            assert TF.layer_plan(s, h, inter, heads, db) == JF.layer_plan(s, h, inter, heads, db)
+            assert TF.attention_block_plan(s, h, heads, db) == \
+                JF.attention_block_plan(s, h, heads, db)
+        assert TF.mlp_block_plan(h, inter) == JF.mlp_block_plan(h, inter)
+    colsmol = torch.empty((2, 1024, 768), dtype=torch.bfloat16, device="meta")
+    so400m = torch.empty((2, 1024, 1152), dtype=torch.bfloat16, device="meta")
+    assert not TL._fused_layer_enabled(colsmol, 768, 3072, 12)  # auto: CUDA only
+    TL.set_fused_layer(True)
+    try:
+        assert TL._fused_layer_enabled(colsmol, 768, 3072, 12)
+        assert not TL._fused_layer_enabled(so400m, 1152, 4304, 16)
+        assert not TL._fused_layer_enabled(colsmol[:, :16], 768, 3072, 12)
+    finally:
+        TL.set_fused_layer(None)
+    TL.set_fused_layer(False)
+    try:
+        assert not TL._fused_layer_enabled(colsmol, 768, 3072, 12)
+    finally:
+        TL.set_fused_layer(None)
+    with pytest.raises(ValueError):
+        TL.set_fused_parts("qkv")
+
+
+class _CudaLike:
+    """The shape, dtype and device of a CUDA tensor, with no card needed."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype, self.device = shape, dtype, torch.device("cuda")
+
+    def element_size(self):
+        return torch.empty((), dtype=self.dtype).element_size()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_gate_admits_every_cuda_dtype_the_plan_admits(dtype):
+    """On a CUDA tensor the auto gate asks only ``layer_plan`` (fed the
+    element size), as the JAX gate asks only the plan on a TPU: a dtype the
+    kernels do not take raises in them instead of running the unfused layer."""
+    from multimodal_colpali_tpu.ops import fused_layer as JF
+
+    for s, h, inter, heads in [(1024, 768, 3072, 12), (256, 256, 512, 4),
+                               (1024, 1152, 4304, 16)]:
+        x = _CudaLike((2, s, h), dtype)
+        want = JF.layer_plan(s, h, inter, heads, x.element_size()) is not None
+        assert TL._fused_layer_enabled(x, h, inter, heads) == want
+    assert TL._fused_layer_enabled(_CudaLike((2, 256, 256), dtype), 256, 512, 4)
+    assert not TL._fused_layer_enabled(_CudaLike((2, 1024, 1152), dtype), 1152, 4304, 16)
+
+
+@pytest.mark.parametrize("parts", ["both", "attn", "mlp"])
+def test_siglip_layer_fused_path_matches_unfused(parts):
+    """``set_fused_layer(True)`` routes a SigLIP layer through the fused
+    functions (their plain versions on the CPU); the result matches the
+    unfused layer within the fused kernels' tolerance."""
+    from multimodal_colpali_tpu_torch.models.configs import SiglipVisionConfig
+    from multimodal_colpali_tpu_torch.models.siglip import SiglipEncoderLayer
+
+    cfg = SiglipVisionConfig(hidden_size=256, intermediate_size=512, num_hidden_layers=1,
+                             num_attention_heads=4, image_size=128, patch_size=8)
+    layer = SiglipEncoderLayer(cfg, device="cpu", dtype=torch.bfloat16)
+    p = _layer_weights(7)
+    names = {"layer_norm1.weight": "g1", "layer_norm1.bias": "b1",
+             "self_attn.q_proj.weight": "wq", "self_attn.q_proj.bias": "bq",
+             "self_attn.k_proj.weight": "wk", "self_attn.k_proj.bias": "bk",
+             "self_attn.v_proj.weight": "wv", "self_attn.v_proj.bias": "bv",
+             "self_attn.out_proj.weight": "wo", "self_attn.out_proj.bias": "bo",
+             "layer_norm2.weight": "g2", "layer_norm2.bias": "b2",
+             "mlp.fc1.weight": "w1", "mlp.fc1.bias": "bb1", "mlp.fc2.weight": "w2",
+             "mlp.fc2.bias": "bb2"}
+    layer.load_state_dict({n: _port_args(p, (k,))[0] for n, k in names.items()})
+    x = _t(np.random.default_rng(8).standard_normal((2, 256, 256)).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    with torch.no_grad():
+        want = layer(x)
+        TL.set_fused_layer(True)
+        TL.set_fused_parts(parts)
+        try:
+            got = layer(x)
+        finally:
+            TL.set_fused_layer(None)
+            TL.set_fused_parts("both")
+    assert not torch.equal(got, want)  # the fused functions really ran
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=3e-2, atol=3e-2)

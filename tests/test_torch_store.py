@@ -67,11 +67,11 @@ def _pair(dtype="bfloat16"):
     return jstore, tstore
 
 
-def _same_response(got, want, atol=SCORE_ATOL):
+def _same_response(got, want, atol=SCORE_ATOL, rtol=0.0):
     assert [p.id for p in got.points] == [p.id for p in want.points]
     assert [p.payload for p in got.points] == [p.payload for p in want.points]
     np.testing.assert_allclose([p.score for p in got.points],
-                               [p.score for p in want.points], rtol=0, atol=atol)
+                               [p.score for p in want.points], rtol=rtol, atol=atol)
 
 
 def _query(seed, n=5):
@@ -183,10 +183,13 @@ def test_client_delete_selectors():
 
 
 @pytest.mark.parametrize("kwargs", [dict(quantized=True), dict(prefilter="pooled"),
-                                    dict(on_disk=True), dict(mesh=object())])
+                                    dict(on_disk=True), {}])
 def test_unported_store_modes_raise(kwargs):
+    """Every mode is ported except page-axis sharding over a mesh, which
+    still raises in each of them (the sharded two-stage search waits for the
+    multi-rank port)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.MultiVectorStore("c", dim=DIM, **kwargs)
+        ts.MultiVectorStore("c", dim=DIM, mesh=object(), **kwargs)
 
 
 def test_dense_collections_raise():
@@ -288,3 +291,170 @@ def test_score_multi_vector_matches_jax(retrievers):
     np.testing.assert_allclose(tr.processor.score_multi_vector(qs, embs),
                                jr.processor.score_multi_vector(qs, embs),
                                rtol=0, atol=SCORE_ATOL)
+
+
+# -- quantized, pooled and on_disk modes -------------------------------------------------
+
+MODES = {
+    "int8": dict(quantized=True),
+    "pooled": dict(quantized=True, prefilter="pooled"),
+    "pooled4": dict(quantized=True, prefilter="pooled", pooled_centroids=4),
+    "on_disk": dict(on_disk=True),
+}
+# one corpus through both packages; only the order of float32 sums differs
+MODE_RTOL, MODE_ATOL = 1e-5, 1e-6
+
+
+def _mode_pair(mode, dtype="bfloat16"):
+    jstore = js.MultiVectorStore("c", dim=DIM, max_tokens=MAX_TOKENS,
+                                 dtype=getattr(jnp, dtype), **MODES[mode])
+    tstore = ts.MultiVectorStore("c", dim=DIM, max_tokens=MAX_TOKENS,
+                                 dtype=getattr(torch, dtype), **MODES[mode])
+    jstore.upsert(_points(js))
+    tstore.upsert(_points(ts))
+    return jstore, tstore
+
+
+def _search(mod, kind):
+    quant = {"default": None,
+             "rescore_off": mod.QuantizationSearchParams(rescore=False),
+             "all_candidates": mod.QuantizationSearchParams(oversampling=4.0),
+             "ignore": mod.QuantizationSearchParams(ignore=True)}[kind]
+    return None if quant is None else mod.SearchParams(quantization=quant)
+
+
+def _same_mode_response(got, want):
+    _same_response(got, want, atol=MODE_ATOL, rtol=MODE_RTOL)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("search", ["default", "rescore_off", "all_candidates", "ignore"])
+@pytest.mark.parametrize("flt", ["none", "alice", "nobody"])
+def test_store_modes_match_jax_store(mode, search, flt):
+    jstore, tstore = _mode_pair(mode)
+    assert (tstore.quantized, tstore.prefilter, tstore.on_disk) == \
+        (jstore.quantized, jstore.prefilter, jstore.on_disk)
+    for limit in (3, 5):
+        q = _query(10 + limit)
+        want = jstore.query(q, limit=limit, query_filter=_filters(js)[flt],
+                            search_params=_search(js, search))
+        got = tstore.query(q, limit=limit, query_filter=_filters(ts)[flt],
+                           search_params=_search(ts, search))
+        _same_mode_response(got, want)
+        if flt == "alice":
+            assert all(p.payload["username"] == "alice" for p in got.points)
+        if flt == "nobody":
+            assert got.points == []
+
+
+@pytest.mark.parametrize("mode", ["int8", "pooled", "on_disk"])
+def test_store_modes_in_float32_match_jax_store(mode):
+    jstore, tstore = _mode_pair(mode, "float32")
+    q = _query(21)
+    _same_mode_response(tstore.query(q, limit=4), jstore.query(q, limit=4))
+
+
+def test_int8_rescore_gives_the_exact_scan_with_every_page_a_candidate():
+    """With oversampling covering the corpus the int8 prefilter's rescore is
+    the exact scan, page for page (multivector.py:410-416)."""
+    _, tstore = _mode_pair("int8")
+    _, exact = _pair()
+    q = _query(30)
+    sp = ts.SearchParams(quantization=ts.QuantizationSearchParams(oversampling=16 / 5))
+    got, want = tstore.query(q, limit=5, search_params=sp), exact.query(q, limit=5)
+    assert [p.id for p in got.points] == [p.id for p in want.points]
+    assert [p.score for p in got.points] == [p.score for p in want.points]
+
+
+def test_quantized_device_cache_follows_mutations():
+    jstore, tstore = _mode_pair("int8")
+    q = _query(31)
+    tstore.query(q, limit=3)
+    assert tstore._device_cache_int8 is not None
+    for s, mod in ((jstore, js), (tstore, ts)):
+        s.delete(ids=[0, 4])
+        s.upsert([mod.PointStruct(id=2, vector=_query(32, 4), payload={"new": True})])
+    assert tstore._device_cache is None and tstore._device_cache_int8 is None
+    _same_mode_response(tstore.query(q, limit=5), jstore.query(q, limit=5))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_jax_saved_store_loads_in_port_in_its_mode(tmp_path, mode):
+    jstore, _ = _mode_pair(mode)
+    jstore.save(str(tmp_path / "c"))
+    tstore = ts.MultiVectorStore.load(str(tmp_path / "c"))
+    for attr in ("quantized", "prefilter", "pooled_centroids", "on_disk"):
+        assert getattr(tstore, attr) == getattr(jstore, attr), attr
+    assert isinstance(tstore._vectors, np.memmap) == (mode == "on_disk")
+    for flt in ("none", "not_bob"):
+        for limit in (3, 6):  # 6 x 2 candidates: the concurrent memmap gather
+            q = _query(40 + limit)
+            _same_mode_response(tstore.query(q, limit=limit, query_filter=_filters(ts)[flt]),
+                                jstore.query(q, limit=limit, query_filter=_filters(js)[flt]))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_port_saved_store_loads_in_jax_in_its_mode(tmp_path, mode):
+    jstore, tstore = _mode_pair(mode)
+    tstore.save(str(tmp_path / "c"))
+    names = sorted(p.name for p in (tmp_path / "c").iterdir())
+    assert names == (["lens.npy", "meta.json", "vectors.npy"] if mode == "on_disk"
+                     else ["meta.json", "vectors.npz"])
+    loaded = js.MultiVectorStore.load(str(tmp_path / "c"))
+    for attr in ("quantized", "prefilter", "pooled_centroids", "on_disk"):
+        assert getattr(loaded, attr) == getattr(jstore, attr), attr
+    q = _query(50)
+    _same_mode_response(tstore.query(q, limit=6), loaded.query(q, limit=6))
+
+
+def test_on_disk_store_saves_over_its_own_memmap(tmp_path):
+    jstore, tstore = _mode_pair("on_disk")
+    tstore.save(str(tmp_path / "c"))
+    again = ts.MultiVectorStore.load(str(tmp_path / "c"))
+    again.save(str(tmp_path / "c"))  # the destination is the memmap being read
+    reloaded = ts.MultiVectorStore.load(str(tmp_path / "c"))
+    np.testing.assert_array_equal(np.asarray(reloaded._vectors), tstore._vectors)
+    reloaded.upsert([ts.PointStruct(id=99, vector=_query(51, 3), payload={"late": True})])
+    jstore.upsert([js.PointStruct(id=99, vector=_query(51, 3), payload={"late": True})])
+    assert not isinstance(reloaded._vectors, np.memmap)
+    q = _query(52)
+    _same_mode_response(reloaded.query(q, limit=6), jstore.query(q, limit=6))
+
+
+def test_gather_rows_reads_memmap_rows_and_views(tmp_path):
+    from multimodal_colpali_tpu_torch.store.multivector import _gather_rows
+
+    arr = np.random.default_rng(3).standard_normal((40, 5, 4)).astype(np.float32)
+    np.save(tmp_path / "v.npy", arr)
+    mm = np.load(tmp_path / "v.npy", mmap_mode="r")
+    idx = np.asarray([39, 0, 7, 7, 12, 3, 25, 1, 30])
+    np.testing.assert_array_equal(_gather_rows(mm, idx), arr[idx])
+    view = mm[10:]  # shares the parent's offset: must not be read by offset
+    np.testing.assert_array_equal(_gather_rows(view, idx[idx < 30]), arr[10:][idx[idx < 30]])
+    np.testing.assert_array_equal(_gather_rows(arr, idx), arr[idx])
+
+
+def test_client_creates_quantized_and_on_disk_collections(tmp_path):
+    jclient, tclient = js.VectorClient(path=str(tmp_path / "j")), \
+        ts.VectorClient(path=str(tmp_path / "t"))
+    for client, api, mod in ((jclient, japi, js), (tclient, tapi, ts)):
+        api.ensure_colpali_collection(client, "q8", vector_size=DIM, max_tokens=MAX_TOKENS,
+                                      quantized=True)
+        api.ensure_colpali_collection(client, "disk", vector_size=DIM, max_tokens=MAX_TOKENS,
+                                      on_disk=True)
+        client.create_collection("pool", mod.VectorParams(
+            size=DIM, multivector_config=mod.MultiVectorConfig()), quantized=True,
+            prefilter="pooled", max_tokens=MAX_TOKENS)
+        for name in ("q8", "disk", "pool"):
+            client.upsert(name, _points(mod))
+        client.save()
+    reopened = ts.VectorClient(path=str(tmp_path / "t"))
+    for name, (quantized, prefilter, on_disk) in {"q8": (True, "int8", False),
+                                                  "disk": (True, "pooled", True),
+                                                  "pool": (True, "pooled", False)}.items():
+        store = reopened._get(name)
+        assert (store.quantized, store.prefilter, store.on_disk) == (quantized, prefilter, on_disk)
+        q = _query(60)
+        want = jclient.query_points(name, q, limit=6)
+        _same_mode_response(tclient.query_points(name, q, limit=6), want)
+        _same_mode_response(reopened.query_points(name, q, limit=6), want)
