@@ -6,12 +6,17 @@ drives ``multimodal_colpali_tpu_torch`` (never JAX) and prints one line per
 phase; any failure exits non-zero.
 
 1. Device: the card's name and power limit (nvidia-smi), the torch and CUDA
-   versions, and the build time of the kernels (nvcc for K1/K4, K2 and the
-   K5 GEMM into ``build/kernels``, all at once; Triton for K3).
+   versions, and the build time of the kernels (nvcc for K1/K4, K2, the K5
+   GEMM, K7a/K7b and K8a/K8b into ``build/kernels``, all at once; Triton for
+   K3).
 2. Kernels against their plain PyTorch versions, both on the card, at the
-   main paths' shapes, with the time of each: K1 MaxSim, K4 int8 MaxSim,
-   K2 attention, K3 normalize, K5a-c fused SigLIP layer / attention block /
-   MLP block.
+   main paths' shapes, with the time of each beside its bound (the larger of
+   the bytes it must move over 3.35 TB/s and its operations over the peak
+   rate of their type): K1 MaxSim, K4 int8 MaxSim, K2 attention (and
+   ``scaled_dot_product_attention`` on the same inputs), K3 normalize, K5a-c
+   fused SigLIP layer / attention block / MLP block, and at gemma-3-27b's
+   shapes K7a paged attention (window 0 and 1024), K7b over int8 pools, K8a
+   int8 projections (decode and prefill rows) and K8b the int8 tied LM head.
 3. ColPali at full width: ``vidore/colpali-v1.3`` with random bf16 weights
    from ``--seed`` embeds 16 synthetic 448x448 pages, indexes them with
    ``colpali_qdrant``, answers 4 queries with ``retrieve_colpali`` (one also
@@ -21,18 +26,30 @@ phase; any failure exits non-zero.
    into an exact, an int8, a pooled and an on_disk collection (the last
    saved and reopened), and answers 4 queries with ``query_points`` in each;
    it also embeds one batch through each partial fused kernel.
+5. Generation at full width: ``google/gemma-3-27b-it`` (62 layers, random
+   weights from ``--seed``) behind ``PagedContinuousBatcher`` (4 slots of
+   2048 tokens, pages of 16) and ``GenerationServer`` on 127.0.0.1 answers 6
+   concurrent OpenAI chat requests over HTTP (synthetic RAG-style MCQ prompts
+   of 300-1,600 tokens: greedy, one streamed, one with the MCQ
+   ``response_format``, two sampled with one seed), in three runs: (a) bf16
+   weights and pools (K7a), (b) int8 pools (K7b), (c) int8 weights made leaf
+   by leaf (K8a, K8b). Each greedy reply must equal the engine's own
+   ``generate`` or first differ where the engine's top two logits are within
+   0.05; the two sampled replies must agree; the MCQ reply must be a choice.
 
-Each main path (3 and 4) sets every launch counter to 0 before it runs and
-reads them after; each kernel of the path must have run in it. The line
-before the last is a JSON object with each kernel's launches in those
-paths, its error against the plain version and both times; the last line
-is ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
+Each main path (3, 4 and each run of 5) sets every launch counter to 0 before
+it runs and reads them after; each kernel of the path must have run in it.
+The line before the last is a JSON object with each kernel's launches in
+those paths, its error against the plain version, its time, the plain
+version's, its bound and, for K2, the library call's; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
 result.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import shutil
@@ -49,6 +66,10 @@ K1 = dict(b=4, nq=32, dim=128, p=4096, nt=1030)
 K2 = dict(b=8, s=1024, h=16, d=72)
 K3 = dict(b=8, size=448)
 K5 = dict(b=8, s=1024, h=768, heads=12, inter=3072)  # ColSmol's SigLIP layer
+# gemma-3-27b: 32 q / 16 kv heads of 128, pages of 16, 8 slots of up to 4096 tokens
+K7 = dict(b=8, hq=32, hkv=16, d=128, page=16, nb=256)
+K8 = dict(h=5376, inter=21504, vocab=262208)
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12   # H100 SXM peaks (data sheet)
 N_PAGES, EMBED_BATCH, TOP_K = 16, 8, 5
 SMOL_PAGES, SMOL_BATCH = 32, 16
 QUERIES = [
@@ -85,6 +106,32 @@ def timed_pair(torch, kernel_fn, plain_fn, iters: int):
     torch.cuda.synchronize()
     p1, k1, k2, p2 = run(plain_fn), run(kernel_fn), run(kernel_fn), run(plain_fn)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def row(err, ms, plain_ms, nbytes, flops, peak=BF16_FLOPS, library_ms=None):
+    bound_ms, by = bound(nbytes, flops, peak)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=library_ms)
+
+
+def timed(torch, fn, iters: int) -> float:
+    """Per-call ms of ``fn`` with CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bf16_ulps(torch, a, b):
@@ -168,7 +215,10 @@ def phase_kernels(torch, seed: int):
     require(torch.allclose(got_odd, got[:, :odd]), "K1: odd page count differs")
     k_ms, p_ms = timed_pair(torch, lambda: M.maxsim_scores_cuda(q, d, q_lens, d_lens),
                             lambda: M.maxsim_scores_reference(q, d, q_lens, d_lens), iters=5)
-    results["maxsim"] = dict(max_abs_err=k1_err, ms=k_ms, plain_ms=p_ms)
+    live_q, live_d = float(q_lens.sum()), float(d_lens.sum())   # the tokens this data needs
+    results["maxsim"] = row(k1_err, k_ms, p_ms,
+                            live_d * c["dim"] * 2 + q.numel() * 2 + got.numel() * 4,
+                            2.0 * c["dim"] * live_q * live_d)
     top_same = bool((ki == pi).all())
     print(f"[kernels] K1 maxsim {list(q.shape)}x{list(d.shape)} bf16: max|err| {k1_err:.3g} "
           f"(rtol 1e-3), empty pages exact, top-5 {'identical' if top_same else 'equal up to ties'}"
@@ -198,7 +248,9 @@ def phase_kernels(torch, seed: int):
                                                                      d_lens),
                             lambda: M.maxsim_scores_int8_reference(q32, codes, scales, q_lens,
                                                                    d_lens), iters=5)
-    results["maxsim_int8"] = dict(max_abs_err=k4_err, ms=k_ms, plain_ms=p_ms)
+    results["maxsim_int8"] = row(k4_err, k_ms, p_ms,
+                                 live_d * (c["dim"] + 4) + q32.numel() * 4 + got.numel() * 4,
+                                 2.0 * c["dim"] * live_q * live_d)
     top_same = bool((ki == pi).all())
     print(f"[kernels] K4 maxsim_int8 {list(q32.shape)} f32 x {list(codes.shape)} int8 + scales: "
           f"max|err| {k4_err:.3g} (rtol 1e-4), empty pages exact, top-5 "
@@ -230,10 +282,17 @@ def phase_kernels(torch, seed: int):
             require(err <= atol, f"K2 small case {dtype} {sorted(kw)}: max|err| {err} > {atol}")
     k_ms, p_ms = timed_pair(torch, lambda: A.fused_attention_cuda(*qkv, scale=scale),
                             lambda: A.attention_reference(*qkv, scale=scale), iters=10)
-    results["attention"] = dict(max_abs_err=k2_err, ms=k_ms, plain_ms=p_ms)
+    # the library call: scaled_dot_product_attention on the same tensors, [B, H, S, D] views
+    qt, kt, vt = (x.transpose(1, 2) for x in qkv)
+    lib_ms = timed(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+                   iters=10)
+    results["attention"] = row(k2_err, k_ms, p_ms, 4 * qkv[0].numel() * 2,
+                               4.0 * c["b"] * c["h"] * c["s"] ** 2 * c["d"], library_ms=lib_ms)
+    r = results["attention"]
     print(f"[kernels] K2 attention {list(shape)} bf16: max|err| {k2_err:.3g} (atol 2e-2); "
-          f"kv_lens/kv_valid/causal cases pass | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms",
-          flush=True)
+          f"kv_lens/kv_valid/causal cases pass | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {r['bound_ms']:.3f} ms "
+          f"({r['bound_by']})", flush=True)
     del qkv, got, want
     torch.cuda.empty_cache()
 
@@ -249,10 +308,11 @@ def phase_kernels(torch, seed: int):
     k3_err = float((got.float() - want.float()).abs().max())
     k_ms, p_ms = timed_pair(torch, lambda: PP.normalize_images_triton(x, mean, std),
                             lambda: PP.normalize_images_reference(x, mean, std), iters=20)
-    results["normalize"] = dict(max_abs_err=k3_err, ms=k_ms, plain_ms=p_ms)
+    results["normalize"] = row(k3_err, k_ms, p_ms, 3 * x.numel(), 2.0 * x.numel(), F32_FLOPS)
     print(f"[kernels] K3 normalize {list(x.shape)} u8->bf16: max {ulps} ulp, max|err| "
           f"{k3_err:.3g} | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
     results.update(fused_layer_kernels(torch, g))
+    results.update(generation_kernels(torch, g))
     return results
 
 
@@ -294,11 +354,144 @@ def fused_layer_kernels(torch, g):
                 f"{tag}: max|err| {err} beyond atol 3e-2 + rtol 3e-2")
         k_ms, p_ms = timed_pair(torch, lambda: kernel(x, *args, **kw),
                                 lambda: plain(x, *args, **kw), iters=10)
-        results[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms)
+        m = c["b"] * c["s"]
+        attn_flops = 2.0 * m * h * 4 * h + 4.0 * c["b"] * c["s"] ** 2 * h
+        mlp_flops = 4.0 * m * h * inter
+        flops = {"vit_layer": attn_flops + mlp_flops, "attn_block": attn_flops,
+                 "mlp_block": mlp_flops}[name]
+        results[name] = row(err, k_ms, p_ms, sum(a.numel() * a.element_size() for a in args)
+                            + 2 * x.numel() * 2, flops)
         print(f"[kernels] {tag} {name} {list(x.shape)} bf16 I={inter} {c['heads']} heads: "
               f"max|err| {err:.3g} (atol 3e-2 + rtol 3e-2) | kernel {k_ms:.3f} ms, plain "
               f"{p_ms:.3f} ms", flush=True)
         del got, want
+    torch.cuda.empty_cache()
+    return results
+
+
+def generation_kernels(torch, g):
+    """K7a, K7b, K8a and K8b at gemma-3-27b's decode shapes."""
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+
+    dev = torch.device("cuda")
+    results = {}
+    c = K7
+    b, hq, hkv, d, page, nb = c["b"], c["hq"], c["hkv"], c["d"], c["page"], c["nb"]
+    n_pages = b * nb + 1
+    q = torch.randn(b, hq, d, generator=g, device=dev).to(torch.bfloat16)
+    kp = torch.randn(n_pages, page, hkv, d, generator=g, device=dev).to(torch.bfloat16)
+    vp = torch.randn(n_pages, page, hkv, d, generator=g, device=dev).to(torch.bfloat16)
+    bt = torch.randperm(n_pages, generator=g, device=dev)[: b * nb].reshape(b, nb).to(torch.int32)
+    lens = torch.randint(1, nb * page + 1, (b,), generator=g, device=dev, dtype=torch.int32)
+    lens[0], lens[1] = 0, nb * page          # an inactive slot, a full one
+    scale = 168.0 ** -0.5                    # gemma-3-27b's query_pre_attn_scalar
+
+    def kv_bytes(window, per_row):
+        """Bytes of the K and V rows this data needs (a slot of length 0 reads
+        every gathered V row for its uniform mean)."""
+        total = 0
+        for n in lens.tolist():
+            rows = min(n, window) if window and n else n
+            total += (2 * rows if n else nb * page) * hkv * per_row
+        return total
+
+    def k7a(q_, kp_, vp_, kernel=True):
+        fn = PA.paged_attention_cuda if kernel else PA.paged_attention_reference
+        return lambda w: fn(q_, kp_, vp_, bt, lens, scale=scale, window=w)
+
+    def k7b(q_, pools, kernel=True):
+        fn = PA.paged_attention_int8_cuda if kernel else PA.paged_attention_int8_reference
+        return lambda w: fn(q_, *pools, bt, lens, scale=scale, window=w)
+
+    # The outputs are softmax-weighted means of N(0, 1) rows, typically a few
+    # hundredths, so a fixed atol alone could pass a kernel that drops a whole
+    # split of a long slot. Each element is held to RTOL of its own size (the
+    # bf16 rounding of the output: 1 ulp is 2^-8..2^-7 of it) plus ATOL (the
+    # bf16 rounding of the probabilities, and for K7b's dequantize-first plain
+    # version of the K and V rows too, so twice K7a's); a dropped 256-token
+    # split moves the 4096-token slot by ~6e-3 rms. The issue's absolute limits
+    # stay as floors. Then the same data in float32 (q and pools; K7b's codes
+    # unchanged), where only the sum order differs: 1e-4 for K7a, 1e-3 for K7b.
+    rtol = 2.0 ** -7
+    int8_pools = [*PA.quantize_kv_rows(kp), *PA.quantize_kv_rows(vp)]
+    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
+    for name, tag, floor, atol, f32_atol, per_row, call, plain, call32, plain32 in (
+            ("paged_attention", "K7a", 2e-2, 2e-3, 1e-4, d * 2, k7a(q, kp, vp),
+             k7a(q, kp, vp, False), k7a(q32, kp32, vp32), k7a(q32, kp32, vp32, False)),
+            ("paged_attention_int8", "K7b", 0.035, 4e-3, 1e-3, d + 4, k7b(q, int8_pools),
+             k7b(q, int8_pools, False), k7b(q32, int8_pools), k7b(q32, int8_pools, False))):
+        errs, times = [], []
+        for window in (0, 1024):
+            got, want = call(window).float(), plain(window).float()
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+            diff = (got - want).abs()
+            err, top = float(diff.max()), float(want.abs().max())
+            excess = float((diff - rtol * want.abs()).max())
+            require(err <= floor and excess <= atol,
+                    f"{tag} window {window}: max|err| {err} (floor {floor}), max(|err| - "
+                    f"{rtol:.4g}|want|) {excess} > {atol}; max|want| {top}")
+            got32, want32 = call32(window), plain32(window)
+            err32 = float((got32 - want32).abs().max())
+            require(got32.dtype == torch.float32 and err32 <= f32_atol,
+                    f"{tag} float32 window {window}: max|err| {err32} > {f32_atol}")
+            errs.append(err)
+            k_ms, p_ms = timed_pair(torch, lambda: call(window), lambda: plain(window), iters=20)
+            nbytes = kv_bytes(window, per_row) + 2 * q.numel() * 2 + bt.numel() * 4
+            rows = sum(min(n, window) if window else n for n in lens.tolist())
+            times.append(row(err, k_ms, p_ms, nbytes, 4.0 * hq * d * rows))
+            r = times[-1]
+            print(f"[kernels] {tag} {name} q {list(q.shape)} pools {list(kp.shape)} window "
+                  f"{window}, lengths {lens.tolist()}: bf16 max|err| {err:.3g} (floor {floor}) "
+                  f"with max|want| {top:.3g}, max(|err| - {rtol:.4g}|want|) {excess:.3g} (limit "
+                  f"{atol}); float32 max|err| {err32:.3g} (limit {f32_atol}) | kernel "
+                  f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})", flush=True)
+            del got, want, got32, want32, diff
+        results[name] = dict(times[0], max_abs_err=max(errs))   # window 0 is the row
+    del kp, vp, int8_pools, q32, kp32, vp32
+    torch.cuda.empty_cache()
+
+    h, inter, vocab = K8["h"], K8["inter"], K8["vocab"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    w_up, w_down = codes(h, inter), codes(inter, h)
+    s_up = torch.rand(inter, generator=g, device=dev) * 1e-3
+    s_down = torch.rand(h, generator=g, device=dev) * 1e-3
+    table = codes(vocab + (-vocab) % 512, h)          # the padded embed codes
+    s_tab = torch.rand(table.shape[0], generator=g, device=dev) * 1e-3
+    cases = [("int8_matmul_kn", "K8a", 8, w_up, s_up, False, torch.bfloat16),
+             ("int8_matmul_kn", "K8a", 512, w_up, s_up, False, torch.bfloat16),
+             ("int8_matmul_kn", "K8a", 8, w_down, s_down, False, torch.bfloat16),
+             ("int8_matmul_nk", "K8b", 8, table, s_tab, True, torch.float32)]
+    for name, tag, m, w, sc, nk, out in cases:
+        k = w.shape[1] if nk else w.shape[0]
+        n = w.shape[0] if nk else w.shape[1]
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        kernel = IM.int8_matmul_nk_cuda if nk else IM.int8_matmul_kn_cuda
+        call = lambda: kernel(x, w, sc, out_dtype=out)  # noqa: E731
+        plain = lambda: IM.int8_matmul_reference(x, w, sc, transpose_codes=nk)  # noqa: E731
+        got, want = call().float(), plain().float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        limit = 0.02 * float(want.abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= limit,
+                f"{tag} [{m}, {k}] x {list(w.shape)}: max|err| {err} > 2% of max {limit}")
+        k_ms, p_ms = timed_pair(torch, call, plain, iters=10)
+        r = row(err, k_ms, p_ms, w.numel() + sc.numel() * 4 + x.numel() * 2
+                + m * n * (4 if out == torch.float32 else 2), 2.0 * m * k * n)
+        print(f"[kernels] {tag} {name} x [{m}, {k}] bf16 x codes {list(w.shape)} int8 -> "
+              f"{str(out).split('.')[-1]}: max|err| {err:.3g} (limit 2% of max, {limit:.3g}), "
+              f"{IM.split_count(m, n, k, sms)} K splits | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        if name not in results:            # the first (decode) shape is the row
+            results[name] = r
+        del x, got, want
+    del w_up, w_down, table
     torch.cuda.empty_cache()
     return results
 
@@ -325,13 +518,17 @@ def kernel_wrappers():
     """Each kernel's wrapper, whose ``.launches`` counts its launches."""
     from multimodal_colpali_tpu_torch.ops import attention as A
     from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
     from multimodal_colpali_tpu_torch.ops import maxsim as M
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
     from multimodal_colpali_tpu_torch.ops import preprocess as PP
 
     return {"maxsim": M.maxsim_scores_cuda, "attention": A.fused_attention_cuda,
             "normalize": PP.normalize_images_triton, "maxsim_int8": M.maxsim_scores_int8_cuda,
             "vit_layer": FL.fused_vit_layer_cuda, "attn_block": FL.fused_vit_attention_block_cuda,
-            "mlp_block": FL.fused_mlp_block_cuda}
+            "mlp_block": FL.fused_mlp_block_cuda, "paged_attention": PA.paged_attention_cuda,
+            "paged_attention_int8": PA.paged_attention_int8_cuda,
+            "int8_matmul_kn": IM.int8_matmul_kn_cuda, "int8_matmul_nk": IM.int8_matmul_nk_cuda}
 
 
 def phase_colpali(torch, seed: int, card: str):
@@ -558,7 +755,9 @@ def phase_colsmol(torch, seed: int, card: str):
         query_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in wrappers.items()}
-    require(all(n > 0 for n in launches.values()),
+    path = ("maxsim", "attention", "normalize", "maxsim_int8", "vit_layer", "attn_block",
+            "mlp_block")
+    require(all(launches[k] > 0 for k in path),
             f"a kernel of the ColSmol path did not run: {launches}")
     print(f"[colsmol] vidore/colSmol-256M {n_params / 1e6:.1f}M params bf16 (init {init_s:.1f} s), "
           f"{SMOL_PAGES} pages x {embs[0].shape[0]} tokens x {dim}: embed "
@@ -574,6 +773,211 @@ def phase_colsmol(torch, seed: int, card: str):
           f"{parts_cos['mlp']:.5f}", flush=True)
     print(f"[colsmol] launches {json.dumps(launches)}", flush=True)
     return launches
+
+
+GEN_MODEL = "google/gemma-3-27b-it"
+GEN = dict(slots=4, max_seq_len=2048, chunk=8, page=16, max_tokens=32)
+PROMPT_TOKENS = (320, 1100, 700, 1300, 1550)   # the chat prompt's tokens, roughly
+MCQ_FORMAT = {"type": "json_schema", "json_schema": {"name": "mcq", "schema": {
+    "type": "object", "properties": {"answer": {"type": "string",
+                                                "enum": ["A", "B", "C", "D"]}}}}}
+WORDS = ("selectin", "glycan", "ligand", "binding", "affinity", "sialyl", "Lewis", "fucose",
+         "leukocyte", "endothelial", "adhesion", "rolling", "receptor", "domain", "lectin",
+         "calcium", "epitope", "antibody", "assay", "kinetics", "dissociation", "constant",
+         "measured", "surface", "plasmon", "resonance", "table", "figure", "supplementary",
+         "protein", "mutant", "wild-type", "structure", "crystal", "residue", "pocket")
+
+
+def mcq_prompt(rng, n_tokens: int) -> str:
+    """A RAG-style multiple-choice prompt of about ``n_tokens`` byte tokens:
+    retrieved context passages, a question and four options."""
+    tail = ("\nQuestion: Which statement about selectin binding is supported by the "
+            "context?\nOptions: A) calcium is required B) fucose is dispensable "
+            "C) affinity is nanomolar D) rolling needs no shear\nAnswer with the letter.")
+    parts, n, doc = [], 0, 0
+    budget = n_tokens - len(tail) - 20
+    while n < budget:
+        doc += 1
+        sent = " ".join(rng.choice(WORDS, size=int(rng.integers(12, 30))))
+        piece = f"[Doc {doc}, page {int(rng.integers(1, 20))}] {sent.capitalize()}. "
+        parts.append(piece)
+        n += len(piece)
+    return "Context:\n" + "".join(parts)[:budget] + tail
+
+
+def chat(base_url: str, body: dict):
+    """POST a chat completion; -> (status, reply text, finish_reason, seconds).
+    A streamed reply is read event by event and its deltas joined."""
+    import urllib.request
+
+    req = urllib.request.Request(base_url + "/chat/completions", json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        if not body.get("stream"):
+            out = json.loads(resp.read())["choices"][0]
+            return resp.status, out["message"]["content"], out["finish_reason"], \
+                time.perf_counter() - t0
+        text, finish = [], None
+        for line in resp:
+            line = line.strip()
+            if not line.startswith(b"data: ") or line == b"data: [DONE]":
+                continue
+            ev = json.loads(line[6:])
+            require("error" not in ev, f"stream error event {ev}")
+            text.append(ev["choices"][0]["delta"].get("content", ""))
+            finish = ev["choices"][0]["finish_reason"] or finish
+        return resp.status, "".join(text), finish, time.perf_counter() - t0
+
+
+def first_divergence(engine, ids, got, want):
+    """None when the streams agree; else (step, gap of the engine's top two
+    logits there)."""
+    import numpy as np
+
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            break
+    else:
+        require(len(got) == len(want), f"stream lengths differ: {len(got)} vs {len(want)}")
+        return None
+    top2 = np.sort(engine.next_token_logits([ids + want[:i]])[0])[-2:]
+    return i, float(top2[1] - top2[0])
+
+
+def serve_run(torch, engine, tok, tag: str, kv_dtype: str, requests, card: str):
+    """One run of phase 5: the paged batcher and the HTTP server over
+    ``engine``; every request sent at once. Returns the launch counts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multimodal_colpali_tpu_torch.generation import (
+        GenerationServer, PagedContinuousBatcher, render_chat_prompt)
+
+    wrappers = kernel_wrappers()
+    bat = PagedContinuousBatcher(engine, batch_slots=GEN["slots"],
+                                 max_seq_len=GEN["max_seq_len"], chunk=GEN["chunk"],
+                                 page_size=GEN["page"], kv_dtype=kv_dtype,
+                                 eos_id=tok.eos_id).serve()
+    srv = GenerationServer(bat, tok, model_name=GEN_MODEL, host="127.0.0.1", port=0).start()
+    try:
+        status, _, _, _ = chat(srv.base_url, {"messages": [{"role": "user", "content": "warm"}],
+                                              "max_tokens": 2})         # warm-up
+        require(status == 200, f"[{tag}] warm-up request failed")
+        torch.cuda.synchronize()
+        bat.decode_s, bat.decode_steps, bat.decode_tokens, bat.ttft_s = 0.0, 0, 0, []
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(requests)) as ex:
+            outs = list(ex.map(lambda r: chat(srv.base_url, r[1]), requests))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        srv.stop()
+        bat.shutdown()
+    stats = dict(decode_s=bat.decode_s, steps=bat.decode_steps, tokens=bat.decode_tokens,
+                 ttft=list(bat.ttft_s), preemptions=bat.preemptions)
+    del srv, bat   # the server holds the batcher (and its pools) until it goes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    greedy_notes, sampled = [], []
+    for (kind, body), (status, text, finish, secs) in zip(requests, outs):
+        require(status == 200 and text, f"[{tag}] {kind} request failed: {status} {text!r}")
+        if kind == "mcq":
+            require(json.loads(text).get("answer") in ("A", "B", "C", "D"),
+                    f"[{tag}] the MCQ reply is not a choice: {text!r}")
+            continue
+        got = [int(t) for t in text.split()]
+        require(len(got) == GEN["max_tokens"] and finish == "length",
+                f"[{tag}] {kind}: {len(got)} tokens, finish {finish}")
+        if kind == "sampled":
+            sampled.append(got)
+            continue
+        ids = tok.encode(render_chat_prompt(body["messages"]), add_special_tokens=True)
+        want = engine.generate([ids], max_new_tokens=GEN["max_tokens"], eos_id=tok.eos_id)[0]
+        div = first_divergence(engine, ids, got, want)
+        if div is None:
+            greedy_notes.append(f"{len(ids)} tok: identical")
+        else:
+            require(div[1] <= 0.05, f"[{tag}] a {len(ids)}-token greedy stream first differs "
+                                    f"from the engine's at step {div[0]}, where the top two "
+                                    f"logits are {div[1]:.4f} apart (> 0.05)")
+            greedy_notes.append(f"{len(ids)} tok: first differs at step {div[0]} (top-2 gap "
+                                f"{div[1]:.4f})")
+    if sampled:
+        require(len(sampled) == 2 and sampled[0] == sampled[1],
+                f"[{tag}] the two sampled replies with one seed differ")
+    tok_s = stats["tokens"] / stats["decode_s"] if stats["decode_s"] else 0.0
+    step_ms = 1e3 * stats["decode_s"] / max(stats["steps"], 1)
+    print(f"[gen-{tag}] {len(requests)} concurrent requests in {wall:.1f} s | decode "
+          f"{tok_s:.1f} tokens/s over {GEN['slots']} slots, {step_ms:.1f} ms per decode step "
+          f"(one output token of every active slot), "
+          f"{1e3 / tok_s if tok_s else float('nan'):.1f} ms per output token | TTFT ms "
+          f"{[round(1e3 * t) for t in stats['ttft']]} | peak {peak:.1f} GiB | preemptions "
+          f"{stats['preemptions']} | greedy vs engine.generate: {'; '.join(greedy_notes)} | "
+          f"{'sampled pair equal, MCQ reply a choice | ' if sampled else ''}{card}", flush=True)
+    print(f"[gen-{tag}] launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def phase_generation(torch, seed: int, card: str):
+    """Full-width gemma-3-27b served over HTTP: runs (a), (b) and (c)."""
+    import numpy as np
+    from multimodal_colpali_tpu_torch.generation import GemmaDecodeEngine, ModuloTokenizer
+    from multimodal_colpali_tpu_torch.models.registry import load_gemma3_lm, tree_leaves
+
+    rng = np.random.default_rng(seed)
+    p = [mcq_prompt(rng, n) for n in PROMPT_TOKENS]
+
+    def msg(text, **kw):
+        return {"messages": [{"role": "user", "content": text}],
+                "max_tokens": GEN["max_tokens"], **kw}
+
+    sampling = dict(temperature=0.7, top_p=0.9, seed=seed + 7)
+    greedy = [("greedy", msg(p[0])), ("greedy", msg(p[1], stream=True)), ("greedy", msg(p[4]))]
+    requests = greedy[:2] + [("mcq", msg(p[2], response_format=MCQ_FORMAT)),
+                             ("sampled", msg(p[3], **sampling)),
+                             ("sampled", msg(p[3], **sampling)), greedy[2]]
+    bf16 = torch.bfloat16
+
+    t0 = time.perf_counter()
+    cfg, params, _ = load_gemma3_lm(GEN_MODEL, device="cuda", dtype=bf16, seed=seed)
+    engine = GemmaDecodeEngine(cfg, params, dtype=bf16, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in tree_leaves(engine.params))
+    tok = ModuloTokenizer(cfg.vocab_size)
+    print(f"[gen] {GEN_MODEL} {n_params / 1e9:.2f}B params bf16 on the card in "
+          f"{time.perf_counter() - t0:.1f} s ({torch.cuda.memory_allocated() / 2**30:.1f} GiB); "
+          f"{cfg.num_hidden_layers} layers, hidden {cfg.hidden_size}, {cfg.num_attention_heads}"
+          f"/{cfg.num_key_value_heads} heads of {cfg.head_dim}, window {cfg.sliding_window}; "
+          f"prompts "
+          f"{[len(tok.encode(x)) for x in p]} tokens", flush=True)
+    runs = {"a": serve_run(torch, engine, tok, "a", "native", requests, card)}
+    require(runs["a"]["paged_attention"] > 0, f"(a) never launched K7a: {runs['a']}")
+    runs["b"] = serve_run(torch, engine, tok, "b", "int8", greedy, card)
+    require(runs["b"]["paged_attention_int8"] > 0, f"(b) never launched K7b: {runs['b']}")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg, params, _ = load_gemma3_lm(GEN_MODEL, device="cuda", dtype=bf16, seed=seed,
+                                    weight_dtype="int8")
+    engine = GemmaDecodeEngine(cfg, params, dtype=bf16, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[gen] {GEN_MODEL} int8 weights made leaf by leaf in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)", flush=True)
+    runs["c"] = serve_run(torch, engine, tok, "c", "native", greedy, card)
+    require(runs["c"]["int8_matmul_kn"] > 0 and runs["c"]["int8_matmul_nk"] > 0,
+            f"(c) never launched K8a and K8b: {runs['c']}")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
 
 
 def main(argv=None) -> int:
@@ -597,6 +1001,7 @@ def main(argv=None) -> int:
     kernels = phase_kernels(torch, args.seed)
     colpali = phase_colpali(torch, args.seed, card)
     colsmol = phase_colsmol(torch, args.seed, card)
+    gen = phase_generation(torch, args.seed, card)
 
     jax_ops = "multimodal_colpali_tpu/ops"
     meta = {
@@ -609,9 +1014,19 @@ def main(argv=None) -> int:
         "attn_block": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu",
                        f"{jax_ops}/fused_layer.py:247"),
         "mlp_block": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu", f"{jax_ops}/fused_layer.py:440"),
+        "paged_attention": ("cuda", f"{PACKAGE}/csrc/paged_attention.cu",
+                            f"{jax_ops}/paged_attention.py:196"),
+        "paged_attention_int8": ("cuda", f"{PACKAGE}/csrc/paged_attention.cu",
+                                 f"{jax_ops}/paged_attention.py:350"),
+        "int8_matmul_kn": ("cuda", f"{PACKAGE}/csrc/int8_matmul.cu",
+                           f"{jax_ops}/int8_matmul.py:145"),
+        "int8_matmul_nk": ("cuda", f"{PACKAGE}/csrc/int8_matmul.cu",
+                           f"{jax_ops}/int8_matmul.py:179"),
     }
+    # each kernel's launches on the main paths that run it
+    paths = [colpali, colsmol, gen["a"], gen["b"], gen["c"]]
     rows = [dict(name=name, route=route, source=src, replaces=rep,
-                 launches=colpali[name] + colsmol[name], **kernels[name])
+                 launches=sum(p[name] for p in paths), **kernels[name])
             for name, (route, src, rep) in meta.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,8 +10,9 @@ launch, which :func:`check` turns into an exception. A failed build raises;
 nothing falls back to another implementation.
 
 ``maxsim.cu`` holds K1 and K4, ``attention.cu`` K2, ``fused_layer.cu`` the
-GEMM that K5a-c are built from. Triton kernels (K3) cache their compiled form under ``build/triton`` unless
-``TRITON_CACHE_DIR`` is already set.
+GEMM that K5a-c are built from, ``paged_attention.cu`` K7a and K7b,
+``int8_matmul.cu`` K8a and K8b. Triton kernels (K3) cache their compiled form
+under ``build/triton`` unless ``TRITON_CACHE_DIR`` is already set.
 """
 
 from __future__ import annotations
@@ -55,6 +56,17 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # epilogue, dtype, stream
         "gemm_launch": (_P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _P),
+    },
+    "paged_attention": {
+        # q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, out, part_m,
+        # part_l, part_acc, B, Hq, Hkv, D, page, NB, scale, window, splits,
+        # split_tokens, q_dtype, kv_dtype, stream
+        "paged_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P),
+    },
+    "int8_matmul": {
+        # x, codes, scale, out, partial, M, N, K, layout, out_dtype, splits, stream
+        "int8_matmul_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
 }
 

@@ -1,0 +1,474 @@
+"""Autoregressive decode engine over a Gemma LM (counterpart of
+``multimodal_colpali_tpu/generation/engine.py:69-609, :853-898``).
+
+The engine serves the text LM of a Gemma-1 (ColPali's PaliGemma LM) or
+Gemma-3 parameter tree: the JAX layout, kept as a nested dict (``embed`` and
+``language_model`` subtrees, dense kernels ``[in, out]``, ``{"q8", "scale"}``
+dicts for int8 weights). The layer math follows the JAX package step for
+step; where the JAX engine jits a whole generation, this one runs eagerly:
+
+- ``generate`` left-pads prompts to a shared length bucket, prefills them
+  into ``[B, S + N, Hkv, D]`` caches and decodes one token a step, with the
+  JAX package's masks, positions and rounding points, so CPU streams are
+  token-identical to the JAX engine's.
+- Caches are written in place (JAX returns updated copies).
+- Sampling (``temperature > 0``) is a counter-based Gumbel-max in plain
+  PyTorch on the device: the noise of token ``i`` at request step ``n`` is a
+  hash of (seed, n, i). JAX's threefry bits cannot be reproduced, so sampled
+  streams differ from the JAX package's; the property JAX promises still
+  holds: a (prompt, seed, temperature) triple gives the same stream whatever
+  the slot, the batch or the admission timing, and ``generate`` and the
+  batchers agree. Greedy streams and ``filter_top_p_top_k`` equal JAX's.
+
+Projections go through ``ops/quant.q_dense`` (K8a under
+``weight_dtype="int8"``), the tied LM head through ``q_logits`` (K8b), and
+prefill attention through the plain masked einsum of ``models/layers``, as in
+the JAX engine.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from multimodal_colpali_tpu_torch._device import resolve_device
+from multimodal_colpali_tpu_torch.models import layers as L
+from multimodal_colpali_tpu_torch.ops.quant import (
+    is_quantized, is_quantized_int4, q_dense, q_logits, q_take, quantize_lm_params)
+from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
+
+LOGPROB_K = 5   # top alternatives recorded per decode step (OpenAI cap)
+
+_NOT_PORTED_BODY = ("the Qwen2/Llama decode body (generation/engine.py:276-339) is not "
+                    "ported yet; see ROADMAP.md queue 1 item 8")
+
+
+def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Gemma RMSNorm, ``x / rms(x) * (1 + w)`` in float32 (engine.py:69-72)."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + w)).to(x.dtype)
+
+
+def _dense(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None):
+    """``x @ kernel [in, out]`` in x's dtype; a bias is added to the float32
+    product before the cast (models/layers.py:18-36)."""
+    if bias is None:
+        return x @ kernel.to(x.dtype)
+    return (x.float() @ kernel.float() + bias.float()).to(x.dtype)
+
+
+def _lin(x: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
+    return q_dense(x, p["kernel"], p.get("bias"), dense_fn=_dense)
+
+
+def _rope_tables(positions: torch.Tensor, theta: float, d: int):
+    """cos/sin ``[B, S, 1, D/2]`` of ``models/layers.rope`` for one (positions, theta)."""
+    exps = torch.arange(0, d // 2, dtype=torch.float32, device=positions.device) * 2.0 / d
+    freq = 1.0 / (theta ** exps)
+    angles = positions[..., None].float() * freq
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def _rope(x: torch.Tensor, tables) -> torch.Tensor:
+    cos, sin = tables
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def filter_top_p_top_k(logits: torch.Tensor, top_p, top_k) -> torch.Tensor:
+    """Nucleus (top-p) and top-k filtering, vLLM-style (engine.py:81-111):
+    the caller applies temperature first. ``top_p``/``top_k`` broadcast over
+    the leading axes; ``top_p >= 1`` and ``top_k <= 0`` leave the logits as
+    they are. The best token always survives."""
+    v = logits.shape[-1]
+    batch = logits.shape[:-1]
+    dev = logits.device
+    top_p = torch.as_tensor(top_p, dtype=logits.dtype, device=dev).broadcast_to(batch)
+    top_k = torch.as_tensor(top_k, dtype=torch.int64, device=dev).broadcast_to(batch)
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    k_idx = (torch.where(top_k > 0, top_k, torch.full_like(top_k, v)) - 1).clamp(0, v - 1)
+    kth = torch.gather(sorted_desc, -1, k_idx[..., None])
+    probs = torch.softmax(sorted_desc, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < top_p[..., None]
+    keep[..., 0] = True
+    cutoff = torch.where(keep, sorted_desc, torch.full_like(sorted_desc, float("inf"))
+                         ).amin(dim=-1, keepdim=True)
+    mask = (logits >= kth) & (logits >= cutoff)
+    return torch.where(mask, logits, torch.full_like(logits, float("-inf")))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (lowbias32) on int64 tensors holding uint32 values."""
+    x = x & _M32
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x846CA68B) & _M32
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(seed: torch.Tensor, step: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Gumbel noise ``[B, vocab]`` in float64, a pure function of each row's
+    (seed, step) and the token index: the counter-based stand-in for
+    ``jax.random.categorical(fold_in(PRNGKey(seed), step), ...)``."""
+    seed = seed.to(torch.int64).reshape(-1, 1) & _M32
+    step = step.to(torch.int64).reshape(-1, 1) & _M32
+    key = _hash32(_hash32(seed) ^ ((step * 0x9E3779B9) & _M32))
+    idx = torch.arange(vocab, dtype=torch.int64, device=seed.device)[None, :]
+    h1 = _hash32(key ^ idx)
+    h2 = _hash32(h1 ^ 0x5BD1E995)
+    u = (h1.double() * 4294967296.0 + h2.double() + 0.5) / 18446744073709551616.0
+    return -torch.log(-torch.log(u))
+
+
+def sample_per_slot(logits: torch.Tensor, seed: torch.Tensor, gen_step: torch.Tensor,
+                    temp: torch.Tensor, top_p: torch.Tensor, top_k: torch.Tensor,
+                    use_filter: bool = True) -> torch.Tensor:
+    """Per-slot next token (engine.py:114-133): rows with ``temp <= 0``
+    decode greedily (argmax, lowest index on ties); the others draw from
+    ``softmax(filter(logits / max(temp, 1e-3)))`` with noise keyed by the
+    row's own (seed, step)."""
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = logits / torch.clamp(temp.to(logits.dtype), min=1e-3)[:, None]
+    if use_filter:
+        scaled = filter_top_p_top_k(scaled, top_p, top_k)
+    sampled = torch.argmax(scaled.double() + gumbel_noise(seed, gen_step, logits.shape[-1]),
+                           dim=-1)
+    return torch.where(temp > 0, sampled, greedy).to(torch.int32)
+
+
+def _step_logprobs(logits: torch.Tensor, nxt: torch.Tensor):
+    """The chosen token's logprob and the top-``LOGPROB_K`` alternatives of
+    the raw distribution (engine.py:139-148); ties by lower index."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    lp = torch.gather(logp, -1, nxt.long()[:, None])[:, 0]
+    tlp, tid = topk_with_stable_ties(logp, LOGPROB_K)
+    return lp, tid, tlp
+
+
+def attn_scale(c) -> float:
+    """Gemma-3 scales logits by ``query_pre_attn_scalar ** -0.5``, Gemma-1 by head_dim's."""
+    return float(getattr(c, "query_pre_attn_scalar", None) or c.head_dim) ** -0.5
+
+
+def layer_stack(p, c, x: torch.Tensor, positions: torch.Tensor, kv_write, attend,
+                interleave=None):
+    """The Gemma per-layer decode body (engine.py:159-218), shared by every
+    decode path. ``kv_write(i, k, v) -> (kc, vc)`` stores layer i's K/V rows
+    ``[B, S, Hkv, D]`` and returns what ``attend(i, q, kc, vc)`` reads; the
+    attention may come back in any shape that reshapes to ``[B, S, Hq * D]``.
+    Returns (hidden after the final norm, (k caches, v caches))."""
+    if interleave is not None:
+        raise NotImplementedError("interleave hooks belong to the Qwen2/Llama body")
+    if getattr(c, "is_gemma3", False):
+        return _layer_stack_gemma3(p, c, x, positions, kv_write, attend)
+    if getattr(c, "is_qwen2", False) or getattr(c, "is_llama", False):
+        raise NotImplementedError(_NOT_PORTED_BODY)
+    b, s, _ = x.shape
+    tables = _rope_tables(positions, c.rope_theta, c.head_dim)
+    new_k, new_v = [], []
+    for i in range(c.num_hidden_layers):
+        lp = p["language_model"][f"layers_{i}"]
+        y = _rms(x, lp["input_layernorm"]["weight"], c.rms_norm_eps)
+        q = _lin(y, lp["self_attn"]["q_proj"]).reshape(b, s, c.num_attention_heads, c.head_dim)
+        k = _lin(y, lp["self_attn"]["k_proj"]).reshape(b, s, c.num_key_value_heads, c.head_dim)
+        v = _lin(y, lp["self_attn"]["v_proj"]).reshape(b, s, c.num_key_value_heads, c.head_dim)
+        q, k = _rope(q, tables), _rope(k, tables)
+        kc, vc = kv_write(i, k, v)
+        new_k.append(kc)
+        new_v.append(vc)
+        att = attend(i, q, kc, vc)
+        x = x + _lin(att.reshape(b, s, -1), lp["self_attn"]["o_proj"])
+        y = _rms(x, lp["post_attention_layernorm"]["weight"], c.rms_norm_eps)
+        gate = _lin(y, lp["mlp"]["gate_proj"])
+        up = _lin(y, lp["mlp"]["up_proj"])
+        x = x + _lin(F.gelu(gate, approximate="tanh") * up, lp["mlp"]["down_proj"])
+    x = _rms(x, p["language_model"]["norm"]["weight"], c.rms_norm_eps)
+    return x, (tuple(new_k), tuple(new_v))
+
+
+def _layer_stack_gemma3(p, c, x: torch.Tensor, positions: torch.Tensor, kv_write, attend):
+    """Gemma-3 body (engine.py:221-266): q/k RMSNorm before rope; sliding
+    layers rope at ``rope_local_base_freq`` on plain positions, global ones
+    at ``rope_theta`` on positions divided by ``rope_scaling_factor``;
+    sandwich norms around both residual branches. The caller's ``attend``
+    applies the sliding window."""
+    b, s, _ = x.shape
+    types = c.layer_types_resolved
+    tables = {
+        True: _rope_tables(positions, c.rope_local_base_freq, c.head_dim),
+        False: _rope_tables(positions.float() / torch.full(
+            (), c.rope_scaling_factor, dtype=torch.float32, device=positions.device),
+            c.rope_theta, c.head_dim),
+    }
+    new_k, new_v = [], []
+    for i in range(c.num_hidden_layers):
+        lp = p["language_model"][f"layers_{i}"]
+        rope_t = tables[types[i] == "sliding_attention"]
+        y = _rms(x, lp["input_layernorm"]["weight"], c.rms_norm_eps)
+        q = _lin(y, lp["self_attn"]["q_proj"]).reshape(b, s, c.num_attention_heads, c.head_dim)
+        k = _lin(y, lp["self_attn"]["k_proj"]).reshape(b, s, c.num_key_value_heads, c.head_dim)
+        v = _lin(y, lp["self_attn"]["v_proj"]).reshape(b, s, c.num_key_value_heads, c.head_dim)
+        q = _rms(q, lp["self_attn"]["q_norm"]["weight"], c.rms_norm_eps)
+        k = _rms(k, lp["self_attn"]["k_norm"]["weight"], c.rms_norm_eps)
+        q, k = _rope(q, rope_t), _rope(k, rope_t)
+        kc, vc = kv_write(i, k, v)
+        new_k.append(kc)
+        new_v.append(vc)
+        att = attend(i, q, kc, vc)
+        att_out = _lin(att.reshape(b, s, -1), lp["self_attn"]["o_proj"])
+        x = x + _rms(att_out, lp["post_attention_layernorm"]["weight"], c.rms_norm_eps)
+        y = _rms(x, lp["pre_feedforward_layernorm"]["weight"], c.rms_norm_eps)
+        gate = _lin(y, lp["mlp"]["gate_proj"])
+        up = _lin(y, lp["mlp"]["up_proj"])
+        ff = _lin(F.gelu(gate, approximate="tanh") * up, lp["mlp"]["down_proj"])
+        x = x + _rms(ff, lp["post_feedforward_layernorm"]["weight"], c.rms_norm_eps)
+    x = _rms(x, p["language_model"]["norm"]["weight"], c.rms_norm_eps)
+    return x, (tuple(new_k), tuple(new_v))
+
+
+def _tree_to(t: Any, device: torch.device, dtype: torch.dtype) -> Any:
+    """Every tensor leaf onto ``device``; float32 leaves cast to ``dtype``."""
+    if isinstance(t, dict):
+        return {k: _tree_to(v, device, dtype) for k, v in t.items()}
+    if isinstance(t, torch.Tensor):
+        return t.to(device, dtype) if t.dtype == torch.float32 else t.to(device)
+    return t
+
+
+def left_pad(prompts: Sequence[Sequence[int]], s: int, pad_id: int):
+    """``[B, s]`` ids and mask with each prompt right-aligned (int64 numpy)."""
+    ids = np.full((len(prompts), s), pad_id, np.int64)
+    mask = np.zeros((len(prompts), s), np.int64)
+    for n, pr in enumerate(prompts):
+        if len(pr):
+            ids[n, -len(pr):] = pr
+            mask[n, -len(pr):] = 1
+    return ids, mask
+
+
+@dataclasses.dataclass
+class GemmaDecodeEngine:
+    """Causal Gemma LM over a ColPali-style parameter tree (``embed`` and
+    ``language_model`` subtrees; anything else is ignored), on ``device``.
+
+    ``weight_dtype="int8"`` quantizes the kernels and the embed table on the
+    device (``ops/quant.quantize_lm_params``); a tree that is already
+    quantized is used as it is. ``mesh`` (tensor parallelism) is not ported."""
+
+    cfg: Any
+    params: Any
+    dtype: torch.dtype = torch.float32
+    mesh: Any = None
+    weight_dtype: str = "native"     # "native" | "int8"
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        if self.weight_dtype not in ("native", "int8", "int4"):
+            raise ValueError(f"weight_dtype must be 'native', 'int8' or 'int4', "
+                             f"got {self.weight_dtype!r}")
+        if self.weight_dtype == "int4":
+            raise NotImplementedError("weight_dtype='int4' (kernel K9) is not ported yet; "
+                                      "see ROADMAP.md queue 2")
+        if self.mesh is not None:
+            raise NotImplementedError("tensor-parallel meshes are not ported yet; "
+                                      "see ROADMAP.md queue 1 item 8")
+        self.device = resolve_device(self.device)
+        keep = {"embed": self.params["embed"], "language_model": self.params["language_model"]}
+        emb = keep["embed"]["embed_tokens"]
+        if is_quantized(emb) or is_quantized_int4(emb):
+            # already quantized by a sibling engine: never re-cast (the
+            # float32 scales would degrade to the model dtype)
+            self.weight_dtype = _detect_quantized_dtype(keep["language_model"])
+            if self.weight_dtype == "int4":
+                raise NotImplementedError("int4 weights (K9) are not ported yet")
+            params = _tree_to(keep, self.device, torch.float32)
+        else:
+            params = _tree_to(keep, self.device, self.dtype)
+            if self.weight_dtype == "int8":
+                params = quantize_lm_params(params)
+        self.params = params
+
+    # -- layer math ----------------------------------------------------------
+
+    def _embed(self, p, ids: torch.Tensor) -> torch.Tensor:
+        x = q_take(p["embed"]["embed_tokens"], ids, torch.float32)
+        scale = torch.full((), self.cfg.hidden_size ** 0.5, dtype=torch.float32, device=x.device)
+        return (x * scale).to(self.dtype)
+
+    def _chunk(self, p, x, positions, kcaches, vcaches, write_idx: int, kv_valid,
+               causal: bool = True):
+        """Run a chunk of tokens through all layers (engine.py:407-451),
+        writing K/V into the caches at ``write_idx`` (in place) and attending
+        under ``kv_valid [B, T]`` plus, when ``causal``, global causality.
+        x ``[B, S, H]``; positions ``[B, S]``."""
+        c = self.cfg
+        b, s, _ = x.shape
+        t = kcaches[0].shape[1]
+        dev = x.device
+        cols = torch.arange(t, device=dev)
+        mask = kv_valid.bool()[:, None, None, :]
+        gq = write_idx + torch.arange(s, device=dev)
+        if causal:
+            mask = mask & (cols[None, :] <= gq[:, None])[None, None]
+        mask = mask.expand(b, 1, s, t)
+        sliding = (c.layer_types_resolved if getattr(c, "is_gemma3", False) else None)
+        if sliding is not None:
+            sl_mask = mask & (cols[None, :] > (gq - c.sliding_window)[:, None])[None, None]
+        sc = attn_scale(c)
+
+        def kv_write(i, k, v):
+            kcaches[i][:, write_idx: write_idx + s] = k
+            vcaches[i][:, write_idx: write_idx + s] = v
+            return kcaches[i], vcaches[i]
+
+        def attend(i, q, kc, vc):
+            m = mask
+            if sliding is not None and sliding[i] == "sliding_attention":
+                m = sl_mask
+            return L.attention(q, kc, vc, mask=m, scale=sc)
+
+        return layer_stack(p, c, x, positions, kv_write, attend)
+
+    def _logits(self, p, hidden: torch.Tensor) -> torch.Tensor:
+        """Tied LM head in float32, sliced back to the true vocab."""
+        return q_logits(hidden.float(), p["embed"]["embed_tokens"], out_dim=self.cfg.vocab_size)
+
+    def _caches(self, b: int, t: int):
+        c = self.cfg
+        shape = (b, t, c.num_key_value_heads, c.head_dim)
+        return ([torch.zeros(shape, dtype=self.dtype, device=self.device)
+                 for _ in range(c.num_hidden_layers)],
+                [torch.zeros(shape, dtype=self.dtype, device=self.device)
+                 for _ in range(c.num_hidden_layers)])
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    # -- generation ----------------------------------------------------------
+
+    @torch.inference_mode()
+    def next_token_logits(self, prompts: Sequence[Sequence[int]], pad_id: int = 0,
+                          bucket: int = 16) -> np.ndarray:
+        """Prefill only: float32 next-token logits per prompt ``[B, V]``."""
+        s = max(max(len(pr) for pr in prompts), 1)
+        s = ((s + bucket - 1) // bucket) * bucket
+        ids, mask = (self._tensor(a) for a in left_pad(prompts, s, pad_id))
+        kc, vc = self._caches(len(prompts), s)
+        positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+        hidden, _ = self._chunk(self.params, self._embed(self.params, ids), positions,
+                                kc, vc, 0, mask.bool())
+        return self._logits(self.params, hidden[:, -1]).cpu().numpy()
+
+    @torch.inference_mode()
+    def generate(self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 64,
+                 temperature: float = 0.0, eos_id: int = -1, pad_id: int = 0,
+                 seed: int = 0, bucket: int = 16, top_p: float = 1.0,
+                 top_k: int = 0) -> List[List[int]]:
+        """Continuations of token-id prompts (engine.py:553-609): prompts are
+        left-padded to a shared bucket, outputs cut at ``eos_id``."""
+        if not prompts:
+            return []
+        p = self.params
+        s = max(max(len(pr) for pr in prompts), 1)
+        s = ((s + bucket - 1) // bucket) * bucket
+        b = len(prompts)
+        ids, mask = (self._tensor(a) for a in left_pad(prompts, s, pad_id))
+        kc, vc = self._caches(b, s + max_new_tokens)
+        positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+        kv_valid = torch.cat([mask.bool(), torch.ones((b, max_new_tokens), dtype=torch.bool,
+                                                       device=self.device)], dim=1)
+        vec = lambda v, dt: torch.full((b,), v, dtype=dt, device=self.device)  # noqa: E731
+        temp, tp, tk = (vec(temperature, torch.float32), vec(top_p, torch.float32),
+                        vec(top_k, torch.int64))
+        seeds = vec(seed, torch.int64)
+        use_filter = top_p < 1.0 or top_k > 0
+
+        def sample(logits, step):
+            if temperature <= 0.0:
+                return torch.argmax(logits, dim=-1).to(torch.int32)
+            return sample_per_slot(logits, seeds, vec(step, torch.int64), temp, tp, tk,
+                                   use_filter=use_filter)
+
+        hidden, _ = self._chunk(p, self._embed(p, ids), positions, kc, vc, 0, kv_valid)
+        tok = sample(self._logits(p, hidden[:, -1]), 0)
+        last_pos = positions[:, -1]
+        done = tok == eos_id
+        out = [tok]
+        for step in range(1, max_new_tokens):
+            hidden, _ = self._chunk(p, self._embed(p, tok[:, None]),
+                                    (last_pos + step)[:, None], kc, vc, s + step - 1,
+                                    kv_valid)
+            nxt = sample(self._logits(p, hidden[:, -1]), step)
+            nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
+            done = done | (nxt == eos_id)
+            out.append(nxt)
+            tok = nxt
+        rows = torch.stack(out, dim=1).cpu().numpy()
+        results: List[List[int]] = []
+        for row in rows:
+            toks = row.tolist()
+            if eos_id in toks:
+                toks = toks[: toks.index(eos_id)]
+            results.append(toks)
+        return results
+
+
+def _detect_quantized_dtype(lm_tree: Any) -> str:
+    """"int4" / "int8" / "native" from the first kernel dict found (engine.py:47-66)."""
+    if isinstance(lm_tree, dict):
+        if "q4" in lm_tree:
+            return "int4"
+        if "q8" in lm_tree:
+            return "int8"
+        for v in lm_tree.values():
+            found = _detect_quantized_dtype(v)
+            if found != "native":
+                return found
+    return "native"
+
+
+class ByteTokenizer:
+    """Reversible UTF-8 byte tokenizer (ids 0..255, then pad/bos/eos)."""
+
+    def __init__(self):
+        self.pad_id = 256
+        self.bos_id = 257
+        self.eos_id = 258
+        self.vocab_size = 259
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> List[int]:
+        ids = list(text.encode("utf-8"))
+        return ([self.bos_id] + ids) if add_special_tokens else ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return bytes(i for i in ids if 0 <= i < 256).decode("utf-8", "replace")
+
+
+class ModuloTokenizer:
+    """Byte tokenizer folded into a model vocab (random-weight serving and
+    tests): ids land in [2, vocab - 6); decode is the id listing. The top ids
+    stay unused, as in the JAX package (engine.py:875-898)."""
+
+    def __init__(self, vocab_size: int):
+        self.pad_id = 0
+        self.bos_id = 1
+        self.eos_id = -1  # random LMs have no meaningful eos
+        self.vocab_size = vocab_size
+        self._span = max(vocab_size - 8, 1)
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> List[int]:
+        ids = [2 + (b % self._span) for b in text.encode("utf-8")]
+        return ([self.bos_id] + ids) if add_special_tokens else ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return " ".join(str(i) for i in ids)

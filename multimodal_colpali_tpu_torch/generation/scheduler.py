@@ -1,0 +1,584 @@
+"""Continuous batching for the decode engine (counterpart of
+``multimodal_colpali_tpu/generation/scheduler.py:42-1082``, the text paths).
+
+``batch_slots`` sequences decode in lockstep; per-slot write indices,
+positions, temperatures, seeds and budgets are device tensors, so one decode
+step serves requests that differ in all of them. Between scheduling points
+the batcher decodes ``chunk`` tokens; a new request prefills its own
+(bucketed) prompt once and its K/V rows are copied into its slot while the
+other slots keep decoding. ``submit()`` returns a Future; ``serve()`` runs
+the loop on a background thread, which is how ``GenerationServer`` gets
+concurrency.
+
+Covered here: prefill into a slot and chunked decode, the exact-prompt
+prefill cache, chunked prefill, ``max_queue`` and ``admission_timeout``,
+logprobs and streaming callbacks. Image requests (``mm_engine``,
+cross-attention engines) are not ported yet and raise.
+
+The dense per-slot caches ``[B, max_seq_len, Hkv, D]`` are made by
+``_init_kv``, which the paged batcher replaces with its page pools, so a
+paged batcher never allocates them. The loop thread enters
+``torch.inference_mode`` itself (it is thread-local), so no decode step keeps
+an autograd graph alive.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+import traceback
+from collections import OrderedDict
+from concurrent.futures import Future
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from multimodal_colpali_tpu_torch.generation.engine import (
+    LOGPROB_K, GemmaDecodeEngine, _step_logprobs, attn_scale, layer_stack, left_pad,
+    sample_per_slot)
+from multimodal_colpali_tpu_torch.models import layers as L
+
+_MM_NOT_PORTED = ("image requests (mm_engine: PaliGemma, Gemma-3 MM, Qwen2-VL, LLaVA-NeXT, "
+                  "Mllama) are not ported yet; see ROADMAP.md queue 1 item 8")
+
+
+class AdmissionQueueFull(RuntimeError):
+    """Raised into a submitted future when the admission queue is at its
+    bound (``max_queue``); ``GenerationServer`` answers it with HTTP 429."""
+
+
+@dataclasses.dataclass
+class _Request:
+    prompt: List[int]
+    max_new_tokens: int
+    temperature: float
+    seed: int
+    future: Future
+    eos_id: int = -1
+    t_submit: float = 0.0           # monotonic clock at submit()
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    on_token: Optional[Any] = None   # streaming callback(token_id)
+    streamed: int = 0                # tokens already delivered to on_token
+    top_p: float = 1.0
+    top_k: int = 0
+    want_logprobs: int = 0           # 0 = off; else keep the top-N alternatives
+    lps: List[float] = dataclasses.field(default_factory=list)
+    tops: List[Any] = dataclasses.field(default_factory=list)
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching over a ``GemmaDecodeEngine``."""
+
+    def __init__(self, engine: GemmaDecodeEngine, batch_slots: int = 4,
+                 max_seq_len: int = 512, chunk: int = 8, prompt_bucket: int = 16,
+                 eos_id: int = -1, pad_id: int = 0, prefill_cache_entries: int = 8,
+                 mm_engine: Any = None, prefill_chunk: int = 0, max_queue: int = 0,
+                 admission_timeout: float = 0.0):
+        """``max_queue > 0`` bounds the admission queue (a submit past it
+        fails with ``AdmissionQueueFull``); ``admission_timeout > 0`` fails a
+        request still queued after that many seconds with ``TimeoutError``.
+        ``prefill_chunk > 0`` prefills text prompts longer than that in
+        segments, one per scheduling point (chunked prefill)."""
+        if mm_engine is not None:
+            raise NotImplementedError(_MM_NOT_PORTED)
+        self.engine = engine
+        self.cfg = engine.cfg
+        self.device = engine.device
+        self.B = batch_slots
+        self.T = max_seq_len
+        self.chunk = chunk
+        self.bucket = prompt_bucket
+        self.eos_id = eos_id
+        self.pad_id = pad_id
+        self.prefill_chunk = int(prefill_chunk)
+        self.max_queue = int(max_queue)
+        self.admission_timeout = float(admission_timeout)
+        self.expired = 0
+        self.rejected = 0
+        self._chunked: Optional[Dict[str, Any]] = None
+        self.chunked_prefill_segments = 0
+        # host-clock counters: decode chunks (each ends in a device sync) and
+        # time to first token per fresh request (submit -> first token synced)
+        self.decode_s = 0.0
+        self.decode_steps = 0
+        self.decode_tokens = 0
+        self.ttft_s: List[float] = []
+
+        b, dev = self.B, self.device
+        self._init_kv()
+        self._tok = torch.zeros(b, dtype=torch.int32, device=dev)
+        self._pos = torch.zeros(b, dtype=torch.int64, device=dev)
+        self._start = torch.zeros(b, dtype=torch.int64, device=dev)  # first valid cache row
+        self._end = torch.zeros(b, dtype=torch.int64, device=dev)    # next write index
+        self._temp = torch.zeros(b, dtype=torch.float32, device=dev)
+        self._remaining = torch.zeros(b, dtype=torch.int64, device=dev)
+        self._seed = torch.zeros(b, dtype=torch.int64, device=dev)
+        self._eos = torch.full((b,), eos_id, dtype=torch.int64, device=dev)
+        self._gen_step = torch.zeros(b, dtype=torch.int64, device=dev)
+        self._top_p = torch.ones(b, dtype=torch.float32, device=dev)
+        self._top_k = torch.zeros(b, dtype=torch.int64, device=dev)
+
+        self._slots: List[Optional[_Request]] = [None] * self.B
+        self._queue: "queue.Queue[_Request]" = queue.Queue()
+        # preempted requests and admissions deferred for lack of capacity
+        self._readmit: List[_Request] = []
+        # exact-prompt prefill cache (LRU): (k, v, logits, last_pos) per prompt
+        self._prefill_cache: "OrderedDict[Any, Any]" = OrderedDict()
+        self._prefill_cache_entries = prefill_cache_entries
+        self.prefill_cache_hits = 0
+        self._lock = threading.Lock()
+        self._serving = False
+        self._thread: Optional[threading.Thread] = None
+
+    def _init_kv(self) -> None:
+        """The dense per-slot caches, one [B, T, Hkv, D] pair per layer."""
+        c = self.cfg
+        shape = (self.B, self.T, c.num_key_value_heads, c.head_dim)
+        self._kc = [torch.zeros(shape, dtype=self.engine.dtype, device=self.device)
+                    for _ in range(c.num_hidden_layers)]
+        self._vc = [torch.zeros(shape, dtype=self.engine.dtype, device=self.device)
+                    for _ in range(c.num_hidden_layers)]
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    # -- prefill ----------------------------------------------------------------
+
+    def _prefill(self, tokens: Sequence[int], s: int):
+        """One prompt left-padded to ``s`` -> (k, v rows ``[1, s]`` per layer,
+        next-token logits ``[V]``, last position)."""
+        eng = self.engine
+        ids, mask = (self._tensor(a) for a in left_pad([tokens], s, self.pad_id))
+        kc, vc = eng._caches(1, s)
+        positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+        hidden, (k, v) = eng._chunk(eng.params, eng._embed(eng.params, ids), positions,
+                                    kc, vc, 0, mask.bool())
+        return k, v, eng._logits(eng.params, hidden[:, -1])[0], int(positions[0, -1])
+
+    def _prefill_raw(self, tokens, s):
+        """Whole-prompt prefill through the exact-prompt LRU cache."""
+        key = (s, tuple(tokens))
+        if key in self._prefill_cache:
+            self._prefill_cache.move_to_end(key)
+            self.prefill_cache_hits += 1
+            return self._prefill_cache[key]
+        out = self._prefill(tokens, s)
+        if self._prefill_cache_entries > 0:
+            self._prefill_cache[key] = out
+            while len(self._prefill_cache) > self._prefill_cache_entries:
+                self._prefill_cache.popitem(last=False)
+        return out
+
+    # -- decode -----------------------------------------------------------------
+
+    def _decode_step(self, p, kv_write, attend):
+        """One decode token for every slot; the caller's ``kv_write`` and
+        ``attend`` decide where K/V live. Returns (token, logprob, top ids,
+        top logprobs) and advances the per-slot state."""
+        eng, c, b = self.engine, self.cfg, self.B
+        x = eng._embed(p, self._tok[:, None])
+        active = self._remaining > 0
+        xx, _ = layer_stack(p, c, x, self._pos[:, None], kv_write, attend)
+        logits = eng._logits(p, xx[:, 0])
+        with_filter, with_logprobs = self._flags
+        nxt = sample_per_slot(logits, self._seed, self._gen_step, self._temp, self._top_p,
+                              self._top_k, use_filter=with_filter)
+        nxt = torch.where(active, nxt, torch.full_like(nxt, self.pad_id))
+        if with_logprobs:
+            lp, tid, tlp = _step_logprobs(logits, nxt)
+        else:
+            lp = torch.zeros(b, dtype=torch.float32, device=self.device)
+            tid = torch.zeros((b, 1), dtype=torch.int32, device=self.device)
+            tlp = torch.zeros((b, 1), dtype=torch.float32, device=self.device)
+        self._advance(active, nxt)
+        return nxt, lp, tid, tlp
+
+    def _advance(self, active, nxt) -> None:
+        one = active.long()
+        self._end = self._end + one
+        self._pos = self._pos + one
+        self._gen_step = self._gen_step + one
+        self._remaining = self._remaining - one
+        self._remaining = torch.where(nxt.long() == self._eos,
+                                      torch.zeros_like(self._remaining), self._remaining)
+        self._tok = nxt
+
+    def _dense_step(self, p):
+        """``_decode_step`` over the dense per-slot caches (scheduler.py:328-409)."""
+        c, b, t = self.cfg, self.B, self.T
+        rows = torch.arange(b, device=self.device)
+        cols = torch.arange(t, device=self.device)
+        start, end = self._start, self._end
+        mask = ((cols[None, :] >= start[:, None]) & (cols[None, :] <= end[:, None]))[:, None,
+                                                                                    None, :]
+        types = c.layer_types_resolved if getattr(c, "is_gemma3", False) else None
+        if types is not None:
+            sl_mask = mask & (cols[None, :] > (end - c.sliding_window)[:, None])[:, None, None, :]
+        sc = attn_scale(c)
+
+        def kv_write(i, k, v):
+            self._kc[i][rows, end] = k[:, 0]
+            self._vc[i][rows, end] = v[:, 0]
+            return self._kc[i], self._vc[i]
+
+        def attend(i, q, kc, vc):
+            m = sl_mask if types is not None and types[i] == "sliding_attention" else mask
+            return L.attention(q, kc, vc, mask=m, scale=sc)
+
+        return self._decode_step(p, kv_write, attend)
+
+    def _one_step(self, p):
+        return self._dense_step(p)
+
+    # -- scheduling -------------------------------------------------------------
+
+    def submit(self, prompt: Sequence[int], max_new_tokens: int = 64,
+               temperature: float = 0.0, seed: int = 0, eos_id: Optional[int] = None,
+               pixel_values: Optional[Any] = None, on_token: Optional[Any] = None,
+               top_p: float = 1.0, top_k: int = 0, logprobs: int = 0) -> Future:
+        """Queue a request. ``on_token(token_id)`` streams each generated
+        token as the scheduler syncs it (never eos or anything past it);
+        ``logprobs=N`` makes the future resolve to ``(tokens, logprobs,
+        top_lists)`` and the stream carry ``(token, logprob, top)`` triples."""
+        fut: Future = Future()
+        if self.max_queue > 0 and self._queue.qsize() >= self.max_queue:
+            self.rejected += 1
+            fut.set_exception(AdmissionQueueFull(
+                f"admission queue at its bound ({self.max_queue}); retry with backoff"))
+            return fut
+        s = max(((len(prompt) + self.bucket - 1) // self.bucket) * self.bucket, self.bucket)
+        if s >= self.T:
+            fut.set_exception(ValueError(
+                f"prompt of {len(prompt)} tokens buckets to {s} >= max_seq_len {self.T}"))
+            return fut
+        if pixel_values is not None:
+            fut.set_exception(NotImplementedError(_MM_NOT_PORTED))
+            return fut
+        self._queue.put(_Request(
+            list(prompt), max_new_tokens, float(temperature), seed, fut,
+            eos_id=self.eos_id if eos_id is None else eos_id, t_submit=time.monotonic(),
+            on_token=on_token, top_p=float(top_p), top_k=int(top_k),
+            want_logprobs=max(0, min(int(logprobs), LOGPROB_K))))
+        return fut
+
+    def _pop_live(self) -> Optional[_Request]:
+        """Next queued request within the admission deadline; expired ones
+        fail with TimeoutError in queue order."""
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                return None
+            if (self.admission_timeout > 0 and not req.tokens
+                    and time.monotonic() - req.t_submit > self.admission_timeout):
+                self.expired += 1
+                req.future.set_exception(TimeoutError(
+                    f"request waited > {self.admission_timeout:.1f}s for admission"))
+                continue
+            return req
+
+    # Hooks the paged batcher overrides ------------------------------------------
+
+    def _prefix_prefill(self, prompt_eff, ctx, mm):
+        """Prefill only the prompt tail against cached prefix KV; None runs
+        the whole-prompt prefill."""
+        return None
+
+    def _can_admit(self, s: int, n_prompt: int, budget: int, tokens=None, mm: bool = False,
+                   ctx=None) -> bool:
+        return True
+
+    def _slot_capacity(self, s: int) -> int:
+        """Most tokens a slot can hold after an ``s``-token prompt."""
+        return self.T - s
+
+    def _install_slot(self, slot: int, s: int, n_prompt: int, k, v, tokens=None, ctx=None,
+                      hint=None) -> None:
+        """Copy prefill K/V rows (left-padded to ``s``) into the slot."""
+        for i in range(self.cfg.num_hidden_layers):
+            self._kc[i][slot, :s] = k[i][0]
+            self._vc[i][slot, :s] = v[i][0]
+        self._start[slot] = s - n_prompt
+        self._end[slot] = s
+
+    def _advance_chunked(self) -> None:
+        """Run one segment of the chunked prefill in flight
+        (scheduler.py:711-756): segments sit at their final cache rows and
+        attend causally to the segments before them, so the K/V and the
+        final logits equal the whole-prompt prefill's."""
+        st = self._chunked
+        if st is None or st["out"] is not None:
+            return
+        eng = self.engine
+        s, n, toks = st["s"], st["n"], st["tokens"]
+        if st["kv"] is None:
+            st["kv"] = eng._caches(1, s)
+        start = st["j"] * self.prefill_chunk
+        seg = toks[start:start + self.prefill_chunk]
+        seg_len = len(seg)
+        row0 = s - n + start
+        first_row = s - n
+        cols = torch.arange(s, device=self.device)
+        kv_valid = ((cols >= first_row) & (cols < row0 + seg_len))[None]
+        positions = (row0 - first_row) + torch.arange(seg_len, device=self.device)[None]
+        kc, vc = st["kv"]
+        hidden, (k, v) = eng._chunk(eng.params, eng._embed(eng.params, self._tensor([seg])),
+                                    positions, kc, vc, row0, kv_valid)
+        logits = eng._logits(eng.params, hidden[:, -1])[0]
+        st["kv"] = (list(k), list(v))
+        st["j"] += 1
+        self.chunked_prefill_segments += 1
+        if start + seg_len >= n:
+            st["out"] = (k, v, logits, n - 1)   # positions are 0-indexed
+
+    def _admit(self) -> None:
+        """Fill free slots, readmissions first, then the queue
+        (scheduler.py:758-843). A readmitted request re-prefills its prompt
+        with the tokens generated so far and samples on from its own step."""
+        self._advance_chunked()
+        for slot in range(self.B):
+            if self._slots[slot] is not None:
+                continue
+            if self._chunked is not None and self._chunked["out"] is not None:
+                st, self._chunked = self._chunked, None
+                req = st["req"]
+                k, v, logits, last_pos = st["out"]
+                if not self._can_admit(st["s"], st["n"], req.max_new_tokens - len(req.tokens),
+                                       tokens=st["tokens"]):
+                    self._readmit.insert(0, req)
+                    continue
+                self._finish_admission(slot, req, st["s"], st["tokens"], k, v, logits,
+                                       last_pos, None)
+                continue
+            if self._readmit:
+                req = self._readmit.pop(0)
+            else:
+                req = self._pop_live()
+                if req is None:
+                    return
+            prompt_eff = req.prompt + req.tokens
+            s = max(((len(prompt_eff) + self.bucket - 1) // self.bucket) * self.bucket,
+                    self.bucket)
+            if not self._can_admit(s, len(prompt_eff), req.max_new_tokens - len(req.tokens),
+                                   tokens=prompt_eff):
+                if not any(r is not None for r in self._slots):
+                    req.future.set_exception(ValueError(
+                        f"prompt of {len(prompt_eff)} tokens (+ decode budget) exceeds the "
+                        f"KV capacity of an empty scheduler"))
+                    continue
+                self._readmit.insert(0, req)
+                return
+            hint = None
+            pre = self._prefix_prefill(prompt_eff, None, False)
+            if pre is not None:
+                k, v, logits, last_pos, hint = pre
+            elif (self.prefill_chunk and len(prompt_eff) > self.prefill_chunk
+                  and self._chunked is None):
+                self._chunked = {"req": req, "s": s, "n": len(prompt_eff),
+                                 "tokens": prompt_eff, "j": 0, "kv": None, "out": None}
+                self._advance_chunked()
+                continue   # the slot stays free for other admissions
+            else:
+                k, v, logits, last_pos = self._prefill_raw(prompt_eff, s)
+            self._finish_admission(slot, req, s, prompt_eff, k, v, logits, last_pos, hint)
+
+    def _finish_admission(self, slot, req, s, prompt_eff, k, v, logits, last_pos,
+                          hint) -> None:
+        """Sample the first token from the prefill logits and install the
+        request; a resumed request samples at its own step index."""
+        n0 = len(req.tokens)
+        one = lambda val, dt: self._tensor([val], dt)  # noqa: E731
+        if req.temperature > 0:
+            tok0 = int(sample_per_slot(
+                logits[None], one(req.seed, torch.int64), one(n0, torch.int64),
+                one(req.temperature, torch.float32), one(req.top_p, torch.float32),
+                one(req.top_k, torch.int64),
+                use_filter=req.top_p < 1.0 or req.top_k > 0)[0])
+        else:
+            tok0 = int(torch.argmax(logits))
+        if n0 == 0:
+            self.ttft_s.append(time.monotonic() - req.t_submit)
+        req.tokens.append(tok0)
+        if req.want_logprobs:
+            lp0, tid0, tlp0 = _step_logprobs(logits[None], one(tok0, torch.int64))
+            req.lps.append(float(lp0[0]))
+            n = req.want_logprobs
+            req.tops.append(list(zip(tid0[0, :n].tolist(), tlp0[0, :n].tolist())))
+        self._emit_stream(req)   # the first token streams at prefill time
+        self._slots[slot] = req
+        budget = min(req.max_new_tokens - n0, self._slot_capacity(s))
+        done0 = tok0 == req.eos_id or budget <= 1
+        self._install_slot(slot, s, len(prompt_eff), k, v, tokens=prompt_eff, hint=hint)
+        self._tok[slot] = tok0
+        self._pos[slot] = int(last_pos) + 1
+        self._temp[slot] = req.temperature
+        self._seed[slot] = req.seed
+        self._eos[slot] = req.eos_id
+        self._top_p[slot] = req.top_p
+        self._top_k[slot] = req.top_k
+        self._gen_step[slot] = n0 + 1
+        self._remaining[slot] = 0 if done0 else budget - 1
+        if done0:
+            self._finish(slot)
+
+    def _finish(self, slot: int) -> None:
+        req = self._slots[slot]
+        self._slots[slot] = None
+        toks = req.tokens
+        if req.eos_id in toks:
+            toks = toks[: toks.index(req.eos_id)]
+        if req.want_logprobs:
+            req.future.set_result((toks, req.lps[: len(toks)], req.tops[: len(toks)]))
+        else:
+            req.future.set_result(toks)
+
+    def _fail_all(self, exc: BaseException) -> None:
+        """Fail every active, chunked, readmitted and queued request with ``exc``."""
+        if self._chunked is not None:
+            req = self._chunked["req"]
+            self._chunked = None
+            if not req.future.done():
+                req.future.set_exception(exc)
+        for slot, req in enumerate(self._slots):
+            if req is not None:
+                self._slots[slot] = None
+                if not req.future.done():
+                    req.future.set_exception(exc)
+        for req in self._readmit:
+            if not req.future.done():
+                req.future.set_exception(exc)
+        self._readmit.clear()
+        while True:
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if not req.future.done():
+                req.future.set_exception(exc)
+        self._remaining = torch.zeros_like(self._remaining)
+
+    def _decode_flags(self):
+        """(with_filter, with_logprobs) for the slots now active."""
+        with_filter = any(r is not None and (r.top_p < 1.0 or r.top_k > 0) for r in self._slots)
+        with_lp = any(r is not None and r.want_logprobs for r in self._slots)
+        return with_filter, with_lp
+
+    def _run_chunk(self) -> None:
+        """``chunk`` decode steps, then the sync into per-request state."""
+        t0 = time.perf_counter()
+        self._flags = self._decode_flags()
+        rem_before = self._remaining.cpu().numpy()
+        ys = [self._one_step(self.engine.params) for _ in range(self.chunk)]
+        self._account_chunk(tuple(torch.stack(y) for y in zip(*ys)), rem_before)
+        self.decode_s += time.perf_counter() - t0
+        self.decode_steps += self.chunk
+
+    def _step_chunk(self) -> None:
+        self._run_chunk()
+
+    @staticmethod
+    def _emit_stream(req: _Request) -> None:
+        """Deliver not-yet-streamed tokens to ``req.on_token`` (eos and
+        anything past it excluded); a failing callback cannot stop the loop."""
+        if req.on_token is None:
+            return
+        toks = req.tokens
+        if req.eos_id in toks:
+            toks = toks[: toks.index(req.eos_id)]
+        while req.streamed < len(toks):
+            i = req.streamed
+            req.streamed += 1
+            try:
+                if req.want_logprobs:
+                    req.on_token((toks[i], req.lps[i], req.tops[i]))
+                else:
+                    req.on_token(toks[i])
+            except Exception:  # noqa: BLE001
+                pass
+
+    def _account_chunk(self, ys, rem_before: np.ndarray) -> None:
+        """Append each slot's real tokens of the chunk (and their logprob
+        records), stream them and retire finished slots."""
+        toks, lps, tids, tlps = (y.cpu().numpy() for y in ys)
+        remaining = self._remaining.cpu().numpy()
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            for step in range(min(self.chunk, int(rem_before[slot]))):
+                tok = int(toks[step, slot])
+                req.tokens.append(tok)
+                self.decode_tokens += 1
+                if req.want_logprobs:
+                    req.lps.append(float(lps[step, slot]))
+                    n = req.want_logprobs
+                    req.tops.append(list(zip(tids[step, slot, :n].tolist(),
+                                             tlps[step, slot, :n].tolist())))
+                if tok == req.eos_id:
+                    break
+            self._emit_stream(req)
+            if (remaining[slot] <= 0 or len(req.tokens) >= req.max_new_tokens
+                    or (req.tokens and req.tokens[-1] == req.eos_id)):
+                self._finish(slot)
+
+    def _busy(self) -> bool:
+        return any(r is not None for r in self._slots)
+
+    @torch.inference_mode()
+    def drain(self) -> None:
+        """Run until every queued and active request completes. A failure
+        fails every in-flight and queued future before it re-raises."""
+        with self._lock:
+            try:
+                while (not self._queue.empty() or self._readmit or self._chunked is not None
+                       or self._busy()):
+                    self._admit()
+                    if self._busy():
+                        self._step_chunk()
+            except Exception as exc:  # noqa: BLE001
+                self._fail_all(exc)
+                raise
+
+    # -- background serving ------------------------------------------------------
+
+    def serve(self) -> "ContinuousBatcher":
+        self._serving = True
+
+        def loop():
+            with torch.inference_mode():   # thread-local: enter it on this thread
+                while self._serving:
+                    busy = False
+                    try:
+                        with self._lock:
+                            self._admit()
+                            busy = self._chunked is not None or self._busy()
+                            if self._busy():
+                                self._step_chunk()
+                    except Exception as exc:  # noqa: BLE001 - must not kill serving
+                        traceback.print_exc()
+                        with self._lock:
+                            self._fail_all(exc)
+                    if not busy:
+                        time.sleep(0.005)
+
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def shutdown(self) -> None:
+        self._serving = False
+        if self._thread:
+            self._thread.join(timeout=60)
+
+    # GenerationServer protocol: generate through the batcher.
+    def generate(self, prompts, max_new_tokens=64, temperature=0.0, eos_id=None,
+                 pad_id=None, seed=0, pixel_values=None, top_p=1.0, top_k=0, **_):
+        if pixel_values is not None and any(p is not None for p in pixel_values):
+            raise NotImplementedError(_MM_NOT_PORTED)
+        futs = [self.submit(p, max_new_tokens, temperature, seed, eos_id=eos_id, top_p=top_p,
+                            top_k=top_k) for p in prompts]
+        if not self._serving:
+            self.drain()
+        return [f.result(timeout=600) for f in futs]

@@ -1,0 +1,454 @@
+"""OpenAI-compatible generation server (counterpart of
+``multimodal_colpali_tpu/generation/server.py:29-520``).
+
+The reference's generation tier is a vLLM container exposing
+``/v1/chat/completions``; this server speaks the same protocol from the
+port's ``GemmaDecodeEngine`` or one of its batchers, so a GPU host serves
+its own generation. Point an OpenAI client's ``base_url`` at it.
+
+Scope: chat completions with string or text-part content, ``max_tokens``,
+``temperature``, ``top_p``, ``top_k``, ``seed``, ``logprobs``, ``stop`` via
+the tokenizer's eos, constrained enum outputs (``response_format``), SSE
+streaming (``stream: true``, per token with a batcher), 429/504
+back-pressure from the batcher's bounded queue and admission deadline, and
+``/health``. Image content is answered with HTTP 400: image-conditioned
+engines are not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from multimodal_colpali_tpu_torch.generation.engine import LOGPROB_K
+from multimodal_colpali_tpu_torch.generation.scheduler import AdmissionQueueFull
+
+
+def render_chat_prompt(messages: List[Dict[str, Any]]) -> str:
+    """Flatten OpenAI chat messages into a plain prompt (text parts only)."""
+    return extract_chat_content(messages)[0]
+
+
+IMAGES_NOT_PORTED = ("image content is not served yet: the image-conditioned engines "
+                     "(PaliGemma, Gemma-3 MM) wait for a later slice of the port; "
+                     "see ROADMAP.md queue 1 item 8")
+
+
+def extract_chat_content(messages: List[Dict[str, Any]]):
+    """-> (prompt text, []) from OpenAI chat messages. An ``image_url`` part
+    raises ValueError (HTTP 400): images are not ported yet."""
+    lines = []
+    for m in messages:
+        content = m.get("content", "")
+        if isinstance(content, list):
+            texts = []
+            for part in content:
+                if not isinstance(part, dict):
+                    continue
+                if part.get("type") == "text":
+                    texts.append(part.get("text", ""))
+                elif part.get("type") == "image_url":
+                    raise ValueError(IMAGES_NOT_PORTED)
+            content = " ".join(texts)
+        lines.append(f"{m.get('role', 'user')}: {content}")
+    lines.append("assistant:")
+    return "\n".join(lines), []
+
+
+class GenerationServer:
+    """Serve ``/v1/chat/completions`` from a decode engine + tokenizer.
+
+    ``engine`` must expose ``generate(prompts, max_new_tokens, temperature,
+    eos_id, seed) -> [[token_id, ...]]`` (a batcher also ``submit``);
+    ``tokenizer`` must expose ``encode``/``decode`` (and optionally
+    ``eos_id``). ``mm_engine`` (image requests) is not ported and raises.
+    """
+
+    def __init__(self, engine: Any, tokenizer: Any, model_name: str = "local",
+                 host: str = "127.0.0.1", port: int = 0,
+                 max_new_tokens: int = 128,
+                 mm_engine: Any = None, image_preprocessor: Any = None):
+        if mm_engine is not None or image_preprocessor is not None:
+            raise NotImplementedError(IMAGES_NOT_PORTED)
+        self.engine = engine
+        self.tokenizer = tokenizer
+        self.model_name = model_name
+        self.default_max_new = max_new_tokens
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):  # quiet
+                pass
+
+            def do_GET(self):
+                if self.path.rstrip("/").endswith("health"):
+                    body = b'{"status": "ok"}'
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                else:
+                    self.send_response(404)
+                    self.end_headers()
+
+            def do_POST(self):
+                try:
+                    length = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(length) or b"{}")
+                    if req.get("stream"):
+                        # only raises BEFORE headers are written; post-header
+                        # errors surface as an SSE error event instead
+                        outer._stream_complete(req, self)
+                        return
+                    resp = outer._complete(req)
+                    code = 200
+                except Exception as e:  # noqa: BLE001 - protocol error reply
+                    resp = {"error": {"message": str(e), "type": type(e).__name__}}
+                    # back-pressure surfaces as retryable statuses (the
+                    # reference's client backs off on them,
+                    # functions.py:1017-1034): 429 = bounded admission
+                    # queue full, 504 = admission deadline expired
+                    code = (429 if isinstance(e, AdmissionQueueFull)
+                            else 504 if isinstance(e, TimeoutError) else 400)
+                body = json.dumps(resp).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        class Server(ThreadingHTTPServer):
+            # the reference's client fires ALL its requests at once
+            # through TCPConnector(limit=512) (functions.py:1050): the
+            # default listen backlog of 5 resets connections under that
+            # burst, so match the connector's fan-out
+            request_queue_size = 512
+            daemon_threads = True
+
+        self._httpd = Server((host, port), Handler)
+        self.host, self.port = self._httpd.server_address
+        self.base_url = f"http://{self.host}:{self.port}/v1"
+        self._thread: Optional[threading.Thread] = None
+
+    # -- protocol ------------------------------------------------------------
+
+    @staticmethod
+    def _schema_enum(req: Dict[str, Any]) -> Optional[tuple]:
+        """(field, choices) when response_format is a single-enum-field
+        json_schema (the reference's MCQ structured output,
+        02_experiment01.py:50-55 / generation/client.mcq_response_format)."""
+        rf = req.get("response_format") or {}
+        if rf.get("type") != "json_schema":
+            return None
+        props = (rf.get("json_schema", {}).get("schema", {})
+                 .get("properties", {}))
+        for field, spec in props.items():
+            if isinstance(spec, dict) and spec.get("enum"):
+                return field, list(spec["enum"])
+        return None
+
+    def _constrained_choice(self, prompt: str, field: str, choices: List[str]) -> str:
+        """Constrained decoding for enum outputs: force the JSON scaffold as
+        prompt text and pick the choice whose first token the model scores
+        highest (server.py:167-203)."""
+        scaffold = prompt + f'\n{{"{field}": "'
+        # Context-aware choice tokens: tokenize scaffold+choice and take the
+        # first token PAST the scaffold - encode(choice) alone returns the
+        # standalone form (or a BOS) under SentencePiece/BPE tokenizers,
+        # which scores the wrong vocabulary rows.
+        base_len = len(self._encode(scaffold))
+        first_tokens = []
+        for c in choices:
+            full = self._encode(scaffold + c)
+            first_tokens.append(full[base_len] if len(full) > base_len
+                                else full[-1])
+        engine = getattr(self.engine, "engine", self.engine)  # unwrap a batcher
+        ids = self._encode(scaffold, add_special_tokens=True)
+        logits = engine.next_token_logits([ids])[0]
+        best = choices[int(np.argmax([logits[t] for t in first_tokens]))]
+        return json.dumps({field: best})
+
+    def _encode(self, text: str, add_special_tokens: bool = False):
+        """Encode through any tokenizer honoring the documented contract
+        (``encode``/``decode``): tokenizers without an
+        ``add_special_tokens`` kwarg (e.g. SimpleTokenizer) get the bos
+        prepended here instead of raising TypeError."""
+        try:
+            return list(self.tokenizer.encode(
+                text, add_special_tokens=add_special_tokens))
+        except TypeError:
+            ids = list(self.tokenizer.encode(text))
+            if add_special_tokens and hasattr(self.tokenizer, "bos_id"):
+                ids = [self.tokenizer.bos_id] + ids
+            return ids
+
+    request_timeout: float = 3600.0
+
+    def _parse_sampling(self, req: Dict[str, Any]):
+        """(max_new, temperature, top_p, top_k, seed) - explicit None
+        checks, NOT ``or`` defaults: ``top_p: 0`` is OpenAI's greedy
+        extreme and must stay 0 (the filter clamps it to top-1), not be
+        coerced to 1.0 (full-vocab sampling, the opposite)."""
+        if req.get("max_tokens") is not None:
+            max_new = int(req["max_tokens"])
+            if max_new < 1:
+                raise ValueError("max_tokens must be >= 1")
+        else:
+            max_new = self.default_max_new
+        temperature = (float(req["temperature"])
+                       if req.get("temperature") is not None else 0.0)
+        top_p = float(req["top_p"]) if req.get("top_p") is not None else 1.0
+        top_k = int(req["top_k"]) if req.get("top_k") is not None else 0
+        return max_new, temperature, top_p, top_k, int(req.get("seed") or 0)
+
+    def _start_generation(self, ids, max_new, temperature, top_p,
+                          top_k, seed, logprobs: int = 0, on_token=None):
+        """One dispatch point for streaming AND non-streaming requests.
+
+        Returns a zero-arg ``wait()`` producing ``(tokens, lps|None,
+        tops|None)``. Batcher engines go through ``submit`` (per-token
+        callbacks, logprobs, shared slot batch); bare engines generate
+        synchronously inside ``wait`` (no incremental stream, no logprobs)."""
+        eos_id = getattr(self.tokenizer, "eos_id", -1)
+        submit = getattr(self.engine, "submit", None)
+        if submit is not None:
+            fut = submit(ids, max_new_tokens=max_new,
+                         temperature=temperature, eos_id=eos_id, seed=seed,
+                         on_token=on_token, top_p=top_p, top_k=top_k,
+                         logprobs=logprobs)
+
+            def wait():
+                res = fut.result(timeout=self.request_timeout)
+                return res if logprobs else (res, None, None)
+
+            wait.future = fut
+            return wait
+
+        def wait():
+            # bare engines generate synchronously; no per-token callbacks
+            # (the streaming caller emits wait()'s text in one chunk)
+            out = self.engine.generate(
+                [ids], max_new_tokens=max_new, temperature=temperature,
+                eos_id=eos_id, seed=seed, top_p=top_p, top_k=top_k)[0]
+            return out, None, None
+
+        wait.future = None
+        return wait
+
+    def _stream_complete(self, req: Dict[str, Any], handler) -> None:
+        """``stream: true`` - serve the completion as OpenAI SSE
+        (``chat.completion.chunk`` events ending in ``data: [DONE]``), the
+        protocol vLLM streams (the reference's generation server). With a
+        ContinuousBatcher engine, tokens stream as the scheduler syncs each
+        decoded chunk; other configurations (bare engines, constrained
+        enum outputs) generate fully and emit one content chunk.
+
+        Raises only before the response headers are written; later errors
+        are emitted as an SSE ``error`` event so the connection terminates
+        cleanly instead of leaving half a JSON body."""
+        import queue as _queue
+
+        max_new, temperature, top_p, top_k, seed = self._parse_sampling(req)
+        prompt, _ = extract_chat_content(req.get("messages", []))
+        enum = self._schema_enum(req)
+        rid = f"chatcmpl-{int(time.time() * 1e3)}"
+        created = int(time.time())
+        model = req.get("model", self.model_name)
+        # streaming logprobs (vLLM/OpenAI SSE surface): each content chunk
+        # carries the records of the tokens it delivers; concatenating
+        # chunk logprobs equals the non-streaming response's list
+        want_lp = bool(req.get("logprobs"))
+        lp_n = (max(1, min(int(req.get("top_logprobs") or 1), LOGPROB_K))
+                if want_lp else 0)
+
+        # Resolve the token source BEFORE sending headers so protocol-level
+        # failures still produce a clean HTTP 400.
+        text_override: Optional[str] = None
+        tok_queue: Optional[Any] = None
+        wait = None
+        if enum is not None:
+            text_override = self._constrained_choice(prompt, *enum)
+        else:
+            ids = self._encode(prompt, add_special_tokens=True)
+            tok_queue = _queue.Queue()
+            wait = self._start_generation(ids, max_new, temperature,
+                                          top_p, top_k, seed,
+                                          logprobs=lp_n,
+                                          on_token=tok_queue.put)
+            if wait.future is not None:
+                # all on_token calls happen before the result is set, so
+                # the sentinel always trails the last token
+                wait.future.add_done_callback(
+                    lambda f: tok_queue.put(None))
+            else:
+                tok_queue = None   # bare engine: wait() replays post-hoc
+                lp_n = 0           # bare engines have no logprob records
+
+        handler.send_response(200)
+        handler.send_header("Content-Type", "text/event-stream")
+        handler.send_header("Cache-Control", "no-cache")
+        handler.send_header("Connection", "close")
+        handler.end_headers()
+
+        def sse(obj) -> None:
+            handler.wfile.write(b"data: " + json.dumps(obj).encode() + b"\n\n")
+            handler.wfile.flush()
+
+        def chunk(delta: Dict[str, Any], finish: Optional[str] = None):
+            return {"id": rid, "object": "chat.completion.chunk",
+                    "created": created, "model": model,
+                    "choices": [{"index": 0, "delta": delta,
+                                 "finish_reason": finish}]}
+
+        def fmt_rec(rec) -> Dict[str, Any]:
+            tok, lp, top = rec
+            return {"token": self.tokenizer.decode([tok]), "logprob": lp,
+                    "bytes": None,
+                    "top_logprobs": [
+                        {"token": self.tokenizer.decode([tid]),
+                         "logprob": tlp} for tid, tlp in top[:lp_n]]}
+
+        try:
+            sse(chunk({"role": "assistant", "content": ""}))
+            finish = "stop"
+            prev = ""
+            if tok_queue is not None:
+                out: List[int] = []
+                pending: List[Any] = []   # logprob records not yet emitted
+                n_rec = 0                 # records emitted so far
+                while True:
+                    item = tok_queue.get(timeout=self.request_timeout)
+                    if item is None:
+                        break
+                    if lp_n:
+                        tok = item[0]
+                        pending.append(item)
+                    else:
+                        tok = item
+                    out.append(tok)
+                    # incremental detokenization by whole-prefix diff: a
+                    # token may not be a complete decodable unit (BPE /
+                    # byte tokenizers), so hold back a trailing
+                    # replacement char (the partial-sequence marker - the
+                    # HF TextStreamer convention) and emit only clean
+                    # extensions; sent text can never be retracted
+                    text = self.tokenizer.decode(out)
+                    if text.endswith("�"):
+                        text = text[:-1]
+                    if text[: len(prev)] == prev and len(text) > len(prev):
+                        ck = chunk({"content": text[len(prev):]})
+                        if lp_n:
+                            ck["choices"][0]["logprobs"] = {
+                                "content": [fmt_rec(r) for r in pending]}
+                            n_rec += len(pending)
+                            pending = []
+                        sse(ck)
+                        prev = text
+                out, lps, tops = wait()  # re-raises scheduler-side failures
+                # final flush: whatever the full decode holds past the
+                # emitted length (covers decodes whose tail was unstable -
+                # sent text cannot be retracted, so emit the remainder),
+                # plus any logprob records not yet delivered
+                full = self.tokenizer.decode(out)
+                tail_recs = (list(zip(out, lps, tops))[n_rec:]
+                             if lp_n else [])
+                if len(full) > len(prev) or tail_recs:
+                    ck = chunk({"content": full[len(prev):]})
+                    if lp_n:
+                        ck["choices"][0]["logprobs"] = {
+                            "content": [fmt_rec(r) for r in tail_recs]}
+                    sse(ck)
+                finish = "stop" if len(out) < max_new else "length"
+            elif text_override is not None:
+                if text_override:
+                    sse(chunk({"content": text_override}))
+            else:
+                out, _, _ = wait()
+                text = self.tokenizer.decode(out)
+                finish = "stop" if len(out) < max_new else "length"
+                if text:
+                    sse(chunk({"content": text}))
+            sse(chunk({}, finish))
+            handler.wfile.write(b"data: [DONE]\n\n")
+            handler.wfile.flush()
+        except Exception as e:  # noqa: BLE001 - post-header failure
+            try:
+                sse({"error": {"message": str(e),
+                               "type": type(e).__name__}})
+            except Exception:  # noqa: BLE001 - consumer already gone
+                pass
+
+    def _complete(self, req: Dict[str, Any]) -> Dict[str, Any]:
+        max_new, temperature, top_p, top_k, seed = self._parse_sampling(req)
+        prompt, _ = extract_chat_content(req.get("messages", []))
+        ids = self._encode(prompt, add_special_tokens=True)  # usage default
+        # OpenAI logprobs surface: per-token logprob + top-N alternatives,
+        # served through the batcher submit payload; bare engines degrade
+        # gracefully (field omitted), like other optional params.
+        want_lp = bool(req.get("logprobs"))
+        lp_n = (max(1, min(int(req.get("top_logprobs") or 1), LOGPROB_K))
+                if want_lp else 0)
+        lps = tops = None
+        enum = self._schema_enum(req)
+        if enum is not None:
+            text = self._constrained_choice(prompt, *enum)
+            out = self._encode(text)
+            finish = "stop"  # constrained decoding always completes
+        else:
+            out, lps, tops = self._start_generation(
+                ids, max_new, temperature, top_p, top_k, seed,
+                logprobs=lp_n)()
+            text = self.tokenizer.decode(out)
+            finish = "stop" if len(out) < max_new else "length"
+        choice: Dict[str, Any] = {
+            "index": 0,
+            "message": {"role": "assistant", "content": text},
+            "finish_reason": finish,
+        }
+        if lps is not None:
+            choice["logprobs"] = {"content": [
+                {"token": self.tokenizer.decode([tok]), "logprob": lp,
+                 "bytes": None,
+                 "top_logprobs": [
+                     {"token": self.tokenizer.decode([tid]), "logprob": tlp}
+                     for tid, tlp in top]}
+                for tok, lp, top in zip(out, lps, tops)
+            ]}
+        return {
+            "id": f"chatcmpl-{int(time.time() * 1e3)}",
+            "object": "chat.completion",
+            "created": int(time.time()),
+            "model": req.get("model", self.model_name),
+            "choices": [choice],
+            "usage": {
+                "prompt_tokens": len(ids),
+                "completion_tokens": len(out),
+                "total_tokens": len(ids) + len(out),
+            },
+        }
+
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> "GenerationServer":
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        if self._thread:
+            self._thread.join(timeout=5)
+
+    def __enter__(self) -> "GenerationServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

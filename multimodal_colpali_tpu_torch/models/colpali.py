@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models import layers as L
 from multimodal_colpali_tpu_torch.models.configs import ColPaliModelConfig
 from multimodal_colpali_tpu_torch.models.gemma import GemmaEmbedder, GemmaModel
@@ -23,9 +24,10 @@ from multimodal_colpali_tpu_torch.models.siglip import SiglipVisionTower
 
 
 class ColPaliModel(nn.Module):
-    def __init__(self, cfg: ColPaliModelConfig, *, device="cpu", dtype=torch.float32):
+    def __init__(self, cfg: ColPaliModelConfig, *, device="cuda", dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
+        device = resolve_device(device)
         kw = dict(device=device, dtype=dtype)
         self.embed = GemmaEmbedder(cfg.text, **kw)
         self.vision_tower = SiglipVisionTower(cfg.vision, **kw)

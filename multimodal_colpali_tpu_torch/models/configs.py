@@ -1,5 +1,5 @@
-"""Model configurations of the ported retrievers (counterparts of
-``multimodal_colpali_tpu/models/configs.py:15-42, :140-166`` and
+"""Model configurations of the ported retrievers and generator LMs
+(counterparts of ``multimodal_colpali_tpu/models/configs.py:15-166`` and
 ``multimodal_colpali_tpu/models/idefics3.py:32-114``).
 
 - ColPali v1.x = SigLIP-So400m vision tower + Gemma-2B text tower + 128-d
@@ -7,6 +7,8 @@
 - ColIdefics3 / ColSmol-256M = SigLIP-768 vision tower (512 px, patch 16),
   pixel shuffle x4 + projection, Llama text tower (576 wide, 30 layers,
   9 heads / 3 KV heads) + 128-d projection.
+- Gemma-3 text LMs (1B/4B/12B/27B), the generator the reference serves
+  through vLLM (google/gemma-3-27b-it).
 
 Each ``tiny()`` is the small configuration the parity tests and the
 committed ``goldens/tiny-*.npz`` use.
@@ -44,6 +46,94 @@ class GemmaTextConfig:
     head_dim: int = 256
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Gemma3TextConfig:
+    """Gemma-3 text architecture (configs.py:44-136). Differences from
+    Gemma-1 (``GemmaTextConfig``), per HF ``Gemma3TextConfig``:
+
+    - GQA with per-head q/k RMSNorm after the projections, before rope.
+    - Interleaved attention: every ``sliding_window_pattern``-th layer is
+      global (full causal), the rest attend only the last
+      ``sliding_window`` tokens.
+    - Dual rope bases: sliding layers use ``rope_local_base_freq``
+      (10k, unscaled); global layers use ``rope_theta`` (1M) with linear
+      position scaling (positions divided by ``rope_scaling_factor``).
+    - Sandwich norms: post-attention and pre/post-feedforward RMSNorms
+      wrap each residual branch.
+    - Attention scale ``query_pre_attn_scalar ** -0.5`` (not head_dim).
+
+    Defaults are the 27B text tower (hidden 5376, 62 layers, 32 q / 16 kv
+    heads, head_dim 128, 5:1 sliding:global at window 1024).
+    """
+
+    vocab_size: int = 262208
+    hidden_size: int = 5376
+    intermediate_size: int = 21504
+    num_hidden_layers: int = 62
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 16
+    head_dim: int = 128
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1_000_000.0
+    rope_local_base_freq: float = 10_000.0
+    rope_scaling_factor: float = 8.0
+    sliding_window: int = 1024
+    sliding_window_pattern: int = 6
+    layer_types: tuple = ()          # explicit override of the pattern
+    query_pre_attn_scalar: float = 168.0   # 27B: hidden // n_heads
+
+    is_gemma3 = True   # engine dispatch marker (layer_stack branches on it)
+
+    @property
+    def layer_types_resolved(self) -> tuple:
+        """Per-layer "sliding_attention"/"full_attention", HF's pattern
+        rule: layer i is global iff ``(i + 1) % sliding_window_pattern``
+        is 0."""
+        if self.layer_types:
+            return tuple(self.layer_types)
+        return tuple(
+            "full_attention" if (i + 1) % self.sliding_window_pattern == 0
+            else "sliding_attention"
+            for i in range(self.num_hidden_layers))
+
+    @classmethod
+    def gemma3_27b(cls) -> "Gemma3TextConfig":
+        return cls()
+
+    # The smaller released family members (published HF config values).
+    @classmethod
+    def gemma3_1b(cls) -> "Gemma3TextConfig":
+        return cls(vocab_size=262_144, hidden_size=1152,
+                   intermediate_size=6912, num_hidden_layers=26,
+                   num_attention_heads=4, num_key_value_heads=1,
+                   head_dim=256, sliding_window=512,
+                   rope_scaling_factor=1.0, query_pre_attn_scalar=256.0)
+
+    @classmethod
+    def gemma3_4b(cls) -> "Gemma3TextConfig":
+        return cls(hidden_size=2560, intermediate_size=10240,
+                   num_hidden_layers=34, num_attention_heads=8,
+                   num_key_value_heads=4, head_dim=256,
+                   query_pre_attn_scalar=256.0)
+
+    @classmethod
+    def gemma3_12b(cls) -> "Gemma3TextConfig":
+        return cls(hidden_size=3840, intermediate_size=15360,
+                   num_hidden_layers=48, num_attention_heads=16,
+                   num_key_value_heads=8, head_dim=256,
+                   query_pre_attn_scalar=256.0)
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 64) -> "Gemma3TextConfig":
+        """Small config for parity tests: both layer types present, a
+        window small enough that realistic prompts exercise it."""
+        return cls(
+            vocab_size=vocab_size, hidden_size=16, intermediate_size=32,
+            num_hidden_layers=4, num_attention_heads=2,
+            num_key_value_heads=1, head_dim=8, sliding_window=8,
+            sliding_window_pattern=2, query_pre_attn_scalar=8.0)
 
 
 @dataclasses.dataclass(frozen=True)

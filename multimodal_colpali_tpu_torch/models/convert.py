@@ -12,18 +12,25 @@ Reads the ``"a/b/c"`` keys that ``save_params_npz`` writes
 ``params_from_flax`` checks every name and shape against the model of the
 config's family (:func:`model_class`) and raises on anything missing, left
 over or misshapen.
+
+The decode engine keeps the JAX layout instead (a nested dict, dense kernels
+``[in, out]``, int8 weights as ``{"q8", "scale"}`` dicts):
+:func:`engine_params_from_jax` carries a JAX engine tree over as it is, and
+:func:`engine_params_from_state_dict` turns a retriever's ``state_dict`` back
+into that layout for its Gemma LM.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple, Type, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Type, Union
 
 import numpy as np
 import torch
 
 from torch import nn
 
+from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models.colpali import ColPaliModel
 from multimodal_colpali_tpu_torch.models.configs import ColIdefics3ModelConfig, ColPaliModelConfig
 from multimodal_colpali_tpu_torch.models.idefics3 import ColIdefics3Model
@@ -109,3 +116,57 @@ def params_from_flax(params: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, t
         raise ValueError(f"flax params do not fit the {model.__name__} config:\n  "
                          + "\n  ".join(problems))
     return state
+
+
+def _tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.name == "bfloat16":   # ml_dtypes' bfloat16, which numpy cannot hand over
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def engine_params_from_jax(tree: Mapping[str, Any], device: Any = "cuda",
+                           dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """A JAX decode-engine tree (nested dict of numpy or JAX arrays, plain or
+    quantized) -> the same tree of tensors on ``device``. With ``dtype``,
+    floating leaves are cast to it, except the float32 scales of quantized
+    dicts, which stay float32 as in the JAX engine."""
+    device = resolve_device(device)
+
+    def conv(t, in_quant):
+        if isinstance(t, Mapping):
+            quant = "q8" in t or "q4" in t
+            return {k: conv(v, quant) for k, v in t.items()}
+        x = _tensor_from_numpy(np.asarray(t)).to(device)
+        if dtype is not None and x.is_floating_point() and not in_quant:
+            x = x.to(dtype)
+        return x
+
+    return conv(tree, False)
+
+
+def engine_params_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The ``embed`` and ``language_model`` entries of a ColPali
+    ``state_dict`` -> the engine's nested tree: ``layers.<i>`` becomes
+    ``layers_<i>`` and each 2-D dense ``weight [out, in]`` a ``kernel [in, out]``
+    (a transposed view, no copy)."""
+    tree: Dict[str, Any] = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        if parts[0] not in ("embed", "language_model"):
+            continue
+        path = []
+        i = 0
+        while i < len(parts):
+            if parts[i] == "layers" and i + 1 < len(parts) and parts[i + 1].isdigit():
+                path.append(f"layers_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        if path[-1] == "weight" and t.dim() == 2:
+            path[-1], t = "kernel", t.T
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = t
+    return tree

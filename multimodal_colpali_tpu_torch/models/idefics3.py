@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models import layers as L
 from multimodal_colpali_tpu_torch.models.configs import ColIdefics3ModelConfig, LlamaTextConfig
 from multimodal_colpali_tpu_torch.models.siglip import SiglipVisionTower
@@ -100,9 +101,10 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class ColIdefics3Model(nn.Module):
-    def __init__(self, cfg: ColIdefics3ModelConfig, *, device="cpu", dtype=torch.float32):
+    def __init__(self, cfg: ColIdefics3ModelConfig, *, device="cuda", dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
+        device = resolve_device(device)
         t = cfg.text
         kw = dict(device=device, dtype=dtype)
         self.embed_tokens = L.empty_param(t.vocab_size, t.hidden_size, **kw)

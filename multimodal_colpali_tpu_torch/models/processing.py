@@ -25,6 +25,7 @@ try:  # Pillow resizes pages; arrays already at the model size need no resize
 except ImportError:  # pragma: no cover
     Image = None
 
+from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models.configs import ColPaliModelConfig
 from multimodal_colpali_tpu_torch.ops.maxsim import maxsim_scores
 
@@ -146,14 +147,15 @@ class ColPaliProcessor:
         return {"input_ids": input_ids, "attention_mask": attention_mask}
 
     def score_multi_vector(self, qs: Sequence[np.ndarray], ds: Sequence[np.ndarray],
-                           device: Any = "cpu") -> np.ndarray:
+                           device: Any = "cuda") -> np.ndarray:
         return score_multi_vector(qs, ds, device)
 
 
 def score_multi_vector(qs: Sequence[np.ndarray], ds: Sequence[np.ndarray],
-                       device: Any = "cpu") -> np.ndarray:
+                       device: Any = "cuda") -> np.ndarray:
     """MaxSim scores ``[n_queries, n_docs]`` from variable-length embeddings,
     computed on ``device``."""
+    device = resolve_device(device)
     q_pad, q_lens = pad_multivectors(qs)
     d_pad, d_lens = pad_multivectors(ds)
     scores = maxsim_scores(

@@ -63,5 +63,5 @@ class ColIdefics3Processor:
         return {"input_ids": input_ids, "attention_mask": attention_mask}
 
     def score_multi_vector(self, qs: Sequence[np.ndarray], ds: Sequence[np.ndarray],
-                           device: Any = "cpu") -> np.ndarray:
+                           device: Any = "cuda") -> np.ndarray:
         return score_multi_vector(qs, ds, device)

@@ -1,4 +1,5 @@
-"""Retriever registry (counterpart of ``multimodal_colpali_tpu/models/registry.py``).
+"""Retriever and generator-LM registry (counterpart of
+``multimodal_colpali_tpu/models/registry.py``).
 
 ``load_retriever(name, device=...)`` returns a :class:`Retriever`: the
 encoder of the name's family (ColPali or ColIdefics3) on ``device`` plus its
@@ -6,6 +7,11 @@ processor. Weights come from a flax parameter
 tree (``params=``, e.g. ``load_params_npz`` of a committed golden) or, when
 none is given, from a seeded random init made on ``device`` in the model
 dtype, so a 3B model never exists in float32 on the host.
+
+``load_gemma3_lm(name, device=...)`` returns the decode-engine parameter tree
+of a Gemma-3 text LM (registry.py:550-741): random weights from a seed, built
+leaf by leaf on ``device`` (``weight_dtype="int8"`` quantizes each leaf as it
+is made, so the bf16 tree never exists).
 """
 
 from __future__ import annotations
@@ -17,7 +23,9 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from multimodal_colpali_tpu_torch.models.configs import ColIdefics3ModelConfig, ColPaliModelConfig
+from multimodal_colpali_tpu_torch._device import resolve_device
+from multimodal_colpali_tpu_torch.models.configs import (
+    ColIdefics3ModelConfig, ColPaliModelConfig, Gemma3TextConfig)
 from multimodal_colpali_tpu_torch.models.convert import (
     ModelConfig, flax_shape, model_class, params_from_flax)
 from multimodal_colpali_tpu_torch.models.processing import ColPaliProcessor
@@ -121,7 +129,7 @@ class Retriever:
 
 def load_retriever(
     name: str,
-    device: Any = "cpu",
+    device: Any = "cuda",
     tokenizer: Optional[Any] = None,
     dtype: torch.dtype = torch.bfloat16,
     seed: int = 0,
@@ -152,7 +160,7 @@ def load_retriever(
             "see ROADMAP.md")
     cfg = RETRIEVER_CONFIGS[name]()
     family = family_of(cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     model = model_class(cfg)(cfg, device=device, dtype=dtype).eval()
     if params is not None:
         model.load_state_dict(params_from_flax(params, cfg))
@@ -164,3 +172,142 @@ def load_retriever(
     return Retriever(name=name, model=model, processor=processor_cls(cfg, tokenizer=tokenizer),
                      device=device, dtype=dtype, device_preprocess=bool(device_preprocess),
                      family=family)
+
+
+# -- Gemma-3 generator LMs (not retrievers) -----------------------------------
+
+GEMMA3_CONFIGS: Dict[str, Callable[[], Gemma3TextConfig]] = {
+    "google/gemma-3-27b-it": Gemma3TextConfig.gemma3_27b,
+    "gemma-3-27b": Gemma3TextConfig.gemma3_27b,
+    "google/gemma-3-12b-it": Gemma3TextConfig.gemma3_12b,
+    "gemma-3-12b": Gemma3TextConfig.gemma3_12b,
+    "google/gemma-3-4b-it": Gemma3TextConfig.gemma3_4b,
+    "gemma-3-4b": Gemma3TextConfig.gemma3_4b,
+    "google/gemma-3-1b-it": Gemma3TextConfig.gemma3_1b,
+    "gemma-3-1b": Gemma3TextConfig.gemma3_1b,
+    "tiny-gemma3": Gemma3TextConfig.tiny,
+}
+
+
+def gemma3_param_shapes(cfg: Gemma3TextConfig) -> Dict[str, Any]:
+    """The engine tree's leaf shapes (registry.py:572-602): kernels ``[in, out]``."""
+    h, hd = cfg.hidden_size, cfg.head_dim
+    nq, nkv, inter = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.intermediate_size
+    layer = {
+        "self_attn": {
+            "q_proj": {"kernel": (h, nq * hd)},
+            "k_proj": {"kernel": (h, nkv * hd)},
+            "v_proj": {"kernel": (h, nkv * hd)},
+            "o_proj": {"kernel": (nq * hd, h)},
+            "q_norm": {"weight": (hd,)},
+            "k_norm": {"weight": (hd,)},
+        },
+        "mlp": {
+            "gate_proj": {"kernel": (h, inter)},
+            "up_proj": {"kernel": (h, inter)},
+            "down_proj": {"kernel": (inter, h)},
+        },
+        "input_layernorm": {"weight": (h,)},
+        "post_attention_layernorm": {"weight": (h,)},
+        "pre_feedforward_layernorm": {"weight": (h,)},
+        "post_feedforward_layernorm": {"weight": (h,)},
+    }
+    language: Dict[str, Any] = {f"layers_{i}": layer for i in range(cfg.num_hidden_layers)}
+    language["norm"] = {"weight": (h,)}
+    return {"embed": {"embed_tokens": (cfg.vocab_size, h)}, "language_model": language}
+
+
+def tree_leaves(tree: Dict[str, Any], prefix=()):
+    """(path, shape) of every leaf, keys sorted at each level (JAX's flatten order)."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from tree_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _build_tree(cfg: Gemma3TextConfig, make_leaf) -> Dict[str, Any]:
+    """Fill the shape tree leaf by leaf, largest first (the embed table's
+    float32 transient is the biggest, made while the tree is still empty)."""
+    flat = list(tree_leaves(gemma3_param_shapes(cfg)))
+    order = sorted(range(len(flat)), key=lambda i: -int(np.prod(flat[i][1])))
+    tree: Dict[str, Any] = {}
+    for i in order:
+        path, shape = flat[i]
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = make_leaf(i, path[-1], tuple(shape))
+    return tree
+
+
+def _normal_leaf(i: int, shape, seed: int, device: torch.device) -> torch.Tensor:
+    """Leaf ``i`` of a seeded random tree: N(0, fan_in^-0.5) in float32 on
+    ``device``, from its own generator, so the bf16 and the int8 trees are
+    made from the same float32 weights."""
+    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + i)
+    fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return w.mul_(float(fan_in) ** -0.5)
+
+
+def gemma3_random_params(cfg: Gemma3TextConfig, seed: int = 0,
+                         dtype: torch.dtype = torch.bfloat16, device: Any = "cuda"):
+    """Random Gemma-3 engine params on ``device`` (registry.py:605-640):
+    (1 + w) RMSNorm weights 0, everything else N(0, fan_in^-0.5) in ``dtype``."""
+    device = resolve_device(device)
+
+    def leaf(i, name, shape):
+        if name == "weight":
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return _normal_leaf(i, shape, seed, device).to(dtype)
+
+    return _build_tree(cfg, leaf)
+
+
+def gemma3_random_params_int8(cfg: Gemma3TextConfig, seed: int = 0,
+                              dtype: torch.dtype = torch.bfloat16, device: Any = "cuda"):
+    """The same random weights made directly as weight-only int8 on
+    ``device``, one leaf at a time (registry.py:643-701): kernels per column,
+    the embed table per row (padded), norm weights in ``dtype``. The peak is
+    the int8 tree plus one leaf's float32 transient."""
+    from multimodal_colpali_tpu_torch.ops.quant import quantize_embed_int8, quantize_int8
+
+    device = resolve_device(device)
+
+    def leaf(i, name, shape):
+        if name == "weight":
+            return torch.zeros(shape, dtype=dtype, device=device)
+        w = _normal_leaf(i, shape, seed, device)
+        return quantize_embed_int8(w) if name == "embed_tokens" else quantize_int8(w, axis=0)
+
+    return _build_tree(cfg, leaf)
+
+
+def load_gemma3_lm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.bfloat16,
+                   seed: int = 0, weight_dtype: str = "native",
+                   params: Optional[Mapping[str, Any]] = None,
+                   checkpoint_dir: Optional[str] = None):
+    """A Gemma-3 generator LM by name -> (cfg, engine params, tokenizer).
+
+    ``params`` (an engine tree of tensors, e.g. from
+    ``convert.engine_params_from_jax``) is used as given; otherwise the
+    weights are random from ``seed``, made on ``device``. The tokenizer is
+    None (no checkpoint provides one); callers fall back to
+    ``ByteTokenizer``/``ModuloTokenizer``."""
+    if name not in GEMMA3_CONFIGS:
+        raise KeyError(f"unknown gemma3 LM {name!r}; known: {sorted(GEMMA3_CONFIGS)}")
+    if checkpoint_dir is not None:
+        raise NotImplementedError("loading Gemma-3 checkpoints (hf_import) is not ported yet; "
+                                  "see ROADMAP.md queue 1 item 8")
+    if weight_dtype not in ("native", "int8"):
+        raise NotImplementedError(f"weight_dtype={weight_dtype!r} is not ported "
+                                  "(int4 waits for kernel K9; see ROADMAP.md queue 2)")
+    cfg = GEMMA3_CONFIGS[name]()
+    if params is None:
+        warnings.warn(f"no checkpoint for {name!r}; using random init (seed {seed})",
+                      stacklevel=2)
+        make = gemma3_random_params_int8 if weight_dtype == "int8" else gemma3_random_params
+        params = make(cfg, seed, dtype=dtype, device=device)
+    return cfg, params, None

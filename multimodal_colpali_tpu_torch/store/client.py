@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.store import types as t
 from multimodal_colpali_tpu_torch.store.multivector import MultiVectorStore
 
@@ -32,9 +33,9 @@ class VectorClient:
       device: where collections keep their corpus and run MaxSim.
     """
 
-    def __init__(self, path: Optional[str] = None, device: Any = "cpu"):
+    def __init__(self, path: Optional[str] = None, device: Any = "cuda"):
         self.path = path
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._collections: Dict[str, MultiVectorStore] = {}
         if path:
             os.makedirs(path, exist_ok=True)

@@ -17,7 +17,9 @@ import torch
 from multimodal_colpali_tpu_torch import _build
 from multimodal_colpali_tpu_torch.ops import attention as A
 from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
 from multimodal_colpali_tpu_torch.ops import maxsim as M
+from multimodal_colpali_tpu_torch.ops import paged_attention as PA
 from multimodal_colpali_tpu_torch.ops import preprocess as PP
 
 torch.set_num_threads(1)
@@ -99,7 +101,12 @@ _V = torch.zeros(8)
 _X = torch.zeros(1, 4, 8, dtype=torch.bfloat16)
 _COUNTERS = (M.maxsim_scores_cuda, A.fused_attention_cuda, PP.normalize_images_triton,
              M.maxsim_scores_int8_cuda, FL.fused_vit_layer_cuda,
-             FL.fused_vit_attention_block_cuda, FL.fused_mlp_block_cuda)
+             FL.fused_vit_attention_block_cuda, FL.fused_mlp_block_cuda,
+             PA.paged_attention_cuda, PA.paged_attention_int8_cuda, IM.int8_matmul_kn_cuda,
+             IM.int8_matmul_nk_cuda)
+_POOL = torch.zeros(3, 4, 1, 8)
+_POOL8 = torch.zeros(3, 4, 1, 8, dtype=torch.int8)
+_BT, _LENS = torch.zeros(1, 2, dtype=torch.int32), torch.ones(1, dtype=torch.int32)
 
 
 @pytest.mark.parametrize("call", [
@@ -112,8 +119,14 @@ _COUNTERS = (M.maxsim_scores_cuda, A.fused_attention_cuda, PP.normalize_images_t
                                     heads=2),
     lambda: FL.fused_vit_attention_block_cuda(_X, _V, _V, *(_W, _V) * 4, heads=2),
     lambda: FL.fused_mlp_block_cuda(_X, _V, _V, _W, _V, _W, _V),
+    lambda: PA.paged_attention_cuda(torch.zeros(1, 2, 8), _POOL, _POOL, _BT, _LENS, scale=1.0),
+    lambda: PA.paged_attention_int8_cuda(torch.zeros(1, 2, 8), _POOL8, torch.ones(3, 4, 1),
+                                         _POOL8, torch.ones(3, 4, 1), _BT, _LENS, scale=1.0),
+    lambda: IM.int8_matmul_kn_cuda(_W, torch.zeros(8, 4, dtype=torch.int8), torch.ones(4)),
+    lambda: IM.int8_matmul_nk_cuda(_W, torch.zeros(4, 8, dtype=torch.int8), torch.ones(4)),
 ], ids=["maxsim", "attention", "normalize", "maxsim_int8", "vit_layer", "attn_block",
-        "mlp_block"])
+        "mlp_block", "paged_attention", "paged_attention_int8", "int8_matmul_kn",
+        "int8_matmul_nk"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     counters = [f.launches for f in _COUNTERS]
     with pytest.raises(ValueError, match="CUDA"):
@@ -153,3 +166,50 @@ def test_chip_smoke_refuses_without_cuda_or_checkout(tmp_path, where):
     assert r.returncode == 2, r.stderr
     assert r.stdout == ""
     assert "FAIL" in r.stderr
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Every entry point of the port defaults to ``device="cuda"``; without a
+    card a default call raises and says why instead of running on the CPU."""
+    import dataclasses
+    import inspect
+
+    from multimodal_colpali_tpu_torch import serve
+    from multimodal_colpali_tpu_torch.generation.engine import GemmaDecodeEngine
+    from multimodal_colpali_tpu_torch.models import registry as R
+    from multimodal_colpali_tpu_torch.models.colpali import ColPaliModel
+    from multimodal_colpali_tpu_torch.models.configs import (
+        ColIdefics3ModelConfig, ColPaliModelConfig, Gemma3TextConfig)
+    from multimodal_colpali_tpu_torch.models.convert import engine_params_from_jax
+    from multimodal_colpali_tpu_torch.models.idefics3 import ColIdefics3Model
+    from multimodal_colpali_tpu_torch.models.processing import (
+        ColPaliProcessor, score_multi_vector)
+    from multimodal_colpali_tpu_torch.models.processing_idefics3 import ColIdefics3Processor
+    from multimodal_colpali_tpu_torch.store import VectorClient
+
+    entry_points = [R.load_retriever, VectorClient.__init__, ColPaliModel.__init__,
+                    ColIdefics3Model.__init__, score_multi_vector,
+                    ColPaliProcessor.score_multi_vector, ColIdefics3Processor.score_multi_vector,
+                    R.load_gemma3_lm, R.gemma3_random_params, R.gemma3_random_params_int8,
+                    engine_params_from_jax]
+    for fn in entry_points:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    fields = {f.name: f.default for f in dataclasses.fields(GemmaDecodeEngine)}
+    assert fields["device"] == "cuda"
+    assert serve.parse_args([]).device == "cuda"
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Gemma3TextConfig.tiny()
+    params = R.gemma3_random_params(cfg, device="cpu")
+    emb = [np.ones((2, 8), np.float32)]
+    calls = [lambda: R.load_retriever("tiny-colpali"), lambda: VectorClient(),
+             lambda: ColPaliModel(ColPaliModelConfig.tiny()),
+             lambda: ColIdefics3Model(ColIdefics3ModelConfig.tiny()),
+             lambda: score_multi_vector(emb, emb),
+             lambda: R.load_gemma3_lm("tiny-gemma3"),
+             lambda: R.gemma3_random_params_int8(cfg),
+             lambda: GemmaDecodeEngine(cfg, params),
+             lambda: serve.build(serve.parse_args(["--model", "tiny-gemma3"]))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

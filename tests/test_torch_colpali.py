@@ -57,7 +57,7 @@ def nested_params(flat_params):
 @pytest.fixture(scope="module")
 def port_model(flat_params):
     cfg = ColPaliModelConfig.tiny()
-    model = ColPaliModel(cfg, dtype=torch.float32).eval()
+    model = ColPaliModel(cfg, device="cpu", dtype=torch.float32).eval()
     model.load_state_dict(convert.params_from_flax(flat_params, cfg))
     return model
 
@@ -174,7 +174,7 @@ def retriever_pair(nested_params, flat_params):
         jr = JR.Retriever(name="tiny-colpali", model=JColPali(cfg), params=nested_params,
                           processor=JProcessor(cfg), dtype=jnp.float32,
                           device_preprocess=dev_pre)
-        tr = load_retriever("tiny-colpali", dtype=torch.float32, params=flat_params,
+        tr = load_retriever("tiny-colpali", device="cpu", dtype=torch.float32, params=flat_params,
                             device_preprocess=dev_pre)
         pairs[dev_pre] = (jr, tr)
     return pairs
@@ -237,7 +237,7 @@ def test_reproduces_committed_tiny_colpali_goldens(tmp_path, flat_params):
     corpus = str(tmp_path / "corpus")
     vc.build_fixture_corpus(corpus)
     images_per_pdf = convert_pdf_dir_to_images(corpus)
-    retr = load_retriever("tiny-colpali", dtype=torch.float32, params=flat_params)
+    retr = load_retriever("tiny-colpali", device="cpu", dtype=torch.float32, params=flat_params)
 
     first = next(iter(images_per_pdf.values()))
     pixels = retr.processor.process_images(first)["pixel_values"]
@@ -267,11 +267,11 @@ def test_reproduces_committed_tiny_colpali_goldens(tmp_path, flat_params):
 
 def test_random_init_follows_fast_random_params_rules():
     with pytest.warns(UserWarning, match="random init"):
-        a = load_retriever("tiny-colpali", seed=3, dtype=torch.float32)
+        a = load_retriever("tiny-colpali", device="cpu", seed=3, dtype=torch.float32)
     with pytest.warns(UserWarning, match="random init"):
-        b = load_retriever("tiny-colpali", seed=3, dtype=torch.float32)
+        b = load_retriever("tiny-colpali", device="cpu", seed=3, dtype=torch.float32)
     with pytest.warns(UserWarning, match="random init"):
-        c = load_retriever("tiny-colpali", seed=4, dtype=torch.float32)
+        c = load_retriever("tiny-colpali", device="cpu", seed=4, dtype=torch.float32)
     sa, sb, sc = (r.model.state_dict() for r in (a, b, c))
     for name, t in sa.items():
         assert torch.equal(t, sb[name]), name  # seeded
@@ -292,7 +292,7 @@ def test_random_init_follows_fast_random_params_rules():
 
 def test_random_init_in_bf16_embeds_finite_unit_vectors():
     with pytest.warns(UserWarning, match="random init"):
-        r = load_retriever("tiny-colpali", seed=0, device_preprocess=True)
+        r = load_retriever("tiny-colpali", device="cpu", seed=0, device_preprocess=True)
     assert all(p.dtype == torch.bfloat16 for p in r.model.parameters())
     embs = r.embed_images(_pages(6, n=2))
     for e in embs:

@@ -56,7 +56,7 @@ def nested_params(flat_params):
 @pytest.fixture(scope="module")
 def port_model(flat_params):
     cfg = ColIdefics3ModelConfig.tiny()
-    model = ColIdefics3Model(cfg, dtype=torch.float32).eval()
+    model = ColIdefics3Model(cfg, device="cpu", dtype=torch.float32).eval()
     model.load_state_dict(convert.params_from_flax(flat_params, cfg))
     return model
 
@@ -70,7 +70,7 @@ def retriever_pair(nested_params, flat_params):
         jr = JR.Retriever(name="tiny-colidefics3", model=JI.ColIdefics3Model(cfg),
                           params=nested_params, processor=JProcessor(cfg), dtype=jnp.float32,
                           family="colidefics3", device_preprocess=dev_pre)
-        tr = load_retriever("tiny-colidefics3", dtype=torch.float32, params=flat_params,
+        tr = load_retriever("tiny-colidefics3", device="cpu", dtype=torch.float32, params=flat_params,
                             device_preprocess=dev_pre)
         pairs[dev_pre] = (jr, tr)
     return pairs
@@ -197,7 +197,7 @@ def test_colidefics3_model_matches_flax(nested_params, port_model, with_image):
 def test_text_batch_runs_llama_in_float32(flat_params):
     """Without pixels the JAX module takes float32 embeddings whatever the
     params' dtype (idefics3.py:201-204); so does the port, in bf16 too."""
-    r = load_retriever("tiny-colidefics3", dtype=torch.bfloat16, params=flat_params)
+    r = load_retriever("tiny-colidefics3", device="cpu", dtype=torch.bfloat16, params=flat_params)
     seen = []
     hook = r.model.layers[0].register_forward_pre_hook(lambda m, a: seen.append(a[0].dtype))
     r.embed_queries(["a query"])
@@ -239,7 +239,7 @@ def test_processor_batches_equal_jax(retriever_pair):
         np.testing.assert_array_equal(qa[key], qb[key])
     embs = tr.embed_images(pages)
     qs = tr.embed_queries(["glycan", "binding"])
-    np.testing.assert_allclose(tr.processor.score_multi_vector(qs, embs),
+    np.testing.assert_allclose(tr.processor.score_multi_vector(qs, embs, device="cpu"),
                                jr.processor.score_multi_vector(qs, embs), rtol=0, atol=ATOL)
 
 
@@ -253,7 +253,7 @@ def test_reproduces_committed_tiny_colidefics3_goldens(tmp_path, flat_params):
     corpus = str(tmp_path / "corpus")
     vc.build_fixture_corpus(corpus)
     images_per_pdf = convert_pdf_dir_to_images(corpus)
-    retr = load_retriever("tiny-colidefics3", dtype=torch.float32, params=flat_params)
+    retr = load_retriever("tiny-colidefics3", device="cpu", dtype=torch.float32, params=flat_params)
 
     first = next(iter(images_per_pdf.values()))
     pixels = retr.processor.process_images(first)["pixel_values"]
@@ -287,7 +287,7 @@ def test_random_init_follows_the_family():
     """The JAX package zeroes RMSNorm weights only in the colpali family
     (registry.py:280-290): Gemma multiplies by (1 + w), Llama by w."""
     with pytest.warns(UserWarning, match="random init"):
-        r = load_retriever("tiny-colidefics3", seed=3, dtype=torch.float32)
+        r = load_retriever("tiny-colidefics3", device="cpu", seed=3, dtype=torch.float32)
     assert r.family == "colidefics3"
     sd = r.model.state_dict()
     rms = ("input_layernorm", "post_attention_layernorm", "norm")
@@ -305,7 +305,7 @@ def test_random_init_follows_the_family():
         assert np.isfinite(e).all()
         np.testing.assert_allclose(np.linalg.norm(e, axis=-1), 1.0, atol=1e-3)
     with pytest.warns(UserWarning, match="random init"):
-        assert load_retriever("tiny-colpali", seed=3).family == "colpali"
+        assert load_retriever("tiny-colpali", device="cpu", seed=3).family == "colpali"
 
 
 def test_dynamic_resolution_raises():

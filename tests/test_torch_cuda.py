@@ -263,3 +263,182 @@ def test_normalize_kernel_within_one_ulp(gen, shape, mean, std):
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
     assert int(ulps.max()) <= 1
+
+
+# -- K7a / K7b: paged decode attention ------------------------------------------
+
+def _paged_case(gen, b, hq, hkv, d, page, nb, dtype):
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+
+    p_phys = b * nb + 1
+    q = _randn(gen, b, hq, d, dtype=dtype)
+    k = _randn(gen, p_phys, page, hkv, d, dtype=dtype)
+    v = _randn(gen, p_phys, page, hkv, d, dtype=dtype)
+    bt = torch.randperm(p_phys, generator=gen, device="cuda")[: b * nb].reshape(b, nb)
+    lens = torch.randint(1, nb * page + 1, (b,), generator=gen, device="cuda")
+    lens[0] = 0                      # an inactive slot: the uniform mean
+    lens[-1] = nb * page             # a full one
+    return PA, q, k, v, bt.to(torch.int32), lens.to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,hq,hkv,d,page,nb", [
+    (3, 8, 2, 64, 16, 4),      # GQA 4
+    (2, 2, 1, 8, 8, 3),        # the tiny test models
+    (4, 8, 8, 128, 8, 5),      # MHA
+    (2, 32, 16, 128, 16, 9),   # gemma-3-27b's heads
+    (2, 8, 1, 256, 16, 3),     # Gemma-1 2B: MQA, head_dim 256
+    (2, 3, 1, 20, 5, 3),       # D not a multiple of the 16-byte load
+    (3, 8, 2, 64, 16, 40),     # 640 tokens: three blocks per slot and kv head
+    (4, 32, 16, 128, 16, 70),  # gemma-3-27b at 1,120 tokens: five blocks
+    (2, 4, 1, 256, 8, 70),     # head_dim 256 split five ways
+])
+@pytest.mark.parametrize("window", [0, 7, 33, 300])
+def test_paged_attention_kernel_matches_plain(gen, dtype, atol, b, hq, hkv, d, page, nb, window):
+    PA, q, k, v, bt, lens = _paged_case(gen, b, hq, hkv, d, page, nb, dtype)
+    before = PA.paged_attention_cuda.launches
+    got = PA.paged_attention(q, k, v, bt, lens, scale=d ** -0.5, window=window)
+    assert PA.paged_attention_cuda.launches == before + 1
+    want = PA.paged_attention_reference(q, k, v, bt, lens, scale=d ** -0.5, window=window)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("qdtype,atol", [(torch.float32, 1e-3), (torch.bfloat16, 0.035)])
+@pytest.mark.parametrize("b,hq,hkv,d,page,nb", [
+    (3, 8, 2, 64, 8, 4), (2, 32, 16, 128, 16, 9), (2, 2, 1, 8, 8, 3), (2, 3, 1, 20, 5, 3),
+    (3, 32, 16, 128, 16, 70), (2, 3, 1, 20, 5, 60)])
+@pytest.mark.parametrize("window", [0, 6, 300])
+def test_paged_attention_int8_kernel_matches_plain(gen, qdtype, atol, b, hq, hkv, d, page, nb,
+                                                   window):
+    """K7b against the dequantize-first plain version: with float32 q only the
+    order of the scale products differs (1e-3); with bf16 q the plain version
+    also rounds the dequantized rows, so tests/test_paged.py's 0.035."""
+    PA, q, k, v, bt, lens = _paged_case(gen, b, hq, hkv, d, page, nb, torch.float32)
+    kc, ks = PA.quantize_kv_rows(k)
+    vc, vs = PA.quantize_kv_rows(v)
+    q = q.to(qdtype)
+    before = PA.paged_attention_int8_cuda.launches
+    got = PA.paged_attention_int8(q, kc, ks, vc, vs, bt, lens, scale=0.125, window=window)
+    assert PA.paged_attention_int8_cuda.launches == before + 1
+    want = PA.paged_attention_int8_reference(q, kc, ks, vc, vs, bt, lens, scale=0.125,
+                                             window=window)
+    assert got.dtype == qdtype and torch.isfinite(got.float()).all()
+    assert float((got.float() - want.float()).abs().max()) < atol
+
+
+def test_quantize_kv_rows_on_card_equals_cpu(gen):
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+
+    x = _randn(gen, 5, 16, 4, 128, dtype=torch.bfloat16) * 7
+    x[0, 0, 0] = 0
+    c, s = PA.quantize_kv_rows(x)
+    c_cpu, s_cpu = PA.quantize_kv_rows(x.cpu())
+    assert torch.equal(c.cpu(), c_cpu) and torch.equal(s.cpu(), s_cpu)
+
+
+# -- K8a / K8b: int8 weight products ----------------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 512, 1024), (4, 5376, 4096), (8, 5376, 2048), (16, 96, 80), (3, 96, 80),
+    (5, 40, 24), (17, 200, 300), (300, 512, 384), (8, 21504, 5376), (513, 136, 257),
+    (130, 96, 80), (40, 5376, 2048), (6, 37, 50), (20, 37, 50), (7, 1000, 130)])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_int8_matmul_kernels_match_plain(gen, m, k, n, out):
+    """K8a and K8b against their plain versions on the same bf16 inputs:
+    within 2% of the output's largest value (tests/test_quant.py:195-217);
+    ragged M, N and K included, and rows that are not whole 16-byte chunks
+    (K = 37: x too; K = 40, 200, 1000: K8b's codes; N = 24, 50, 300: K8a's)."""
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+
+    x = _randn(gen, m, k, dtype=torch.bfloat16)
+    codes = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+    codes_t = torch.randint(-127, 128, (n, k), generator=gen, device="cuda").to(torch.int8)
+    scale = torch.rand(n, generator=gen, device="cuda") * 0.01
+    for fn, counter, c, t in ((IM.int8_matmul_kn, IM.int8_matmul_kn_cuda, codes, False),
+                              (IM.int8_matmul_nk, IM.int8_matmul_nk_cuda, codes_t, True)):
+        before = counter.launches
+        got = fn(x, c, scale, out_dtype=out)
+        assert counter.launches == before + 1
+        want = IM.int8_matmul_reference(x.float(), c, scale, transpose_codes=t)
+        assert got.dtype == out and got.shape == (m, n)
+        assert float((got.float() - want).abs().max()) <= 0.02 * float(want.abs().max())
+
+
+def test_int8_matmul_rejects_float32_x(gen):
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+
+    with pytest.raises(TypeError):
+        IM.int8_matmul_kn_cuda(_randn(gen, 2, 32), torch.zeros(32, 16, dtype=torch.int8,
+                                                               device="cuda"),
+                               torch.ones(16, device="cuda"))
+
+
+@pytest.mark.parametrize("nk", [False, True])
+def test_int8_matmul_kernel_takes_unaligned_views(gen, nk):
+    """Contiguous views that start off a 16-byte boundary are copied element
+    by element, not by cp.async, and give the aligned result."""
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+
+    m, k, n = 6, 256, 384
+    x = _randn(gen, m, k, dtype=torch.bfloat16)
+    codes = torch.randint(-127, 128, ((n, k) if nk else (k, n)), generator=gen,
+                          device="cuda").to(torch.int8)
+    scale = torch.rand(n, generator=gen, device="cuda") * 0.01
+    x_off = torch.empty(m * k + 1, dtype=torch.bfloat16, device="cuda")[1:].view(m, k)
+    c_off = torch.empty(codes.numel() + 1, dtype=torch.int8, device="cuda")[1:].view(codes.shape)
+    x_off.copy_(x)
+    c_off.copy_(codes)
+    assert x_off.data_ptr() % 16 and c_off.data_ptr() % 16
+    fn = IM.int8_matmul_nk_cuda if nk else IM.int8_matmul_kn_cuda
+    assert torch.equal(fn(x_off, c_off, scale), fn(x, codes, scale))
+
+
+def test_int8_engine_on_card_takes_k8_and_matches_cpu(gen):
+    """A tiny Gemma-3 int8 engine in bf16 runs every projection as K8a and
+    the tied head as K8b on the card, and its greedy stream agrees with the
+    same engine's plain versions on the CPU up to near-ties."""
+    from multimodal_colpali_tpu_torch.generation.engine import GemmaDecodeEngine
+    from multimodal_colpali_tpu_torch.models.configs import Gemma3TextConfig
+    from multimodal_colpali_tpu_torch.models.registry import gemma3_random_params
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+
+    cfg = Gemma3TextConfig.tiny(vocab_size=64)
+    params = gemma3_random_params(cfg, seed=1, dtype=torch.float32, device="cpu")
+    card = GemmaDecodeEngine(cfg, params, dtype=torch.bfloat16, weight_dtype="int8",
+                             device="cuda")
+    before = (IM.int8_matmul_kn_cuda.launches, IM.int8_matmul_nk_cuda.launches)
+    logits = card.next_token_logits([[5, 9, 17, 3], [40, 2]])
+    assert IM.int8_matmul_kn_cuda.launches > before[0]
+    assert IM.int8_matmul_nk_cuda.launches > before[1]
+    cpu = GemmaDecodeEngine(cfg, params, dtype=torch.bfloat16, weight_dtype="int8",
+                            device="cpu")
+    want = cpu.next_token_logits([[5, 9, 17, 3], [40, 2]])
+    assert logits.shape == want.shape == (2, 64)
+    assert float(abs(logits - want).max()) < 0.05 * float(abs(want).max()) + 1e-3
+
+
+def test_paged_batcher_on_card_takes_k7(gen):
+    """The paged batcher's decode runs K7a (native pools) and K7b (int8
+    pools) on the card; greedy streams agree with the bare engine's."""
+    from multimodal_colpali_tpu_torch.generation.engine import GemmaDecodeEngine
+    from multimodal_colpali_tpu_torch.generation.paged import PagedContinuousBatcher
+    from multimodal_colpali_tpu_torch.models.configs import Gemma3TextConfig
+    from multimodal_colpali_tpu_torch.models.registry import gemma3_random_params
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+
+    cfg = Gemma3TextConfig.tiny(vocab_size=64)
+    eng = GemmaDecodeEngine(cfg, gemma3_random_params(cfg, seed=2, dtype=torch.float32,
+                                                      device="cuda"), device="cuda")
+    prompts = [[5, 9, 17, 3], list(range(3, 24))]
+    want = eng.generate(prompts, max_new_tokens=10)
+    for kv, counter in (("native", PA.paged_attention_cuda), ("int8", PA.paged_attention_int8_cuda)):
+        before = counter.launches
+        bat = PagedContinuousBatcher(eng, batch_slots=2, max_seq_len=64, chunk=3, page_size=8,
+                                     kv_dtype=kv)
+        got = bat.generate(prompts, max_new_tokens=10)
+        assert counter.launches > before
+        if kv == "native":
+            assert got == want
+        else:
+            assert [g[:3] for g in got] == [w[:3] for w in want]

@@ -153,12 +153,12 @@ def test_store_saved_by_jax_loads_in_port(tmp_path, dtype):
 
 
 def test_client_saved_by_port_loads_in_jax(tmp_path):
-    tclient = ts.VectorClient(path=str(tmp_path))
+    tclient = ts.VectorClient(path=str(tmp_path), device="cpu")
     tapi.ensure_colpali_collection(tclient, "pages", vector_size=DIM, max_tokens=MAX_TOKENS)
     tclient.upsert("pages", _points(ts))
     tclient.save()
     jclient = js.VectorClient(path=str(tmp_path))
-    reloaded = ts.VectorClient(path=str(tmp_path))
+    reloaded = ts.VectorClient(path=str(tmp_path), device="cpu")
     q = _query(9)
     want = jclient.query_points("pages", q, limit=5)
     _same_response(tclient.query_points("pages", q, limit=5), want)
@@ -170,7 +170,7 @@ def test_client_saved_by_port_loads_in_jax(tmp_path):
 
 
 def test_client_delete_selectors():
-    client = ts.VectorClient()
+    client = ts.VectorClient(device="cpu")
     tapi.ensure_colpali_collection(client, "c", vector_size=DIM, max_tokens=MAX_TOKENS)
     client.upsert("c", _points(ts))
     client.delete("c", ts.PointIdsList(points=[0, 1]))
@@ -193,13 +193,13 @@ def test_unported_store_modes_raise(kwargs):
 
 
 def test_dense_collections_raise():
-    client = ts.VectorClient()
+    client = ts.VectorClient(device="cpu")
     with pytest.raises(NotImplementedError, match="dense"):
         client.create_collection("d", ts.VectorParams(size=DIM))
 
 
 def test_upsert_rejects_bad_shapes_and_missing_collections():
-    client = ts.VectorClient()
+    client = ts.VectorClient(device="cpu")
     tapi.ensure_colpali_collection(client, "c", vector_size=DIM)
     bad = ts.PointStruct(id=0, vector=np.zeros((3, DIM + 1), np.float32))
     with pytest.raises(ValueError):
@@ -225,7 +225,7 @@ def retrievers():
     cfg = JCfg.tiny()
     jr = JR.Retriever(name="tiny-colpali", model=JColPali(cfg), params=nested,
                       processor=JProcessor(cfg), dtype=jnp.float32)
-    tr = load_retriever("tiny-colpali", dtype=torch.float32, params=flat)
+    tr = load_retriever("tiny-colpali", device="cpu", dtype=torch.float32, params=flat)
     return jr, tr
 
 
@@ -238,7 +238,7 @@ QUERIES = ["what binds selectins", "glycan structures", "binding affinity tables
 
 
 def _index(mod, api, retriever, pages):
-    client = mod.VectorClient()
+    client = mod.VectorClient(device="cpu") if mod is ts else mod.VectorClient()
     api.ensure_colpali_collection(client, "pages", vector_size=8)
     half = len(pages) // 2
     for start, user in ((0, "alice"), (half, "bob")):
@@ -288,7 +288,7 @@ def test_score_multi_vector_matches_jax(retrievers):
     jr, tr = retrievers
     embs = tr.embed_images(_corpus(4))
     qs = tr.embed_queries(QUERIES)
-    np.testing.assert_allclose(tr.processor.score_multi_vector(qs, embs),
+    np.testing.assert_allclose(tr.processor.score_multi_vector(qs, embs, device="cpu"),
                                jr.processor.score_multi_vector(qs, embs),
                                rtol=0, atol=SCORE_ATOL)
 
@@ -436,7 +436,7 @@ def test_gather_rows_reads_memmap_rows_and_views(tmp_path):
 
 def test_client_creates_quantized_and_on_disk_collections(tmp_path):
     jclient, tclient = js.VectorClient(path=str(tmp_path / "j")), \
-        ts.VectorClient(path=str(tmp_path / "t"))
+        ts.VectorClient(path=str(tmp_path / "t"), device="cpu")
     for client, api, mod in ((jclient, japi, js), (tclient, tapi, ts)):
         api.ensure_colpali_collection(client, "q8", vector_size=DIM, max_tokens=MAX_TOKENS,
                                       quantized=True)
@@ -448,7 +448,7 @@ def test_client_creates_quantized_and_on_disk_collections(tmp_path):
         for name in ("q8", "disk", "pool"):
             client.upsert(name, _points(mod))
         client.save()
-    reopened = ts.VectorClient(path=str(tmp_path / "t"))
+    reopened = ts.VectorClient(path=str(tmp_path / "t"), device="cpu")
     for name, (quantized, prefilter, on_disk) in {"q8": (True, "int8", False),
                                                   "disk": (True, "pooled", True),
                                                   "pool": (True, "pooled", False)}.items():
