@@ -7,8 +7,8 @@ phase; any failure exits non-zero.
 
 1. Device: the card's name and power limit (nvidia-smi), the torch and CUDA
    versions, and the build time of the kernels (nvcc for K1/K4, K2, the K5
-   GEMM, K7a/K7b and K8a/K8b into ``build/kernels``, all at once; Triton for
-   K3).
+   GEMM, K6, K7a/K7b, K8a/K8b and K9 into ``build/kernels``, all at once;
+   Triton for K3).
 2. Kernels against their plain PyTorch versions, both on the card, at the
    main paths' shapes, with the time of each beside its bound (the larger of
    the bytes it must move over 3.35 TB/s and its operations over the peak
@@ -16,7 +16,11 @@ phase; any failure exits non-zero.
    ``scaled_dot_product_attention`` on the same inputs), K3 normalize, K5a-c
    fused SigLIP layer / attention block / MLP block, and at gemma-3-27b's
    shapes K7a paged attention (window 0 and 1024), K7b over int8 pools, K8a
-   int8 projections (decode and prefill rows) and K8b the int8 tied LM head.
+   int8 projections (decode and prefill rows), K8b the int8 tied LM head and
+   K9 the group-wise int4 projections (decode, prefill rows and exact on
+   power-of-two grid weights); at ColFlor's stage-0 windows K6 window
+   attention in bf16 and float32 (and ``scaled_dot_product_attention`` on the
+   same inputs).
 3. ColPali at full width: ``vidore/colpali-v1.3`` with random bf16 weights
    from ``--seed`` embeds 16 synthetic 448x448 pages, indexes them with
    ``colpali_qdrant``, answers 4 queries with ``retrieve_colpali`` (one also
@@ -36,12 +40,19 @@ phase; any failure exits non-zero.
    by leaf (K8a, K8b). Each greedy reply must equal the engine's own
    ``generate`` or first differ where the engine's top two logits are within
    0.05; the two sampled replies must agree; the MCQ reply must be a choice.
+   Run (d) serves the greedy requests again from int4 weights made leaf by
+   leaf (K9 on every projection; K8b on the head, whose table stays int8).
+6. ColFlor at full width: ``ahmed-masry/ColFlor`` (random bf16 weights)
+   embeds 16 synthetic 768x768 pages, indexes them with ``colpali_qdrant``,
+   answers 4 queries with ``retrieve_colpali`` (one also filtered) and scores
+   them with ``score_results``; its DaViT windows run K6 (12 launches a
+   forward), never K2.
 
-Each main path (3, 4 and each run of 5) sets every launch counter to 0 before
-it runs and reads them after; each kernel of the path must have run in it.
-The line before the last is a JSON object with each kernel's launches in
+Each main path (3, 4, each run of 5, and 6) sets every launch counter to 0
+before it runs and reads them after; each kernel of the path must have run in
+it. The line before the last is a JSON object with each kernel's launches in
 those paths, its error against the plain version, its time, the plain
-version's, its bound and, for K2, the library call's; the last line is
+version's, its bound and, for K2 and K6, the library call's; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
 result.
 """
@@ -68,7 +79,8 @@ K3 = dict(b=8, size=448)
 K5 = dict(b=8, s=1024, h=768, heads=12, inter=3072)  # ColSmol's SigLIP layer
 # gemma-3-27b: 32 q / 16 kv heads of 128, pages of 16, 8 slots of up to 4096 tokens
 K7 = dict(b=8, hq=32, hkv=16, d=128, page=16, nb=256)
-K8 = dict(h=5376, inter=21504, vocab=262208)
+K8 = dict(h=5376, inter=21504, vocab=262208)   # gemma-3-27b, also K9's (group 256)
+K6 = dict(n=8192, s=144, d=32)    # ColFlor stage 0 at batch 8: 8 x 256 windows x 4 heads
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12   # H100 SXM peaks (data sheet)
 N_PAGES, EMBED_BATCH, TOP_K = 16, 8, 5
 SMOL_PAGES, SMOL_BATCH = 32, 16
@@ -312,8 +324,47 @@ def phase_kernels(torch, seed: int):
     print(f"[kernels] K3 normalize {list(x.shape)} u8->bf16: max {ulps} ulp, max|err| "
           f"{k3_err:.3g} | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
     results.update(fused_layer_kernels(torch, g))
+    results.update(window_attention_kernel(torch, g))
     results.update(generation_kernels(torch, g))
     return results
+
+
+def window_attention_kernel(torch, g):
+    """K6 at ColFlor's stage-0 windows, bf16 and float32."""
+    import torch.nn.functional as F
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
+
+    c = K6
+    dev = torch.device("cuda")
+    shape, scale = (c["n"], c["s"], c["d"]), c["d"] ** -0.5
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        qkv = [torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3)]
+        got = WA.window_attention_cuda(*qkv, scale=scale)
+        want = WA.window_attention_reference(*qkv, scale=scale)
+        torch.cuda.synchronize()
+        require(got.dtype == dtype and bool(torch.isfinite(got.float()).all()),
+                f"K6 {dtype}: wrong dtype or non-finite output")
+        errs[dtype] = float((got.float() - want.float()).abs().max())
+        require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                f"K6 {dtype}: max|err| {errs[dtype]} beyond atol and rtol {tol}")
+        del got, want
+    k_ms, p_ms = timed_pair(torch, lambda: WA.window_attention_cuda(*qkv, scale=scale),
+                            lambda: WA.window_attention_reference(*qkv, scale=scale), iters=10)
+    # the library call: scaled_dot_product_attention on the same tensors as [N, 1, S, D]
+    qt, kt, vt = (x[:, None] for x in qkv)
+    lib_ms = timed(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+                   iters=10)
+    r = row(errs[torch.bfloat16], k_ms, p_ms, 4 * qkv[0].numel() * 2,
+            4.0 * c["n"] * c["s"] ** 2 * c["d"], library_ms=lib_ms)
+    print(f"[kernels] K6 window_attention {list(shape)} bf16: max|err| "
+          f"{errs[torch.bfloat16]:.3g} (atol + rtol 2e-2), float32 max|err| "
+          f"{errs[torch.float32]:.3g} (1e-5) | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']})", flush=True)
+    del qkv, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"window_attention": r}
 
 
 def fused_layer_kernels(torch, g):
@@ -493,6 +544,60 @@ def generation_kernels(torch, g):
         del x, got, want
     del w_up, w_down, table
     torch.cuda.empty_cache()
+    results.update(int4_kernels(torch, g, sms))
+    return results
+
+
+def int4_kernels(torch, g, sms: int):
+    """K9 at gemma-3-27b's projections, group 256: decode rows of the up and
+    down projections, prefill rows, and exact equality on grid weights."""
+    from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
+    from multimodal_colpali_tpu_torch.ops.quant import quantize_int4
+
+    dev = torch.device("cuda")
+    h, inter, group = K8["h"], K8["inter"], 256
+
+    def weights(k, n):
+        packed = torch.randint(0, 256, (k // 2, n), generator=g, device=dev,
+                               dtype=torch.int32).to(torch.uint8)
+        return packed, torch.rand(k // group, n, generator=g, device=dev) * 1e-2
+
+    up, down = weights(h, inter), weights(inter, h)
+    results = {}
+    for m, (packed, sc) in ((8, up), (8, down), (512, up)):
+        k, n = 2 * packed.shape[0], packed.shape[1]
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        call = lambda: I4.int4_matmul_kn_cuda(x, packed, sc)  # noqa: E731
+        plain = lambda: I4.int4_matmul_reference(x, packed, sc)  # noqa: E731
+        got, want = call().float(), plain().float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        limit = 0.02 * float(want.abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= limit,
+                f"K9 [{m}, {k}] x packed {list(packed.shape)}: max|err| {err} > 2% of max {limit}")
+        k_ms, p_ms = timed_pair(torch, call, plain, iters=10)
+        r = row(err, k_ms, p_ms, packed.numel() + sc.numel() * 4 + x.numel() * 2 + m * n * 2,
+                2.0 * m * k * n)
+        print(f"[kernels] K9 int4_matmul_kn x [{m}, {k}] bf16 x packed {list(packed.shape)} "
+              f"uint8 + scales {list(sc.shape)} -> bf16: max|err| {err:.3g} (limit 2% of max, "
+              f"{limit:.3g}), {I4.split_count(m, n, k, sms)} K splits | kernel {k_ms:.3f} ms, "
+              f"plain {p_ms:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        results.setdefault("int4_matmul_kn", r)   # the first (decode) shape is the row
+        del x, got, want
+    # codes x 2^-3 with every (group, column) saturated, x on a 2^-4 grid: all
+    # products and partial sums are exact in float32, so the kernel must equal
+    # the plain version bit for bit (a nibble-order fault cannot)
+    codes = torch.randint(-7, 8, (h, 1024), generator=g, device=dev).float()
+    codes[::group] = 7.0
+    q = quantize_int4(codes * 0.125, group=group)
+    x = (torch.randint(-128, 128, (8, h), generator=g, device=dev) * 0.0625).to(torch.bfloat16)
+    got = I4.int4_matmul_kn_cuda(x, q["q4"], q["scale"], out_dtype=torch.float32)
+    require(torch.equal(got, I4.int4_matmul_reference(x.float(), q["q4"], q["scale"])),
+            "K9 differs from the plain version on power-of-two grid weights")
+    print(f"[kernels] K9 on grid weights [8, {h}] x [{h}, 1024]: equal to the plain version "
+          f"bit for bit", flush=True)
+    del up, down, codes, q, x, got
+    torch.cuda.empty_cache()
     return results
 
 
@@ -518,20 +623,27 @@ def kernel_wrappers():
     """Each kernel's wrapper, whose ``.launches`` counts its launches."""
     from multimodal_colpali_tpu_torch.ops import attention as A
     from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+    from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
     from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
     from multimodal_colpali_tpu_torch.ops import maxsim as M
     from multimodal_colpali_tpu_torch.ops import paged_attention as PA
     from multimodal_colpali_tpu_torch.ops import preprocess as PP
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
 
     return {"maxsim": M.maxsim_scores_cuda, "attention": A.fused_attention_cuda,
             "normalize": PP.normalize_images_triton, "maxsim_int8": M.maxsim_scores_int8_cuda,
             "vit_layer": FL.fused_vit_layer_cuda, "attn_block": FL.fused_vit_attention_block_cuda,
             "mlp_block": FL.fused_mlp_block_cuda, "paged_attention": PA.paged_attention_cuda,
             "paged_attention_int8": PA.paged_attention_int8_cuda,
-            "int8_matmul_kn": IM.int8_matmul_kn_cuda, "int8_matmul_nk": IM.int8_matmul_nk_cuda}
+            "int8_matmul_kn": IM.int8_matmul_kn_cuda, "int8_matmul_nk": IM.int8_matmul_nk_cuda,
+            "window_attention": WA.window_attention_cuda, "int4_matmul_kn": I4.int4_matmul_kn_cuda}
 
 
-def phase_colpali(torch, seed: int, card: str):
+def phase_retrieval(torch, name: str, seed: int, card: str, tag: str, device_preprocess: bool,
+                    path, absent):
+    """A retriever at full width through colpali_qdrant, retrieve_colpali and
+    score_results (phases 3 and 6): the kernels in ``path`` must run, those
+    in ``absent`` must not."""
     import numpy as np
     from multimodal_colpali_tpu_torch import api
     from multimodal_colpali_tpu_torch.models import load_retriever
@@ -539,12 +651,14 @@ def phase_colpali(torch, seed: int, card: str):
 
     wrappers = kernel_wrappers()
     t0 = time.perf_counter()
-    retr = load_retriever("vidore/colpali-v1.3", device="cuda", dtype=torch.bfloat16,
-                          seed=seed, device_preprocess=True)
+    retr = load_retriever(name, device="cuda", dtype=torch.bfloat16, seed=seed,
+                          device_preprocess=device_preprocess)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in retr.model.parameters())
-    pages = synthetic_pages(N_PAGES, retr.processor.image_preprocessor.image_size, seed)
+    cfg = retr.model.cfg
+    size = getattr(cfg, "image_size", None) or cfg.vision.image_size
+    pages = synthetic_pages(N_PAGES, size, seed)
     retr.embed_images(pages[:EMBED_BATCH], batch_size=EMBED_BATCH)  # warm-up
 
     torch.cuda.reset_peak_memory_stats()
@@ -565,6 +679,7 @@ def phase_colpali(torch, seed: int, card: str):
     api.ensure_colpali_collection(client, "smoke", vector_size=dim)
     users = ["alice", "bob"]
     half = N_PAGES // 2
+    forwards = 2 * N_PAGES // EMBED_BATCH       # page batches embedded: the run above, indexing
     for u, user in enumerate(users):
         dataset = [{"image": pages[i], "filename": f"doc{i // 4}.pdf", "page_no": i % 4,
                     "img_link": ""} for i in range(u * half, (u + 1) * half)]
@@ -602,19 +717,27 @@ def phase_colpali(torch, seed: int, card: str):
                     f"query {qi}: retrieve_colpali {ret} vs score_results {want} beyond ties")
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in wrappers.items()}
-    path = ("maxsim", "attention", "normalize")
-    require(all(launches[k] > 0 for k in path), f"a kernel of the ColPali path did not run: "
+    require(all(launches[k] > 0 for k in path), f"a kernel of the {name} path did not run: "
             f"{launches}")
-    require(launches["vit_layer"] == 0, "SigLIP-So400m took the fused-layer path")
+    require(all(launches[k] == 0 for k in absent),
+            f"{name} launched a kernel off its path ({', '.join(absent)}): {launches}")
+    if "window_attention" in path:
+        blocks = sum(cfg.vision.depths)       # spatial blocks: one launch each a forward
+        require(launches["window_attention"] == blocks * forwards,
+                f"{name}: {launches['window_attention']} window-attention launches, not "
+                f"{blocks} a forward over {forwards} page batches")
     pages_s = N_PAGES / embed_s
-    print(f"[main] vidore/colpali-v1.3 {n_params / 1e9:.2f}B params bf16 (init {init_s:.1f} s), "
+    print(f"[{tag}] {name} {n_params / 1e9:.3f}B params bf16 (init {init_s:.1f} s), "
           f"{N_PAGES} pages x {embs[0].shape[0]} tokens x {dim}: embed {pages_s:.2f} pages/s, "
           f"retrieve_colpali {np.mean(query_ms):.1f} ms/query (mean of "
           f"{', '.join(f'{t:.1f}' for t in query_ms)}), "
           f"filter ok, top-{TOP_K} vs score_results "
           f"{'identical' if exact else 'equal up to ties'}, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB | {card}", flush=True)
-    print(f"[main] launches {json.dumps(launches)}", flush=True)
+    print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
+    del retr, client
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -925,7 +1048,7 @@ def serve_run(torch, engine, tok, tag: str, kv_dtype: str, requests, card: str):
 
 
 def phase_generation(torch, seed: int, card: str):
-    """Full-width gemma-3-27b served over HTTP: runs (a), (b) and (c)."""
+    """Full-width gemma-3-27b served over HTTP: runs (a), (b), (c) and (d)."""
     import numpy as np
     from multimodal_colpali_tpu_torch.generation import GemmaDecodeEngine, ModuloTokenizer
     from multimodal_colpali_tpu_torch.models.registry import load_gemma3_lm, tree_leaves
@@ -977,6 +1100,23 @@ def phase_generation(torch, seed: int, card: str):
     del engine, params
     gc.collect()
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg, params, _ = load_gemma3_lm(GEN_MODEL, device="cuda", dtype=bf16, seed=seed,
+                                    weight_dtype="int4")
+    engine = GemmaDecodeEngine(cfg, params, dtype=bf16, device="cuda")
+    torch.cuda.synchronize()
+    require(engine.weight_dtype == "int4", "the int4 tree was not detected as int4")
+    print(f"[gen] {GEN_MODEL} int4 weights (group 256) made leaf by leaf in "
+          f"{time.perf_counter() - t0:.1f} s ({torch.cuda.memory_allocated() / 2**30:.1f} GiB)",
+          flush=True)
+    runs["d"] = serve_run(torch, engine, tok, "d", "native", greedy, card)
+    require(runs["d"]["int4_matmul_kn"] > 0 and runs["d"]["int8_matmul_nk"] > 0,
+            f"(d) never launched K9 and K8b: {runs['d']}")
+    require(runs["d"]["int8_matmul_kn"] == 0, f"(d) ran a projection as int8: {runs['d']}")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
     return runs
 
 
@@ -999,9 +1139,15 @@ def main(argv=None) -> int:
 
     card = phase_device(torch, _build)
     kernels = phase_kernels(torch, args.seed)
-    colpali = phase_colpali(torch, args.seed, card)
+    colpali = phase_retrieval(torch, "vidore/colpali-v1.3", args.seed, card, "main",
+                              device_preprocess=True, path=("maxsim", "attention", "normalize"),
+                              absent=("vit_layer",))   # SigLIP-So400m is not fused
     colsmol = phase_colsmol(torch, args.seed, card)
     gen = phase_generation(torch, args.seed, card)
+    # ColFlor normalizes on the host; its BART attention has a mask, so no K2
+    colflor = phase_retrieval(torch, "ahmed-masry/ColFlor", args.seed, card, "colflor",
+                              device_preprocess=False, path=("window_attention", "maxsim"),
+                              absent=("attention", "normalize"))
 
     jax_ops = "multimodal_colpali_tpu/ops"
     meta = {
@@ -1022,9 +1168,13 @@ def main(argv=None) -> int:
                            f"{jax_ops}/int8_matmul.py:145"),
         "int8_matmul_nk": ("cuda", f"{PACKAGE}/csrc/int8_matmul.cu",
                            f"{jax_ops}/int8_matmul.py:179"),
+        "window_attention": ("cuda", f"{PACKAGE}/csrc/window_attention.cu",
+                             f"{jax_ops}/window_attention.py:79"),
+        "int4_matmul_kn": ("cuda", f"{PACKAGE}/csrc/int4_matmul.cu",
+                           f"{jax_ops}/int4_matmul.py:134"),
     }
     # each kernel's launches on the main paths that run it
-    paths = [colpali, colsmol, gen["a"], gen["b"], gen["c"]]
+    paths = [colpali, colsmol, gen["a"], gen["b"], gen["c"], gen["d"], colflor]
     rows = [dict(name=name, route=route, source=src, replaces=rep,
                  launches=sum(p[name] for p in paths), **kernels[name])
             for name, (route, src, rep) in meta.items()]

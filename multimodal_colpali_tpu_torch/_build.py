@@ -11,7 +11,8 @@ nothing falls back to another implementation.
 
 ``maxsim.cu`` holds K1 and K4, ``attention.cu`` K2, ``fused_layer.cu`` the
 GEMM that K5a-c are built from, ``paged_attention.cu`` K7a and K7b,
-``int8_matmul.cu`` K8a and K8b. Triton kernels (K3) cache their compiled form
+``int8_matmul.cu`` K8a and K8b, ``window_attention.cu`` K6, ``int4_matmul.cu``
+K9. Triton kernels (K3) cache their compiled form
 under ``build/triton`` unless ``TRITON_CACHE_DIR`` is already set.
 """
 
@@ -67,6 +68,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "int8_matmul": {
         # x, codes, scale, out, partial, M, N, K, layout, out_dtype, splits, stream
         "int8_matmul_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "window_attention": {
+        # q, k, v, out, N, S, D, scale, dtype, stream
+        "window_attention_launch": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P),
+    },
+    "int4_matmul": {
+        # x, packed, scale, out, partial, M, N, K, G, out_dtype, splits, stream
+        "int4_matmul_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
 }
 

@@ -1,19 +1,24 @@
-"""Where ColSmol-256M's time goes on one NVIDIA GPU.
+"""Where a retriever's embedding time goes on one NVIDIA GPU: ColSmol-256M
+or ColFlor.
 
 Run from the root of a checkout, on a machine with a CUDA device:
 
-    python -m multimodal_colpali_tpu_torch.breakdown [--seed N] [--pages 16] [--iters 5]
+    python -m multimodal_colpali_tpu_torch.breakdown [--model colsmol|colflor]
+        [--seed N] [--pages 16] [--iters 5]
 
-It loads full-width ``vidore/colSmol-256M`` with random bf16 weights from
-``--seed`` and ``device_preprocess=True`` (the configuration of
-``chip_smoke.py``'s phase 4) and times, for one batch of ``--pages``
-synthetic 512x512 pages and for 4 queries, each part of the embedding path:
+It loads the model at full width with random bf16 weights from ``--seed`` in
+the configuration of ``chip_smoke.py`` (``vidore/colSmol-256M`` with
+``device_preprocess=True``, phase 4; ``ahmed-masry/ColFlor``, which
+normalizes on the host, phase 6) and times, for one batch of ``--pages``
+synthetic pages at the model's size and for 4 queries, each part of the
+embedding path:
 
-- host ``process_images`` (the resize) and ``process_queries``, host clock;
-- upload + K3, the vision tower (every SigLIP layer as K5a, then the final
-  LayerNorm), one K5a layer, its two halves K5b and K5c, and the whole model
-  forward, each with CUDA events; connector + Llama + head is the forward
-  less the tower;
+- host ``process_images`` (ColSmol: the resize; ColFlor: the ImageNet
+  normalization too) and ``process_queries``, host clock;
+- the pixels' upload (+ K3 for ColSmol), the vision tower and the whole model
+  forward, each with CUDA events; the rest of the model is the forward less
+  the tower. ColSmol: one SigLIP layer as K5a and its halves K5b and K5c.
+  ColFlor: the tower's 12 window-attention launches (K6) at their shapes;
 - ``embed_images`` and a single-query forward, host clock around the call
   (both end in a device-to-host copy).
 
@@ -59,8 +64,50 @@ def _host_ms(torch, fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def _colsmol_parts(torch, model, pix, n, it) -> dict:
+    """One SigLIP layer as K5a, K5b and K5c at the batch's shape."""
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    layer = model.vision_model.layers[0]
+    c = layer.cfg
+    x = torch.randn(n, c.num_patches, c.hidden_size, device="cuda").to(torch.bfloat16)
+    eps, heads = c.layer_norm_eps, c.num_attention_heads
+    return {"k5a_layer": _device_ms(torch, lambda: FL.fused_vit_layer_cuda(
+                x, *layer._attn_params(), *layer._mlp_params(), heads=heads, eps=eps), it),
+            "k5b_attn_half": _device_ms(torch, lambda: FL.fused_vit_attention_block_cuda(
+                x, *layer._attn_params(), heads=heads, eps=eps), it),
+            "k5c_mlp_half": _device_ms(torch, lambda: FL.fused_mlp_block_cuda(
+                x, *layer._mlp_params(), eps=eps), it)}
+
+
+def _colflor_parts(torch, model, pix, n, it) -> dict:
+    """The DaViT tower's K6 launches at their shapes: one a spatial block, on
+    ``[n x windows x heads, window^2, head_dim]`` rows (windows padded)."""
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
+
+    c = model.cfg.vision
+    ws, side, calls = c.window_size, model.cfg.image_size, []
+    for stage, depth in enumerate(c.depths):
+        side //= c.patch_stride[stage]
+        hd = c.embed_dim[stage] // c.num_heads[stage]
+        rows = n * (-(-side // ws)) ** 2 * c.num_heads[stage]
+        qkv = [torch.randn(rows, ws * ws, hd, device="cuda").to(torch.bfloat16)
+               for _ in range(3)]
+        calls += [(qkv, hd ** -0.5)] * depth
+    return {"tower_k6_launches": len(calls),
+            "k6_stage0_one_launch": _device_ms(torch, lambda: WA.window_attention_cuda(
+                *calls[0][0], scale=calls[0][1]), it),
+            "k6_all_launches": _device_ms(torch, lambda: [WA.window_attention_cuda(
+                *qkv, scale=s) for qkv, s in calls], it)}
+
+
+MODELS = {"colsmol": ("vidore/colSmol-256M", True), "colflor": ("ahmed-masry/ColFlor", False)}
+TOWER_PARTS = {"colsmol": _colsmol_parts, "colflor": _colflor_parts}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="colsmol")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pages", type=int, default=16, help="pages in the one embedded batch")
     ap.add_argument("--iters", type=int, default=5)
@@ -72,42 +119,35 @@ def main(argv=None) -> int:
         print("FAIL: CUDA is not available; this breakdown runs only on a GPU", file=sys.stderr)
         return 2
     from multimodal_colpali_tpu_torch.models import load_retriever
-    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0].strip()
     print(card, flush=True)
-    retr = load_retriever("vidore/colSmol-256M", device="cuda", dtype=torch.bfloat16,
-                          seed=args.seed, device_preprocess=True)
+    name, dev_pre = MODELS[args.model]
+    retr = load_retriever(name, device="cuda", dtype=torch.bfloat16, seed=args.seed,
+                          device_preprocess=dev_pre)
     model, proc, n, it = retr.model, retr.processor, args.pages, args.iters
-    size = proc.image_preprocessor.image_size
+    size = getattr(model.cfg, "image_size", None) or model.cfg.vision.image_size
     rng = np.random.default_rng(args.seed)
     pages = list(rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8))
 
     r = {}
+    kw = dict(device_preprocess=True) if dev_pre else {}
     t0 = time.perf_counter()
     for _ in range(it):
-        batch = proc.process_images(pages, device_preprocess=True)
+        batch = proc.process_images(pages, **kw)
     r["host_process_images"] = (time.perf_counter() - t0) * 1e3 / it
     ids = torch.from_numpy(batch["input_ids"]).to("cuda", torch.long)
     mask = torch.from_numpy(batch["attention_mask"]).to("cuda")
+    tower = model.vision_model if args.model == "colsmol" else model.vision_tower
     with torch.inference_mode():
-        r["upload_k3"] = _device_ms(torch, lambda: retr._pixels(batch["pixel_values"]), it)
+        r["upload"] = _device_ms(torch, lambda: retr._pixels(batch["pixel_values"]), it)
         pix = retr._pixels(batch["pixel_values"])
-        r["vision_tower"] = _device_ms(torch, lambda: model.vision_model(pix), it)
+        r["vision_tower"] = _device_ms(torch, lambda: tower(pix), it)
         r["forward"] = _device_ms(torch, lambda: model(ids, mask, pix), it)
-        r["connector_llama_head"] = r["forward"] - r["vision_tower"]
-        layer = model.vision_model.layers[0]
-        c = layer.cfg
-        x = torch.randn(n, c.num_patches, c.hidden_size, device="cuda").to(torch.bfloat16)
-        eps, heads = c.layer_norm_eps, c.num_attention_heads
-        r["k5a_layer"] = _device_ms(torch, lambda: FL.fused_vit_layer_cuda(
-            x, *layer._attn_params(), *layer._mlp_params(), heads=heads, eps=eps), it)
-        r["k5b_attn_half"] = _device_ms(torch, lambda: FL.fused_vit_attention_block_cuda(
-            x, *layer._attn_params(), heads=heads, eps=eps), it)
-        r["k5c_mlp_half"] = _device_ms(torch, lambda: FL.fused_mlp_block_cuda(
-            x, *layer._mlp_params(), eps=eps), it)
+        r["rest_of_forward"] = r["forward"] - r["vision_tower"]
+        r.update(TOWER_PARTS[args.model](torch, model, pix, n, it))
         r["embed_images_wall"] = _host_ms(torch, lambda: retr.embed_images(pages, batch_size=n),
                                           it)
         r["pages_per_s"] = n / r["embed_images_wall"] * 1e3
@@ -121,15 +161,17 @@ def main(argv=None) -> int:
         r["query4_forward"] = _device_ms(torch, lambda: model(qids, qmask, None), it)
         r["query4_wall"] = _host_ms(torch, lambda: retr.embed_queries(QUERIES), it)
         r["query1_wall"] = _host_ms(torch, lambda: retr.embed_queries(QUERIES[:1]), it)
-    r.update(card=card, pages=n, tokens_per_page=int(ids.shape[1]),
+    r.update(card=card, model=name, pages=n, tokens_per_page=int(ids.shape[1]),
              query_tokens=int(qids.shape[1]), iters=it)
-    print(f"[embed {n} pages] host process_images {r['host_process_images']:.2f} ms | upload+K3 "
-          f"{r['upload_k3']:.3f} ms | vision tower {r['vision_tower']:.2f} ms | whole forward "
-          f"{r['forward']:.2f} ms (connector + Llama + head {r['connector_llama_head']:.2f} ms) "
-          f"| embed_images wall {r['embed_images_wall']:.2f} ms ({r['pages_per_s']:.1f} pages/s)"
-          f" | {r['tokens_per_page']} tokens per page", flush=True)
-    print(f"[one SigLIP layer at B={n}] K5a {r['k5a_layer']:.3f} ms | K5b (attention half) "
-          f"{r['k5b_attn_half']:.3f} ms | K5c (MLP half) {r['k5c_mlp_half']:.3f} ms", flush=True)
+    print(f"[{name}: embed {n} pages] host process_images {r['host_process_images']:.2f} ms | "
+          f"upload{'+K3' if dev_pre else ''} {r['upload']:.3f} ms | vision tower "
+          f"{r['vision_tower']:.2f} ms | whole forward {r['forward']:.2f} ms (rest of the model "
+          f"{r['rest_of_forward']:.2f} ms) | embed_images wall {r['embed_images_wall']:.2f} ms "
+          f"({r['pages_per_s']:.1f} pages/s) | {r['tokens_per_page']} tokens per page", flush=True)
+    print(f"[tower parts at B={n}] " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in r.items() if k[0] == "k" and k[1].isdigit())
+          + (f" ({r['tower_k6_launches']} launches)" if "tower_k6_launches" in r else ""),
+          flush=True)
     print(f"[queries] 4 x {r['query_tokens']} tokens: host process {r['host_process_queries']:.2f}"
           f" ms, forward {r['query4_forward']:.2f} ms (events), embed_queries wall "
           f"{r['query4_wall']:.2f} ms | 1 query: embed_queries wall {r['query1_wall']:.2f} ms",

@@ -5,8 +5,9 @@ Run from the root of a checkout, on a machine with a CUDA device:
     python -m multimodal_colpali_tpu_torch.generation.breakdown [--seed N] [--iters 5]
 
 It loads ``google/gemma-3-27b-it`` with random weights from ``--seed`` on the
-card and, for three configurations in turn - bf16 weights and pools (K7a),
-bf16 weights and int8 pools (K7b), int8 weights (K8a, K8b) and bf16 pools -
+card and, for four configurations in turn - bf16 weights and pools (K7a),
+bf16 weights and int8 pools (K7b), int8 weights (K8a, K8b) and bf16 pools,
+int4 weights (K9, and K8b for the int8 table) and bf16 pools -
 admits four requests of 300, 700, 1,100 and 1,500 tokens into a
 ``PagedContinuousBatcher`` (4 slots of 2,048 tokens, pages of 16) and times:
 
@@ -17,8 +18,8 @@ admits four requests of 300, 700, 1,100 and 1,500 tokens into a
   the device time of the step without the host's launch overhead; the
   step's idle share is 1 - graph / wall;
 - the step's parts, each run back to back under CUDA events: the 7 x 62
-  projections (bf16 matmuls or K8a), the 62 paged-attention launches at the
-  slots' lengths (K7a or K7b), the tied LM head (bf16 product or K8b).
+  projections (bf16 matmuls, K8a or K9), the 62 paged-attention launches at
+  the slots' lengths (K7a or K7b), the tied LM head (bf16 product or K8b).
 
 Every figure is the mean of ``--iters`` runs after a warm-up. The first line
 is the card's name and power limit as ``nvidia-smi`` prints them; the last
@@ -167,10 +168,10 @@ def main(argv=None) -> int:
                           check=True).stdout.strip().splitlines()[0].strip()
     print(card, flush=True)
     out = {"card": card, "model": MODEL, "prompts": PROMPTS, "iters": args.iters}
-    for weights in ("bf16", "int8"):
+    for weights in ("bf16", "int8", "int4"):
         cfg, params, _ = load_gemma3_lm(MODEL, device="cuda", dtype=torch.bfloat16,
                                         seed=args.seed,
-                                        weight_dtype="int8" if weights == "int8" else "native")
+                                        weight_dtype="native" if weights == "bf16" else weights)
         engine = GemmaDecodeEngine(cfg, params, dtype=torch.bfloat16, device="cuda")
         for kv in (("native", "int8") if weights == "bf16" else ("native",)):
             name = f"{weights}_weights_{kv}_kv"

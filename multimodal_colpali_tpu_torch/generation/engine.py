@@ -21,7 +21,8 @@ step; where the JAX engine jits a whole generation, this one runs eagerly:
   batchers agree. Greedy streams and ``filter_top_p_top_k`` equal JAX's.
 
 Projections go through ``ops/quant.q_dense`` (K8a under
-``weight_dtype="int8"``), the tied LM head through ``q_logits`` (K8b), and
+``weight_dtype="int8"``, K9 under ``"int4"``), the tied LM head through
+``q_logits`` (K8b for the int8 embed table of both quantized formats), and
 prefill attention through the plain masked einsum of ``models/layers``, as in
 the JAX engine.
 """
@@ -38,7 +39,8 @@ import torch.nn.functional as F
 from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models import layers as L
 from multimodal_colpali_tpu_torch.ops.quant import (
-    is_quantized, is_quantized_int4, q_dense, q_logits, q_take, quantize_lm_params)
+    is_quantized, is_quantized_int4, q_dense, q_logits, q_take, quantize_lm_params,
+    quantize_lm_params_int4)
 from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
 
 LOGPROB_K = 5   # top alternatives recorded per decode step (OpenAI cap)
@@ -262,23 +264,23 @@ class GemmaDecodeEngine:
     ``language_model`` subtrees; anything else is ignored), on ``device``.
 
     ``weight_dtype="int8"`` quantizes the kernels and the embed table on the
-    device (``ops/quant.quantize_lm_params``); a tree that is already
-    quantized is used as it is. ``mesh`` (tensor parallelism) is not ported."""
+    device (``ops/quant.quantize_lm_params``), ``"int4"`` the kernels
+    group-wise int4 and the embed table int8 (``quantize_lm_params_int4``); a
+    tree that is already quantized is used as it is, its format read from its
+    leaves (engine.py:360-393). ``mesh`` (tensor parallelism) is not ported:
+    it raises, in every format."""
 
     cfg: Any
     params: Any
     dtype: torch.dtype = torch.float32
     mesh: Any = None
-    weight_dtype: str = "native"     # "native" | "int8"
+    weight_dtype: str = "native"     # "native" | "int8" | "int4"
     device: Any = "cuda"
 
     def __post_init__(self):
         if self.weight_dtype not in ("native", "int8", "int4"):
             raise ValueError(f"weight_dtype must be 'native', 'int8' or 'int4', "
                              f"got {self.weight_dtype!r}")
-        if self.weight_dtype == "int4":
-            raise NotImplementedError("weight_dtype='int4' (kernel K9) is not ported yet; "
-                                      "see ROADMAP.md queue 2")
         if self.mesh is not None:
             raise NotImplementedError("tensor-parallel meshes are not ported yet; "
                                       "see ROADMAP.md queue 1 item 8")
@@ -289,13 +291,13 @@ class GemmaDecodeEngine:
             # already quantized by a sibling engine: never re-cast (the
             # float32 scales would degrade to the model dtype)
             self.weight_dtype = _detect_quantized_dtype(keep["language_model"])
-            if self.weight_dtype == "int4":
-                raise NotImplementedError("int4 weights (K9) are not ported yet")
             params = _tree_to(keep, self.device, torch.float32)
         else:
             params = _tree_to(keep, self.device, self.dtype)
             if self.weight_dtype == "int8":
                 params = quantize_lm_params(params)
+            elif self.weight_dtype == "int4":
+                params = quantize_lm_params_int4(params)
         self.params = params
 
     # -- layer math ----------------------------------------------------------

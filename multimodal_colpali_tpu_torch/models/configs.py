@@ -7,6 +7,9 @@
 - ColIdefics3 / ColSmol-256M = SigLIP-768 vision tower (512 px, patch 16),
   pixel shuffle x4 + projection, Llama text tower (576 wide, 30 layers,
   9 heads / 3 KV heads) + 128-d projection.
+- ColFlor = Florence-2-base's DaViT vision backbone (768 px, windows of
+  12 x 12) + projector + BART encoder (6 layers, 768 wide) + 128-d
+  projection (``multimodal_colpali_tpu/models/florence2.py:35-93``).
 - Gemma-3 text LMs (1B/4B/12B/27B), the generator the reference serves
   through vLLM (google/gemma-3-27b-it).
 
@@ -163,6 +166,72 @@ class ColPaliModelConfig:
             ),
             embedding_dim=8,
             image_token_id=vocab_size - 1,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class Florence2VisionConfig:
+    """The DaViT vision backbone of Florence-2-base (florence2.py:35-49)."""
+
+    depths: tuple = (1, 1, 9, 1)
+    embed_dim: tuple = (128, 256, 512, 1024)
+    num_heads: tuple = (4, 8, 16, 32)
+    num_groups: tuple = (4, 8, 16, 32)
+    patch_size: tuple = (7, 3, 3, 3)
+    patch_stride: tuple = (4, 2, 2, 2)
+    patch_padding: tuple = (3, 1, 1, 1)
+    patch_prenorm: tuple = (False, True, True, True)
+    window_size: int = 12
+    mlp_ratio: float = 4.0
+    projection_dim: int = 768
+    max_position_embeddings: int = 50
+    qkv_bias: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class Florence2TextConfig:
+    """The BART encoder of Florence-2-base (florence2.py:52-61)."""
+
+    vocab_size: int = 51289
+    d_model: int = 768
+    encoder_layers: int = 6
+    encoder_attention_heads: int = 12
+    encoder_ffn_dim: int = 3072
+    max_position_embeddings: int = 1024
+    scale_embedding: bool = False
+    layer_norm_eps: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class ColFlorModelConfig:
+    """ColFlor = DaViT + projector + BART encoder + 128-d head (florence2.py:64-93)."""
+
+    vision: Florence2VisionConfig = dataclasses.field(default_factory=Florence2VisionConfig)
+    text: Florence2TextConfig = dataclasses.field(default_factory=Florence2TextConfig)
+    embedding_dim: int = 128
+    image_token_id: int = 51200  # <image> placeholder in the expanded vocab
+    image_size: int = 768
+
+    @classmethod
+    def colflor(cls) -> "ColFlorModelConfig":
+        """ahmed-masry/ColFlor - the Florence-2-base encoder stack."""
+        return cls()
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 64) -> "ColFlorModelConfig":
+        return cls(
+            vision=Florence2VisionConfig(
+                depths=(1, 1), embed_dim=(16, 32), num_heads=(2, 4),
+                num_groups=(2, 4), patch_size=(7, 3), patch_stride=(4, 2),
+                patch_padding=(3, 1), patch_prenorm=(False, True),
+                window_size=4, mlp_ratio=4.0, projection_dim=24,
+            ),
+            text=Florence2TextConfig(vocab_size=vocab_size, d_model=24,
+                                     encoder_layers=1, encoder_attention_heads=2,
+                                     encoder_ffn_dim=48, max_position_embeddings=128),
+            embedding_dim=8,
+            image_token_id=vocab_size - 1,
+            image_size=32,
         )
 
 

@@ -6,7 +6,8 @@ Reads the ``"a/b/c"`` keys that ``save_params_npz`` writes
 
 - ``layers_<i>`` path parts become ``layers.<i>``, ``/`` becomes ``.``;
 - a dense ``kernel [in, out]`` becomes ``weight [out, in]``;
-- a conv ``kernel [kh, kw, cin, cout]`` becomes ``weight [cout, cin, kh, kw]``;
+- a conv ``kernel [kh, kw, cin, cout]`` becomes ``weight [cout, cin, kh, kw]``
+  (a depthwise ``[3, 3, 1, C]`` becomes ``[C, 1, 3, 3]``);
 - every other array keeps its name and layout.
 
 ``params_from_flax`` checks every name and shape against the model of the
@@ -32,10 +33,12 @@ from torch import nn
 
 from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models.colpali import ColPaliModel
-from multimodal_colpali_tpu_torch.models.configs import ColIdefics3ModelConfig, ColPaliModelConfig
+from multimodal_colpali_tpu_torch.models.configs import (
+    ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig)
+from multimodal_colpali_tpu_torch.models.florence2 import ColFlorModel
 from multimodal_colpali_tpu_torch.models.idefics3 import ColIdefics3Model
 
-ModelConfig = Union[ColPaliModelConfig, ColIdefics3ModelConfig]
+ModelConfig = Union[ColPaliModelConfig, ColIdefics3ModelConfig, ColFlorModelConfig]
 
 _LAYER = re.compile(r"^layers_(\d+)$")
 
@@ -83,9 +86,11 @@ def flax_shape(name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
 
 
 def model_class(cfg: ModelConfig) -> Type[nn.Module]:
-    """The port's model class for a config: ColPali or ColIdefics3."""
+    """The port's model class for a config: ColPali, ColIdefics3 or ColFlor."""
     if isinstance(cfg, ColIdefics3ModelConfig):
         return ColIdefics3Model
+    if isinstance(cfg, ColFlorModelConfig):
+        return ColFlorModel
     if isinstance(cfg, ColPaliModelConfig):
         return ColPaliModel
     raise TypeError(f"no ported model for {type(cfg).__name__}")

@@ -2,21 +2,22 @@
 ``multimodal_colpali_tpu/models/registry.py``).
 
 ``load_retriever(name, device=...)`` returns a :class:`Retriever`: the
-encoder of the name's family (ColPali or ColIdefics3) on ``device`` plus its
-processor. Weights come from a flax parameter
+encoder of the name's family (ColPali, ColIdefics3 or ColFlor) on ``device``
+plus its processor. Weights come from a flax parameter
 tree (``params=``, e.g. ``load_params_npz`` of a committed golden) or, when
 none is given, from a seeded random init made on ``device`` in the model
 dtype, so a 3B model never exists in float32 on the host.
 
 ``load_gemma3_lm(name, device=...)`` returns the decode-engine parameter tree
 of a Gemma-3 text LM (registry.py:550-741): random weights from a seed, built
-leaf by leaf on ``device`` (``weight_dtype="int8"`` quantizes each leaf as it
-is made, so the bf16 tree never exists).
+leaf by leaf on ``device`` (``weight_dtype="int8"`` or ``"int4"`` quantizes
+each leaf as it is made, so the bf16 tree never exists).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import warnings
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
@@ -25,10 +26,11 @@ import torch
 
 from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models.configs import (
-    ColIdefics3ModelConfig, ColPaliModelConfig, Gemma3TextConfig)
+    ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig, Gemma3TextConfig)
 from multimodal_colpali_tpu_torch.models.convert import (
     ModelConfig, flax_shape, model_class, params_from_flax)
 from multimodal_colpali_tpu_torch.models.processing import ColPaliProcessor
+from multimodal_colpali_tpu_torch.models.processing_florence2 import ColFlorProcessor
 from multimodal_colpali_tpu_torch.models.processing_idefics3 import ColIdefics3Processor
 from multimodal_colpali_tpu_torch.ops.preprocess import normalize_images
 
@@ -41,7 +43,12 @@ RETRIEVER_CONFIGS: Dict[str, Callable[[], ModelConfig]] = {
     "vidore/colSmol-256M": ColIdefics3ModelConfig.colsmol_256m,
     "vidore/colidefics3-v1.0": ColIdefics3ModelConfig.colsmol_256m,
     "tiny-colidefics3": ColIdefics3ModelConfig.tiny,
+    "ahmed-masry/ColFlor": ColFlorModelConfig.colflor,
+    "tiny-colflor": ColFlorModelConfig.tiny,
 }
+
+PROCESSORS = {"colpali": ColPaliProcessor, "colidefics3": ColIdefics3Processor,
+              "colflor": ColFlorProcessor}
 
 # Gemma's RMSNorm multiplies by (1 + w), so its neutral weight is 0; it
 # exists only in the colpali family (Llama's RMSNorm multiplies by w).
@@ -50,7 +57,11 @@ _GEMMA_RMS_PARENTS = {"input_layernorm", "post_attention_layernorm", "norm"}
 
 def family_of(cfg: ModelConfig) -> str:
     """The JAX registry's family name for a config."""
-    return "colidefics3" if isinstance(cfg, ColIdefics3ModelConfig) else "colpali"
+    if isinstance(cfg, ColIdefics3ModelConfig):
+        return "colidefics3"
+    if isinstance(cfg, ColFlorModelConfig):
+        return "colflor"
+    return "colpali"
 
 
 @torch.no_grad()
@@ -81,7 +92,9 @@ class Retriever:
 
     ``device_preprocess=True`` uploads uint8 pixels and normalizes them on
     ``device`` inside the forward (K3 on a CUDA device); the host stage is
-    resize-only."""
+    resize-only. A processor whose ``process_images`` takes no
+    ``device_preprocess`` (ColFlor's) refuses it, as the JAX Retriever does
+    (registry.py:51-60)."""
 
     name: str
     model: torch.nn.Module
@@ -90,6 +103,13 @@ class Retriever:
     dtype: torch.dtype = torch.bfloat16
     device_preprocess: bool = False
     family: str = "colpali"
+
+    def __post_init__(self):
+        if self.device_preprocess and "device_preprocess" not in inspect.signature(
+                self.processor.process_images).parameters:
+            raise ValueError(f"device_preprocess is not supported by "
+                             f"{type(self.processor).__name__} (fixed-resolution "
+                             f"ColPali-family processors only)")
 
     def _pixels(self, pv: np.ndarray) -> torch.Tensor:
         """Host pixels -> the model's pixel input on ``device`` (registry.py:137-163)."""
@@ -114,8 +134,8 @@ class Retriever:
         out: List[np.ndarray] = []
         for start in range(0, len(images), batch_size):
             chunk = list(images[start: start + batch_size])
-            batch = self.processor.process_images(chunk,
-                                                  device_preprocess=self.device_preprocess)
+            batch = (self.processor.process_images(chunk, device_preprocess=True)
+                     if self.device_preprocess else self.processor.process_images(chunk))
             out += self._embed(batch, with_image=True)
         return out
 
@@ -168,8 +188,7 @@ def load_retriever(
         warnings.warn(f"no checkpoint given for {name!r}; using random init "
                       f"(seed {seed})", stacklevel=2)
         init_random_params_(model, seed, family)
-    processor_cls = ColIdefics3Processor if family == "colidefics3" else ColPaliProcessor
-    return Retriever(name=name, model=model, processor=processor_cls(cfg, tokenizer=tokenizer),
+    return Retriever(name=name, model=model, processor=PROCESSORS[family](cfg, tokenizer=tokenizer),
                      device=device, dtype=dtype, device_preprocess=bool(device_preprocess),
                      family=family)
 
@@ -267,20 +286,31 @@ def gemma3_random_params(cfg: Gemma3TextConfig, seed: int = 0,
 
 
 def gemma3_random_params_int8(cfg: Gemma3TextConfig, seed: int = 0,
-                              dtype: torch.dtype = torch.bfloat16, device: Any = "cuda"):
+                              dtype: torch.dtype = torch.bfloat16, device: Any = "cuda",
+                              fmt: str = "int8"):
     """The same random weights made directly as weight-only int8 on
     ``device``, one leaf at a time (registry.py:643-701): kernels per column,
     the embed table per row (padded), norm weights in ``dtype``. The peak is
-    the int8 tree plus one leaf's float32 transient."""
-    from multimodal_colpali_tpu_torch.ops.quant import quantize_embed_int8, quantize_int8
+    the quantized tree plus one leaf's float32 transient.
 
+    ``fmt="int4"`` packs each kernel group-wise int4 instead, with the group
+    ``_int4_group_for(K, 256)``; a kernel whose K admits no even group stays
+    int8, and the embed table is int8 in both formats."""
+    from multimodal_colpali_tpu_torch.ops.quant import (
+        _int4_group_for, quantize_embed_int8, quantize_int4, quantize_int8)
+
+    if fmt not in ("int8", "int4"):
+        raise ValueError(f"fmt must be 'int8' or 'int4', got {fmt!r}")
     device = resolve_device(device)
 
     def leaf(i, name, shape):
         if name == "weight":
             return torch.zeros(shape, dtype=dtype, device=device)
         w = _normal_leaf(i, shape, seed, device)
-        return quantize_embed_int8(w) if name == "embed_tokens" else quantize_int8(w, axis=0)
+        if name == "embed_tokens":
+            return quantize_embed_int8(w)
+        group = _int4_group_for(shape[0], 256) if fmt == "int4" else 0
+        return quantize_int4(w, group=group) if group else quantize_int8(w, axis=0)
 
     return _build_tree(cfg, leaf)
 
@@ -301,13 +331,15 @@ def load_gemma3_lm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.b
     if checkpoint_dir is not None:
         raise NotImplementedError("loading Gemma-3 checkpoints (hf_import) is not ported yet; "
                                   "see ROADMAP.md queue 1 item 8")
-    if weight_dtype not in ("native", "int8"):
-        raise NotImplementedError(f"weight_dtype={weight_dtype!r} is not ported "
-                                  "(int4 waits for kernel K9; see ROADMAP.md queue 2)")
+    if weight_dtype not in ("native", "int8", "int4"):
+        raise ValueError(f"weight_dtype must be 'native', 'int8' or 'int4', got {weight_dtype!r}")
     cfg = GEMMA3_CONFIGS[name]()
     if params is None:
         warnings.warn(f"no checkpoint for {name!r}; using random init (seed {seed})",
                       stacklevel=2)
-        make = gemma3_random_params_int8 if weight_dtype == "int8" else gemma3_random_params
-        params = make(cfg, seed, dtype=dtype, device=device)
+        if weight_dtype == "native":
+            params = gemma3_random_params(cfg, seed, dtype=dtype, device=device)
+        else:
+            params = gemma3_random_params_int8(cfg, seed, dtype=dtype, device=device,
+                                               fmt=weight_dtype)
     return cfg, params, None

@@ -1,6 +1,7 @@
 """Operators of the retrieval and generation paths; each kernel sits beside its plain
 PyTorch version. The generation operators (``quant``, ``int8_matmul``,
-``paged_attention``) are imported from their modules."""
+``int4_matmul``, ``paged_attention``) and ``window_attention`` (whose function
+shares its module's name) are imported from their modules."""
 
 from multimodal_colpali_tpu_torch.ops.attention import (  # noqa: F401
     attention_reference, fused_attention, fused_attention_cuda)

@@ -1,21 +1,27 @@
-"""Weight-only int8 quantization for the decode engine (counterpart of
-``multimodal_colpali_tpu/ops/quant.py:36-148, :331-372``).
+"""Weight-only int8 and group-wise int4 quantization for the decode engine
+(counterpart of ``multimodal_colpali_tpu/ops/quant.py:36-259, :331-372``).
 
-Representation, byte for byte the JAX package's: each 2-D kernel
-``[in, out]`` becomes ``{"q8": int8 codes (same shape), "scale": float32
-[out]}`` (symmetric per-output-channel absmax); the embedding table ``[V, H]``
-quantizes per row (``scale: [V]``), padded with zero-code rows (scale 1) to a
-multiple of ``EMBED_PAD``, so the embed gather and the tied LM head read the
-same codes.
+Representations, byte for byte the JAX package's:
 
-The matmul runs on the codes and the float32 scale multiplies the product:
+- int8: each 2-D kernel ``[in, out]`` becomes ``{"q8": int8 codes (same
+  shape), "scale": float32 [out]}`` (symmetric per-output-channel absmax);
+  the embedding table ``[V, H]`` quantizes per row (``scale: [V]``), padded
+  with zero-code rows (scale 1) to a multiple of ``EMBED_PAD``, so the embed
+  gather and the tied LM head read the same codes.
+- int4: a 2-D kernel ``[K, N]`` becomes ``{"q4": uint8 [K/2, N], "scale":
+  float32 [K/G, N]}``, symmetric absmax per (group of G rows, column), codes
+  in [-7, 7] stored as code + 8 in a nibble. The packing is split per group,
+  not interleaved: within group g, byte row r holds the code of row g*G + r
+  in its low nibble and that of row g*G + G/2 + r in its high nibble. The
+  embed table stays per-row int8 in this format too.
+
+int8 products run on the codes and the float32 scale multiplies the product:
 on a CUDA tensor through K8a (``x @ codes [K, N] * scale``, the projections)
-and K8b (``x @ codes [N, K]^T * scale``, the tied LM head), the hand-written
-kernels of ``ops/int8_matmul.py``; on a CPU tensor through their plain
-versions, which repeat the JAX package's XLA path.
-
-The group-wise int4 format (``weight_dtype="int4"``, kernel K9) is not
-ported yet and raises.
+and K8b (``x @ codes [N, K]^T * scale``, the tied LM head) of
+``ops/int8_matmul.py``. int4 products dequantize each weight to x's dtype
+before the dot: K9 of ``ops/int4_matmul.py`` on a CUDA tensor. On a CPU
+tensor each takes its plain version, which repeats the JAX package's XLA
+path.
 """
 
 from __future__ import annotations
@@ -25,12 +31,10 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from multimodal_colpali_tpu_torch.ops.int4_matmul import int4_matmul_kn
 from multimodal_colpali_tpu_torch.ops.int8_matmul import int8_matmul_kn, int8_matmul_nk
 
 EMBED_PAD = 512   # quantized embed rows pad to a multiple of this (quant.py:331)
-
-_INT4_NOT_PORTED = ("int4 weights (weight_dtype='int4', kernel K9 in ops/int4_matmul.py) "
-                    "are not ported yet; see ROADMAP.md queue 2")
 
 
 def quantize_int8(w: torch.Tensor, axis: int = 0) -> dict:
@@ -65,18 +69,22 @@ def dequantize(qw: dict, axis: int = 0, dtype: torch.dtype = torch.float32) -> t
 def q_dense(x: torch.Tensor, kernel: Any, bias: Optional[torch.Tensor] = None,
             dense_fn=None) -> torch.Tensor:
     """``x @ kernel (+ bias)`` where ``kernel`` is a plain ``[in, out]``
-    tensor or a ``quantize_int8`` dict (quant.py:62-97). The quantized path
-    multiplies the codes and scales the product: K8a on a CUDA tensor, its
-    plain version on a CPU one."""
-    if is_quantized_int4(kernel):
-        raise NotImplementedError(_INT4_NOT_PORTED)
-    if not is_quantized(kernel):
+    tensor, a ``quantize_int8`` dict or a ``quantize_int4`` dict
+    (quant.py:62-97). An int8 kernel multiplies the codes and scales the
+    product (K8a on a CUDA tensor); an int4 kernel is dequantized to x's
+    dtype inside the product (K9 on a CUDA tensor); a CPU tensor takes the
+    plain versions."""
+    if not (is_quantized(kernel) or is_quantized_int4(kernel)):
         if dense_fn is not None:
             return dense_fn(x, kernel, bias)
         y = x @ kernel
         return y if bias is None else y + bias
     lead = x.shape[:-1]
-    y = int8_matmul_kn(x.reshape(-1, x.shape[-1]), kernel["q8"], kernel["scale"])
+    x2 = x.reshape(-1, x.shape[-1])
+    if is_quantized_int4(kernel):
+        y = int4_matmul_kn(x2, kernel["q4"], kernel["scale"])
+    else:
+        y = int8_matmul_kn(x2, kernel["q8"], kernel["scale"])
     y = y.reshape(*lead, y.shape[-1])
     return y if bias is None else y + bias
 
@@ -159,5 +167,78 @@ def quantize_lm_params(params: Any) -> Any:
     out["language_model"] = walk(params["language_model"])
     emb = dict(params["embed"])
     emb["embed_tokens"] = quantize_embed_int8(emb["embed_tokens"])
+    out["embed"] = emb
+    return out
+
+
+def quantize_int4(w: torch.Tensor, group: int = 256) -> dict:
+    """Group-wise symmetric absmax int4 quantization of ``w [K, N]`` along K
+    (quant.py:178-198); K must divide by ``group``. Returns ``{"q4": uint8
+    [K/2, N], "scale": float32 [K/G, N]}``, bit for bit the JAX package's."""
+    wf = w.float()
+    k, n = wf.shape
+    if k % group != 0:
+        raise ValueError(f"K={k} not divisible by group={group}")
+    wg = wf.reshape(k // group, group, n)
+    amax = wg.abs().amax(dim=1)                                  # [g, n]
+    # tensor divisors: a CUDA division by a Python scalar multiplies by the reciprocal
+    scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / torch.full_like(amax, 7.0)
+    codes = torch.round(wg / scale[:, None, :]).clamp(-7, 7)
+    codes = (codes + 8.0).to(torch.uint8)                        # 1..15
+    half = group // 2
+    packed = (codes[:, :half] | (codes[:, half:] << 4)).reshape(k // 2, n)
+    return {"q4": packed, "scale": scale}
+
+
+def int4_group(qw: dict) -> int:
+    """Group size from the shapes: K / scale rows (quant.py:205-207)."""
+    return (qw["q4"].shape[0] * 2) // qw["scale"].shape[0]
+
+
+def dequantize_int4(qw: dict, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The weight of a ``quantize_int4`` dict: ``(code - 8) * scale`` in
+    float32, then cast to ``dtype`` (quant.py:210-221)."""
+    packed = qw["q4"]
+    group = int4_group(qw)
+    k2, n = packed.shape
+    g = (k2 * 2) // group
+    pg = packed.reshape(g, group // 2, n).to(torch.int32)
+    full = torch.cat([(pg & 15) - 8, (pg >> 4) - 8], dim=1).float()   # [g, G, n]
+    full = full * qw["scale"].float()[:, None, :]
+    return full.reshape(g * group, n).to(dtype)
+
+
+def _int4_group_for(k_dim: int, group: int) -> int:
+    """The largest power-of-two-reduced group <= ``group`` that is even and
+    divides K (tiny configs have K < 256); 0 when there is none
+    (quant.py:224-230)."""
+    g = min(group, k_dim)
+    while g >= 2 and (k_dim % g or g % 2):
+        g //= 2
+    return g if g >= 2 and k_dim % g == 0 and g % 2 == 0 else 0
+
+
+def quantize_lm_params_int4(params: Any, group: int = 256) -> Any:
+    """Like :func:`quantize_lm_params`, but kernels become group-wise int4
+    (quant.py:233-259): a kernel whose K admits no even group stays int8, and
+    the embed table is per-row int8 (left as it is when already quantized)."""
+
+    def walk(t):
+        if isinstance(t, dict):
+            out = {}
+            for k, v in t.items():
+                if k == "kernel" and isinstance(v, torch.Tensor) and v.dim() == 2:
+                    g = _int4_group_for(v.shape[0], group)
+                    out[k] = quantize_int4(v, group=g) if g else quantize_int8(v, axis=0)
+                else:
+                    out[k] = walk(v)
+            return out
+        return t
+
+    out = dict(params)
+    out["language_model"] = walk(params["language_model"])
+    emb = dict(params["embed"])
+    if not is_quantized(emb["embed_tokens"]):
+        emb["embed_tokens"] = quantize_embed_int8(emb["embed_tokens"])
     out["embed"] = emb
     return out

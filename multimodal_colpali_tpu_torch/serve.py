@@ -9,7 +9,7 @@ serves ``/v1/chat/completions`` and ``/health``. It runs on the GPU unless
 
 Example:
   python -m multimodal_colpali_tpu_torch.serve --model gemma-3-27b --paged \\
-      [--kv-dtype int8] [--weight-dtype int8]
+      [--kv-dtype int8] [--weight-dtype int8|int4]
 """
 
 from __future__ import annotations
@@ -40,9 +40,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--pool-pages", type=int, default=None,
                    help="Pages in the shared pool (--paged); default sizes every slot "
                         "to max-seq-len.")
-    p.add_argument("--weight-dtype", default="native", choices=["native", "int8"],
+    p.add_argument("--weight-dtype", default="native", choices=["native", "int8", "int4"],
                    help="Weight-only quantization of the LM: int8 runs every projection "
-                        "and the tied head through the int8 kernels (K8a, K8b).")
+                        "and the tied head through the int8 kernels (K8a, K8b); int4 runs "
+                        "every projection through the group-wise int4 kernel (K9) and the "
+                        "head, whose table stays int8, through K8b.")
     p.add_argument("--kv-dtype", default="native", choices=["native", "int8"],
                    help="KV pool storage (--paged): int8 codes + per-token scales (K7b).")
     p.add_argument("--prefix-caching", action="store_true",

@@ -17,10 +17,12 @@ import torch
 from multimodal_colpali_tpu_torch import _build
 from multimodal_colpali_tpu_torch.ops import attention as A
 from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
 from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
 from multimodal_colpali_tpu_torch.ops import maxsim as M
 from multimodal_colpali_tpu_torch.ops import paged_attention as PA
 from multimodal_colpali_tpu_torch.ops import preprocess as PP
+from multimodal_colpali_tpu_torch.ops import window_attention as WA
 
 torch.set_num_threads(1)
 
@@ -103,7 +105,7 @@ _COUNTERS = (M.maxsim_scores_cuda, A.fused_attention_cuda, PP.normalize_images_t
              M.maxsim_scores_int8_cuda, FL.fused_vit_layer_cuda,
              FL.fused_vit_attention_block_cuda, FL.fused_mlp_block_cuda,
              PA.paged_attention_cuda, PA.paged_attention_int8_cuda, IM.int8_matmul_kn_cuda,
-             IM.int8_matmul_nk_cuda)
+             IM.int8_matmul_nk_cuda, WA.window_attention_cuda, I4.int4_matmul_kn_cuda)
 _POOL = torch.zeros(3, 4, 1, 8)
 _POOL8 = torch.zeros(3, 4, 1, 8, dtype=torch.int8)
 _BT, _LENS = torch.zeros(1, 2, dtype=torch.int32), torch.ones(1, dtype=torch.int32)
@@ -124,9 +126,11 @@ _BT, _LENS = torch.zeros(1, 2, dtype=torch.int32), torch.ones(1, dtype=torch.int
                                          _POOL8, torch.ones(3, 4, 1), _BT, _LENS, scale=1.0),
     lambda: IM.int8_matmul_kn_cuda(_W, torch.zeros(8, 4, dtype=torch.int8), torch.ones(4)),
     lambda: IM.int8_matmul_nk_cuda(_W, torch.zeros(4, 8, dtype=torch.int8), torch.ones(4)),
+    lambda: WA.window_attention_cuda(*(torch.zeros(3, 16, 8),) * 3, scale=1.0),
+    lambda: I4.int4_matmul_kn_cuda(_W, torch.zeros(4, 4, dtype=torch.uint8), torch.ones(1, 4)),
 ], ids=["maxsim", "attention", "normalize", "maxsim_int8", "vit_layer", "attn_block",
         "mlp_block", "paged_attention", "paged_attention_int8", "int8_matmul_kn",
-        "int8_matmul_nk"])
+        "int8_matmul_nk", "window_attention", "int4_matmul_kn"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     counters = [f.launches for f in _COUNTERS]
     with pytest.raises(ValueError, match="CUDA"):
@@ -151,6 +155,13 @@ def test_dispatchers_take_plain_versions_on_cpu():
     w, v = torch.eye(16, dtype=torch.bfloat16), torch.zeros(16)
     args = (torch.ones(16), v, w, v, w, v)
     assert torch.equal(FL.fused_mlp_block(xb, *args), FL.fused_mlp_block_reference(xb, *args))
+    w = torch.from_numpy(rng.standard_normal((3, 16, 8)).astype(np.float32))
+    assert torch.equal(WA.window_attention(w, w, w, scale=0.3),
+                       WA.window_attention_reference(w, w, w, scale=0.3))
+    packed = torch.from_numpy(rng.integers(0, 256, (8, 5), dtype=np.uint8))
+    scale = torch.rand(2, 5, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(I4.int4_matmul_kn(xb[0], packed, scale),
+                       I4.int4_matmul_reference(xb[0], packed, scale))
 
 
 @pytest.mark.parametrize("where", ["checkout", "alone"])
@@ -179,17 +190,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from multimodal_colpali_tpu_torch.models import registry as R
     from multimodal_colpali_tpu_torch.models.colpali import ColPaliModel
     from multimodal_colpali_tpu_torch.models.configs import (
-        ColIdefics3ModelConfig, ColPaliModelConfig, Gemma3TextConfig)
+        ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig, Gemma3TextConfig)
     from multimodal_colpali_tpu_torch.models.convert import engine_params_from_jax
+    from multimodal_colpali_tpu_torch.models.florence2 import ColFlorModel
     from multimodal_colpali_tpu_torch.models.idefics3 import ColIdefics3Model
     from multimodal_colpali_tpu_torch.models.processing import (
         ColPaliProcessor, score_multi_vector)
+    from multimodal_colpali_tpu_torch.models.processing_florence2 import ColFlorProcessor
     from multimodal_colpali_tpu_torch.models.processing_idefics3 import ColIdefics3Processor
     from multimodal_colpali_tpu_torch.store import VectorClient
 
     entry_points = [R.load_retriever, VectorClient.__init__, ColPaliModel.__init__,
-                    ColIdefics3Model.__init__, score_multi_vector,
+                    ColIdefics3Model.__init__, ColFlorModel.__init__, score_multi_vector,
                     ColPaliProcessor.score_multi_vector, ColIdefics3Processor.score_multi_vector,
+                    ColFlorProcessor.score_multi_vector,
                     R.load_gemma3_lm, R.gemma3_random_params, R.gemma3_random_params_int8,
                     engine_params_from_jax]
     for fn in entry_points:
@@ -205,6 +219,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     calls = [lambda: R.load_retriever("tiny-colpali"), lambda: VectorClient(),
              lambda: ColPaliModel(ColPaliModelConfig.tiny()),
              lambda: ColIdefics3Model(ColIdefics3ModelConfig.tiny()),
+             lambda: ColFlorModel(ColFlorModelConfig.tiny()),
+             lambda: R.load_retriever("tiny-colflor"),
              lambda: score_multi_vector(emb, emb),
              lambda: R.load_gemma3_lm("tiny-gemma3"),
              lambda: R.gemma3_random_params_int8(cfg),

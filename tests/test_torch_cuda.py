@@ -220,6 +220,8 @@ def test_float32_colidefics3_on_card_takes_k5a(gen):
 
 def test_cuda_tensors_never_take_the_plain_versions(gen, monkeypatch):
     from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+    from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
 
     def boom(*a, **k):
         raise AssertionError("a CUDA tensor took a plain version")
@@ -228,11 +230,13 @@ def test_cuda_tensors_never_take_the_plain_versions(gen, monkeypatch):
                       (A, "attention_reference"), (PP, "normalize_images_reference"),
                       (FL, "fused_vit_layer_reference"),
                       (FL, "fused_vit_attention_block_reference"),
-                      (FL, "fused_mlp_block_reference")):
+                      (FL, "fused_mlp_block_reference"), (WA, "window_attention_reference"),
+                      (I4, "int4_matmul_reference")):
         monkeypatch.setattr(mod, name, boom)
     counters = [M.maxsim_scores_cuda, M.maxsim_scores_int8_cuda, A.fused_attention_cuda,
                 PP.normalize_images_triton, FL.fused_vit_layer_cuda,
-                FL.fused_vit_attention_block_cuda, FL.fused_mlp_block_cuda]
+                FL.fused_vit_attention_block_cuda, FL.fused_mlp_block_cuda,
+                WA.window_attention_cuda, I4.int4_matmul_kn_cuda]
     before = [f.launches for f in counters]
     q, d = _randn(gen, 1, 4, 16), _randn(gen, 3, 5, 16)
     M.maxsim_scores(q, d)
@@ -246,6 +250,11 @@ def test_cuda_tensors_never_take_the_plain_versions(gen, monkeypatch):
     FL.fused_vit_attention_block(x, wts["ln1_g"], wts["ln1_b"], *(wts[k] for k in ATTN_KEYS),
                                  heads=2)
     FL.fused_mlp_block(x, wts["ln2_g"], wts["ln2_b"], *(wts[k] for k in MLP_KEYS))
+    w3 = _randn(gen, 4, 144, 32, dtype=torch.bfloat16)
+    WA.window_attention(w3, w3, w3, scale=0.2)
+    I4.int4_matmul_kn(_randn(gen, 2, 64, dtype=torch.bfloat16),
+                      torch.zeros(32, 16, dtype=torch.uint8, device="cuda"),
+                      torch.ones(1, 16, device="cuda"))
     torch.cuda.synchronize()
     assert all(f.launches > n for f, n in zip(counters, before))
 
@@ -442,3 +451,167 @@ def test_paged_batcher_on_card_takes_k7(gen):
             assert got == want
         else:
             assert [g[:3] for g in got] == [w[:3] for w in want]
+
+
+# -- K6: window attention ------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("n,s,d", [
+    (7, 144, 32), (130, 144, 32),           # ColFlor's windows, ragged N
+    (5, 37, 20), (3, 7, 100), (64, 16, 8),  # S and D that need masking
+    (2, 200, 64), (1, 1, 1), (4, 144, 128)])
+def test_window_attention_kernel_matches_plain(gen, dtype, tol, n, s, d):
+    """K6 against its plain version on the same inputs: bf16 within atol and
+    rtol 2e-2 (P and the output round to bf16 at the same points; the sums
+    run in another order), float32 within 1e-5."""
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
+
+    q, k, v = (_randn(gen, n, s, d, dtype=dtype) for _ in range(3))
+    before = WA.window_attention_cuda.launches
+    got = WA.window_attention(q, k, v, scale=d ** -0.5)
+    assert WA.window_attention_cuda.launches == before + 1
+    want = WA.window_attention_reference(q, k, v, scale=d ** -0.5)
+    assert got.dtype == dtype and got.shape == (n, s, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_window_attention_kernel_refuses_what_it_cannot_take(gen):
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
+
+    before = WA.window_attention_cuda.launches
+    big = _randn(gen, 1, 600, 32, dtype=torch.bfloat16)       # S past 512
+    with pytest.raises(RuntimeError, match="window_attention_launch"):
+        WA.window_attention_cuda(big, big, big, scale=0.1)
+    half = _randn(gen, 2, 16, 8, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        WA.window_attention_cuda(half, half, half, scale=0.1)
+    assert WA.window_attention_cuda.launches == before
+
+
+def test_colflor_on_card_takes_k6_and_never_k2(gen, monkeypatch):
+    """A tiny float32 ColFlor runs its windows as K6 on the card, launches no
+    K2, and agrees with the same model on the CPU (float32 convolutions with
+    TF32 off)."""
+    import copy
+
+    from multimodal_colpali_tpu_torch.models.configs import ColFlorModelConfig
+    from multimodal_colpali_tpu_torch.models.florence2 import ColFlorModel
+    from multimodal_colpali_tpu_torch.models.registry import init_random_params_
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = ColFlorModelConfig.tiny()
+    cpu = ColFlorModel(cfg, device="cpu", dtype=torch.float32).eval()
+    init_random_params_(cpu, seed=3, family="colflor")
+    card = copy.deepcopy(cpu).to("cuda")
+    ids = torch.tensor([[cfg.image_token_id] * 17 + [5, 9, 11]] * 2)
+    mask = torch.ones_like(ids)
+    pix = torch.randn(2, 40, 40, 3, generator=torch.Generator().manual_seed(4))  # windows pad
+    before = (WA.window_attention_cuda.launches, A.fused_attention_cuda.launches)
+    with torch.inference_mode():
+        got = card(ids.cuda(), mask.cuda(), pix.cuda())
+        want = cpu(ids, mask, pix)
+    assert WA.window_attention_cuda.launches == before[0] + sum(cfg.vision.depths)
+    assert A.fused_attention_cuda.launches == before[1]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# -- K9: group-wise int4 weight products ---------------------------------------------
+
+def _int4_case(gen, k, n, group):
+    packed = torch.randint(0, 256, (k // 2, n), generator=gen, device="cuda",
+                           dtype=torch.int32).to(torch.uint8)
+    scale = torch.rand(k // group, n, generator=gen, device="cuda") * 0.01
+    return packed, scale
+
+
+@pytest.mark.parametrize("m,k,n,group", [
+    (1, 512, 1024, 256), (4, 5376, 2048, 256), (8, 21504, 640, 256), (16, 96, 80, 16),
+    (3, 96, 80, 16), (5, 64, 40, 16), (17, 128, 300, 64), (300, 512, 384, 256),
+    (513, 256, 257, 64), (40, 5376, 2048, 256), (6, 40, 50, 2), (20, 192, 136, 64)])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_int4_matmul_kernel_matches_plain(gen, m, k, n, group, out):
+    """K9 against its plain version on the same bf16 inputs: within 2% of the
+    output's largest value (K8's limit); ragged M, N and K, groups of 2 to 256
+    (steps that cross groups gather x element by element)."""
+    from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
+
+    x = _randn(gen, m, k, dtype=torch.bfloat16)
+    packed, scale = _int4_case(gen, k, n, group)
+    before = I4.int4_matmul_kn_cuda.launches
+    got = I4.int4_matmul_kn(x, packed, scale, out_dtype=out)
+    assert I4.int4_matmul_kn_cuda.launches == before + 1
+    want = I4.int4_matmul_reference(x.float(), packed, scale)
+    assert got.dtype == out and got.shape == (m, n)
+    assert float((got.float() - want).abs().max()) <= 0.02 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("m,k,n,group", [(8, 5376, 1024, 256), (3, 96, 80, 16),
+                                         (200, 512, 300, 64)])
+def test_int4_matmul_kernel_exact_on_grid_weights(gen, m, k, n, group):
+    """codes x 2^-3 and x on a 2^-4 grid: every product and partial sum is
+    exact in float32, so K9 equals the plain version bit for bit; a kernel
+    that read the nibbles in another order could not."""
+    from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
+    from multimodal_colpali_tpu_torch.ops.quant import quantize_int4
+
+    codes = torch.randint(-7, 8, (k, n), generator=gen, device="cuda").float()
+    codes[::group] = 7.0                       # saturate every (group, column): scale 2^-3
+    q = quantize_int4(codes * 0.125, group=group)
+    x = (torch.randint(-128, 128, (m, k), generator=gen, device="cuda") * 0.0625).to(
+        torch.bfloat16)
+    got = I4.int4_matmul_kn_cuda(x, q["q4"], q["scale"], out_dtype=torch.float32)
+    assert torch.equal(got, I4.int4_matmul_reference(x.float(), q["q4"], q["scale"]))
+
+
+def test_int4_matmul_kernel_takes_unaligned_views(gen):
+    from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
+
+    m, k, n = 6, 256, 384
+    x = _randn(gen, m, k, dtype=torch.bfloat16)
+    packed, scale = _int4_case(gen, k, n, 64)
+    x_off = torch.empty(m * k + 1, dtype=torch.bfloat16, device="cuda")[1:].view(m, k)
+    p_off = torch.empty(packed.numel() + 1, dtype=torch.uint8, device="cuda")[1:].view(k // 2, n)
+    x_off.copy_(x)
+    p_off.copy_(packed)
+    assert x_off.data_ptr() % 16 and p_off.data_ptr() % 16
+    assert torch.equal(I4.int4_matmul_kn_cuda(x_off, p_off, scale),
+                       I4.int4_matmul_kn_cuda(x, packed, scale))
+
+
+def test_int4_matmul_rejects_odd_groups_and_float32_x(gen):
+    from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
+
+    packed, scale = _int4_case(gen, 48, 16, 16)
+    with pytest.raises(TypeError):
+        I4.int4_matmul_kn_cuda(_randn(gen, 2, 48), packed, scale)
+    with pytest.raises(ValueError, match="even"):
+        I4.int4_matmul_kn_cuda(_randn(gen, 2, 48, dtype=torch.bfloat16), packed,
+                               torch.ones(16, 16, device="cuda"))       # group 3
+
+
+def test_int4_engine_on_card_takes_k9_and_k8b(gen):
+    """A tiny Gemma-3 int4 engine in bf16 runs every projection as K9 and the
+    tied head (an int8 table) as K8b on the card, and its logits agree with
+    the same engine's plain versions on the CPU."""
+    from multimodal_colpali_tpu_torch.generation.engine import GemmaDecodeEngine
+    from multimodal_colpali_tpu_torch.models.configs import Gemma3TextConfig
+    from multimodal_colpali_tpu_torch.models.registry import gemma3_random_params
+    from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+
+    cfg = Gemma3TextConfig.tiny(vocab_size=64)
+    params = gemma3_random_params(cfg, seed=1, dtype=torch.float32, device="cpu")
+    card = GemmaDecodeEngine(cfg, params, dtype=torch.bfloat16, weight_dtype="int4",
+                             device="cuda")
+    before = (I4.int4_matmul_kn_cuda.launches, IM.int8_matmul_nk_cuda.launches,
+              IM.int8_matmul_kn_cuda.launches)
+    logits = card.next_token_logits([[5, 9, 17, 3], [40, 2]])
+    assert I4.int4_matmul_kn_cuda.launches == before[0] + 7 * cfg.num_hidden_layers
+    assert IM.int8_matmul_nk_cuda.launches > before[1]
+    assert IM.int8_matmul_kn_cuda.launches == before[2]
+    cpu = GemmaDecodeEngine(cfg, params, dtype=torch.bfloat16, weight_dtype="int4",
+                            device="cpu")
+    want = cpu.next_token_logits([[5, 9, 17, 3], [40, 2]])
+    assert logits.shape == want.shape == (2, 64)
+    assert float(abs(logits - want).max()) < 0.05 * float(abs(want).max()) + 1e-3

@@ -386,8 +386,6 @@ def test_unported_paths_raise():
     params = TR.gemma3_random_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError):
         TE.GemmaDecodeEngine(cfg, params, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="K9"):
-        TE.GemmaDecodeEngine(cfg, params, device="cpu", weight_dtype="int4")
     eng = TE.GemmaDecodeEngine(cfg, params, device="cpu")
     with pytest.raises(NotImplementedError):
         ContinuousBatcher(eng, mm_engine=object())

@@ -144,11 +144,6 @@ def test_bf16_table_logits_keep_float32_sums():
     torch.testing.assert_close(got, hidden @ table.float().T, rtol=0, atol=1e-5)
 
 
-def test_int4_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="K9"):
-        TQ.q_dense(torch.zeros(1, 4), {"q4": torch.zeros(2, 4), "scale": torch.ones(1, 4)})
-
-
 def _grid_params(params, seed: int):
     """Every quantizable leaf on the int8 x 2^-7 grid with one +-127 per
     channel, so ``quantize_int8`` recovers codes and scale exactly
