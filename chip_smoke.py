@@ -20,7 +20,12 @@ phase; any failure exits non-zero.
    K9 the group-wise int4 projections (decode, prefill rows and exact on
    power-of-two grid weights); at ColFlor's stage-0 windows K6 window
    attention in bf16 and float32 (and ``scaled_dot_product_attention`` on the
-   same inputs).
+   same inputs). K2 must take its tensor-core path for bf16 with D % 8 == 0
+   and its CUDA-core path otherwise, K9 its decode tile for M <= 16. K8 and
+   K9, whose decode calls are shorter than their Python launch, are timed as
+   CUDA-graph replays (their eager per-call time printed beside), with
+   ``torch._weight_int8pack_mm`` and ``torch._weight_int4pack_mm`` on the same
+   inputs as yardsticks where this torch has a CUDA kernel for them.
 3. ColPali at full width: ``vidore/colpali-v1.3`` with random bf16 weights
    from ``--seed`` embeds 16 synthetic 448x448 pages, indexes them with
    ``colpali_qdrant``, answers 4 queries with ``retrieve_colpali`` (one also
@@ -50,9 +55,11 @@ phase; any failure exits non-zero.
 
 Each main path (3, 4, each run of 5, and 6) sets every launch counter to 0
 before it runs and reads them after; each kernel of the path must have run in
-it. The line before the last is a JSON object with each kernel's launches in
+it (ColPali and ColSmol: K2's tensor-core path; run (d): K9's decode tile).
+The line before the last is a JSON object with each kernel's launches in
 those paths, its error against the plain version, its time, the plain
-version's, its bound and, for K2 and K6, the library call's; the last line is
+version's, its bound and, for K2, K6, K8a, K8b and K9, the library call's
+(null where this torch has none); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
 result.
 """
@@ -144,6 +151,34 @@ def timed(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_timed(torch, fn, iters: int) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls captured once as a CUDA
+    graph and replayed, so a kernel shorter than its Python launch is timed
+    on the card, not by the host."""
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                                       # warm-up on the capture stream
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(iters):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    ms = timed(torch, graph.replay, 3) / iters
+    del graph
+    return ms
+
+
+def library_op(torch, name: str):
+    """``torch.<name>`` when this torch registers a CUDA kernel for
+    ``aten::<name>``, else None (printed): a yardstick, timed only."""
+    if torch._C._dispatch_has_kernel_for_dispatch_key(f"aten::{name}", "CUDA"):
+        return getattr(torch, name)
+    print(f"[kernels] aten::{name}: none on this torch (no CUDA kernel)", flush=True)
+    return None
 
 
 def bf16_ulps(torch, a, b):
@@ -276,22 +311,31 @@ def phase_kernels(torch, seed: int):
     shape = (c["b"], c["s"], c["h"], c["d"])
     qkv = [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(3)]
     scale = c["d"] ** -0.5
+    tc = A.fused_attention_cuda.tensor_core_launches
     got = A.fused_attention_cuda(*qkv, scale=scale)
+    require(A.fused_attention_cuda.tensor_core_launches == tc + 1,
+            "K2: bf16 with D % 8 == 0 did not take the tensor-core path")
     want = A.attention_reference(*qkv, scale=scale)
     k2_err = float((got.float() - want.float()).abs().max())
     require(k2_err <= 2e-2, f"K2: max|err| {k2_err} > 2e-2")
-    small = (2, 40, 3, 24)
-    for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        sq = [torch.randn(small, generator=g, device=dev).to(dtype) for _ in range(3)]
+    # small masked cases: float32 (CUDA cores), bf16 D = 24 (tensor cores), D = 20 (CUDA cores)
+    for dtype, d, atol, tensor_core in ((torch.float32, 24, 1e-4, False),
+                                        (torch.bfloat16, 24, 2e-2, True),
+                                        (torch.bfloat16, 20, 2e-2, False)):
+        sq = [torch.randn((2, 40, 3, d), generator=g, device=dev).to(dtype) for _ in range(3)]
         lens = torch.tensor([40, 17], dtype=torch.int32, device=dev)
         valid = torch.rand(2, 40, generator=g, device=dev) > 0.4
         valid[1] = False  # a row with every key masked: uniform weights
         for kw in (dict(kv_lens=lens), dict(kv_valid=valid), dict(causal=True),
                    dict(kv_lens=lens, kv_valid=valid, causal=True)):
+            tc = A.fused_attention_cuda.tensor_core_launches
             a = A.fused_attention_cuda(*sq, scale=0.2, **kw)
+            require(A.fused_attention_cuda.tensor_core_launches == tc + tensor_core,
+                    f"K2 small case {dtype} D={d} took the wrong path")
             b = A.attention_reference(*sq, scale=0.2, **kw)
             err = float((a.float() - b.float()).abs().max())
-            require(err <= atol, f"K2 small case {dtype} {sorted(kw)}: max|err| {err} > {atol}")
+            require(err <= atol, f"K2 small case {dtype} D={d} {sorted(kw)}: max|err| {err} > "
+                                 f"{atol}")
     k_ms, p_ms = timed_pair(torch, lambda: A.fused_attention_cuda(*qkv, scale=scale),
                             lambda: A.attention_reference(*qkv, scale=scale), iters=10)
     # the library call: scaled_dot_product_attention on the same tensors, [B, H, S, D] views
@@ -301,8 +345,10 @@ def phase_kernels(torch, seed: int):
     results["attention"] = row(k2_err, k_ms, p_ms, 4 * qkv[0].numel() * 2,
                                4.0 * c["b"] * c["h"] * c["s"] ** 2 * c["d"], library_ms=lib_ms)
     r = results["attention"]
-    print(f"[kernels] K2 attention {list(shape)} bf16: max|err| {k2_err:.3g} (atol 2e-2); "
-          f"kv_lens/kv_valid/causal cases pass | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+    print(f"[kernels] K2 attention {list(shape)} bf16 (tensor cores, "
+          f"{A.block_rows(torch.bfloat16, c['s'], c['d'])}-row blocks): max|err| {k2_err:.3g} "
+          f"(atol 2e-2); kv_lens/kv_valid/causal cases pass on both paths | kernel "
+          f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, "
           f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {r['bound_ms']:.3f} ms "
           f"({r['bound_by']})", flush=True)
     del qkv, got, want
@@ -515,6 +561,11 @@ def generation_kernels(torch, g):
     s_down = torch.rand(h, generator=g, device=dev) * 1e-3
     table = codes(vocab + (-vocab) % 512, h)          # the padded embed codes
     s_tab = torch.rand(table.shape[0], generator=g, device=dev) * 1e-3
+    # the yardstick x @ w[N, K]^T * scale[N]: K8b's table as it is, K8a's codes
+    # as transposed copies made once
+    int8pack = library_op(torch, "_weight_int8pack_mm")
+    nk_copy = {id(w_up): w_up.t().contiguous(), id(w_down): w_down.t().contiguous(),
+               id(table): table} if int8pack else {}
     cases = [("int8_matmul_kn", "K8a", 8, w_up, s_up, False, torch.bfloat16),
              ("int8_matmul_kn", "K8a", 512, w_up, s_up, False, torch.bfloat16),
              ("int8_matmul_kn", "K8a", 8, w_down, s_down, False, torch.bfloat16),
@@ -532,20 +583,44 @@ def generation_kernels(torch, g):
         limit = 0.02 * float(want.abs().max())
         require(bool(torch.isfinite(got).all()) and err <= limit,
                 f"{tag} [{m}, {k}] x {list(w.shape)}: max|err| {err} > 2% of max {limit}")
-        k_ms, p_ms = timed_pair(torch, call, plain, iters=10)
+        e_ms, p_ms = timed_pair(torch, call, plain, iters=10)
+        k_ms = graph_timed(torch, call, iters=20)
+        lib_ms = None
+        if int8pack:
+            w_nk, s_x = nk_copy[id(w)], sc.to(x.dtype)
+            lib_ms = timed(torch, lambda: int8pack(x, w_nk, s_x), iters=10)
         r = row(err, k_ms, p_ms, w.numel() + sc.numel() * 4 + x.numel() * 2
-                + m * n * (4 if out == torch.float32 else 2), 2.0 * m * k * n)
+                + m * n * (4 if out == torch.float32 else 2), 2.0 * m * k * n, library_ms=lib_ms)
+        lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none on this torch"
         print(f"[kernels] {tag} {name} x [{m}, {k}] bf16 x codes {list(w.shape)} int8 -> "
               f"{str(out).split('.')[-1]}: max|err| {err:.3g} (limit 2% of max, {limit:.3g}), "
-              f"{IM.split_count(m, n, k, sms)} K splits | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"{IM.split_count(m, n, k, sms)} K splits | kernel {k_ms:.4f} ms (CUDA graph; eager "
+              f"call {e_ms:.4f}), plain {p_ms:.3f} ms, _weight_int8pack_mm {lib}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})",
+              flush=True)
         if name not in results:            # the first (decode) shape is the row
             results[name] = r
         del x, got, want
-    del w_up, w_down, table
+    del w_up, w_down, table, nk_copy
     torch.cuda.empty_cache()
     results.update(int4_kernels(torch, g, sms))
     return results
+
+
+def int4pack_operands(torch, packed, scale, group: int):
+    """K9's weight in the layout of ``torch._weight_int4pack_mm``: the codes
+    of ``quantize_int4``'s group-split bytes as [N, K] nibbles, two to a byte
+    (even k in the high nibble), through ``_convert_weight_to_int4pack``, and
+    [K/G, N, 2] bf16 scales with zero points 0 (its dequantization is
+    (q - 8) * scale + zero, K9's)."""
+    half, n = packed.shape[0], packed.shape[1]
+    groups = scale.shape[0]
+    lo, hi = (packed & 15).view(groups, -1, n), (packed >> 4).view(groups, -1, n)
+    codes = torch.cat([lo, hi], dim=1).reshape(2 * half, n).t()     # [N, K]
+    nk = (codes[:, ::2] << 4 | codes[:, 1::2]).to(torch.uint8).contiguous()
+    wp = torch._convert_weight_to_int4pack(nk, 8)
+    sz = torch.stack([scale, torch.zeros_like(scale)], dim=-1).to(torch.bfloat16).contiguous()
+    return wp, sz
 
 
 def int4_kernels(torch, g, sms: int):
@@ -563,25 +638,44 @@ def int4_kernels(torch, g, sms: int):
         return packed, torch.rand(k // group, n, generator=g, device=dev) * 1e-2
 
     up, down = weights(h, inter), weights(inter, h)
+    int4pack = library_op(torch, "_weight_int4pack_mm")
     results = {}
     for m, (packed, sc) in ((8, up), (8, down), (512, up)):
         k, n = 2 * packed.shape[0], packed.shape[1]
         x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
         call = lambda: I4.int4_matmul_kn_cuda(x, packed, sc)  # noqa: E731
         plain = lambda: I4.int4_matmul_reference(x, packed, sc)  # noqa: E731
+        tile = "decode_launches" if m <= 16 else "prefill_launches"
+        before = getattr(I4.int4_matmul_kn_cuda, tile)
         got, want = call().float(), plain().float()
         torch.cuda.synchronize()
+        require(getattr(I4.int4_matmul_kn_cuda, tile) == before + 1,
+                f"K9 [{m}, {k}] did not take its {tile.split('_')[0]} tile")
         err = float((got - want).abs().max())
         limit = 0.02 * float(want.abs().max())
         require(bool(torch.isfinite(got).all()) and err <= limit,
                 f"K9 [{m}, {k}] x packed {list(packed.shape)}: max|err| {err} > 2% of max {limit}")
-        k_ms, p_ms = timed_pair(torch, call, plain, iters=10)
+        if m <= 16:
+            require(torch.equal(call(), call()), f"K9 [{m}, {k}]: two calls differ")
+        e_ms, p_ms = timed_pair(torch, call, plain, iters=10)
+        k_ms = graph_timed(torch, call, iters=20)
+        lib_ms = lib_note = None
+        if int4pack:
+            wp, sz = int4pack_operands(torch, packed, sc, group)   # the repack, once
+            lib_ms = timed(torch, lambda: int4pack(x, wp, group, sz), iters=10)
+            lib_note = float((int4pack(x, wp, group, sz).float() - want).abs().max())
+            del wp, sz
         r = row(err, k_ms, p_ms, packed.numel() + sc.numel() * 4 + x.numel() * 2 + m * n * 2,
-                2.0 * m * k * n)
+                2.0 * m * k * n, library_ms=lib_ms)
+        lib = (f"{lib_ms:.3f} ms (max|diff| {lib_note:.3g})" if lib_ms is not None
+               else "none on this torch")
         print(f"[kernels] K9 int4_matmul_kn x [{m}, {k}] bf16 x packed {list(packed.shape)} "
-              f"uint8 + scales {list(sc.shape)} -> bf16: max|err| {err:.3g} (limit 2% of max, "
-              f"{limit:.3g}), {I4.split_count(m, n, k, sms)} K splits | kernel {k_ms:.3f} ms, "
-              f"plain {p_ms:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"uint8 + scales {list(sc.shape)} -> bf16 ({tile.split('_')[0]} tile): max|err| "
+              f"{err:.3g} (limit 2% of max, {limit:.3g}), {I4.split_count(m, n, k, sms)} K splits"
+              f"{', repeat bit-identical' if m <= 16 else ''} | kernel {k_ms:.4f} ms (CUDA graph; "
+              f"eager call {e_ms:.4f}), plain {p_ms:.3f} ms, _weight_int4pack_mm {lib}, bound "
+              f"{r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
         results.setdefault("int4_matmul_kn", r)   # the first (decode) shape is the row
         del x, got, want
     # codes x 2^-3 with every (group, column) saturated, x on a 2^-4 grid: all
@@ -639,6 +733,28 @@ def kernel_wrappers():
             "window_attention": WA.window_attention_cuda, "int4_matmul_kn": I4.int4_matmul_kn_cuda}
 
 
+# the per-path counters of a wrapper beside its ``.launches``: K2's tensor-core
+# and CUDA-core paths, K9's decode and prefill tiles
+PATHS = {"attention": ("tensor_core", "cuda_core"), "int4_matmul_kn": ("decode", "prefill")}
+
+
+def reset_counts(wrappers) -> None:
+    for name, fn in wrappers.items():
+        fn.launches = 0
+        for path in PATHS.get(name, ()):
+            setattr(fn, f"{path}_launches", 0)
+
+
+def read_counts(wrappers) -> dict:
+    """Each wrapper's launches since ``reset_counts``, and its paths' as
+    ``"<name>.<path>"``."""
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    for name, paths in PATHS.items():
+        for path in paths:
+            counts[f"{name}.{path}"] = getattr(wrappers[name], f"{path}_launches")
+    return counts
+
+
 def phase_retrieval(torch, name: str, seed: int, card: str, tag: str, device_preprocess: bool,
                     path, absent):
     """A retriever at full width through colpali_qdrant, retrieve_colpali and
@@ -662,8 +778,7 @@ def phase_retrieval(torch, name: str, seed: int, card: str, tag: str, device_pre
     retr.embed_images(pages[:EMBED_BATCH], batch_size=EMBED_BATCH)  # warm-up
 
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts(wrappers)
     t0 = time.perf_counter()
     embs = retr.embed_images(pages, batch_size=EMBED_BATCH)
     embed_s = time.perf_counter() - t0
@@ -716,7 +831,7 @@ def phase_retrieval(torch, name: str, seed: int, card: str, tag: str, device_pre
             require(abs(sa - sb) <= 0.1 + 1e-2 * abs(sb),
                     f"query {qi}: retrieve_colpali {ret} vs score_results {want} beyond ties")
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+    launches = read_counts(wrappers)
     require(all(launches[k] > 0 for k in path), f"a kernel of the {name} path did not run: "
             f"{launches}")
     require(all(launches[k] == 0 for k in absent),
@@ -768,8 +883,7 @@ def phase_colsmol(torch, seed: int, card: str):
     retr.embed_images(pages[:SMOL_BATCH], batch_size=SMOL_BATCH)  # warm-up
 
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts(wrappers)
     t0 = time.perf_counter()
     embs = retr.embed_images(pages, batch_size=SMOL_BATCH)
     embed_s = time.perf_counter() - t0
@@ -877,9 +991,9 @@ def phase_colsmol(torch, seed: int, card: str):
         api.retrieve_colpali(qtext, retr.processor, retr, client, "", "exact", TOP_K)
         query_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    path = ("maxsim", "attention", "normalize", "maxsim_int8", "vit_layer", "attn_block",
-            "mlp_block")
+    launches = read_counts(wrappers)
+    path = ("maxsim", "attention", "attention.tensor_core", "normalize", "maxsim_int8",
+            "vit_layer", "attn_block", "mlp_block")
     require(all(launches[k] > 0 for k in path),
             f"a kernel of the ColSmol path did not run: {launches}")
     print(f"[colsmol] vidore/colSmol-256M {n_params / 1e6:.1f}M params bf16 (init {init_s:.1f} s), "
@@ -989,14 +1103,13 @@ def serve_run(torch, engine, tok, tag: str, kv_dtype: str, requests, card: str):
         torch.cuda.synchronize()
         bat.decode_s, bat.decode_steps, bat.decode_tokens, bat.ttft_s = 0.0, 0, 0, []
         torch.cuda.reset_peak_memory_stats()
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_counts(wrappers)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(requests)) as ex:
             outs = list(ex.map(lambda r: chat(srv.base_url, r[1]), requests))
         wall = time.perf_counter() - t0
         torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in wrappers.items()}
+        launches = read_counts(wrappers)
         peak = torch.cuda.max_memory_allocated() / 2**30
     finally:
         srv.stop()
@@ -1111,8 +1224,8 @@ def phase_generation(torch, seed: int, card: str):
           f"{time.perf_counter() - t0:.1f} s ({torch.cuda.memory_allocated() / 2**30:.1f} GiB)",
           flush=True)
     runs["d"] = serve_run(torch, engine, tok, "d", "native", greedy, card)
-    require(runs["d"]["int4_matmul_kn"] > 0 and runs["d"]["int8_matmul_nk"] > 0,
-            f"(d) never launched K9 and K8b: {runs['d']}")
+    require(runs["d"]["int4_matmul_kn.decode"] > 0 and runs["d"]["int8_matmul_nk"] > 0,
+            f"(d) never launched K9's decode tile and K8b: {runs['d']}")
     require(runs["d"]["int8_matmul_kn"] == 0, f"(d) ran a projection as int8: {runs['d']}")
     del engine, params
     gc.collect()
@@ -1140,7 +1253,8 @@ def main(argv=None) -> int:
     card = phase_device(torch, _build)
     kernels = phase_kernels(torch, args.seed)
     colpali = phase_retrieval(torch, "vidore/colpali-v1.3", args.seed, card, "main",
-                              device_preprocess=True, path=("maxsim", "attention", "normalize"),
+                              device_preprocess=True,
+                              path=("maxsim", "attention", "attention.tensor_core", "normalize"),
                               absent=("vit_layer",))   # SigLIP-So400m is not fused
     colsmol = phase_colsmol(torch, args.seed, card)
     gen = phase_generation(torch, args.seed, card)

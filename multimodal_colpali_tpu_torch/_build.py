@@ -48,9 +48,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "maxsim_int8_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "attention": {
-        # q, k, v, o, kv_lens, kv_valid, B, S, H, D, scale, causal, dtype, stream
+        # q, k, v, o, kv_lens, kv_valid, B, S, H, D, scale, causal, dtype,
+        # block_q, stream
         "attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             ctypes.c_float, _I, _I, _P),
+                             ctypes.c_float, _I, _I, _I, _P),
     },
     "fused_layer": {
         # A, ln_g, ln_b, eps, w0, w1, w2, b0, b1, b2, resid, C, M, N, K, Nseg,

@@ -17,9 +17,11 @@ admits four requests of 300, 700, 1,100 and 1,500 tokens into a
 - the same step captured once as a CUDA graph and replayed, CUDA events:
   the device time of the step without the host's launch overhead; the
   step's idle share is 1 - graph / wall;
-- the step's parts, each run back to back under CUDA events: the 7 x 62
-  projections (bf16 matmuls, K8a or K9), the 62 paged-attention launches at
-  the slots' lengths (K7a or K7b), the tied LM head (bf16 product or K8b).
+- the step's parts, each captured as a CUDA graph and replayed under CUDA
+  events (so a part whose kernels are shorter than their launches is not
+  timed by the host): the 7 x 62 projections (bf16 matmuls, K8a or K9), the
+  62 paged-attention launches at the slots' lengths (K7a or K7b), the tied
+  LM head (bf16 product or K8b).
 
 Every figure is the mean of ``--iters`` runs after a warm-up. The first line
 is the card's name and power limit as ``nvidia-smi`` prints them; the last
@@ -61,6 +63,23 @@ def _host_ms(torch, fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def _graph_ms(torch, fn, iters: int) -> float:
+    """Device ms of ``fn`` captured once as a CUDA graph and replayed: its
+    kernels back to back, without the host's launch time."""
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                                       # warm-up on the capture stream
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    ms = _device_ms(torch, graph.replay, iters)
+    del graph
+    return ms
+
+
 def measure(torch, engine, kv_dtype: str, iters: int, seed: int) -> dict:
     """The figures of one configuration (module docstring)."""
     import numpy as np
@@ -90,17 +109,7 @@ def measure(torch, engine, kv_dtype: str, iters: int, seed: int) -> dict:
         bat._bt = bat._tensor(bat._bt_host, torch.int32)
         r["decode_step_wall"] = _host_ms(torch, lambda: bat._one_step(p), iters)
 
-        graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            bat._one_step(p)                       # warm-up on the capture stream
-            torch.cuda.synchronize()
-            with torch.cuda.graph(graph, stream=stream):
-                bat._one_step(p)
-        torch.cuda.current_stream().wait_stream(stream)
-        r["decode_step_graph"] = _device_ms(torch, graph.replay, iters)
-        del graph
+        r["decode_step_graph"] = _graph_ms(torch, lambda: bat._one_step(p), iters)
         r["idle_share"] = 1.0 - r["decode_step_graph"] / r["decode_step_wall"]
 
         b = bat.B
@@ -135,10 +144,10 @@ def measure(torch, engine, kv_dtype: str, iters: int, seed: int) -> dict:
                     paged_attention(q, bat._kpools[i], bat._vpools[i], bat._bt, lens, scale=sc,
                                     window=w)
 
-        r["projections_62_layers"] = _device_ms(torch, projections, iters)
-        r["paged_attention_62_layers"] = _device_ms(torch, attention, iters)
+        r["projections_62_layers"] = _graph_ms(torch, projections, iters)
+        r["paged_attention_62_layers"] = _graph_ms(torch, attention, iters)
         h = torch.randn(b, cfg.hidden_size, device=engine.device)
-        r["lm_head"] = _device_ms(torch, lambda: q_logits(
+        r["lm_head"] = _graph_ms(torch, lambda: q_logits(
             h, p["embed"]["embed_tokens"], out_dim=cfg.vocab_size), iters)
         r["rest_of_step_device"] = (r["decode_step_graph"] - r["projections_62_layers"]
                                     - r["paged_attention_62_layers"] - r["lm_head"])
@@ -181,7 +190,7 @@ def main(argv=None) -> int:
                   f"decode step of 4 slots at {r['slot_lengths']}: wall "
                   f"{r['decode_step_wall']:.2f} ms, device (CUDA graph replay) "
                   f"{r['decode_step_graph']:.2f} ms, idle share {r['idle_share']:.3f} | parts "
-                  f"(events): projections {r['projections_62_layers']:.2f}, paged attention "
+                  f"(graph replay): projections {r['projections_62_layers']:.2f}, paged attention "
                   f"{r['paged_attention_62_layers']:.2f}, LM head {r['lm_head']:.3f}, rest "
                   f"{r['rest_of_step_device']:.2f} ms | {card}", flush=True)
         del engine, params

@@ -5,7 +5,9 @@
   softmax, probabilities cast to the value type, P.V summed in float32
   (the einsum branch of the JAX ``models/layers.attention``, layers.py:210-231).
 - :func:`fused_attention_cuda` - the hand-written CUDA kernel K2
-  (``csrc/attention.cu``) that replaces the TPU kernel ``_attn_kernel``.
+  (``csrc/attention.cu``) that replaces the TPU kernel ``_attn_kernel``:
+  a tensor-core path for bf16 with D % 8 == 0 and a CUDA-core path for the
+  rest, chosen by :func:`block_rows`.
 - :func:`fused_attention` - the dispatcher: CPU tensors take the plain
   version, CUDA tensors the kernel, with no fallback between them.
 
@@ -23,6 +25,18 @@ from multimodal_colpali_tpu_torch import _build
 NEG = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
+
+
+def block_rows(dtype: torch.dtype, s: int, d: int) -> int:
+    """Query rows a block of K2's tensor-core path takes for ``[B, S, H, D]``
+    inputs of ``dtype``, or 0 for the CUDA-core path. bf16 with D a multiple
+    of 8 (the row stride is then whole 16-byte cp.async chunks) and at most
+    128 goes to the tensor cores: 128 rows a block (two 16-row tiles a warp,
+    sharing each K and V fragment) from S = 512 on where D <= 80 leaves the
+    registers for it, else 64. float32 and other D keep the CUDA cores."""
+    if dtype != torch.bfloat16 or d % 8 or not 1 <= d <= _MAX_HEAD_DIM:
+        return 0
+    return 128 if s >= 512 and d <= 80 else 64
 
 
 def attention_reference(
@@ -75,7 +89,8 @@ def fused_attention_cuda(
 
     q, k and v share one shape and one dtype (float32 or bf16); repeat K/V
     heads for GQA first. Adds one to ``fused_attention_cuda.launches`` per
-    kernel launch."""
+    kernel launch, and one to ``.tensor_core_launches`` or
+    ``.cuda_core_launches`` by the path it took."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("fused_attention_cuda needs q, k, v on one CUDA device")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -98,18 +113,26 @@ def fused_attention_cuda(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    # the tensor-core path takes each row's max before the scale: scale > 0
+    rows = block_rows(q.dtype, s, d) if scale > 0 else 0
     lib = _build.load("attention")
     code = lib.attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         kv_lens.data_ptr(), None if kv_valid is None else kv_valid.data_ptr(),
-        b, s, h, d, float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
+        b, s, h, d, float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype], rows,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "attention_launch")
     fused_attention_cuda.launches += 1
+    if rows:
+        fused_attention_cuda.tensor_core_launches += 1
+    else:
+        fused_attention_cuda.cuda_core_launches += 1
     return out
 
 
 fused_attention_cuda.launches = 0
+fused_attention_cuda.tensor_core_launches = 0
+fused_attention_cuda.cuda_core_launches = 0
 
 
 def fused_attention(

@@ -11,7 +11,9 @@ half, each code + 8), and ``scale [K/G, N]`` float32.
 - :func:`int4_matmul_kn_cuda` - the hand-written kernel K9
   (``csrc/int4_matmul.cu``) that replaces ``_kernel_kn4`` (``pl.pallas_call``
   at int4_matmul.py:134): each weight is scaled in float32 and rounded to
-  bf16 before the dot, as the TPU kernel does; float32 accumulation.
+  bf16 before the dot, as the TPU kernel does; float32 accumulation. M <= 16
+  (decode) dequantizes in registers into mma.sync fragments, larger M takes
+  the WMMA prefill tile.
 - :func:`int4_matmul_kn` - the dispatcher: a CPU tensor takes the plain
   version, a CUDA tensor the kernel. Every shape with an even group that
   divides K is taken: unlike the TPU dispatch (int4_matmul.py:119-122) there
@@ -27,9 +29,13 @@ import torch
 from multimodal_colpali_tpu_torch import _build
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_BN = 128                   # the kernel's N tile (csrc/int4_matmul.cu)
-_BR = 32                    # packed byte rows a K step
-_BLOCKS_PER_SM = 4          # split K until about this many blocks per SM
+# the kernel's tiles (csrc/int4_matmul.cu): decode (M <= 16) and prefill
+_DECODE_ROWS = 16
+_DECODE_BN, _DECODE_BR = 256, 64   # columns a block, packed byte rows a K step
+_DECODE_BLOCKS_PER_SM = 2          # its 80-89 KB ring and 128-register cap fit two
+_DECODE_MIN_STEPS = 8              # a split's partial stays <= 1/16 of its codes
+_BN, _BR = 128, 32                 # the prefill tile
+_BLOCKS_PER_SM = 4                 # split K until about this many blocks per SM
 
 
 def int4_matmul_reference(x: torch.Tensor, packed: torch.Tensor,
@@ -42,12 +48,19 @@ def int4_matmul_reference(x: torch.Tensor, packed: torch.Tensor,
 
 def split_count(m: int, n: int, k: int, sms: int) -> int:
     """How many ranges of packed rows the kernel splits a product into on a
-    card of ``sms`` multiprocessors: enough blocks to keep bytes in flight at
-    decode's small M, each range a whole number of K steps, none empty."""
-    bm = 16 if m <= 16 else 128                    # the kernel's row tile
-    blocks = -(-m // bm) * -(-n // _BN)
-    steps = -(-(k // 2) // _BR)
-    splits = max(1, min(-(-_BLOCKS_PER_SM * sms // blocks), steps // 8))
+    card of ``sms`` multiprocessors, each range a whole number of K steps and
+    none empty. The decode tile (M <= 16) fills one wave of blocks, at least
+    8 steps a split (its float32 partial then stays small beside the codes);
+    the prefill tile aims at about 4 blocks an SM."""
+    if m <= _DECODE_ROWS:
+        blocks = -(-n // _DECODE_BN)
+        steps = -(-(k // 2) // _DECODE_BR)
+        splits = max(1, min(_DECODE_BLOCKS_PER_SM * sms // blocks,
+                            steps // _DECODE_MIN_STEPS))
+    else:
+        blocks = -(-m // 128) * -(-n // _BN)
+        steps = -(-(k // 2) // _BR)
+        splits = max(1, min(-(-_BLOCKS_PER_SM * sms // blocks), steps // 8))
     per = -(-steps // splits)
     return -(-steps // per)
 
@@ -57,7 +70,8 @@ def int4_matmul_kn_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tens
     """K9 on the card: bf16 ``x [M, K]`` times the int4 weight of ``packed
     [K/2, N]`` uint8 and ``scale [K/G, N]`` float32, out in ``out_dtype`` (x's
     by default). G = K / scale rows must be even. Adds one to
-    ``int4_matmul_kn_cuda.launches`` per launch."""
+    ``int4_matmul_kn_cuda.launches`` per launch, and one to
+    ``.decode_launches`` (M <= 16) or ``.prefill_launches`` by the tile."""
     name = "int4_matmul_kn_cuda"
     if not (x.is_cuda and packed.device == x.device and scale.device == x.device):
         raise ValueError(f"{name} needs x, packed and scale on one CUDA device")
@@ -95,10 +109,16 @@ def int4_matmul_kn_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tens
         _OUT_CODES[out_dtype], splits, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "int4_matmul_launch")
     int4_matmul_kn_cuda.launches += 1
+    if m <= _DECODE_ROWS:
+        int4_matmul_kn_cuda.decode_launches += 1
+    else:
+        int4_matmul_kn_cuda.prefill_launches += 1
     return out
 
 
 int4_matmul_kn_cuda.launches = 0
+int4_matmul_kn_cuda.decode_launches = 0
+int4_matmul_kn_cuda.prefill_launches = 0
 
 
 def int4_matmul_kn(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,

@@ -83,12 +83,98 @@ def test_attention_kernel_matches_plain(gen, dtype, atol, d, masks):
         kw["kv_valid"] = valid
     if masks in ("causal", "all"):
         kw["causal"] = True
-    before = A.fused_attention_cuda.launches
+    before = (A.fused_attention_cuda.launches, A.fused_attention_cuda.tensor_core_launches)
     got = A.fused_attention(q, k, v, scale=d ** -0.5, **kw)
-    assert A.fused_attention_cuda.launches == before + 1
+    assert A.fused_attention_cuda.launches == before[0] + 1
+    # bf16 with D % 8 == 0 takes the tensor cores; float32 and D = 20 the CUDA cores
+    tensor_core = dtype == torch.bfloat16 and d % 8 == 0
+    assert A.fused_attention_cuda.tensor_core_launches == before[1] + tensor_core
     want = A.attention_reference(q, k, v, scale=d ** -0.5, **kw)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
+def _attention_masks(gen, b, s, masks):
+    kw = {}
+    if masks in ("kv_lens", "all"):
+        kw["kv_lens"] = torch.tensor([s, s // 3 + 1][:b], dtype=torch.int32, device="cuda")
+    if masks in ("kv_valid", "all"):
+        valid = torch.rand(b, s, generator=gen, device="cuda") > 0.5
+        valid[-1] = False  # every key of the last batch row masked: uniform weights
+        kw["kv_valid"] = valid
+    if masks in ("causal", "all"):
+        kw["causal"] = True
+    return kw
+
+
+@pytest.mark.parametrize("d", [64, 72, 128])
+@pytest.mark.parametrize("s", [40, 577, 1024, 1031])
+@pytest.mark.parametrize("masks", ["none", "kv_lens", "kv_valid", "causal", "all"])
+def test_attention_tensor_core_path_matches_plain(gen, d, s, masks):
+    """K2's tensor-core path (bf16, D % 8 == 0) against the plain version at
+    atol 2e-2: SigLIP-768's D = 64, So400m's 72, 128; ragged key tiles (S =
+    40, 577, 1031) and 64- and 128-row query blocks; each mask and all three."""
+    b, h = 2, 2
+    q, k, v = (_randn(gen, b, s, h, d, dtype=torch.bfloat16) for _ in range(3))
+    kw = _attention_masks(gen, b, s, masks)
+    before = (A.fused_attention_cuda.tensor_core_launches,
+              A.fused_attention_cuda.cuda_core_launches)
+    got = A.fused_attention_cuda(q, k, v, scale=d ** -0.5, **kw)
+    assert A.fused_attention_cuda.tensor_core_launches == before[0] + 1
+    assert A.fused_attention_cuda.cuda_core_launches == before[1]
+    want = A.attention_reference(q, k, v, scale=d ** -0.5, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("s", [40, 1031])
+def test_attention_tensor_core_path_fully_masked_row_is_uniform(gen, s):
+    """A batch row whose keys are all masked averages V over all S keys, as
+    the finite -1e30 fill does in the JAX paths; keys past S weigh nothing."""
+    b, h, d = 2, 3, 72
+    q, k, v = (_randn(gen, b, s, h, d, dtype=torch.bfloat16) for _ in range(3))
+    valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    valid[1] = False
+    got = A.fused_attention_cuda(q, k, v, kv_valid=valid, scale=d ** -0.5)
+    mean = v[1].float().mean(dim=0, keepdim=True).expand(s, h, d)
+    torch.testing.assert_close(got[1].float(), mean, rtol=0, atol=2e-2)
+    lens = torch.tensor([s, 0], dtype=torch.int32, device="cuda")
+    got = A.fused_attention_cuda(q, k, v, kv_lens=lens, causal=True, scale=d ** -0.5)
+    torch.testing.assert_close(got[1].float(), mean, rtol=0, atol=2e-2)
+
+
+def test_attention_tensor_core_path_takes_unaligned_views(gen):
+    b, s, h, d = 1, 130, 2, 72
+    qkv = [_randn(gen, b, s, h, d, dtype=torch.bfloat16) for _ in range(3)]
+    off = []
+    for x in qkv:
+        y = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16
+        off.append(y)
+    before = A.fused_attention_cuda.tensor_core_launches
+    got = A.fused_attention_cuda(*off, scale=0.1)
+    assert A.fused_attention_cuda.tensor_core_launches == before + 1
+    assert torch.equal(got, A.fused_attention_cuda(*qkv, scale=0.1))
+
+
+def test_siglip_attention_on_card_takes_the_tensor_core_path(gen):
+    """ColPali's So400m attention (``layers.attention``, D = 72) and ColSmol's
+    fused SigLIP layer (K5a, D = 64) reach K2's tensor-core path in bf16."""
+    from multimodal_colpali_tpu_torch.models import layers as L
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    q, k, v = (_randn(gen, 2, 256, 16, 72, dtype=torch.bfloat16) for _ in range(3))
+    before = A.fused_attention_cuda.tensor_core_launches
+    got = L.attention(q, k, v, None, 72 ** -0.5)
+    assert A.fused_attention_cuda.tensor_core_launches == before + 1
+    want = A.attention_reference(q, k, v, scale=72 ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+    wts = _layer_weights(gen, 768, 3072)
+    x = _randn(gen, 1, 256, 768, dtype=torch.bfloat16)
+    before = A.fused_attention_cuda.tensor_core_launches
+    FL.fused_vit_layer_cuda(x, *wts.values(), heads=12)
+    assert A.fused_attention_cuda.tensor_core_launches == before + 1
 
 
 @pytest.mark.parametrize("b,nq,p,nt,dim", [
@@ -546,12 +632,14 @@ def test_int4_matmul_kernel_matches_plain(gen, m, k, n, group, out):
     assert float((got.float() - want).abs().max()) <= 0.02 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("m,k,n,group", [(8, 5376, 1024, 256), (3, 96, 80, 16),
-                                         (200, 512, 300, 64)])
+@pytest.mark.parametrize("m,k,n,group", [
+    (8, 5376, 1024, 256), (3, 96, 80, 16), (200, 512, 300, 64),
+    # the decode tile at M = 1, 9, 16: ragged N, split or single K, G/2 odd
+    (1, 5376, 1000, 256), (9, 5376, 1000, 256), (16, 96, 40, 2), (16, 384, 264, 64)])
 def test_int4_matmul_kernel_exact_on_grid_weights(gen, m, k, n, group):
     """codes x 2^-3 and x on a 2^-4 grid: every product and partial sum is
     exact in float32, so K9 equals the plain version bit for bit; a kernel
-    that read the nibbles in another order could not."""
+    that read the nibbles, columns or slots in another order could not."""
     from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
     from multimodal_colpali_tpu_torch.ops.quant import quantize_int4
 
@@ -564,18 +652,45 @@ def test_int4_matmul_kernel_exact_on_grid_weights(gen, m, k, n, group):
     assert torch.equal(got, I4.int4_matmul_reference(x.float(), q["q4"], q["scale"]))
 
 
-def test_int4_matmul_kernel_takes_unaligned_views(gen):
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16])
+@pytest.mark.parametrize("k,n,group", [(5376, 1000, 256), (512, 1000, 64), (96, 1000, 2),
+                                       (21504, 512, 256)])
+def test_int4_decode_tile_matches_plain_and_repeats(gen, m, k, n, group):
+    """The decode tile (M <= 16, weights dequantized in registers): within 2%
+    of the output's largest value, ragged N, groups of 2 to 256 (odd G/2
+    splits a lane's byte-row pair across groups), split-K or not; two calls on
+    the same inputs give the same bits."""
     from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
 
-    m, k, n = 6, 256, 384
     x = _randn(gen, m, k, dtype=torch.bfloat16)
-    packed, scale = _int4_case(gen, k, n, 64)
+    packed, scale = _int4_case(gen, k, n, group)
+    before = (I4.int4_matmul_kn_cuda.decode_launches, I4.int4_matmul_kn_cuda.prefill_launches)
+    got = I4.int4_matmul_kn_cuda(x, packed, scale)
+    assert I4.int4_matmul_kn_cuda.decode_launches == before[0] + 1
+    assert I4.int4_matmul_kn_cuda.prefill_launches == before[1]
+    want = I4.int4_matmul_reference(x.float(), packed, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert float((got.float() - want).abs().max()) <= 0.02 * float(want.abs().max())
+    again = I4.int4_matmul_kn_cuda(x, packed, scale, out_dtype=torch.float32)
+    assert torch.equal(again, I4.int4_matmul_kn_cuda(x, packed, scale, out_dtype=torch.float32))
+    assert torch.equal(again.to(torch.bfloat16), got)
+
+
+@pytest.mark.parametrize("m,n,group", [(6, 384, 64), (12, 1000, 256)])
+def test_int4_matmul_kernel_takes_unaligned_views(gen, m, n, group):
+    from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
+
+    k = 256 if group == 64 else 512
+    x = _randn(gen, m, k, dtype=torch.bfloat16)
+    packed, scale = _int4_case(gen, k, n, group)
     x_off = torch.empty(m * k + 1, dtype=torch.bfloat16, device="cuda")[1:].view(m, k)
     p_off = torch.empty(packed.numel() + 1, dtype=torch.uint8, device="cuda")[1:].view(k // 2, n)
+    s_off = torch.empty(scale.numel() + 1, device="cuda")[1:].view(scale.shape)
     x_off.copy_(x)
     p_off.copy_(packed)
-    assert x_off.data_ptr() % 16 and p_off.data_ptr() % 16
-    assert torch.equal(I4.int4_matmul_kn_cuda(x_off, p_off, scale),
+    s_off.copy_(scale)
+    assert x_off.data_ptr() % 16 and p_off.data_ptr() % 16 and s_off.data_ptr() % 16
+    assert torch.equal(I4.int4_matmul_kn_cuda(x_off, p_off, s_off),
                        I4.int4_matmul_kn_cuda(x, packed, scale))
 
 

@@ -141,6 +141,37 @@ def test_int4_matmul_reference_dequantizes_to_x_dtype():
         torch.float32
 
 
+@pytest.mark.parametrize("m,n,k,sms,want", [
+    (8, 21504, 5376, 132, 3),     # gemma-3-27b up/gate: 84 column blocks, one wave of 264
+    (8, 5376, 21504, 132, 12),    # down: 21 column blocks
+    (16, 5376, 21504, 132, 12),   # M = 9-16: the same decode tile, two B tiles
+    (1, 1024, 5376, 132, 5),      # few columns: at least 8 steps a split
+    (4, 80, 96, 132, 1),          # one step only
+    (8, 262656, 5376, 132, 1),    # more column blocks than a wave
+])
+def test_int4_split_count_plans_the_decode_tile(m, n, k, sms, want):
+    """The decode tile (M <= 16) splits K to fill one wave of two blocks an SM,
+    each split a whole number of 64-row steps and at least 8 of them, so its
+    float32 partial stays at most 1/16 of the codes' bytes."""
+    splits = TI4.split_count(m, n, k, sms)
+    assert splits == want
+    steps = -(-(k // 2) // 64)
+    per = -(-steps // splits)
+    assert 1 <= splits <= steps and (splits - 1) * per < steps
+    assert splits == 1 or per >= 8
+    partial, codes = splits * m * n * 4, k // 2 * n
+    assert splits == 1 or partial <= codes / 16 * (m / 8)
+
+
+@pytest.mark.parametrize("m,n,k", [(17, 300, 128), (512, 21504, 5376), (2048, 5376, 21504)])
+def test_int4_split_count_plans_the_prefill_tile(m, n, k):
+    for sms in (1, 132, 1000):
+        splits = TI4.split_count(m, n, k, sms)
+        steps = -(-(k // 2) // 32)
+        per = -(-steps // splits)
+        assert 1 <= splits <= steps and (splits - 1) * per < steps
+
+
 def test_q_dense_dispatches_int4_like_jax():
     rng = np.random.default_rng(2)
     w = rng.standard_normal((32, 16)).astype(np.float32) * 0.1

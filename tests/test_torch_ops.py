@@ -212,6 +212,22 @@ def test_attention_fully_masked_row_is_uniform():
     np.testing.assert_allclose(got[0, 3], v[0].mean(axis=0), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype,s,d,rows", [
+    (torch.bfloat16, 1024, 72, 128),   # ColPali's So400m: tensor cores, 128-row blocks
+    (torch.bfloat16, 1024, 64, 128),   # ColSmol's SigLIP-768 inside K5a/K5b
+    (torch.bfloat16, 40, 128, 64),     # short rows: 64-row blocks
+    (torch.bfloat16, 511, 8, 64),
+    (torch.bfloat16, 577, 20, 0),      # D not whole 16-byte chunks: CUDA cores
+    (torch.bfloat16, 1024, 128, 64),   # D > 80: one 16-row tile a warp
+    (torch.bfloat16, 64, 136, 0),      # past the widest head
+    (torch.float32, 1024, 72, 0),      # float32: CUDA cores
+])
+def test_attention_block_rows_choose_the_path(dtype, s, d, rows):
+    """K2's wrapper picks the tensor-core path (and its query block) or the
+    CUDA-core path from dtype and shape alone, before any launch."""
+    assert TA.block_rows(dtype, s, d) == rows
+
+
 @pytest.mark.parametrize("explicit_mask", [False, True])
 def test_layers_attention_gqa_matches_jax(explicit_mask):
     q, k, v = _qkv(13, h=4, d=16)
