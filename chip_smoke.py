@@ -16,16 +16,20 @@ phase; any failure exits non-zero.
    ``scaled_dot_product_attention`` on the same inputs), K3 normalize, K5a-c
    fused SigLIP layer / attention block / MLP block, and at gemma-3-27b's
    shapes K7a paged attention (window 0 and 1024), K7b over int8 pools, K8a
-   int8 projections (decode and prefill rows), K8b the int8 tied LM head and
-   K9 the group-wise int4 projections (decode, prefill rows and exact on
-   power-of-two grid weights); at ColFlor's stage-0 windows K6 window
+   int8 projections and K9 group-wise int4 projections (decode rows of 8
+   tokens, prefill rows of 512 and 1,504 tokens through the up and down
+   projections; both exact on grid inputs, both bit-identical on a repeated
+   call), K8b the int8 tied LM head; at ColFlor's stage-0 windows K6 window
    attention in bf16 and float32 (and ``scaled_dot_product_attention`` on the
    same inputs). K2 must take its tensor-core path for bf16 with D % 8 == 0
-   and its CUDA-core path otherwise, K9 its decode tile for M <= 16. K8 and
-   K9, whose decode calls are shorter than their Python launch, are timed as
-   CUDA-graph replays (their eager per-call time printed beside), with
-   ``torch._weight_int8pack_mm`` and ``torch._weight_int4pack_mm`` on the same
-   inputs as yardsticks where this torch has a CUDA kernel for them.
+   and its CUDA-core path otherwise, K8a and K9 their decode tile for M <= 16
+   and their prefill tile above. K8 and K9, whose decode calls are shorter
+   than their Python launch, are timed as CUDA-graph replays (their eager
+   per-call time printed beside), with ``torch._weight_int8pack_mm`` and
+   ``torch._weight_int4pack_mm`` on the same inputs as yardsticks where this
+   torch has a CUDA kernel for them, and beside the prefill rows one bf16
+   ``torch.mm`` on the weight already dequantized (the cuBLAS time the
+   prefill tiles race against).
 3. ColPali at full width: ``vidore/colpali-v1.3`` with random bf16 weights
    from ``--seed`` embeds 16 synthetic 448x448 pages, indexes them with
    ``colpali_qdrant``, answers 4 queries with ``retrieve_colpali`` (one also
@@ -55,11 +59,13 @@ phase; any failure exits non-zero.
 
 Each main path (3, 4, each run of 5, and 6) sets every launch counter to 0
 before it runs and reads them after; each kernel of the path must have run in
-it (ColPali and ColSmol: K2's tensor-core path; run (d): K9's decode tile).
-The line before the last is a JSON object with each kernel's launches in
-those paths, its error against the plain version, its time, the plain
-version's, its bound and, for K2, K6, K8a, K8b and K9, the library call's
-(null where this torch has none); the last line is
+it (ColPali and ColSmol: K2's tensor-core path; run (c): both of K8a's tiles;
+run (d): both of K9's tiles). The line before the last is a JSON object with
+each kernel's launches in those paths, its error against the plain version,
+its time, the plain version's, its bound and, for K2, K6, K8a, K8b and K9,
+the library call's (null where this torch has none); K8a and K9 have a row a
+tile (``int8_matmul_kn`` / ``int4_matmul_kn`` the decode tile at 8 tokens,
+``*.prefill`` the prefill tile at 512). The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
 result.
 """
@@ -566,8 +572,12 @@ def generation_kernels(torch, g):
     int8pack = library_op(torch, "_weight_int8pack_mm")
     nk_copy = {id(w_up): w_up.t().contiguous(), id(w_down): w_down.t().contiguous(),
                id(table): table} if int8pack else {}
+    # K8a: decode rows (the row), prefill rows at 512 tokens (the prefill row)
+    # and at 1,504 (the generation breakdown's prompt) through both projections
     cases = [("int8_matmul_kn", "K8a", 8, w_up, s_up, False, torch.bfloat16),
              ("int8_matmul_kn", "K8a", 512, w_up, s_up, False, torch.bfloat16),
+             ("int8_matmul_kn", "K8a", 1504, w_up, s_up, False, torch.bfloat16),
+             ("int8_matmul_kn", "K8a", 1504, w_down, s_down, False, torch.bfloat16),
              ("int8_matmul_kn", "K8a", 8, w_down, s_down, False, torch.bfloat16),
              ("int8_matmul_nk", "K8b", 8, table, s_tab, True, torch.float32)]
     for name, tag, m, w, sc, nk, out in cases:
@@ -577,31 +587,54 @@ def generation_kernels(torch, g):
         kernel = IM.int8_matmul_nk_cuda if nk else IM.int8_matmul_kn_cuda
         call = lambda: kernel(x, w, sc, out_dtype=out)  # noqa: E731
         plain = lambda: IM.int8_matmul_reference(x, w, sc, transpose_codes=nk)  # noqa: E731
+        tile = "decode" if m <= 16 else "prefill"
+        before = None if nk else getattr(kernel, f"{tile}_launches")
         got, want = call().float(), plain().float()
         torch.cuda.synchronize()
+        require(nk or getattr(kernel, f"{tile}_launches") == before + 1,
+                f"{tag} [{m}, {k}] did not take its {tile} tile")
         err = float((got - want).abs().max())
         limit = 0.02 * float(want.abs().max())
         require(bool(torch.isfinite(got).all()) and err <= limit,
                 f"{tag} [{m}, {k}] x {list(w.shape)}: max|err| {err} > 2% of max {limit}")
+        require(torch.equal(call(), call()), f"{tag} [{m}, {k}]: two calls differ")
         e_ms, p_ms = timed_pair(torch, call, plain, iters=10)
         k_ms = graph_timed(torch, call, iters=20)
-        lib_ms = None
+        lib_ms = mm_ms = None
         if int8pack:
             w_nk, s_x = nk_copy[id(w)], sc.to(x.dtype)
-            lib_ms = timed(torch, lambda: int8pack(x, w_nk, s_x), iters=10)
+            lib_ms = timed(torch, lambda: int8pack(x, w_nk, s_x), iters=10 if m <= 16 else 2)
+        if not nk and m > 16:     # context: cuBLAS on the weight already dequantized
+            w_bf16 = w.to(torch.bfloat16)
+            mm_ms = graph_timed(torch, lambda: torch.mm(x, w_bf16), iters=10)
+            del w_bf16
         r = row(err, k_ms, p_ms, w.numel() + sc.numel() * 4 + x.numel() * 2
                 + m * n * (4 if out == torch.float32 else 2), 2.0 * m * k * n, library_ms=lib_ms)
         lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none on this torch"
+        mm = f", bf16 torch.mm on the dequantized weight {mm_ms:.4f} ms" if mm_ms else ""
         print(f"[kernels] {tag} {name} x [{m}, {k}] bf16 x codes {list(w.shape)} int8 -> "
-              f"{str(out).split('.')[-1]}: max|err| {err:.3g} (limit 2% of max, {limit:.3g}), "
-              f"{IM.split_count(m, n, k, sms)} K splits | kernel {k_ms:.4f} ms (CUDA graph; eager "
-              f"call {e_ms:.4f}), plain {p_ms:.3f} ms, _weight_int8pack_mm {lib}, bound "
+              f"{str(out).split('.')[-1]}{'' if nk else f' ({tile} tile)'}: max|err| {err:.3g} "
+              f"(limit 2% of max, {limit:.3g}), repeat bit-identical, "
+              f"{IM.split_count(m, n, k, sms, nk=nk)} K splits | kernel {k_ms:.4f} ms (CUDA graph; "
+              f"eager call {e_ms:.4f}), plain {p_ms:.3f} ms, _weight_int8pack_mm {lib}{mm}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})",
               flush=True)
-        if name not in results:            # the first (decode) shape is the row
-            results[name] = r
+        # the first decode shape is the row, the first prefill shape the prefill row
+        results.setdefault(name if m <= 16 else f"{name}.prefill", r)
         del x, got, want
-    del w_up, w_down, table, nk_copy
+    # integer codes and x on a 2^-4 grid, a power-of-two scale: every product
+    # and partial sum is exact in float32, so K8a must equal the float32 plain
+    # product bit for bit on both tiles
+    for m in (8, 200):
+        c = codes(h, 1024)
+        x = (torch.randint(-8, 8, (m, h), generator=g, device=dev) * 0.0625).to(torch.bfloat16)
+        sc = torch.full((1024,), 2.0 ** -7, device=dev)
+        got = IM.int8_matmul_kn_cuda(x, c, sc, out_dtype=torch.float32)
+        require(torch.equal(got, IM.int8_matmul_reference(x.float(), c, sc)),
+                f"K8a [{m}, {h}] differs from the plain version on grid inputs")
+    print(f"[kernels] K8a on grid inputs [8 | 200, {h}] x [{h}, 1024]: both tiles equal the plain "
+          f"version bit for bit", flush=True)
+    del w_up, w_down, table, nk_copy, c, x, got
     torch.cuda.empty_cache()
     results.update(int4_kernels(torch, g, sms))
     return results
@@ -640,7 +673,8 @@ def int4_kernels(torch, g, sms: int):
     up, down = weights(h, inter), weights(inter, h)
     int4pack = library_op(torch, "_weight_int4pack_mm")
     results = {}
-    for m, (packed, sc) in ((8, up), (8, down), (512, up)):
+    # decode rows (the row), prefill rows at 512 tokens (the prefill row) and at 1,504
+    for m, (packed, sc) in ((8, up), (8, down), (512, up), (1504, up), (1504, down)):
         k, n = 2 * packed.shape[0], packed.shape[1]
         x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
         call = lambda: I4.int4_matmul_kn_cuda(x, packed, sc)  # noqa: E731
@@ -655,41 +689,47 @@ def int4_kernels(torch, g, sms: int):
         limit = 0.02 * float(want.abs().max())
         require(bool(torch.isfinite(got).all()) and err <= limit,
                 f"K9 [{m}, {k}] x packed {list(packed.shape)}: max|err| {err} > 2% of max {limit}")
-        if m <= 16:
-            require(torch.equal(call(), call()), f"K9 [{m}, {k}]: two calls differ")
+        require(torch.equal(call(), call()), f"K9 [{m}, {k}]: two calls differ")
         e_ms, p_ms = timed_pair(torch, call, plain, iters=10)
         k_ms = graph_timed(torch, call, iters=20)
-        lib_ms = lib_note = None
+        lib_ms = lib_note = mm_ms = None
         if int4pack:
             wp, sz = int4pack_operands(torch, packed, sc, group)   # the repack, once
             lib_ms = timed(torch, lambda: int4pack(x, wp, group, sz), iters=10)
             lib_note = float((int4pack(x, wp, group, sz).float() - want).abs().max())
             del wp, sz
+        if m > 16:     # context: cuBLAS on the weight already dequantized
+            from multimodal_colpali_tpu_torch.ops.quant import dequantize_int4
+
+            w_bf16 = dequantize_int4({"q4": packed, "scale": sc}, torch.bfloat16)
+            mm_ms = graph_timed(torch, lambda: torch.mm(x, w_bf16), iters=10)
+            del w_bf16
         r = row(err, k_ms, p_ms, packed.numel() + sc.numel() * 4 + x.numel() * 2 + m * n * 2,
                 2.0 * m * k * n, library_ms=lib_ms)
         lib = (f"{lib_ms:.3f} ms (max|diff| {lib_note:.3g})" if lib_ms is not None
                else "none on this torch")
+        mm = f", bf16 torch.mm on the dequantized weight {mm_ms:.4f} ms" if mm_ms else ""
         print(f"[kernels] K9 int4_matmul_kn x [{m}, {k}] bf16 x packed {list(packed.shape)} "
               f"uint8 + scales {list(sc.shape)} -> bf16 ({tile.split('_')[0]} tile): max|err| "
-              f"{err:.3g} (limit 2% of max, {limit:.3g}), {I4.split_count(m, n, k, sms)} K splits"
-              f"{', repeat bit-identical' if m <= 16 else ''} | kernel {k_ms:.4f} ms (CUDA graph; "
-              f"eager call {e_ms:.4f}), plain {p_ms:.3f} ms, _weight_int4pack_mm {lib}, bound "
-              f"{r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
-        results.setdefault("int4_matmul_kn", r)   # the first (decode) shape is the row
+              f"{err:.3g} (limit 2% of max, {limit:.3g}), repeat bit-identical, "
+              f"{I4.split_count(m, n, k, sms)} K splits | kernel {k_ms:.4f} ms (CUDA graph; "
+              f"eager call {e_ms:.4f}), plain {p_ms:.3f} ms, _weight_int4pack_mm {lib}{mm}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        results.setdefault("int4_matmul_kn" if m <= 16 else "int4_matmul_kn.prefill", r)
         del x, got, want
     # codes x 2^-3 with every (group, column) saturated, x on a 2^-4 grid: all
-    # products and partial sums are exact in float32, so the kernel must equal
+    # products and partial sums are exact in float32, so both tiles must equal
     # the plain version bit for bit (a nibble-order fault cannot)
     codes = torch.randint(-7, 8, (h, 1024), generator=g, device=dev).float()
     codes[::group] = 7.0
     q = quantize_int4(codes * 0.125, group=group)
-    x = (torch.randint(-128, 128, (8, h), generator=g, device=dev) * 0.0625).to(torch.bfloat16)
-    got = I4.int4_matmul_kn_cuda(x, q["q4"], q["scale"], out_dtype=torch.float32)
-    require(torch.equal(got, I4.int4_matmul_reference(x.float(), q["q4"], q["scale"])),
-            "K9 differs from the plain version on power-of-two grid weights")
-    print(f"[kernels] K9 on grid weights [8, {h}] x [{h}, 1024]: equal to the plain version "
-          f"bit for bit", flush=True)
+    for m in (8, 200, 1504):
+        x = (torch.randint(-128, 128, (m, h), generator=g, device=dev) * 0.0625).to(torch.bfloat16)
+        got = I4.int4_matmul_kn_cuda(x, q["q4"], q["scale"], out_dtype=torch.float32)
+        require(torch.equal(got, I4.int4_matmul_reference(x.float(), q["q4"], q["scale"])),
+                f"K9 [{m}, {h}] differs from the plain version on power-of-two grid weights")
+    print(f"[kernels] K9 on grid weights [8 | 200 | 1504, {h}] x [{h}, 1024]: both tiles equal "
+          f"the plain version bit for bit", flush=True)
     del up, down, codes, q, x, got
     torch.cuda.empty_cache()
     return results
@@ -734,8 +774,9 @@ def kernel_wrappers():
 
 
 # the per-path counters of a wrapper beside its ``.launches``: K2's tensor-core
-# and CUDA-core paths, K9's decode and prefill tiles
-PATHS = {"attention": ("tensor_core", "cuda_core"), "int4_matmul_kn": ("decode", "prefill")}
+# and CUDA-core paths, K8a's and K9's decode and prefill tiles
+PATHS = {"attention": ("tensor_core", "cuda_core"), "int8_matmul_kn": ("decode", "prefill"),
+         "int4_matmul_kn": ("decode", "prefill")}
 
 
 def reset_counts(wrappers) -> None:
@@ -1208,8 +1249,9 @@ def phase_generation(torch, seed: int, card: str):
     print(f"[gen] {GEN_MODEL} int8 weights made leaf by leaf in {time.perf_counter() - t0:.1f} s "
           f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB)", flush=True)
     runs["c"] = serve_run(torch, engine, tok, "c", "native", greedy, card)
-    require(runs["c"]["int8_matmul_kn"] > 0 and runs["c"]["int8_matmul_nk"] > 0,
-            f"(c) never launched K8a and K8b: {runs['c']}")
+    require(runs["c"]["int8_matmul_kn.decode"] > 0 and runs["c"]["int8_matmul_kn.prefill"] > 0
+            and runs["c"]["int8_matmul_nk"] > 0,
+            f"(c) never launched both of K8a's tiles and K8b: {runs['c']}")
     del engine, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1224,8 +1266,9 @@ def phase_generation(torch, seed: int, card: str):
           f"{time.perf_counter() - t0:.1f} s ({torch.cuda.memory_allocated() / 2**30:.1f} GiB)",
           flush=True)
     runs["d"] = serve_run(torch, engine, tok, "d", "native", greedy, card)
-    require(runs["d"]["int4_matmul_kn.decode"] > 0 and runs["d"]["int8_matmul_nk"] > 0,
-            f"(d) never launched K9's decode tile and K8b: {runs['d']}")
+    require(runs["d"]["int4_matmul_kn.decode"] > 0 and runs["d"]["int4_matmul_kn.prefill"] > 0
+            and runs["d"]["int8_matmul_nk"] > 0,
+            f"(d) never launched both of K9's tiles and K8b: {runs['d']}")
     require(runs["d"]["int8_matmul_kn"] == 0, f"(d) ran a projection as int8: {runs['d']}")
     del engine, params
     gc.collect()
@@ -1287,10 +1330,14 @@ def main(argv=None) -> int:
         "int4_matmul_kn": ("cuda", f"{PACKAGE}/csrc/int4_matmul.cu",
                            f"{jax_ops}/int4_matmul.py:134"),
     }
-    # each kernel's launches on the main paths that run it
+    # each kernel's launches on the main paths that run it; K8a and K9 a row a
+    # tile (the decode tile's under the wrapper's name)
+    meta["int8_matmul_kn.prefill"] = meta["int8_matmul_kn"]
+    meta["int4_matmul_kn.prefill"] = meta["int4_matmul_kn"]
+    tile_of = {"int8_matmul_kn": "int8_matmul_kn.decode", "int4_matmul_kn": "int4_matmul_kn.decode"}
     paths = [colpali, colsmol, gen["a"], gen["b"], gen["c"], gen["d"], colflor]
     rows = [dict(name=name, route=route, source=src, replaces=rep,
-                 launches=sum(p[name] for p in paths), **kernels[name])
+                 launches=sum(p[tile_of.get(name, name)] for p in paths), **kernels[name])
             for name, (route, src, rep) in meta.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

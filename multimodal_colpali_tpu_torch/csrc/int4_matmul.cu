@@ -53,32 +53,33 @@
 // partial is at most 1/16 of the codes' bytes and stays in L2) and
 // int4_finalize sums the splits in order.
 //
-// Prefill tile (M > 16): K8a's kernel (csrc/int8_matmul.cu) with a K step of
-// 32 packed byte rows. A block computes a 128 x 128 tile of C with 8 warps
-// (2 x 4, 64 x 32 each) of 16 x 16 x 16 bf16 WMMA products and float32
-// accumulators. One step's A tile is [128, 64]: column i holds x[:, k_lo(p0+i)],
-// column 32+i holds x[:, k_lo(p0+i) + G/2]; the block widens the 32 byte rows
-// into a bf16 B tile (low nibbles over high, each row scaled by its group) in
-// shared memory, 3 cp.async stages, 85 KB of shared memory (the launch opts
-// in). Split-K as the decode tile.
+// Prefill tile (M > 16): csrc/wstream.cuh, shared with K8a: the same
+// transposed product on wgmma, the codes widened, scaled and rounded in
+// registers into A fragments (each feeds 128 tokens of products there, so the
+// widening that holds the decode tile is spread over 16x the tensor-core
+// work), x's tokens the B operand in shared memory, TMA-fed. On gemma-3's
+// G = 256 a stage of 32 byte rows lies in one group: x arrives as the two runs
+// k_lo .. k_lo+31 and k_lo + G/2 .. +31 and the group's scales with the codes.
 //
 // Both tiles take any even G that divides K. When a stage never crosses a
 // group (G/2 a multiple of its byte rows) and x's rows are whole 16-byte
-// chunks, x arrives by cp.async as two contiguous runs; otherwise each x
-// element is gathered into the same ring. Codes arrive by cp.async where N is
+// chunks, x arrives by cp.async as two contiguous runs; otherwise (the
+// gathered path) each x element is gathered into the same ring and each lane
+// loads the scales of its byte rows' groups. Codes arrive by cp.async where N is
 // a multiple of 16, else element by element. Ragged M, N and K edges are
 // masked. The TPU dispatch's shape gate (N % 512 == 0) does not apply.
-#include <mma.h>
-
 #include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
+#include "wstream.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using wstream::code_of;
+using wstream::mma_bf16;
+using wstream::pack_bf16;
 
 // ---- decode tile (M <= 16) -------------------------------------------------------
 
@@ -104,26 +105,6 @@ struct DecRing {
   static constexpr int kBytes = kDecStages * kStage;
   static_assert(kBytes >= kDecCols * 32 * (MT / 8) * 16 * 4, "scratch aliases the ring");
 };
-
-// 0x4B000000 | n is the float 2^23 + n; minus 2^23 + 8 it is n - 8, exactly
-__device__ __forceinline__ float code_of(unsigned nibbles, int byte) {
-  return __uint_as_float(__byte_perm(nibbles, 0x4B000000u, 0x7540u | byte)) - 8388616.f;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// c (16 x 8, float32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16, "col")
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The float32 scales of the 8 columns n .. n+7 in group `grp` (-1: zeros).
 __device__ __forceinline__ void load_scales(float (&s)[8], const float* scale, int grp, int n,
@@ -377,225 +358,6 @@ int4_decode_kernel(const bf16* __restrict__ X, const unsigned char* __restrict__
     }
 }
 
-// ---- prefill tile (M > 16) -------------------------------------------------------
-
-constexpr int BN = 128;
-constexpr int kThreads = 256;  // 8 warps
-
-union Pack8 {
-  uint4 u;
-  bf16 h[8];
-};
-
-union Bytes16 {
-  uint4 u;
-  unsigned char b[16];
-};
-
-template <int BM>
-struct Tile {
-  static constexpr int BR = 32;                  // packed byte rows a K step
-  static constexpr int BK = 2 * BR;              // K rows a step: BR low + BR high nibbles
-  static constexpr int LDA = BK + 8;             // shared row stride of A
-  static constexpr int LDB = BN + 8;             // shared row stride of the widened B
-  static constexpr int kWarpsM = 2;
-  static constexpr int kWarpsN = 8 / kWarpsM;
-  static constexpr int WM = BM / kWarpsM;
-  static constexpr int WN = BN / kWarpsN;
-  static constexpr int FM = WM / 16;
-  static constexpr int FN = WN / 16;
-  static constexpr int kAChunks = BM * BK / 8;  // 16-byte chunks of A a step
-  static constexpr int kAPer = (kAChunks + kThreads - 1) / kThreads;
-  static constexpr int kBChunks = BR * BN / 16;  // 16-byte chunks of packed codes a step
-  static constexpr int kBPer = (kBChunks + kThreads - 1) / kThreads;
-  static constexpr int LDW = BN + 16;  // packed row stride in the ring, bytes: 32 lanes
-                                       // reading one row each hit distinct banks
-};
-
-template <int BM>
-struct Ring {
-  using T = Tile<BM>;
-  static constexpr int kStages = 3;
-  static constexpr int kA = BM * T::LDA * 2;     // a stage of x (bf16), bytes
-  static constexpr int kStage = kA + T::BR * T::LDW;  // + a stage of packed codes
-  static constexpr int kBytes = kStages * kStage + T::BK * T::LDB * 2;  // + widened codes
-  static_assert(kStages * kStage >= (kThreads / 32) * 256 * 4, "scratch aliases the ring");
-};
-
-template <int BM, typename TOut>
-__global__ void __launch_bounds__(kThreads)
-int4_matmul_kernel(const bf16* __restrict__ X, const unsigned char* __restrict__ W,
-                   const float* __restrict__ scale, TOut* __restrict__ C,
-                   float* __restrict__ partial, int M, int N, int K, int G, int p_split,
-                   bool a_vec, bool b_vec, bool s_vec) {
-  using T = Tile<BM>;
-  using R = Ring<BM>;
-  constexpr int BR = T::BR, BK = T::BK, LDA = T::LDA, kStages = R::kStages;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Bw = reinterpret_cast<bf16*>(smem + kStages * R::kStage);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int H = G / 2;  // byte rows a group
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int pb = blockIdx.z * p_split;
-  const int pe = min(K / 2, pb + p_split);
-  const int steps = pe > pb ? (pe - pb + BR - 1) / BR : 0;
-  const int wm = warp / T::kWarpsN;
-  const int wn = warp % T::kWarpsN;
-
-  // Step `step`'s x columns and packed codes into its stage of the ring.
-  auto issue = [&](int step) {
-    unsigned char* st = smem + (step % kStages) * R::kStage;
-    const int p0 = pb + step * BR;
-    bf16* As = reinterpret_cast<bf16*>(st);
-    if (a_vec) {  // the step lies in one group: two contiguous, aligned runs of x
-      const int k_lo = (p0 / H) * G + p0 % H;
-#pragma unroll
-      for (int i = 0; i < T::kAPer; ++i) {
-        const int c = tid + i * kThreads;
-        if (c >= T::kAChunks) continue;
-        const int row = c / (BK / 8), cc = (c % (BK / 8)) * 8;  // cc: column in the A tile
-        const int m = m0 + row;
-        const int k = k_lo + (cc >= BR ? H + cc - BR : cc);
-        const bool ok = m < M && p0 < pe;
-        cp_async16(As + row * LDA + cc, X + (ok ? static_cast<size_t>(m) * K + k : 0), ok);
-      }
-    } else {  // gather element by element
-      for (int e = tid; e < BM * BK; e += kThreads) {
-        const int row = e / BK, col = e % BK;
-        const int m = m0 + row;
-        const int p = p0 + (col >= BR ? col - BR : col);
-        bf16 val = __float2bfloat16(0.f);
-        if (m < M && p < pe) {
-          const int k = (p / H) * G + p % H + (col >= BR ? H : 0);
-          val = X[static_cast<size_t>(m) * K + k];
-        }
-        As[row * LDA + col] = val;
-      }
-    }
-    unsigned char* Bs = st + R::kA;
-#pragma unroll
-    for (int i = 0; i < T::kBPer; ++i) {
-      const int c = tid + i * kThreads;
-      if (c >= T::kBChunks) continue;
-      const int r = c / (BN / 16), o = (c % (BN / 16)) * 16;
-      const int p = p0 + r, col = n0 + o;
-      const bool ok = p < pe && col < N;
-      unsigned char* dst = Bs + r * T::LDW + o;
-      const unsigned char* src = W + (ok ? static_cast<size_t>(p) * N + col : 0);
-      if (b_vec || !ok) {
-        cp_async16(dst, src, ok);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 16; ++e) dst[e] = col + e < N ? src[e] : 0;
-      }
-    }
-    cp_async_commit();
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps)
-      issue(s);
-    else
-      cp_async_commit();  // one group per step keeps the wait count right
-  }
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // this step's stage has arrived; the last step's WMMA is done
-    if (step + kStages - 1 < steps)
-      issue(step + kStages - 1);  // refills the stage the last step used
-    else
-      cp_async_commit();
-    const unsigned char* st = smem + (step % kStages) * R::kStage;
-    const int p0 = pb + step * BR;
-#pragma unroll
-    for (int i = 0; i < T::kBPer; ++i) {  // widen, scale, round to bf16
-      const int c = tid + i * kThreads;
-      if (c >= T::kBChunks) continue;
-      const int r = c / (BN / 16), o = (c % (BN / 16)) * 16;
-      const int p = p0 + r, n = n0 + o;
-      Bytes16 b;
-      b.u = *reinterpret_cast<const uint4*>(st + R::kA + r * T::LDW + o);
-      float s[16];
-      const float* srow = scale + static_cast<size_t>(p / H) * N + n;
-      if (p < pe && s_vec && n + 16 <= N) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 v = __ldg(reinterpret_cast<const float4*>(srow) + q);
-          s[4 * q] = v.x, s[4 * q + 1] = v.y, s[4 * q + 2] = v.z, s[4 * q + 3] = v.w;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 16; ++e) s[e] = p < pe && n + e < N ? __ldg(srow + e) : 0.f;
-      }
-      Pack8 lo[2], hi[2];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        lo[e / 8].h[e % 8] = __float2bfloat16(static_cast<float>((b.b[e] & 15) - 8) * s[e]);
-        hi[e / 8].h[e % 8] = __float2bfloat16(static_cast<float>((b.b[e] >> 4) - 8) * s[e]);
-      }
-      bf16* dlo = Bw + r * T::LDB + o;
-      bf16* dhi = Bw + (BR + r) * T::LDB + o;
-      *reinterpret_cast<uint4*>(dlo) = lo[0].u;
-      *reinterpret_cast<uint4*>(dlo + 8) = lo[1].u;
-      *reinterpret_cast<uint4*>(dhi) = hi[0].u;
-      *reinterpret_cast<uint4*>(dhi + 8) = hi[1].u;
-    }
-    __syncthreads();
-    const bf16* As = reinterpret_cast<const bf16*>(st);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[T::FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[T::FN];
-#pragma unroll
-      for (int i = 0; i < T::FM; ++i)
-        wmma::load_matrix_sync(af[i], As + (wm * T::WM + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < T::FN; ++j)
-        wmma::load_matrix_sync(bfr[j], Bw + kk * T::LDB + wn * T::WN + j * 16, T::LDB);
-#pragma unroll
-      for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::FN; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: its first 8 KB hold each warp's 16 x 16 scratch
-  float* sc = reinterpret_cast<float*>(smem) + warp * 256;
-  const int rr = lane / 2;
-  const int cc = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) {
-      wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm * T::WM + i * 16 + rr;
-      const int n = n0 + wn * T::WN + j * 16 + cc;
-      if (m < M) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          if (n + e >= N) break;
-          const float v = sc[rr * 16 + cc + e];
-          const size_t at = static_cast<size_t>(m) * N + n + e;
-          if (partial != nullptr)
-            partial[static_cast<size_t>(blockIdx.z) * M * N + at] = v;
-          else
-            C[at] = from_f32<TOut>(v);
-        }
-      }
-      __syncwarp();  // the scratch tile is rewritten next
-    }
-  }
-}
-
 // C = sum over the splits of partial, cast.
 template <typename TOut>
 __global__ void int4_finalize(const float* __restrict__ partial, TOut* __restrict__ C, int M,
@@ -617,7 +379,7 @@ cudaError_t finalize(const float* partial, TOut* C, int M, int N, int splits, cu
   return cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+using wstream::aligned16;
 
 template <int MT, typename TOut>
 cudaError_t launch_decode(const bf16* X, const unsigned char* W, const float* scale, TOut* C,
@@ -646,33 +408,14 @@ cudaError_t launch_decode(const bf16* X, const unsigned char* W, const float* sc
 }
 
 template <typename TOut>
-cudaError_t launch_prefill(const bf16* X, const unsigned char* W, const float* scale, TOut* C,
-                           float* partial, int M, int N, int K, int G, int splits,
-                           cudaStream_t s) {
-  constexpr int BM = 128, BR = Tile<BM>::BR;
-  const int steps = (K / 2 + BR - 1) / BR;
-  const int p_split = ((steps + splits - 1) / splits) * BR;  // each split whole steps
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  const bool a_vec = (G / 2) % BR == 0 && K % 8 == 0 && aligned16(X);
-  const bool b_vec = N % 16 == 0 && aligned16(W);
-  const bool s_vec = N % 4 == 0 && aligned16(scale);
-  cudaError_t e = cudaFuncSetAttribute(int4_matmul_kernel<BM, TOut>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       Ring<BM>::kBytes);
-  if (e != cudaSuccess) return e;
-  int4_matmul_kernel<BM, TOut><<<grid, kThreads, Ring<BM>::kBytes, s>>>(
-      X, W, scale, C, splits > 1 ? partial : nullptr, M, N, K, G, p_split, a_vec, b_vec, s_vec);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return e;
-  return finalize<TOut>(partial, C, M, N, splits, s);
-}
-
-template <typename TOut>
 cudaError_t launch(const bf16* X, const unsigned char* W, const float* scale, TOut* C,
                    float* partial, int M, int N, int K, int G, int splits, cudaStream_t s) {
   if (M <= 8) return launch_decode<8, TOut>(X, W, scale, C, partial, M, N, K, G, splits, s);
   if (M <= 16) return launch_decode<16, TOut>(X, W, scale, C, partial, M, N, K, G, splits, s);
-  return launch_prefill<TOut>(X, W, scale, C, partial, M, N, K, G, splits, s);
+  const cudaError_t e =
+      wstream::launch_prefill<true, TOut>(X, W, scale, C, partial, M, N, K, G, splits, s);
+  if (e != cudaSuccess || splits == 1) return e;
+  return finalize<TOut>(partial, C, M, N, splits, s);
 }
 
 }  // namespace
@@ -680,15 +423,15 @@ cudaError_t launch(const bf16* X, const unsigned char* W, const float* scale, TO
 // C [M, N] = x [M, K] . dequant(packed [K/2, N], scale [K/G, N]); x bfloat16,
 // packed uint8, scale float32; C float32 (out_dtype 0) or bfloat16 (1). G is
 // even and divides K. M <= 16 takes the decode tile (K steps of 64 byte rows),
-// larger M the prefill tile (32). splits > 1 needs `partial`, a float32
-// workspace of splits * M * N; the splits must not outnumber the K steps.
-// Any M, N >= 1.
+// larger M the prefill tile (32; csrc/wstream.cuh). splits > 1 needs
+// `partial`, a float32 workspace of splits * M * N; the splits must not
+// outnumber the K steps. Any M, N >= 1.
 extern "C" int int4_matmul_launch(const void* x, const void* packed, const void* scale,
                                   void* out, void* partial, int M, int N, int K, int G,
                                   int out_dtype, int splits, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || G < 2 || G % 2 != 0 || K % G != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int br = M <= 16 ? kDecBR : Tile<128>::BR;
+  const int br = M <= 16 ? kDecBR : wstream::PreRing<true>::kRows;
   if (splits < 1 || splits > (K / 2 + br - 1) / br || (out_dtype != 0 && out_dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (splits > 1 && partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import os
 import warnings
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
@@ -147,6 +148,38 @@ class Retriever:
         return out
 
 
+def _find_checkpoint(name: str, checkpoint_dir: Optional[str]) -> Optional[str]:
+    """The checkpoint directory the JAX registry would load for ``name``
+    (registry.py:423-436): ``checkpoint_dir``, then
+    ``$COLPALI_TPU_CKPT_DIR/<name with / -> -->``, then
+    ``$COLPALI_TPU_CKPT_DIR/<basename>``; the first that holds a
+    ``.safetensors`` or ``.bin`` file, else None."""
+    candidates = []
+    if checkpoint_dir:
+        candidates.append(checkpoint_dir)
+    env = os.environ.get("COLPALI_TPU_CKPT_DIR")
+    if env:
+        candidates.append(os.path.join(env, name.replace("/", "--")))
+        candidates.append(os.path.join(env, os.path.basename(name)))
+    for c in candidates:
+        if c and os.path.isdir(c) and any(
+                f.endswith((".safetensors", ".bin")) for f in os.listdir(c)):
+            return c
+    return None
+
+
+def _refuse_checkpoint(name: str, checkpoint_dir: Optional[str]) -> None:
+    """Raise where the JAX registry would load real weights: checkpoint
+    loading is not ported, and random weights in their place would pass for
+    the model."""
+    found = _find_checkpoint(name, checkpoint_dir)
+    if found is not None or checkpoint_dir is not None:
+        raise NotImplementedError(
+            f"{name!r}: loading the checkpoint at {found or checkpoint_dir!r} (hf_import) is "
+            f"not ported yet; see ROADMAP.md queue 1 item 1. Pass params= or unset "
+            f"COLPALI_TPU_CKPT_DIR to run random weights.")
+
+
 def load_retriever(
     name: str,
     device: Any = "cuda",
@@ -155,19 +188,28 @@ def load_retriever(
     seed: int = 0,
     params: Optional[Mapping[str, Any]] = None,
     quantize: Optional[str] = None,
-    device_preprocess: bool = False,
+    device_preprocess: Optional[bool] = None,
     dynamic_resolution: bool = False,
+    checkpoint_dir: Optional[str] = None,
 ) -> Retriever:
     """Load a late-interaction retriever by name (reference surface).
 
     ``params``: a flax parameter tree, flat (``"a/b/c"`` keys) or nested, as
     ``save_params_npz``/``load_params_npz`` write and read it. Without it the
     weights are random, drawn from a ``torch.Generator`` seeded with ``seed``
-    on ``device``, by the rules of the name's family. Only the fixed square
-    layout is ported: ``dynamic_resolution=True`` (idefics3 image splitting)
-    raises."""
+    on ``device``, by the rules of the name's family, unless a checkpoint is
+    found (``checkpoint_dir`` or ``COLPALI_TPU_CKPT_DIR``, as the JAX
+    registry looks): loading one is not ported, so that raises
+    ``NotImplementedError``. ``quantize`` and ``device_preprocess`` left None
+    read ``MMCP_QUANTIZE`` and ``MMCP_DEVICE_PREPROCESS == "1"``, as the JAX
+    registry does (registry.py:532-535). Only the fixed square layout is
+    ported: ``dynamic_resolution=True`` (idefics3 image splitting) raises."""
     if name not in RETRIEVER_CONFIGS:
         raise KeyError(f"unknown retriever {name!r}; known: {sorted(RETRIEVER_CONFIGS)}")
+    if quantize is None:
+        quantize = os.environ.get("MMCP_QUANTIZE") or None
+    if device_preprocess is None:
+        device_preprocess = os.environ.get("MMCP_DEVICE_PREPROCESS") == "1"
     if quantize == "int8":
         raise NotImplementedError(
             "W8A8 int8 projections (quantize='int8') are not ported yet; "
@@ -178,6 +220,8 @@ def load_retriever(
         raise NotImplementedError(
             "dynamic_resolution (idefics3 image splitting) is not ported yet; "
             "see ROADMAP.md")
+    if params is None:
+        _refuse_checkpoint(name, checkpoint_dir)
     cfg = RETRIEVER_CONFIGS[name]()
     family = family_of(cfg)
     device = resolve_device(device)
@@ -323,14 +367,15 @@ def load_gemma3_lm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.b
 
     ``params`` (an engine tree of tensors, e.g. from
     ``convert.engine_params_from_jax``) is used as given; otherwise the
-    weights are random from ``seed``, made on ``device``. The tokenizer is
+    weights are random from ``seed``, made on ``device``, unless a checkpoint
+    is named (``checkpoint_dir``) or found under ``COLPALI_TPU_CKPT_DIR``:
+    loading one is not ported, so that raises ``NotImplementedError``. The tokenizer is
     None (no checkpoint provides one); callers fall back to
     ``ByteTokenizer``/``ModuloTokenizer``."""
     if name not in GEMMA3_CONFIGS:
         raise KeyError(f"unknown gemma3 LM {name!r}; known: {sorted(GEMMA3_CONFIGS)}")
-    if checkpoint_dir is not None:
-        raise NotImplementedError("loading Gemma-3 checkpoints (hf_import) is not ported yet; "
-                                  "see ROADMAP.md queue 1 item 8")
+    if params is None or checkpoint_dir is not None:
+        _refuse_checkpoint(name, checkpoint_dir)
     if weight_dtype not in ("native", "int8", "int4"):
         raise ValueError(f"weight_dtype must be 'native', 'int8' or 'int4', got {weight_dtype!r}")
     cfg = GEMMA3_CONFIGS[name]()

@@ -11,9 +11,10 @@ half, each code + 8), and ``scale [K/G, N]`` float32.
 - :func:`int4_matmul_kn_cuda` - the hand-written kernel K9
   (``csrc/int4_matmul.cu``) that replaces ``_kernel_kn4`` (``pl.pallas_call``
   at int4_matmul.py:134): each weight is scaled in float32 and rounded to
-  bf16 before the dot, as the TPU kernel does; float32 accumulation. M <= 16
-  (decode) dequantizes in registers into mma.sync fragments, larger M takes
-  the WMMA prefill tile.
+  bf16 before the dot, as the TPU kernel does; float32 accumulation. Both
+  tiles dequantize in registers into tensor-core fragments: M <= 16 the
+  decode tile (mma.sync), larger M the prefill tile K8a shares (wgmma, TMA;
+  ``csrc/wstream.cuh``).
 - :func:`int4_matmul_kn` - the dispatcher: a CPU tensor takes the plain
   version, a CUDA tensor the kernel. Every shape with an even group that
   divides K is taken: unlike the TPU dispatch (int4_matmul.py:119-122) there
@@ -27,15 +28,13 @@ from typing import Optional
 import torch
 
 from multimodal_colpali_tpu_torch import _build
+from multimodal_colpali_tpu_torch.ops.int8_matmul import (
+    DECODE_ROWS, decode_splits, even_splits, prefill_splits)
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's tiles (csrc/int4_matmul.cu): decode (M <= 16) and prefill
-_DECODE_ROWS = 16
 _DECODE_BN, _DECODE_BR = 256, 64   # columns a block, packed byte rows a K step
-_DECODE_BLOCKS_PER_SM = 2          # its 80-89 KB ring and 128-register cap fit two
-_DECODE_MIN_STEPS = 8              # a split's partial stays <= 1/16 of its codes
-_BN, _BR = 128, 32                 # the prefill tile
-_BLOCKS_PER_SM = 4                 # split K until about this many blocks per SM
+_PREFILL_BR = 32                   # packed byte rows a stage of the prefill tile
 
 
 def int4_matmul_reference(x: torch.Tensor, packed: torch.Tensor,
@@ -51,18 +50,21 @@ def split_count(m: int, n: int, k: int, sms: int) -> int:
     card of ``sms`` multiprocessors, each range a whole number of K steps and
     none empty. The decode tile (M <= 16) fills one wave of blocks, at least
     8 steps a split (its float32 partial then stays small beside the codes);
-    the prefill tile aims at about 4 blocks an SM."""
-    if m <= _DECODE_ROWS:
-        blocks = -(-n // _DECODE_BN)
+    the prefill tile splits only a grid smaller than a wave."""
+    if m <= DECODE_ROWS:
         steps = -(-(k // 2) // _DECODE_BR)
-        splits = max(1, min(_DECODE_BLOCKS_PER_SM * sms // blocks,
-                            steps // _DECODE_MIN_STEPS))
+        splits = decode_splits(-(-n // _DECODE_BN), steps, sms)
     else:
-        blocks = -(-m // 128) * -(-n // _BN)
-        steps = -(-(k // 2) // _BR)
-        splits = max(1, min(-(-_BLOCKS_PER_SM * sms // blocks), steps // 8))
-    per = -(-steps // splits)
-    return -(-steps // per)
+        steps = -(-(k // 2) // _PREFILL_BR)
+        splits = prefill_splits(m, n, steps, sms)
+    return even_splits(splits, steps)
+
+
+def gathers(m: int, group: int) -> bool:
+    """Whether the prefill tile takes its gathered path: a stage of 32 byte
+    rows may cross a group (G/2 not a multiple of 32), so x is gathered
+    element by element and the scales per byte row."""
+    return m > DECODE_ROWS and (group // 2) % _PREFILL_BR != 0
 
 
 def int4_matmul_kn_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
@@ -71,7 +73,9 @@ def int4_matmul_kn_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tens
     [K/2, N]`` uint8 and ``scale [K/G, N]`` float32, out in ``out_dtype`` (x's
     by default). G = K / scale rows must be even. Adds one to
     ``int4_matmul_kn_cuda.launches`` per launch, and one to
-    ``.decode_launches`` (M <= 16) or ``.prefill_launches`` by the tile."""
+    ``.decode_launches`` (M <= 16) or ``.prefill_launches`` by the tile;
+    a prefill launch on the gathered path (:func:`gathers`) also adds one to
+    ``.gathered_launches``."""
     name = "int4_matmul_kn_cuda"
     if not (x.is_cuda and packed.device == x.device and scale.device == x.device):
         raise ValueError(f"{name} needs x, packed and scale on one CUDA device")
@@ -109,16 +113,18 @@ def int4_matmul_kn_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tens
         _OUT_CODES[out_dtype], splits, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "int4_matmul_launch")
     int4_matmul_kn_cuda.launches += 1
-    if m <= _DECODE_ROWS:
+    if m <= DECODE_ROWS:
         int4_matmul_kn_cuda.decode_launches += 1
     else:
         int4_matmul_kn_cuda.prefill_launches += 1
+        int4_matmul_kn_cuda.gathered_launches += gathers(m, group)
     return out
 
 
 int4_matmul_kn_cuda.launches = 0
 int4_matmul_kn_cuda.decode_launches = 0
 int4_matmul_kn_cuda.prefill_launches = 0
+int4_matmul_kn_cuda.gathered_launches = 0
 
 
 def int4_matmul_kn(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,

@@ -15,6 +15,11 @@ hand-written kernel (``csrc/int8_matmul.cu``), which multiplies the float32
 accumulator by the float32 scale before it casts, as the TPU kernels do. The
 kernels take every shape: unlike the TPU dispatch (int8_matmul.py:66-70),
 there is no gate on K, N or M.
+
+K8a has two tiles, both widening the codes in registers into tensor-core
+fragments: the decode tile for M <= 16 and the prefill tile
+(``csrc/wstream.cuh``, shared with K9) for larger M; its wrapper counts each
+(``.decode_launches`` / ``.prefill_launches``). K8b is one WMMA kernel.
 """
 
 from __future__ import annotations
@@ -26,8 +31,17 @@ import torch
 from multimodal_colpali_tpu_torch import _build
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_BN = 128                   # the kernel's N tile (csrc/int8_matmul.cu)
+# K8b's tile (csrc/int8_matmul.cu)
+_BN = 128                   # its N tile
 _BLOCKS_PER_SM = 4          # split K until about this many blocks per SM
+# K8a's tiles: decode (M <= 16) and the prefill tile K9 shares (csrc/wstream.cuh)
+DECODE_ROWS = 16
+_DECODE_BN, _DECODE_BK = 256, 64   # columns a block, K rows a stage
+_DECODE_BLOCKS_PER_SM = 2          # its ring and 128-register cap fit two
+_DECODE_MIN_STEPS = 8              # a split's partial stays small beside its codes
+_PREFILL_BM, _PREFILL_BN = 128, 256  # tokens and columns a block
+_PREFILL_MIN_STEPS = 4
+_PREFILL_MAX_SPLITS = 4
 
 
 def int8_matmul_reference(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
@@ -38,17 +52,51 @@ def int8_matmul_reference(x: torch.Tensor, codes: torch.Tensor, scale: torch.Ten
     return y * scale.to(x.dtype)
 
 
-def split_count(m: int, n: int, k: int, sms: int) -> int:
+def decode_splits(blocks: int, steps: int, sms: int) -> int:
+    """The decode tiles' K splits (K8a's and K9's): one wave of two blocks an
+    SM, at least 8 stages a split."""
+    return max(1, min(_DECODE_BLOCKS_PER_SM * sms // blocks, steps // _DECODE_MIN_STEPS))
+
+
+def prefill_splits(m: int, n: int, steps: int, sms: int) -> int:
+    """The prefill tile's K splits (K8a's and K9's): 1 where its grid of
+    128-token x 256-column blocks fills a wave; else the count (at most 4, at
+    least 4 stages a split) that leaves the least of the last wave idle,
+    fewest first."""
+    blocks = -(-m // _PREFILL_BM) * -(-n // _PREFILL_BN)
+    best, best_waves = 1, 1.0
+    if blocks < sms:
+        for s in range(2, min(_PREFILL_MAX_SPLITS, steps // _PREFILL_MIN_STEPS) + 1):
+            waves = -(-blocks * s // sms) / s
+            if waves < best_waves:
+                best, best_waves = s, waves
+    return best
+
+
+def even_splits(splits: int, steps: int) -> int:
+    """``splits`` made whole: each range a whole number of stages, none empty."""
+    per = -(-steps // splits)
+    return -(-steps // per)
+
+
+def split_count(m: int, n: int, k: int, sms: int, nk: bool = False) -> int:
     """How many K ranges the kernel splits a product into on a card of
-    ``sms`` multiprocessors: enough blocks to keep bytes in flight at
-    decode's small M, each range a whole number of K steps and no range
-    empty."""
-    bm, bk = (16, 64) if m <= 16 else (128, 32)   # the kernel's row tile and K step
+    ``sms`` multiprocessors, each range a whole number of K steps and none
+    empty. K8a (``nk`` False): its decode tile (M <= 16) fills one wave, at
+    least 8 stages of 64 K rows a split; its prefill tile splits only a grid
+    smaller than a wave. K8b: about 4 blocks an SM."""
+    if not nk:
+        steps = -(-k // _DECODE_BK)
+        if m <= DECODE_ROWS:
+            splits = decode_splits(-(-n // _DECODE_BN), steps, sms)
+        else:
+            splits = prefill_splits(m, n, steps, sms)
+        return even_splits(splits, steps)
+    bm, bk = (16, 64) if m <= 16 else (128, 32)   # K8b's row tile and K step
     blocks = -(-m // bm) * -(-n // _BN)
     steps = -(-k // bk)
     splits = max(1, min(-(-_BLOCKS_PER_SM * sms // blocks), steps // 8))
-    per = -(-steps // splits)
-    return -(-steps // per)
+    return even_splits(splits, steps)
 
 
 def _int8_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
@@ -77,7 +125,8 @@ def _int8_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
         return out.zero_()
     x, codes = x.contiguous(), codes.contiguous()
     scale = scale.to(torch.float32).contiguous()
-    splits = split_count(m, n, k, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    splits = split_count(m, n, k, torch.cuda.get_device_properties(x.device).multi_processor_count,
+                         nk)
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
     lib = _build.load("int8_matmul")
@@ -87,6 +136,11 @@ def _int8_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
         _OUT_CODES[out_dtype], splits, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "int8_matmul_launch")
     wrapper.launches += 1
+    if not nk:
+        if m <= DECODE_ROWS:
+            wrapper.decode_launches += 1
+        else:
+            wrapper.prefill_launches += 1
     return out
 
 
@@ -94,11 +148,14 @@ def int8_matmul_kn_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tenso
                         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """K8a on the card: bf16 ``x [M, K]`` times int8 ``codes [K, N]`` times
     float32 ``scale [N]``, out in ``out_dtype`` (x's by default). Adds one to
-    ``int8_matmul_kn_cuda.launches`` per launch."""
+    ``int8_matmul_kn_cuda.launches`` per launch, and one to
+    ``.decode_launches`` (M <= 16) or ``.prefill_launches`` by the tile."""
     return _int8_matmul_cuda(x, codes, scale, False, out_dtype, int8_matmul_kn_cuda)
 
 
 int8_matmul_kn_cuda.launches = 0
+int8_matmul_kn_cuda.decode_launches = 0
+int8_matmul_kn_cuda.prefill_launches = 0
 
 
 def int8_matmul_nk_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,

@@ -2,8 +2,9 @@
 
 The counterpart of ``drivers/07_serve.py`` for the Gemma-3 text LMs
 (``models/registry.GEMMA3_CONFIGS``) and the Gemma LM of the ColPali
-retrievers: it loads the model (random weights from a seed; checkpoints are
-not ported yet), wraps it in the decode engine and a continuous batcher and
+retrievers: it loads the model (random weights from a seed, with a warning; a
+checkpoint under ``COLPALI_TPU_CKPT_DIR`` raises, since loading one is not
+ported yet), wraps it in the decode engine and a continuous batcher and
 serves ``/v1/chat/completions`` and ``/health``. It runs on the GPU unless
 ``--device cpu`` asks for the CPU.
 
@@ -15,7 +16,6 @@ Example:
 from __future__ import annotations
 
 import argparse
-import warnings
 
 import torch
 
@@ -68,22 +68,22 @@ def build(args: argparse.Namespace):
         GEMMA3_CONFIGS, load_gemma3_lm, load_retriever)
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")   # the random-init warning: there is no checkpoint
-        if args.model in GEMMA3_CONFIGS:
-            cfg, params, tok = load_gemma3_lm(args.model, device=args.device, dtype=dtype,
-                                              weight_dtype=args.weight_dtype)
-        else:
-            retriever = load_retriever(args.model, device=args.device, dtype=dtype)
-            if retriever.family != "colpali":
-                raise SystemExit(f"serving supports the Gemma-LM (colpali) family and the "
-                                 f"gemma3 LMs ({sorted(GEMMA3_CONFIGS)}); {args.model!r} "
-                                 f"is {retriever.family!r}")
-            cfg = retriever.model.cfg.text
-            params = engine_params_from_state_dict(retriever.model.state_dict())
-            tok = getattr(retriever.processor, "tokenizer", None)
-            if tok is None or not hasattr(tok, "decode"):
-                tok = None
+    # a checkpoint under COLPALI_TPU_CKPT_DIR raises (loading is not ported);
+    # random weights warn
+    if args.model in GEMMA3_CONFIGS:
+        cfg, params, tok = load_gemma3_lm(args.model, device=args.device, dtype=dtype,
+                                          weight_dtype=args.weight_dtype)
+    else:
+        retriever = load_retriever(args.model, device=args.device, dtype=dtype)
+        if retriever.family != "colpali":
+            raise SystemExit(f"serving supports the Gemma-LM (colpali) family and the "
+                             f"gemma3 LMs ({sorted(GEMMA3_CONFIGS)}); {args.model!r} "
+                             f"is {retriever.family!r}")
+        cfg = retriever.model.cfg.text
+        params = engine_params_from_state_dict(retriever.model.state_dict())
+        tok = getattr(retriever.processor, "tokenizer", None)
+        if tok is None or not hasattr(tok, "decode"):
+            tok = None
     engine = GemmaDecodeEngine(cfg, params, dtype=dtype, weight_dtype=args.weight_dtype,
                                device=args.device)
     if tok is None:

@@ -437,20 +437,25 @@ def test_quantize_kv_rows_on_card_equals_cpu(gen):
 @pytest.mark.parametrize("m,k,n", [
     (1, 512, 1024), (4, 5376, 4096), (8, 5376, 2048), (16, 96, 80), (3, 96, 80),
     (5, 40, 24), (17, 200, 300), (300, 512, 384), (8, 21504, 5376), (513, 136, 257),
-    (130, 96, 80), (40, 5376, 2048), (6, 37, 50), (20, 37, 50), (7, 1000, 130)])
+    (130, 96, 80), (40, 5376, 2048), (6, 37, 50), (20, 37, 50), (7, 1000, 130),
+    # K8a's prefill tile at gemma-3-27b's shapes: one token tile, 4 (split K), 12
+    (64, 5376, 4096), (512, 5376, 21504), (1504, 21504, 5376)])
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
 def test_int8_matmul_kernels_match_plain(gen, m, k, n, out):
     """K8a and K8b against their plain versions on the same bf16 inputs:
     within 2% of the output's largest value (tests/test_quant.py:195-217);
     ragged M, N and K included, and rows that are not whole 16-byte chunks
-    (K = 37: x too; K = 40, 200, 1000: K8b's codes; N = 24, 50, 300: K8a's)."""
+    (K = 37: x too; K = 40, 200, 1000: K8b's codes; N = 24, 50, 257, 300:
+    K8a's). K8a takes its decode tile for M <= 16, its prefill tile above."""
     from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
 
     x = _randn(gen, m, k, dtype=torch.bfloat16)
     codes = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
     codes_t = torch.randint(-127, 128, (n, k), generator=gen, device="cuda").to(torch.int8)
     scale = torch.rand(n, generator=gen, device="cuda") * 0.01
-    for fn, counter, c, t in ((IM.int8_matmul_kn, IM.int8_matmul_kn_cuda, codes, False),
+    kn = IM.int8_matmul_kn_cuda
+    tiles = (kn.decode_launches, kn.prefill_launches)
+    for fn, counter, c, t in ((IM.int8_matmul_kn, kn, codes, False),
                               (IM.int8_matmul_nk, IM.int8_matmul_nk_cuda, codes_t, True)):
         before = counter.launches
         got = fn(x, c, scale, out_dtype=out)
@@ -458,6 +463,54 @@ def test_int8_matmul_kernels_match_plain(gen, m, k, n, out):
         want = IM.int8_matmul_reference(x.float(), c, scale, transpose_codes=t)
         assert got.dtype == out and got.shape == (m, n)
         assert float((got.float() - want).abs().max()) <= 0.02 * float(want.abs().max())
+    assert (kn.decode_launches - tiles[0], kn.prefill_launches - tiles[1]) == \
+        ((1, 0) if m <= 16 else (0, 1))
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (1, 5376, 1024), (8, 5376, 1000), (16, 96, 40), (17, 384, 264), (200, 512, 300),
+    (512, 5376, 1024), (1504, 2048, 512), (300, 37, 50)])
+def test_int8_matmul_kernel_exact_on_grid_inputs(gen, m, k, n):
+    """Integer codes, x on a 2^-4 grid (|x| <= 1/2) and a power-of-two scale:
+    every product and partial sum is exact in float32, so both K8a tiles equal
+    the float32 plain product bit for bit; one that paired the wrong rows,
+    columns or tokens could not."""
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+
+    codes = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+    x = (torch.randint(-8, 8, (m, k), generator=gen, device="cuda") * 0.0625).to(torch.bfloat16)
+    scale = torch.full((n,), 2.0 ** -7, device="cuda")
+    got = IM.int8_matmul_kn_cuda(x, codes, scale, out_dtype=torch.float32)
+    assert torch.equal(got, IM.int8_matmul_reference(x.float(), codes, scale))
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("m,k,n,group", [
+    (300, 5376, 2048, 256), (512, 21504, 5376, 256), (1504, 5376, 1024, 256),
+    (200, 512, 300, 64), (130, 192, 136, 16)])
+def test_prefill_tiles_repeat_bit_identical(gen, kind, m, k, n, group):
+    """K8a's and K9's prefill tile give the same bits on a repeated call,
+    split K (512 x 5376 output: 3 splits) or not, grouped or gathered (K9 at
+    G = 16); each call counts one prefill launch (and, gathered, one
+    gathered launch)."""
+    from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+
+    x = _randn(gen, m, k, dtype=torch.bfloat16)
+    if kind == "int8":
+        fn = IM.int8_matmul_kn_cuda
+        w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+        s = torch.rand(n, generator=gen, device="cuda") * 0.01
+    else:
+        fn = I4.int4_matmul_kn_cuda
+        w, s = _int4_case(gen, k, n, group)
+    before = (fn.decode_launches, fn.prefill_launches)
+    gathered = getattr(fn, "gathered_launches", 0)
+    a = fn(x, w, s, out_dtype=torch.float32)
+    assert torch.equal(a, fn(x, w, s, out_dtype=torch.float32))
+    assert (fn.decode_launches, fn.prefill_launches) == (before[0], before[1] + 2)
+    if kind == "int4":
+        assert fn.gathered_launches - gathered == 2 * I4.gathers(m, group)
 
 
 def test_int8_matmul_rejects_float32_x(gen):

@@ -163,13 +163,27 @@ def test_int4_split_count_plans_the_decode_tile(m, n, k, sms, want):
     assert splits == 1 or partial <= codes / 16 * (m / 8)
 
 
-@pytest.mark.parametrize("m,n,k", [(17, 300, 128), (512, 21504, 5376), (2048, 5376, 21504)])
-def test_int4_split_count_plans_the_prefill_tile(m, n, k):
+@pytest.mark.parametrize("m,n,k,want", [
+    (17, 300, 128, 1),            # one stage of 32 byte rows: nothing to split
+    (512, 21504, 5376, 1),        # 4 x 84 blocks of 128 tokens x 256 columns: over a wave
+    (2048, 5376, 21504, 1),
+    (512, 5376, 21504, 3),        # 84 blocks: 3 splits make 2 full waves
+    (300, 5376, 21504, 2),        # 63 blocks: 2 splits make one wave
+])
+def test_int4_split_count_plans_the_prefill_tile(m, n, k, want):
+    """The prefill tile (K8a's too) splits K only where its grid of
+    128-token x 256-column blocks is smaller than a wave: at most 4 ways, at
+    least 4 stages of 32 byte rows a split, each split whole stages."""
+    assert TI4.split_count(m, n, k, 132) == want
     for sms in (1, 132, 1000):
         splits = TI4.split_count(m, n, k, sms)
         steps = -(-(k // 2) // 32)
         per = -(-steps // splits)
-        assert 1 <= splits <= steps and (splits - 1) * per < steps
+        assert 1 <= splits <= min(steps, 4) and (splits - 1) * per < steps
+        assert splits == 1 or per >= 4
+        assert splits == 1 or -(-m // 128) * -(-n // 256) < sms
+    assert TI4.gathers(m, 16) and TI4.gathers(m, 2) and not TI4.gathers(m, 64)
+    assert not TI4.gathers(m, 256) and not TI4.gathers(8, 16)
 
 
 def test_q_dense_dispatches_int4_like_jax():

@@ -92,15 +92,33 @@ def test_int8_matmul_plain_matches_pallas_interpret(m, k, n):
 
 
 def test_int8_matmul_split_count_covers_k():
-    """Every split range is a whole number of K steps (64 wide for decode's
-    M <= 16, else 32) and none is empty, on cards small and large."""
+    """Every split range is a whole number of K steps and none is empty, on
+    cards small and large: K8a's tiles step 64 K rows at every M, K8b's 64
+    for decode's M <= 16, else 32. K8a's decode tile fills one wave of two
+    blocks an SM (at least 8 steps a split); its prefill tile splits only a
+    grid of 128-token x 256-column blocks smaller than a wave, at most 4 ways."""
     for m, n, k in [(4, 4096, 5376), (8, 5376, 21504), (4, 21504, 5376), (1, 128, 40),
-                    (512, 21504, 5376), (8, 262656, 5376), (3, 80, 96)]:
+                    (512, 21504, 5376), (8, 262656, 5376), (3, 80, 96), (1504, 5376, 21504),
+                    (512, 5376, 21504), (17, 300, 37)]:
         for sms in (1, 132, 1000):
-            splits = TI.split_count(m, n, k, sms)
-            steps = -(-k // (64 if m <= 16 else 32))
-            per = -(-steps // splits)
-            assert 1 <= splits <= steps and (splits - 1) * per < steps
+            for nk in (False, True):
+                splits = TI.split_count(m, n, k, sms, nk=nk)
+                steps = -(-k // (64 if m <= 16 or not nk else 32))
+                per = -(-steps // splits)
+                assert 1 <= splits <= steps and (splits - 1) * per < steps
+            if m <= 16:
+                assert splits_kn(m, n, k, sms) == 1 or -(-k // 64) // splits_kn(m, n, k, sms) >= 8
+            else:
+                blocks = -(-m // 128) * -(-n // 256)
+                assert splits_kn(m, n, k, sms) <= (1 if blocks >= sms else 4)
+    assert splits_kn(8, 21504, 5376, 132) == 3       # gemma-3-27b up/gate: 84 column blocks
+    assert splits_kn(8, 5376, 21504, 132) == 12      # down: 21 column blocks
+    assert splits_kn(512, 21504, 5376, 132) == 1     # 336 prefill blocks: more than a wave
+    assert splits_kn(512, 5376, 21504, 132) == 3     # 84 blocks: 3 splits fill 2 waves
+
+
+def splits_kn(m, n, k, sms):
+    return TI.split_count(m, n, k, sms)
 
 
 @pytest.mark.parametrize("case", ["plain", "int8", "int8_bias"])

@@ -1,0 +1,142 @@
+"""The port's registry against the JAX registry: where a checkpoint is found,
+and which environment switches ``load_retriever`` reads.
+
+The port cannot load checkpoints yet, so wherever the JAX registry would
+load one the port must refuse (``NotImplementedError``) instead of running
+random weights; ``MMCP_QUANTIZE`` and ``MMCP_DEVICE_PREPROCESS`` act as in
+the JAX registry (registry.py:532-535).
+"""
+
+import os
+
+import pytest
+import torch
+
+from multimodal_colpali_tpu.models import registry as JR
+from multimodal_colpali_tpu_torch import serve
+from multimodal_colpali_tpu_torch.models import registry as TR
+
+
+def _write(path, name):
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, name), "wb") as f:
+        f.write(b"\0" * 16)
+
+
+@pytest.fixture
+def ckpt_env(tmp_path, monkeypatch):
+    monkeypatch.delenv("COLPALI_TPU_CKPT_DIR", raising=False)
+    return tmp_path
+
+
+@pytest.mark.parametrize("layout", [
+    "explicit", "env_dashed", "env_basename", "empty", "bin_only", "none", "explicit_over_env",
+    "explicit_missing"])
+def test_find_checkpoint_agrees_with_jax(ckpt_env, monkeypatch, layout):
+    """The same tmp directories give the same answer in both registries:
+    the explicit dir, then ``$COLPALI_TPU_CKPT_DIR/<org--name>``, then
+    ``$COLPALI_TPU_CKPT_DIR/<basename>``, each holding a .safetensors or
+    .bin file."""
+    name = "vidore/colpali-v1.3"
+    explicit = None
+    root = ckpt_env / "ckpts"
+    if layout == "explicit":
+        explicit = str(ckpt_env / "mine")
+        _write(explicit, "model.safetensors")
+    elif layout == "env_dashed":
+        _write(root / "vidore--colpali-v1.3", "model.safetensors")
+        monkeypatch.setenv("COLPALI_TPU_CKPT_DIR", str(root))
+    elif layout == "env_basename":
+        _write(root / "colpali-v1.3", "model-00001-of-00002.safetensors")
+        monkeypatch.setenv("COLPALI_TPU_CKPT_DIR", str(root))
+    elif layout == "empty":
+        (root / "vidore--colpali-v1.3").mkdir(parents=True)
+        _write(root / "colpali-v1.3", "config.json")
+        monkeypatch.setenv("COLPALI_TPU_CKPT_DIR", str(root))
+    elif layout == "bin_only":
+        _write(root / "colpali-v1.3", "pytorch_model.bin")
+        monkeypatch.setenv("COLPALI_TPU_CKPT_DIR", str(root))
+    elif layout == "explicit_over_env":
+        explicit = str(ckpt_env / "mine")
+        _write(explicit, "model.bin")
+        _write(root / "vidore--colpali-v1.3", "model.safetensors")
+        monkeypatch.setenv("COLPALI_TPU_CKPT_DIR", str(root))
+    elif layout == "explicit_missing":
+        explicit = str(ckpt_env / "absent")
+        _write(root / "colpali-v1.3", "model.safetensors")
+        monkeypatch.setenv("COLPALI_TPU_CKPT_DIR", str(root))
+    want = JR._find_checkpoint(name, explicit)
+    assert TR._find_checkpoint(name, explicit) == want
+    assert (want is None) == (layout in ("empty", "none"))
+
+
+def _tiny_safetensors(path):
+    from safetensors.torch import save_file
+
+    os.makedirs(path, exist_ok=True)
+    save_file({"w": torch.zeros(2, 2)}, os.path.join(path, "model.safetensors"))
+
+
+@pytest.mark.parametrize("name", ["tiny-colpali", "tiny-colflor"])
+def test_load_retriever_refuses_a_found_checkpoint(ckpt_env, monkeypatch, name):
+    """A checkpoint the JAX registry would load is refused by name, never
+    replaced by random weights; given params still load."""
+    _tiny_safetensors(ckpt_env / name)
+    monkeypatch.setenv("COLPALI_TPU_CKPT_DIR", str(ckpt_env))
+    with pytest.raises(NotImplementedError, match=f"{ckpt_env / name}.*queue 1 item 1"):
+        TR.load_retriever(name, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+        TR.load_retriever(name, device="cpu", checkpoint_dir=str(ckpt_env / name))
+
+
+def test_load_gemma3_lm_and_serve_refuse_a_found_checkpoint(ckpt_env, monkeypatch):
+    _tiny_safetensors(ckpt_env / "tiny-gemma3")
+    monkeypatch.setenv("COLPALI_TPU_CKPT_DIR", str(ckpt_env))
+    with pytest.raises(NotImplementedError, match="tiny-gemma3.*queue 1 item 1"):
+        TR.load_gemma3_lm("tiny-gemma3", device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+        TR.load_gemma3_lm("tiny-gemma3", device="cpu", weight_dtype="int4")
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+        serve.build(serve.parse_args(["--model", "tiny-gemma3", "--device", "cpu"]))
+
+
+def test_without_a_checkpoint_random_init_stays(ckpt_env, monkeypatch):
+    """No checkpoint found (the variable points elsewhere): random weights,
+    with the warning, as in the JAX registry."""
+    _tiny_safetensors(ckpt_env / "some-other-model")
+    monkeypatch.setenv("COLPALI_TPU_CKPT_DIR", str(ckpt_env))
+    with pytest.warns(UserWarning, match="random init"):
+        r = TR.load_retriever("tiny-colpali", device="cpu", dtype=torch.float32)
+    assert r.family == "colpali"
+    with pytest.warns(UserWarning, match="random init"):
+        TR.load_gemma3_lm("tiny-gemma3", device="cpu", dtype=torch.float32)
+
+
+def test_mmcp_quantize_acts_as_quantize(monkeypatch):
+    monkeypatch.delenv("COLPALI_TPU_CKPT_DIR", raising=False)
+    monkeypatch.setenv("MMCP_QUANTIZE", "int8")
+    with pytest.raises(NotImplementedError, match="W8A8"):
+        TR.load_retriever("tiny-colpali", device="cpu")
+    monkeypatch.setenv("MMCP_QUANTIZE", "int3")
+    with pytest.raises(ValueError, match="int3"):
+        TR.load_retriever("tiny-colpali", device="cpu")
+    monkeypatch.setenv("MMCP_QUANTIZE", "")          # empty reads as unset
+    with pytest.warns(UserWarning, match="random init"):
+        TR.load_retriever("tiny-colpali", device="cpu", dtype=torch.float32)
+
+
+def test_mmcp_device_preprocess_acts_as_device_preprocess(monkeypatch):
+    monkeypatch.delenv("COLPALI_TPU_CKPT_DIR", raising=False)
+    monkeypatch.delenv("MMCP_QUANTIZE", raising=False)
+    monkeypatch.setenv("MMCP_DEVICE_PREPROCESS", "1")
+    with pytest.warns(UserWarning, match="random init"):
+        r = TR.load_retriever("tiny-colpali", device="cpu", dtype=torch.float32)
+    assert r.device_preprocess
+    assert not TR.load_retriever("tiny-colpali", device="cpu", dtype=torch.float32,
+                                 device_preprocess=False).device_preprocess
+    with pytest.raises(ValueError, match="device_preprocess"):
+        TR.load_retriever("tiny-colflor", device="cpu", dtype=torch.float32)
+    monkeypatch.setenv("MMCP_DEVICE_PREPROCESS", "0")
+    with pytest.warns(UserWarning, match="random init"):
+        assert not TR.load_retriever("tiny-colpali", device="cpu",
+                                     dtype=torch.float32).device_preprocess
