@@ -15,7 +15,10 @@ phase; any failure exits non-zero.
    rate of their type): K1 MaxSim, K4 int8 MaxSim, K2 attention (and
    ``scaled_dot_product_attention`` on the same inputs), K3 normalize, K5a-c
    fused SigLIP layer / attention block / MLP block, and at gemma-3-27b's
-   shapes K7a paged attention (window 0 and 1024), K7b over int8 pools, K8a
+   shapes K7a paged attention and K7b over int8 pools (window 0 and 1024, at
+   phase 2's 8 slots of up to 4,096 tokens and at the paged batcher's decode
+   step, 4 slots at 309-1,509 tokens; bf16 on K7's tensor-core path, float32
+   on its CUDA-core path; repeat bit-identical), K8a
    int8 projections and K9 group-wise int4 projections (decode rows of 8
    tokens, prefill rows of 512 and 1,504 tokens through the up and down
    projections; both exact on grid inputs, both bit-identical on a repeated
@@ -23,7 +26,7 @@ phase; any failure exits non-zero.
    attention in bf16 and float32 (and ``scaled_dot_product_attention`` on the
    same inputs). K2 must take its tensor-core path for bf16 with D % 8 == 0
    and its CUDA-core path otherwise, K8a and K9 their decode tile for M <= 16
-   and their prefill tile above. K8 and K9, whose decode calls are shorter
+   and their prefill tile above. K7, K8 and K9, whose decode calls are shorter
    than their Python launch, are timed as CUDA-graph replays (their eager
    per-call time printed beside), with ``torch._weight_int8pack_mm`` and
    ``torch._weight_int4pack_mm`` on the same inputs as yardsticks where this
@@ -59,8 +62,9 @@ phase; any failure exits non-zero.
 
 Each main path (3, 4, each run of 5, and 6) sets every launch counter to 0
 before it runs and reads them after; each kernel of the path must have run in
-it (ColPali and ColSmol: K2's tensor-core path; run (c): both of K8a's tiles;
-run (d): both of K9's tiles). The line before the last is a JSON object with
+it (ColPali and ColSmol: K2's tensor-core path; every run of phase 5: K7's
+tensor-core path; run (c): both of K8a's tiles; run (d): both of K9's
+tiles). The line before the last is a JSON object with
 each kernel's launches in those paths, its error against the plain version,
 its time, the plain version's, its bound and, for K2, K6, K8a, K8b and K9,
 the library call's (null where this torch has none); K8a and K9 have a row a
@@ -472,40 +476,44 @@ def fused_layer_kernels(torch, g):
     return results
 
 
-def generation_kernels(torch, g):
-    """K7a, K7b, K8a and K8b at gemma-3-27b's decode shapes."""
-    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+def cycle(fns):
+    """A call that runs ``fns`` in turn, one per call (a graph captured over
+    it reads each set of inputs in turn)."""
+    state = {"i": 0}
+
+    def call():
+        fn = fns[state["i"] % len(fns)]
+        state["i"] += 1
+        return fn()
+    return call
+
+
+def paged_kernels(torch, g):
+    """K7a and K7b at gemma-3-27b's heads, windows 0 and 1,024: phase 2's case
+    (8 slots of up to 4,096 tokens) and the paged batcher's decode step (4
+    slots of 2,048 at 309-1,509 tokens, as in the generation breakdown)."""
     from multimodal_colpali_tpu_torch.ops import paged_attention as PA
 
     dev = torch.device("cuda")
-    results = {}
     c = K7
-    b, hq, hkv, d, page, nb = c["b"], c["hq"], c["hkv"], c["d"], c["page"], c["nb"]
-    n_pages = b * nb + 1
-    q = torch.randn(b, hq, d, generator=g, device=dev).to(torch.bfloat16)
-    kp = torch.randn(n_pages, page, hkv, d, generator=g, device=dev).to(torch.bfloat16)
-    vp = torch.randn(n_pages, page, hkv, d, generator=g, device=dev).to(torch.bfloat16)
-    bt = torch.randperm(n_pages, generator=g, device=dev)[: b * nb].reshape(b, nb).to(torch.int32)
-    lens = torch.randint(1, nb * page + 1, (b,), generator=g, device=dev, dtype=torch.int32)
-    lens[0], lens[1] = 0, nb * page          # an inactive slot, a full one
+    hq, hkv, d, page = c["hq"], c["hkv"], c["d"], c["page"]
     scale = 168.0 ** -0.5                    # gemma-3-27b's query_pre_attn_scalar
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def kv_bytes(window, per_row):
-        """Bytes of the K and V rows this data needs (a slot of length 0 reads
-        every gathered V row for its uniform mean)."""
-        total = 0
-        for n in lens.tolist():
-            rows = min(n, window) if window and n else n
-            total += (2 * rows if n else nb * page) * hkv * per_row
-        return total
-
-    def k7a(q_, kp_, vp_, kernel=True):
-        fn = PA.paged_attention_cuda if kernel else PA.paged_attention_reference
-        return lambda w: fn(q_, kp_, vp_, bt, lens, scale=scale, window=w)
-
-    def k7b(q_, pools, kernel=True):
-        fn = PA.paged_attention_int8_cuda if kernel else PA.paged_attention_int8_reference
-        return lambda w: fn(q_, *pools, bt, lens, scale=scale, window=w)
+    def case(b, nb, lengths, sets):
+        n_pages = b * nb + 1
+        q = torch.randn(b, hq, d, generator=g, device=dev).to(torch.bfloat16)
+        pools = [(torch.randn(n_pages, page, hkv, d, generator=g, device=dev).to(torch.bfloat16),
+                  torch.randn(n_pages, page, hkv, d, generator=g, device=dev).to(torch.bfloat16))
+                 for _ in range(sets)]
+        bt = torch.randperm(n_pages, generator=g, device=dev)[: b * nb].reshape(b, nb)
+        if lengths is None:
+            lens = torch.randint(1, nb * page + 1, (b,), generator=g, device=dev,
+                                 dtype=torch.int32)
+            lens[0], lens[1] = 0, nb * page          # an inactive slot, a full one
+        else:
+            lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        return q, pools, bt.to(torch.int32), lens
 
     # The outputs are softmax-weighted means of N(0, 1) rows, typically a few
     # hundredths, so a fixed atol alone could pass a kernel that drops a whole
@@ -516,45 +524,99 @@ def generation_kernels(torch, g):
     # split moves the 4096-token slot by ~6e-3 rms. The issue's absolute limits
     # stay as floors. Then the same data in float32 (q and pools; K7b's codes
     # unchanged), where only the sum order differs: 1e-4 for K7a, 1e-3 for K7b.
+    # bf16 takes the tensor-core path, float32 the CUDA-core path. The kernel
+    # is timed as a CUDA-graph replay (a decode-shape call is shorter than its
+    # eager launch); the decode step's case cycles over 4 sets of pools, as a
+    # step reads each layer's own, so its 25-30 MB of rows are not served from
+    # the 50 MB L2 cache.
     rtol = 2.0 ** -7
-    int8_pools = [*PA.quantize_kv_rows(kp), *PA.quantize_kv_rows(vp)]
-    q32, kp32, vp32 = q.float(), kp.float(), vp.float()
-    for name, tag, floor, atol, f32_atol, per_row, call, plain, call32, plain32 in (
-            ("paged_attention", "K7a", 2e-2, 2e-3, 1e-4, d * 2, k7a(q, kp, vp),
-             k7a(q, kp, vp, False), k7a(q32, kp32, vp32), k7a(q32, kp32, vp32, False)),
-            ("paged_attention_int8", "K7b", 0.035, 4e-3, 1e-3, d + 4, k7b(q, int8_pools),
-             k7b(q, int8_pools, False), k7b(q32, int8_pools), k7b(q32, int8_pools, False))):
-        errs, times = [], []
-        for window in (0, 1024):
-            got, want = call(window).float(), plain(window).float()
-            torch.cuda.synchronize()
-            require(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
-            diff = (got - want).abs()
-            err, top = float(diff.max()), float(want.abs().max())
-            excess = float((diff - rtol * want.abs()).max())
-            require(err <= floor and excess <= atol,
-                    f"{tag} window {window}: max|err| {err} (floor {floor}), max(|err| - "
-                    f"{rtol:.4g}|want|) {excess} > {atol}; max|want| {top}")
-            got32, want32 = call32(window), plain32(window)
-            err32 = float((got32 - want32).abs().max())
-            require(got32.dtype == torch.float32 and err32 <= f32_atol,
-                    f"{tag} float32 window {window}: max|err| {err32} > {f32_atol}")
-            errs.append(err)
-            k_ms, p_ms = timed_pair(torch, lambda: call(window), lambda: plain(window), iters=20)
-            nbytes = kv_bytes(window, per_row) + 2 * q.numel() * 2 + bt.numel() * 4
-            rows = sum(min(n, window) if window else n for n in lens.tolist())
-            times.append(row(err, k_ms, p_ms, nbytes, 4.0 * hq * d * rows))
-            r = times[-1]
-            print(f"[kernels] {tag} {name} q {list(q.shape)} pools {list(kp.shape)} window "
-                  f"{window}, lengths {lens.tolist()}: bf16 max|err| {err:.3g} (floor {floor}) "
-                  f"with max|want| {top:.3g}, max(|err| - {rtol:.4g}|want|) {excess:.3g} (limit "
-                  f"{atol}); float32 max|err| {err32:.3g} (limit {f32_atol}) | kernel "
-                  f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']})", flush=True)
-            del got, want, got32, want32, diff
-        results[name] = dict(times[0], max_abs_err=max(errs))   # window 0 is the row
-    del kp, vp, int8_pools, q32, kp32, vp32
-    torch.cuda.empty_cache()
+    shapes = (("phase 2", c["b"], c["nb"], None, 1),
+              ("decode step", 4, 128, [309, 709, 1109, 1509], 4))
+    results, errs = {}, {"paged_attention": [], "paged_attention_int8": []}
+    for label, b, nb, lengths, sets in shapes:
+        q, pools, bt, lens = case(b, nb, lengths, sets)
+        int8 = [(*PA.quantize_kv_rows(kp), *PA.quantize_kv_rows(vp)) for kp, vp in pools]
+        q32, kp32, vp32 = q.float(), pools[0][0].float(), pools[0][1].float()
+        splits = PA.split_plan(b, hkv, nb * page, sms)
+
+        def kv_bytes(window, per_row):
+            """Bytes of the K and V rows this data needs (a slot of length 0
+            reads every gathered V row for its uniform mean)."""
+            total = 0
+            for n in lens.tolist():
+                rows = min(n, window) if window and n else n
+                total += (2 * rows if n else nb * page) * hkv * per_row
+            return total
+
+        def k7a(q_, kp_, vp_, kernel=True):
+            fn = PA.paged_attention_cuda if kernel else PA.paged_attention_reference
+            return lambda w: fn(q_, kp_, vp_, bt, lens, scale=scale, window=w)
+
+        def k7b(q_, pools_, kernel=True):
+            fn = PA.paged_attention_int8_cuda if kernel else PA.paged_attention_int8_reference
+            return lambda w: fn(q_, *pools_, bt, lens, scale=scale, window=w)
+
+        for name, tag, floor, atol, f32_atol, per_row, kern, make in (
+                ("paged_attention", "K7a", 2e-2, 2e-3, 1e-4, d * 2, PA.paged_attention_cuda,
+                 lambda q_, i, kernel=True, f32=False: k7a(
+                     q_, kp32 if f32 else pools[i][0], vp32 if f32 else pools[i][1], kernel)),
+                ("paged_attention_int8", "K7b", 0.035, 4e-3, 1e-3, d + 4,
+                 PA.paged_attention_int8_cuda,
+                 lambda q_, i, kernel=True, f32=False: k7b(q_, int8[i], kernel))):
+            call, plain = make(q, 0), make(q, 0, False)
+            call32, plain32 = make(q32, 0, f32=True), make(q32, 0, False, f32=True)
+            for window in (0, 1024):
+                tc, cc = kern.tensor_core_launches, kern.cuda_core_launches
+                got, want = call(window).float(), plain(window).float()
+                torch.cuda.synchronize()
+                require(kern.tensor_core_launches == tc + 1,
+                        f"{tag} {label}: bf16 did not take the tensor-core path")
+                require(bool(torch.isfinite(got).all()), f"{tag} {label}: non-finite output")
+                diff = (got - want).abs()
+                err, top = float(diff.max()), float(want.abs().max())
+                excess = float((diff - rtol * want.abs()).max())
+                require(err <= floor and excess <= atol,
+                        f"{tag} {label} window {window}: max|err| {err} (floor {floor}), "
+                        f"max(|err| - {rtol:.4g}|want|) {excess} > {atol}; max|want| {top}")
+                got32, want32 = call32(window), plain32(window)
+                require(kern.cuda_core_launches == cc + 1,
+                        f"{tag} {label}: float32 did not take the CUDA-core path")
+                err32 = float((got32 - want32).abs().max())
+                require(got32.dtype == torch.float32 and err32 <= f32_atol,
+                        f"{tag} {label} float32 window {window}: max|err| {err32} > {f32_atol}")
+                require(torch.equal(call(window), call(window)),
+                        f"{tag} {label} window {window}: two calls differ")
+                errs[name].append(err)
+                e_ms, p_ms = timed_pair(torch, lambda: call(window), lambda: plain(window),
+                                        iters=10)
+                k_ms = graph_timed(torch, cycle([lambda i=i: make(q, i)(window)
+                                                 for i in range(sets)]), iters=20)
+                nbytes = kv_bytes(window, per_row) + 2 * q.numel() * 2 + bt.numel() * 4
+                rows = sum(min(n, window) if window else n for n in lens.tolist())
+                r = row(err, k_ms, p_ms, nbytes, 4.0 * hq * d * rows)
+                print(f"[kernels] {tag} {name} {label}: q {list(q.shape)} pools "
+                      f"{list(pools[0][0].shape)} window {window}, lengths {lens.tolist()}, "
+                      f"{splits} splits: bf16 (tensor cores) max|err| {err:.3g} (floor {floor}) "
+                      f"with max|want| {top:.3g}, max(|err| - {rtol:.4g}|want|) {excess:.3g} "
+                      f"(limit {atol}); float32 (CUDA cores) max|err| {err32:.3g} (limit "
+                      f"{f32_atol}); repeat bit-identical | kernel {k_ms:.4f} ms (CUDA graph; "
+                      f"eager call {e_ms:.4f}), plain {p_ms:.3f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+                results.setdefault(name, r)              # phase 2 at window 0 is the row
+                del got, want, got32, want32, diff
+        del q, pools, int8, q32, kp32, vp32
+        torch.cuda.empty_cache()
+    for name in results:
+        results[name] = dict(results[name], max_abs_err=max(errs[name]))
+    return results
+
+
+def generation_kernels(torch, g):
+    """K7a, K7b, K8a and K8b at gemma-3-27b's decode shapes."""
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+
+    dev = torch.device("cuda")
+    results = paged_kernels(torch, g)
 
     h, inter, vocab = K8["h"], K8["inter"], K8["vocab"]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -773,10 +835,12 @@ def kernel_wrappers():
             "window_attention": WA.window_attention_cuda, "int4_matmul_kn": I4.int4_matmul_kn_cuda}
 
 
-# the per-path counters of a wrapper beside its ``.launches``: K2's tensor-core
-# and CUDA-core paths, K8a's and K9's decode and prefill tiles
+# the per-path counters of a wrapper beside its ``.launches``: K2's and K7's
+# tensor-core and CUDA-core paths, K8a's and K9's decode and prefill tiles
 PATHS = {"attention": ("tensor_core", "cuda_core"), "int8_matmul_kn": ("decode", "prefill"),
-         "int4_matmul_kn": ("decode", "prefill")}
+         "int4_matmul_kn": ("decode", "prefill"),
+         "paged_attention": ("tensor_core", "cuda_core"),
+         "paged_attention_int8": ("tensor_core", "cuda_core")}
 
 
 def reset_counts(wrappers) -> None:
@@ -1234,9 +1298,11 @@ def phase_generation(torch, seed: int, card: str):
           f"prompts "
           f"{[len(tok.encode(x)) for x in p]} tokens", flush=True)
     runs = {"a": serve_run(torch, engine, tok, "a", "native", requests, card)}
-    require(runs["a"]["paged_attention"] > 0, f"(a) never launched K7a: {runs['a']}")
+    require(runs["a"]["paged_attention.tensor_core"] > 0,
+            f"(a) never launched K7a's tensor-core path: {runs['a']}")
     runs["b"] = serve_run(torch, engine, tok, "b", "int8", greedy, card)
-    require(runs["b"]["paged_attention_int8"] > 0, f"(b) never launched K7b: {runs['b']}")
+    require(runs["b"]["paged_attention_int8.tensor_core"] > 0,
+            f"(b) never launched K7b's tensor-core path: {runs['b']}")
     del engine, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1252,6 +1318,8 @@ def phase_generation(torch, seed: int, card: str):
     require(runs["c"]["int8_matmul_kn.decode"] > 0 and runs["c"]["int8_matmul_kn.prefill"] > 0
             and runs["c"]["int8_matmul_nk"] > 0,
             f"(c) never launched both of K8a's tiles and K8b: {runs['c']}")
+    require(runs["c"]["paged_attention.tensor_core"] > 0,
+            f"(c) never launched K7a's tensor-core path: {runs['c']}")
     del engine, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1270,6 +1338,8 @@ def phase_generation(torch, seed: int, card: str):
             and runs["d"]["int8_matmul_nk"] > 0,
             f"(d) never launched both of K9's tiles and K8b: {runs['d']}")
     require(runs["d"]["int8_matmul_kn"] == 0, f"(d) ran a projection as int8: {runs['d']}")
+    require(runs["d"]["paged_attention.tensor_core"] > 0,
+            f"(d) never launched K7a's tensor-core path: {runs['d']}")
     del engine, params
     gc.collect()
     torch.cuda.empty_cache()

@@ -60,11 +60,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                         _I, _I, _I, _I, _I, _I, _P),
     },
     "paged_attention": {
-        # q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, out, part_m,
-        # part_l, part_acc, B, Hq, Hkv, D, page, NB, scale, window, splits,
-        # split_tokens, q_dtype, kv_dtype, stream
-        "paged_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        # q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, out, partials,
+        # B, Hq, Hkv, D, page, NB, scale, window, splits, tensor_core, q_dtype,
+        # kv_dtype, stream
+        "paged_attention_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _P),
+        # lengths, out, B, window, total, splits, stream
+        "paged_attention_deal": (_P, _P, _I, _I, _I, _I, _P),
     },
     "int8_matmul": {
         # x, codes, scale, out, partial, M, N, K, layout, out_dtype, splits, stream

@@ -64,40 +64,21 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace wstream {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {  // round to nearest even
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// Two floats that are exact in bf16 (the widened int8 codes): their top halves.
-__device__ __forceinline__ unsigned pack_exact(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
+using ::mma_bf16;
+using ::pack_bf16;  // round to nearest even
+using ::pack_exact;
+using ::int8_of;
 
 // 0x4B000000 | n is the float 2^23 + n; minus 2^23 + 8 it is n - 8, exactly.
 // `nibbles`: four nibbles, one in the low half of each byte.
 __device__ __forceinline__ float code_of(unsigned nibbles, int byte) {
   return __uint_as_float(__byte_perm(nibbles, 0x4B000000u, 0x7540u | byte)) - 8388616.f;
-}
-
-// The same for int8: `biased` holds four codes + 128 (codes ^ 0x80808080).
-__device__ __forceinline__ float int8_of(unsigned biased, int byte) {
-  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540u | byte)) - 8388736.f;
-}
-
-// c (16 x 8, float32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16, "col")
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -175,35 +156,6 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_regs(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]));
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(unsigned long long* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(unsigned long long* b) {  // release
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
-}
-// arrives, and makes the phase wait for `bytes` more of TMA copies
-__device__ __forceinline__ void mbar_arrive_tx(unsigned long long* b, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(bytes)
-               : "memory");
-}
-// arrives once this thread's earlier cp.async copies have landed
-__device__ __forceinline__ void mbar_arrive_copies(unsigned long long* b) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(b))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(unsigned long long* b, int parity) {  // acquire
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(b)),
-      "r"(parity)
-      : "memory");
 }
 
 // TMA: the box of `map` at (c0 inner, c1 outer) into shared memory at `dst`,

@@ -17,7 +17,9 @@ One decode token per slot attends positions ``< lengths[b]`` (and, with
   logical view and run a float32-softmax attention. A slot of length 0 gets
   the uniform mean of all its ``NB * page`` gathered V rows.
 - :func:`paged_attention_cuda` - K7a (``csrc/paged_attention.cu``), which
-  replaces the TPU kernel ``_paged_kernel``.
+  replaces the TPU kernel ``_paged_kernel``: an mma.sync path for bf16
+  (:func:`tensor_core_path`) and a CUDA-core path for the rest, both split
+  over each slot's tokens by :func:`split_plan`, which reads shapes only.
 - :func:`paged_attention` - the dispatcher: CPU tensors take the plain
   version, CUDA tensors the kernel.
 
@@ -31,6 +33,8 @@ rounding, not bit for bit) and :func:`paged_attention_int8`.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from multimodal_colpali_tpu_torch import _build
@@ -39,7 +43,10 @@ NEG = -1e30
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_GROUP_DIM = 4096   # (q heads per kv head) * head_dim a block's threads hold
-SPLIT_TOKENS = 256      # tokens of a slot per kernel block (csrc/paged_attention.cu)
+_MAX_TC_DIM, _MAX_TC_GROUP = 256, 16   # the tensor-core path's largest D and group
+STEP = 16               # tokens of a split step (csrc/paged_attention.cu kStep)
+WAVES = 2               # blocks the plan puts on an SM (see split_plan)
+MAX_BLOCK_TOKENS = 1024  # the longest walk the plan leaves a block of a full slot
 
 
 def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -91,8 +98,60 @@ def paged_attention_int8_reference(q: torch.Tensor, k_pool: torch.Tensor, k_scal
                                      window=window)
 
 
+def split_plan(b: int, hkv: int, max_tokens: int, sm_count: int) -> int:
+    """Blocks per (slot, kv head) of K7's launch, ``splits``: the launch has
+    ``b * splits`` blocks a kv head, as many as one wave of ``WAVES`` blocks
+    on each of the card's ``sm_count`` SMs holds (``b * hkv * splits <=
+    WAVES * sm_count``), or more if a full slot's blocks would otherwise walk
+    over ``MAX_BLOCK_TOKENS`` tokens each; never more than a slot's
+    ``max_tokens`` (``NB * page``) has 16-token steps. A function of shapes
+    only, never of ``lengths``, so that a CUDA graph can capture the launch;
+    the kernel deals the blocks to the slots on the card (:func:`deal_cuda`
+    reads that deal back). ``WAVES`` is the tensor-core path's occupancy at
+    gemma-3-27b's D 128 with bf16 pools, the main path; the same plan serves
+    the other paths and sizes (at D 256 one block fits an SM, so it runs in
+    two waves there). On the card a second, partial wave cost more than it
+    balanced at the decode step's shape, and long chains cost more at phase
+    2's (PERF.md, section 6)."""
+    steps = max(1, -(-max_tokens // STEP))
+    wave = WAVES * sm_count // max(1, b * hkv)
+    return max(1, min(steps, max(wave, -(-max_tokens // MAX_BLOCK_TOKENS)), 65535 // max(1, b)))
+
+
+def tensor_core_path(q_dtype: torch.dtype, kv_dtype: torch.dtype, d: int, group: int) -> bool:
+    """Whether K7 takes its mma.sync path: bf16 q over bf16 or int8 pools
+    with D a multiple of 16 up to 256 and at most 16 q heads per kv head
+    (gemma-3-27b, Gemma-1 2B). float32 and other shapes take the CUDA cores."""
+    return (q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8)
+            and d % 16 == 0 and 16 <= d <= _MAX_TC_DIM and group <= _MAX_TC_GROUP)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def deal_cuda(lengths: torch.Tensor, *, window: int, total: int, splits: int) -> torch.Tensor:
+    """How K7's kernels deal a kv head's ``B * splits`` blocks, read back from
+    the card for tests: ``[B * splits, 3]`` int32 rows (slot, first token, end
+    token) from the kernels' own device functions, for slots of ``lengths``
+    tokens in a table of ``total`` (``NB * page``); a block whose first token
+    is not below its end has none. Not a kernel of the path: counts nothing."""
+    if not lengths.is_cuda or lengths.dim() != 1:
+        raise ValueError("deal_cuda needs lengths [B] on a CUDA device")
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty(lens.numel() * splits, 3, dtype=torch.int32, device=lens.device)
+    lib = _build.load("paged_attention")
+    _build.check(lib, lib.paged_attention_deal(
+        lens.data_ptr(), out.data_ptr(), lens.numel(), int(window), int(total), int(splits),
+        torch.cuda.current_stream(lens.device).cuda_stream), "paged_attention_deal")
+    return out
+
+
 def _launch(wrapper, q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
-            scale, window):
+            scale, window, splits=None, lib=None):
+    """One launch of K7; ``splits`` (default :func:`split_plan`'s) and
+    ``lib`` (default the package's build) are for ``generation.paged_sweep``."""
     name = wrapper.__name__
     tensors = [q, k_pool, v_pool, block_tables, lengths]
     if k_scale is not None:
@@ -134,23 +193,28 @@ def _launch(wrapper, q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
     bt = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     nb = bt.shape[1]
-    splits = -(-nb * page // SPLIT_TOKENS)
-    parts = [None] * 3
-    if splits > 1:   # each split's (max, sum, accumulator), merged by the combine pass
-        parts = [torch.empty((b, hq, splits), dtype=torch.float32, device=q.device),
-                 torch.empty((b, hq, splits), dtype=torch.float32, device=q.device),
-                 torch.empty((b, hq, splits, d), dtype=torch.float32, device=q.device)]
-    lib = _build.load("paged_attention")
+    tensor_core = tensor_core_path(q.dtype, k_pool.dtype, d, hq // hkv)
+    if splits is None:
+        splits = split_plan(b, hkv, nb * page, _sm_count(q.device))
+    partials = None
+    if splits > 1:   # each split's (accumulator, max, sum) and the arrival counters
+        partials = torch.empty(b * hq * splits * (d + 2) + b * hkv, dtype=torch.float32,
+                               device=q.device)
+    lib = lib or _build.load("paged_attention")
     code = lib.paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         None if k_scale is None else k_scale.data_ptr(),
         None if v_scale is None else v_scale.data_ptr(),
         bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in parts), b, hq, hkv, d, page, nb,
-        float(scale), int(window), splits, SPLIT_TOKENS, _Q_CODES[q.dtype],
+        None if partials is None else partials.data_ptr(), b, hq, hkv, d, page, nb,
+        float(scale), int(window), splits, int(tensor_core), _Q_CODES[q.dtype],
         _KV_CODES[k_pool.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "paged_attention_launch")
     wrapper.launches += 1
+    if tensor_core:
+        wrapper.tensor_core_launches += 1
+    else:
+        wrapper.cuda_core_launches += 1
     return out
 
 
@@ -158,12 +222,16 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Te
                          block_tables: torch.Tensor, lengths: torch.Tensor, *,
                          scale: float, window: int = 0) -> torch.Tensor:
     """K7a on the card: float32 or bf16 q and pools of the same type. Adds
-    one to ``paged_attention_cuda.launches`` per launch."""
+    one to ``paged_attention_cuda.launches`` per launch, and one to
+    ``.tensor_core_launches`` or ``.cuda_core_launches`` by the path it took
+    (:func:`tensor_core_path`)."""
     return _launch(paged_attention_cuda, q, k_pool, v_pool, None, None, block_tables,
                    lengths, scale, window)
 
 
 paged_attention_cuda.launches = 0
+paged_attention_cuda.tensor_core_launches = 0
+paged_attention_cuda.cuda_core_launches = 0
 
 
 def paged_attention_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor, k_scale: torch.Tensor,
@@ -171,12 +239,15 @@ def paged_attention_int8_cuda(q: torch.Tensor, k_pool: torch.Tensor, k_scale: to
                               block_tables: torch.Tensor, lengths: torch.Tensor, *,
                               scale: float, window: int = 0) -> torch.Tensor:
     """K7b on the card: float32 or bf16 q over int8 pools with float32
-    scales. Adds one to ``paged_attention_int8_cuda.launches`` per launch."""
+    scales. Adds one to ``paged_attention_int8_cuda.launches`` per launch,
+    and one to ``.tensor_core_launches`` (bf16 q) or ``.cuda_core_launches``."""
     return _launch(paged_attention_int8_cuda, q, k_pool, v_pool, k_scale, v_scale,
                    block_tables, lengths, scale, window)
 
 
 paged_attention_int8_cuda.launches = 0
+paged_attention_int8_cuda.tensor_core_launches = 0
+paged_attention_int8_cuda.cuda_core_launches = 0
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,

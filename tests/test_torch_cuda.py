@@ -362,7 +362,7 @@ def test_normalize_kernel_within_one_ulp(gen, shape, mean, std):
 
 # -- K7a / K7b: paged decode attention ------------------------------------------
 
-def _paged_case(gen, b, hq, hkv, d, page, nb, dtype):
+def _paged_case(gen, b, hq, hkv, d, page, nb, dtype, lens=None):
     from multimodal_colpali_tpu_torch.ops import paged_attention as PA
 
     p_phys = b * nb + 1
@@ -370,56 +370,191 @@ def _paged_case(gen, b, hq, hkv, d, page, nb, dtype):
     k = _randn(gen, p_phys, page, hkv, d, dtype=dtype)
     v = _randn(gen, p_phys, page, hkv, d, dtype=dtype)
     bt = torch.randperm(p_phys, generator=gen, device="cuda")[: b * nb].reshape(b, nb)
-    lens = torch.randint(1, nb * page + 1, (b,), generator=gen, device="cuda")
-    lens[0] = 0                      # an inactive slot: the uniform mean
-    lens[-1] = nb * page             # a full one
+    if lens is None:
+        lens = torch.randint(1, nb * page + 1, (b,), generator=gen, device="cuda")
+        lens[0] = 0                      # an inactive slot: the uniform mean
+        lens[-1] = nb * page             # a full one
+    else:
+        lens = torch.tensor(lens, device="cuda")
     return PA, q, k, v, bt.to(torch.int32), lens.to(torch.int32)
 
 
+def _path_counts(fn):
+    return fn.tensor_core_launches, fn.cuda_core_launches
+
+
+# Tensor-core shapes: group 1, 2, 4, 8 and 16 with D 64, 128 and 256, pages of
+# 8 and 16, each with an inactive slot, a slot of 5 tokens (shorter than 16 x
+# splits, so most of its splits hold no token) and a full one; then the paged
+# batcher's decode step at gemma-3-27b's heads (4 slots, NB 128).
+_TC_SHAPES = [
+    (3, 4, 4, 64, 16, 6, [0, 5, 96]),
+    (3, 8, 4, 128, 8, 12, [0, 5, 96]),
+    (3, 16, 4, 256, 16, 5, [0, 5, 80]),
+    (3, 8, 1, 128, 8, 20, [0, 5, 160]),
+    (3, 32, 2, 64, 16, 9, [0, 5, 144]),
+    (3, 16, 1, 256, 8, 10, [0, 5, 80]),
+    (3, 32, 2, 128, 16, 40, [0, 5, 640]),
+    (4, 32, 16, 128, 16, 128, [309, 709, 1109, 1509]),
+]
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,hq,hkv,d,page,nb", [
-    (3, 8, 2, 64, 16, 4),      # GQA 4
-    (2, 2, 1, 8, 8, 3),        # the tiny test models
-    (4, 8, 8, 128, 8, 5),      # MHA
-    (2, 32, 16, 128, 16, 9),   # gemma-3-27b's heads
-    (2, 8, 1, 256, 16, 3),     # Gemma-1 2B: MQA, head_dim 256
-    (2, 3, 1, 20, 5, 3),       # D not a multiple of the 16-byte load
-    (3, 8, 2, 64, 16, 40),     # 640 tokens: three blocks per slot and kv head
-    (4, 32, 16, 128, 16, 70),  # gemma-3-27b at 1,120 tokens: five blocks
-    (2, 4, 1, 256, 8, 70),     # head_dim 256 split five ways
-])
-@pytest.mark.parametrize("window", [0, 7, 33, 300])
-def test_paged_attention_kernel_matches_plain(gen, dtype, atol, b, hq, hkv, d, page, nb, window):
-    PA, q, k, v, bt, lens = _paged_case(gen, b, hq, hkv, d, page, nb, dtype)
-    before = PA.paged_attention_cuda.launches
+@pytest.mark.parametrize("b,hq,hkv,d,page,nb,lens", [
+    (3, 8, 2, 64, 16, 4, None),      # GQA 4
+    (2, 2, 1, 8, 8, 3, None),        # the tiny test models
+    (4, 8, 8, 128, 8, 5, None),      # MHA
+    (2, 32, 16, 128, 16, 9, None),   # gemma-3-27b's heads
+    (2, 8, 1, 256, 16, 3, None),     # Gemma-1 2B: MQA, head_dim 256
+    (2, 3, 1, 20, 5, 3, None),       # D not a multiple of the 16-byte load
+    (3, 8, 2, 64, 16, 40, None),     # 640 tokens: three blocks per slot and kv head
+    (4, 32, 16, 128, 16, 70, None),  # gemma-3-27b at 1,120 tokens: five blocks
+    (2, 4, 1, 256, 8, 70, None),     # head_dim 256 split five ways
+    *_TC_SHAPES])
+@pytest.mark.parametrize("window", [0, 7, 33, 300, 1024])
+def test_paged_attention_kernel_matches_plain(gen, dtype, atol, b, hq, hkv, d, page, nb, lens,
+                                              window):
+    """K7a against its plain version; bf16 with D % 16 == 0 and group <= 16
+    takes the tensor-core path, float32 and D = 20 the CUDA-core path."""
+    PA, q, k, v, bt, lens = _paged_case(gen, b, hq, hkv, d, page, nb, dtype, lens)
+    fn = PA.paged_attention_cuda
+    tensor_core = dtype == torch.bfloat16 and d % 16 == 0 and hq // hkv <= 16
+    assert PA.tensor_core_path(dtype, dtype, d, hq // hkv) == tensor_core
+    before, paths = fn.launches, _path_counts(fn)
     got = PA.paged_attention(q, k, v, bt, lens, scale=d ** -0.5, window=window)
-    assert PA.paged_attention_cuda.launches == before + 1
+    assert fn.launches == before + 1
+    assert _path_counts(fn) == (paths[0] + tensor_core, paths[1] + (not tensor_core))
     want = PA.paged_attention_reference(q, k, v, bt, lens, scale=d ** -0.5, window=window)
     assert got.dtype == dtype and torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
 @pytest.mark.parametrize("qdtype,atol", [(torch.float32, 1e-3), (torch.bfloat16, 0.035)])
-@pytest.mark.parametrize("b,hq,hkv,d,page,nb", [
-    (3, 8, 2, 64, 8, 4), (2, 32, 16, 128, 16, 9), (2, 2, 1, 8, 8, 3), (2, 3, 1, 20, 5, 3),
-    (3, 32, 16, 128, 16, 70), (2, 3, 1, 20, 5, 60)])
-@pytest.mark.parametrize("window", [0, 6, 300])
+@pytest.mark.parametrize("b,hq,hkv,d,page,nb,lens", [
+    (3, 8, 2, 64, 8, 4, None), (2, 32, 16, 128, 16, 9, None), (2, 2, 1, 8, 8, 3, None),
+    (2, 3, 1, 20, 5, 3, None), (3, 32, 16, 128, 16, 70, None), (2, 3, 1, 20, 5, 60, None),
+    *_TC_SHAPES])
+@pytest.mark.parametrize("window", [0, 6, 300, 1024])
 def test_paged_attention_int8_kernel_matches_plain(gen, qdtype, atol, b, hq, hkv, d, page, nb,
-                                                   window):
+                                                   lens, window):
     """K7b against the dequantize-first plain version: with float32 q only the
     order of the scale products differs (1e-3); with bf16 q the plain version
-    also rounds the dequantized rows, so tests/test_paged.py's 0.035."""
-    PA, q, k, v, bt, lens = _paged_case(gen, b, hq, hkv, d, page, nb, torch.float32)
+    also rounds the dequantized rows, so tests/test_paged.py's 0.035. bf16 q
+    with D % 16 == 0 and group <= 16 takes the tensor-core path."""
+    PA, q, k, v, bt, lens = _paged_case(gen, b, hq, hkv, d, page, nb, torch.float32, lens)
     kc, ks = PA.quantize_kv_rows(k)
     vc, vs = PA.quantize_kv_rows(v)
     q = q.to(qdtype)
-    before = PA.paged_attention_int8_cuda.launches
+    fn = PA.paged_attention_int8_cuda
+    tensor_core = qdtype == torch.bfloat16 and d % 16 == 0 and hq // hkv <= 16
+    before, paths = fn.launches, _path_counts(fn)
     got = PA.paged_attention_int8(q, kc, ks, vc, vs, bt, lens, scale=0.125, window=window)
-    assert PA.paged_attention_int8_cuda.launches == before + 1
+    assert fn.launches == before + 1
+    assert _path_counts(fn) == (paths[0] + tensor_core, paths[1] + (not tensor_core))
     want = PA.paged_attention_int8_reference(q, kc, ks, vc, vs, bt, lens, scale=0.125,
                                              window=window)
     assert got.dtype == qdtype and torch.isfinite(got.float()).all()
     assert float((got.float() - want.float()).abs().max()) < atol
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "float32"])
+@pytest.mark.parametrize("b,hq,hkv,d,page,nb,lens", [
+    (4, 32, 16, 128, 16, 128, [309, 709, 1109, 1509]),
+    (8, 32, 16, 128, 16, 256, [0, 4096, 1839, 3185, 719, 1912, 1049, 96])])
+@pytest.mark.parametrize("window", [0, 1024])
+def test_paged_attention_repeat_is_bit_identical(gen, kv, b, hq, hkv, d, page, nb, lens, window):
+    """Two calls on the same inputs give the same bits: the split plan reads
+    shapes only and the splits merge in a fixed order, with no atomics in the
+    sums, on both paths."""
+    dtype = torch.float32 if kv == "float32" else torch.bfloat16
+    PA, q, k, v, bt, lens = _paged_case(gen, b, hq, hkv, d, page, nb, dtype, lens)
+    if kv == "int8":
+        kc, ks = PA.quantize_kv_rows(k)
+        vc, vs = PA.quantize_kv_rows(v)
+        call = lambda: PA.paged_attention_int8_cuda(  # noqa: E731
+            q, kc, ks, vc, vs, bt, lens, scale=0.1, window=window)
+    else:
+        call = lambda: PA.paged_attention_cuda(q, k, v, bt, lens, scale=0.1,  # noqa: E731
+                                               window=window)
+    first, second = call(), call()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("lengths,window,total", [
+    ([309, 709, 1109, 1509], 0, 2048),          # the decode step, global and sliding layers
+    ([309, 709, 1109, 1509], 1024, 2048),
+    ([0, 4096, 1839, 3185, 719, 1912, 1049, 96], 0, 4096),   # phase 2's case
+    ([0, 0, 0], 0, 64),                         # inactive slots only
+    ([1, 2048, 5, 0], 1024, 2048),
+    ([24, 100_000, 777, 3], 50_000, 100_000),   # long ranges that start mid-table
+])
+@pytest.mark.parametrize("splits", [1, 3, 4, 9])
+def test_paged_attention_deal_covers_every_token_once(gen, lengths, window, total, splits):
+    """The kernels' own deal of a kv head's B * splits blocks: every slot gets
+    one block, in slot order, and of the other B * (splits - 1) blocks its
+    share of the rows all slots read (2 a needed token; an empty slot its
+    ``total`` V rows) within one block; a slot's blocks cut its needed range
+    (all ``total`` tokens for an empty slot) into near-equal runs of whole
+    16-token steps, with no gap and no overlap."""
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    deal = PA.deal_cuda(lens, window=window, total=total, splits=splits)
+    assert torch.equal(deal, PA.deal_cuda(lens, window=window, total=total, splits=splits))
+    rows = deal.cpu().tolist()
+    slots = [r[0] for r in rows]
+    assert slots == sorted(slots) and set(slots) == set(range(len(lengths)))
+
+    def needed(n):
+        lo, hi = (max(0, n - window) if window else 0), min(n, total)
+        return (lo, hi) if n and lo < hi else (0, total)
+
+    reads = [2 * (hi - lo) if n and lo < hi else total
+             for n, (lo, hi) in zip(lengths, map(needed, lengths))]
+    extra = len(lengths) * (splits - 1)
+    for slot, n in enumerate(lengths):
+        lo, hi = needed(n)
+        live = [(a, e) for b, a, e in rows if b == slot and a < e]
+        assert abs(slots.count(slot) - 1 - reads[slot] * extra / sum(reads)) < 1
+        assert live[0][0] == lo and live[-1][1] == hi
+        assert all(e0 == a1 for (_, e0), (a1, _) in zip(live, live[1:]))   # no gap, no overlap
+        assert all((a - lo) % PA.STEP == 0 for a, _ in live)
+        assert all((e - a) % PA.STEP == 0 for a, e in live[:-1])
+        steps = [-(-(e - a) // PA.STEP) for a, e in live]
+        assert max(steps) - min(steps) <= 1                          # near-equal parts
+
+
+def test_paged_attention_two_streams_share_nothing(gen):
+    """Calls in flight together on two streams, one of them a CUDA graph
+    replay, each give the bits of a lone call: each call's split merge counts
+    arrivals in its own buffer."""
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+
+    shape = (4, 32, 16, 128, 16, 128, torch.bfloat16)
+    _, q1, k1, v1, bt1, lens1 = _paged_case(gen, *shape, [309, 709, 1109, 1509])
+    _, q2, k2, v2, bt2, lens2 = _paged_case(gen, *shape, [1509, 5, 0, 2048])
+    call1 = lambda: PA.paged_attention_cuda(q1, k1, v1, bt1, lens1, scale=0.1)  # noqa: E731
+    call2 = lambda: PA.paged_attention_cuda(q2, k2, v2, bt2, lens2, scale=0.1,  # noqa: E731
+                                            window=1024)
+    want1, want2 = call1(), call2()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    s1.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s1):
+        with torch.cuda.graph(graph, stream=s1):
+            got1 = call1()
+    torch.cuda.synchronize()
+    s2.wait_stream(torch.cuda.current_stream())
+    outs1, outs2 = [], []
+    for _ in range(20):
+        with torch.cuda.stream(s1):
+            graph.replay()
+            outs1.append(got1.clone())
+        with torch.cuda.stream(s2):
+            outs2.append(call2())
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want1) for o in outs1)
+    assert all(torch.equal(o, want2) for o in outs2)
 
 
 def test_quantize_kv_rows_on_card_equals_cpu(gen):

@@ -127,3 +127,86 @@ def test_paged_dispatch_refuses_cpu_tensors_in_kernel_wrappers():
             call()
         assert before == (TP.paged_attention_cuda.launches,
                           TP.paged_attention_int8_cuda.launches)
+
+
+# -- the split plan of K7's launch (shapes only) ------------------------------------
+
+@pytest.mark.parametrize("b,hkv,max_tokens,sms", [
+    (4, 16, 2048, 132),     # the paged batcher's decode step at gemma-3-27b
+    (8, 16, 4096, 132),     # chip_smoke's phase-2 case
+    (1, 1, 16, 132),        # one step: one part
+    (2, 1, 24, 132),        # a ragged last step
+    (4, 16, 2048, 1),       # a card with one SM
+    (64, 16, 2048, 132),    # more (slot, kv head) pairs than the aim: one part each
+    (3, 2, 100_000, 132),   # long slots: the aim, not the steps, decides
+])
+def test_split_plan_reads_shapes_only(b, hkv, max_tokens, sms):
+    """The plan is a function of shapes: one wave at the kernel's occupancy,
+    never more parts than 16-token steps. How the kernels cut a slot's range
+    into the parts is checked on the card against the kernels' own deal
+    (tests/test_torch_cuda.py::test_paged_attention_deal_covers_every_token_once)."""
+    splits = TP.split_plan(b, hkv, max_tokens, sms)
+    steps = -(-max_tokens // TP.STEP)
+    assert splits == TP.split_plan(b, hkv, max_tokens, sms)
+    assert 1 <= splits <= steps                   # never more parts than 16-token steps
+    # one wave at the kernel's occupancy, as full as the steps allow, or more
+    # where a full slot's blocks would walk over MAX_BLOCK_TOKENS each
+    chain = -(-max_tokens // TP.MAX_BLOCK_TOKENS)
+    assert splits >= min(steps, chain, 65535 // b)
+    assert b * hkv * splits <= max(b * hkv * chain, TP.WAVES * sms)
+    assert splits == steps or splits >= chain or b * hkv * (splits + 1) > TP.WAVES * sms
+
+
+def test_split_plan_fills_the_card_at_the_decode_shape():
+    """4 slots of 2,048 tokens over 16 kv heads make at least one full wave
+    of 132 SMs, and no more blocks than two an SM hold; phase 2's 8 slots of
+    4,096 get 4 splits, so a full slot's blocks walk 1,024 tokens each."""
+    splits = TP.split_plan(4, 16, 2048, 132)
+    assert 4 * 16 * splits >= 132
+    assert 4 * 16 * splits <= TP.WAVES * 132 < 4 * 16 * (splits + 1)
+    assert TP.split_plan(4, 16, 2048, 132) == splits    # lengths never enter
+    assert TP.split_plan(8, 16, 4096, 132) == 4
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,d,group,want", [
+    (torch.bfloat16, torch.bfloat16, 128, 2, True),     # gemma-3-27b
+    (torch.bfloat16, torch.int8, 128, 2, True),         # its int8 pools (K7b)
+    (torch.bfloat16, torch.bfloat16, 256, 8, True),     # Gemma-1 2B
+    (torch.bfloat16, torch.bfloat16, 64, 16, True),
+    (torch.float32, torch.float32, 128, 2, False),      # float32: the CUDA cores
+    (torch.float32, torch.int8, 128, 2, False),
+    (torch.bfloat16, torch.bfloat16, 20, 3, False),     # D not a multiple of 16
+    (torch.bfloat16, torch.bfloat16, 8, 2, False),
+    (torch.bfloat16, torch.bfloat16, 512, 1, False),    # D above 256
+    (torch.bfloat16, torch.bfloat16, 64, 32, False),    # group above 16
+])
+def test_tensor_core_path_gate(q_dtype, kv_dtype, d, group, want):
+    assert TP.tensor_core_path(q_dtype, kv_dtype, d, group) is want
+
+
+def test_deal_cuda_refuses_a_cpu_tensor():
+    with pytest.raises(ValueError, match="CUDA"):
+        TP.deal_cuda(torch.tensor([3, 0], dtype=torch.int32), window=0, total=64, splits=2)
+
+
+@pytest.mark.parametrize("lengths,window,want_rows", [
+    ([309, 709, 1109, 1509], 0, 2 * 3636),                      # the decode step
+    ([309, 709, 1109, 1509], 1024, 2 * (309 + 709 + 1024 + 1024)),
+    ([0, 16], 0, 2048 + 32),        # an empty slot reads its NB * page V rows only
+    ([0, 0], 1024, 2 * 2048),
+    ([5], 1024, 10),
+])
+def test_paged_sweep_counts_the_rows_the_kernel_reads(lengths, window, want_rows):
+    """The sweep's byte bound: K and V rows of each needed token of every kv
+    head, V rows only for an empty slot (NB 128, pages of 16, 16 kv heads)."""
+    from multimodal_colpali_tpu_torch.generation import paged_sweep
+
+    assert paged_sweep.kv_bytes(lengths, window, 128, 16, 16, 256) == want_rows * 16 * 256
+
+
+def test_paged_sweep_needs_a_card(monkeypatch, capsys):
+    from multimodal_colpali_tpu_torch.generation import paged_sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert paged_sweep.main([]) == 2
+    assert "CUDA is not available" in capsys.readouterr().err
