@@ -12,7 +12,12 @@ phase; any failure exits non-zero.
 2. Kernels against their plain PyTorch versions, both on the card, at the
    main paths' shapes, with the time of each beside its bound (the larger of
    the bytes it must move over 3.35 TB/s and its operations over the peak
-   rate of their type): K1 MaxSim, K4 int8 MaxSim, K2 attention (and
+   rate of their type): K1 MaxSim and K4 int8 MaxSim (4 queries of 32
+   tokens over 4,096 pages of up to 1,030, on their tensor-core path; also
+   the store's one query, and for K1 a sweep's 120 queries, checked bit for
+   bit against 120 calls of one and against the plain version on 128 pages;
+   a repeated call, an odd page count and a query alone bit-identical; K1's
+   CUDA-core kernel on float32 pages), K2 attention (and
    ``scaled_dot_product_attention`` on the same inputs), K3 normalize, K5a-c
    fused SigLIP layer / attention block / MLP block, and at gemma-3-27b's
    shapes K7a paged attention and K7b over int8 pools (window 0 and 1024, at
@@ -26,8 +31,8 @@ phase; any failure exits non-zero.
    attention in bf16 and float32 (and ``scaled_dot_product_attention`` on the
    same inputs). K2 must take its tensor-core path for bf16 with D % 8 == 0
    and its CUDA-core path otherwise, K8a and K9 their decode tile for M <= 16
-   and their prefill tile above. K7, K8 and K9, whose decode calls are shorter
-   than their Python launch, are timed as CUDA-graph replays (their eager
+   and their prefill tile above. K1, K4, K7, K8 and K9 (K7-K9's decode calls
+   are shorter than their Python launch) are timed as CUDA-graph replays (their eager
    per-call time printed beside), with ``torch._weight_int8pack_mm`` and
    ``torch._weight_int4pack_mm`` on the same inputs as yardsticks where this
    torch has a CUDA kernel for them, and beside the prefill rows one bf16
@@ -62,7 +67,8 @@ phase; any failure exits non-zero.
 
 Each main path (3, 4, each run of 5, and 6) sets every launch counter to 0
 before it runs and reads them after; each kernel of the path must have run in
-it (ColPali and ColSmol: K2's tensor-core path; every run of phase 5: K7's
+it (ColPali, ColSmol and ColFlor: K1's tensor-core path, ColSmol K4's
+too; ColPali and ColSmol: K2's tensor-core path; every run of phase 5: K7's
 tensor-core path; run (c): both of K8a's tiles; run (d): both of K9's
 tiles). The line before the last is a JSON object with
 each kernel's launches in those paths, its error against the plain version,
@@ -150,38 +156,6 @@ def row(err, ms, plain_ms, nbytes, flops, peak=BF16_FLOPS, library_ms=None):
                 library_ms=library_ms)
 
 
-def timed(torch, fn, iters: int) -> float:
-    """Per-call ms of ``fn`` with CUDA events, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_timed(torch, fn, iters: int) -> float:
-    """Device ms per call of ``fn``: ``iters`` calls captured once as a CUDA
-    graph and replayed, so a kernel shorter than its Python launch is timed
-    on the card, not by the host."""
-    graph = torch.cuda.CUDAGraph()
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn()                                       # warm-up on the capture stream
-        torch.cuda.synchronize()
-        with torch.cuda.graph(graph, stream=stream):
-            for _ in range(iters):
-                fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    ms = timed(torch, graph.replay, 3) / iters
-    del graph
-    return ms
-
-
 def library_op(torch, name: str):
     """``torch.<name>`` when this torch registers a CUDA kernel for
     ``aten::<name>``, else None (printed): a yardstick, timed only."""
@@ -230,6 +204,7 @@ def phase_device(torch, build):
 
 
 def phase_kernels(torch, seed: int):
+    from multimodal_colpali_tpu_torch._timing import eager_ms, graph_ms
     import torch.nn.functional as F
     from multimodal_colpali_tpu_torch.ops import attention as A
     from multimodal_colpali_tpu_torch.ops import maxsim as M
@@ -251,7 +226,10 @@ def phase_kernels(torch, seed: int):
     q_lens = torch.tensor([c["nq"], 20, 1, c["nq"]], dtype=torch.int32, device=dev)
     d_lens = torch.randint(1, c["nt"] + 1, (c["p"],), generator=g, device=dev, dtype=torch.int32)
     d_lens[::97] = 0
+    tc = M.maxsim_scores_cuda.tensor_core_launches
     got = M.maxsim_scores_cuda(q, d, q_lens, d_lens)
+    require(M.maxsim_scores_cuda.tensor_core_launches == tc + 1,
+            "K1: bf16 with DIM % 16 == 0 did not take the tensor-core path")
     want = M.maxsim_scores_reference(q, d, q_lens, d_lens)
     torch.cuda.synchronize()
     live = d_lens > 0
@@ -267,27 +245,87 @@ def phase_kernels(torch, seed: int):
     gap = (want.gather(1, ki.long()) - pv).abs()
     require(bool((gap <= 1e-3 * pv.abs() + 1e-3).all()),
             "K1: top-5 differs from the plain version beyond ties")
-    odd = c["p"] - 3  # odd page count
-    got_odd = M.maxsim_scores_cuda(q, d[:odd], q_lens, d_lens[:odd])
-    require(torch.allclose(got_odd, got[:, :odd]), "K1: odd page count differs")
+    # bit for bit: a repeated call, an odd page count, a query alone
+    odd = c["p"] - 3
+    require(torch.equal(M.maxsim_scores_cuda(q, d, q_lens, d_lens), got),
+            "K1: a repeated call differs")
+    require(torch.equal(M.maxsim_scores_cuda(q, d[:odd], q_lens, d_lens[:odd]), got[:, :odd]),
+            "K1: an odd page count differs")
+    require(torch.equal(M.maxsim_scores_cuda(q[1:2], d, q_lens[1:2], d_lens), got[1:2]),
+            "K1: a query alone (B = 1) differs from its row of the batch")
     k_ms, p_ms = timed_pair(torch, lambda: M.maxsim_scores_cuda(q, d, q_lens, d_lens),
                             lambda: M.maxsim_scores_reference(q, d, q_lens, d_lens), iters=5)
-    live_q, live_d = float(q_lens.sum()), float(d_lens.sum())   # the tokens this data needs
-    results["maxsim"] = row(k1_err, k_ms, p_ms,
-                            live_d * c["dim"] * 2 + q.numel() * 2 + got.numel() * 4,
-                            2.0 * c["dim"] * live_q * live_d)
+    g_ms = graph_ms(lambda: M.maxsim_scores_cuda(q, d, q_lens, d_lens), iters=20)
+    live_d = float(d_lens.sum())   # the tokens this data needs
+
+    def k1_bytes(qq, out):
+        return live_d * c["dim"] * 2 + qq.numel() * 2 + out.numel() * 4
+
+    results["maxsim"] = row(k1_err, g_ms, p_ms, k1_bytes(q, got),
+                            2.0 * c["dim"] * float(q_lens.sum()) * live_d)
     top_same = bool((ki == pi).all())
     print(f"[kernels] K1 maxsim {list(q.shape)}x{list(d.shape)} bf16: max|err| {k1_err:.3g} "
           f"(rtol 1e-3), empty pages exact, top-5 {'identical' if top_same else 'equal up to ties'}"
-          f" | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
-    del got, want
+          f", repeat / odd page count / B = 1 bit-identical | graph replay {g_ms:.4f} ms (eager "
+          f"{k_ms:.4f}), plain {p_ms:.3f} ms, bound {results['maxsim']['bound_ms']:.4f} ms",
+          flush=True)
+    del want
+    torch.cuda.empty_cache()
+
+    # K1 at the store's one query (B = 1) and a sweep's 120 queries, same corpus
+    g2 = torch.Generator(device=dev).manual_seed(seed + 1)
+    q120 = F.normalize(torch.randn(120, c["nq"], c["dim"], generator=g2, device=dev),
+                       dim=-1).to(torch.bfloat16)
+    lens1, lens120 = q_lens[:1], torch.full((120,), c["nq"], dtype=torch.int32, device=dev)
+    one = M.maxsim_scores_cuda(q[:1], d, lens1, d_lens)
+    require(torch.equal(one, got[:1]), "K1: B = 1 differs from its row of the batch")
+    b1_ms = graph_ms(lambda: M.maxsim_scores_cuda(q[:1], d, lens1, d_lens), iters=20)
+    b1_bound, _ = bound(k1_bytes(q[:1], one), 2.0 * c["dim"] * c["nq"] * live_d)
+    launches = M.maxsim_scores_cuda.launches
+    sweep = M.maxsim_scores_cuda(q120, d, lens120, d_lens)
+    n_launch = M.maxsim_scores_cuda.launches - launches
+    stacked = torch.cat([M.maxsim_scores_cuda(q120[i: i + 1], d, lens120[:1], d_lens)
+                         for i in range(120)])
+    require(torch.equal(sweep, stacked), "K1: 120 queries differ from 120 calls of one")
+    head = M.maxsim_scores_reference(q120, d[:128], lens120, d_lens[:128])
+    live_h = d_lens[:128] > 0
+    require(torch.allclose(sweep[:, :128][:, live_h], head[:, live_h], rtol=1e-3, atol=1e-3),
+            "K1: 120 queries differ from the plain version on the first 128 pages")
+    b120_ms = graph_ms(lambda: M.maxsim_scores_cuda(q120, d, lens120, d_lens), iters=5)
+    b120_bound, b120_by = bound(k1_bytes(q120, sweep), 2.0 * c["dim"] * 120 * c["nq"] * live_d)
+    reads_ms = n_launch * live_d * c["dim"] * 2 / HBM_BPS * 1e3
+    print(f"[kernels] K1 maxsim B = 1: graph replay {b1_ms:.4f} ms, bound {b1_bound:.4f} ms | "
+          f"B = 120 ({n_launch} launches of {M.ROWS_PER_LAUNCH} rows): graph replay "
+          f"{b120_ms:.3f} ms, bound {b120_bound:.3f} ms ({b120_by}; the corpus read once a "
+          f"launch: {reads_ms:.3f} ms), bit for bit 120 calls of one, plain on 128 pages "
+          f"within rtol 1e-3", flush=True)
+    del sweep, stacked, head, q120
+    torch.cuda.empty_cache()
+
+    # K1's CUDA-core kernel: float32 pages (the tensor-core one takes bf16)
+    d32 = d[:256].float()
+    cc = M.maxsim_scores_cuda.cuda_core_launches
+    got32 = M.maxsim_scores_cuda(q32, d32, q_lens, d_lens[:256])
+    require(M.maxsim_scores_cuda.cuda_core_launches == cc + 1,
+            "K1: float32 pages did not take the CUDA-core kernel")
+    want32 = M.maxsim_scores_reference(q32, d32, q_lens, d_lens[:256])
+    live32 = live[:256]
+    require(torch.allclose(got32[:, live32], want32[:, live32], rtol=1e-4, atol=1e-4),
+            "K1: the float32 CUDA-core kernel differs from the plain version")
+    print(f"[kernels] K1 maxsim float32 {list(q32.shape)}x{list(d32.shape)} on the CUDA-core "
+          f"kernel: max|err| {float((got32 - want32)[:, live32].abs().max()):.3g} (rtol 1e-4)",
+          flush=True)
+    del d32, got32, want32, got
     torch.cuda.empty_cache()
 
     # K4: float32 queries against the same corpus quantized to int8 codes + scales
     codes, scales = M.quantize_corpus_int8(d)
     del d
     torch.cuda.empty_cache()
+    tc = M.maxsim_scores_int8_cuda.tensor_core_launches
     got = M.maxsim_scores_int8_cuda(q32, codes, scales, q_lens, d_lens)
+    require(M.maxsim_scores_int8_cuda.tensor_core_launches == tc + 1,
+            "K4: int8 codes with DIM % 16 == 0 did not take the tensor-core path")
     want = M.maxsim_scores_int8_reference(q32, codes, scales, q_lens, d_lens)
     torch.cuda.synchronize()
     require(bool(torch.isfinite(got).all()), "K4: non-finite score")
@@ -301,19 +339,36 @@ def phase_kernels(torch, seed: int):
     gap = (want.gather(1, ki.long()) - pv).abs()
     require(bool((gap <= 1e-4 * pv.abs()).all()),
             "K4: top-5 differs from the plain version beyond near-ties")
+    require(torch.equal(M.maxsim_scores_int8_cuda(q32, codes, scales, q_lens, d_lens), got),
+            "K4: a repeated call differs")
+    require(torch.equal(M.maxsim_scores_int8_cuda(q32, codes[:odd], scales[:odd], q_lens,
+                                                  d_lens[:odd]), got[:, :odd]),
+            "K4: an odd page count differs")
+    one = M.maxsim_scores_int8_cuda(q32[:1], codes, scales, lens1, d_lens)
+    require(torch.equal(one, got[:1]), "K4: B = 1 differs from its row of the batch")
     k_ms, p_ms = timed_pair(torch, lambda: M.maxsim_scores_int8_cuda(q32, codes, scales, q_lens,
                                                                      d_lens),
                             lambda: M.maxsim_scores_int8_reference(q32, codes, scales, q_lens,
                                                                    d_lens), iters=5)
-    results["maxsim_int8"] = row(k4_err, k_ms, p_ms,
-                                 live_d * (c["dim"] + 4) + q32.numel() * 4 + got.numel() * 4,
-                                 2.0 * c["dim"] * live_q * live_d)
+    g_ms = graph_ms(lambda: M.maxsim_scores_int8_cuda(q32, codes, scales, q_lens, d_lens),
+                    iters=20)
+    b1_ms = graph_ms(lambda: M.maxsim_scores_int8_cuda(q32[:1], codes, scales, lens1, d_lens),
+                     iters=20)
+
+    def k4_bytes(qq, out):
+        return live_d * (c["dim"] + 4) + qq.numel() * 4 + out.numel() * 4
+
+    results["maxsim_int8"] = row(k4_err, g_ms, p_ms, k4_bytes(q32, got),
+                                 2.0 * c["dim"] * float(q_lens.sum()) * live_d)
+    b1_bound, _ = bound(k4_bytes(q32[:1], one), 2.0 * c["dim"] * c["nq"] * live_d)
     top_same = bool((ki == pi).all())
     print(f"[kernels] K4 maxsim_int8 {list(q32.shape)} f32 x {list(codes.shape)} int8 + scales: "
           f"max|err| {k4_err:.3g} (rtol 1e-4), empty pages exact, top-5 "
-          f"{'identical' if top_same else 'equal up to near-ties'} | kernel {k_ms:.3f} ms, "
-          f"plain {p_ms:.3f} ms", flush=True)
-    del codes, scales, got, want
+          f"{'identical' if top_same else 'equal up to near-ties'}, repeat / odd page count / "
+          f"B = 1 bit-identical | graph replay {g_ms:.4f} ms (eager {k_ms:.4f}), plain "
+          f"{p_ms:.3f} ms, bound {results['maxsim_int8']['bound_ms']:.4f} ms | B = 1: graph "
+          f"replay {b1_ms:.4f} ms, bound {b1_bound:.4f} ms", flush=True)
+    del codes, scales, got, want, one
     torch.cuda.empty_cache()
 
     # K2: SigLIP-So400m self-attention [8, 1024, 16, 72] bf16, plus masked cases
@@ -350,8 +405,8 @@ def phase_kernels(torch, seed: int):
                             lambda: A.attention_reference(*qkv, scale=scale), iters=10)
     # the library call: scaled_dot_product_attention on the same tensors, [B, H, S, D] views
     qt, kt, vt = (x.transpose(1, 2) for x in qkv)
-    lib_ms = timed(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
-                   iters=10)
+    lib_ms = eager_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+                      iters=10)
     results["attention"] = row(k2_err, k_ms, p_ms, 4 * qkv[0].numel() * 2,
                                4.0 * c["b"] * c["h"] * c["s"] ** 2 * c["d"], library_ms=lib_ms)
     r = results["attention"]
@@ -387,6 +442,7 @@ def phase_kernels(torch, seed: int):
 
 def window_attention_kernel(torch, g):
     """K6 at ColFlor's stage-0 windows, bf16 and float32."""
+    from multimodal_colpali_tpu_torch._timing import eager_ms
     import torch.nn.functional as F
     from multimodal_colpali_tpu_torch.ops import window_attention as WA
 
@@ -409,8 +465,8 @@ def window_attention_kernel(torch, g):
                             lambda: WA.window_attention_reference(*qkv, scale=scale), iters=10)
     # the library call: scaled_dot_product_attention on the same tensors as [N, 1, S, D]
     qt, kt, vt = (x[:, None] for x in qkv)
-    lib_ms = timed(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
-                   iters=10)
+    lib_ms = eager_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+                      iters=10)
     r = row(errs[torch.bfloat16], k_ms, p_ms, 4 * qkv[0].numel() * 2,
             4.0 * c["n"] * c["s"] ** 2 * c["d"], library_ms=lib_ms)
     print(f"[kernels] K6 window_attention {list(shape)} bf16: max|err| "
@@ -476,22 +532,11 @@ def fused_layer_kernels(torch, g):
     return results
 
 
-def cycle(fns):
-    """A call that runs ``fns`` in turn, one per call (a graph captured over
-    it reads each set of inputs in turn)."""
-    state = {"i": 0}
-
-    def call():
-        fn = fns[state["i"] % len(fns)]
-        state["i"] += 1
-        return fn()
-    return call
-
-
 def paged_kernels(torch, g):
     """K7a and K7b at gemma-3-27b's heads, windows 0 and 1,024: phase 2's case
     (8 slots of up to 4,096 tokens) and the paged batcher's decode step (4
     slots of 2,048 at 309-1,509 tokens, as in the generation breakdown)."""
+    from multimodal_colpali_tpu_torch._timing import cycle, graph_ms
     from multimodal_colpali_tpu_torch.ops import paged_attention as PA
 
     dev = torch.device("cuda")
@@ -589,8 +634,8 @@ def paged_kernels(torch, g):
                 errs[name].append(err)
                 e_ms, p_ms = timed_pair(torch, lambda: call(window), lambda: plain(window),
                                         iters=10)
-                k_ms = graph_timed(torch, cycle([lambda i=i: make(q, i)(window)
-                                                 for i in range(sets)]), iters=20)
+                k_ms = graph_ms(cycle([lambda i=i: make(q, i)(window)
+                                       for i in range(sets)]), iters=20)
                 nbytes = kv_bytes(window, per_row) + 2 * q.numel() * 2 + bt.numel() * 4
                 rows = sum(min(n, window) if window else n for n in lens.tolist())
                 r = row(err, k_ms, p_ms, nbytes, 4.0 * hq * d * rows)
@@ -613,6 +658,7 @@ def paged_kernels(torch, g):
 
 def generation_kernels(torch, g):
     """K7a, K7b, K8a and K8b at gemma-3-27b's decode shapes."""
+    from multimodal_colpali_tpu_torch._timing import eager_ms, graph_ms
     from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
 
     dev = torch.device("cuda")
@@ -661,14 +707,14 @@ def generation_kernels(torch, g):
                 f"{tag} [{m}, {k}] x {list(w.shape)}: max|err| {err} > 2% of max {limit}")
         require(torch.equal(call(), call()), f"{tag} [{m}, {k}]: two calls differ")
         e_ms, p_ms = timed_pair(torch, call, plain, iters=10)
-        k_ms = graph_timed(torch, call, iters=20)
+        k_ms = graph_ms(call, iters=20)
         lib_ms = mm_ms = None
         if int8pack:
             w_nk, s_x = nk_copy[id(w)], sc.to(x.dtype)
-            lib_ms = timed(torch, lambda: int8pack(x, w_nk, s_x), iters=10 if m <= 16 else 2)
+            lib_ms = eager_ms(lambda: int8pack(x, w_nk, s_x), iters=10 if m <= 16 else 2)
         if not nk and m > 16:     # context: cuBLAS on the weight already dequantized
             w_bf16 = w.to(torch.bfloat16)
-            mm_ms = graph_timed(torch, lambda: torch.mm(x, w_bf16), iters=10)
+            mm_ms = graph_ms(lambda: torch.mm(x, w_bf16), iters=10)
             del w_bf16
         r = row(err, k_ms, p_ms, w.numel() + sc.numel() * 4 + x.numel() * 2
                 + m * n * (4 if out == torch.float32 else 2), 2.0 * m * k * n, library_ms=lib_ms)
@@ -721,6 +767,7 @@ def int4pack_operands(torch, packed, scale, group: int):
 def int4_kernels(torch, g, sms: int):
     """K9 at gemma-3-27b's projections, group 256: decode rows of the up and
     down projections, prefill rows, and exact equality on grid weights."""
+    from multimodal_colpali_tpu_torch._timing import eager_ms, graph_ms
     from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
     from multimodal_colpali_tpu_torch.ops.quant import quantize_int4
 
@@ -753,18 +800,18 @@ def int4_kernels(torch, g, sms: int):
                 f"K9 [{m}, {k}] x packed {list(packed.shape)}: max|err| {err} > 2% of max {limit}")
         require(torch.equal(call(), call()), f"K9 [{m}, {k}]: two calls differ")
         e_ms, p_ms = timed_pair(torch, call, plain, iters=10)
-        k_ms = graph_timed(torch, call, iters=20)
+        k_ms = graph_ms(call, iters=20)
         lib_ms = lib_note = mm_ms = None
         if int4pack:
             wp, sz = int4pack_operands(torch, packed, sc, group)   # the repack, once
-            lib_ms = timed(torch, lambda: int4pack(x, wp, group, sz), iters=10)
+            lib_ms = eager_ms(lambda: int4pack(x, wp, group, sz), iters=10)
             lib_note = float((int4pack(x, wp, group, sz).float() - want).abs().max())
             del wp, sz
         if m > 16:     # context: cuBLAS on the weight already dequantized
             from multimodal_colpali_tpu_torch.ops.quant import dequantize_int4
 
             w_bf16 = dequantize_int4({"q4": packed, "scale": sc}, torch.bfloat16)
-            mm_ms = graph_timed(torch, lambda: torch.mm(x, w_bf16), iters=10)
+            mm_ms = graph_ms(lambda: torch.mm(x, w_bf16), iters=10)
             del w_bf16
         r = row(err, k_ms, p_ms, packed.numel() + sc.numel() * 4 + x.numel() * 2 + m * n * 2,
                 2.0 * m * k * n, library_ms=lib_ms)
@@ -835,9 +882,10 @@ def kernel_wrappers():
             "window_attention": WA.window_attention_cuda, "int4_matmul_kn": I4.int4_matmul_kn_cuda}
 
 
-# the per-path counters of a wrapper beside its ``.launches``: K2's and K7's
-# tensor-core and CUDA-core paths, K8a's and K9's decode and prefill tiles
-PATHS = {"attention": ("tensor_core", "cuda_core"), "int8_matmul_kn": ("decode", "prefill"),
+# the per-path counters of a wrapper beside its ``.launches``: K1's, K4's, K2's
+# and K7's tensor-core and CUDA-core paths, K8a's and K9's decode and prefill tiles
+PATHS = {"maxsim": ("tensor_core", "cuda_core"), "maxsim_int8": ("tensor_core", "cuda_core"),
+         "attention": ("tensor_core", "cuda_core"), "int8_matmul_kn": ("decode", "prefill"),
          "int4_matmul_kn": ("decode", "prefill"),
          "paged_attention": ("tensor_core", "cuda_core"),
          "paged_attention_int8": ("tensor_core", "cuda_core")}
@@ -1097,8 +1145,8 @@ def phase_colsmol(torch, seed: int, card: str):
         query_ms.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     launches = read_counts(wrappers)
-    path = ("maxsim", "attention", "attention.tensor_core", "normalize", "maxsim_int8",
-            "vit_layer", "attn_block", "mlp_block")
+    path = ("maxsim", "maxsim.tensor_core", "attention", "attention.tensor_core", "normalize",
+            "maxsim_int8", "maxsim_int8.tensor_core", "vit_layer", "attn_block", "mlp_block")
     require(all(launches[k] > 0 for k in path),
             f"a kernel of the ColSmol path did not run: {launches}")
     print(f"[colsmol] vidore/colSmol-256M {n_params / 1e6:.1f}M params bf16 (init {init_s:.1f} s), "
@@ -1367,13 +1415,15 @@ def main(argv=None) -> int:
     kernels = phase_kernels(torch, args.seed)
     colpali = phase_retrieval(torch, "vidore/colpali-v1.3", args.seed, card, "main",
                               device_preprocess=True,
-                              path=("maxsim", "attention", "attention.tensor_core", "normalize"),
+                              path=("maxsim", "maxsim.tensor_core", "attention",
+                                    "attention.tensor_core", "normalize"),
                               absent=("vit_layer",))   # SigLIP-So400m is not fused
     colsmol = phase_colsmol(torch, args.seed, card)
     gen = phase_generation(torch, args.seed, card)
     # ColFlor normalizes on the host; its BART attention has a mask, so no K2
     colflor = phase_retrieval(torch, "ahmed-masry/ColFlor", args.seed, card, "colflor",
-                              device_preprocess=False, path=("window_attention", "maxsim"),
+                              device_preprocess=False,
+                              path=("window_attention", "maxsim", "maxsim.tensor_core"),
                               absent=("attention", "normalize"))
 
     jax_ops = "multimodal_colpali_tpu/ops"

@@ -42,10 +42,12 @@ _I = ctypes.c_int
 # C signatures of the entry points, by library.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "maxsim": {
-        # q, d, q_lens, d_lens, out, B, NQ, P, NT, DIM, dtype, stream
-        "maxsim_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        # q, codes, scales, q_lens, d_lens, out, B, NQ, P, NT, DIM, stream
-        "maxsim_int8_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # q, d, q_lens, d_lens, out, next_page, B, NQ, r0, P, NT, DIM, dtype,
+        # tensor_core, stream
+        "maxsim_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        # q, codes, scales, q_lens, d_lens, out, next_page, B, NQ, r0, P, NT, DIM,
+        # tensor_core, stream
+        "maxsim_int8_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "attention": {
         # q, k, v, o, kv_lens, kv_valid, B, S, H, D, scale, causal, dtype,
@@ -144,21 +146,46 @@ def build_all() -> Dict[str, Path]:
     return {name: library_path(name) for name in SIGNATURES}
 
 
+def _typed(name: str, path: Path) -> ctypes.CDLL:
+    """The library at ``path`` with the entry points of ``name`` typed."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library ``name`` with its entry points typed, built if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             _compile([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            for fn, argtypes in SIGNATURES[name].items():
-                f = getattr(lib, fn)
-                f.argtypes = list(argtypes)
-                f.restype = ctypes.c_int
-            lib.cuda_error_string.argtypes = [ctypes.c_int]
-            lib.cuda_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            lib = _libs[name] = _typed(name, library_path(name))
         return lib
+
+
+def build_variant(name: str, flags: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built anew with the extra nvcc ``flags`` (a probe
+    build, such as ``-DMAXSIM_SKIP_PRODUCTS``) into ``build/sweep/``, typed
+    as :func:`load`'s library. The package's own calls never use it: a sweep
+    passes it to the launch it times."""
+    out_dir = BUILD_DIR / "sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256(f"{library_path(name).name} {flags}".encode()).hexdigest()[:16]
+    so = out_dir / f"{name}-{tag}.so"
+    if not so.exists():
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, *flags.split(), "-o", str(tmp),
+                               str(CSRC_DIR / f"{name}.cu")], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for csrc/{name}.cu with {flags!r} "
+                               f"(exit {proc.returncode}):\n{(proc.stdout + proc.stderr)[-6000:]}")
+        os.replace(tmp, so)
+    return _typed(name, so)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

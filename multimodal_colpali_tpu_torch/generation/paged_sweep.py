@@ -17,10 +17,10 @@ Three shapes, 32 q heads over 16 kv heads of 128, pages of 16:
 
 For each shape, window (0 and 1,024) and pool type (bf16: K7a; int8 codes
 and scales: K7b) it prints the device ms of one call, ``ITERS`` calls
-captured once as a CUDA graph and replayed (``chip_smoke.graph_timed``'s
-method), beside the eager per-call time, the byte bound (the K and V rows
-this data needs, a slot of length 0 counting its V rows only, over 3.35
-TB/s) and the split count; then the K7a call at 1, 2, 3, 4, 6, 8 and 16
+captured once as a CUDA graph and replayed (``_timing.graph_ms``), beside
+the eager per-call time, the byte bound (the K and V rows this data needs,
+a slot of length 0 counting its V rows only, over 3.35 TB/s) and the split
+count; then the K7a call at 1, 2, 3, 4, 6, 8 and 16
 splits in place of the plan's. The calls of one replay rotate over ``SETS``
 copies of the pools, so that a shape whose rows fit the 50 MB L2 cache is
 read from device memory as in a decode step, where each layer has pools of
@@ -37,7 +37,6 @@ one JSON object with every number.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
@@ -53,45 +52,6 @@ SHAPES = {
 SWEEP = (1, 2, 3, 4, 6, 8, 16)
 
 
-def _graph_ms(torch, fns, iters: int) -> float:
-    """Device ms per call: ``iters`` calls (cycling over ``fns``) captured once
-    as a CUDA graph and replayed three times under CUDA events."""
-    graph = torch.cuda.CUDAGraph()
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for fn in fns:
-            fn()
-        torch.cuda.synchronize()
-        with torch.cuda.graph(graph, stream=stream):
-            for i in range(iters):
-                fns[i % len(fns)]()
-    torch.cuda.current_stream().wait_stream(stream)
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / 3 / iters
-
-
-def _eager_ms(torch, fns, iters: int) -> float:
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def kv_bytes(lengths, window: int, nb: int, page: int, hkv: int, per_row: int) -> int:
     """Bytes of the K and V rows one call needs: each token's two rows of
     every kv head, a slot of length 0 its NB * page V rows."""
@@ -100,24 +60,6 @@ def kv_bytes(lengths, window: int, nb: int, page: int, hkv: int, per_row: int) -
         rows = min(n, window) if window and n else n
         total += (2 * rows if n else nb * page) * hkv * per_row
     return total
-
-
-def _skip_products_lib(build):
-    """``csrc/paged_attention.cu`` built with ``-DPAGED_SKIP_PRODUCTS`` into
-    ``build/sweep/``, typed as the package's library."""
-    out_dir = build.BUILD_DIR / "sweep"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / "paged_skip_products.so"
-    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-DPAGED_SKIP_PRODUCTS", "-o", str(so),
-                    str(build.CSRC_DIR / "paged_attention.cu")], check=True, capture_output=True,
-                   text=True)
-    lib = ctypes.CDLL(str(so))
-    for fn, argtypes in build.SIGNATURES["paged_attention"].items():
-        getattr(lib, fn).argtypes = list(argtypes)
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.cuda_error_string.argtypes = [ctypes.c_int]
-    lib.cuda_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def main(argv=None) -> int:
@@ -134,6 +76,7 @@ def main(argv=None) -> int:
         print("FAIL: CUDA is not available; this sweep runs only on a GPU", file=sys.stderr)
         return 2
     from multimodal_colpali_tpu_torch import _build
+    from multimodal_colpali_tpu_torch._timing import cycle, eager_ms, graph_ms
     from multimodal_colpali_tpu_torch.ops import paged_attention as PA
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -142,7 +85,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(args.seed)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    skip_products = _skip_products_lib(_build) if args.probe else None
+    skip_products = (_build.build_variant("paged_attention", "-DPAGED_SKIP_PRODUCTS")
+                     if args.probe else None)
     result = {"card": card, "shapes": {}}
     for shape, c in SHAPES.items():
         hq, hkv, d, page, nb, lengths = (c[k] for k in ("hq", "hkv", "d", "page", "nb",
@@ -175,21 +119,21 @@ def main(argv=None) -> int:
             for int8 in (False, True):
                 tag = f"{'K7b' if int8 else 'K7a'} window {window}"
                 fns = calls(window, int8)
-                ms = _graph_ms(torch, fns, ITERS)
-                eager = _eager_ms(torch, fns, ITERS)
+                ms = graph_ms(cycle(fns), ITERS)
+                eager = eager_ms(cycle(fns), ITERS)
                 nbytes = kv_bytes(lengths, window, nb, page, hkv, d + 4 if int8 else 2 * d)
                 bound = nbytes / HBM_BPS * 1e3
                 res[tag] = dict(graph_ms=ms, eager_ms=eager, bound_ms=bound, splits=planned)
                 probe = ""
                 if skip_products is not None:
-                    skipped = _graph_ms(torch, calls(window, int8, lib=skip_products), ITERS)
+                    skipped = graph_ms(cycle(calls(window, int8, lib=skip_products)), ITERS)
                     res[tag]["products_skipped_ms"] = skipped
                     probe = (f", products skipped {skipped:.4f} ms "
                              f"({nbytes / skipped / 1e9:.2f} TB/s)")
                 print(f"[{shape}] {tag}: graph {ms:.4f} ms, eager {eager:.4f} ms{probe}, bound "
                       f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB), {planned} splits | {card}",
                       flush=True)
-            sweep = {s: _graph_ms(torch, calls(window, False, splits=s), ITERS)
+            sweep = {s: graph_ms(cycle(calls(window, False, splits=s)), ITERS)
                      for s in SWEEP if s <= nb * page // 16}
             res[f"K7a window {window} sweep"] = sweep
             print(f"[{shape}] K7a window {window} by splits (graph ms): "

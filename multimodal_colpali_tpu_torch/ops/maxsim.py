@@ -17,6 +17,17 @@ quantized prefilter): :func:`maxsim_scores_int8_reference`,
 ``_maxsim_int8_kernel``) and :func:`maxsim_scores_int8`, beside
 :func:`quantize_corpus_int8`, which makes the codes.
 
+On the card, a bf16 corpus or int8 codes with DIM a multiple of 16 (up to
+128; the store's pages of ColPali, ColSmol and ColFlor, DIM 128) take the
+tensor-core kernel ``maxsim_mma``; a float32 corpus (the embeddings that
+``score_results`` and ``score_multi_vector`` pad, as the JAX package does)
+and other DIMs (a multiple of 8 up to 128) take the CUDA-core kernel
+``maxsim_kernel`` (:func:`tensor_core_path`). Each page is scored whole by
+one block. A tensor-core launch takes whole queries of at most
+``ROWS_PER_LAUNCH`` rows in all (:func:`launch_groups`), or a window of
+``ROWS_PER_LAUNCH`` rows of one longer query (:func:`launch_plan`); a
+CUDA-core launch takes up to 1,024 queries and walks their rows in passes.
+
 Invalid page tokens are masked with the finite ``MASK_VALUE``, so a page
 with no valid tokens scores about ``-NQ * 1e30``; the store relies on that to
 drop filtered pages.
@@ -34,8 +45,65 @@ from multimodal_colpali_tpu_torch import _build
 # produces NaN in the per-query sums.
 MASK_VALUE = -1e30
 
-_MAX_QUERIES_PER_LAUNCH = 1024  # per-query sums live in shared memory
+# Query rows a launch: the tensor-core kernel's rows (8 warps of two m16
+# tiles). Each launch reads the corpus once, so at many queries this sets the
+# bytes: a bf16 launch of R rows does R FLOP a byte read. 256 rows beat 128
+# at 120 queries on the card, and tie at 1 and 4 (PERF.md, section 6).
+ROWS_PER_LAUNCH = 256
+# Queries a CUDA-core launch: their running sums live in shared memory.
+_CUDA_CORE_QUERIES = 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def tensor_core_path(dtype: torch.dtype, dim: int, nq: int = 1) -> bool:
+    """Whether queries of ``nq`` rows against a corpus of ``dtype`` (bf16
+    pages or int8 codes) and width ``dim`` run on the tensor-core kernel
+    rather than the CUDA-core one."""
+    return (dtype in (torch.bfloat16, torch.int8) and dim % 16 == 0 and 16 <= dim <= 128
+            and nq > 0)
+
+
+def launch_groups(b: int, nq: int):
+    """``(first query, queries)`` of each tensor-core launch for ``b``
+    queries of ``nq`` rows: whole queries, at most ``ROWS_PER_LAUNCH`` rows a
+    launch, and a query of more rows alone."""
+    per = max(1, ROWS_PER_LAUNCH // max(nq, 1))
+    return [(b0, min(per, b - b0)) for b0 in range(0, b, per)]
+
+
+def launch_plan(b: int, nq: int):
+    """``(first query, queries, first row)`` of each tensor-core launch:
+    :func:`launch_groups`, with a query of more than ``ROWS_PER_LAUNCH`` rows
+    split into launches of that many rows in order (each scores rows [first
+    row, + ROWS_PER_LAUNCH) and adds them to the sums the launch before it
+    left)."""
+    return [(b0, nb, r0) for b0, nb in launch_groups(b, nq)
+            for r0 in range(0, nq if nq > ROWS_PER_LAUNCH else 1, ROWS_PER_LAUNCH)]
+
+
+def _plan(tc: bool, b: int, nq: int):
+    """The launches of a call: :func:`launch_plan` on the tensor cores; on
+    the CUDA cores up to ``_CUDA_CORE_QUERIES`` queries a launch, each from
+    row 0 (its kernel walks their rows in passes: one launch of 30 passes at
+    120 queries of 32 rows measured 3% faster than 15 launches of 2)."""
+    if tc:
+        return launch_plan(b, nq)
+    step = _CUDA_CORE_QUERIES
+    return [(b0, min(step, b - b0), 0) for b0 in range(0, b, step)]
+
+
+def _count(fn, tc: bool) -> None:
+    fn.launches += 1
+    if tc:
+        fn.tensor_core_launches += 1
+    else:
+        fn.cuda_core_launches += 1
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a copy when it does not start on 16 bytes (the bulk
+    copies of the tensor-core kernel need that)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def maxsim_scores_reference(
@@ -69,42 +137,16 @@ def maxsim_scores_cuda(
     The corpus ``d`` is bf16 or float32; as in the TPU wrapper
     (maxsim.py:182) the queries are cast to bf16 when the corpus is bf16,
     and are otherwise used in float32. DIM must be a multiple of 8 up to
-    128. Adds one to ``maxsim_scores_cuda.launches`` per kernel launch.
-    """
-    if not (q.is_cuda and d.is_cuda and q.device == d.device):
-        raise ValueError("maxsim_scores_cuda needs q and d on the same CUDA device")
-    if q.dim() != 3 or d.dim() != 3 or q.shape[2] != d.shape[2]:
-        raise ValueError(f"expected [B, NQ, DIM] x [P, NT, DIM], got "
-                         f"{tuple(q.shape)} x {tuple(d.shape)}")
-    if d.dtype not in _DTYPE_CODES:
-        raise TypeError(f"corpus dtype must be float32 or bfloat16, got {d.dtype}")
-    b, nq, dim = q.shape
-    p, nt, _ = d.shape
-    if dim % 8 or not 8 <= dim <= 128:
-        raise ValueError(f"DIM must be a multiple of 8 in [8, 128], got {dim}")
-    q = q.to(d.dtype if d.dtype == torch.bfloat16 else torch.float32).contiguous()
-    d = d.contiguous()
-    q_lens = _lens(q_lens, b, nq, d.device)
-    d_lens = _lens(d_lens, p, nt, d.device)
-    out = torch.empty((b, p), dtype=torch.float32, device=d.device)
-    if b == 0 or p == 0:
-        return out
-    lib = _build.load("maxsim")
-    stream = torch.cuda.current_stream(d.device).cuda_stream
-    q_row = nq * dim * q.element_size()
-    for b0 in range(0, b, _MAX_QUERIES_PER_LAUNCH):
-        nb = min(_MAX_QUERIES_PER_LAUNCH, b - b0)
-        code = lib.maxsim_launch(
-            q.data_ptr() + b0 * q_row, d.data_ptr(),
-            q_lens.data_ptr() + 4 * b0, d_lens.data_ptr(),
-            out.data_ptr() + 4 * b0 * p, nb, nq, p, nt, dim,
-            _DTYPE_CODES[d.dtype], stream)
-        _build.check(lib, code, "maxsim_launch")
-        maxsim_scores_cuda.launches += 1
-    return out
+    128: bf16 with DIM % 16 == 0 runs on the tensor cores, the rest on the
+    CUDA cores. Adds one to ``maxsim_scores_cuda.launches`` per kernel
+    launch, and to ``.tensor_core_launches`` or ``.cuda_core_launches`` by
+    the path it took."""
+    return _launch(maxsim_scores_cuda, q, d, None, q_lens, d_lens)
 
 
 maxsim_scores_cuda.launches = 0
+maxsim_scores_cuda.tensor_core_launches = 0
+maxsim_scores_cuda.cuda_core_launches = 0
 
 
 def maxsim_scores(
@@ -181,45 +223,69 @@ def maxsim_scores_int8_cuda(
     ``[P, NT, DIM]`` with float32 scales ``[P, NT]`` -> ``[B, P]`` float32.
 
     The queries go in as float32 and are rounded to bf16 inside the kernel,
-    as in the TPU kernel. DIM must be a multiple of 8 up to 128. Adds one to
-    ``maxsim_scores_int8_cuda.launches`` per kernel launch."""
-    if not (q.is_cuda and codes.device == q.device and scales.device == q.device):
-        raise ValueError("maxsim_scores_int8_cuda needs q, codes and scales on one CUDA device")
-    if q.dim() != 3 or codes.dim() != 3 or q.shape[2] != codes.shape[2]:
-        raise ValueError(f"expected [B, NQ, DIM] x [P, NT, DIM], got "
-                         f"{tuple(q.shape)} x {tuple(codes.shape)}")
-    if codes.dtype != torch.int8:
-        raise TypeError(f"codes must be int8, got {codes.dtype}")
-    if scales.shape != codes.shape[:2]:
-        raise ValueError(f"scales must be [P, NT] = {tuple(codes.shape[:2])}, "
-                         f"got {tuple(scales.shape)}")
+    as in the TPU kernel. DIM must be a multiple of 8 up to 128: DIM % 16 ==
+    0 runs on the tensor cores, the rest on the CUDA cores. Adds one to
+    ``maxsim_scores_int8_cuda.launches`` per kernel launch, and to
+    ``.tensor_core_launches`` or ``.cuda_core_launches`` by its path."""
+    return _launch(maxsim_scores_int8_cuda, q, codes, scales, q_lens, d_lens)
+
+
+maxsim_scores_int8_cuda.launches = 0
+maxsim_scores_int8_cuda.tensor_core_launches = 0
+maxsim_scores_int8_cuda.cuda_core_launches = 0
+
+
+def _launch(wrapper, q, d, scales, q_lens, d_lens, lib=None):
+    """The launches of one call of K1 (``scales`` None: a bf16 or float32
+    corpus ``d``) or K4 (int8 codes ``d`` with their ``scales``), counted on
+    ``wrapper``; ``lib`` (default the package's build) is for
+    ``maxsim_sweep``'s probe builds."""
+    name = wrapper.__name__
+    int8 = scales is not None
+    tensors = [q, d, scales] if int8 else [q, d]
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError(f"{name} needs every input on one CUDA device")
+    if q.dim() != 3 or d.dim() != 3 or q.shape[2] != d.shape[2]:
+        raise ValueError(f"{name}: expected [B, NQ, DIM] x [P, NT, DIM], got "
+                         f"{tuple(q.shape)} x {tuple(d.shape)}")
+    if int8:
+        if d.dtype != torch.int8:
+            raise TypeError(f"{name}: codes must be int8, got {d.dtype}")
+        if scales.shape != d.shape[:2]:
+            raise ValueError(f"{name}: scales must be [P, NT] = {tuple(d.shape[:2])}, "
+                             f"got {tuple(scales.shape)}")
+    elif d.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: corpus dtype must be float32 or bfloat16, got {d.dtype}")
     b, nq, dim = q.shape
-    p, nt, _ = codes.shape
+    p, nt, _ = d.shape
     if dim % 8 or not 8 <= dim <= 128:
-        raise ValueError(f"DIM must be a multiple of 8 in [8, 128], got {dim}")
-    q = q.to(torch.float32).contiguous()
-    codes = codes.contiguous()
-    scales = scales.to(torch.float32).contiguous()
+        raise ValueError(f"{name}: DIM must be a multiple of 8 in [8, 128], got {dim}")
+    tc = tensor_core_path(d.dtype, dim, nq)
+    plan = _plan(tc, b, nq)
+    q = q.to(torch.bfloat16 if d.dtype == torch.bfloat16 else torch.float32).contiguous()
+    d = _aligned(d.contiguous())
+    if int8:
+        scales = _aligned(scales.to(torch.float32).contiguous())
     q_lens = _lens(q_lens, b, nq, q.device)
     d_lens = _lens(d_lens, p, nt, q.device)
     out = torch.empty((b, p), dtype=torch.float32, device=q.device)
     if b == 0 or p == 0:
         return out
-    lib = _build.load("maxsim")
+    next_page = torch.empty(len(plan), dtype=torch.int32, device=q.device)
+    lib = lib or _build.load("maxsim")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    q_row = nq * dim * 4
-    for b0 in range(0, b, _MAX_QUERIES_PER_LAUNCH):
-        nb = min(_MAX_QUERIES_PER_LAUNCH, b - b0)
-        code = lib.maxsim_int8_launch(
-            q.data_ptr() + b0 * q_row, codes.data_ptr(), scales.data_ptr(),
-            q_lens.data_ptr() + 4 * b0, d_lens.data_ptr(),
-            out.data_ptr() + 4 * b0 * p, nb, nq, p, nt, dim, stream)
-        _build.check(lib, code, "maxsim_int8_launch")
-        maxsim_scores_int8_cuda.launches += 1
+    q_row = nq * dim * q.element_size()
+    for i, (b0, nb, r0) in enumerate(plan):
+        head = (q.data_ptr() + b0 * q_row, d.data_ptr())
+        tail = (q_lens.data_ptr() + 4 * b0, d_lens.data_ptr(), out.data_ptr() + 4 * b0 * p,
+                next_page.data_ptr() + 4 * i, nb, nq, r0, p, nt, dim)
+        if int8:
+            code = lib.maxsim_int8_launch(*head, scales.data_ptr(), *tail, int(tc), stream)
+        else:
+            code = lib.maxsim_launch(*head, *tail, _DTYPE_CODES[d.dtype], int(tc), stream)
+        _build.check(lib, code, "maxsim_int8_launch" if int8 else "maxsim_launch")
+        _count(wrapper, tc)
     return out
-
-
-maxsim_scores_int8_cuda.launches = 0
 
 
 def maxsim_scores_int8(

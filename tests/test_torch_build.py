@@ -78,6 +78,27 @@ def test_build_passes_sm90a_flags_and_installs_output(fake_build, tmp_path, monk
     _build._compile(["maxsim"])
 
 
+def test_build_variant_adds_flags_and_builds_apart(fake_build, tmp_path, monkeypatch):
+    log = tmp_path / "args"
+    nvcc = _fake_nvcc(tmp_path, f'echo "$@" >> {log}\nwhile [ "$1" != "-o" ]; do shift; done\n'
+                                'echo built > "$2"\n')
+    monkeypatch.setattr(_build, "nvcc_path", lambda: nvcc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_typed", lambda name, path: (name, path))
+    name, so = _build.build_variant("maxsim", "-DMAXSIM_SKIP_PRODUCTS")
+    assert name == "maxsim" and so.parent == tmp_path / "build" / "sweep"
+    assert so.read_text() == "built\n" and not _build.library_path("maxsim").exists()
+    args = log.read_text()
+    assert "-DMAXSIM_SKIP_PRODUCTS" in args and "arch=compute_90a,code=sm_90a" in args
+    assert _build.build_variant("maxsim", "-DMAXSIM_SKIP_PRODUCTS")[1] == so   # built once
+    assert log.read_text() == args
+    assert _build.build_variant("maxsim", "-DOTHER")[1] != so
+    monkeypatch.setattr(_build, "nvcc_path",
+                        lambda: _fake_nvcc(tmp_path, 'echo "error: bad flag"\nexit 1\n'))
+    with pytest.raises(RuntimeError, match="(?s)nvcc failed for csrc/maxsim.cu.*bad flag"):
+        _build.build_variant("maxsim", "-DBAD")
+
+
 def test_check_raises_on_cuda_error_codes():
     class Lib:
         @staticmethod

@@ -7,6 +7,7 @@ without JAX; there, skip the repository's JAX conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -66,6 +67,138 @@ def test_maxsim_casts_query_to_bf16_corpus(gen):
 def test_maxsim_rejects_bad_dim(gen):
     with pytest.raises(ValueError):
         M.maxsim_scores(_randn(gen, 1, 2, 12), _randn(gen, 3, 4, 12))
+
+
+# last tiles of 1, 15, 16, 63, 64, 65 tokens and stages that end full or one
+# past (bf16 and int8 stages both hold 128 tokens of 128), an empty page, and
+# the last page full so that K4's scales end with the tensor
+_TC_LENS = [0, 1, 15, 16, 63, 64, 65, 127, 128, 129, 255, 256, 257, 259]
+
+
+def _tc_case(gen, kind, b, nq, dim, nt=259):
+    """Queries, a corpus of ``kind`` ("bf16" pages or "int8" codes and
+    scales), ragged q_lens and _TC_LENS page lengths; the kernel call and
+    the plain version's."""
+    q = _randn(gen, b, nq, dim)
+    q_lens = torch.randint(1, nq + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    q_lens[0] = nq
+    d_lens = torch.tensor(_TC_LENS, dtype=torch.int32, device="cuda").clamp(max=nt)
+    d = _randn(gen, len(_TC_LENS), nt, dim)
+    if kind == "bf16":
+        qb, db = q.to(torch.bfloat16), d.to(torch.bfloat16)
+        return (lambda: M.maxsim_scores_cuda(qb, db, q_lens, d_lens),
+                lambda: M.maxsim_scores_reference(qb, db, q_lens, d_lens), q_lens,
+                M.maxsim_scores_cuda)
+    codes, scales = M.quantize_corpus_int8(d)
+    return (lambda: M.maxsim_scores_int8_cuda(q, codes, scales, q_lens, d_lens),
+            lambda: M.maxsim_scores_int8_reference(q, codes, scales, q_lens, d_lens), q_lens,
+            M.maxsim_scores_int8_cuda)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("b,nq,dim", [
+    (4, 32, 128),    # phase 2's rows
+    (1, 32, 128),    # the store's one query: one row group, 8 warps on its tokens
+    (9, 32, 128),    # 288 rows: two launches
+    (2, 300, 128),   # NQ > R: a query alone, its block walks two passes
+    (3, 20, 16),     # narrow, rows not on m16 tiles
+    (2, 7, 48),      # an odd number of 16-byte groups a token
+    (5, 13, 80),
+])
+def test_maxsim_tensor_core_path_matches_plain(gen, kind, b, nq, dim):
+    call, plain, q_lens, fn = _tc_case(gen, kind, b, nq, dim)
+    before, tc = fn.launches, fn.tensor_core_launches
+    got = call()
+    n = len(M.launch_plan(b, nq))
+    assert fn.launches == before + n and fn.tensor_core_launches == tc + n
+    want = plain()
+    assert torch.isfinite(got).all()
+    rtol, atol = (1e-4, 1e-3) if kind == "bf16" else (1e-4, 1e-4)
+    torch.testing.assert_close(got[:, 1:], want[:, 1:], rtol=rtol, atol=atol)
+    # an empty page: q_len row maxima of -1e30 summed in row order in float32
+    # (300 of them are off -q_len * 1e30 by ~3e-6 of it)
+    assert got[:, 0].tolist() == [_row_order_sum(-1e30, n) for n in q_lens.tolist()]
+
+
+def _row_order_sum(x: float, n: int) -> float:
+    s, v = np.float32(0), np.float32(x)
+    for _ in range(n):
+        s = np.float32(s + v)
+    return float(s)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_maxsim_tensor_core_path_bit_invariances(gen, kind):
+    """A repeated call, a page alone and a query alone (launches of other
+    rows than the batch's) all give the same bits."""
+    b, nq, dim, nt = 20, 32, 128, 259
+    q = _randn(gen, b, nq, dim)
+    d = _randn(gen, len(_TC_LENS), nt, dim)
+    q_lens = torch.randint(1, nq + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    d_lens = torch.tensor(_TC_LENS, dtype=torch.int32, device="cuda")
+    if kind == "bf16":
+        q, d = q.to(torch.bfloat16), d.to(torch.bfloat16)
+        call = lambda qq, ql, p0, p1: M.maxsim_scores_cuda(  # noqa: E731
+            qq, d[p0:p1], ql, d_lens[p0:p1])
+    else:
+        codes, scales = M.quantize_corpus_int8(d)
+        call = lambda qq, ql, p0, p1: M.maxsim_scores_int8_cuda(  # noqa: E731
+            qq, codes[p0:p1], scales[p0:p1], ql, d_lens[p0:p1])
+    p = len(_TC_LENS)
+    full = call(q, q_lens, 0, p)                      # 640 rows: three launches
+    assert torch.equal(call(q, q_lens, 0, p), full)
+    assert torch.equal(call(q, q_lens, 3, p), full[:, 3:])     # an odd page count, offset
+    assert torch.equal(call(q, q_lens, 5, 6), full[:, 5:6])    # one page alone
+    ones = torch.cat([call(q[i: i + 1], q_lens[i: i + 1], 0, p) for i in range(b)])
+    assert torch.equal(ones, full)
+
+
+@pytest.mark.parametrize("dtype,dim,kind", [
+    (torch.float32, 128, "maxsim"), (torch.bfloat16, 72, "maxsim"),
+    (torch.float32, 72, "int8"), (torch.float32, 128, "int8")])
+def test_maxsim_path_by_dtype_and_dim(gen, dtype, dim, kind):
+    """float32 pages and DIMs off 16 take the CUDA-core kernel; int8 codes
+    of DIM % 16 == 0 the tensor-core one."""
+    q, d = _randn(gen, 2, 5, dim, dtype=dtype), _randn(gen, 3, 9, dim, dtype=dtype)
+    fn = M.maxsim_scores_cuda if kind == "maxsim" else M.maxsim_scores_int8_cuda
+    tc, cc = fn.tensor_core_launches, fn.cuda_core_launches
+    if kind == "maxsim":
+        got, want = fn(q, d), M.maxsim_scores_reference(q, d)
+    else:
+        codes, scales = M.quantize_corpus_int8(d)
+        got = fn(q.float(), codes, scales)
+        want = M.maxsim_scores_int8_reference(q.float(), codes, scales)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    on_tc = M.tensor_core_path(torch.int8 if kind == "int8" else dtype, dim)
+    assert (fn.tensor_core_launches - tc, fn.cuda_core_launches - cc) == (
+        (1, 0) if on_tc else (0, 1))
+    assert on_tc == (kind == "int8" and dim == 128)
+
+
+def test_maxsim_two_streams_share_nothing(gen):
+    """K1 and K4 in flight together on two streams, one of them a CUDA graph
+    replay, each give the bits of a lone call."""
+    call1, _, _, _ = _tc_case(gen, "bf16", 4, 32, 128)
+    call2, _, _, _ = _tc_case(gen, "int8", 9, 32, 128)
+    want1, want2 = call1(), call2()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    s1.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s1):
+        with torch.cuda.graph(graph, stream=s1):
+            got1 = call1()
+    torch.cuda.synchronize()
+    s2.wait_stream(torch.cuda.current_stream())
+    outs1, outs2 = [], []
+    for _ in range(20):
+        with torch.cuda.stream(s1):
+            graph.replay()
+            outs1.append(got1.clone())
+        with torch.cuda.stream(s2):
+            outs2.append(call2())
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want1) for o in outs1)
+    assert all(torch.equal(o, want2) for o in outs2)
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
