@@ -19,7 +19,18 @@ phase; any failure exits non-zero.
    a repeated call, an odd page count and a query alone bit-identical; K1's
    CUDA-core kernel on float32 pages), K2 attention (and
    ``scaled_dot_product_attention`` on the same inputs), K3 normalize, K5a-c
-   fused SigLIP layer / attention block / MLP block, and at gemma-3-27b's
+   fused SigLIP layer / attention block / MLP block (as CUDA-graph replays,
+   each of its bf16 GEMMs on ``gemm_wgmma``), the four GEMMs they are made
+   of alone at M = 8,192 (QKV with LN, out_proj + residual, fc1 with LN +
+   gelu, fc2 + residual: per element within 2^-7|want| + 2e-3 of
+   ``gemm_reference``, plus one bf16 step of the product through gelu or
+   the residual;
+   with a LayerNorm, on the kernel's own normalized A, which an identity
+   weight gives exactly and which must be within a bf16 step of
+   ``F.layer_norm``'s;
+   bit-exact on grid inputs, a repeat bit-identical; cuBLAS's bare product
+   on the normalized input beside each, timed only) and the LayerNorm
+   statistics pre-pass, and at gemma-3-27b's
    shapes K7a paged attention and K7b over int8 pools (window 0 and 1024, at
    phase 2's 8 slots of up to 4,096 tokens and at the paged batcher's decode
    step, 4 slots at 309-1,509 tokens; bf16 on K7's tensor-core path, float32
@@ -46,7 +57,9 @@ phase; any failure exits non-zero.
    embeds 32 synthetic 512x512 pages, indexes them with ``colpali_qdrant``
    into an exact, an int8, a pooled and an on_disk collection (the last
    saved and reopened), and answers 4 queries with ``query_points`` in each;
-   it also embeds one batch through each partial fused kernel.
+   it also embeds one batch through each partial fused kernel. Every bf16
+   GEMM of the tower must take ``gemm_wgmma``: 4 a K5a launch (12 x 4 a
+   batch), 2 a K5b or K5c, none on the CUDA cores.
 5. Generation at full width: ``google/gemma-3-27b-it`` (62 layers, random
    weights from ``--seed``) behind ``PagedContinuousBatcher`` (4 slots of
    2048 tokens, pages of 16) and ``GenerationServer`` on 127.0.0.1 answers 6
@@ -75,7 +88,9 @@ each kernel's launches in those paths, its error against the plain version,
 its time, the plain version's, its bound and, for K2, K6, K8a, K8b and K9,
 the library call's (null where this torch has none); K8a and K9 have a row a
 tile (``int8_matmul_kn`` / ``int4_matmul_kn`` the decode tile at 8 tokens,
-``*.prefill`` the prefill tile at 512). The last line is
+``*.prefill`` the prefill tile at 512), the K5 GEMM a row a role
+(``gemm.qkv``, ``gemm.out_proj``, ``gemm.fc1``, ``gemm.fc2``, each with
+``cublas_bare_ms``) and its statistics pre-pass one (``ln_stats``). The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
 result.
 """
@@ -479,8 +494,68 @@ def window_attention_kernel(torch, g):
     return {"window_attention": r}
 
 
+def epilogue_step(torch, product, epilogue):
+    """One bf16 step of ``product`` (the spacing of bf16 values at its
+    magnitude) passed through the epilogue: times 1 for the residual, times
+    gelu_tanh's slope at that element for gelu."""
+    p = product.float()
+    step = torch.ldexp(torch.ones_like(p), torch.frexp(p).exponent - 8) * (p != 0)
+    if epilogue == "residual":
+        return step
+    beta, kappa = 0.7978845608028654, 0.044715
+    t = torch.tanh(beta * (p + kappa * p ** 3))
+    slope = 0.5 * (1 + t) + 0.5 * p * (1 - t * t) * beta * (1 + 3 * kappa * p * p)
+    return step * slope.abs()
+
+
+def gemm_bound_close(torch, got, want, product=None, epilogue="bias"):
+    """(ok, max excess): per element within 2^-7|want| + 2e-3, plus, for
+    gelu and the residual, which act on the product already rounded to bf16,
+    one bf16 step of the product through the epilogue (tests/test_torch_cuda.py's
+    bound)."""
+    err = (got.float() - want.float()).abs()
+    lim = 2.0 ** -7 * want.float().abs() + 2e-3
+    if product is not None:
+        lim = lim + epilogue_step(torch, product, epilogue)
+    return bool((err <= lim).all()), float((err - lim).max())
+
+
+def grid_gemm_case(torch, g, m, k, nseg, segs, ln, epilogue):
+    """A GEMM's operands on a grid: small integers at power-of-two scales,
+    so every float32 sum is exact in any order. LayerNorm rows are mean ± c
+    with c a power of two (eps 0): each normalizes to sign · g + b exactly,
+    returned as the last item (None without a LayerNorm); F.layer_norm's own
+    rounding can leave ~1e-8 where that is 0, so the plain version is taken
+    on the exact normalized rows."""
+    dev = torch.device("cuda")
+
+    def grid(*shape, lo=-4, hi=5, scale=1.0):
+        return torch.randint(lo, hi, shape, generator=g, device=dev).float() * scale
+
+    kw, xn = {}, None
+    if ln:
+        sign = torch.ones(m, k, device=dev)
+        sign[:, 1::2] = -1.0
+        sign = sign[:, torch.randperm(k, generator=g, device=dev)]
+        c = 2.0 ** torch.randint(-2, 3, (m, 1), generator=g, device=dev).float()
+        a = grid(m, 1, scale=0.5) + c * sign
+        kw.update(ln=(grid(k, lo=1, hi=4, scale=0.5), grid(k, scale=0.25)), eps=0.0)
+        xn = (sign * kw["ln"][0] + kw["ln"][1]).to(torch.bfloat16)
+    else:
+        a = grid(m, k, scale=0.25)
+    ws = [grid(nseg, k, scale=0.125).to(torch.bfloat16) for _ in range(segs)]
+    bs = [grid(nseg, scale=0.0625) for _ in range(segs)]
+    if epilogue == "residual":
+        kw["resid"] = grid(m, nseg, scale=0.5).to(torch.bfloat16)
+    return a.to(torch.bfloat16), ws, bs, kw, xn
+
+
 def fused_layer_kernels(torch, g):
-    """K5a-c at ColSmol's SigLIP layer with seeded random bf16 weights."""
+    """K5a-c at ColSmol's SigLIP layer with seeded random bf16 weights, then
+    the four GEMMs they are made of and the LayerNorm statistics launch,
+    each alone at M = 8,192, against their plain versions."""
+    from multimodal_colpali_tpu_torch._timing import graph_ms
+    import torch.nn.functional as F
     from multimodal_colpali_tpu_torch.ops import fused_layer as FL
 
     c = K5
@@ -506,18 +581,22 @@ def fused_layer_kernels(torch, g):
                       ln2 + mlp, {}),
     }
     results = {}
+    m = c["b"] * c["s"]
     for name, (tag, kernel, plain, args, kw) in cases.items():
+        wg = FL.fused_gemm_cuda.wgmma_launches
         got = kernel(x, *args, **kw)
         want = plain(x, *args, **kw)
         torch.cuda.synchronize()
+        require(FL.fused_gemm_cuda.wgmma_launches == wg + (4 if name == "vit_layer" else 2),
+                f"{tag}: its GEMMs did not all take gemm_wgmma")
         require(bool(torch.isfinite(got.float()).all()), f"{tag}: non-finite output")
         err = float((got.float() - want.float()).abs().max())
         # tests/test_fused_layer.py's tolerance: bf16 intermediates may round apart
         require(torch.allclose(got.float(), want.float(), rtol=3e-2, atol=3e-2),
                 f"{tag}: max|err| {err} beyond atol 3e-2 + rtol 3e-2")
-        k_ms, p_ms = timed_pair(torch, lambda: kernel(x, *args, **kw),
+        e_ms, p_ms = timed_pair(torch, lambda: kernel(x, *args, **kw),
                                 lambda: plain(x, *args, **kw), iters=10)
-        m = c["b"] * c["s"]
+        k_ms = graph_ms(lambda: kernel(x, *args, **kw), iters=10)
         attn_flops = 2.0 * m * h * 4 * h + 4.0 * c["b"] * c["s"] ** 2 * h
         mlp_flops = 4.0 * m * h * inter
         flops = {"vit_layer": attn_flops + mlp_flops, "attn_block": attn_flops,
@@ -525,9 +604,113 @@ def fused_layer_kernels(torch, g):
         results[name] = row(err, k_ms, p_ms, sum(a.numel() * a.element_size() for a in args)
                             + 2 * x.numel() * 2, flops)
         print(f"[kernels] {tag} {name} {list(x.shape)} bf16 I={inter} {c['heads']} heads: "
-              f"max|err| {err:.3g} (atol 3e-2 + rtol 3e-2) | kernel {k_ms:.3f} ms, plain "
-              f"{p_ms:.3f} ms", flush=True)
+              f"max|err| {err:.3g} (atol 3e-2 + rtol 3e-2) | kernel {k_ms:.4f} ms (CUDA graph; "
+              f"eager call {e_ms:.4f}), plain {p_ms:.3f} ms, bound "
+              f"{results[name]['bound_ms']:.4f} ms", flush=True)
         del got, want
+
+    # the four GEMMs alone: rows M = 8,192 of phase 2's x (fc2 on a gelu-shaped hidden)
+    x2d = x.view(m, h)
+    hid = F.gelu(torch.randn(m, inter, generator=g, device=dev), approximate="tanh").to(
+        torch.bfloat16)
+    gemms = {
+        "qkv": (x2d, attn[0:6:2], attn[1:6:2], "bias", dict(ln=tuple(ln1), eps=1e-6)),
+        "out_proj": (x2d, [attn[6]], [attn[7]], "residual", dict(resid=x2d)),
+        "fc1": (x2d, [mlp[0]], [mlp[1]], "gelu", dict(ln=tuple(ln2), eps=1e-6)),
+        "fc2": (hid, [mlp[2]], [mlp[3]], "residual", dict(resid=x2d)),
+    }
+    for role, (a, ws, bs, epi, kw) in gemms.items():
+        tag = f"GEMM {role}"
+        k, nseg, segs = a.shape[1], ws[0].shape[0], len(ws)
+        wg = FL.fused_gemm_cuda.wgmma_launches
+        got = FL.fused_gemm_cuda(a, ws, bs, epi, **kw)
+        require(FL.fused_gemm_cuda.wgmma_launches == wg + 1, f"{tag}: not on gemm_wgmma")
+        # with a LayerNorm: the kernel's normalized A, exactly (an identity
+        # weight), within one bf16 step of F.layer_norm's; the product is held on it
+        a_ref, kw_ref = a, kw
+        if "ln" in kw:
+            eye = torch.eye(k, device=dev, dtype=torch.bfloat16)
+            a_ref = FL.fused_gemm_cuda(a, [eye], [torch.zeros(k, device=dev)], "bias",
+                                       ln=kw["ln"], eps=kw["eps"])[0]
+            ref = FL._layernorm(a, *kw["ln"], kw["eps"]).float()
+            require(bool(((a_ref.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-6).all()),
+                    f"{tag}: the normalized A is not within a bf16 step of F.layer_norm's")
+            kw_ref = {kk: vv for kk, vv in kw.items() if kk not in ("ln", "eps")}
+            del eye, ref
+        want = FL.gemm_reference(a_ref, ws, bs, epi, **kw_ref)
+        product = None
+        if epi != "bias":   # the product before gelu / the residual, held apart
+            bare = {kk: vv for kk, vv in kw.items() if kk != "resid"}
+            product = FL.gemm_reference(a_ref, ws, bs, "bias")
+            ok, excess = gemm_bound_close(torch, FL.fused_gemm_cuda(a, ws, bs, "bias", **bare),
+                                          product)
+            require(ok, f"{tag}: the product is {excess} past 2^-7|want| + 2e-3")
+        ok, excess = gemm_bound_close(torch, got, want, product, epi)
+        require(bool(torch.isfinite(got.float()).all()) and ok,
+                f"{tag}: {excess} past its per-element bound")
+        require(torch.equal(got, FL.fused_gemm_cuda(a, ws, bs, epi, **kw)),
+                f"{tag}: two calls differ")
+        ga, gws, gbs, gkw, gxn = grid_gemm_case(torch, g, m, k, nseg, segs, "ln" in kw, epi)
+        gk = FL.fused_gemm_cuda(ga, gws, gbs, epi, **gkw)
+        if gxn is None:
+            gr = FL.gemm_reference(ga, gws, gbs, epi, **gkw)
+        else:   # the kernel's normalized rows exactly sign · g + b, and the rest on them
+            eye = torch.eye(k, device=dev, dtype=torch.bfloat16)
+            require(torch.equal(FL.fused_gemm_cuda(ga, [eye], [torch.zeros(k, device=dev)],
+                                                   "bias", **gkw)[0], gxn),
+                    f"{tag}: the normalized grid rows are not exact")
+            gr = FL.gemm_reference(gxn, gws, gbs, epi, **{kk: vv for kk, vv in gkw.items()
+                                                          if kk not in ("ln", "eps")})
+            del eye
+        if not torch.equal(gk, gr):
+            where = (gk != gr).nonzero()[:4].tolist()
+            fail(f"{tag}: not bit-exact on grid inputs: {int((gk != gr).sum())} of {gk.numel()} "
+                 f"differ, e.g. at {where}: kernel {[float(gk[tuple(i)]) for i in where]}, "
+                 f"plain {[float(gr[tuple(i)]) for i in where]}")
+        del ga, gws, gbs, gkw, gxn, gk, gr
+        err = float((got.float() - want.float()).abs().max())
+        e_ms, p_ms = timed_pair(torch, lambda: FL.fused_gemm_cuda(a, ws, bs, epi, **kw),
+                                lambda: FL.gemm_reference(a, ws, bs, epi, **kw), iters=10)
+        k_ms = graph_ms(lambda: FL.fused_gemm_cuda(a, ws, bs, epi, **kw), iters=20)
+        # cuBLAS's bare product on the already-normalized input: less work (no
+        # LN, no epilogue), so not the same function; timed only
+        an = FL._layernorm(a, *kw["ln"], 1e-6) if "ln" in kw else a
+        wcat = torch.cat(ws)
+        cublas_ms = graph_ms(lambda: F.linear(an, wcat), iters=20)
+        n = nseg * segs
+        flops = 2.0 * m * n * k
+        nbytes = 2 * (a.numel() + n * k + m * n) + 4 * n + (2 * m * n if "resid" in kw else 0)
+        r = results[f"gemm.{role}"] = dict(
+            row(err, k_ms, p_ms, nbytes, flops), cublas_bare_ms=cublas_ms)
+        plan = FL.gemm_plan(m, nseg, segs, FL._sms(dev))
+        step = "" if product is None else f" (+ a bf16 step of the product through {epi})"
+        print(f"[kernels] {tag} [{m},{k}] x {segs} x [{nseg},{k}]^T"
+              f"{' LN' if 'ln' in kw else ''} + {epi}: bn {plan.bn}, {plan.tiles} tiles on "
+              f"{plan.grid} blocks; max|err| {err:.3g}"
+              f"{' (on its own normalized A, itself within a bf16 step)' if 'ln' in kw else ''}, "
+              f"within 2^-7|want| + 2e-3{step}, bit-exact on grid inputs, repeat "
+              f"bit-identical | kernel {k_ms:.4f} ms (CUDA graph; eager call {e_ms:.4f}), "
+              f"{flops / k_ms * 1e-9:.1f} TFLOP/s, plain {p_ms:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cuBLAS bare product {cublas_ms:.4f} ms",
+              flush=True)
+        del got, want, product, an, wcat, a_ref
+
+    # the LayerNorm statistics pre-pass alone
+    got = FL.ln_stats_cuda(x2d, 1e-6)
+    want = FL.ln_stats_reference(x2d, 1e-6)
+    err = float((got - want).abs().max())
+    require(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+            f"ln_stats: max|err| {err} beyond rtol 1e-5 + atol 1e-6")
+    require(torch.equal(got, FL.ln_stats_cuda(x2d, 1e-6)), "ln_stats: two calls differ")
+    e_ms, p_ms = timed_pair(torch, lambda: FL.ln_stats_cuda(x2d, 1e-6),
+                            lambda: FL.ln_stats_reference(x2d, 1e-6), iters=20)
+    k_ms = graph_ms(lambda: FL.ln_stats_cuda(x2d, 1e-6), iters=20)
+    results["ln_stats"] = row(err, k_ms, p_ms, x2d.numel() * 2 + m * 8, 4.0 * x2d.numel(),
+                              F32_FLOPS)
+    print(f"[kernels] ln_stats [{m},{h}] bf16: max|err| {err:.3g} (rtol 1e-5 + atol 1e-6), "
+          f"repeat bit-identical | kernel {k_ms:.4f} ms (CUDA graph; eager call {e_ms:.4f}), "
+          f"plain {p_ms:.3f} ms, bound {results['ln_stats']['bound_ms']:.4f} ms", flush=True)
+    del x, x2d, hid
     torch.cuda.empty_cache()
     return results
 
@@ -876,15 +1059,18 @@ def kernel_wrappers():
     return {"maxsim": M.maxsim_scores_cuda, "attention": A.fused_attention_cuda,
             "normalize": PP.normalize_images_triton, "maxsim_int8": M.maxsim_scores_int8_cuda,
             "vit_layer": FL.fused_vit_layer_cuda, "attn_block": FL.fused_vit_attention_block_cuda,
-            "mlp_block": FL.fused_mlp_block_cuda, "paged_attention": PA.paged_attention_cuda,
+            "mlp_block": FL.fused_mlp_block_cuda, "gemm": FL.fused_gemm_cuda,
+            "ln_stats": FL.ln_stats_cuda, "paged_attention": PA.paged_attention_cuda,
             "paged_attention_int8": PA.paged_attention_int8_cuda,
             "int8_matmul_kn": IM.int8_matmul_kn_cuda, "int8_matmul_nk": IM.int8_matmul_nk_cuda,
             "window_attention": WA.window_attention_cuda, "int4_matmul_kn": I4.int4_matmul_kn_cuda}
 
 
 # the per-path counters of a wrapper beside its ``.launches``: K1's, K4's, K2's
-# and K7's tensor-core and CUDA-core paths, K8a's and K9's decode and prefill tiles
+# and K7's tensor-core and CUDA-core paths, K8a's and K9's decode and prefill
+# tiles, the K5 GEMM's wgmma and CUDA-core paths and its four roles
 PATHS = {"maxsim": ("tensor_core", "cuda_core"), "maxsim_int8": ("tensor_core", "cuda_core"),
+         "gemm": ("wgmma", "cuda_core", "qkv", "out_proj", "fc1", "fc2"),
          "attention": ("tensor_core", "cuda_core"), "int8_matmul_kn": ("decode", "prefill"),
          "int4_matmul_kn": ("decode", "prefill"),
          "paged_attention": ("tensor_core", "cuda_core"),
@@ -1146,9 +1332,20 @@ def phase_colsmol(torch, seed: int, card: str):
     torch.cuda.synchronize()
     launches = read_counts(wrappers)
     path = ("maxsim", "maxsim.tensor_core", "attention", "attention.tensor_core", "normalize",
-            "maxsim_int8", "maxsim_int8.tensor_core", "vit_layer", "attn_block", "mlp_block")
+            "maxsim_int8", "maxsim_int8.tensor_core", "vit_layer", "attn_block", "mlp_block",
+            "gemm", "gemm.wgmma", "ln_stats")
     require(all(launches[k] > 0 for k in path),
             f"a kernel of the ColSmol path did not run: {launches}")
+    # every bf16 GEMM of the tower on gemm_wgmma: 4 a K5a (12 a batch), 2 a
+    # K5b or K5c, each role once a block it belongs to, none on the CUDA cores
+    vit, att, mlpb = launches["vit_layer"], launches["attn_block"], launches["mlp_block"]
+    layers = retr.model.cfg.vision.num_hidden_layers
+    require(vit % layers == 0 and launches["gemm.wgmma"] == 4 * vit + 2 * att + 2 * mlpb
+            and launches["gemm"] == launches["gemm.wgmma"] and launches["gemm.cuda_core"] == 0
+            and launches["gemm.qkv"] == launches["gemm.out_proj"] == vit + att
+            and launches["gemm.fc1"] == launches["gemm.fc2"] == vit + mlpb
+            and launches["ln_stats"] == 2 * vit + att + mlpb,
+            f"ColSmol's GEMMs did not all take gemm_wgmma as K5a-c chain them: {launches}")
     print(f"[colsmol] vidore/colSmol-256M {n_params / 1e6:.1f}M params bf16 (init {init_s:.1f} s), "
           f"{SMOL_PAGES} pages x {embs[0].shape[0]} tokens x {dim}: embed "
           f"{SMOL_PAGES / embed_s:.2f} pages/s (batches of {SMOL_BATCH}), retrieve_colpali "
@@ -1437,6 +1634,13 @@ def main(argv=None) -> int:
         "attn_block": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu",
                        f"{jax_ops}/fused_layer.py:247"),
         "mlp_block": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu", f"{jax_ops}/fused_layer.py:440"),
+        # the GEMMs and the statistics pre-pass K5a-c are made of, each a row
+        "gemm.qkv": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu", f"{jax_ops}/fused_layer.py:247"),
+        "gemm.out_proj": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu",
+                          f"{jax_ops}/fused_layer.py:247"),
+        "gemm.fc1": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu", f"{jax_ops}/fused_layer.py:440"),
+        "gemm.fc2": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu", f"{jax_ops}/fused_layer.py:440"),
+        "ln_stats": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu", f"{jax_ops}/fused_layer.py:367"),
         "paged_attention": ("cuda", f"{PACKAGE}/csrc/paged_attention.cu",
                             f"{jax_ops}/paged_attention.py:196"),
         "paged_attention_int8": ("cuda", f"{PACKAGE}/csrc/paged_attention.cu",

@@ -10,10 +10,11 @@ launch, which :func:`check` turns into an exception. A failed build raises;
 nothing falls back to another implementation.
 
 ``maxsim.cu`` holds K1 and K4, ``attention.cu`` K2, ``fused_layer.cu`` the
-GEMM that K5a-c are built from, ``paged_attention.cu`` K7a and K7b,
-``int8_matmul.cu`` K8a and K8b, ``window_attention.cu`` K6, ``int4_matmul.cu``
-K9. Triton kernels (K3) cache their compiled form
-under ``build/triton`` unless ``TRITON_CACHE_DIR`` is already set.
+GEMM that K5a-c are built from and its LayerNorm statistics pre-pass,
+``paged_attention.cu`` K7a and K7b, ``int8_matmul.cu`` K8a and K8b,
+``window_attention.cu`` K6, ``int4_matmul.cu`` K9. Triton kernels (K3) cache
+their compiled form under ``build/triton`` unless ``TRITON_CACHE_DIR`` is
+already set.
 """
 
 from __future__ import annotations
@@ -56,10 +57,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                              ctypes.c_float, _I, _I, _I, _P),
     },
     "fused_layer": {
-        # A, ln_g, ln_b, eps, w0, w1, w2, b0, b1, b2, resid, C, M, N, K, Nseg,
-        # epilogue, dtype, stream
-        "gemm_launch": (_P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _P),
+        # A, stats, ln_g, ln_b, eps, w0, w1, w2, b0, b1, b2, resid, C, M, N, K,
+        # Nseg, epilogue, dtype, bn, grid, stream
+        "gemm_launch": (_P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        # A, stats, M, K, eps, stream
+        "ln_stats_launch": (_P, _P, _I, _I, ctypes.c_float, _P),
     },
     "paged_attention": {
         # q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths, out, partials,

@@ -17,8 +17,15 @@ embedding path:
   normalization too) and ``process_queries``, host clock;
 - the pixels' upload (+ K3 for ColSmol), the vision tower and the whole model
   forward, each with CUDA events; the rest of the model is the forward less
-  the tower. ColSmol: one SigLIP layer as K5a and its halves K5b and K5c.
-  ColFlor: the tower's 12 window-attention launches (K6) at their shapes;
+  the tower. The rest is also run alone (the forward with the tower's output
+  given), with CUDA events and as the host's time to issue it with the
+  device idle, beside the tower's issue time: where the rest is
+  launch-bound, the forward less the tower shrinks by whatever of its
+  launches the host issues while the device still runs the tower. ColSmol:
+  one SigLIP layer as K5a and its halves K5b and K5c, and K5a's parts alone
+  (its four GEMMs, each with its LayerNorm statistics launch where it has
+  one, the statistics launch, and K2). ColFlor: the
+  tower's 12 window-attention launches (K6) at their shapes;
 - ``embed_images`` and a single-query forward, host clock around the call
   (both end in a device-to-host copy).
 
@@ -64,20 +71,56 @@ def _host_ms(torch, fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def _host_issue_ms(torch, fn, iters: int) -> float:
+    """Host clock from the call to its return, the device idle before each
+    call: the host's time to issue ``fn``."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total * 1e3 / iters
+
+
 def _colsmol_parts(torch, model, pix, n, it) -> dict:
-    """One SigLIP layer as K5a, K5b and K5c at the batch's shape."""
+    """One SigLIP layer as K5a, K5b and K5c at the batch's shape, and K5a's
+    parts alone: its four GEMMs (with their LayerNorm statistics launch
+    where they have one), the statistics launch, and K2."""
+    from multimodal_colpali_tpu_torch.ops import attention as A
     from multimodal_colpali_tpu_torch.ops import fused_layer as FL
 
     layer = model.vision_model.layers[0]
     c = layer.cfg
-    x = torch.randn(n, c.num_patches, c.hidden_size, device="cuda").to(torch.bfloat16)
-    eps, heads = c.layer_norm_eps, c.num_attention_heads
+    h, s_, heads = c.hidden_size, c.num_patches, c.num_attention_heads
+    x = torch.randn(n, s_, h, device="cuda").to(torch.bfloat16)
+    eps = c.layer_norm_eps
+    g1, b1, wq, bq, wk, bk, wv, bv, wo, bo = layer._attn_params()
+    g2, b2, w1, bb1, w2, bb2 = layer._mlp_params()
+    x2d = x.view(-1, h)
+    hid = torch.randn(n * s_, c.intermediate_size, device="cuda").to(torch.bfloat16)
+    q, k, v = (torch.randn(n, s_, heads, h // heads, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    gemm = FL.fused_gemm_cuda
     return {"k5a_layer": _device_ms(torch, lambda: FL.fused_vit_layer_cuda(
                 x, *layer._attn_params(), *layer._mlp_params(), heads=heads, eps=eps), it),
             "k5b_attn_half": _device_ms(torch, lambda: FL.fused_vit_attention_block_cuda(
                 x, *layer._attn_params(), heads=heads, eps=eps), it),
             "k5c_mlp_half": _device_ms(torch, lambda: FL.fused_mlp_block_cuda(
-                x, *layer._mlp_params(), eps=eps), it)}
+                x, *layer._mlp_params(), eps=eps), it),
+            "k5_gemm_qkv": _device_ms(torch, lambda: gemm(
+                x2d, (wq, wk, wv), (bq, bk, bv), "bias", ln=(g1, b1), eps=eps), it),
+            "k5_gemm_out_proj": _device_ms(torch, lambda: gemm(
+                x2d, (wo,), (bo,), "residual", resid=x2d), it),
+            "k5_gemm_fc1": _device_ms(torch, lambda: gemm(
+                x2d, (w1,), (bb1,), "gelu", ln=(g2, b2), eps=eps), it),
+            "k5_gemm_fc2": _device_ms(torch, lambda: gemm(
+                hid, (w2,), (bb2,), "residual", resid=x2d), it),
+            "k5_ln_stats": _device_ms(torch, lambda: FL.ln_stats_cuda(x2d, eps), it),
+            "k2_attention": _device_ms(torch, lambda: A.fused_attention_cuda(
+                q, k, v, scale=(h // heads) ** -0.5), it)}
 
 
 def _colflor_parts(torch, model, pix, n, it) -> dict:
@@ -147,6 +190,12 @@ def main(argv=None) -> int:
         r["vision_tower"] = _device_ms(torch, lambda: tower(pix), it)
         r["forward"] = _device_ms(torch, lambda: model(ids, mask, pix), it)
         r["rest_of_forward"] = r["forward"] - r["vision_tower"]
+        r["tower_host_issue"] = _host_issue_ms(torch, lambda: tower(pix), it)
+        feats = tower(pix)
+        tower.forward = lambda pixel_values: feats   # the tower's output, given
+        r["rest_alone"] = _device_ms(torch, lambda: model(ids, mask, pix), it)
+        r["rest_alone_host_issue"] = _host_issue_ms(torch, lambda: model(ids, mask, pix), it)
+        del tower.forward, feats
         r.update(TOWER_PARTS[args.model](torch, model, pix, n, it))
         r["embed_images_wall"] = _host_ms(torch, lambda: retr.embed_images(pages, batch_size=n),
                                           it)
@@ -166,7 +215,9 @@ def main(argv=None) -> int:
     print(f"[{name}: embed {n} pages] host process_images {r['host_process_images']:.2f} ms | "
           f"upload{'+K3' if dev_pre else ''} {r['upload']:.3f} ms | vision tower "
           f"{r['vision_tower']:.2f} ms | whole forward {r['forward']:.2f} ms (rest of the model "
-          f"{r['rest_of_forward']:.2f} ms) | embed_images wall {r['embed_images_wall']:.2f} ms "
+          f"{r['rest_of_forward']:.2f} ms; alone {r['rest_alone']:.2f} ms, host issue "
+          f"{r['rest_alone_host_issue']:.2f} ms; tower host issue {r['tower_host_issue']:.2f} "
+          f"ms) | embed_images wall {r['embed_images_wall']:.2f} ms "
           f"({r['pages_per_s']:.1f} pages/s) | {r['tokens_per_page']} tokens per page", flush=True)
     print(f"[tower parts at B={n}] " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in r.items() if k[0] == "k" and k[1].isdigit())

@@ -58,13 +58,11 @@
 // by element and each lane loads the scales of its rows' groups.
 #pragma once
 
-#include <cuda.h>          // CUtensorMap
-#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
-
 #include <cstdint>
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace wstream {
 
@@ -131,89 +129,6 @@ __device__ __forceinline__ int code_at(int r, int n) {
   constexpr int kRows = PreRing<kInt4>::kRows;
   const int c = (n % 128) / 16;
   return (n / 128) * (kRows * 128) + r * 128 + ((c ^ (r % 8)) << 4) + n % 16;
-}
-
-// wgmma's shared-memory matrix descriptor for K-major B: start address,
-// 8-row groups `sbo` bytes apart, swizzle (1: 128-byte, 2: 64-byte)
-__device__ __forceinline__ unsigned long long b_desc(const void* p, int sbo, int swizzle) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  return static_cast<unsigned long long>((a & 0x3FFFF) >> 4) | 1ull << 16 |
-         static_cast<unsigned long long>(sbo >> 4) << 32 |
-         static_cast<unsigned long long>(swizzle) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accumulators that an in-flight wgmma writes.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]));
-}
-
-// TMA: the box of `map` at (c0 inner, c1 outer) into shared memory at `dst`,
-// counted on barrier `b`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         unsigned long long* b) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0), "r"(c1), "r"(smem_u32(b))
-      : "memory");
-}
-
-// A 2-D tensor map (TMA descriptor): `outer` rows of `inner` elements,
-// `row_bytes` apart, cut into boxes of box_inner x box_outer.
-inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                       unsigned long long inner, unsigned long long outer,
-                       unsigned long long row_bytes, unsigned box_inner, unsigned box_outer,
-                       CUtensorMapSwizzle swizzle) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return false;
-  }
-  const cuuint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer}, unit[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// d (64 x 128 float32, the warpgroup's accumulators; this warp's rows 16w .. 16w+15
-// as 16 m16n8 fragments) += a (this warp's 16 x 16 bf16 A fragment, registers) .
-// B (16 x 128 bf16 in shared memory, K-major, laid out as `desc` says).
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const unsigned (&a)[4],
-                                                 unsigned long long desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(0), "r"(1));
 }
 
 // The float32 scales of columns n .. n+3 in group `grp` (-1: zeros), from
@@ -483,14 +398,14 @@ prefill_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ C
       if (kk + 1 < kPreK / 16 && (!kInt4 || kk % 2 == 1)) load_words(kk + 1);
       // the step's 16 K rows of every token: 32 bytes on in a swizzled row
       const unsigned long long desc =
-          kInt4 ? b_desc(st + R::kXOff + (kk % 2) * (kPreBM * 64) + (kk / 2) * 32, 512, 2)
-                : b_desc(st + R::kXOff + kk * 32, 1024, 1);
+          kInt4 ? smem_desc(st + R::kXOff + (kk % 2) * (kPreBM * 64) + (kk / 2) * 32, 512, 2)
+                : smem_desc(st + R::kXOff + kk * 32, 1024, 1);
 #pragma unroll
       for (int a = 0; a < 2; ++a) fence_regs(*reinterpret_cast<float(*)[64]>(&acc[a][0][0]));
       wgmma_fence();
 #pragma unroll
       for (int a = 0; a < 2; ++a)
-        wgmma_m64n128k16(*reinterpret_cast<float(*)[64]>(&acc[a][0][0]), af[a], desc);
+        wgmma_rs_m64n128k16(*reinterpret_cast<float(*)[64]>(&acc[a][0][0]), af[a], desc, 1);
       wgmma_commit();
       wgmma_wait<1>();  // the last step's products are done: its A buffer is free
 #pragma unroll

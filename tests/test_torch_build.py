@@ -126,7 +126,8 @@ _COUNTERS = (M.maxsim_scores_cuda, A.fused_attention_cuda, PP.normalize_images_t
              M.maxsim_scores_int8_cuda, FL.fused_vit_layer_cuda,
              FL.fused_vit_attention_block_cuda, FL.fused_mlp_block_cuda,
              PA.paged_attention_cuda, PA.paged_attention_int8_cuda, IM.int8_matmul_kn_cuda,
-             IM.int8_matmul_nk_cuda, WA.window_attention_cuda, I4.int4_matmul_kn_cuda)
+             IM.int8_matmul_nk_cuda, WA.window_attention_cuda, I4.int4_matmul_kn_cuda,
+             FL.fused_gemm_cuda, FL.ln_stats_cuda)
 _POOL = torch.zeros(3, 4, 1, 8)
 _POOL8 = torch.zeros(3, 4, 1, 8, dtype=torch.int8)
 _BT, _LENS = torch.zeros(1, 2, dtype=torch.int32), torch.ones(1, dtype=torch.int32)
@@ -149,9 +150,11 @@ _BT, _LENS = torch.zeros(1, 2, dtype=torch.int32), torch.ones(1, dtype=torch.int
     lambda: IM.int8_matmul_nk_cuda(_W, torch.zeros(4, 8, dtype=torch.int8), torch.ones(4)),
     lambda: WA.window_attention_cuda(*(torch.zeros(3, 16, 8),) * 3, scale=1.0),
     lambda: I4.int4_matmul_kn_cuda(_W, torch.zeros(4, 4, dtype=torch.uint8), torch.ones(1, 4)),
+    lambda: FL.fused_gemm_cuda(_W, (_W,), (_V,), "bias", ln=(_V, _V)),
+    lambda: FL.ln_stats_cuda(_W, 1e-6),
 ], ids=["maxsim", "attention", "normalize", "maxsim_int8", "vit_layer", "attn_block",
         "mlp_block", "paged_attention", "paged_attention_int8", "int8_matmul_kn",
-        "int8_matmul_nk", "window_attention", "int4_matmul_kn"])
+        "int8_matmul_nk", "window_attention", "int4_matmul_kn", "fused_gemm", "ln_stats"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     counters = [f.launches for f in _COUNTERS]
     with pytest.raises(ValueError, match="CUDA"):

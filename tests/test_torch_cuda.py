@@ -405,6 +405,228 @@ def test_fused_layer_kernels_reject_float16(gen, which):
     assert kernel.launches == before
 
 
+# -- the K5 GEMM alone, against gemm_reference ---------------------------------------------
+
+def _gemm_case(gen, m, k, nseg, segs, ln, epilogue):
+    """Seeded random bf16 operands of one GEMM: a [m, k], `segs` weights
+    [nseg, k] with float32 biases, LN parameters and the residual where asked."""
+    a = _randn(gen, m, k, dtype=torch.bfloat16)
+    ws = [(_randn(gen, nseg, k) * k ** -0.5).to(torch.bfloat16) for _ in range(segs)]
+    bs = [0.1 * _randn(gen, nseg) for _ in range(segs)]
+    kw = {}
+    if ln:
+        kw.update(ln=(1.0 + 0.1 * _randn(gen, k), 0.1 * _randn(gen, k)), eps=1e-6)
+    if epilogue == "residual":
+        kw.update(resid=_randn(gen, m, nseg, dtype=torch.bfloat16))
+    return a, ws, bs, kw
+
+
+def _epilogue_step(product, epilogue):
+    """One bf16 step of ``product`` (the spacing of bf16 values at its
+    magnitude) passed through the epilogue: times 1 for the residual, times
+    gelu_tanh's slope at that element for gelu."""
+    p = product.float()
+    step = torch.ldexp(torch.ones_like(p), torch.frexp(p).exponent - 8) * (p != 0)
+    if epilogue == "residual":
+        return step
+    beta, kappa = 0.7978845608028654, 0.044715
+    t = torch.tanh(beta * (p + kappa * p ** 3))
+    slope = 0.5 * (1 + t) + 0.5 * p * (1 - t * t) * beta * (1 + 3 * kappa * p * p)
+    return step * slope.abs()
+
+
+def _assert_gemm_close(got, want, product=None, epilogue="bias"):
+    """Per element within 2^-7·|want| + 2e-3: one bf16 rounding of the
+    output, and the sums' order. Gelu and the residual act on the product
+    already rounded to bf16 (``product``, the plain version's, held to that
+    bound apart): a last-bit disagreement there passes through them, so
+    their outputs also get one bf16 step of the product through the
+    epilogue (:func:`_epilogue_step`)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs()
+    lim = 2.0 ** -7 * want.float().abs() + 2e-3
+    if product is not None:
+        lim = lim + _epilogue_step(product, epilogue)
+    assert bool((err <= lim).all()), f"max excess {float((err - lim).max())}"
+
+
+def _kernel_ln_input(a, kw):
+    """The GEMM's A as the kernel sees it, and the arguments that go with it.
+    With a LayerNorm, the kernel on an identity weight gives its normalized
+    bf16 A exactly (each product has one nonzero term); that A is held to
+    within one bf16 step of F.layer_norm's (two float32 LayerNorms round a
+    few elements to neighbouring bf16 values), and the product is then held
+    on it, so each rounding point has its own bound."""
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    if "ln" not in kw:
+        return a, kw
+    k = a.shape[1]
+    eye = torch.eye(k, device="cuda", dtype=torch.bfloat16)
+    xn = FL.fused_gemm_cuda(a, [eye], [torch.zeros(k, device="cuda")], "bias", ln=kw["ln"],
+                            eps=kw["eps"])[0]
+    ref = FL._layernorm(a, *kw["ln"], kw["eps"]).float()
+    assert bool(((xn.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-6).all())
+    return xn, {key: v for key, v in kw.items() if key not in ("ln", "eps")}
+
+
+def _gemm_counts():
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    g = FL.fused_gemm_cuda
+    return dict(launches=g.launches, wgmma=g.wgmma_launches, cuda_core=g.cuda_core_launches,
+                ln_stats=FL.ln_stats_cuda.launches,
+                **{r: getattr(g, f"{r}_launches") for r in FL.GEMM_ROLES})
+
+
+@pytest.mark.parametrize("m,k,nseg,segs,ln,epilogue", [
+    (1, 128, 128, 1, True, "bias"),          # one row
+    (100, 768, 768, 3, True, "bias"),        # QKV, rows short of a tile
+    (300, 128, 128, 3, True, "gelu"),        # ragged rows, Nseg 128
+    (300, 768, 768, 1, False, "residual"),   # out_proj
+    (100, 3072, 768, 1, False, "residual"),  # fc2
+    (300, 768, 3072, 1, True, "gelu"),       # fc1
+    (1, 768, 3072, 1, False, "gelu"),
+    (100, 128, 768, 2, False, "bias"),
+    (130, 136, 72, 3, True, "bias"),         # K and Nseg short of a stage and a tile
+    (300, 136, 72, 1, False, "residual"),
+    (16384, 768, 768, 3, True, "bias"),      # ColSmol's batch of 16
+    (16384, 768, 3072, 1, True, "gelu"),
+    (16384, 3072, 768, 1, False, "residual"),
+])
+def test_fused_gemm_matches_reference(gen, m, k, nseg, segs, ln, epilogue):
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    a, ws, bs, kw = _gemm_case(gen, m, k, nseg, segs, ln, epilogue)
+    before = _gemm_counts()
+    got = FL.fused_gemm_cuda(a, ws, bs, epilogue, **kw)
+    after = _gemm_counts()
+    assert (after["launches"], after["wgmma"], after["cuda_core"], after["ln_stats"]) == (
+        before["launches"] + 1, before["wgmma"] + 1, before["cuda_core"], before["ln_stats"] + ln)
+    a_ref, kw_ref = _kernel_ln_input(a, kw)
+    product = None
+    if epilogue != "bias":
+        bare = {k: v for k, v in kw.items() if k != "resid"}
+        product = FL.gemm_reference(a_ref, ws, bs, "bias")
+        _assert_gemm_close(FL.fused_gemm_cuda(a, ws, bs, "bias", **bare), product)
+    _assert_gemm_close(got, FL.gemm_reference(a_ref, ws, bs, epilogue, **kw_ref), product,
+                       epilogue)
+    assert torch.equal(got, FL.fused_gemm_cuda(a, ws, bs, epilogue, **kw))  # a repeat
+
+
+def _grid_case(gen, m, k, nseg, segs, ln, epilogue):
+    """Small integers at power-of-two scales: every float32 sum is exact in
+    any order, and each LayerNorm row is mean ± c with c a power of two (its
+    rstd 1/c exactly, eps 0), so the normalized row is sign · g + b exactly,
+    returned as the last item (None without a LayerNorm). F.layer_norm's own
+    rounding can leave ~1e-8 where that is 0, so the plain version is taken
+    on the exact normalized rows."""
+    def grid(*shape, lo=-4, hi=5, scale=1.0):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda").float() * scale
+
+    kw, xn = {}, None
+    if ln:
+        sign = torch.ones(m, k, device="cuda")
+        sign[:, 1::2] = -1.0
+        sign = sign[:, torch.randperm(k, generator=gen, device="cuda")]
+        c = 2.0 ** torch.randint(-2, 3, (m, 1), generator=gen, device="cuda").float()
+        a = grid(m, 1, scale=0.5) + c * sign
+        kw.update(ln=(grid(k, lo=1, hi=4, scale=0.5), grid(k, scale=0.25)), eps=0.0)
+        xn = (sign * kw["ln"][0] + kw["ln"][1]).to(torch.bfloat16)
+    else:
+        a = grid(m, k, scale=0.25)
+    ws = [grid(nseg, k, scale=0.125).to(torch.bfloat16) for _ in range(segs)]
+    bs = [grid(nseg, scale=0.0625) for _ in range(segs)]
+    if epilogue == "residual":
+        kw["resid"] = grid(m, nseg, scale=0.5).to(torch.bfloat16)
+    return a.to(torch.bfloat16), ws, bs, kw, xn
+
+
+# gemm_plan on 132 SMs: 128-wide tiles at M 300 (one a block) and for one
+# segment at M 8,192; 256-wide for three at M 8,192 and at M 16,384, where
+# each persistent block walks 3 to 9 tiles and its ring wraps many times
+@pytest.mark.parametrize("m", [300, 8192, 16384])
+@pytest.mark.parametrize("ln,epilogue", [(True, "bias"), (True, "gelu"), (False, "bias"),
+                                         (False, "gelu"), (False, "residual")])
+def test_fused_gemm_exact_on_grid_inputs(gen, m, ln, epilogue):
+    """Bit for bit at both tile widths, one tile a block or many."""
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    k, nseg = 768, 384 if m == 300 else 768
+    segs = 1 if epilogue == "residual" else 3
+    a, ws, bs, kw, xn = _grid_case(gen, m, k, nseg, segs, ln, epilogue)
+    got = FL.fused_gemm_cuda(a, ws, bs, epilogue, **kw)
+    if ln:
+        stats = FL.ln_stats_cuda(a, 0.0)
+        assert torch.equal(stats, FL.ln_stats_reference(a, 0.0))
+        eye = torch.eye(k, device="cuda", dtype=torch.bfloat16)
+        assert torch.equal(FL.fused_gemm_cuda(a, [eye], [torch.zeros(k, device="cuda")], "bias",
+                                              **kw)[0], xn)
+        a, kw = xn, {key: v for key, v in kw.items() if key not in ("ln", "eps")}
+    assert torch.equal(got, FL.gemm_reference(a, ws, bs, epilogue, **kw))
+
+
+@pytest.mark.parametrize("m,k", [(1, 128), (300, 768), (16384, 768), (100, 3072), (7, 136)])
+def test_ln_stats_kernel_matches_plain(gen, m, k):
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    a = (_randn(gen, m, k) * 3.0 + 0.5).to(torch.bfloat16)
+    before = FL.ln_stats_cuda.launches
+    got = FL.ln_stats_cuda(a, 1e-6)
+    assert FL.ln_stats_cuda.launches == before + 1
+    torch.testing.assert_close(got, FL.ln_stats_reference(a, 1e-6), rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, FL.ln_stats_cuda(a, 1e-6))
+
+
+@pytest.mark.parametrize("ln,epilogue", [(True, "bias"), (False, "residual")])
+def test_fused_gemm_views_at_a_16_byte_offset(gen, ln, epilogue):
+    """Operands that start 16 bytes into their storage give the same bits as
+    fresh ones."""
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    m, k, nseg = 200, 256, 128
+    segs = 1 if epilogue == "residual" else 3
+    a, ws, bs, kw = _gemm_case(gen, m, k, nseg, segs, ln, epilogue)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device="cuda")
+        view = buf[8:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 0 and view.data_ptr() != buf.data_ptr()
+        return view
+
+    want = FL.fused_gemm_cuda(a, ws, bs, epilogue, **kw)
+    kw2 = dict(kw)
+    if "resid" in kw2:
+        kw2["resid"] = shifted(kw2["resid"])
+    got = FL.fused_gemm_cuda(shifted(a), [shifted(w) for w in ws], bs, epilogue, **kw2)
+    assert torch.equal(got, want)
+
+
+def test_fused_gemm_paths_by_dtype(gen):
+    """bf16 takes gemm_wgmma (after one statistics launch for a LayerNorm),
+    float32 the CUDA-core kernel; a layer's four bf16 GEMMs each count once
+    under their role, with two statistics launches and no CUDA-core launch."""
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    a, ws, bs, kw = _gemm_case(gen, 64, 128, 128, 1, True, "gelu")
+    before = _gemm_counts()
+    got = FL.fused_gemm_cuda(a.float(), [w.float() for w in ws], bs, "gelu", **kw)
+    after = _gemm_counts()
+    assert (after["cuda_core"], after["wgmma"], after["ln_stats"]) == (
+        before["cuda_core"] + 1, before["wgmma"], before["ln_stats"])
+    torch.testing.assert_close(got, FL.gemm_reference(a.float(), [w.float() for w in ws], bs,
+                                                      "gelu", **kw), rtol=1e-4, atol=1e-4)
+    wts = _layer_weights(gen, 256, 512)
+    x = _randn(gen, 2, 128, 256, dtype=torch.bfloat16)
+    before = _gemm_counts()
+    FL.fused_vit_layer_cuda(x, *wts.values(), heads=4)
+    after = _gemm_counts()
+    assert {k: after[k] - before[k] for k in after} == dict(
+        launches=4, wgmma=4, cuda_core=0, ln_stats=2, qkv=1, out_proj=1, fc1=1, fc2=1)
+
+
 def test_float32_colidefics3_on_card_takes_k5a(gen):
     """A float32 ColIdefics3 whose SigLIP layers ``layer_plan`` admits runs
     them as K5a on the card (the gate asks no dtype) and agrees with the
