@@ -6,9 +6,8 @@ drives ``multimodal_colpali_tpu_torch`` (never JAX) and prints one line per
 phase; any failure exits non-zero.
 
 1. Device: the card's name and power limit (nvidia-smi), the torch and CUDA
-   versions, and the build time of the kernels (nvcc for K1/K4, K2, the K5
-   GEMM, K6, K7a/K7b, K8a/K8b and K9 into ``build/kernels``, all at once;
-   Triton for K3).
+   versions, and the build time of the kernels (nvcc for K1/K4, K2, K3, the
+   K5 GEMM, K6, K7a/K7b, K8a/K8b and K9 into ``build/kernels``, all at once).
 2. Kernels against their plain PyTorch versions, both on the card, at the
    main paths' shapes, with the time of each beside its bound (the larger of
    the bytes it must move over 3.35 TB/s and its operations over the peak
@@ -18,7 +17,10 @@ phase; any failure exits non-zero.
    bit against 120 calls of one and against the plain version on 128 pages;
    a repeated call, an odd page count and a query alone bit-identical; K1's
    CUDA-core kernel on float32 pages), K2 attention (and
-   ``scaled_dot_product_attention`` on the same inputs), K3 normalize, K5a-c
+   ``scaled_dot_product_attention`` on the same inputs), K3 normalize (as
+   graph replays cycling over 12 input sets, the eager time beside; every
+   byte value in each channel position under two statistics, a repeat
+   bit-identical), K5a-c
    fused SigLIP layer / attention block / MLP block (as CUDA-graph replays,
    each of its bf16 GEMMs on ``gemm_wgmma``), the four GEMMs they are made
    of alone at M = 8,192 (QKV with LN, out_proj + residual, fc1 with LN +
@@ -38,9 +40,10 @@ phase; any failure exits non-zero.
    int8 projections and K9 group-wise int4 projections (decode rows of 8
    tokens, prefill rows of 512 and 1,504 tokens through the up and down
    projections; both exact on grid inputs, both bit-identical on a repeated
-   call), K8b the int8 tied LM head; at ColFlor's stage-0 windows K6 window
-   attention in bf16 and float32 (and ``scaled_dot_product_attention`` on the
-   same inputs). K2 must take its tensor-core path for bf16 with D % 8 == 0
+   call), K8b the int8 tied LM head; K6 window attention at ColFlor's four
+   DaViT stage shapes in bf16 on its ring kernel (graph replays, a repeat
+   bit-identical, ``scaled_dot_product_attention`` on the same inputs) and at
+   stage 0 in float32. K2 must take its tensor-core path for bf16 with D % 8 == 0
    and its CUDA-core path otherwise, K8a and K9 their decode tile for M <= 16
    and their prefill tile above. K1, K4, K7, K8 and K9 (K7-K9's decode calls
    are shorter than their Python launch) are timed as CUDA-graph replays (their eager
@@ -75,8 +78,8 @@ phase; any failure exits non-zero.
 6. ColFlor at full width: ``ahmed-masry/ColFlor`` (random bf16 weights)
    embeds 16 synthetic 768x768 pages, indexes them with ``colpali_qdrant``,
    answers 4 queries with ``retrieve_colpali`` (one also filtered) and scores
-   them with ``score_results``; its DaViT windows run K6 (12 launches a
-   forward), never K2.
+   them with ``score_results``; its DaViT windows run K6's ring kernel (12
+   launches a forward), never K2.
 
 Each main path (3, 4, each run of 5, and 6) sets every launch counter to 0
 before it runs and reads them after; each kernel of the path must have run in
@@ -113,12 +116,13 @@ PACKAGE = "multimodal_colpali_tpu_torch"
 
 K1 = dict(b=4, nq=32, dim=128, p=4096, nt=1030)
 K2 = dict(b=8, s=1024, h=16, d=72)
-K3 = dict(b=8, size=448)
+K3 = dict(b=8, size=448, sets=12)  # 12 x 4.8 MB of pixels: more than the 50 MB L2
 K5 = dict(b=8, s=1024, h=768, heads=12, inter=3072)  # ColSmol's SigLIP layer
 # gemma-3-27b: 32 q / 16 kv heads of 128, pages of 16, 8 slots of up to 4096 tokens
 K7 = dict(b=8, hq=32, hkv=16, d=128, page=16, nb=256)
 K8 = dict(h=5376, inter=21504, vocab=262208)   # gemma-3-27b, also K9's (group 256)
 K6 = dict(n=8192, s=144, d=32)    # ColFlor stage 0 at batch 8: 8 x 256 windows x 4 heads
+K6_STAGES = (8192, 4096, 2048, 1024)  # ColFlor's four DaViT stages at batch 8 (heads 4 ... 32)
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12   # H100 SXM peaks (data sheet)
 N_PAGES, EMBED_BATCH, TOP_K = 16, 8, 5
 SMOL_PAGES, SMOL_BATCH = 32, 16
@@ -205,16 +209,10 @@ def phase_device(torch, build):
     t0 = time.perf_counter()
     libs = build.build_all()
     nvcc_s = time.perf_counter() - t0
-    from multimodal_colpali_tpu_torch.ops.preprocess import normalize_images_triton
-
-    t0 = time.perf_counter()
-    normalize_images_triton(torch.zeros((1, 8, 8, 3), dtype=torch.uint8, device="cuda"))
-    torch.cuda.synchronize()
-    triton_s = time.perf_counter() - t0
     print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | build: nvcc "
-          f"{nvcc_s:.1f} s ({', '.join(sorted(libs))}), triton K3 {triton_s:.1f} s | "
-          f"ptxas: {ptxas_summary(libs)}", flush=True)
+          f"{nvcc_s:.1f} s ({', '.join(sorted(libs))}) | ptxas: {ptxas_summary(libs)}",
+          flush=True)
     return card
 
 
@@ -223,7 +221,6 @@ def phase_kernels(torch, seed: int):
     import torch.nn.functional as F
     from multimodal_colpali_tpu_torch.ops import attention as A
     from multimodal_colpali_tpu_torch.ops import maxsim as M
-    from multimodal_colpali_tpu_torch.ops import preprocess as PP
     from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
 
     dev = torch.device("cuda")
@@ -434,63 +431,108 @@ def phase_kernels(torch, seed: int):
     del qkv, got, want
     torch.cuda.empty_cache()
 
-    # K3: uint8 -> bf16 normalize at [8, 448, 448, 3]
-    c = K3
-    x = torch.randint(0, 256, (c["b"], c["size"], c["size"], 3), generator=g, device=dev,
-                      dtype=torch.int32).to(torch.uint8)
-    mean, std = (0.5, 0.5, 0.5), (0.5, 0.5, 0.5)
-    got = PP.normalize_images_triton(x, mean, std)
-    want = PP.normalize_images_reference(x, mean, std)
-    ulps = int(bf16_ulps(torch, got, want).max())
-    require(ulps <= 1, f"K3: {ulps} bf16 ulps from the plain version (limit 1)")
-    k3_err = float((got.float() - want.float()).abs().max())
-    k_ms, p_ms = timed_pair(torch, lambda: PP.normalize_images_triton(x, mean, std),
-                            lambda: PP.normalize_images_reference(x, mean, std), iters=20)
-    results["normalize"] = row(k3_err, k_ms, p_ms, 3 * x.numel(), 2.0 * x.numel(), F32_FLOPS)
-    print(f"[kernels] K3 normalize {list(x.shape)} u8->bf16: max {ulps} ulp, max|err| "
-          f"{k3_err:.3g} | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
+    results.update(normalize_kernel(torch, g))
     results.update(fused_layer_kernels(torch, g))
     results.update(window_attention_kernel(torch, g))
     results.update(generation_kernels(torch, g))
     return results
 
 
+def normalize_kernel(torch, g):
+    """K3 at [8, 448, 448, 3]: within one bf16 ulp of the plain version, also
+    for every byte value in each channel position under (0.5, 0.5, 0.5) and
+    ImageNet's statistics; a repeat bit-identical; graph replays cycling
+    over 12 input sets (57.8 MB of pixels alone, past the 50 MB L2), eager
+    beside."""
+    from multimodal_colpali_tpu_torch._timing import cycle, graph_ms
+    from multimodal_colpali_tpu_torch.ops import preprocess as PP
+
+    c, dev = K3, torch.device("cuda")
+    xs = [torch.randint(0, 256, (c["b"], c["size"], c["size"], 3), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.uint8) for _ in range(c["sets"])]
+    x, mean, std = xs[0], (0.5, 0.5, 0.5), (0.5, 0.5, 0.5)
+    got = PP.normalize_images_cuda(x, mean, std)
+    want = PP.normalize_images_reference(x, mean, std)
+    ulps = int(bf16_ulps(torch, got, want).max())
+    require(ulps <= 1, f"K3: {ulps} bf16 ulps from the plain version (limit 1)")
+    require(torch.equal(PP.normalize_images_cuda(x, mean, std).view(torch.int16),
+                        got.view(torch.int16)), "K3: a repeated call is not bit-identical")
+    table = torch.arange(256, device=dev, dtype=torch.uint8)[None, :, None, None].expand(
+        1, 256, 1, 3).contiguous()
+    for m, s in ((mean, std), ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))):
+        t_ulps = int(bf16_ulps(torch, PP.normalize_images_cuda(table, m, s),
+                               PP.normalize_images_reference(table, m, s)).max())
+        require(t_ulps <= 1, f"K3: {t_ulps} bf16 ulps on the byte table under {m}, {s}")
+    k3_err = float((got.float() - want.float()).abs().max())
+    k_ms = graph_ms(cycle([lambda x=x: PP.normalize_images_cuda(x, mean, std) for x in xs]), 20)
+    eager, p_ms = timed_pair(torch, lambda: PP.normalize_images_cuda(x, mean, std),
+                             lambda: PP.normalize_images_reference(x, mean, std), iters=20)
+    r = row(k3_err, k_ms, p_ms, 3 * x.numel(), 2.0 * x.numel(), F32_FLOPS)
+    r["eager_ms"] = eager
+    print(f"[kernels] K3 normalize {list(x.shape)} u8->bf16: max {ulps} ulp, byte table "
+          f"within 1 ulp under both statistics, repeat bit-identical, max|err| {k3_err:.3g} | "
+          f"kernel {k_ms:.4f} ms (graph, {c['sets']} input sets), eager {eager:.4f} ms, plain "
+          f"{p_ms:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return {"normalize": r}
+
+
 def window_attention_kernel(torch, g):
-    """K6 at ColFlor's stage-0 windows, bf16 and float32."""
-    from multimodal_colpali_tpu_torch._timing import eager_ms
+    """K6 at ColFlor's four DaViT stage shapes in bf16 (the ring kernel; graph
+    replays, a repeat bit-identical) and at stage 0 in float32."""
+    from multimodal_colpali_tpu_torch._timing import graph_ms
     import torch.nn.functional as F
     from multimodal_colpali_tpu_torch.ops import window_attention as WA
 
-    c = K6
     dev = torch.device("cuda")
-    shape, scale = (c["n"], c["s"], c["d"]), c["d"] ** -0.5
-    errs = {}
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        qkv = [torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(3)]
+    s, d = K6["s"], K6["d"]
+    scale = d ** -0.5
+    qkv = [torch.randn((K6["n"], s, d), generator=g, device=dev) for _ in range(3)]
+    got = WA.window_attention_cuda(*qkv, scale=scale)
+    want = WA.window_attention_reference(*qkv, scale=scale)
+    f32_err = float((got - want).abs().max())
+    require(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+            f"K6 float32: max|err| {f32_err} beyond atol and rtol 1e-5")
+    del qkv, got, want
+    grid = WA.ring_grid()
+    r, lines = None, []
+    for stage, n in enumerate(K6_STAGES):
+        qkv = [torch.randn((n, s, d), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3)]
+        ring = WA.window_attention_cuda.ring_launches
         got = WA.window_attention_cuda(*qkv, scale=scale)
+        require(WA.window_attention_cuda.ring_launches == ring + 1,
+                f"K6 [{n},{s},{d}] bf16 did not take the ring kernel")
         want = WA.window_attention_reference(*qkv, scale=scale)
         torch.cuda.synchronize()
-        require(got.dtype == dtype and bool(torch.isfinite(got.float()).all()),
-                f"K6 {dtype}: wrong dtype or non-finite output")
-        errs[dtype] = float((got.float() - want.float()).abs().max())
-        require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-                f"K6 {dtype}: max|err| {errs[dtype]} beyond atol and rtol {tol}")
-        del got, want
-    k_ms, p_ms = timed_pair(torch, lambda: WA.window_attention_cuda(*qkv, scale=scale),
-                            lambda: WA.window_attention_reference(*qkv, scale=scale), iters=10)
-    # the library call: scaled_dot_product_attention on the same tensors as [N, 1, S, D]
-    qt, kt, vt = (x[:, None] for x in qkv)
-    lib_ms = eager_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
-                      iters=10)
-    r = row(errs[torch.bfloat16], k_ms, p_ms, 4 * qkv[0].numel() * 2,
-            4.0 * c["n"] * c["s"] ** 2 * c["d"], library_ms=lib_ms)
-    print(f"[kernels] K6 window_attention {list(shape)} bf16: max|err| "
-          f"{errs[torch.bfloat16]:.3g} (atol + rtol 2e-2), float32 max|err| "
-          f"{errs[torch.float32]:.3g} (1e-5) | kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-          f"scaled_dot_product_attention {lib_ms:.3f} ms, bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']})", flush=True)
-    del qkv, qt, kt, vt
-    torch.cuda.empty_cache()
+        require(got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all()),
+                f"K6 [{n},{s},{d}]: wrong dtype or non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        require(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=2e-2),
+                f"K6 [{n},{s},{d}] bf16: max|err| {err} beyond atol and rtol 2e-2")
+        require(torch.equal(WA.window_attention_cuda(*qkv, scale=scale).view(torch.int16),
+                            got.view(torch.int16)),
+                f"K6 [{n},{s},{d}]: a repeated call is not bit-identical")
+        k_ms = graph_ms(lambda: WA.window_attention_cuda(*qkv, scale=scale), 20)
+        # the library call: scaled_dot_product_attention on the same tensors as [N, 1, S, D]
+        qt, kt, vt = (x[:, None] for x in qkv)
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), 20)
+        nbytes = 4 * qkv[0].numel() * 2
+        if stage == 0:
+            _, p_ms = timed_pair(torch, lambda: WA.window_attention_cuda(*qkv, scale=scale),
+                                 lambda: WA.window_attention_reference(*qkv, scale=scale),
+                                 iters=10)
+            r = row(err, k_ms, p_ms, nbytes, 4.0 * n * s * s * d, library_ms=lib_ms)
+            r["f32_max_abs_err"] = f32_err
+            r["stages_ms"] = []
+        r["stages_ms"].append(k_ms)
+        lines.append(f"[{n},{s},{d}] {k_ms:.4f} ms ({nbytes / k_ms * 1e-9:.2f} TB/s, bound "
+                     f"{bound(nbytes, 0)[0]:.4f}), sdpa {lib_ms:.4f}, max|err| {err:.3g}")
+        del qkv, qt, kt, vt, got, want
+        torch.cuda.empty_cache()
+    print(f"[kernels] K6 window_attention bf16 on the ring kernel (grid {grid}), atol + rtol "
+          f"2e-2, repeat bit-identical; float32 [{K6['n']},{s},{d}] max|err| {f32_err:.3g} "
+          f"(1e-5) | plain {r['plain_ms']:.3f} ms | graph replays by stage: "
+          + "; ".join(lines), flush=True)
     return {"window_attention": r}
 
 
@@ -1057,7 +1099,7 @@ def kernel_wrappers():
     from multimodal_colpali_tpu_torch.ops import window_attention as WA
 
     return {"maxsim": M.maxsim_scores_cuda, "attention": A.fused_attention_cuda,
-            "normalize": PP.normalize_images_triton, "maxsim_int8": M.maxsim_scores_int8_cuda,
+            "normalize": PP.normalize_images_cuda, "maxsim_int8": M.maxsim_scores_int8_cuda,
             "vit_layer": FL.fused_vit_layer_cuda, "attn_block": FL.fused_vit_attention_block_cuda,
             "mlp_block": FL.fused_mlp_block_cuda, "gemm": FL.fused_gemm_cuda,
             "ln_stats": FL.ln_stats_cuda, "paged_attention": PA.paged_attention_cuda,
@@ -1068,13 +1110,15 @@ def kernel_wrappers():
 
 # the per-path counters of a wrapper beside its ``.launches``: K1's, K4's, K2's
 # and K7's tensor-core and CUDA-core paths, K8a's and K9's decode and prefill
-# tiles, the K5 GEMM's wgmma and CUDA-core paths and its four roles
+# tiles, the K5 GEMM's wgmma and CUDA-core paths and its four roles, K6's ring,
+# WMMA and CUDA-core kernels
 PATHS = {"maxsim": ("tensor_core", "cuda_core"), "maxsim_int8": ("tensor_core", "cuda_core"),
          "gemm": ("wgmma", "cuda_core", "qkv", "out_proj", "fc1", "fc2"),
          "attention": ("tensor_core", "cuda_core"), "int8_matmul_kn": ("decode", "prefill"),
          "int4_matmul_kn": ("decode", "prefill"),
          "paged_attention": ("tensor_core", "cuda_core"),
-         "paged_attention_int8": ("tensor_core", "cuda_core")}
+         "paged_attention_int8": ("tensor_core", "cuda_core"),
+         "window_attention": ("ring", "wmma", "cuda_core")}
 
 
 def reset_counts(wrappers) -> None:
@@ -1177,9 +1221,11 @@ def phase_retrieval(torch, name: str, seed: int, card: str, tag: str, device_pre
             f"{name} launched a kernel off its path ({', '.join(absent)}): {launches}")
     if "window_attention" in path:
         blocks = sum(cfg.vision.depths)       # spatial blocks: one launch each a forward
-        require(launches["window_attention"] == blocks * forwards,
-                f"{name}: {launches['window_attention']} window-attention launches, not "
-                f"{blocks} a forward over {forwards} page batches")
+        require(launches["window_attention.ring"] == launches["window_attention"]
+                == blocks * forwards,
+                f"{name}: {launches['window_attention']} window-attention launches "
+                f"({launches['window_attention.ring']} on the ring kernel), not {blocks} a "
+                f"forward over {forwards} page batches, all on the ring kernel")
     pages_s = N_PAGES / embed_s
     print(f"[{tag}] {name} {n_params / 1e9:.3f}B params bf16 (init {init_s:.1f} s), "
           f"{N_PAGES} pages x {embs[0].shape[0]} tokens x {dim}: embed {pages_s:.2f} pages/s, "
@@ -1620,15 +1666,15 @@ def main(argv=None) -> int:
     # ColFlor normalizes on the host; its BART attention has a mask, so no K2
     colflor = phase_retrieval(torch, "ahmed-masry/ColFlor", args.seed, card, "colflor",
                               device_preprocess=False,
-                              path=("window_attention", "maxsim", "maxsim.tensor_core"),
+                              path=("window_attention", "window_attention.ring", "maxsim",
+                                    "maxsim.tensor_core"),
                               absent=("attention", "normalize"))
 
     jax_ops = "multimodal_colpali_tpu/ops"
     meta = {
         "maxsim": ("cuda", f"{PACKAGE}/csrc/maxsim.cu", f"{jax_ops}/maxsim.py:196"),
         "attention": ("cuda", f"{PACKAGE}/csrc/attention.cu", f"{jax_ops}/attention.py:135"),
-        "normalize": ("triton", f"{PACKAGE}/ops/_normalize_triton.py",
-                      f"{jax_ops}/preprocess.py:54"),
+        "normalize": ("cuda", f"{PACKAGE}/csrc/normalize.cu", f"{jax_ops}/preprocess.py:54"),
         "maxsim_int8": ("cuda", f"{PACKAGE}/csrc/maxsim.cu", f"{jax_ops}/maxsim.py:307"),
         "vit_layer": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu", f"{jax_ops}/fused_layer.py:367"),
         "attn_block": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu",

@@ -12,9 +12,7 @@ nothing falls back to another implementation.
 ``maxsim.cu`` holds K1 and K4, ``attention.cu`` K2, ``fused_layer.cu`` the
 GEMM that K5a-c are built from and its LayerNorm statistics pre-pass,
 ``paged_attention.cu`` K7a and K7b, ``int8_matmul.cu`` K8a and K8b,
-``window_attention.cu`` K6, ``int4_matmul.cu`` K9. Triton kernels (K3) cache
-their compiled form under ``build/triton`` unless ``TRITON_CACHE_DIR`` is
-already set.
+``window_attention.cu`` K6, ``int4_matmul.cu`` K9, ``normalize.cu`` K3.
 """
 
 from __future__ import annotations
@@ -80,10 +78,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "window_attention": {
         # q, k, v, out, N, S, D, scale, dtype, stream
         "window_attention_launch": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P),
+        # the ring kernel's persistent grid on the current device
+        "window_attention_grid": (),
     },
     "int4_matmul": {
         # x, packed, scale, out, partial, M, N, K, G, out_dtype, splits, stream
         "int4_matmul_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "normalize": {
+        # x, out, n, scale0, scale1, scale2, bias0, bias1, bias2, stream
+        "normalize_launch": (_P, _P, ctypes.c_longlong, *(ctypes.c_float,) * 6, _P),
     },
 }
 
@@ -196,7 +200,3 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
-
-
-def ensure_triton_cache() -> None:
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))

@@ -25,7 +25,9 @@ embedding path:
   one SigLIP layer as K5a and its halves K5b and K5c, and K5a's parts alone
   (its four GEMMs, each with its LayerNorm statistics launch where it has
   one, the statistics launch, and K2). ColFlor: the
-  tower's 12 window-attention launches (K6) at their shapes;
+  tower's 12 window-attention launches (K6) at their shapes, and the copies
+  around them (q, k and v out of the qkv projection, the output transposed
+  back);
 - ``embed_images`` and a single-query forward, host clock around the call
   (both end in a device-to-host copy).
 
@@ -125,23 +127,35 @@ def _colsmol_parts(torch, model, pix, n, it) -> dict:
 
 def _colflor_parts(torch, model, pix, n, it) -> dict:
     """The DaViT tower's K6 launches at their shapes: one a spatial block, on
-    ``[n x windows x heads, window^2, head_dim]`` rows (windows padded)."""
+    ``[n x windows x heads, window^2, head_dim]`` rows (windows padded); and
+    the copies around each launch (``florence2.split_heads`` and
+    ``merge_heads``, as ``WindowAttention.forward`` makes them)."""
+    from multimodal_colpali_tpu_torch.models.florence2 import merge_heads, split_heads
     from multimodal_colpali_tpu_torch.ops import window_attention as WA
+
+    def copies(proj, heads, out):
+        return split_heads(proj, heads), merge_heads(out, heads)
 
     c = model.cfg.vision
     ws, side, calls = c.window_size, model.cfg.image_size, []
     for stage, depth in enumerate(c.depths):
         side //= c.patch_stride[stage]
-        hd = c.embed_dim[stage] // c.num_heads[stage]
-        rows = n * (-(-side // ws)) ** 2 * c.num_heads[stage]
-        qkv = [torch.randn(rows, ws * ws, hd, device="cuda").to(torch.bfloat16)
+        heads = c.num_heads[stage]
+        hd = c.embed_dim[stage] // heads
+        n_win = n * (-(-side // ws)) ** 2
+        qkv = [torch.randn(n_win * heads, ws * ws, hd, device="cuda").to(torch.bfloat16)
                for _ in range(3)]
-        calls += [(qkv, hd ** -0.5)] * depth
+        proj = torch.randn(n_win, ws * ws, 3 * heads * hd, device="cuda").to(torch.bfloat16)
+        calls += [(qkv, hd ** -0.5, proj, heads)] * depth
     return {"tower_k6_launches": len(calls),
             "k6_stage0_one_launch": _device_ms(torch, lambda: WA.window_attention_cuda(
                 *calls[0][0], scale=calls[0][1]), it),
             "k6_all_launches": _device_ms(torch, lambda: [WA.window_attention_cuda(
-                *qkv, scale=s) for qkv, s in calls], it)}
+                *qkv, scale=s) for qkv, s, _, _ in calls], it),
+            "k6_copies_stage0_one_block": _device_ms(torch, lambda: copies(
+                calls[0][2], calls[0][3], calls[0][0][0]), it),
+            "k6_copies_all_blocks": _device_ms(torch, lambda: [copies(
+                proj, heads, qkv[0]) for qkv, _, proj, heads in calls], it)}
 
 
 MODELS = {"colsmol": ("vidore/colSmol-256M", True), "colflor": ("ahmed-masry/ColFlor", False)}

@@ -1,4 +1,4 @@
-// K6: attention over independent windows, no mask, exact float32 softmax.
+// K6: attention over independent windows, no mask, float32 softmax.
 //
 // Replaces the TPU kernel multimodal_colpali_tpu/ops/window_attention.py::_kernel
 // (pl.pallas_call at window_attention.py:79, wrapper window_attention):
@@ -17,23 +17,27 @@
 // so the kernel is bound by its bytes (the 144 x 144 float32 logits never leave
 // the SM). What decides its speed is keeping enough windows in flight.
 //
-// Design. One block owns one window. Its q, k and v are copied into shared
-// memory by cp.async (16-byte chunks where rows are whole chunks), zero-padded
-// to SP = S and DP = D rounded up to 16. Three paths:
+// Design. Three paths:
 //   - bfloat16, S <= 144 and D <= 32 (ColFlor: every DaViT stage has 12 x 12
-//     windows and head_dim 32): 3 warps, each taking 16 query rows at a time,
-//     with everything in registers in the fragment layouts of mma.sync
-//     m16n8k16. Q.K^T gives a row tile's [16, 144] float32 logits (72 a lane);
-//     each row's exact float32 softmax (expf, a true division by the sum) is
-//     reduced over the 4 lanes of a quad; the probabilities, rounded to bf16,
-//     are packed straight into the A fragments of P.V, so P never goes to
-//     shared memory; K and V fragments come by ldmatrix (V transposed). A block
-//     takes 34.5 KB, so four windows share an SM.
-//   - bfloat16, other shapes (S <= 512, D <= 128): 4 warps on 16 x 16 x 16 WMMA
-//     tiles through a [16, SP] float32 logit strip in shared memory per warp;
-//     the softmax runs in registers and writes the bf16 probabilities over the
-//     row's own logits; P.V accumulates in registers and leaves through the
-//     strip, rows past S and columns past D masked.
+//     windows and head_dim 32): window_attention_ring, persistent blocks of
+//     three consumer warps and a loader warp over a ring of two stages, each
+//     stage one window's Q, K and V (27.6 KB). The loader's TMA boxes for the
+//     next window are in flight while the consumers compute the current one:
+//     by Little's law the card needs ~25 KB outstanding an SM (3.35 TB/s over
+//     132 SMs, ~1 us of latency); four resident blocks an SM (56 KB of
+//     shared memory and 128 registers a thread each) keep four windows
+//     loading while four compute, ~110 KB in flight. Products on
+//     mma.sync m16n8k16 with the logits, probabilities and output of a 16-row
+//     tile in registers (wgmma's 64-row tiles would pad 144 rows to 192 for a
+//     kernel bound by its bytes); the softmax by 2^x and one reciprocal a
+//     row; the output staged over Q's rows and written by 16-byte stores.
+//   - bfloat16, other shapes (S <= 512, D <= 128): one block a window, its
+//     tiles copied by cp.async, zero-padded to SP = S and DP = D rounded up to
+//     16; 4 warps on 16 x 16 x 16 WMMA tiles through a [16, SP] float32 logit
+//     strip in shared memory per warp; the softmax runs in registers and
+//     writes the bf16 probabilities over the row's own logits; P.V
+//     accumulates in registers and leaves through the strip, rows past S and
+//     columns past D masked.
 //   - float32: the tensor cores have no float32 path that keeps 1e-5, so one
 //     warp takes one query row at a time on the CUDA cores: lanes over keys
 //     for the logits (k rows padded to D + 1 floats: no bank conflicts), a
@@ -48,6 +52,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -107,121 +112,248 @@ __device__ void load_tile_bf16(bf16* dst, const bf16* src, int S, int D, int SP,
   for (int e = threadIdx.x; e < (SP - S) * DP; e += n) dst[(S + e / DP) * LD + e % DP] = zero;
 }
 
-// The bf16 path for windows of up to 16 KB keys and a head_dim of up to
-// 16 DB (ColFlor's 144 and 32 take KB = 9, DB = 2): each warp keeps a row
-// tile's logits, probabilities and output in registers, in the fragment
-// layouts of mma.sync m16n8k16 (the probabilities of two logit tiles are
-// exactly the A operand of the P.V product, so P never goes to shared memory);
-// K and V fragments come from shared memory by ldmatrix.
-constexpr int kMmaWarps = 3;
-template <int KB, int DB>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-window_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int S, int D, float scale,
-                     bool vec) {
-  constexpr int SP = 16 * KB, DP = 16 * DB, LD = DP + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + SP * LD;
-  bf16* Vs = Ks + SP * LD;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // a fragment's row and column pair
-  const size_t base = static_cast<size_t>(blockIdx.x) * S * D;
-  load_tile_bf16(Qs, q + base, S, D, SP, DP, LD, vec);
-  load_tile_bf16(Ks, k + base, S, D, SP, DP, LD, vec);
-  load_tile_bf16(Vs, v + base, S, D, SP, DP, LD, vec);
-  cp_async_commit();
-  cp_async_wait<0>();
+// ---- The ring kernel: bf16, S <= 144 and D <= 32 (every ColFlor DaViT stage).
+//
+// Persistent blocks of kConsumers consumer warps and one loader warp; block b
+// takes windows b, b + gridDim.x, ... in that order. A stage of the ring holds
+// one window's Q, K and V as [144][32] bf16 tiles, rows of 64 bytes; columns
+// past D and rows past S are zeros (V's must be finite: P is 0 there). The
+// loader's lane 0 copies a window into a stage by three TMA boxes {32, S}
+// (columns past D read as zeros) in the 64-byte swizzle, which puts the
+// 16-byte chunk c of row r at chunk c ^ ((r >> 1) & 3), so the eight rows an
+// ldmatrix reads fall on eight different bank groups; the boxes land on the
+// stage's `full` barrier. Odd inputs (a pointer that is not 16-byte aligned,
+// D % 8 != 0) are a choice of shape: the consumer warps copy them element by
+// element into the same tiles, and the loader warp leaves. Probe builds
+// (window_sweep --variant) only: -DWINDOW_LOADS_ONLY (the copies alone),
+// -DWINDOW_SKIP_SOFTMAX, -DWINDOW_SKIP_STORE.
+constexpr int kRingStages = 2;
+constexpr int kConsumers = 3;                        // consumer warps
+constexpr int kRingMinBlocks = 4;  // resident blocks an SM that ptxas leaves registers for:
+                                   // all that shared memory holds, 128 registers a thread
+constexpr int kRingThreads = (kConsumers + 1) * 32;  // and the loader warp
+constexpr int kRingS = 144, kRingD = 32;             // the largest window the ring takes
+constexpr int kRowBytes = kRingD * 2;
+constexpr int kTileBytes = kRingS * kRowBytes;       // 9,216: a multiple of the swizzle's 512
+constexpr int kStageBytes = 3 * kTileBytes;
+constexpr int kRingSmem = kRingStages * kStageBytes + 2 * kRingStages * 8 + 1024;  // + alignment
+static_assert(kRingStages >= 2, "the element path alternates stages");
+
+// Byte offset of the 16-byte chunk c of row r in a (512-byte aligned) tile.
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * kRowBytes + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+__device__ __forceinline__ void consumers_sync() {  // the consumer warps alone
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers * 32) : "memory");
+}
+
+// kFull (S == 144 and c > 0, every ColFlor window): no key is masked, and the
+// scale goes into the exponent's fmaf, 2^(c l - max(c l)) with max(c l) = c
+// max(l); otherwise keys past S are masked and the logits scaled first (on
+// an H100 the masked path forced on for S = 144 took 12% longer at
+// [8192, 144, 32]).
+//
+// Each consumer warp takes row tiles of 16 queries in turn and keeps a tile's
+// logits (72 float32 a lane), probabilities and output in registers, in the
+// fragment layouts of mma.sync m16n8k16: Q.K^T by ldmatrix fragments of Q and
+// K, each row's softmax reduced over the 4 lanes of a quad, the probabilities
+// rounded to bf16 straight into the A fragments of P.V (V by ldmatrix.trans).
+// The output tile goes, as bf16, over the tile's own rows of Q in the stage
+// (only this warp reads them); once every warp has staged its tiles, the
+// consumers write the window out by 16-byte stores, neighbouring threads on
+// neighbouring addresses, and each warp releases the stage on its `empty`
+// barrier. The element path's copies come after that barrier too, into the
+// other stage, so they never overwrite a stage still being read. (A warp
+// storing its own tiles with no barrier kept more registers live and ran
+// slower.)
+template <bool kTma, bool kFull>
+__global__ void __launch_bounds__(kRingThreads, kRingMinBlocks)
+window_attention_ring(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv, const bf16* __restrict__ q,
+                      const bf16* __restrict__ k, const bf16* __restrict__ v,
+                      bf16* __restrict__ o, int N, int S_, int D, float c) {
+  const int S = kFull ? kRingS : S_;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (-static_cast<int>(smem_u32(smem_raw)) & 1023);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(smem + kRingStages * kStageBytes);
+  unsigned long long* empty = full + kRingStages;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  for (int i = tid; i < kRingStages * kStageBytes / 16; i += kRingThreads)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (tid == 0) {
+    for (int s = 0; s < kRingStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);  // a consumer warp arrives once
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_proxy_async();  // the zeros before the copies' async proxy
   __syncthreads();
 
-  for (int it = warp; it * 16 < S; it += kMmaWarps) {
-    unsigned qa[DB][4];
-#pragma unroll
-    for (int kb = 0; kb < DB; ++kb)
-      ldmatrix_x4(qa[kb], Qs + (it * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LD + kb * 16 +
-                              8 * (lane / 16));
-    float sc[2 * KB][4];  // logits: 2 KB tiles of 8 keys; rows g (0, 1) and g + 8 (2, 3)
-#pragma unroll
-    for (int j = 0; j < 2 * KB; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-    for (int jp = 0; jp < KB; ++jp) {
-      if (jp * 16 >= S) break;
-#pragma unroll
-      for (int kb = 0; kb < DB; ++kb) {
-        unsigned b[4];
-        ldmatrix_x4(b, Ks + (jp * 16 + lane % 8 + 8 * (lane / 16)) * LD + kb * 16 +
-                           8 * ((lane / 8) % 2));
-        mma_bf16(sc[2 * jp], qa[kb], b[0], b[1]);
-        mma_bf16(sc[2 * jp + 1], qa[kb], b[2], b[3]);
-      }
+  if (warp == kConsumers) {  // ---- the loader
+    if (!kTma || lane != 0) return;
+    int i = 0;
+    for (int w = blockIdx.x; w < N; w += gridDim.x, ++i) {
+      const int s = i % kRingStages;
+      if (i >= kRingStages) mbar_wait(empty + s, (i / kRingStages - 1) & 1);
+      unsigned char* st = smem + s * kStageBytes;
+      mbar_arrive_tx(full + s, 3 * S * kRowBytes);
+      tma_load(st, &mq, 0, w * S, full + s);
+      tma_load(st + kTileBytes, &mk, 0, w * S, full + s);
+      tma_load(st + 2 * kTileBytes, &mv, 0, w * S, full + s);
     }
-    // exact float32 softmax of rows g and g + 8 over the S real keys; each
-    // row's 144 values lie in the 4 lanes of a quad
-    float m0 = -INFINITY, m1 = -INFINITY;
+    return;
+  }
+
+  // ---- the consumers
+  constexpr int kThreadsC = kConsumers * 32;
+  const int g = lane / 4, t = lane % 4;  // a fragment's row and column pair
+  // A lane's ldmatrix rows lie at 16 j + ra (Q and V, A and B.trans layouts)
+  // or 16 j + rb (K); the swizzle of row 16 j + r is that of r, so each
+  // fragment is a tile base plus one of these offsets
+  const int ra = lane % 8 + 8 * ((lane / 8) % 2), rb = lane % 8 + 8 * (lane / 16);
+  const int off_a[2] = {swz(ra, lane / 16), swz(ra, 2 + lane / 16)};
+  const int off_b[2] = {swz(rb, (lane / 8) % 2), swz(rb, 2 + (lane / 8) % 2)};
+  int off_o[2][4];  // the output fragment's rows g and g + 8, chunk n, columns 2t, 2t + 1
 #pragma unroll
-    for (int j = 0; j < 2 * KB; ++j)
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool real = j * 8 + 2 * t + e < S;
-        sc[j][e] = real ? sc[j][e] * scale : -INFINITY;
-        sc[j][2 + e] = real ? sc[j][2 + e] * scale : -INFINITY;
-        m0 = fmaxf(m0, sc[j][e]);
-        m1 = fmaxf(m1, sc[j][2 + e]);
+    for (int n = 0; n < 4; ++n) off_o[h][n] = swz(g + 8 * h, n) + 4 * t;
+  int i = 0;
+  for (int w = blockIdx.x; w < N; w += gridDim.x, ++i) {
+    const int s = i % kRingStages;
+    unsigned char* Qs = smem + s * kStageBytes;
+    const unsigned char* Ks = Qs + kTileBytes;
+    const unsigned char* Vs = Qs + 2 * kTileBytes;
+    const size_t base = static_cast<size_t>(w) * S * D;
+    if constexpr (kTma) {
+      mbar_wait(full + s, (i / kRingStages) & 1);
+    } else {
+      const bf16* src[3] = {q + base, k + base, v + base};
+      for (int e = tid; e < S * kRingD; e += kThreadsC) {
+        const int r = e / kRingD, col = e % kRingD;
+        const int at = swz(r, col / 8) + (col % 8) * 2;
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          *reinterpret_cast<bf16*>(Qs + j * kTileBytes + at) =
+              col < D ? src[j][r * D + col] : __float2bfloat16(0.f);
       }
-#pragma unroll
-    for (int x = 1; x < 4; x *= 2) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, x));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, x));
+      consumers_sync();
     }
-    float s0 = 0.f, s1 = 0.f;
+#ifndef WINDOW_LOADS_ONLY
+    for (int it = warp; it * 16 < S; it += kConsumers) {
+      unsigned qa[2][4];
 #pragma unroll
-    for (int j = 0; j < 2 * KB; ++j)
+      for (int kb = 0; kb < 2; ++kb)
+        ldmatrix_x4(qa[kb], reinterpret_cast<const bf16*>(Qs + it * 16 * kRowBytes + off_a[kb]));
+      float sc[18][4];  // logits: 18 tiles of 8 keys; rows g (0, 1) and g + 8 (2, 3)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool real = j * 8 + 2 * t + e < S;
-        sc[j][e] = real ? expf(sc[j][e] - m0) : 0.f;
-        sc[j][2 + e] = real ? expf(sc[j][2 + e] - m1) : 0.f;
-        s0 += sc[j][e];
-        s1 += sc[j][2 + e];
-      }
+      for (int j = 0; j < 18; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
-    for (int x = 1; x < 4; x *= 2) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, x);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, x);
-    }
-    // P.V: the probabilities, rounded to bf16, are the A fragments
-    float acc[2 * DB][4];
+      for (int jp = 0; jp < 9; ++jp) {
+        if (jp * 16 >= S) break;
 #pragma unroll
-    for (int n = 0; n < 2 * DB; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-    for (int jp = 0; jp < KB; ++jp) {
-      if (jp * 16 >= S) break;
-      const unsigned pa[4] = {pack_bf16(sc[2 * jp][0] / s0, sc[2 * jp][1] / s0),
-                              pack_bf16(sc[2 * jp][2] / s1, sc[2 * jp][3] / s1),
-                              pack_bf16(sc[2 * jp + 1][0] / s0, sc[2 * jp + 1][1] / s0),
-                              pack_bf16(sc[2 * jp + 1][2] / s1, sc[2 * jp + 1][3] / s1)};
-#pragma unroll
-      for (int db = 0; db < DB; ++db) {
-        unsigned b[4];
-        ldmatrix_x4_trans(b, Vs + (jp * 16 + lane % 8 + 8 * ((lane / 8) % 2)) * LD + db * 16 +
-                                 8 * (lane / 16));
-        mma_bf16(acc[2 * db], pa, b[0], b[1]);
-        mma_bf16(acc[2 * db + 1], pa, b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < 2 * DB; ++n)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = it * 16 + g + 8 * h;
-        if (row >= S) continue;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n * 8 + 2 * t + e;
-          if (col < D) o[base + static_cast<size_t>(row) * D + col] = __float2bfloat16(acc[n][2 * h + e]);
+        for (int kb = 0; kb < 2; ++kb) {
+          unsigned b[4];
+          ldmatrix_x4(b, reinterpret_cast<const bf16*>(Ks + jp * 16 * kRowBytes + off_b[kb]));
+          mma_bf16(sc[2 * jp], qa[kb], b[0], b[1]);
+          mma_bf16(sc[2 * jp + 1], qa[kb], b[2], b[3]);
         }
       }
+      // float32 softmax of rows g and g + 8 over the S real keys; each row's
+      // values lie in the 4 lanes of a quad
+      float m0 = -INFINITY, m1 = -INFINITY, s0 = 1.f, s1 = 1.f;
+#ifndef WINDOW_SKIP_SOFTMAX
+#pragma unroll
+      for (int j = 0; j < 18; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if constexpr (!kFull) {
+            const bool real = j * 8 + 2 * t + e < S;
+            sc[j][e] = real ? sc[j][e] * c : -INFINITY;
+            sc[j][2 + e] = real ? sc[j][2 + e] * c : -INFINITY;
+          }
+          m0 = fmaxf(m0, sc[j][e]);
+          m1 = fmaxf(m1, sc[j][2 + e]);
+        }
+#pragma unroll
+      for (int x = 1; x < 4; x *= 2) {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, x));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, x));
+      }
+      if constexpr (kFull) {  // the max of c l, for c > 0
+        m0 *= c;
+        m1 *= c;
+      }
+      s0 = s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 18; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {  // past S: 2^-inf = 0
+          sc[j][e] = ex2(kFull ? fmaf(sc[j][e], c, -m0) : sc[j][e] - m0);
+          sc[j][2 + e] = ex2(kFull ? fmaf(sc[j][2 + e], c, -m1) : sc[j][2 + e] - m1);
+          s0 += sc[j][e];
+          s1 += sc[j][2 + e];
+        }
+#pragma unroll
+      for (int x = 1; x < 4; x *= 2) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, x);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, x);
+      }
+#endif
+      const float r0 = 1.f / s0, r1 = 1.f / s1;
+      float acc[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+      for (int jp = 0; jp < 9; ++jp) {
+        if (jp * 16 >= S) break;
+        const unsigned pa[4] = {
+            pack_bf16(sc[2 * jp][0] * r0, sc[2 * jp][1] * r0),
+            pack_bf16(sc[2 * jp][2] * r1, sc[2 * jp][3] * r1),
+            pack_bf16(sc[2 * jp + 1][0] * r0, sc[2 * jp + 1][1] * r0),
+            pack_bf16(sc[2 * jp + 1][2] * r1, sc[2 * jp + 1][3] * r1)};
+#pragma unroll
+        for (int db = 0; db < 2; ++db) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b,
+                            reinterpret_cast<const bf16*>(Vs + jp * 16 * kRowBytes + off_a[db]));
+          mma_bf16(acc[2 * db], pa, b[0], b[1]);
+          mma_bf16(acc[2 * db + 1], pa, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<unsigned*>(Qs + it * 16 * kRowBytes + off_o[h][n]) =
+              pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]);
+    }
+    consumers_sync();  // every row tile of the window is staged
+#ifndef WINDOW_SKIP_STORE
+    if (D % 8 == 0) {  // whole 16-byte chunks of the [S, D] rows
+      uint4* dst = reinterpret_cast<uint4*>(o + base);
+      for (int ch = tid; ch < S * D / 8; ch += kThreadsC) {
+        const int r = ch * 8 / D;
+        dst[ch] = *reinterpret_cast<const uint4*>(Qs + swz(r, (ch * 8 - r * D) / 8));
+      }
+    } else {
+      for (int e = tid; e < S * D; e += kThreadsC) {
+        const int r = e / D, col = e - r * D;
+        o[base + e] = *reinterpret_cast<const bf16*>(Qs + swz(r, col / 8) + (col % 8) * 2);
+      }
+    }
+#endif
+#endif
+    if constexpr (kTma) {
+      fence_proxy_async();  // the staged output before the next copy into the stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+    }
   }
 }
 
@@ -401,28 +533,101 @@ cudaError_t launch(Kernel kernel, int threads, size_t bytes, const T* q, const T
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// Blocks of the ring kernel that fit the card at once: its persistent grid
+// (cached per instantiation; the shared-memory opt-in is set first, at every
+// call, since it belongs to the current device).
+template <bool kTma, bool kFull>
+cudaError_t ring_grid(int* blocks) {
+  static int cached = 0;
+  auto kernel = window_attention_ring<kTma, kFull>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRingSmem);
+  if (e != cudaSuccess || cached > 0) {
+    *blocks = cached;
+    return e;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRingThreads, kRingSmem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = cached = sms * per_sm;
+  return cudaSuccess;
+}
+
+// Whether the ring takes these inputs by TMA: 16-byte aligned rows of whole
+// 16-byte chunks.
+bool ring_copies(const void* q, const void* k, const void* v, int D) {
+  return D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+}
+
+template <bool kTma, bool kFull>
+cudaError_t start_ring(const CUtensorMap (&map)[3], const bf16* q, const bf16* k,
+                        const bf16* v, bf16* o, int N, int S, int D, float c, cudaStream_t s) {
+  int blocks = 0;
+  const cudaError_t e = ring_grid<kTma, kFull>(&blocks);
+  if (e != cudaSuccess) return e;
+  window_attention_ring<kTma, kFull><<<N < blocks ? N : blocks, kRingThreads, kRingSmem, s>>>(
+      map[0], map[1], map[2], q, k, v, o, N, S, D, c);
+  return cudaGetLastError();
+}
+
+template <bool kTma>
+cudaError_t launch_ring(const bf16* q, const bf16* k, const bf16* v, bf16* o, int N, int S,
+                        int D, float scale, cudaStream_t s) {
+  CUtensorMap map[3]{};
+  if (kTma) {  // [N S, D] rows, boxes of {32, S}: the columns past D read as zeros
+    const bf16* src[3] = {q, k, v};
+    for (int j = 0; j < 3; ++j)
+      if (!encode_map(&map[j], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, src[j], D,
+                      static_cast<unsigned long long>(N) * S, D * 2ull, kRingD, S,
+                      CU_TENSOR_MAP_SWIZZLE_64B))
+        return cudaErrorInvalidValue;
+  }
+  const float c = scale * 1.44269504088896341f;  // log2(e): the softmax runs on 2^x
+  if (S == kRingS && c > 0.f)
+    return start_ring<kTma, true>(map, q, k, v, o, N, S, D, c, s);
+  return start_ring<kTma, false>(map, q, k, v, o, N, S, D, c, s);
+}
+
 }  // namespace
 
+// The ring kernel's persistent grid on the current device for ColFlor's
+// windows (blocks that fit at once: SMs x resident blocks), or a negated CUDA
+// error code.
+extern "C" int window_attention_grid() {
+  int blocks = 0;
+  const cudaError_t e = ring_grid<true, true>(&blocks);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
+}
+
 // out [N, S, D] = attention of q over k, v [N, S, D] per window, no mask;
-// dtype 0 = float32, 1 = bfloat16 (q, k, v and out alike).
+// dtype 0 = float32, 1 = bfloat16 (q, k, v and out alike). bf16 windows of
+// S <= 144 and D <= 32 take the ring kernel, other bf16 windows up to S 512
+// and D 128 the WMMA kernel, float32 the CUDA cores (ops/window_attention.py
+// `kernel_path` states the same choice).
 extern "C" int window_attention_launch(const void* q, const void* k, const void* v, void* out,
                                        int N, int S, int D, float scale, int dtype,
                                        void* stream) {
   if (N <= 0 || S <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool aligned = aligned16(q) && aligned16(k) && aligned16(v);
   if (dtype == kBFloat16) {
-    const bool v8 = aligned && D % 8 == 0;
-    if (S <= 144 && D <= 32)  // ColFlor's windows: fragments in registers
-      return static_cast<int>(launch(window_attention_mma<9, 2>, kMmaWarps * 32,
-                                     3ull * 144 * (32 + 8) * 2, static_cast<const bf16*>(q),
-                                     static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                                     static_cast<bf16*>(out), N, S, D, scale, v8, s));
+    const auto bq = static_cast<const bf16*>(q), bk = static_cast<const bf16*>(k),
+               bv = static_cast<const bf16*>(v);
+    const auto bo = static_cast<bf16*>(out);
+    if (S <= kRingS && D <= kRingD) {
+      if (static_cast<long long>(N) * S >= (1ll << 31))  // TMA's row coordinate is 32-bit
+        return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(ring_copies(q, k, v, D)
+                                  ? launch_ring<true>(bq, bk, bv, bo, N, S, D, scale, s)
+                                  : launch_ring<false>(bq, bk, bv, bo, N, S, D, scale, s));
+    }
     if (S > 32 * kMaxPer || D > 16 * kMaxDT) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const bool v8 = aligned16(q) && aligned16(k) && aligned16(v) && D % 8 == 0;
     return static_cast<int>(launch(window_attention_bf16, kThreads, Bf16Layout(S, D).bytes(),
-                                   static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                   static_cast<const bf16*>(v), static_cast<bf16*>(out), N, S,
-                                   D, scale, v8, s));
+                                   bq, bk, bv, bo, N, S, D, scale, v8, s));
   }
   if (dtype == kFloat32)
     return static_cast<int>(launch(window_attention_f32, kThreads, f32_bytes(S, D),

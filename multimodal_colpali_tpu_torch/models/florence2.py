@@ -90,6 +90,24 @@ class DepthwiseCPE(nn.Module):
         return x + self.conv(x)
 
 
+def split_heads(proj: torch.Tensor, heads: int) -> list[torch.Tensor]:
+    """q, k and v as ``[n_win * heads, S, hd]`` row blocks of the qkv
+    projection's ``[n_win, S, 3 dim]`` output (``[n_win, S, 3, heads, hd]``):
+    each is a copy, since the permuted rows are not a view."""
+    n_win, s, three_dim = proj.shape
+    hd = three_dim // 3 // heads
+    rows = proj.reshape(n_win, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    return [rows[i].reshape(n_win * heads, s, hd) for i in range(3)]
+
+
+def merge_heads(out: torch.Tensor, heads: int) -> torch.Tensor:
+    """Window attention's ``[n_win * heads, S, hd]`` output back to
+    ``[n_win, S, heads * hd]`` (a copy)."""
+    rows, s, hd = out.shape
+    n_win = rows // heads
+    return out.reshape(n_win, heads, s, hd).transpose(1, 2).reshape(n_win, s, heads * hd)
+
+
 class WindowAttention(nn.Module):
     def __init__(self, cfg: Florence2VisionConfig, stage: int, *, device, dtype):
         super().__init__()
@@ -110,12 +128,8 @@ class WindowAttention(nn.Module):
         nh, nw = hp // ws, wp // ws
         s = ws * ws
         xw = x.reshape(b, nh, ws, nw, ws, dim).permute(0, 1, 3, 2, 4, 5).reshape(-1, s, dim)
-        n_win = xw.shape[0]
-        # [n_win, S, 3, heads, hd] -> three [n_win * heads, S, hd] row blocks
-        rows = self.qkv(xw).reshape(n_win, s, 3, heads, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = (rows[i].reshape(n_win * heads, s, hd) for i in range(3))
-        out = window_attention(q, k, v, scale=hd ** -0.5)
-        out = out.reshape(n_win, heads, s, hd).transpose(1, 2).reshape(n_win, s, dim)
+        q, k, v = split_heads(self.qkv(xw), heads)
+        out = merge_heads(window_attention(q, k, v, scale=hd ** -0.5), heads)
         out = self.proj(out)
         out = out.reshape(b, nh, nw, ws, ws, dim).permute(0, 1, 3, 2, 4, 5).reshape(b, hp, wp, dim)
         return out[:, :h, :w]

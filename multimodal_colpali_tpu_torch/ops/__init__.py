@@ -14,5 +14,5 @@ from multimodal_colpali_tpu_torch.ops.maxsim import (  # noqa: F401
     MASK_VALUE, maxsim_scores, maxsim_scores_cuda, maxsim_scores_int8, maxsim_scores_int8_cuda,
     maxsim_scores_int8_reference, maxsim_scores_reference, quantize_corpus_int8)
 from multimodal_colpali_tpu_torch.ops.preprocess import (  # noqa: F401
-    normalize_images, normalize_images_reference, normalize_images_triton)
+    normalize_images, normalize_images_cuda, normalize_images_reference)
 from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties  # noqa: F401

@@ -12,7 +12,8 @@ unmasked attention problem.
   P.V summed in float32, the result in q's dtype.
 - :func:`window_attention_cuda` - the hand-written CUDA kernel K6
   (``csrc/window_attention.cu``) that replaces the TPU kernel ``_kernel``
-  (window_attention.py:45-59, ``pl.pallas_call`` at :79).
+  (window_attention.py:45-59, ``pl.pallas_call`` at :79); :func:`kernel_path`
+  names the kernel a launch takes, from dtype and shape alone.
 - :func:`window_attention` - the dispatcher: a CPU tensor takes the plain
   version, a CUDA tensor the kernel, with no fallback between them.
 """
@@ -35,11 +36,48 @@ def window_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out.to(q.dtype)
 
 
+# The ring kernel's largest window: every ColFlor DaViT stage (12 x 12, head_dim 32).
+RING_S, RING_D = 144, 32
+
+
+def kernel_path(dtype: torch.dtype, s: int, d: int) -> str:
+    """The kernel ``window_attention_launch`` runs for ``[N, s, d]`` windows
+    of ``dtype``: ``"ring"`` (bf16, s <= 144, d <= 32: persistent blocks over a
+    ring of TMA-fed stages), ``"wmma"`` (other bf16 windows; the launch
+    refuses s > 512 or d > 128) or ``"cuda_core"`` (float32)."""
+    if dtype == torch.float32:
+        return "cuda_core"
+    return "ring" if s <= RING_S and d <= RING_D else "wmma"
+
+
+def ring_grid() -> int:
+    """The ring kernel's persistent grid on the current device: the blocks
+    that fit the card at once (SMs x resident blocks)."""
+    lib = _build.load("window_attention")
+    blocks = lib.window_attention_grid()
+    _build.check(lib, max(0, -blocks), "window_attention_grid")
+    return blocks
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+            scale: float, lib=None) -> None:
+    """One launch on checked, contiguous tensors; ``lib`` is a probe build
+    of ``csrc/window_attention.cu`` (``_build.build_variant``) or None."""
+    lib = lib or _build.load("window_attention")
+    n, s, d = q.shape
+    code = lib.window_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, s, d, float(scale),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, code, f"window_attention_launch (S={s}, D={d})")
+
+
 def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           scale: float) -> torch.Tensor:
     """K6 on the card: q, k and v share one ``[N, S, D]`` shape and one dtype
     (float32 or bf16). A window that does not fit in shared memory raises.
-    Adds one to ``window_attention_cuda.launches`` per launch."""
+    Adds one to ``window_attention_cuda.launches`` per launch, and to
+    ``.ring_launches``, ``.wmma_launches`` or ``.cuda_core_launches`` by
+    :func:`kernel_path`."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("window_attention_cuda needs q, k, v on one CUDA device")
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -48,21 +86,22 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    n, s, d = q.shape
+    _, s, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build.load("window_attention")
-    code = lib.window_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, s, d, float(scale),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, code, f"window_attention_launch (S={s}, D={d})")
+    _launch(q, k, v, out, scale)
     window_attention_cuda.launches += 1
+    path = f"{kernel_path(q.dtype, s, d)}_launches"
+    setattr(window_attention_cuda, path, getattr(window_attention_cuda, path) + 1)
     return out
 
 
 window_attention_cuda.launches = 0
+window_attention_cuda.ring_launches = 0
+window_attention_cuda.wmma_launches = 0
+window_attention_cuda.cuda_core_launches = 0
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

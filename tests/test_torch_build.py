@@ -4,7 +4,8 @@ refuse CPU tensors instead of falling back, and ``chip_smoke.py`` refuses to
 run (exit code, no result line) without CUDA or outside a checkout.
 """
 
-import os
+import ctypes
+import re
 import shutil
 import subprocess
 import sys
@@ -110,19 +111,46 @@ def test_check_raises_on_cuda_error_codes():
         _build.check(Lib, 1, "launch")
 
 
-def test_triton_cache_defaults_into_build_dir(monkeypatch):
-    monkeypatch.delenv("TRITON_CACHE_DIR", raising=False)
-    _build.ensure_triton_cache()
-    assert Path(os.environ["TRITON_CACHE_DIR"]) == _build.BUILD_DIR / "triton"
-    monkeypatch.setenv("TRITON_CACHE_DIR", "/elsewhere")
-    _build.ensure_triton_cache()
-    assert os.environ["TRITON_CACHE_DIR"] == "/elsewhere"
+def test_build_registers_normalize_with_its_signature():
+    """K3 is built by nvcc like the other kernels: its plain C entry point
+    takes the pixels, the output, the element count (64-bit) and the three
+    scales and three biases by value, then the stream."""
+    P, F = ctypes.c_void_p, ctypes.c_float
+    assert _build.SIGNATURES["normalize"] == {
+        "normalize_launch": (P, P, ctypes.c_longlong, F, F, F, F, F, F, P)}
+    assert _build.SIGNATURES["window_attention"]["window_attention_grid"] == ()
+
+
+_EXTERN = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in _build.CSRC_DIR.glob("*.cu")))
+def test_every_entry_point_is_typed_with_its_arity(source):
+    """Each ``csrc/*.cu`` has a table entry, and each ``extern "C"`` entry
+    point (but the shared error string) is typed with as many arguments as
+    the C function takes: a missing argument type would pass a pointer as a
+    32-bit int."""
+    name = source[:-3]
+    table = _build.SIGNATURES[name]
+    text = (_build.CSRC_DIR / source).read_text()
+    found = {fn: len([a for a in args.split(",") if a.strip()])
+             for fn, args in _EXTERN.findall(text)}
+    assert found and set(found) == set(table), source
+    for fn, n_args in found.items():
+        assert len(table[fn]) == n_args, fn
+
+
+def test_port_holds_no_triton():
+    """K3 is CUDA C++ now: the port has no Triton kernel and no Triton cache."""
+    assert not hasattr(_build, "ensure_triton_cache")
+    assert not (_build.PACKAGE_DIR / "ops" / "_normalize_triton.py").exists()
+    assert set(_build.SIGNATURES) == {p.stem for p in _build.CSRC_DIR.glob("*.cu")}
 
 
 _W = torch.zeros(8, 8, dtype=torch.bfloat16)
 _V = torch.zeros(8)
 _X = torch.zeros(1, 4, 8, dtype=torch.bfloat16)
-_COUNTERS = (M.maxsim_scores_cuda, A.fused_attention_cuda, PP.normalize_images_triton,
+_COUNTERS = (M.maxsim_scores_cuda, A.fused_attention_cuda, PP.normalize_images_cuda,
              M.maxsim_scores_int8_cuda, FL.fused_vit_layer_cuda,
              FL.fused_vit_attention_block_cuda, FL.fused_mlp_block_cuda,
              PA.paged_attention_cuda, PA.paged_attention_int8_cuda, IM.int8_matmul_kn_cuda,
@@ -136,7 +164,7 @@ _BT, _LENS = torch.zeros(1, 2, dtype=torch.int32), torch.ones(1, dtype=torch.int
 @pytest.mark.parametrize("call", [
     lambda: M.maxsim_scores_cuda(torch.zeros(1, 2, 8), torch.zeros(3, 4, 8)),
     lambda: A.fused_attention_cuda(*(torch.zeros(1, 4, 2, 8),) * 3, scale=1.0),
-    lambda: PP.normalize_images_triton(torch.zeros(1, 4, 4, 3, dtype=torch.uint8)),
+    lambda: PP.normalize_images_cuda(torch.zeros(1, 4, 4, 3, dtype=torch.uint8)),
     lambda: M.maxsim_scores_int8_cuda(torch.zeros(1, 2, 8),
                                       torch.zeros(3, 4, 8, dtype=torch.int8), torch.ones(3, 4)),
     lambda: FL.fused_vit_layer_cuda(_X, _V, _V, *(_W, _V) * 4, _V, _V, _W, _V, _W, _V,
@@ -160,6 +188,34 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
         call()
     assert counters == [f.launches for f in _COUNTERS]
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: PP.normalize_images_cuda(torch.zeros(1, 4, 4, 3)), "uint8"),
+    (lambda: PP.normalize_images_cuda(torch.zeros(1, 4, 4, 3, dtype=torch.int8)), "uint8"),
+    (lambda: PP.normalize_images_cuda(torch.zeros(1, 4, 4, 4, dtype=torch.uint8)),
+     r"expected \[B, H, W, 3\]"),
+    (lambda: PP.normalize_images_cuda(torch.zeros(4, 4, 3, dtype=torch.uint8)),
+     r"expected \[B, H, W, 3\]"),
+    (lambda: PP.normalize_images_cuda(torch.zeros(1, 4, 4, 3, dtype=torch.uint8),
+                                      mean=(0.5, 0.5)), "one value per channel"),
+], ids=["float32", "int8", "four_channels", "no_batch", "two_means"])
+def test_normalize_cuda_refuses_wrong_dtype_and_shape(call, match):
+    before = PP.normalize_images_cuda.launches
+    with pytest.raises(ValueError, match=match):
+        call()
+    assert PP.normalize_images_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype,s,d,path", [
+    (torch.bfloat16, 144, 32, "ring"), (torch.bfloat16, 49, 24, "ring"),
+    (torch.bfloat16, 1, 1, "ring"), (torch.bfloat16, 145, 32, "wmma"),
+    (torch.bfloat16, 144, 40, "wmma"), (torch.bfloat16, 600, 32, "wmma"),
+    (torch.float32, 144, 32, "cuda_core"), (torch.float32, 7, 100, "cuda_core")])
+def test_window_attention_kernel_path_follows_dtype_and_shape(dtype, s, d, path):
+    """Every ColFlor stage (12 x 12 windows, head_dim 32) takes the ring kernel."""
+    assert WA.kernel_path(dtype, s, d) == path
+    assert hasattr(WA.window_attention_cuda, f"{path}_launches")
 
 
 def test_dispatchers_take_plain_versions_on_cpu():

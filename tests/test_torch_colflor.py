@@ -148,6 +148,42 @@ def test_window_attention_module_runs_window_attention(flat_params, monkeypatch)
     assert calls == [(3 * 1 * 4, 16, 8)]     # 3 windows x 4 heads, 4 x 4 tokens, head_dim 8
 
 
+def test_breakdown_times_the_copies_window_attention_makes(flat_params, monkeypatch):
+    """The ColFlor breakdown times ``florence2.split_heads`` and
+    ``merge_heads``: ``WindowAttention`` makes its copies around K6 through
+    exactly these, handing the first's q, k, v to K6 and the second's output
+    to its projection, and they are the reshapes of the reference layout
+    ``[n_win, S, 3, heads, hd]``."""
+    seen = {}
+    split, merge = florence2.split_heads, florence2.merge_heads
+
+    def capture(q, k, v, scale):
+        seen["qkv"] = (q, k, v)
+        seen["out"] = torch.from_numpy(_randn(5, *q.shape))
+        return seen["out"]
+
+    mod = _loaded(florence2.WindowAttention(CFG.vision, 1, **KW), flat_params,
+                  "vision_tower/blocks_1_0_spatial/window_attn")
+    monkeypatch.setattr(florence2, "window_attention", capture)
+    monkeypatch.setattr(florence2, "split_heads",
+                        lambda proj, heads: seen.setdefault("split", split(proj, heads)))
+    monkeypatch.setattr(florence2, "merge_heads",
+                        lambda out, heads: seen.setdefault("merge", merge(out, heads)))
+    monkeypatch.setattr(mod.proj, "forward", lambda x: seen.setdefault("proj_in", x))
+    x = torch.from_numpy(_randn(3, 2, 4, 4, 32))     # 2 windows of 4 x 4 tokens
+    with torch.no_grad():
+        mod(x)
+        proj = mod.qkv(x.reshape(2, 1, 4, 1, 4, 32).permute(0, 1, 3, 2, 4, 5).reshape(-1, 16, 32))
+    assert all(got is want for got, want in zip(seen["split"], seen["qkv"]))
+    assert seen["merge"] is seen["proj_in"]
+    heads, hd = mod.heads, 32 // mod.heads
+    rows = proj.reshape(2, 16, 3, heads, hd)
+    for i, got in enumerate(seen["qkv"]):
+        assert torch.equal(got, rows[:, :, i].transpose(1, 2).reshape(2 * heads, 16, hd))
+    want = seen["out"].reshape(2, heads, 16, hd).permute(0, 2, 1, 3).reshape(2, 16, 32)
+    assert torch.equal(seen["proj_in"], want)
+
+
 @pytest.mark.parametrize("name,stage,shape", [
     ("ChannelAttention", 1, (2, 16, 32)),
     ("SpatialBlock", 0, (2, 8, 8, 16)),

@@ -326,7 +326,8 @@ def test_full_width_configs_match_jax(name):
 # -- source scan --------------------------------------------------------------------
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|multimodal_colpali_tpu)(?=[\s.,]|$)", re.M)
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|multimodal_colpali_tpu|triton)(?=[\s.,]|$)",
+    re.M)
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in
@@ -341,8 +342,9 @@ def test_port_source_imports_no_jax(path):
 def test_source_scan_catches_forbidden_imports():
     for line in ("import jax", "import jax.numpy as jnp", "from flax import linen",
                  "from multimodal_colpali_tpu.ops import maxsim",
-                 "    import multimodal_colpali_tpu"):
+                 "    import multimodal_colpali_tpu", "    import triton",
+                 "import triton.language as tl", "from triton import jit"):
         assert _FORBIDDEN.search(line), line
     for line in ("import torch", "from multimodal_colpali_tpu_torch import api",
-                 "import jaxtyping_like_name_is_fine"):
+                 "import jaxtyping_like_name_is_fine", "import tritonclient_like_name"):
         assert not _FORBIDDEN.search(line), line

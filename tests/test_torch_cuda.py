@@ -675,7 +675,7 @@ def test_cuda_tensors_never_take_the_plain_versions(gen, monkeypatch):
                       (I4, "int4_matmul_reference")):
         monkeypatch.setattr(mod, name, boom)
     counters = [M.maxsim_scores_cuda, M.maxsim_scores_int8_cuda, A.fused_attention_cuda,
-                PP.normalize_images_triton, FL.fused_vit_layer_cuda,
+                PP.normalize_images_cuda, FL.fused_vit_layer_cuda,
                 FL.fused_vit_attention_block_cuda, FL.fused_mlp_block_cuda,
                 WA.window_attention_cuda, I4.int4_matmul_kn_cuda]
     before = [f.launches for f in counters]
@@ -706,13 +706,61 @@ def test_cuda_tensors_never_take_the_plain_versions(gen, monkeypatch):
 def test_normalize_kernel_within_one_ulp(gen, shape, mean, std):
     x = torch.randint(0, 256, shape, generator=gen, device="cuda",
                       dtype=torch.int32).to(torch.uint8)
-    before = PP.normalize_images_triton.launches
+    before = PP.normalize_images_cuda.launches
     got = PP.normalize_images(x, mean, std)
-    assert PP.normalize_images_triton.launches == before + 1
+    assert PP.normalize_images_cuda.launches == before + 1
     want = PP.normalize_images_reference(x, mean, std)
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
     assert int(ulps.max()) <= 1
+
+
+def _ulps(a, b):
+    return int((a.view(torch.int16).int() - b.view(torch.int16).int()).abs().max())
+
+
+@pytest.mark.parametrize("mean,std", [((0.5,) * 3, (0.5,) * 3),
+                                      ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))])
+def test_normalize_kernel_exhaustive_table(gen, mean, std):
+    """All 256 byte values in each of the 3 channel positions, within one
+    bf16 ulp of the plain version; a repeated call bit-identical."""
+    x = torch.arange(256, device="cuda", dtype=torch.uint8)[None, :, None, None].expand(
+        1, 256, 1, 3).contiguous()
+    got = PP.normalize_images_cuda(x, mean, std)
+    assert _ulps(got, PP.normalize_images_reference(x, mean, std)) <= 1
+    assert torch.equal(PP.normalize_images_cuda(x, mean, std).view(torch.int16),
+                       got.view(torch.int16))
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 7, 3), (1, 1, 5, 3), (2, 3, 1, 3), (1, 1, 1, 3),
+                                   (0, 4, 4, 3)], ids=["n105", "n15", "n18", "n3", "n0"])
+def test_normalize_kernel_ragged_tails(gen, shape):
+    """n % 48 != 0 (105), n < 48 (15, 18, 3) and n = 0 (no launch)."""
+    x = torch.randint(0, 256, shape, generator=gen, device="cuda",
+                      dtype=torch.int32).to(torch.uint8)
+    before = PP.normalize_images_cuda.launches
+    got = PP.normalize_images(x, (0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+    assert PP.normalize_images_cuda.launches == before + (x.numel() > 0)
+    assert got.shape == shape and got.dtype == torch.bfloat16
+    if x.numel():
+        want = PP.normalize_images_reference(x, (0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
+        assert _ulps(got, want) <= 1
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8])
+def test_normalize_kernel_misaligned_view_is_bit_identical(gen, offset):
+    """A view whose first pixel is not 16-byte aligned goes element by
+    element and gives the aligned call's bits."""
+    shape = (2, 28, 20, 3)
+    n = int(np.prod(shape))
+    flat = torch.randint(0, 256, (n + offset,), generator=gen, device="cuda",
+                         dtype=torch.int32).to(torch.uint8)
+    x = flat[offset:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    got = PP.normalize_images_cuda(x)
+    want = PP.normalize_images_cuda(x.clone())
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert _ulps(got, PP.normalize_images_reference(x)) <= 1
 
 
 # -- K7a / K7b: paged decode attention ------------------------------------------
@@ -1102,6 +1150,98 @@ def test_window_attention_kernel_matches_plain(gen, dtype, tol, n, s, d):
     want = WA.window_attention_reference(q, k, v, scale=d ** -0.5)
     assert got.dtype == dtype and got.shape == (n, s, d)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _ring_case(gen, n, s, d, scale=None):
+    """One launch on the ring kernel against the plain version: bf16 within
+    atol and rtol 2e-2, the ring counter up by one."""
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
+
+    q, k, v = (_randn(gen, n, s, d, dtype=torch.bfloat16) for _ in range(3))
+    scale = d ** -0.5 if scale is None else scale
+    before = WA.window_attention_cuda.ring_launches
+    got = WA.window_attention_cuda(q, k, v, scale=scale)
+    assert WA.window_attention_cuda.ring_launches == before + 1
+    want = WA.window_attention_reference(q, k, v, scale=scale)
+    assert got.shape == (n, s, d) and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    return (q, k, v), got
+
+
+@pytest.mark.parametrize("n", [256, 192, 160, 128], ids=["stage0", "stage1", "stage2", "stage3"])
+def test_window_attention_ring_at_colflor_stage_shapes(gen, n):
+    """ColFlor's four DaViT stages ([8192 | 4096 | 2048 | 1024, 144, 32] at
+    batch 8), N cut to a few hundred."""
+    _ring_case(gen, n, 144, 32)
+
+
+@pytest.mark.parametrize("where", ["one", "grid-1", "grid+1", "two_grids+5"])
+def test_window_attention_ring_windows_around_the_grid(gen, where):
+    """Persistent blocks: N of 1, one short of the grid, one past it, and
+    more than two windows a block."""
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
+
+    grid = WA.ring_grid()
+    assert grid >= torch.cuda.get_device_properties(0).multi_processor_count
+    n = {"one": 1, "grid-1": grid - 1, "grid+1": grid + 1, "two_grids+5": 2 * grid + 5}[where]
+    _ring_case(gen, n, 144, 32)
+
+
+@pytest.mark.parametrize("s", [16, 49, 144])
+@pytest.mark.parametrize("d", [16, 24, 32])
+def test_window_attention_ring_window_and_head_sizes(gen, s, d):
+    """S of one key tile, a ragged 7 x 7 window and ColFlor's 12 x 12; D of
+    16 and 24, whose columns past D read as zeros from the tensor map."""
+    _ring_case(gen, 37, s, d)
+
+
+@pytest.mark.parametrize("scale", [-0.2, 0.0, 1e-3])
+def test_window_attention_ring_scales(gen, scale):
+    """Full 12 x 12 windows with a scale that is not positive take the masked
+    softmax (the fast one folds a positive scale into the exponent); a tiny
+    positive scale takes the fast one."""
+    _ring_case(gen, 37, 144, 32, scale=scale)
+
+
+def test_window_attention_ring_repeat_is_bit_identical_and_captures(gen):
+    """A repeated call gives the same bits, and so does a CUDA-graph replay
+    of the launch (its grid and tensor maps come from shapes alone)."""
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
+
+    qkv, first = _ring_case(gen, 300, 144, 32)
+    again = WA.window_attention_cuda(*qkv, scale=32 ** -0.5)
+    assert torch.equal(first.view(torch.int16), again.view(torch.int16))
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph, stream=stream):
+            out = WA.window_attention_cuda(*qkv, scale=32 ** -0.5)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), out.view(torch.int16))
+
+
+@pytest.mark.parametrize("d", [32, 20])
+def test_window_attention_ring_misaligned_view(gen, d):
+    """q, k and v as storage-offset views whose pointers are not 16-byte
+    aligned (and D = 20, rows not of whole 16-byte chunks) take the element
+    copies inside the ring kernel, with the aligned inputs' bits."""
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
+
+    n, s = 40, 144
+    views = []
+    for _ in range(3):
+        flat = _randn(gen, n * s * d + 1, dtype=torch.bfloat16)
+        views.append(flat[1:].view(n, s, d))
+    assert all(x.data_ptr() % 16 for x in views)
+    before = WA.window_attention_cuda.ring_launches
+    got = WA.window_attention_cuda(*views, scale=0.2)
+    assert WA.window_attention_cuda.ring_launches == before + 1
+    want = WA.window_attention_cuda(*(x.clone() for x in views), scale=0.2)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    ref = WA.window_attention_reference(*views, scale=0.2)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2, atol=2e-2)
 
 
 def test_window_attention_kernel_refuses_what_it_cannot_take(gen):
