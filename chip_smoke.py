@@ -51,11 +51,25 @@ phase; any failure exits non-zero.
    ``torch._weight_int4pack_mm`` on the same inputs as yardsticks where this
    torch has a CUDA kernel for them, and beside the prefill rows one bf16
    ``torch.mm`` on the weight already dequantized (the cuBLAS time the
-   prefill tiles race against).
-3. ColPali at full width: ``vidore/colpali-v1.3`` with random bf16 weights
-   from ``--seed`` embeds 16 synthetic 448x448 pages, indexes them with
-   ``colpali_qdrant``, answers 4 queries with ``retrieve_colpali`` (one also
-   under a ``username`` filter) and scores them with ``score_results``.
+   prefill tiles race against). Then, at the shapes phase 7 gives them
+   (PaliGemma's Gemma-2B: 8 query heads over 1 KV head of 256, hidden
+   2,048, MLP 16,384, vocab 257,216), K7a over 4 slots of 6,144 tokens at a
+   1-page and a 5-page image prompt's lengths and two text prompts', K8a on
+   every decode projection and on the MLP at both image prompts' prefill
+   rows, and K8b on the head, each against its plain version at the limits
+   above.
+3. ColPali at full width, from a checkpoint: a bf16 HF-layout checkpoint of
+   ``vidore/colpali-v1.3`` (the ``ColPaliForRetrieval`` tensors, 5.85 GB,
+   norms at their identity, every other tensor N(0, fan_in^-0.5) from
+   ``--seed``) is written under ``build/`` as 3 safetensors files by the
+   script's own writer, after a check of the free disk space, and loaded
+   with ``load_retriever(checkpoint_dir=)``: the load time and rate, the
+   host's peak RSS growth and the device memory are printed, and 11
+   parameters across the tower, projector, LM and head must equal the file's
+   tensors after the converter's transposes. The model then embeds 16
+   synthetic 448x448 pages, indexes them with ``colpali_qdrant``, answers 4
+   queries with ``retrieve_colpali`` (one also under a ``username`` filter)
+   and scores them with ``score_results``.
 4. ColSmol at full width: ``vidore/colSmol-256M`` (random bf16 weights)
    embeds 32 synthetic 512x512 pages, indexes them with ``colpali_qdrant``
    into an exact, an int8, a pooled and an on_disk collection (the last
@@ -81,12 +95,27 @@ phase; any failure exits non-zero.
    them with ``score_results``; its DaViT windows run K6's ring kernel (12
    launches a forward), never K2.
 
-Each main path (3, 4, each run of 5, and 6) sets every launch counter to 0
-before it runs and reads them after; each kernel of the path must have run in
-it (ColPali, ColSmol and ColFlor: K1's tensor-core path, ColSmol K4's
-too; ColPali and ColSmol: K2's tensor-core path; every run of phase 5: K7's
-tensor-core path; run (c): both of K8a's tiles; run (d): both of K9's
-tiles). The line before the last is a JSON object with
+7. Image-context serving at full width, right after phase 3, on its
+   checkpoint's weights (reloaded; the directory is deleted after this
+   phase): ``PaliGemmaEngine`` runs the retriever's own SigLIP tower and
+   projector and decodes through the text engine's LM.
+   ``PagedContinuousBatcher`` (4 slots of 6,144 tokens, pages of 16) serves
+   two greedy image requests, one page and the 5 pages phase 3 retrieved for
+   its first query, beside two text requests, all submitted at once; then
+   an MCQ is scored over the 5 pages through ``next_token_logits``. Run (a)
+   has bf16 LM weights, run (b) int8 weights (K8a, K8b). Each greedy reply
+   must equal the isolated engine's (``PaliGemmaEngine.generate`` or
+   ``GemmaDecodeEngine.generate``) or first differ where that engine's top
+   two logits are within 0.05 (the gaps the engine records as it decodes,
+   ``record_top2``). TTFT of each request, decode tokens/s, the
+   MCQ's time and the peak memory are printed with the card.
+
+Each main path (3, 4, each run of 5, 6 and each run of 7) sets every launch
+counter to 0 before it runs and reads them after; each kernel of the path
+must have run in it (ColPali, ColSmol and ColFlor: K1's tensor-core path,
+ColSmol K4's too; ColPali, ColSmol and both runs of 7: K2's tensor-core
+path; every run of phases 5 and 7: K7's tensor-core path; run (c) and image
+run (b): both of K8a's tiles and K8b; run (d): both of K9's tiles). The line before the last is a JSON object with
 each kernel's launches in those paths, its error against the plain version,
 its time, the plain version's, its bound and, for K2, K6, K8a, K8b and K9,
 the library call's (null where this torch has none); K8a and K9 have a row a
@@ -103,6 +132,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -435,6 +465,7 @@ def phase_kernels(torch, seed: int):
     results.update(fused_layer_kernels(torch, g))
     results.update(window_attention_kernel(torch, g))
     results.update(generation_kernels(torch, g))
+    paligemma_kernels(torch, g, results)
     return results
 
 
@@ -973,6 +1004,86 @@ def generation_kernels(torch, g):
     return results
 
 
+def paligemma_kernels(torch, g, results) -> None:
+    """K7a, K8a (both tiles) and K8b at the shapes phase 7 gives them:
+    PaliGemma's Gemma-2B LM (8 query heads over 1 KV head of 256; hidden
+    2,048, MLP 16,384, vocab 257,216) in the paged batcher's 4 slots of
+    6,144 tokens, pages of 16, at the lengths of a 1-page and a 5-page image
+    prompt and of two text prompts. Each is held against its plain version
+    at phase 2's limits; K7a's error joins its row's max_abs_err."""
+    from multimodal_colpali_tpu_torch.models.registry import RETRIEVER_CONFIGS
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+
+    dev = torch.device("cuda")
+    cfg = RETRIEVER_CONFIGS[COLPALI]()
+    t = cfg.text
+    h, inter, hq, hkv, d = (t.hidden_size, t.intermediate_size, t.num_attention_heads,
+                            t.num_key_value_heads, t.head_dim)
+    b, page = IMG["slots"], IMG["page"]
+    nb = IMG["max_seq_len"] // page
+    patches = cfg.vision.num_patches
+    lengths = [patches + 40, TOP_K * patches + 40, 330, 730]
+    n_pages = b * nb + 1
+    q = torch.randn(b, hq, d, generator=g, device=dev).to(torch.bfloat16)
+    kp, vp = (torch.randn(n_pages, page, hkv, d, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    bt = torch.randperm(n_pages, generator=g, device=dev)[: b * nb].reshape(b, nb).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    kern = PA.paged_attention_cuda
+    tc = kern.tensor_core_launches
+    got = kern(q, kp, vp, bt, lens, scale=d ** -0.5).float()
+    want = PA.paged_attention_reference(q, kp, vp, bt, lens, scale=d ** -0.5).float()
+    torch.cuda.synchronize()
+    require(kern.tensor_core_launches == tc + 1, "K7a PaliGemma: bf16 did not take the "
+                                                 "tensor-core path")
+    diff = (got - want).abs()
+    err, excess = float(diff.max()), float((diff - 2.0 ** -7 * want.abs()).max())
+    require(bool(torch.isfinite(got).all()) and err <= 2e-2 and excess <= 2e-3,
+            f"K7a PaliGemma q {list(q.shape)} lengths {lengths}: max|err| {err} (floor 2e-2), "
+            f"max(|err| - 2^-7|want|) {excess} > 2e-3")
+    results["paged_attention"]["max_abs_err"] = max(results["paged_attention"]["max_abs_err"],
+                                                    err)
+    print(f"[kernels] K7a paged_attention at phase 7's shapes: q {list(q.shape)} pools "
+          f"{list(kp.shape)}, lengths {lengths}: bf16 (tensor cores) max|err| {err:.3g} (floor "
+          f"2e-2), max(|err| - 2^-7|want|) {excess:.3g} (limit 2e-3)", flush=True)
+    del q, kp, vp, bt, got, want, diff
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int8)
+
+    # decode rows: every projection of the layer (q/o, k/v, gate/up, down); prefill
+    # rows of the 1-page and 5-page prompts through the MLP
+    kn = [(b, h, h), (b, h, hkv * d), (b, h, inter), (b, inter, h),
+          (lengths[0], h, inter), (lengths[0], inter, h),
+          (lengths[1], h, inter), (lengths[1], inter, h)]
+    cases = [(m, codes(k, n), False, torch.bfloat16) for m, k, n in kn]
+    cases.append((b, codes(t.vocab_size + (-t.vocab_size) % 512, h), True, torch.float32))
+    notes = []
+    for m, w, nk, out in cases:
+        k = w.shape[1] if nk else w.shape[0]
+        sc = torch.rand(w.shape[0] if nk else w.shape[1], generator=g, device=dev) * 1e-3
+        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+        kernel = IM.int8_matmul_nk_cuda if nk else IM.int8_matmul_kn_cuda
+        tile = "decode" if m <= IM.DECODE_ROWS else "prefill"
+        before = kernel.launches if nk else getattr(kernel, f"{tile}_launches")
+        got = kernel(x, w, sc, out_dtype=out).float()
+        want = IM.int8_matmul_reference(x, w, sc, transpose_codes=nk).float()
+        torch.cuda.synchronize()
+        tag = "K8b" if nk else f"K8a ({tile} tile)"
+        require((kernel.launches if nk else getattr(kernel, f"{tile}_launches")) == before + 1,
+                f"{tag} [{m}, {k}] x {list(w.shape)} did not launch")
+        err = float((got - want).abs().max())
+        limit = 0.02 * float(want.abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= limit,
+                f"{tag} [{m}, {k}] x {list(w.shape)}: max|err| {err} > 2% of max {limit}")
+        notes.append(f"{tag} [{m}, {k}] x {list(w.shape)} {err:.3g} (limit {limit:.3g})")
+        del x, got, want, w, sc
+    print(f"[kernels] K8a/K8b at phase 7's int8 shapes, max|err| against the plain version: "
+          f"{'; '.join(notes)}", flush=True)
+    torch.cuda.empty_cache()
+
+
 def int4pack_operands(torch, packed, scale, group: int):
     """K9's weight in the layout of ``torch._weight_int4pack_mm``: the codes
     of ``quantize_int4``'s group-split bytes as [N, K] nibbles, two to a byte
@@ -1087,6 +1198,159 @@ def synthetic_pages(n: int, size: int, seed: int):
     return pages
 
 
+COLPALI = "vidore/colpali-v1.3"
+CKPT_SHARDS = 3
+# SigLIP LayerNorms and Gemma's (1 + w) RMSNorms: identity = weight 1 (0 in
+# the Gemma LM), bias 0
+NORM = re.compile(r"(layer_?norm\d?|\.norm)\.(weight|bias)$")
+
+
+def colpali_hf_tensors(cfg):
+    """(name, shape) of every tensor of a ``ColPaliForRetrieval`` checkpoint
+    as transformers saves it, in its order: the SigLIP tower (without the
+    pooling head PaliGemma does not use), the projector, the Gemma LM (its
+    head is tied to the embedding table, so not saved) and the retrieval head."""
+    v, t = cfg.vision, cfg.text
+    h, inter = v.hidden_size, v.intermediate_size
+    vt = "vlm.model.vision_tower.vision_model."
+    out = [(vt + "embeddings.patch_embedding.weight", (h, 3, v.patch_size, v.patch_size)),
+           (vt + "embeddings.patch_embedding.bias", (h,)),
+           (vt + "embeddings.position_embedding.weight", (v.num_patches, h))]
+    for i in range(v.num_hidden_layers):
+        p = f"{vt}encoder.layers.{i}."
+        out += [(p + "layer_norm1.weight", (h,)), (p + "layer_norm1.bias", (h,))]
+        for proj in ("k_proj", "v_proj", "q_proj", "out_proj"):
+            out += [(p + f"self_attn.{proj}.weight", (h, h)), (p + f"self_attn.{proj}.bias", (h,))]
+        out += [(p + "layer_norm2.weight", (h,)), (p + "layer_norm2.bias", (h,)),
+                (p + "mlp.fc1.weight", (inter, h)), (p + "mlp.fc1.bias", (inter,)),
+                (p + "mlp.fc2.weight", (h, inter)), (p + "mlp.fc2.bias", (h,))]
+    out += [(vt + "post_layernorm.weight", (h,)), (vt + "post_layernorm.bias", (h,)),
+            ("vlm.model.multi_modal_projector.linear.weight", (v.projection_dim, h)),
+            ("vlm.model.multi_modal_projector.linear.bias", (v.projection_dim,))]
+    lm = "vlm.model.language_model."
+    d, hd, ffn = t.hidden_size, t.head_dim, t.intermediate_size
+    q, kv = t.num_attention_heads * hd, t.num_key_value_heads * hd
+    out.append((lm + "embed_tokens.weight", (t.vocab_size, d)))
+    for i in range(t.num_hidden_layers):
+        p = f"{lm}layers.{i}."
+        out += [(p + "self_attn.q_proj.weight", (q, d)), (p + "self_attn.k_proj.weight", (kv, d)),
+                (p + "self_attn.v_proj.weight", (kv, d)), (p + "self_attn.o_proj.weight", (d, q)),
+                (p + "mlp.gate_proj.weight", (ffn, d)), (p + "mlp.up_proj.weight", (ffn, d)),
+                (p + "mlp.down_proj.weight", (d, ffn)), (p + "input_layernorm.weight", (d,)),
+                (p + "post_attention_layernorm.weight", (d,))]
+    return out + [(lm + "norm.weight", (d,)), ("embedding_proj_layer.weight", (cfg.embedding_dim, d)),
+                  ("embedding_proj_layer.bias", (cfg.embedding_dim,))]
+
+
+def write_colpali_checkpoint(torch, cfg, path: str, seed: int, shards: int = CKPT_SHARDS,
+                             device: str = "cuda") -> dict:
+    """A bf16 checkpoint of ``cfg`` in the HF layout (``colpali_hf_tensors``)
+    written into ``path`` as ``shards`` safetensors files by a minimal writer
+    of the format (8-byte header length, JSON header padded to 8 bytes, raw
+    bytes). Norms take their identity values; every other tensor is
+    N(0, fan_in^-0.5), fan_in the product of the dims after the first (a
+    1-D tensor's own length), drawn on ``device`` from ``seed``. -> bytes,
+    files, seconds."""
+    import os
+
+    tensors = colpali_hf_tensors(cfg)
+    sizes = [2 * math.prod(shape) for _, shape in tensors]
+    total = sum(sizes)
+    free = shutil.disk_usage(path).free
+    require(free > total + 2**30, f"writing the {total / 1e9:.2f} GB checkpoint needs that much "
+                                  f"and 1 GiB more free under {path}; {free / 1e9:.2f} GB are")
+    groups = [[] for _ in range(shards)]
+    done = 0
+    for i, ((name, shape), size) in enumerate(zip(tensors, sizes)):
+        groups[min(shards - 1, done * shards // total)].append((i, name, shape))
+        done += size
+    t0 = time.perf_counter()
+    files = []
+    for k, group in enumerate(groups):
+        header, off = {}, 0
+        for _, name, shape in group:
+            n = 2 * math.prod(shape)
+            header[name] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [off, off + n]}
+            off += n
+        header["__metadata__"] = {"format": "pt"}
+        raw = json.dumps(header).encode()
+        raw += b" " * (-len(raw) % 8)
+        files.append(os.path.join(path, f"model-{k + 1:05d}-of-{shards:05d}.safetensors"))
+        with open(files[-1], "wb") as f:
+            f.write(len(raw).to_bytes(8, "little") + raw)
+            for i, name, shape in group:
+                m = NORM.search(name)
+                if m:
+                    ident = 1.0 if m.group(2) == "weight" and ".language_model." not in name else 0.0
+                    t = torch.full(shape, ident, dtype=torch.bfloat16)
+                else:
+                    gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + i)
+                    fan_in = math.prod(shape[1:]) if len(shape) > 1 else shape[0]
+                    t = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+                    t = t.mul_(float(fan_in) ** -0.5).to(torch.bfloat16).cpu()
+                f.write(t.view(torch.uint8).numpy())
+    return dict(path=path, bytes=sum(os.path.getsize(f) for f in files), files=len(files),
+                write_s=time.perf_counter() - t0)
+
+
+def check_loaded_leaves(torch, model, cfg, path: str):
+    """Eleven parameters across the tower, the projector, the LM and the head
+    must equal the file's tensors after the converter's transposes. -> their
+    names."""
+    from multimodal_colpali_tpu_torch.models import hf_import
+    from multimodal_colpali_tpu_torch.models.convert import params_from_flax
+
+    state = params_from_flax(hf_import.colpali_params_from_hf(
+        hf_import.load_state_dict(path), cfg), cfg)
+    lv, lt = cfg.vision.num_hidden_layers - 1, cfg.text.num_hidden_layers - 1
+    names = ["vision_tower.patch_embedding.weight", "vision_tower.position_embedding",
+             "vision_tower.layers.0.self_attn.q_proj.weight",
+             f"vision_tower.layers.{lv}.mlp.fc2.bias", "vision_tower.post_layernorm.weight",
+             "multi_modal_projector.weight", "embed.embed_tokens",
+             "language_model.layers.0.self_attn.k_proj.weight",
+             f"language_model.layers.{lt}.mlp.down_proj.weight", "language_model.norm.weight",
+             "embedding_proj_layer.weight"]
+    params = dict(model.named_parameters())
+    for name in names:
+        got = params[name].detach().cpu()
+        require(torch.equal(got, state[name].to(got.dtype)),
+                f"{name} on the card differs from the checkpoint's tensor")
+    return names
+
+
+class PeakRss:
+    """The growth of this process's resident memory over a ``with`` block:
+    its RSS sampled every 2 ms by a thread (``/proc/self/statm``), the peak
+    less the RSS at entry, in bytes."""
+
+    @staticmethod
+    def rss() -> int:
+        import os
+
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def __enter__(self):
+        import threading
+
+        self.base = self.peak = self.rss()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.002):
+                self.peak = max(self.peak, self.rss())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
+        self.growth = self.peak - self.base
+
+
 def kernel_wrappers():
     """Each kernel's wrapper, whose ``.launches`` counts its launches."""
     from multimodal_colpali_tpu_torch.ops import attention as A
@@ -1139,10 +1403,14 @@ def read_counts(wrappers) -> dict:
 
 
 def phase_retrieval(torch, name: str, seed: int, card: str, tag: str, device_preprocess: bool,
-                    path, absent):
+                    path, absent, checkpoint=None):
     """A retriever at full width through colpali_qdrant, retrieve_colpali and
     score_results (phases 3 and 6): the kernels in ``path`` must run, those
-    in ``absent`` must not."""
+    in ``absent`` must not. ``checkpoint`` (``write_colpali_checkpoint``'s
+    result) is loaded instead of a random init. -> (launches, the pages
+    retrieved for the first query)."""
+    import warnings
+
     import numpy as np
     from multimodal_colpali_tpu_torch import api
     from multimodal_colpali_tpu_torch.models import load_retriever
@@ -1150,12 +1418,26 @@ def phase_retrieval(torch, name: str, seed: int, card: str, tag: str, device_pre
 
     wrappers = kernel_wrappers()
     t0 = time.perf_counter()
-    retr = load_retriever(name, device="cuda", dtype=torch.bfloat16, seed=seed,
-                          device_preprocess=device_preprocess)
-    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught, PeakRss() as host:
+        warnings.simplefilter("always")
+        retr = load_retriever(name, device="cuda", dtype=torch.bfloat16, seed=seed,
+                              device_preprocess=device_preprocess,
+                              checkpoint_dir=checkpoint and checkpoint["path"])
+        torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in retr.model.parameters())
     cfg = retr.model.cfg
+    if checkpoint:
+        require(not any("random init" in str(w.message) for w in caught),
+                f"{name}: the checkpoint at {checkpoint['path']} was not loaded")
+        leaves = check_loaded_leaves(torch, retr.model, cfg, checkpoint["path"])
+        print(f"[{tag}] {name}: wrote a bf16 HF checkpoint of {checkpoint['bytes'] / 1e9:.2f} GB "
+              f"in {checkpoint['files']} safetensors files in {checkpoint['write_s']:.1f} s; "
+              f"load_retriever(checkpoint_dir=) {init_s:.2f} s = "
+              f"{checkpoint['bytes'] / 1e9 / init_s:.2f} GB/s | host peak RSS growth "
+              f"{host.growth / 1e9:.2f} GB | "
+              f"device {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated | "
+              f"{len(leaves)} leaves equal the file's | {card}", flush=True)
     size = getattr(cfg, "image_size", None) or cfg.vision.image_size
     pages = synthetic_pages(N_PAGES, size, seed)
     retr.embed_images(pages[:EMBED_BATCH], batch_size=EMBED_BATCH)  # warm-up
@@ -1238,7 +1520,7 @@ def phase_retrieval(torch, name: str, seed: int, card: str, tag: str, device_pre
     del retr, client
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, [index[p] for p in retrieved[0]]
 
 
 def _key(p):
@@ -1637,6 +1919,146 @@ def phase_generation(torch, seed: int, card: str):
     return runs
 
 
+IMG = dict(slots=4, max_seq_len=6144, chunk=8, page=16, max_tokens=32)
+QUESTION = "Which binding constant do these pages report for sialyl Lewis x? Answer briefly."
+
+
+def check_greedy(tag: str, key: str, got, want, gap_at) -> str:
+    """A greedy reply against the isolated engine's: identical, or first
+    different where the engine's top two logits are within 0.05
+    (``gap_at(step)``)."""
+    require(len(got) == IMG["max_tokens"], f"[img-{tag}] {key}: {len(got)} tokens")
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if i is None:
+        require(len(got) == len(want), f"[img-{tag}] {key}: {len(got)} tokens, the isolated "
+                                       f"engine's {len(want)}")
+        return f"{key}: identical"
+    gap = gap_at(i)
+    require(gap <= 0.05, f"[img-{tag}] {key} first differs from the isolated engine at step {i}, "
+                         f"where its top two logits are {gap:.4f} apart (> 0.05)")
+    return f"{key}: first differs at step {i} (top-2 gap {gap:.4f})"
+
+
+def image_run(torch, mm, tok, tag: str, pix, text_prompts, card: str):
+    """One run of phase 7: two greedy image requests (1 page, and the 5
+    pages retrieved for one query) and two text requests submitted at once
+    to the paged batcher with ``mm``, then an MCQ scored over the 5 pages
+    through ``next_token_logits``. Returns the launch counts."""
+    import numpy as np
+    from multimodal_colpali_tpu_torch.generation import PagedContinuousBatcher
+
+    wrappers = kernel_wrappers()
+    eng = mm.lm
+    newline = tok.encode("\n")
+    img = {f"{n} page{'s' * (n > 1)}": (mm.build_mm_prompt(tok.encode(QUESTION), bos_id=tok.bos_id,
+                                                           newline_ids=newline, n_images=n),
+                                        pix[:n]) for n in (1, TOP_K)}
+    txt = {f"text {i}": tok.encode(p, add_special_tokens=True) for i, p in enumerate(text_prompts)}
+    bat = PagedContinuousBatcher(eng, batch_slots=IMG["slots"], max_seq_len=IMG["max_seq_len"],
+                                 chunk=IMG["chunk"], page_size=IMG["page"], mm_engine=mm,
+                                 eos_id=tok.eos_id)
+    # warm-up at the requests' shapes (one character of the question changed,
+    # so the prefill cache misses later)
+    warm = tok.encode(QUESTION.replace("x?", "a?"))
+    bat.generate([mm.build_mm_prompt(warm, bos_id=tok.bos_id, newline_ids=newline, n_images=n)
+                  for n in (1, TOP_K)] + [ids[:-1] + [ids[-1] + 1] for ids in txt.values()],
+                 max_new_tokens=2, pixel_values=[pix[:1], pix, None, None])
+    torch.cuda.synchronize()
+    bat.decode_s, bat.decode_steps, bat.decode_tokens = 0.0, 0, 0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    first, futs = {}, {}
+    t0 = time.perf_counter()
+    for key, (ids, p) in [*img.items(), *((k, (v, None)) for k, v in txt.items())]:
+        futs[key] = bat.submit(ids, max_new_tokens=IMG["max_tokens"], pixel_values=p,
+                               on_token=lambda _, k=key, t=time.perf_counter(): first.setdefault(
+                                   k, time.perf_counter() - t))
+    bat.drain()
+    wall = time.perf_counter() - t0
+    got = {k: f.result(timeout=60) for k, f in futs.items()}
+    scaffold = QUESTION + '\n{"answer": "'
+    n_scaffold = len(tok.encode(scaffold))
+    firsts = [tok.encode(scaffold + c)[n_scaffold] for c in "ABCD"]
+    mcq_ids = mm.build_mm_prompt(tok.encode(scaffold), bos_id=tok.bos_id, n_images=TOP_K)
+    t1 = time.perf_counter()
+    logits = mm.next_token_logits([mcq_ids], pix[None])[0]
+    mcq_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    decode = (bat.decode_tokens, bat.decode_s, bat.decode_steps)
+    del bat
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(logits.shape == (mm.cfg.text.vocab_size,) and bool(np.isfinite(logits).all()),
+            f"[img-{tag}] MCQ logits: shape {logits.shape}, not all finite")
+    answer = "ABCD"[int(np.argmax(logits[firsts]))]
+
+    # the isolated engines, each step's top-two logit gap recorded as it decodes
+    notes = []
+    eng.record_top2 = True
+    for key, (ids, p) in [*img.items(), *((k, (v, None)) for k, v in txt.items())]:
+        want = (eng.generate([ids], max_new_tokens=IMG["max_tokens"], eos_id=tok.eos_id)
+                if p is None else mm.generate([ids], p[None], max_new_tokens=IMG["max_tokens"],
+                                              eos_id=tok.eos_id))[0]
+        gaps = eng.top2_gaps[0]
+        notes.append(check_greedy(tag, key, got[key], want, lambda i, g=gaps: float(g[i])))
+    eng.record_top2 = False
+    tokens, secs, steps = decode
+    print(f"[img-{tag}] {eng.weight_dtype} LM weights: image requests "
+          f"({', '.join(f'{k}: {len(v[0])} tokens' for k, v in img.items())}) and text requests "
+          f"({', '.join(f'{len(v)} tokens' for v in txt.values())}) submitted at once, in that "
+          f"order, served in {wall:.2f} s | TTFT ms "
+          f"{ {k: round(v * 1e3, 1) for k, v in first.items()} } | decode "
+          f"{tokens / secs:.1f} tokens/s over {IMG['slots']} slots, "
+          f"{1e3 * secs / max(steps, 1):.1f} ms a step | MCQ over {TOP_K} pages: {answer!r} in "
+          f"{mcq_ms:.1f} ms | peak {peak:.1f} GiB | greedy vs the isolated engines: "
+          f"{'; '.join(notes)} | {card}", flush=True)
+    print(f"[img-{tag}] launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def phase_images(torch, seed: int, card: str, checkpoint: dict, top_pages):
+    """Phase 7: image-context serving at full width on the weights of
+    phase 3's checkpoint (reloaded): ``PaliGemmaEngine`` on the retriever's
+    own tower and projector, its LM the text engine's, in the paged batcher;
+    run (a) with bf16 LM weights, run (b) with int8."""
+    import numpy as np
+    from multimodal_colpali_tpu_torch.generation import (
+        GemmaDecodeEngine, ModuloTokenizer, PaliGemmaEngine)
+    from multimodal_colpali_tpu_torch.models import load_retriever
+    from multimodal_colpali_tpu_torch.models.convert import engine_params_from_state_dict
+
+    bf16 = torch.bfloat16
+    retr = load_retriever(COLPALI, device="cuda", dtype=bf16, checkpoint_dir=checkpoint["path"])
+    cfg = retr.model.cfg
+    pages = synthetic_pages(N_PAGES, cfg.vision.image_size, seed)
+    pix = retr.processor.image_preprocessor([pages[i] for i in top_pages])   # [5, H, W, 3]
+    tok = ModuloTokenizer(cfg.text.vocab_size)
+    rng = np.random.default_rng(seed + 11)
+    text_prompts = [mcq_prompt(rng, 300), mcq_prompt(rng, 700)]
+    runs = {}
+    for tag, weight_dtype in (("a", "native"), ("b", "int8")):
+        engine = GemmaDecodeEngine(cfg.text, engine_params_from_state_dict(retr.model.state_dict()),
+                                   dtype=bf16, weight_dtype=weight_dtype, device="cuda")
+        mm = PaliGemmaEngine(retr.model, lm=engine)
+        runs[tag] = image_run(torch, mm, tok, tag, pix, text_prompts, card)
+        del mm, engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del retr
+    gc.collect()
+    torch.cuda.empty_cache()
+    for tag in ("a", "b"):
+        require(runs[tag]["attention.tensor_core"] > 0 and runs[tag]["paged_attention.tensor_core"] > 0,
+                f"(img-{tag}) never launched K2's or K7a's tensor-core path: {runs[tag]}")
+    require(runs["b"]["int8_matmul_kn.decode"] > 0 and runs["b"]["int8_matmul_kn.prefill"] > 0
+            and runs["b"]["int8_matmul_nk"] > 0,
+            f"(img-b) never launched both of K8a's tiles and K8b: {runs['b']}")
+    require(runs["a"]["int8_matmul_kn"] == 0, f"(img-a) ran a projection as int8: {runs['a']}")
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1656,19 +2078,29 @@ def main(argv=None) -> int:
 
     card = phase_device(torch, _build)
     kernels = phase_kernels(torch, args.seed)
-    colpali = phase_retrieval(torch, "vidore/colpali-v1.3", args.seed, card, "main",
-                              device_preprocess=True,
-                              path=("maxsim", "maxsim.tensor_core", "attention",
-                                    "attention.tensor_core", "normalize"),
-                              absent=("vit_layer",))   # SigLIP-So400m is not fused
+    from multimodal_colpali_tpu_torch.models.registry import RETRIEVER_CONFIGS
+
+    (REPO / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="colpali-ckpt-", dir=REPO / "build")
+    try:
+        ckpt = write_colpali_checkpoint(torch, RETRIEVER_CONFIGS[COLPALI](), ckpt_dir, args.seed)
+        colpali, top_pages = phase_retrieval(
+            torch, COLPALI, args.seed, card, "main", device_preprocess=True,
+            path=("maxsim", "maxsim.tensor_core", "attention", "attention.tensor_core",
+                  "normalize"),
+            absent=("vit_layer",),   # SigLIP-So400m is not fused
+            checkpoint=ckpt)
+        images = phase_images(torch, args.seed, card, ckpt, top_pages)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     colsmol = phase_colsmol(torch, args.seed, card)
     gen = phase_generation(torch, args.seed, card)
     # ColFlor normalizes on the host; its BART attention has a mask, so no K2
-    colflor = phase_retrieval(torch, "ahmed-masry/ColFlor", args.seed, card, "colflor",
-                              device_preprocess=False,
-                              path=("window_attention", "window_attention.ring", "maxsim",
-                                    "maxsim.tensor_core"),
-                              absent=("attention", "normalize"))
+    colflor, _ = phase_retrieval(torch, "ahmed-masry/ColFlor", args.seed, card, "colflor",
+                                 device_preprocess=False,
+                                 path=("window_attention", "window_attention.ring", "maxsim",
+                                       "maxsim.tensor_core"),
+                                 absent=("attention", "normalize"))
 
     jax_ops = "multimodal_colpali_tpu/ops"
     meta = {
@@ -1705,7 +2137,8 @@ def main(argv=None) -> int:
     meta["int8_matmul_kn.prefill"] = meta["int8_matmul_kn"]
     meta["int4_matmul_kn.prefill"] = meta["int4_matmul_kn"]
     tile_of = {"int8_matmul_kn": "int8_matmul_kn.decode", "int4_matmul_kn": "int4_matmul_kn.decode"}
-    paths = [colpali, colsmol, gen["a"], gen["b"], gen["c"], gen["d"], colflor]
+    paths = [colpali, images["a"], images["b"], colsmol, gen["a"], gen["b"], gen["c"],
+             gen["d"], colflor]
     rows = [dict(name=name, route=route, source=src, replaces=rep,
                  launches=sum(p[tile_of.get(name, name)] for p in paths), **kernels[name])
             for name, (route, src, rep) in meta.items()]

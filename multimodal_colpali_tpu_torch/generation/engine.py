@@ -1,5 +1,6 @@
-"""Autoregressive decode engine over a Gemma LM (counterpart of
-``multimodal_colpali_tpu/generation/engine.py:69-609, :853-898``).
+"""Autoregressive decode engine over a Gemma LM, and image-conditioned
+generation on the ColPali / PaliGemma weights (counterpart of
+``multimodal_colpali_tpu/generation/engine.py:69-609, :649-898``).
 
 The engine serves the text LM of a Gemma-1 (ColPali's PaliGemma LM) or
 Gemma-3 parameter tree: the JAX layout, kept as a nested dict (``embed`` and
@@ -19,6 +20,11 @@ step; where the JAX engine jits a whole generation, this one runs eagerly:
   holds: a (prompt, seed, temperature) triple gives the same stream whatever
   the slot, the batch or the admission timing, and ``generate`` and the
   batchers agree. Greedy streams and ``filter_top_p_top_k`` equal JAX's.
+
+``PaliGemmaEngine`` puts page images in front of the prompt: the retriever's
+SigLIP tower (K2 on the card) and projector fill the ``<image>`` slots, the
+prompt attends bidirectionally with 1-indexed positions, and generation runs
+through a ``GemmaDecodeEngine`` over the same text weights.
 
 Projections go through ``ops/quant.q_dense`` (K8a under
 ``weight_dtype="int8"``, K9 under ``"int4"``), the tied LM head through
@@ -45,8 +51,8 @@ from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
 
 LOGPROB_K = 5   # top alternatives recorded per decode step (OpenAI cap)
 
-_NOT_PORTED_BODY = ("the Qwen2/Llama decode body (generation/engine.py:276-339) is not "
-                    "ported yet; see ROADMAP.md queue 1 item 8")
+_NOT_PORTED_BODY = ("the Qwen2/Llama decode body (Qwen2DecodeEngine, LlamaDecodeEngine of "
+                    "generation/engine.py) is not ported yet")
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -276,14 +282,19 @@ class GemmaDecodeEngine:
     mesh: Any = None
     weight_dtype: str = "native"     # "native" | "int8" | "int4"
     device: Any = "cuda"
+    # with record_top2 set, every generate (this engine's and a PaliGemmaEngine's
+    # over it) leaves the gap between the top two logits of each step in
+    # top2_gaps [B, max_new_tokens]: how close a greedy choice came to a tie
+    record_top2 = False
+    top2_gaps = None
 
     def __post_init__(self):
         if self.weight_dtype not in ("native", "int8", "int4"):
             raise ValueError(f"weight_dtype must be 'native', 'int8' or 'int4', "
                              f"got {self.weight_dtype!r}")
         if self.mesh is not None:
-            raise NotImplementedError("tensor-parallel meshes are not ported yet; "
-                                      "see ROADMAP.md queue 1 item 8")
+            raise NotImplementedError("tensor-parallel meshes (the mesh= path of "
+                                      "generation/engine.py) are not ported yet")
         self.device = resolve_device(self.device)
         keep = {"embed": self.params["embed"], "language_model": self.params["language_model"]}
         emb = keep["embed"]["embed_tokens"]
@@ -389,21 +400,35 @@ class GemmaDecodeEngine:
         positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
         kv_valid = torch.cat([mask.bool(), torch.ones((b, max_new_tokens), dtype=torch.bool,
                                                        device=self.device)], dim=1)
+        hidden, _ = self._chunk(p, self._embed(p, ids), positions, kc, vc, 0, kv_valid)
+        return self._decode(hidden[:, -1], positions[:, -1], kc, vc, s, kv_valid,
+                            max_new_tokens, temperature, eos_id, pad_id, seed, top_p, top_k)
+
+    def _decode(self, last_hidden, last_pos, kc, vc, s: int, kv_valid, max_new_tokens: int,
+                temperature: float, eos_id: int, pad_id: int, seed: int, top_p: float,
+                top_k: int) -> List[List[int]]:
+        """Sample from the prefill's last hidden state, then decode one token
+        a step into caches ``[B, s + max_new_tokens]`` at rows ``s``...;
+        rows cut at ``eos_id``."""
+        p = self.params
+        b = last_hidden.shape[0]
         vec = lambda v, dt: torch.full((b,), v, dtype=dt, device=self.device)  # noqa: E731
         temp, tp, tk = (vec(temperature, torch.float32), vec(top_p, torch.float32),
                         vec(top_k, torch.int64))
         seeds = vec(seed, torch.int64)
         use_filter = top_p < 1.0 or top_k > 0
+        gaps = []
 
         def sample(logits, step):
+            if self.record_top2:
+                top2 = torch.topk(logits, 2, dim=-1).values
+                gaps.append(top2[:, 0] - top2[:, 1])
             if temperature <= 0.0:
                 return torch.argmax(logits, dim=-1).to(torch.int32)
             return sample_per_slot(logits, seeds, vec(step, torch.int64), temp, tp, tk,
                                    use_filter=use_filter)
 
-        hidden, _ = self._chunk(p, self._embed(p, ids), positions, kc, vc, 0, kv_valid)
-        tok = sample(self._logits(p, hidden[:, -1]), 0)
-        last_pos = positions[:, -1]
+        tok = sample(self._logits(p, last_hidden), 0)
         done = tok == eos_id
         out = [tok]
         for step in range(1, max_new_tokens):
@@ -416,6 +441,8 @@ class GemmaDecodeEngine:
             out.append(nxt)
             tok = nxt
         rows = torch.stack(out, dim=1).cpu().numpy()
+        if gaps:
+            self.top2_gaps = torch.stack(gaps, dim=1).cpu().numpy()
         results: List[List[int]] = []
         for row in rows:
             toks = row.tolist()
@@ -423,6 +450,109 @@ class GemmaDecodeEngine:
                 toks = toks[: toks.index(eos_id)]
             results.append(toks)
         return results
+
+
+class PaliGemmaEngine:
+    """Image-conditioned generation on the ColPali / PaliGemma weights
+    (engine.py:649-850).
+
+    A ColPali retriever already holds the whole PaliGemma stack (SigLIP
+    tower, projector, Gemma LM). This engine runs the retriever's own tower
+    and projector modules (no copy of their weights; the tower's attention
+    is K2 on a CUDA tensor) and decodes through ``lm``, the
+    ``GemmaDecodeEngine`` that serves text beside it over the same weights
+    (its tree is shared, quantized or not; build it from
+    ``convert.engine_params_from_state_dict(model.state_dict())``). Page images
+    lead the prompt (:meth:`build_mm_prompt`); the prompt attends
+    bidirectionally, generated tokens causally, and positions are 1-indexed,
+    as in HF PaliGemma. ``pixel_values`` are normalized NHWC, ``[B, H, W,
+    3]`` or ``[B, N, H, W, 3]`` for N images a row."""
+
+    batcher_compatible = True
+    image_rank = 3          # one image is [H, W, 3]
+
+    def __init__(self, model: Any, lm: GemmaDecodeEngine):
+        self.cfg = model.cfg
+        self.vision_tower = model.vision_tower
+        self.projector = model.multi_modal_projector
+        self.lm = lm
+
+    def _pixels(self, pixel_values) -> torch.Tensor:
+        if not isinstance(pixel_values, torch.Tensor):
+            pixel_values = torch.from_numpy(np.asarray(pixel_values))
+        return pixel_values.to(self.lm.device)
+
+    def _merged_embeds(self, ids: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+        """Token embeddings with the projected features of each row's images
+        in its ``<image>`` slots, image after image (engine.py:672-709)."""
+        c, eng = self.cfg, self.lm
+        is_img = ids == c.image_token_id
+        embeds = q_take(eng.params["embed"]["embed_tokens"],
+                        torch.where(is_img, torch.zeros_like(ids), ids), eng.dtype)
+        if pix.dim() == 4:
+            pix = pix[:, None]                       # [B, 1, H, W, 3]
+        b, n_img = pix.shape[:2]
+        vis = self.vision_tower(pix.reshape((b * n_img,) + tuple(pix.shape[2:])).to(eng.dtype))
+        vis = vis.reshape(b, n_img * vis.shape[1], vis.shape[-1])
+        img = self.projector(vis)
+        img = img / torch.tensor(c.text.hidden_size ** 0.5, dtype=img.dtype, device=img.device)
+        img_pos = (torch.cumsum(is_img.long(), dim=1) - 1).clamp(0, img.shape[1] - 1)
+        gathered = torch.gather(img, 1, img_pos[..., None].expand(-1, -1, img.shape[-1]))
+        embeds = torch.where(is_img[..., None], gathered, embeds)
+        return (embeds.float() * c.text.hidden_size ** 0.5).to(eng.dtype)
+
+    def prefill(self, ids: torch.Tensor, mask: torch.Tensor, pix: torch.Tensor, kc, vc):
+        """The bidirectional prompt over ``ids``/``mask [B, s]`` into the
+        caches' first ``s`` rows -> (hidden, (k, v), 1-indexed positions)."""
+        eng = self.lm
+        positions = torch.cumsum(mask, dim=1)
+        t = kc[0].shape[1]
+        valid = torch.zeros((ids.shape[0], t), dtype=torch.bool, device=eng.device)
+        valid[:, :ids.shape[1]] = mask.bool()
+        hidden, kv = eng._chunk(eng.params, self._merged_embeds(ids, pix), positions, kc, vc,
+                                0, valid, causal=False)
+        return hidden, kv, positions
+
+    @torch.inference_mode()
+    def generate(self, prompts: Sequence[Sequence[int]], pixel_values,
+                 max_new_tokens: int = 32, temperature: float = 0.0, eos_id: int = -1,
+                 pad_id: int = 0, seed: int = 0, bucket: int = 16, top_p: float = 1.0,
+                 top_k: int = 0) -> List[List[int]]:
+        """Image-conditioned continuations (engine.py:769-800) of prompts that
+        already hold their image tokens (:meth:`build_mm_prompt`)."""
+        eng = self.lm
+        s = max(max(len(pr) for pr in prompts), 1)
+        s = ((s + bucket - 1) // bucket) * bucket
+        b = len(prompts)
+        ids, mask = (eng._tensor(a) for a in left_pad(prompts, s, pad_id))
+        kc, vc = eng._caches(b, s + max_new_tokens)
+        hidden, _, positions = self.prefill(ids, mask, self._pixels(pixel_values), kc, vc)
+        kv_valid = torch.cat([mask.bool(), torch.ones((b, max_new_tokens), dtype=torch.bool,
+                                                       device=eng.device)], dim=1)
+        return eng._decode(hidden[:, -1], positions[:, -1], kc, vc, s, kv_valid,
+                           max_new_tokens, temperature, eos_id, pad_id, seed, top_p, top_k)
+
+    @torch.inference_mode()
+    def next_token_logits(self, prompts: Sequence[Sequence[int]], pixel_values,
+                          pad_id: int = 0, bucket: int = 16) -> np.ndarray:
+        """Image-conditioned prefill-only float32 logits ``[B, V]``
+        (engine.py:802-836), the constrained-decoding surface."""
+        eng = self.lm
+        s = max(max(len(pr) for pr in prompts), 1)
+        s = ((s + bucket - 1) // bucket) * bucket
+        ids, mask = (eng._tensor(a) for a in left_pad(prompts, s, pad_id))
+        kc, vc = eng._caches(len(prompts), s)
+        hidden, _, _ = self.prefill(ids, mask, self._pixels(pixel_values), kc, vc)
+        return eng._logits(eng.params, hidden[:, -1]).cpu().numpy()
+
+    def build_mm_prompt(self, text_ids: Sequence[int], bos_id: int = 2,
+                        newline_ids: Sequence[int] = (), n_images: int = 1) -> List[int]:
+        """PaliGemma's layout (engine.py:838-850): the image tokens of every
+        image in order, then bos, the text and the prefix's closing newline
+        (its ids, or part of ``text_ids``)."""
+        c = self.cfg
+        return ([c.image_token_id] * (c.vision.num_patches * max(1, n_images))
+                + [bos_id] + list(text_ids) + list(newline_ids))
 
 
 def _detect_quantized_dtype(lm_tree: Any) -> str:

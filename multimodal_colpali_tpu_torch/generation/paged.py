@@ -15,7 +15,10 @@ requests use (vLLM's PagedAttention memory model). On top of the parent:
   content (refcounted, with an LRU of unreferenced cached pages), and a
   prompt with a cached prefix prefills only its tail;
 - ``kv_dtype="int8"`` keeps the pools as int8 codes plus one float32 scale
-  per (token, kv head).
+  per (token, kv head);
+- image requests (``mm_engine``, a ``PaliGemmaEngine``) page like text ones
+  once prefilled, but never share prefix pages: PaliGemma's prompt attends
+  bidirectionally, so a page's K/V depend on the whole prompt (paged.py:127-137).
 
 The decode step is the parent's layer math with two substitutions: K/V rows
 go to (page, row) from the block table, updated in place with ``index_put_``
@@ -251,7 +254,7 @@ class PagedContinuousBatcher(ContinuousBatcher):
         if -(-worst_rows // self.page) > min(usable, self.NB):
             return False
         n_reused = reused_in_lru = 0
-        if self.prefix_caching and tokens is not None:
+        if self.prefix_caching and tokens is not None and not mm:
             keys = self._chain_keys(tokens, ctx)
             n_reused = self._reuse_depth(keys, n_prompt)
             reused_in_lru = sum(self._key_page[k] in self._cache_lru for k in keys[:n_reused])
@@ -268,12 +271,13 @@ class PagedContinuousBatcher(ContinuousBatcher):
         of a prefix prefill) into the slot's pages, valid tokens first:
         logical token t lands at page t // page, row t % page. Cached full
         pages are attached read-only and newly written full pages registered
-        under their chain keys (paged.py:452-562)."""
+        under their chain keys (paged.py:452-562). An image request
+        (``ctx``, its pixel digest) shares no page."""
         page = self.page
         n_pages = -(-n_prompt // page)
         keys: List[Any] = []
         n_reused = 0
-        if self.prefix_caching and tokens is not None:
+        if self.prefix_caching and tokens is not None and ctx is None:
             keys = hint[3] if hint is not None else self._chain_keys(tokens, ctx)
             if hint is not None:
                 n_reused = hint[1]

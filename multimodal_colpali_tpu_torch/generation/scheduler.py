@@ -12,8 +12,11 @@ concurrency.
 
 Covered here: prefill into a slot and chunked decode, the exact-prompt
 prefill cache, chunked prefill, ``max_queue`` and ``admission_timeout``,
-logprobs and streaming callbacks. Image requests (``mm_engine``,
-cross-attention engines) are not ported yet and raise.
+logprobs and streaming callbacks, and image requests through a
+``PaliGemmaEngine`` (``mm_engine``): such a request prefills through the
+engine's bidirectional image prefix and then decodes in the same slot batch
+as the text requests. Engines that decode with cross-attention (Mllama) are
+not ported and are refused.
 
 The dense per-slot caches ``[B, max_seq_len, Hkv, D]`` are made by
 ``_init_kv``, which the paged batcher replaces with its page pools, so a
@@ -25,6 +28,7 @@ an autograd graph alive.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import queue
 import threading
 import time
@@ -41,8 +45,8 @@ from multimodal_colpali_tpu_torch.generation.engine import (
     sample_per_slot)
 from multimodal_colpali_tpu_torch.models import layers as L
 
-_MM_NOT_PORTED = ("image requests (mm_engine: PaliGemma, Gemma-3 MM, Qwen2-VL, LLaVA-NeXT, "
-                  "Mllama) are not ported yet; see ROADMAP.md queue 1 item 8")
+_CROSS_NOT_PORTED = ("decodes with per-step cross-attention (the Mllama engine of "
+                     "generation/mllama), which is not ported")
 
 
 class AdmissionQueueFull(RuntimeError):
@@ -65,8 +69,19 @@ class _Request:
     top_p: float = 1.0
     top_k: int = 0
     want_logprobs: int = 0           # 0 = off; else keep the top-N alternatives
+    pixel_values: Optional[torch.Tensor] = None   # [N, H, W, 3]: an image request
+    pix_digest: Optional[str] = None               # _pixel_digest(pixel_values)
     lps: List[float] = dataclasses.field(default_factory=list)
     tops: List[Any] = dataclasses.field(default_factory=list)
+
+
+def _pixel_digest(pix: torch.Tensor) -> str:
+    """SHA-1 of an image request's pixels (dtype, shape and bytes): its
+    key in the prefill cache and in the paged batcher's page chains."""
+    host = pix.detach().contiguous().cpu()
+    h = hashlib.sha1(f"{host.dtype} {tuple(host.shape)}".encode())
+    h.update(host.reshape(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
 
 
 class ContinuousBatcher:
@@ -81,10 +96,19 @@ class ContinuousBatcher:
         fails with ``AdmissionQueueFull``); ``admission_timeout > 0`` fails a
         request still queued after that many seconds with ``TimeoutError``.
         ``prefill_chunk > 0`` prefills text prompts longer than that in
-        segments, one per scheduling point (chunked prefill)."""
-        if mm_engine is not None:
-            raise NotImplementedError(_MM_NOT_PORTED)
+        segments, one per scheduling point (chunked prefill).
+
+        ``mm_engine`` (a ``PaliGemmaEngine`` over the same weights and dtype
+        as ``engine``) takes image requests (``submit(pixel_values=)``); an
+        engine that says it is not batcher-compatible, or that decodes with
+        cross-attention, is refused (scheduler.py:113-128)."""
+        if mm_engine is not None and not getattr(mm_engine, "batcher_compatible", True):
+            raise ValueError(f"{type(mm_engine).__name__} is not batcher-compatible; serve its "
+                             f"image requests through the engine's own generate")
+        if getattr(mm_engine, "cross_decode", False):
+            raise NotImplementedError(f"{type(mm_engine).__name__} {_CROSS_NOT_PORTED}")
         self.engine = engine
+        self.mm_engine = mm_engine
         self.cfg = engine.cfg
         self.device = engine.device
         self.B = batch_slots
@@ -158,19 +182,78 @@ class ContinuousBatcher:
                                     kc, vc, 0, mask.bool())
         return k, v, eng._logits(eng.params, hidden[:, -1])[0], int(positions[0, -1])
 
-    def _prefill_raw(self, tokens, s):
-        """Whole-prompt prefill through the exact-prompt LRU cache."""
-        key = (s, tuple(tokens))
+    def _mm_prefill(self, tokens: Sequence[int], s: int, pixel_values: torch.Tensor):
+        """An image prompt left-padded to ``s`` through the PaliGemma prefix
+        (scheduler.py:255-306): merged image embeddings, bidirectional
+        attention, 1-indexed positions."""
+        mm = self.mm_engine
+        ids, mask = (self._tensor(a) for a in left_pad([tokens], s, self.pad_id))
+        kc, vc = mm.lm._caches(1, s)
+        hidden, (k, v), positions = mm.prefill(ids, mask, mm._pixels(pixel_values)[None],
+                                               kc, vc)
+        return k, v, mm.lm._logits(mm.lm.params, hidden[:, -1])[0], int(positions[0, -1])
+
+    def _full_prefill(self, req: _Request, prompt_eff, s: int):
+        """Whole-prompt prefill (scheduler.py:537-559). A resumed image
+        request extends its prompt causally instead (:meth:`_mm_resume_prefill`)."""
+        if req.pixel_values is not None and req.tokens:
+            return self._mm_resume_prefill(req, s)
+        return self._prefill_raw(prompt_eff, s, req.pixel_values, req.pix_digest)
+
+    def _prefill_raw(self, tokens, s, pixel_values=None, pix_digest=None):
+        """Whole-prompt prefill through the exact-prompt LRU cache, keyed by
+        the pixels' digest too."""
+        key = (s, tuple(tokens), pix_digest)
         if key in self._prefill_cache:
             self._prefill_cache.move_to_end(key)
             self.prefill_cache_hits += 1
             return self._prefill_cache[key]
-        out = self._prefill(tokens, s)
+        out = (self._prefill(tokens, s) if pixel_values is None
+               else self._mm_prefill(tokens, s, pixel_values))
         if self._prefill_cache_entries > 0:
             self._prefill_cache[key] = out
             while len(self._prefill_cache) > self._prefill_cache_entries:
                 self._prefill_cache.popitem(last=False)
         return out
+
+    def _mm_resume_prefill(self, req: _Request, s: int):
+        """A preempted image request's prompt + generated tokens
+        (scheduler.py:594-667): the prompt re-prefills bidirectionally (an LRU
+        hit, usually), then the generated tokens extend it causally at their
+        decode positions, as the uninterrupted decode computed them. Returns
+        the rows left-padded to ``s`` over the whole sequence."""
+        prompt, gen = req.prompt, list(req.tokens)
+        n_p, n_gen = len(prompt), len(gen)
+        s1 = max(((n_p + self.bucket - 1) // self.bucket) * self.bucket, self.bucket)
+        k1, v1, _, _ = self._prefill_raw(prompt, s1, req.pixel_values, req.pix_digest)
+        s2 = max(((n_gen + self.bucket - 1) // self.bucket) * self.bucket, self.bucket)
+        lm, c, dev = self.mm_engine.lm, self.cfg, self.device
+        shape = (1, n_p + s2, c.num_key_value_heads, c.head_dim)
+        kc, vc = [], []
+        for a, b in zip(k1, v1):
+            kc.append(torch.zeros(shape, dtype=lm.dtype, device=dev))
+            vc.append(torch.zeros(shape, dtype=lm.dtype, device=dev))
+            kc[-1][:, :n_p] = a[:, s1 - n_p:]
+            vc[-1][:, :n_p] = b[:, s1 - n_p:]
+        mask2 = torch.zeros((1, s2), dtype=torch.int64, device=dev)
+        mask2[0, :n_gen] = 1
+        ids2 = torch.full((1, s2), self.pad_id, dtype=torch.int64, device=dev)
+        ids2[0, :n_gen] = self._tensor(gen, torch.int64)
+        positions = n_p + torch.cumsum(mask2, dim=1)     # the prompt's last sits at n_p
+        kv_valid = torch.cat([torch.ones((1, n_p), dtype=torch.bool, device=dev),
+                              mask2.bool()], dim=1)
+        hidden, (k2, v2) = lm._chunk(lm.params, lm._embed(lm.params, ids2), positions, kc, vc,
+                                     n_p, kv_valid)
+        n_eff = n_p + n_gen
+        outk, outv = [], []
+        for a2, b2, a1, b1 in zip(k2, v2, k1, v1):
+            for out, new, old in ((outk, a2, a1), (outv, b2, b1)):
+                rows = torch.zeros((1, s) + shape[2:], dtype=lm.dtype, device=dev)
+                rows[:, s - n_eff: s - n_gen] = old[:, s1 - n_p:]
+                rows[:, s - n_gen:] = new[:, n_p: n_p + n_gen]
+                out.append(rows)
+        return (tuple(outk), tuple(outv), lm._logits(lm.params, hidden[:, n_gen - 1])[0],
+                int(positions[0, n_gen - 1]))
 
     # -- decode -----------------------------------------------------------------
 
@@ -255,14 +338,28 @@ class ContinuousBatcher:
                 f"prompt of {len(prompt)} tokens buckets to {s} >= max_seq_len {self.T}"))
             return fut
         if pixel_values is not None:
-            fut.set_exception(NotImplementedError(_MM_NOT_PORTED))
-            return fut
+            if self.mm_engine is None:
+                fut.set_exception(ValueError("multimodal request but no mm_engine configured"))
+                return fut
+            # one image [H, W, 3] or a stack [N, H, W, 3] of N context images;
+            # the prompt carries N * num_patches image tokens. The pixels stay
+            # where they are (a card tensor is not copied back and forth); the
+            # digest is taken once, here, off the scheduling loop.
+            if not isinstance(pixel_values, torch.Tensor):
+                pixel_values = torch.from_numpy(np.asarray(pixel_values))
+            if pixel_values.dim() == getattr(self.mm_engine, "image_rank", 3):
+                pixel_values = pixel_values[None]
         self._queue.put(_Request(
             list(prompt), max_new_tokens, float(temperature), seed, fut,
             eos_id=self.eos_id if eos_id is None else eos_id, t_submit=time.monotonic(),
             on_token=on_token, top_p=float(top_p), top_k=int(top_k),
-            want_logprobs=max(0, min(int(logprobs), LOGPROB_K))))
+            want_logprobs=max(0, min(int(logprobs), LOGPROB_K)), pixel_values=pixel_values,
+            pix_digest=None if pixel_values is None else _pixel_digest(pixel_values)))
         return fut
+
+    @property
+    def supports_multimodal(self) -> bool:
+        return self.mm_engine is not None
 
     def _pop_live(self) -> Optional[_Request]:
         """Next queued request within the admission deadline; expired ones
@@ -284,7 +381,7 @@ class ContinuousBatcher:
 
     def _prefix_prefill(self, prompt_eff, ctx, mm):
         """Prefill only the prompt tail against cached prefix KV; None runs
-        the whole-prompt prefill."""
+        the whole-prompt prefill. ``ctx`` is an image request's pixel digest."""
         return None
 
     def _can_admit(self, s: int, n_prompt: int, budget: int, tokens=None, mm: bool = False,
@@ -362,8 +459,9 @@ class ContinuousBatcher:
             prompt_eff = req.prompt + req.tokens
             s = max(((len(prompt_eff) + self.bucket - 1) // self.bucket) * self.bucket,
                     self.bucket)
+            mm = req.pixel_values is not None
             if not self._can_admit(s, len(prompt_eff), req.max_new_tokens - len(req.tokens),
-                                   tokens=prompt_eff):
+                                   tokens=prompt_eff, mm=mm, ctx=req.pix_digest):
                 if not any(r is not None for r in self._slots):
                     req.future.set_exception(ValueError(
                         f"prompt of {len(prompt_eff)} tokens (+ decode budget) exceeds the "
@@ -372,21 +470,22 @@ class ContinuousBatcher:
                 self._readmit.insert(0, req)
                 return
             hint = None
-            pre = self._prefix_prefill(prompt_eff, None, False)
+            pre = self._prefix_prefill(prompt_eff, req.pix_digest, mm)
             if pre is not None:
                 k, v, logits, last_pos, hint = pre
-            elif (self.prefill_chunk and len(prompt_eff) > self.prefill_chunk
+            elif (not mm and self.prefill_chunk and len(prompt_eff) > self.prefill_chunk
                   and self._chunked is None):
                 self._chunked = {"req": req, "s": s, "n": len(prompt_eff),
                                  "tokens": prompt_eff, "j": 0, "kv": None, "out": None}
                 self._advance_chunked()
                 continue   # the slot stays free for other admissions
             else:
-                k, v, logits, last_pos = self._prefill_raw(prompt_eff, s)
-            self._finish_admission(slot, req, s, prompt_eff, k, v, logits, last_pos, hint)
+                k, v, logits, last_pos = self._full_prefill(req, prompt_eff, s)
+            self._finish_admission(slot, req, s, prompt_eff, k, v, logits, last_pos, hint,
+                                   req.pix_digest)
 
     def _finish_admission(self, slot, req, s, prompt_eff, k, v, logits, last_pos,
-                          hint) -> None:
+                          hint, ctx=None) -> None:
         """Sample the first token from the prefill logits and install the
         request; a resumed request samples at its own step index."""
         n0 = len(req.tokens)
@@ -411,7 +510,8 @@ class ContinuousBatcher:
         self._slots[slot] = req
         budget = min(req.max_new_tokens - n0, self._slot_capacity(s))
         done0 = tok0 == req.eos_id or budget <= 1
-        self._install_slot(slot, s, len(prompt_eff), k, v, tokens=prompt_eff, hint=hint)
+        self._install_slot(slot, s, len(prompt_eff), k, v, tokens=prompt_eff, ctx=ctx,
+                           hint=hint)
         self._tok[slot] = tok0
         self._pos[slot] = int(last_pos) + 1
         self._temp[slot] = req.temperature
@@ -572,13 +672,15 @@ class ContinuousBatcher:
         if self._thread:
             self._thread.join(timeout=60)
 
-    # GenerationServer protocol: generate through the batcher.
+    # GenerationServer protocol: generate through the batcher. ``pixel_values``
+    # holds one image array (or None) a prompt, built with build_mm_prompt.
     def generate(self, prompts, max_new_tokens=64, temperature=0.0, eos_id=None,
                  pad_id=None, seed=0, pixel_values=None, top_p=1.0, top_k=0, **_):
-        if pixel_values is not None and any(p is not None for p in pixel_values):
-            raise NotImplementedError(_MM_NOT_PORTED)
-        futs = [self.submit(p, max_new_tokens, temperature, seed, eos_id=eos_id, top_p=top_p,
-                            top_k=top_k) for p in prompts]
+        if pixel_values is None:
+            pixel_values = [None] * len(prompts)
+        futs = [self.submit(p, max_new_tokens, temperature, seed, eos_id=eos_id,
+                            pixel_values=pix, top_p=top_p, top_k=top_k)
+                for p, pix in zip(prompts, pixel_values)]
         if not self._serving:
             self.drain()
         return [f.result(timeout=600) for f in futs]

@@ -6,17 +6,20 @@ The reference's generation tier is a vLLM container exposing
 port's ``GemmaDecodeEngine`` or one of its batchers, so a GPU host serves
 its own generation. Point an OpenAI client's ``base_url`` at it.
 
-Scope: chat completions with string or text-part content, ``max_tokens``,
-``temperature``, ``top_p``, ``top_k``, ``seed``, ``logprobs``, ``stop`` via
-the tokenizer's eos, constrained enum outputs (``response_format``), SSE
-streaming (``stream: true``, per token with a batcher), 429/504
-back-pressure from the batcher's bounded queue and admission deadline, and
-``/health``. Image content is answered with HTTP 400: image-conditioned
-engines are not ported yet.
+Scope: chat completions with string, text-part and ``image_url`` content
+(base64 data URLs, decoded with Pillow where it is installed; with an
+``mm_engine``, every image of a request conditions its answer),
+``max_tokens``, ``temperature``, ``top_p``, ``top_k``, ``seed``,
+``logprobs``, ``stop`` via the tokenizer's eos, constrained enum outputs
+(``response_format``), SSE streaming (``stream: true``, per token with a
+batcher), 429/504 back-pressure from the batcher's bounded queue and
+admission deadline, and ``/health``.
 """
 
 from __future__ import annotations
 
+import base64
+import io
 import json
 import threading
 import time
@@ -34,15 +37,27 @@ def render_chat_prompt(messages: List[Dict[str, Any]]) -> str:
     return extract_chat_content(messages)[0]
 
 
-IMAGES_NOT_PORTED = ("image content is not served yet: the image-conditioned engines "
-                     "(PaliGemma, Gemma-3 MM) wait for a later slice of the port; "
-                     "see ROADMAP.md queue 1 item 8")
+def _decode_image(url: str):
+    """A base64 data URL -> an RGB PIL image, or None where it does not
+    decode (or Pillow is missing): such a part is skipped, as in
+    server.py:53-60."""
+    if not url.startswith("data:"):
+        return None
+    try:
+        from PIL import Image
+
+        raw = base64.b64decode(url.split(",", 1)[1])
+        return Image.open(io.BytesIO(raw)).convert("RGB")
+    except Exception:  # noqa: BLE001 - as the JAX server: a bad image is skipped
+        return None
 
 
 def extract_chat_content(messages: List[Dict[str, Any]]):
-    """-> (prompt text, []) from OpenAI chat messages. An ``image_url`` part
-    raises ValueError (HTTP 400): images are not ported yet."""
+    """-> (prompt text, [PIL images]) from OpenAI chat messages; ``image_url``
+    parts carry base64 data URLs (the reference's encode_image_to_data_url
+    format)."""
     lines = []
+    images = []
     for m in messages:
         content = m.get("content", "")
         if isinstance(content, list):
@@ -53,11 +68,13 @@ def extract_chat_content(messages: List[Dict[str, Any]]):
                 if part.get("type") == "text":
                     texts.append(part.get("text", ""))
                 elif part.get("type") == "image_url":
-                    raise ValueError(IMAGES_NOT_PORTED)
+                    img = _decode_image((part.get("image_url") or {}).get("url", ""))
+                    if img is not None:
+                        images.append(img)
             content = " ".join(texts)
         lines.append(f"{m.get('role', 'user')}: {content}")
     lines.append("assistant:")
-    return "\n".join(lines), []
+    return "\n".join(lines), images
 
 
 class GenerationServer:
@@ -66,19 +83,22 @@ class GenerationServer:
     ``engine`` must expose ``generate(prompts, max_new_tokens, temperature,
     eos_id, seed) -> [[token_id, ...]]`` (a batcher also ``submit``);
     ``tokenizer`` must expose ``encode``/``decode`` (and optionally
-    ``eos_id``). ``mm_engine`` (image requests) is not ported and raises.
+    ``eos_id``). ``mm_engine`` (a ``PaliGemmaEngine``) and
+    ``image_preprocessor`` (images -> normalized ``[N, H, W, 3]``) answer
+    requests with images; a batcher built with the same ``mm_engine`` serves
+    them in its slot batch, otherwise the engine generates them itself.
     """
 
     def __init__(self, engine: Any, tokenizer: Any, model_name: str = "local",
                  host: str = "127.0.0.1", port: int = 0,
                  max_new_tokens: int = 128,
                  mm_engine: Any = None, image_preprocessor: Any = None):
-        if mm_engine is not None or image_preprocessor is not None:
-            raise NotImplementedError(IMAGES_NOT_PORTED)
         self.engine = engine
         self.tokenizer = tokenizer
         self.model_name = model_name
         self.default_max_new = max_new_tokens
+        self.mm_engine = mm_engine
+        self.image_preprocessor = image_preprocessor
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -153,10 +173,12 @@ class GenerationServer:
                 return field, list(spec["enum"])
         return None
 
-    def _constrained_choice(self, prompt: str, field: str, choices: List[str]) -> str:
+    def _constrained_choice(self, prompt: str, field: str, choices: List[str],
+                            images=None) -> str:
         """Constrained decoding for enum outputs: force the JSON scaffold as
         prompt text and pick the choice whose first token the model scores
-        highest (server.py:167-203)."""
+        highest (server.py:167-203); with images and an ``mm_engine``, the
+        logits are conditioned on all of them."""
         scaffold = prompt + f'\n{{"{field}": "'
         # Context-aware choice tokens: tokenize scaffold+choice and take the
         # first token PAST the scaffold - encode(choice) alone returns the
@@ -168,9 +190,16 @@ class GenerationServer:
             full = self._encode(scaffold + c)
             first_tokens.append(full[base_len] if len(full) > base_len
                                 else full[-1])
-        engine = getattr(self.engine, "engine", self.engine)  # unwrap a batcher
-        ids = self._encode(scaffold, add_special_tokens=True)
-        logits = engine.next_token_logits([ids])[0]
+        if images and self.mm_engine is not None:
+            pix = self.image_preprocessor(images)        # [N, H, W, 3]
+            ids = self.mm_engine.build_mm_prompt(
+                self._encode(scaffold), bos_id=getattr(self.tokenizer, "bos_id", 2),
+                n_images=len(images))
+            logits = self.mm_engine.next_token_logits([ids], pix[None])[0]
+        else:
+            engine = getattr(self.engine, "engine", self.engine)  # unwrap a batcher
+            ids = self._encode(scaffold, add_special_tokens=True)
+            logits = engine.next_token_logits([ids])[0]
         best = choices[int(np.argmax([logits[t] for t in first_tokens]))]
         return json.dumps({field: best})
 
@@ -207,20 +236,36 @@ class GenerationServer:
         top_k = int(req["top_k"]) if req.get("top_k") is not None else 0
         return max_new, temperature, top_p, top_k, int(req.get("seed") or 0)
 
-    def _start_generation(self, ids, max_new, temperature, top_p,
+    def _prepare_ids(self, prompt: str, images):
+        """-> (token ids, pixels ``[N, H, W, 3]`` or None) (server.py:240-256):
+        with images and an ``mm_engine`` the ids lead with every image's
+        tokens and close the prefix with a newline."""
+        ids = self._encode(prompt, add_special_tokens=True)
+        if not (images and self.mm_engine is not None):
+            return ids, None
+        pix = self.image_preprocessor(images)
+        ids = self.mm_engine.build_mm_prompt(
+            self._encode(prompt), bos_id=getattr(self.tokenizer, "bos_id", 2),
+            newline_ids=self._encode("\n"), n_images=len(images))
+        return ids, pix
+
+    def _start_generation(self, ids, pix, max_new, temperature, top_p,
                           top_k, seed, logprobs: int = 0, on_token=None):
         """One dispatch point for streaming AND non-streaming requests.
 
         Returns a zero-arg ``wait()`` producing ``(tokens, lps|None,
         tops|None)``. Batcher engines go through ``submit`` (per-token
-        callbacks, logprobs, shared slot batch); bare engines generate
-        synchronously inside ``wait`` (no incremental stream, no logprobs)."""
+        callbacks, logprobs, shared slot batch; ``pix`` is the request's own
+        ``[N, H, W, 3]`` stack); bare engines, and image requests to a
+        batcher without an ``mm_engine``, generate synchronously inside
+        ``wait`` (no incremental stream, no logprobs)."""
         eos_id = getattr(self.tokenizer, "eos_id", -1)
         submit = getattr(self.engine, "submit", None)
-        if submit is not None:
+        if submit is not None and (pix is None
+                                   or getattr(self.engine, "supports_multimodal", False)):
             fut = submit(ids, max_new_tokens=max_new,
                          temperature=temperature, eos_id=eos_id, seed=seed,
-                         on_token=on_token, top_p=top_p, top_k=top_k,
+                         pixel_values=pix, on_token=on_token, top_p=top_p, top_k=top_k,
                          logprobs=logprobs)
 
             def wait():
@@ -233,9 +278,14 @@ class GenerationServer:
         def wait():
             # bare engines generate synchronously; no per-token callbacks
             # (the streaming caller emits wait()'s text in one chunk)
-            out = self.engine.generate(
-                [ids], max_new_tokens=max_new, temperature=temperature,
-                eos_id=eos_id, seed=seed, top_p=top_p, top_k=top_k)[0]
+            if pix is not None:
+                out = self.mm_engine.generate(
+                    [ids], pix[None], max_new_tokens=max_new, temperature=temperature,
+                    eos_id=eos_id, seed=seed, top_p=top_p, top_k=top_k)[0]
+            else:
+                out = self.engine.generate(
+                    [ids], max_new_tokens=max_new, temperature=temperature,
+                    eos_id=eos_id, seed=seed, top_p=top_p, top_k=top_k)[0]
             return out, None, None
 
         wait.future = None
@@ -255,7 +305,7 @@ class GenerationServer:
         import queue as _queue
 
         max_new, temperature, top_p, top_k, seed = self._parse_sampling(req)
-        prompt, _ = extract_chat_content(req.get("messages", []))
+        prompt, images = extract_chat_content(req.get("messages", []))
         enum = self._schema_enum(req)
         rid = f"chatcmpl-{int(time.time() * 1e3)}"
         created = int(time.time())
@@ -273,11 +323,11 @@ class GenerationServer:
         tok_queue: Optional[Any] = None
         wait = None
         if enum is not None:
-            text_override = self._constrained_choice(prompt, *enum)
+            text_override = self._constrained_choice(prompt, *enum, images=images)
         else:
-            ids = self._encode(prompt, add_special_tokens=True)
+            ids, pix = self._prepare_ids(prompt, images)
             tok_queue = _queue.Queue()
-            wait = self._start_generation(ids, max_new, temperature,
+            wait = self._start_generation(ids, pix, max_new, temperature,
                                           top_p, top_k, seed,
                                           logprobs=lp_n,
                                           on_token=tok_queue.put)
@@ -386,7 +436,7 @@ class GenerationServer:
 
     def _complete(self, req: Dict[str, Any]) -> Dict[str, Any]:
         max_new, temperature, top_p, top_k, seed = self._parse_sampling(req)
-        prompt, _ = extract_chat_content(req.get("messages", []))
+        prompt, images = extract_chat_content(req.get("messages", []))
         ids = self._encode(prompt, add_special_tokens=True)  # usage default
         # OpenAI logprobs surface: per-token logprob + top-N alternatives,
         # served through the batcher submit payload; bare engines degrade
@@ -397,12 +447,13 @@ class GenerationServer:
         lps = tops = None
         enum = self._schema_enum(req)
         if enum is not None:
-            text = self._constrained_choice(prompt, *enum)
+            text = self._constrained_choice(prompt, *enum, images=images)
             out = self._encode(text)
             finish = "stop"  # constrained decoding always completes
         else:
+            ids, pix = self._prepare_ids(prompt, images)
             out, lps, tops = self._start_generation(
-                ids, max_new, temperature, top_p, top_k, seed,
+                ids, pix, max_new, temperature, top_p, top_k, seed,
                 logprobs=lp_n)()
             text = self.tokenizer.decode(out)
             finish = "stop" if len(out) < max_new else "length"

@@ -43,15 +43,16 @@ ModelConfig = Union[ColPaliModelConfig, ColIdefics3ModelConfig, ColFlorModelConf
 _LAYER = re.compile(r"^layers_(\d+)$")
 
 
-def flatten_flax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dict -> ``{"a/b/c": array}``; a flat mapping passes through."""
-    flat: Dict[str, np.ndarray] = {}
+def flatten_flax(params: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dict -> ``{"a/b/c": array}``; a flat mapping passes through.
+    Torch tensors stay tensors; anything else becomes a numpy array."""
+    flat: Dict[str, Any] = {}
     for key, val in params.items():
         name = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(val, Mapping):
             flat.update(flatten_flax(val, name))
         else:
-            flat[name] = np.asarray(val)
+            flat[name] = val if isinstance(val, torch.Tensor) else np.asarray(val)
     return flat
 
 
@@ -65,12 +66,14 @@ def torch_name(flax_key: str) -> str:
     return ".".join(parts)
 
 
-def to_torch_layout(flax_key: str, arr: np.ndarray) -> np.ndarray:
+def to_torch_layout(flax_key: str, arr):
+    """The torch layout of a flax leaf (numpy array or tensor; a tensor's is a view)."""
     if flax_key.endswith("/kernel"):
         if arr.ndim == 2:
             return arr.T
         if arr.ndim == 4:
-            return arr.transpose(3, 2, 0, 1)
+            return (arr.permute(3, 2, 0, 1) if isinstance(arr, torch.Tensor)
+                    else arr.transpose(3, 2, 0, 1))
     return arr
 
 
@@ -97,8 +100,9 @@ def model_class(cfg: ModelConfig) -> Type[nn.Module]:
 
 
 def params_from_flax(params: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """A flax tree (flat or nested numpy) of the config's family ->
-    ``state_dict`` of CPU tensors."""
+    """A flax tree (flat or nested; numpy arrays or tensors) of the config's
+    family -> ``state_dict`` of CPU tensors: numpy leaves are copied, tensor
+    leaves (``models/hf_import``'s views of a checkpoint) stay views."""
     flat = flatten_flax(params)
     model = model_class(cfg)
     expected = {n: tuple(p.shape) for n, p in model(cfg, device="meta").state_dict().items()}
@@ -111,11 +115,13 @@ def params_from_flax(params: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, t
             problems.append(f"unexpected parameter {key!r}")
             continue
         seen.add(name)
-        t = np.array(to_torch_layout(key, arr))  # a writable, contiguous copy
+        t = to_torch_layout(key, arr)
         if tuple(t.shape) != expected[name]:
-            problems.append(f"{key!r}: shape {arr.shape} does not map to {expected[name]}")
+            problems.append(f"{key!r}: shape {tuple(arr.shape)} does not map to "
+                            f"{expected[name]}")
             continue
-        state[name] = torch.from_numpy(t)
+        # a numpy leaf becomes a writable, contiguous copy
+        state[name] = t if isinstance(t, torch.Tensor) else torch.from_numpy(np.array(t))
     problems += [f"missing parameter {n!r}" for n in expected if n not in seen]
     if problems:
         raise ValueError(f"flax params do not fit the {model.__name__} config:\n  "

@@ -20,11 +20,6 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-try:  # Pillow resizes pages; arrays already at the model size need no resize
-    from PIL import Image
-except ImportError:  # pragma: no cover
-    Image = None
-
 from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models.configs import ColPaliModelConfig
 from multimodal_colpali_tpu_torch.ops.maxsim import maxsim_scores
@@ -60,16 +55,24 @@ class SimpleTokenizer:
 
 
 def _resized(img: Any, size: int, dtype) -> np.ndarray:
-    if Image is not None and isinstance(img, Image.Image):
+    """A page at ``size`` x ``size``: an array already that size as it is,
+    anything else through Pillow (imported only here, so arrays at the
+    model size need no Pillow)."""
+    if isinstance(img, np.ndarray) and img.shape[:2] == (size, size):
+        return img.astype(dtype)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ValueError("resizing a page, or reading a PIL image, needs Pillow; pass "
+                         "arrays already at the model size") from e
+    if isinstance(img, Image.Image):
         im = img.convert("RGB").resize((size, size), Image.BICUBIC)
         return np.asarray(im, dtype=dtype)
     a = np.asarray(img)
-    if a.shape[:2] != (size, size):
-        if Image is None:
-            raise ValueError("resizing an array page needs Pillow; pass it pre-resized")
-        im = Image.fromarray(a.astype(np.uint8)).resize((size, size), Image.BICUBIC)
-        return np.asarray(im, dtype=dtype)
-    return a.astype(dtype)
+    if a.shape[:2] == (size, size):
+        return a.astype(dtype)
+    im = Image.fromarray(a.astype(np.uint8)).resize((size, size), Image.BICUBIC)
+    return np.asarray(im, dtype=dtype)
 
 
 @dataclasses.dataclass

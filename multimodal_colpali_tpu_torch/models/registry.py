@@ -3,15 +3,19 @@
 
 ``load_retriever(name, device=...)`` returns a :class:`Retriever`: the
 encoder of the name's family (ColPali, ColIdefics3 or ColFlor) on ``device``
-plus its processor. Weights come from a flax parameter
-tree (``params=``, e.g. ``load_params_npz`` of a committed golden) or, when
-none is given, from a seeded random init made on ``device`` in the model
-dtype, so a 3B model never exists in float32 on the host.
+plus its processor. Weights come from a flax parameter tree (``params=``,
+e.g. ``load_params_npz`` of a committed golden), else from the checkpoint
+that ``_find_checkpoint`` finds (``checkpoint_dir=`` or under
+``COLPALI_TPU_CKPT_DIR``; ``models/hf_import`` reads it and each tensor is
+copied into the model on ``device`` as it is reached), else from a seeded
+random init made on ``device`` in the model dtype, with a warning, so a 3B
+model never exists in float32 on the host.
 
 ``load_gemma3_lm(name, device=...)`` returns the decode-engine parameter tree
-of a Gemma-3 text LM (registry.py:550-741): random weights from a seed, built
-leaf by leaf on ``device`` (``weight_dtype="int8"`` or ``"int4"`` quantizes
-each leaf as it is made, so the bf16 tree never exists).
+of a Gemma-3 text LM (registry.py:550-741) and the checkpoint's tokenizer:
+the checkpoint's weights or random ones from a seed, either way placed leaf
+by leaf on ``device`` (``weight_dtype="int8"`` or ``"int4"`` quantizes each
+leaf as it arrives, so the bf16 tree never exists on the card).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from multimodal_colpali_tpu_torch._device import resolve_device
+from multimodal_colpali_tpu_torch.models import hf_import
 from multimodal_colpali_tpu_torch.models.configs import (
     ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig, Gemma3TextConfig)
 from multimodal_colpali_tpu_torch.models.convert import (
@@ -34,6 +39,7 @@ from multimodal_colpali_tpu_torch.models.processing import ColPaliProcessor
 from multimodal_colpali_tpu_torch.models.processing_florence2 import ColFlorProcessor
 from multimodal_colpali_tpu_torch.models.processing_idefics3 import ColIdefics3Processor
 from multimodal_colpali_tpu_torch.ops.preprocess import normalize_images
+from multimodal_colpali_tpu_torch.ops.quant import quantize_lm_leaf
 
 RETRIEVER_CONFIGS: Dict[str, Callable[[], ModelConfig]] = {
     "vidore/colpali-v1.2": ColPaliModelConfig.colpali_v1_3,
@@ -50,6 +56,9 @@ RETRIEVER_CONFIGS: Dict[str, Callable[[], ModelConfig]] = {
 
 PROCESSORS = {"colpali": ColPaliProcessor, "colidefics3": ColIdefics3Processor,
               "colflor": ColFlorProcessor}
+CONVERTERS = {"colpali": hf_import.colpali_params_from_hf,
+              "colidefics3": hf_import.colidefics3_params_from_hf,
+              "colflor": hf_import.colflor_params_from_hf}
 
 # Gemma's RMSNorm multiplies by (1 + w), so its neutral weight is 0; it
 # exists only in the colpali family (Llama's RMSNorm multiplies by w).
@@ -148,6 +157,48 @@ class Retriever:
         return out
 
 
+class _Wrapped:
+    """A transformers tokenizer with the special-id attributes the processors
+    and the server read (registry.py:402-418): a missing pad id reads as 0,
+    bos as 2, eos as 1; ``decode`` skips special tokens."""
+
+    def __init__(self, t):
+        self._t = t
+        self.pad_id = t.pad_token_id if t.pad_token_id is not None else 0
+        self.bos_id = t.bos_token_id if t.bos_token_id is not None else 2
+        self.eos_id = t.eos_token_id if t.eos_token_id is not None else 1
+        self.vocab_size = getattr(t, "vocab_size", None)
+
+    def encode(self, text, add_special_tokens=False):
+        return self._t.encode(text, add_special_tokens=add_special_tokens)
+
+    def decode(self, ids):
+        return self._t.decode(ids, skip_special_tokens=True)
+
+
+# the files transformers builds a tokenizer from; a checkpoint holding none has no tokenizer
+_TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "tokenizer.model", "vocab.json",
+                    "vocab.txt", "merges.txt", "spiece.model", "sentencepiece.bpe.model",
+                    "special_tokens_map.json")
+
+
+def _load_tokenizer_from(ckpt_dir: str) -> Optional[Any]:
+    """The checkpoint's tokenizer (``tokenizer.json`` through
+    ``transformers.AutoTokenizer``), or None where it cannot be loaded: no
+    tokenizer files, or no ``transformers`` installed (registry.py:393-420).
+    Callers then keep their own tokenizer. A directory without tokenizer
+    files returns None before importing transformers (seconds of imports)."""
+    if not any(os.path.exists(os.path.join(ckpt_dir, f)) for f in _TOKENIZER_FILES):
+        return None
+    try:
+        import transformers
+
+        tok = transformers.AutoTokenizer.from_pretrained(ckpt_dir)
+    except Exception:  # noqa: BLE001 - as JAX: any failure means "no tokenizer"
+        return None
+    return _Wrapped(tok)
+
+
 def _find_checkpoint(name: str, checkpoint_dir: Optional[str]) -> Optional[str]:
     """The checkpoint directory the JAX registry would load for ``name``
     (registry.py:423-436): ``checkpoint_dir``, then
@@ -168,18 +219,6 @@ def _find_checkpoint(name: str, checkpoint_dir: Optional[str]) -> Optional[str]:
     return None
 
 
-def _refuse_checkpoint(name: str, checkpoint_dir: Optional[str]) -> None:
-    """Raise where the JAX registry would load real weights: checkpoint
-    loading is not ported, and random weights in their place would pass for
-    the model."""
-    found = _find_checkpoint(name, checkpoint_dir)
-    if found is not None or checkpoint_dir is not None:
-        raise NotImplementedError(
-            f"{name!r}: loading the checkpoint at {found or checkpoint_dir!r} (hf_import) is "
-            f"not ported yet; see ROADMAP.md queue 1 item 1. Pass params= or unset "
-            f"COLPALI_TPU_CKPT_DIR to run random weights.")
-
-
 def load_retriever(
     name: str,
     device: Any = "cuda",
@@ -195,12 +234,15 @@ def load_retriever(
     """Load a late-interaction retriever by name (reference surface).
 
     ``params``: a flax parameter tree, flat (``"a/b/c"`` keys) or nested, as
-    ``save_params_npz``/``load_params_npz`` write and read it. Without it the
+    ``save_params_npz``/``load_params_npz`` write and read it. Without it a
+    checkpoint found by ``_find_checkpoint`` (``checkpoint_dir``, then
+    ``COLPALI_TPU_CKPT_DIR``, as the JAX registry looks) is loaded through
+    the family's ``hf_import`` converter, tensor by tensor into the model on
+    ``device`` (registry.py:512-519), and its tokenizer, where it has one and
+    ``tokenizer`` is None, replaces the processor's. Where none is found the
     weights are random, drawn from a ``torch.Generator`` seeded with ``seed``
-    on ``device``, by the rules of the name's family, unless a checkpoint is
-    found (``checkpoint_dir`` or ``COLPALI_TPU_CKPT_DIR``, as the JAX
-    registry looks): loading one is not ported, so that raises
-    ``NotImplementedError``. ``quantize`` and ``device_preprocess`` left None
+    on ``device``, by the rules of the name's family, with a warning
+    (registry.py:520-531). ``quantize`` and ``device_preprocess`` left None
     read ``MMCP_QUANTIZE`` and ``MMCP_DEVICE_PREPROCESS == "1"``, as the JAX
     registry does (registry.py:532-535). Only the fixed square layout is
     ported: ``dynamic_resolution=True`` (idefics3 image splitting) raises."""
@@ -220,21 +262,28 @@ def load_retriever(
         raise NotImplementedError(
             "dynamic_resolution (idefics3 image splitting) is not ported yet; "
             "see ROADMAP.md")
-    if params is None:
-        _refuse_checkpoint(name, checkpoint_dir)
     cfg = RETRIEVER_CONFIGS[name]()
     family = family_of(cfg)
     device = resolve_device(device)
     model = model_class(cfg)(cfg, device=device, dtype=dtype).eval()
+    processor = PROCESSORS[family](cfg, tokenizer=tokenizer)
+    ckpt = None if params is not None else _find_checkpoint(name, checkpoint_dir)
     if params is not None:
         model.load_state_dict(params_from_flax(params, cfg))
+    elif ckpt is not None:
+        if tokenizer is None:
+            tok = _load_tokenizer_from(ckpt)
+            if tok is not None:
+                processor.tokenizer = tok
+        tree = CONVERTERS[family](hf_import.load_state_dict(ckpt), cfg)
+        # views of the files' bytes; each is copied (and cast) into its parameter
+        model.load_state_dict(params_from_flax(tree, cfg))
     else:
-        warnings.warn(f"no checkpoint given for {name!r}; using random init "
-                      f"(seed {seed})", stacklevel=2)
+        warnings.warn(f"no local checkpoint for {name!r}; using random init (seed {seed}; "
+                      f"set COLPALI_TPU_CKPT_DIR to load real weights)", stacklevel=2)
         init_random_params_(model, seed, family)
-    return Retriever(name=name, model=model, processor=PROCESSORS[family](cfg, tokenizer=tokenizer),
-                     device=device, dtype=dtype, device_preprocess=bool(device_preprocess),
-                     family=family)
+    return Retriever(name=name, model=model, processor=processor, device=device, dtype=dtype,
+                     device_preprocess=bool(device_preprocess), family=family)
 
 
 # -- Gemma-3 generator LMs (not retrievers) -----------------------------------
@@ -340,9 +389,6 @@ def gemma3_random_params_int8(cfg: Gemma3TextConfig, seed: int = 0,
     ``fmt="int4"`` packs each kernel group-wise int4 instead, with the group
     ``_int4_group_for(K, 256)``; a kernel whose K admits no even group stays
     int8, and the embed table is int8 in both formats."""
-    from multimodal_colpali_tpu_torch.ops.quant import (
-        _int4_group_for, quantize_embed_int8, quantize_int4, quantize_int8)
-
     if fmt not in ("int8", "int4"):
         raise ValueError(f"fmt must be 'int8' or 'int4', got {fmt!r}")
     device = resolve_device(device)
@@ -350,13 +396,34 @@ def gemma3_random_params_int8(cfg: Gemma3TextConfig, seed: int = 0,
     def leaf(i, name, shape):
         if name == "weight":
             return torch.zeros(shape, dtype=dtype, device=device)
-        w = _normal_leaf(i, shape, seed, device)
-        if name == "embed_tokens":
-            return quantize_embed_int8(w)
-        group = _int4_group_for(shape[0], 256) if fmt == "int4" else 0
-        return quantize_int4(w, group=group) if group else quantize_int8(w, axis=0)
+        return quantize_lm_leaf(name, _normal_leaf(i, shape, seed, device), fmt)
 
     return _build_tree(cfg, leaf)
+
+
+def gemma3_params_from_checkpoint(ckpt: str, cfg: Gemma3TextConfig,
+                                  dtype: torch.dtype = torch.bfloat16, device: Any = "cuda",
+                                  weight_dtype: str = "native"):
+    """A Gemma-3 checkpoint's engine tree on ``device``, placed one leaf at
+    a time from the files' memory maps: each leaf is cast to ``dtype`` on
+    ``device`` and, under ``weight_dtype="int8"|"int4"``, quantized there
+    before the next is read, so the bytes equal those that quantizing the
+    whole ``dtype`` tree gives, without that tree ever existing."""
+    device = resolve_device(device)
+    tree = hf_import.gemma3_params_from_hf(hf_import.load_state_dict(ckpt), cfg)
+
+    def place(t: Dict[str, Any]) -> Dict[str, Any]:
+        out = {}
+        for name, v in t.items():
+            if isinstance(v, dict):
+                out[name] = place(v)
+                continue
+            x = v.to(device=device, dtype=dtype)
+            out[name] = (x if weight_dtype == "native" or name not in ("kernel", "embed_tokens")
+                         else quantize_lm_leaf(name, x, weight_dtype))
+        return out
+
+    return place(tree)
 
 
 def load_gemma3_lm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.bfloat16,
@@ -366,25 +433,30 @@ def load_gemma3_lm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.b
     """A Gemma-3 generator LM by name -> (cfg, engine params, tokenizer).
 
     ``params`` (an engine tree of tensors, e.g. from
-    ``convert.engine_params_from_jax``) is used as given; otherwise the
-    weights are random from ``seed``, made on ``device``, unless a checkpoint
-    is named (``checkpoint_dir``) or found under ``COLPALI_TPU_CKPT_DIR``:
-    loading one is not ported, so that raises ``NotImplementedError``. The tokenizer is
-    None (no checkpoint provides one); callers fall back to
-    ``ByteTokenizer``/``ModuloTokenizer``."""
+    ``convert.engine_params_from_jax``) is used as given, with no tokenizer.
+    Otherwise a checkpoint found by ``_find_checkpoint`` (``checkpoint_dir``,
+    then ``COLPALI_TPU_CKPT_DIR``) is loaded leaf by leaf onto ``device``
+    (:func:`gemma3_params_from_checkpoint`), with its tokenizer where one
+    loads (registry.py:717-723); where none is found the weights are random
+    from ``seed``, made on ``device``, with a warning (registry.py:725-740).
+    A None tokenizer leaves callers to ``ByteTokenizer``/``ModuloTokenizer``."""
     if name not in GEMMA3_CONFIGS:
         raise KeyError(f"unknown gemma3 LM {name!r}; known: {sorted(GEMMA3_CONFIGS)}")
-    if params is None or checkpoint_dir is not None:
-        _refuse_checkpoint(name, checkpoint_dir)
     if weight_dtype not in ("native", "int8", "int4"):
         raise ValueError(f"weight_dtype must be 'native', 'int8' or 'int4', got {weight_dtype!r}")
     cfg = GEMMA3_CONFIGS[name]()
-    if params is None:
-        warnings.warn(f"no checkpoint for {name!r}; using random init (seed {seed})",
-                      stacklevel=2)
-        if weight_dtype == "native":
-            params = gemma3_random_params(cfg, seed, dtype=dtype, device=device)
-        else:
-            params = gemma3_random_params_int8(cfg, seed, dtype=dtype, device=device,
-                                               fmt=weight_dtype)
+    if params is not None:
+        return cfg, params, None
+    ckpt = _find_checkpoint(name, checkpoint_dir)
+    if ckpt is not None:
+        params = gemma3_params_from_checkpoint(ckpt, cfg, dtype=dtype, device=device,
+                                               weight_dtype=weight_dtype)
+        return cfg, params, _load_tokenizer_from(ckpt)
+    warnings.warn(f"no local checkpoint for {name!r}; using random init (seed {seed}; "
+                  f"set COLPALI_TPU_CKPT_DIR to load real weights)", stacklevel=2)
+    if weight_dtype == "native":
+        params = gemma3_random_params(cfg, seed, dtype=dtype, device=device)
+    else:
+        params = gemma3_random_params_int8(cfg, seed, dtype=dtype, device=device,
+                                           fmt=weight_dtype)
     return cfg, params, None

@@ -48,7 +48,9 @@ def quantize_int8(w: torch.Tensor, axis: int = 0) -> dict:
     # by its reciprocal, which rounds differently from a true division.
     scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / torch.full_like(amax, 127.0)
     codes = torch.round(wf / scale.unsqueeze(axis))
-    return {"q8": codes.clamp(-127, 127).to(torch.int8), "scale": scale}
+    # row-major codes whatever ``w``'s strides (a checkpoint's kernel is a
+    # transposed view): the kernels read them contiguous, copying otherwise
+    return {"q8": codes.clamp(-127, 127).to(torch.int8).contiguous(), "scale": scale}
 
 
 def is_quantized(p: Any) -> bool:
@@ -154,21 +156,7 @@ def quantize_lm_params(params: Any) -> Any:
     """Every 2-D ``kernel`` under ``language_model`` becomes a per-column
     int8 dict and ``embed.embed_tokens`` a per-row one; norm weights and
     biases stay as they are (quant.py:348-372)."""
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: (quantize_int8(v, axis=0)
-                        if k == "kernel" and isinstance(v, torch.Tensor) and v.dim() == 2
-                        else walk(v))
-                    for k, v in t.items()}
-        return t
-
-    out = dict(params)
-    out["language_model"] = walk(params["language_model"])
-    emb = dict(params["embed"])
-    emb["embed_tokens"] = quantize_embed_int8(emb["embed_tokens"])
-    out["embed"] = emb
-    return out
+    return _quantize_lm_tree(params, "int8")
 
 
 def quantize_int4(w: torch.Tensor, group: int = 256) -> dict:
@@ -187,7 +175,7 @@ def quantize_int4(w: torch.Tensor, group: int = 256) -> dict:
     codes = (codes + 8.0).to(torch.uint8)                        # 1..15
     half = group // 2
     packed = (codes[:, :half] | (codes[:, half:] << 4)).reshape(k // 2, n)
-    return {"q4": packed, "scale": scale}
+    return {"q4": packed.contiguous(), "scale": scale.contiguous()}   # as quantize_int8's
 
 
 def int4_group(qw: dict) -> int:
@@ -222,23 +210,32 @@ def quantize_lm_params_int4(params: Any, group: int = 256) -> Any:
     """Like :func:`quantize_lm_params`, but kernels become group-wise int4
     (quant.py:233-259): a kernel whose K admits no even group stays int8, and
     the embed table is per-row int8 (left as it is when already quantized)."""
+    return _quantize_lm_tree(params, "int4", group)
 
+
+def quantize_lm_leaf(name: str, w: torch.Tensor, fmt: str, group: int = 256):
+    """One leaf as the LM-tree quantizers quantize it: ``embed_tokens`` per
+    row int8 (padded); a ``kernel [K, N]`` per column int8, or under
+    ``fmt="int4"`` group-wise int4 (int8 where K admits no even group)."""
+    if name == "embed_tokens":
+        return quantize_embed_int8(w)
+    g = _int4_group_for(w.shape[0], group) if fmt == "int4" else 0
+    return quantize_int4(w, group=g) if g else quantize_int8(w, axis=0)
+
+
+def _quantize_lm_tree(params: Any, fmt: str, group: int = 256) -> Any:
     def walk(t):
         if isinstance(t, dict):
-            out = {}
-            for k, v in t.items():
-                if k == "kernel" and isinstance(v, torch.Tensor) and v.dim() == 2:
-                    g = _int4_group_for(v.shape[0], group)
-                    out[k] = quantize_int4(v, group=g) if g else quantize_int8(v, axis=0)
-                else:
-                    out[k] = walk(v)
-            return out
+            return {k: (quantize_lm_leaf(k, v, fmt, group)
+                        if k == "kernel" and isinstance(v, torch.Tensor) and v.dim() == 2
+                        else walk(v))
+                    for k, v in t.items()}
         return t
 
     out = dict(params)
     out["language_model"] = walk(params["language_model"])
     emb = dict(params["embed"])
     if not is_quantized(emb["embed_tokens"]):
-        emb["embed_tokens"] = quantize_embed_int8(emb["embed_tokens"])
+        emb["embed_tokens"] = quantize_lm_leaf("embed_tokens", emb["embed_tokens"], fmt)
     out["embed"] = emb
     return out

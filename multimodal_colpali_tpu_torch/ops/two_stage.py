@@ -15,7 +15,7 @@ to bf16 for a bf16 corpus). Candidate selection keeps ``lax.top_k``'s tie
 rule, the lower index first, through a stable sort.
 
 The sharded variant (``sharded_two_stage_maxsim_topk``) waits for the
-multi-rank port (ROADMAP queue 1 item 9).
+multi-rank port (the JAX package's ``parallel/mesh`` and ``store/distributed``).
 """
 
 from __future__ import annotations

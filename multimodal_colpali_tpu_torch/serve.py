@@ -1,16 +1,20 @@
 """Serve generation from the port's decode engine over OpenAI HTTP.
 
 The counterpart of ``drivers/07_serve.py`` for the Gemma-3 text LMs
-(``models/registry.GEMMA3_CONFIGS``) and the Gemma LM of the ColPali
-retrievers: it loads the model (random weights from a seed, with a warning; a
-checkpoint under ``COLPALI_TPU_CKPT_DIR`` raises, since loading one is not
-ported yet), wraps it in the decode engine and a continuous batcher and
-serves ``/v1/chat/completions`` and ``/health``. It runs on the GPU unless
-``--device cpu`` asks for the CPU.
+(``models/registry.GEMMA3_CONFIGS``) and the ColPali retrievers: it loads the
+model through the registry (its checkpoint under ``COLPALI_TPU_CKPT_DIR``,
+else random weights from a seed, with a warning),
+wraps it in the decode engine and a continuous batcher and serves
+``/v1/chat/completions`` and ``/health``. For a ColPali retriever it also
+builds a ``PaliGemmaEngine`` on the same weights, so requests with
+``image_url`` parts are answered on their images (07_serve.py:255-277). It
+runs on the GPU unless ``--device cpu`` asks for the CPU.
 
 Example:
   python -m multimodal_colpali_tpu_torch.serve --model gemma-3-27b --paged \\
       [--kv-dtype int8] [--weight-dtype int8|int4]
+  COLPALI_TPU_CKPT_DIR=/ckpts python -m multimodal_colpali_tpu_torch.serve \\
+      --model vidore/colpali-v1.3 --paged --max-seq-len 6144
 """
 
 from __future__ import annotations
@@ -60,16 +64,16 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def build(args: argparse.Namespace):
-    """(engine, tokenizer) for ``args.model``."""
+    """(engine, tokenizer, mm_engine, image_preprocessor) for ``args.model``;
+    the last two are None but for a ColPali retriever."""
     from multimodal_colpali_tpu_torch.generation.engine import (
-        ByteTokenizer, GemmaDecodeEngine, ModuloTokenizer)
+        ByteTokenizer, GemmaDecodeEngine, ModuloTokenizer, PaliGemmaEngine)
     from multimodal_colpali_tpu_torch.models.convert import engine_params_from_state_dict
     from multimodal_colpali_tpu_torch.models.registry import (
         GEMMA3_CONFIGS, load_gemma3_lm, load_retriever)
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    # a checkpoint under COLPALI_TPU_CKPT_DIR raises (loading is not ported);
-    # random weights warn
+    retriever = None
     if args.model in GEMMA3_CONFIGS:
         cfg, params, tok = load_gemma3_lm(args.model, device=args.device, dtype=dtype,
                                           weight_dtype=args.weight_dtype)
@@ -89,7 +93,13 @@ def build(args: argparse.Namespace):
     if tok is None:
         # random-weight serving: ids must fit the model vocab
         tok = ByteTokenizer() if cfg.vocab_size >= 259 else ModuloTokenizer(cfg.vocab_size)
-    return engine, tok
+    mm_engine = image_pre = None
+    if retriever is not None:
+        # image-conditioned generation on the same weights, its LM the text
+        # engine itself (quantized or not)
+        mm_engine = PaliGemmaEngine(retriever.model, lm=engine)
+        image_pre = retriever.processor.image_preprocessor
+    return engine, tok, mm_engine, image_pre
 
 
 def main(argv=None) -> None:
@@ -98,12 +108,13 @@ def main(argv=None) -> None:
     from multimodal_colpali_tpu_torch.generation.scheduler import ContinuousBatcher
     from multimodal_colpali_tpu_torch.generation.server import GenerationServer
 
-    engine, tok = build(args)
+    engine, tok, mm_engine, image_pre = build(args)
     backend, batcher = engine, None
     if not args.no_batcher:
         kw = dict(batch_slots=args.slots, max_seq_len=args.max_seq_len, chunk=args.chunk,
-                  eos_id=getattr(tok, "eos_id", -1), prefill_chunk=args.prefill_chunk,
-                  max_queue=args.max_queue, admission_timeout=args.admission_timeout)
+                  eos_id=getattr(tok, "eos_id", -1), mm_engine=mm_engine,
+                  prefill_chunk=args.prefill_chunk, max_queue=args.max_queue,
+                  admission_timeout=args.admission_timeout)
         if args.paged:
             batcher = PagedContinuousBatcher(engine, page_size=args.page_size,
                                              pool_pages=args.pool_pages,
@@ -113,7 +124,8 @@ def main(argv=None) -> None:
             batcher = ContinuousBatcher(engine, **kw)
         backend = batcher.serve()
     srv = GenerationServer(backend, tok, model_name=args.model, host=args.host,
-                           port=args.port, max_new_tokens=args.max_new_tokens).start()
+                           port=args.port, max_new_tokens=args.max_new_tokens,
+                           mm_engine=mm_engine, image_preprocessor=image_pre).start()
     print(f"[serve] {args.model} on {srv.base_url} "
           f"(slots={0 if args.no_batcher else args.slots}, device {engine.device})", flush=True)
     try:

@@ -27,8 +27,8 @@ COSINE multivectors with the MAX_SIM comparator.
   ``meta.json``), so a store saved by either package loads in the other in
   the same mode.
 
-Sharding the page axis over a mesh raises ``NotImplementedError`` (ROADMAP
-queue 1 item 9).
+Sharding the page axis over a mesh raises ``NotImplementedError``: the
+multi-rank store (the JAX package's ``store/distributed``) is not ported.
 """
 
 from __future__ import annotations

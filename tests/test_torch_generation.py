@@ -381,20 +381,26 @@ def test_engine_tree_from_a_retrievers_state_dict():
         assert torch.equal(flat_g[k], flat_w[k]), k
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
     cfg = TC.Gemma3TextConfig.tiny(vocab_size=64)
     params = TR.gemma3_random_params(cfg, seed=0, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="generation/engine.py"):
         TE.GemmaDecodeEngine(cfg, params, device="cpu", mesh=object())
     eng = TE.GemmaDecodeEngine(cfg, params, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ContinuousBatcher(eng, mm_engine=object())
-    with pytest.raises(NotImplementedError):
+
+    class Mllama:          # an image engine that decodes with cross-attention
+        cross_decode = True
+
+    with pytest.raises(NotImplementedError, match="Mllama .*generation/mllama"):
+        ContinuousBatcher(eng, mm_engine=Mllama())
+    # a checkpoint_dir without weights is no checkpoint: random init, as in JAX
+    monkeypatch.delenv("COLPALI_TPU_CKPT_DIR", raising=False)
+    with pytest.warns(UserWarning, match="random init"):
         TR.load_gemma3_lm("tiny-gemma3", device="cpu", checkpoint_dir="/nonexistent")
 
     @dataclasses.dataclass(frozen=True)
     class Qwen(TC.GemmaTextConfig):
         is_qwen2: bool = True
 
-    with pytest.raises(NotImplementedError, match="Qwen2"):
+    with pytest.raises(NotImplementedError, match="Qwen2.*generation/engine.py"):
         TE.layer_stack({}, Qwen(), torch.zeros(1, 1, 4), torch.zeros(1, 1), None, None)

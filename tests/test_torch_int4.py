@@ -352,7 +352,7 @@ def test_int4_with_a_mesh_raises():
 def test_serve_cli_builds_an_int4_engine(model):
     args = serve.parse_args(["--model", model, "--device", "cpu", "--dtype", "float32",
                              "--paged", "--weight-dtype", "int4"])
-    eng, tok = serve.build(args)
+    eng, tok, _, _ = serve.build(args)
     assert eng.device.type == "cpu" and eng.weight_dtype == "int4"
     kernels = [v for path, v in TR.tree_leaves(eng.params["language_model"])
                if path[-1] == "q4"]

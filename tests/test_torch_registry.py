@@ -1,14 +1,18 @@
 """The port's registry against the JAX registry: where a checkpoint is found,
 and which environment switches ``load_retriever`` reads.
 
-The port cannot load checkpoints yet, so wherever the JAX registry would
-load one the port must refuse (``NotImplementedError``) instead of running
-random weights; ``MMCP_QUANTIZE`` and ``MMCP_DEVICE_PREPROCESS`` act as in
-the JAX registry (registry.py:532-535).
+Wherever the JAX registry loads a checkpoint the port loads it too (never
+random weights in its place), and where none is found both warn and
+random-init, an explicit empty or missing ``checkpoint_dir`` included;
+``MMCP_QUANTIZE`` and ``MMCP_DEVICE_PREPROCESS`` act as in the JAX registry
+(registry.py:532-535). ``tests/test_torch_checkpoint.py`` holds the loaded
+weights against HF and JAX.
 """
 
 import os
+import warnings
 
+import numpy as np
 import pytest
 import torch
 
@@ -79,24 +83,69 @@ def _tiny_safetensors(path):
 
 @pytest.mark.parametrize("name", ["tiny-colpali", "tiny-colflor"])
 def test_load_retriever_refuses_a_found_checkpoint(ckpt_env, monkeypatch, name):
-    """A checkpoint the JAX registry would load is refused by name, never
-    replaced by random weights; given params still load."""
-    _tiny_safetensors(ckpt_env / name)
+    """A checkpoint the JAX registry would load is loaded, never replaced by
+    random weights: found under ``COLPALI_TPU_CKPT_DIR`` or named by
+    ``checkpoint_dir``, its weights are the model's, without a random-init
+    warning. (The name is the one this test had when the port refused a
+    found checkpoint; it now checks that the checkpoint loads.)"""
+    from tests.test_torch_checkpoint import hf_colflor, hf_colpali, save_sharded
+
+    cfg = TR.RETRIEVER_CONFIGS[name]()
+    sd = (hf_colpali if name == "tiny-colpali" else hf_colflor)(cfg)[0]
+    save_sharded(sd, ckpt_env / name)
+    want = next(v for k, v in sd.items() if k.endswith("embed_tokens.weight"))
     monkeypatch.setenv("COLPALI_TPU_CKPT_DIR", str(ckpt_env))
-    with pytest.raises(NotImplementedError, match=f"{ckpt_env / name}.*queue 1 item 1"):
-        TR.load_retriever(name, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        TR.load_retriever(name, device="cpu", checkpoint_dir=str(ckpt_env / name))
+    for kw in ({}, {"checkpoint_dir": str(ckpt_env / name)}):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            r = TR.load_retriever(name, device="cpu", dtype=torch.float32, **kw)
+        got = next(v for k, v in r.model.state_dict().items() if k.endswith("embed_tokens"))
+        assert torch.equal(got, want)
 
 
 def test_load_gemma3_lm_and_serve_refuse_a_found_checkpoint(ckpt_env, monkeypatch):
-    _tiny_safetensors(ckpt_env / "tiny-gemma3")
+    """A found Gemma-3 checkpoint is loaded by ``load_gemma3_lm`` (native and
+    int4) and by ``serve.build``, as in the JAX registry. (The name is the
+    one this test had when the port refused a found checkpoint; it now
+    checks that the checkpoint loads.)"""
+    from tests.test_torch_checkpoint import hf_gemma3, save_sharded
+
+    sd, _ = hf_gemma3(TR.GEMMA3_CONFIGS["tiny-gemma3"]())
+    save_sharded(sd, ckpt_env / "tiny-gemma3")
     monkeypatch.setenv("COLPALI_TPU_CKPT_DIR", str(ckpt_env))
-    with pytest.raises(NotImplementedError, match="tiny-gemma3.*queue 1 item 1"):
-        TR.load_gemma3_lm("tiny-gemma3", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        TR.load_gemma3_lm("tiny-gemma3", device="cpu", weight_dtype="int4")
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+    want = sd["model.embed_tokens.weight"]
+    _, params, _ = TR.load_gemma3_lm("tiny-gemma3", device="cpu", dtype=torch.float32)
+    assert torch.equal(params["embed"]["embed_tokens"], want)
+    _, params, _ = TR.load_gemma3_lm("tiny-gemma3", device="cpu", weight_dtype="int4")
+    assert params["embed"]["embed_tokens"]["q8"].shape[1] == want.shape[1]
+    eng, *_ = serve.build(serve.parse_args(["--model", "tiny-gemma3", "--device", "cpu",
+                                           "--dtype", "float32"]))
+    assert torch.equal(eng.params["embed"]["embed_tokens"], want)
+    _, jparams, _ = JR.load_gemma3_lm("tiny-gemma3")
+    assert np.array_equal(np.asarray(jparams["embed"]["embed_tokens"]), want.numpy())
+
+
+@pytest.mark.parametrize("layout", ["missing", "empty"])
+def test_explicit_empty_checkpoint_dir_random_inits_in_both_packages(ckpt_env, layout):
+    """F3: a ``checkpoint_dir`` that is missing, or holds no weight file,
+    finds no checkpoint: both registries warn and random-init, in
+    ``load_retriever`` and ``load_gemma3_lm``, and so does ``serve.build``."""
+    path = ckpt_env / "ckpt"
+    if layout == "empty":
+        _write(path, "config.json")
+    with pytest.warns(UserWarning, match="random init"):
+        JR.load_retriever("tiny-colpali", checkpoint_dir=str(path))
+    with pytest.warns(UserWarning, match="random init"):
+        r = TR.load_retriever("tiny-colpali", device="cpu", checkpoint_dir=str(path))
+    assert r.family == "colpali"
+    with pytest.warns(UserWarning, match="random init"):
+        JR.load_gemma3_lm("tiny-gemma3", checkpoint_dir=str(path))
+    with pytest.warns(UserWarning, match="random init"):
+        cfg, params, tok = TR.load_gemma3_lm("tiny-gemma3", device="cpu",
+                                             checkpoint_dir=str(path))
+    assert tok is None and params["embed"]["embed_tokens"].shape == (cfg.vocab_size,
+                                                                     cfg.hidden_size)
+    with pytest.warns(UserWarning, match="random init"):
         serve.build(serve.parse_args(["--model", "tiny-gemma3", "--device", "cpu"]))
 
 
