@@ -57,7 +57,12 @@ phase; any failure exits non-zero.
    1-page and a 5-page image prompt's lengths and two text prompts', K8a on
    every decode projection and on the MLP at both image prompts' prefill
    rows, and K8b on the head, each against its plain version at the limits
-   above.
+   above; K8a's prefill tile on gemma-3-27b's attention and MLP projections
+   at the rows of phase 8's image prompts and of its second question's tail.
+   Last, K2 at the shape phase 8 gives it, Gemma-3's SigLIP-So400m at 896 px:
+   5 images of 4,096 patches ``[5, 4096, 16, 72]`` (the plain version one
+   image at a time, SDPA beside) at atol 5e-3, which the outputs' smaller
+   scale at 4,096 keys calls for.
 3. ColPali at full width, from a checkpoint: a bf16 HF-layout checkpoint of
    ``vidore/colpali-v1.3`` (the ``ColPaliForRetrieval`` tensors, 5.85 GB,
    norms at their identity, every other tensor N(0, fan_in^-0.5) from
@@ -108,19 +113,35 @@ phase; any failure exits non-zero.
    ``GemmaDecodeEngine.generate``) or first differ where that engine's top
    two logits are within 0.05 (the gaps the engine records as it decodes,
    ``record_top2``). TTFT of each request, decode tokens/s, the
-   MCQ's time and the peak memory are printed with the card.
+   MCQ's time and the peak memory are printed with the card, and the 5-page
+   prefill split by CUDA events into tower, projector and LM.
+8. The reference's whole generator, right after phase 5:
+   ``google/gemma-3-27b-it`` with images at full width and depth (random
+   weights from ``--seed`` through ``load_gemma3_mm``; SigLIP-So400m at
+   896 px, 256 soft tokens an image): the text engine and a
+   ``Gemma3MMEngine`` on its LM in ``PagedContinuousBatcher`` (4 slots of
+   2,048 tokens, pages of 16, prefix caching) serve a 1-image request, a
+   5-image one (exp-02's top 5, synthetic 896 x 896 pages), a second
+   question over the same 5 images, which must prefill only its tail
+   against the shared image pages (counted among the image requests' own
+   prefills), and two text requests, all submitted at
+   once; then an MCQ over the 5 images through ``next_token_logits``. Run
+   (a) has bf16 LM weights, run (b) int8 made leaf by leaf (K8a, K8b). The
+   gates and the printout are phase 7's.
 
-Each main path (3, 4, each run of 5, 6 and each run of 7) sets every launch
+Each main path (3, 4, each run of 5, 6, 7 and 8) sets every launch
 counter to 0 before it runs and reads them after; each kernel of the path
 must have run in it (ColPali, ColSmol and ColFlor: K1's tensor-core path,
 ColSmol K4's too; ColPali, ColSmol and both runs of 7: K2's tensor-core
-path; every run of phases 5 and 7: K7's tensor-core path; run (c) and image
-run (b): both of K8a's tiles and K8b; run (d): both of K9's tiles). The line before the last is a JSON object with
+path; every run of phases 5, 7 and 8: K7's tensor-core path; both runs of 8:
+K2's tensor-core path; run (c) and image runs (b): both of K8a's tiles and
+K8b; run (d): both of K9's tiles). The line before the last is a JSON object with
 each kernel's launches in those paths, its error against the plain version,
 its time, the plain version's, its bound and, for K2, K6, K8a, K8b and K9,
 the library call's (null where this torch has none); K8a and K9 have a row a
 tile (``int8_matmul_kn`` / ``int4_matmul_kn`` the decode tile at 8 tokens,
-``*.prefill`` the prefill tile at 512), the K5 GEMM a row a role
+``*.prefill`` the prefill tile at 512), K2 a second row at the Gemma-3
+tower's shape (``attention.gemma3_tower``, phase 8's launches), the K5 GEMM a row a role
 (``gemm.qkv``, ``gemm.out_proj``, ``gemm.fc1``, ``gemm.fc2``, each with
 ``cublas_bare_ms``) and its statistics pre-pass one (``ln_stats``). The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
@@ -146,6 +167,12 @@ PACKAGE = "multimodal_colpali_tpu_torch"
 
 K1 = dict(b=4, nq=32, dim=128, p=4096, nt=1030)
 K2 = dict(b=8, s=1024, h=16, d=72)
+K2_GEMMA3 = dict(b=5, s=4096, h=16, d=72)   # Gemma-3's So400m at 896 px, 5 images
+# N(0, 1) inputs at scale 72^-0.5 average 4,096 values: outputs of std about
+# sqrt(e / 4096) = 0.026, so K2's 2e-2 (set at 1,024 keys) would pass a kernel
+# that dropped a 64-key block (max|err| about 0.017); bf16 rounding of P and
+# the output stays near 2e-3 here
+K2_GEMMA3_ATOL = 5e-3
 K3 = dict(b=8, size=448, sets=12)  # 12 x 4.8 MB of pixels: more than the 50 MB L2
 K5 = dict(b=8, s=1024, h=768, heads=12, inter=3072)  # ColSmol's SigLIP layer
 # gemma-3-27b: 32 q / 16 kv heads of 128, pages of 16, 8 slots of up to 4096 tokens
@@ -466,7 +493,61 @@ def phase_kernels(torch, seed: int):
     results.update(window_attention_kernel(torch, g))
     results.update(generation_kernels(torch, g))
     paligemma_kernels(torch, g, results)
+    gemma3_prefill_kernels(torch, g)
+    # its own generator: the inputs drawn from g above stay as they were
+    g3 = torch.Generator(device=dev).manual_seed(seed + 3)
+    results.update(gemma3_tower_attention(torch, g3))
     return results
+
+
+def gemma3_tower_attention(torch, g):
+    """K2 at the shape phase 8 gives it: Gemma-3's SigLIP-So400m at 896 px,
+    5 images (exp-02's top 5) of 4,096 patches, ``[5, 4096, 16, 72]`` bf16,
+    no mask. The plain version runs one image at a time (its float32 scores
+    are 1 GiB an image); the kernel must take its tensor-core path, stay
+    within ``K2_GEMMA3_ATOL`` and repeat bit for bit. SDPA on the same tensors
+    beside."""
+    from multimodal_colpali_tpu_torch._timing import eager_ms
+    import torch.nn.functional as F
+    from multimodal_colpali_tpu_torch.ops import attention as A
+
+    c = K2_GEMMA3
+    dev = torch.device("cuda")
+    shape = (c["b"], c["s"], c["h"], c["d"])
+    qkv = [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(3)]
+    scale = c["d"] ** -0.5
+    tc = A.fused_attention_cuda.tensor_core_launches
+    got = A.fused_attention_cuda(*qkv, scale=scale)
+    require(A.fused_attention_cuda.tensor_core_launches == tc + 1,
+            "K2 at the Gemma-3 tower's shape did not take the tensor-core path")
+
+    def plain():
+        return torch.cat([A.attention_reference(*(x[i: i + 1] for x in qkv), scale=scale)
+                          for i in range(c["b"])])
+
+    want = plain()
+    err = float((got.float() - want.float()).abs().max())
+    require(err <= K2_GEMMA3_ATOL, f"K2 at [{', '.join(map(str, shape))}]: max|err| {err} > "
+                                   f"{K2_GEMMA3_ATOL}")
+    require(torch.equal(A.fused_attention_cuda(*qkv, scale=scale), got),
+            "K2 at the Gemma-3 tower's shape: a repeated call differs")
+    del want
+    torch.cuda.empty_cache()
+    k_ms, p_ms = timed_pair(torch, lambda: A.fused_attention_cuda(*qkv, scale=scale), plain,
+                            iters=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in qkv)
+    lib_ms = eager_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=5)
+    r = row(err, k_ms, p_ms, 4 * qkv[0].numel() * 2,
+            4.0 * c["b"] * c["h"] * c["s"] ** 2 * c["d"], library_ms=lib_ms)
+    print(f"[kernels] K2 attention at the Gemma-3 tower's shape {list(shape)} bf16 (tensor "
+          f"cores, {A.block_rows(torch.bfloat16, c['s'], c['d'])}-row blocks): max|err| "
+          f"{err:.3g} (atol {K2_GEMMA3_ATOL}), repeat bit-identical | kernel {k_ms:.3f} ms, plain "
+          f"{p_ms:.3f} ms (one image at a time), scaled_dot_product_attention {lib_ms:.3f} ms, "
+          f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+          f"{4.0 * c['b'] * c['h'] * c['s'] ** 2 * c['d'] / k_ms / 1e9:.1f} TFLOP/s", flush=True)
+    del qkv, got
+    torch.cuda.empty_cache()
+    return {"attention.gemma3_tower": r}
 
 
 def normalize_kernel(torch, g):
@@ -1081,6 +1162,57 @@ def paligemma_kernels(torch, g, results) -> None:
         del x, got, want, w, sc
     print(f"[kernels] K8a/K8b at phase 7's int8 shapes, max|err| against the plain version: "
           f"{'; '.join(notes)}", flush=True)
+    torch.cuda.empty_cache()
+
+
+def gemma3_prefill_kernels(torch, g) -> None:
+    """K8a's prefill tile at the rows phase 8 gives it under int8 weights:
+    gemma-3-27b's attention projections (q, k/v, o) and MLP (gate/up, down)
+    at the bucketed rows of its 1-image and 5-image prompts and of the second
+    question's tail after the pages it shares with the first, each held
+    against its plain version at phase 2's limit (2% of the output's max)."""
+    from types import SimpleNamespace
+    from multimodal_colpali_tpu_torch.generation import Gemma3MMEngine, ModuloTokenizer
+    from multimodal_colpali_tpu_torch.models.registry import GEMMA3_MM_CONFIGS
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+
+    dev = torch.device("cuda")
+    cfg = GEMMA3_MM_CONFIGS[GEN_MODEL]()
+    t, page = cfg.text, G3_IMG["page"]
+    tok = ModuloTokenizer(t.vocab_size)
+    prompts = [Gemma3MMEngine.build_mm_prompt(SimpleNamespace(cfg=cfg), tok.encode(q),
+                                              bos_id=tok.bos_id, newline_ids=tok.encode("\n"),
+                                              n_images=n, **G3_IMG["marks"])
+               for _, n, q in G3_ASKS]
+    first, second = prompts[1], prompts[2]        # the two questions over the 5 images
+    common = next(i for i, (a, b) in enumerate(zip(first, second)) if a != b)
+    tail = len(second) - min(common // page, (len(second) - 1) // page) * page
+    rows = sorted({-(-n // 16) * 16 for n in [len(p) for p in prompts] + [tail]})
+    h, inter, qd, kvd = (t.hidden_size, t.intermediate_size,
+                         t.num_attention_heads * t.head_dim, t.num_key_value_heads * t.head_dim)
+    kernel = IM.int8_matmul_kn_cuda
+    notes = []
+    for k, n in ((h, qd), (h, kvd), (qd, h), (h, inter), (inter, h)):
+        w = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        sc = torch.rand(n, generator=g, device=dev) * 1e-3
+        for m in rows:
+            x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+            before = kernel.prefill_launches
+            got = kernel(x, w, sc, out_dtype=torch.bfloat16).float()
+            want = IM.int8_matmul_reference(x, w, sc).float()
+            torch.cuda.synchronize()
+            require(kernel.prefill_launches == before + 1,
+                    f"K8a [{m}, {k}] x {list(w.shape)} did not take its prefill tile")
+            err = float((got - want).abs().max())
+            limit = 0.02 * float(want.abs().max())
+            require(bool(torch.isfinite(got).all()) and err <= limit,
+                    f"K8a [{m}, {k}] x {list(w.shape)}: max|err| {err} > 2% of max {limit}")
+            notes.append(f"[{m}, {k}] x {list(w.shape)} {err:.3g} (limit {limit:.3g})")
+            del x, got, want
+        del w, sc
+    print(f"[kernels] K8a (prefill tile) at phase 8's int8 prefill rows {rows} (prompts of "
+          f"{[len(p) for p in prompts]} tokens, a {tail}-token tail), max|err| against the plain "
+          f"version: {'; '.join(notes)}", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -1927,59 +2059,116 @@ def check_greedy(tag: str, key: str, got, want, gap_at) -> str:
     """A greedy reply against the isolated engine's: identical, or first
     different where the engine's top two logits are within 0.05
     (``gap_at(step)``)."""
-    require(len(got) == IMG["max_tokens"], f"[img-{tag}] {key}: {len(got)} tokens")
+    require(len(got) == IMG["max_tokens"], f"[{tag}] {key}: {len(got)} tokens")
     i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
     if i is None:
-        require(len(got) == len(want), f"[img-{tag}] {key}: {len(got)} tokens, the isolated "
+        require(len(got) == len(want), f"[{tag}] {key}: {len(got)} tokens, the isolated "
                                        f"engine's {len(want)}")
         return f"{key}: identical"
     gap = gap_at(i)
-    require(gap <= 0.05, f"[img-{tag}] {key} first differs from the isolated engine at step {i}, "
+    require(gap <= 0.05, f"[{tag}] {key} first differs from the isolated engine at step {i}, "
                          f"where its top two logits are {gap:.4f} apart (> 0.05)")
     return f"{key}: first differs at step {i} (top-2 gap {gap:.4f})"
 
 
-def image_run(torch, mm, tok, tag: str, pix, text_prompts, card: str):
-    """One run of phase 7: two greedy image requests (1 page, and the 5
-    pages retrieved for one query) and two text requests submitted at once
-    to the paged batcher with ``mm``, then an MCQ scored over the 5 pages
-    through ``next_token_logits``. Returns the launch counts."""
+def prefill_split(torch, mm, ids, pix):
+    """One image prompt's prefill through ``mm`` split by CUDA events into
+    the tower, the projector and the LM prefill (the merge into the text
+    embeddings, every layer, the head's logits); the second of two runs.
+    -> ms (tower, projector, LM prefill)."""
+    from multimodal_colpali_tpu_torch.generation.engine import left_pad
+
+    eng = mm.lm
+    s = -(-len(ids) // 16) * 16
+    tid, mask = (eng._tensor(a) for a in left_pad([ids], s, 0))
+    pix = mm._pixels(pix)[None]
+    with torch.inference_mode():
+        for _ in range(2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            kc, vc = eng._caches(1, s)
+            ev[0].record()
+            vis = mm._tower(pix)
+            ev[1].record()
+            img = mm._project(vis, 1)
+            ev[2].record()
+            hidden, _, _ = mm._prefill_embeds(tid, mask, mm._merge(tid, img), kc, vc)
+            eng._logits(eng.params, hidden[:, -1])
+            ev[3].record()
+            torch.cuda.synchronize()
+            del kc, vc, vis, img, hidden
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
+def image_run(torch, mm, tok, tag: str, pix, text_prompts, card: str, conf=None, asks=None):
+    """One run of phase 7 or 8: greedy image requests (``asks``: (key, image
+    count, question), the first ``n`` images of ``pix`` each) and two text
+    requests submitted at once to the paged batcher with ``mm`` (``conf``
+    sizes it, its ``marks`` go to ``build_mm_prompt``), then an MCQ scored
+    over all of ``pix`` through ``next_token_logits``, and the largest image
+    prompt's prefill split into tower, projector and LM. With the batcher's
+    ``prefix_caching`` on in ``conf``, the requests after the first over the
+    same images must prefill only their tails. Returns the launch counts."""
     import numpy as np
     from multimodal_colpali_tpu_torch.generation import PagedContinuousBatcher
+    from multimodal_colpali_tpu_torch.generation.scheduler import _pixel_digest
 
+    conf = conf or IMG
+    prefix_caching = conf.get("prefix_caching", False)
+    asks = asks or [("1 page", 1, QUESTION), (f"{TOP_K} pages", TOP_K, QUESTION)]
     wrappers = kernel_wrappers()
     eng = mm.lm
     newline = tok.encode("\n")
-    img = {f"{n} page{'s' * (n > 1)}": (mm.build_mm_prompt(tok.encode(QUESTION), bos_id=tok.bos_id,
-                                                           newline_ids=newline, n_images=n),
-                                        pix[:n]) for n in (1, TOP_K)}
+
+    marks = conf.get("marks", {})
+
+    def prompt(question, n):
+        return mm.build_mm_prompt(tok.encode(question), bos_id=tok.bos_id, newline_ids=newline,
+                                  n_images=n, **marks)
+
+    img = {key: (prompt(q, n), pix[:n]) for key, n, q in asks}
     txt = {f"text {i}": tok.encode(p, add_special_tokens=True) for i, p in enumerate(text_prompts)}
-    bat = PagedContinuousBatcher(eng, batch_slots=IMG["slots"], max_seq_len=IMG["max_seq_len"],
-                                 chunk=IMG["chunk"], page_size=IMG["page"], mm_engine=mm,
-                                 eos_id=tok.eos_id)
-    # warm-up at the requests' shapes (one character of the question changed,
-    # so the prefill cache misses later)
-    warm = tok.encode(QUESTION.replace("x?", "a?"))
-    bat.generate([mm.build_mm_prompt(warm, bos_id=tok.bos_id, newline_ids=newline, n_images=n)
-                  for n in (1, TOP_K)] + [ids[:-1] + [ids[-1] + 1] for ids in txt.values()],
-                 max_new_tokens=2, pixel_values=[pix[:1], pix, None, None])
+    bat = PagedContinuousBatcher(eng, batch_slots=conf["slots"], max_seq_len=conf["max_seq_len"],
+                                 chunk=conf["chunk"], page_size=conf["page"], mm_engine=mm,
+                                 eos_id=tok.eos_id, prefix_caching=prefix_caching)
+    # warm-up at the requests' shapes on other pixels, one character of each
+    # question and the first text token changed, so neither the prefill
+    # cache nor the prefix pages serve the requests later
+    warm_pix = pix * 0.5
+    bat.generate([prompt(q.replace("?", "!"), n) for _, n, q in asks]
+                 + [ids[:1] + [ids[1] + 1] + ids[2:] for ids in txt.values()],
+                 max_new_tokens=2, pixel_values=[warm_pix[:n] for _, n, _ in asks]
+                 + [None] * len(txt))
     torch.cuda.synchronize()
+    # the image requests' tail-only prefills, each with the pages it reused:
+    # the batcher's own counters also count text prompts that share a page
+    image_tails = []
+    tail_prefill = bat._prefix_prefill
+
+    def spy(prompt_eff, ctx, mm_request):
+        out = tail_prefill(prompt_eff, ctx, mm_request)
+        if mm_request and out is not None:
+            image_tails.append(out[4][1])
+        return out
+
+    bat._prefix_prefill = spy
     bat.decode_s, bat.decode_steps, bat.decode_tokens = 0.0, 0, 0
+    bat.prefix_cache_hits = bat.prefix_prefill_hits = 0
     torch.cuda.reset_peak_memory_stats()
     reset_counts(wrappers)
     first, futs = {}, {}
     t0 = time.perf_counter()
     for key, (ids, p) in [*img.items(), *((k, (v, None)) for k, v in txt.items())]:
-        futs[key] = bat.submit(ids, max_new_tokens=IMG["max_tokens"], pixel_values=p,
+        futs[key] = bat.submit(ids, max_new_tokens=conf["max_tokens"], pixel_values=p,
                                on_token=lambda _, k=key, t=time.perf_counter(): first.setdefault(
                                    k, time.perf_counter() - t))
     bat.drain()
     wall = time.perf_counter() - t0
     got = {k: f.result(timeout=60) for k, f in futs.items()}
-    scaffold = QUESTION + '\n{"answer": "'
+    scaffold = asks[-1][2] + '\n{"answer": "'
     n_scaffold = len(tok.encode(scaffold))
     firsts = [tok.encode(scaffold + c)[n_scaffold] for c in "ABCD"]
-    mcq_ids = mm.build_mm_prompt(tok.encode(scaffold), bos_id=tok.bos_id, n_images=TOP_K)
+    mcq_ids = mm.build_mm_prompt(tok.encode(scaffold), bos_id=tok.bos_id, n_images=len(pix),
+                                 **marks)
     t1 = time.perf_counter()
     logits = mm.next_token_logits([mcq_ids], pix[None])[0]
     mcq_ms = (time.perf_counter() - t1) * 1e3
@@ -1987,34 +2176,52 @@ def image_run(torch, mm, tok, tag: str, pix, text_prompts, card: str):
     launches = read_counts(wrappers)
     peak = torch.cuda.max_memory_allocated() / 2**30
     decode = (bat.decode_tokens, bat.decode_s, bat.decode_steps)
+    hits = (bat.prefix_cache_hits, bat.prefix_prefill_hits)
     del bat
     gc.collect()
     torch.cuda.empty_cache()
     require(logits.shape == (mm.cfg.text.vocab_size,) and bool(np.isfinite(logits).all()),
-            f"[img-{tag}] MCQ logits: shape {logits.shape}, not all finite")
+            f"[{tag}] MCQ logits: shape {logits.shape}, not all finite")
     answer = "ABCD"[int(np.argmax(logits[firsts]))]
+    if prefix_caching:
+        shared = sum(n == len(pix) for _, n, _ in asks) - 1
+        # a tail-only image prefill holds no image token in its tail: every
+        # image span came from the cached pages
+        require(len(image_tails) >= shared,
+                f"[{tag}] {len(image_tails)} image requests prefilled only their tails, not "
+                f"the {shared} that share the first's images")
 
     # the isolated engines, each step's top-two logit gap recorded as it decodes
     notes = []
     eng.record_top2 = True
     for key, (ids, p) in [*img.items(), *((k, (v, None)) for k, v in txt.items())]:
-        want = (eng.generate([ids], max_new_tokens=IMG["max_tokens"], eos_id=tok.eos_id)
-                if p is None else mm.generate([ids], p[None], max_new_tokens=IMG["max_tokens"],
+        want = (eng.generate([ids], max_new_tokens=conf["max_tokens"], eos_id=tok.eos_id)
+                if p is None else mm.generate([ids], p[None], max_new_tokens=conf["max_tokens"],
                                               eos_id=tok.eos_id))[0]
         gaps = eng.top2_gaps[0]
         notes.append(check_greedy(tag, key, got[key], want, lambda i, g=gaps: float(g[i])))
     eng.record_top2 = False
+    key, (ids, p) = max(img.items(), key=lambda kv: len(kv[1][1]))
+    split = prefill_split(torch, mm, ids, p)
+    t1 = time.perf_counter()
+    _pixel_digest(torch.from_numpy(np.ascontiguousarray(p)))
+    digest_ms = (time.perf_counter() - t1) * 1e3
     tokens, secs, steps = decode
-    print(f"[img-{tag}] {eng.weight_dtype} LM weights: image requests "
+    print(f"[{tag}] {eng.weight_dtype} LM weights: image requests "
           f"({', '.join(f'{k}: {len(v[0])} tokens' for k, v in img.items())}) and text requests "
           f"({', '.join(f'{len(v)} tokens' for v in txt.values())}) submitted at once, in that "
           f"order, served in {wall:.2f} s | TTFT ms "
           f"{ {k: round(v * 1e3, 1) for k, v in first.items()} } | decode "
-          f"{tokens / secs:.1f} tokens/s over {IMG['slots']} slots, "
-          f"{1e3 * secs / max(steps, 1):.1f} ms a step | MCQ over {TOP_K} pages: {answer!r} in "
-          f"{mcq_ms:.1f} ms | peak {peak:.1f} GiB | greedy vs the isolated engines: "
-          f"{'; '.join(notes)} | {card}", flush=True)
-    print(f"[img-{tag}] launches {json.dumps(launches)}", flush=True)
+          f"{tokens / secs:.1f} tokens/s over {conf['slots']} slots, "
+          f"{1e3 * secs / max(steps, 1):.1f} ms a step | MCQ over {len(pix)} images: {answer!r} "
+          f"in {mcq_ms:.1f} ms | peak {peak:.1f} GiB | prefix pages reused {hits[0]}, tail-only "
+          f"prefills {hits[1]}, of them image requests' {len(image_tails)} (pages reused "
+          f"{image_tails}) | greedy vs the isolated engines: {'; '.join(notes)} | {card}",
+          flush=True)
+    print(f"[{tag}] {key} prefill by CUDA events: tower {split[0]:.1f} ms, projector "
+          f"{split[1]:.2f} ms, LM prefill ({len(ids)} tokens) {split[2]:.1f} ms; pixel digest "
+          f"{digest_ms:.1f} ms on the host | {card}", flush=True)
+    print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
     return launches
 
 
@@ -2042,7 +2249,7 @@ def phase_images(torch, seed: int, card: str, checkpoint: dict, top_pages):
         engine = GemmaDecodeEngine(cfg.text, engine_params_from_state_dict(retr.model.state_dict()),
                                    dtype=bf16, weight_dtype=weight_dtype, device="cuda")
         mm = PaliGemmaEngine(retr.model, lm=engine)
-        runs[tag] = image_run(torch, mm, tok, tag, pix, text_prompts, card)
+        runs[tag] = image_run(torch, mm, tok, f"img-{tag}", pix, text_prompts, card)
         del mm, engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -2056,6 +2263,74 @@ def phase_images(torch, seed: int, card: str, checkpoint: dict, top_pages):
             and runs["b"]["int8_matmul_nk"] > 0,
             f"(img-b) never launched both of K8a's tiles and K8b: {runs['b']}")
     require(runs["a"]["int8_matmul_kn"] == 0, f"(img-a) ran a projection as int8: {runs['a']}")
+    return runs
+
+
+# Gemma-3's <start_of_image> and <end_of_image> around each image, as its chat
+# template writes them: each image is then its own span of 256 tokens, which
+# prefix caching requires (adjacent spans without them form one run)
+G3_IMG = dict(slots=4, max_seq_len=2048, chunk=8, page=16, max_tokens=32, prefix_caching=True,
+              marks=dict(boi_id=255_999, eoi_id=256_000))
+# both questions over the 5 images open with one preamble, so the page after
+# the image spans is shared too and the second question's tail holds no image
+PREAMBLE = "Answer from the page images above, citing the page. "
+G3_ASKS = [("1 image", 1, PREAMBLE + QUESTION),
+           (f"{TOP_K} images", TOP_K, PREAMBLE + QUESTION),
+           (f"{TOP_K} images, 2nd question", TOP_K,
+            PREAMBLE + "Which figure shows the rolling velocity under shear? Answer briefly.")]
+
+
+def phase_gemma3_images(torch, seed: int, card: str):
+    """Phase 8: ``google/gemma-3-27b-it`` with images at full width and depth
+    (random weights from ``seed`` through ``load_gemma3_mm``): the text
+    engine and a ``Gemma3MMEngine`` on its LM in the paged batcher with
+    prefix caching; run (a) bf16 LM weights, run (b) int8 made leaf by leaf
+    on the card."""
+    import numpy as np
+    from multimodal_colpali_tpu_torch.generation import (
+        Gemma3MMEngine, GemmaDecodeEngine, ModuloTokenizer)
+    from multimodal_colpali_tpu_torch.models.processing import ImagePreprocessor
+    from multimodal_colpali_tpu_torch.models.registry import load_gemma3_mm, tree_leaves
+
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(seed + 13)
+    text_prompts = [mcq_prompt(rng, 300), mcq_prompt(rng, 700)]
+    runs = {}
+    for tag, weight_dtype in (("a", "native"), ("b", "int8")):
+        t0 = time.perf_counter()
+        cfg, params, _ = load_gemma3_mm(GEN_MODEL, device="cuda", dtype=bf16, seed=seed,
+                                        weight_dtype=weight_dtype)
+        tower, projector = params.pop("vision_tower"), params.pop("multi_modal_projector")
+        engine = GemmaDecodeEngine(cfg.text, params, dtype=bf16, device="cuda")
+        mm = Gemma3MMEngine(cfg, tower, projector, lm=engine)
+        torch.cuda.synchronize()
+        require(engine.weight_dtype == weight_dtype,
+                f"[g3-{tag}] the LM is {engine.weight_dtype}, not {weight_dtype}")
+        n_lm = sum(t.numel() for _, t in tree_leaves(engine.params))
+        n_tower = sum(p.numel() for p in tower.parameters())
+        # 896 x 896 pages: the preprocessor normalizes them without a resize
+        pages = synthetic_pages(TOP_K, cfg.vision.image_size, seed)
+        pix = ImagePreprocessor(cfg.vision.image_size)(pages)              # [5, 896, 896, 3]
+        tok = ModuloTokenizer(cfg.text.vocab_size)
+        print(f"[g3-{tag}] {GEN_MODEL} with images: LM {weight_dtype} ({n_lm / 1e9:.2f}B "
+              f"elements), SigLIP-So400m {n_tower / 1e9:.3f}B params bf16 at "
+              f"{cfg.vision.image_size} px ({cfg.vision.num_patches} patches, "
+              f"{cfg.mm_tokens_per_image} soft tokens an image) made in "
+              f"{time.perf_counter() - t0:.1f} s ({torch.cuda.memory_allocated() / 2**30:.1f} "
+              f"GiB)", flush=True)
+        runs[tag] = image_run(torch, mm, tok, f"g3-{tag}", pix, text_prompts, card,
+                              conf=G3_IMG, asks=G3_ASKS)
+        del mm, engine, tower, projector, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for tag in ("a", "b"):
+        require(runs[tag]["attention.tensor_core"] > 0
+                and runs[tag]["paged_attention.tensor_core"] > 0,
+                f"(g3-{tag}) never launched K2's or K7a's tensor-core path: {runs[tag]}")
+    require(runs["b"]["int8_matmul_kn.decode"] > 0 and runs["b"]["int8_matmul_kn.prefill"] > 0
+            and runs["b"]["int8_matmul_nk"] > 0,
+            f"(g3-b) never launched both of K8a's tiles and K8b: {runs['b']}")
+    require(runs["a"]["int8_matmul_kn"] == 0, f"(g3-a) ran a projection as int8: {runs['a']}")
     return runs
 
 
@@ -2095,6 +2370,7 @@ def main(argv=None) -> int:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     colsmol = phase_colsmol(torch, args.seed, card)
     gen = phase_generation(torch, args.seed, card)
+    g3 = phase_gemma3_images(torch, args.seed, card)
     # ColFlor normalizes on the host; its BART attention has a mask, so no K2
     colflor, _ = phase_retrieval(torch, "ahmed-masry/ColFlor", args.seed, card, "colflor",
                                  device_preprocess=False,
@@ -2137,10 +2413,15 @@ def main(argv=None) -> int:
     meta["int8_matmul_kn.prefill"] = meta["int8_matmul_kn"]
     meta["int4_matmul_kn.prefill"] = meta["int4_matmul_kn"]
     tile_of = {"int8_matmul_kn": "int8_matmul_kn.decode", "int4_matmul_kn": "int4_matmul_kn.decode"}
+    # K2 at the Gemma-3 tower's shape: its launches are phase 8's
+    meta["attention.gemma3_tower"] = meta["attention"]
     paths = [colpali, images["a"], images["b"], colsmol, gen["a"], gen["b"], gen["c"],
-             gen["d"], colflor]
-    rows = [dict(name=name, route=route, source=src, replaces=rep,
-                 launches=sum(p[tile_of.get(name, name)] for p in paths), **kernels[name])
+             gen["d"], colflor, g3["a"], g3["b"]]
+    launches = {name: sum(p[tile_of.get(name, name)] for p in paths) for name in meta
+                if name != "attention.gemma3_tower"}
+    launches["attention.gemma3_tower"] = g3["a"]["attention"] + g3["b"]["attention"]
+    rows = [dict(name=name, route=route, source=src, replaces=rep, launches=launches[name],
+                 **kernels[name])
             for name, (route, src, rep) in meta.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -452,7 +452,83 @@ class GemmaDecodeEngine:
         return results
 
 
-class PaliGemmaEngine:
+class _ImageEngine:
+    """What both image engines share: the pixels on the LM's device, the
+    tower over every image of a batch, the prefill of the merged prompt, and
+    ``generate`` / ``next_token_logits`` over it, decoding through ``lm``.
+    An engine sets ``cfg``, ``vision_tower`` and ``lm``, supplies
+    ``_project``, ``_merge``, ``_prefill_embeds`` and ``build_mm_prompt``,
+    and declares what the batchers read: ``first_position``, the prompt's
+    first position (its last token then sits at n_p - 1 + first_position),
+    and ``shares_prefix_pages``, whether image prompts may share prefix
+    pages. ``pixel_values`` are normalized NHWC, ``[B, H, W, 3]`` or ``[B, N,
+    H, W, 3]`` for N images a row."""
+
+    batcher_compatible = True
+    image_rank = 3          # one image is [H, W, 3]
+    first_position: int
+    shares_prefix_pages: bool
+
+    def _pixels(self, pixel_values) -> torch.Tensor:
+        if not isinstance(pixel_values, torch.Tensor):
+            pixel_values = torch.from_numpy(np.asarray(pixel_values))
+        return pixel_values.to(self.lm.device)
+
+    def _tower(self, pix: torch.Tensor) -> torch.Tensor:
+        """``[B, N, H, W, 3]`` (or ``[B, H, W, 3]``) -> patches ``[B * N, P, hidden]``."""
+        if pix.dim() == 4:
+            pix = pix[:, None]                       # [B, 1, H, W, 3]
+        return self.vision_tower(pix.reshape((-1,) + tuple(pix.shape[2:])).to(self.lm.dtype))
+
+    def _image_features(self, pix: torch.Tensor) -> torch.Tensor:
+        return self._project(self._tower(pix), pix.shape[0])
+
+    def _merged_embeds(self, ids: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+        return self._merge(ids, self._image_features(pix))
+
+    def prefill(self, ids: torch.Tensor, mask: torch.Tensor, pix: torch.Tensor, kc, vc):
+        """The image prompt over ``ids``/``mask [B, s]`` into the caches'
+        first ``s`` rows -> (hidden, (k, v), positions from ``first_position``)."""
+        return self._prefill_embeds(ids, mask, self._merged_embeds(ids, pix), kc, vc)
+
+    def _padded(self, prompts: Sequence[Sequence[int]], pad_id: int, bucket: int):
+        s = max(max(len(pr) for pr in prompts), 1)
+        s = ((s + bucket - 1) // bucket) * bucket
+        ids, mask = (self.lm._tensor(a) for a in left_pad(prompts, s, pad_id))
+        return s, ids, mask
+
+    @torch.inference_mode()
+    def generate(self, prompts: Sequence[Sequence[int]], pixel_values,
+                 max_new_tokens: int = 32, temperature: float = 0.0, eos_id: int = -1,
+                 pad_id: int = 0, seed: int = 0, bucket: int = 16, top_p: float = 1.0,
+                 top_k: int = 0) -> List[List[int]]:
+        """Image-conditioned continuations (engine.py:769-800,
+        gemma3_mm.py:236-267) of prompts that already hold their image tokens
+        (:meth:`build_mm_prompt`)."""
+        eng = self.lm
+        s, ids, mask = self._padded(prompts, pad_id, bucket)
+        b = len(prompts)
+        kc, vc = eng._caches(b, s + max_new_tokens)
+        hidden, _, positions = self.prefill(ids, mask, self._pixels(pixel_values), kc, vc)
+        kv_valid = torch.cat([mask.bool(), torch.ones((b, max_new_tokens), dtype=torch.bool,
+                                                       device=eng.device)], dim=1)
+        return eng._decode(hidden[:, -1], positions[:, -1], kc, vc, s, kv_valid,
+                           max_new_tokens, temperature, eos_id, pad_id, seed, top_p, top_k)
+
+    @torch.inference_mode()
+    def next_token_logits(self, prompts: Sequence[Sequence[int]], pixel_values,
+                          pad_id: int = 0, bucket: int = 16) -> np.ndarray:
+        """Image-conditioned prefill-only float32 logits ``[B, V]``
+        (engine.py:802-836, gemma3_mm.py:269-291), the constrained-decoding
+        surface."""
+        eng = self.lm
+        s, ids, mask = self._padded(prompts, pad_id, bucket)
+        kc, vc = eng._caches(len(prompts), s)
+        hidden, _, _ = self.prefill(ids, mask, self._pixels(pixel_values), kc, vc)
+        return eng._logits(eng.params, hidden[:, -1]).cpu().numpy()
+
+
+class PaliGemmaEngine(_ImageEngine):
     """Image-conditioned generation on the ColPali / PaliGemma weights
     (engine.py:649-850).
 
@@ -465,11 +541,12 @@ class PaliGemmaEngine:
     ``convert.engine_params_from_state_dict(model.state_dict())``). Page images
     lead the prompt (:meth:`build_mm_prompt`); the prompt attends
     bidirectionally, generated tokens causally, and positions are 1-indexed,
-    as in HF PaliGemma. ``pixel_values`` are normalized NHWC, ``[B, H, W,
-    3]`` or ``[B, N, H, W, 3]`` for N images a row."""
+    as in HF PaliGemma."""
 
-    batcher_compatible = True
-    image_rank = 3          # one image is [H, W, 3]
+    # a bidirectional prompt shares no prefix pages, since each page's K/V
+    # depend on the whole prompt
+    first_position = 1
+    shares_prefix_pages = False
 
     def __init__(self, model: Any, lm: GemmaDecodeEngine):
         self.cfg = model.cfg
@@ -477,73 +554,34 @@ class PaliGemmaEngine:
         self.projector = model.multi_modal_projector
         self.lm = lm
 
-    def _pixels(self, pixel_values) -> torch.Tensor:
-        if not isinstance(pixel_values, torch.Tensor):
-            pixel_values = torch.from_numpy(np.asarray(pixel_values))
-        return pixel_values.to(self.lm.device)
+    def _project(self, vis: torch.Tensor, b: int) -> torch.Tensor:
+        """Patches -> the projected features of each row's images ``[B, N * P, text]``."""
+        return self.projector(vis.reshape(b, -1, vis.shape[-1]))
 
-    def _merged_embeds(self, ids: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
-        """Token embeddings with the projected features of each row's images
-        in its ``<image>`` slots, image after image (engine.py:672-709)."""
+    def _merge(self, ids: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+        """Token embeddings with the projected features ``img`` in the
+        ``<image>`` slots, image after image (engine.py:672-709)."""
         c, eng = self.cfg, self.lm
         is_img = ids == c.image_token_id
         embeds = q_take(eng.params["embed"]["embed_tokens"],
                         torch.where(is_img, torch.zeros_like(ids), ids), eng.dtype)
-        if pix.dim() == 4:
-            pix = pix[:, None]                       # [B, 1, H, W, 3]
-        b, n_img = pix.shape[:2]
-        vis = self.vision_tower(pix.reshape((b * n_img,) + tuple(pix.shape[2:])).to(eng.dtype))
-        vis = vis.reshape(b, n_img * vis.shape[1], vis.shape[-1])
-        img = self.projector(vis)
         img = img / torch.tensor(c.text.hidden_size ** 0.5, dtype=img.dtype, device=img.device)
         img_pos = (torch.cumsum(is_img.long(), dim=1) - 1).clamp(0, img.shape[1] - 1)
         gathered = torch.gather(img, 1, img_pos[..., None].expand(-1, -1, img.shape[-1]))
         embeds = torch.where(is_img[..., None], gathered, embeds)
         return (embeds.float() * c.text.hidden_size ** 0.5).to(eng.dtype)
 
-    def prefill(self, ids: torch.Tensor, mask: torch.Tensor, pix: torch.Tensor, kc, vc):
-        """The bidirectional prompt over ``ids``/``mask [B, s]`` into the
-        caches' first ``s`` rows -> (hidden, (k, v), 1-indexed positions)."""
+    def _prefill_embeds(self, ids: torch.Tensor, mask: torch.Tensor, x: torch.Tensor, kc, vc):
+        """The bidirectional prompt ``ids``/``mask [B, s]`` with embeddings
+        ``x`` into the caches' first ``s`` rows -> (hidden, (k, v), 1-indexed
+        positions)."""
         eng = self.lm
         positions = torch.cumsum(mask, dim=1)
         t = kc[0].shape[1]
         valid = torch.zeros((ids.shape[0], t), dtype=torch.bool, device=eng.device)
         valid[:, :ids.shape[1]] = mask.bool()
-        hidden, kv = eng._chunk(eng.params, self._merged_embeds(ids, pix), positions, kc, vc,
-                                0, valid, causal=False)
+        hidden, kv = eng._chunk(eng.params, x, positions, kc, vc, 0, valid, causal=False)
         return hidden, kv, positions
-
-    @torch.inference_mode()
-    def generate(self, prompts: Sequence[Sequence[int]], pixel_values,
-                 max_new_tokens: int = 32, temperature: float = 0.0, eos_id: int = -1,
-                 pad_id: int = 0, seed: int = 0, bucket: int = 16, top_p: float = 1.0,
-                 top_k: int = 0) -> List[List[int]]:
-        """Image-conditioned continuations (engine.py:769-800) of prompts that
-        already hold their image tokens (:meth:`build_mm_prompt`)."""
-        eng = self.lm
-        s = max(max(len(pr) for pr in prompts), 1)
-        s = ((s + bucket - 1) // bucket) * bucket
-        b = len(prompts)
-        ids, mask = (eng._tensor(a) for a in left_pad(prompts, s, pad_id))
-        kc, vc = eng._caches(b, s + max_new_tokens)
-        hidden, _, positions = self.prefill(ids, mask, self._pixels(pixel_values), kc, vc)
-        kv_valid = torch.cat([mask.bool(), torch.ones((b, max_new_tokens), dtype=torch.bool,
-                                                       device=eng.device)], dim=1)
-        return eng._decode(hidden[:, -1], positions[:, -1], kc, vc, s, kv_valid,
-                           max_new_tokens, temperature, eos_id, pad_id, seed, top_p, top_k)
-
-    @torch.inference_mode()
-    def next_token_logits(self, prompts: Sequence[Sequence[int]], pixel_values,
-                          pad_id: int = 0, bucket: int = 16) -> np.ndarray:
-        """Image-conditioned prefill-only float32 logits ``[B, V]``
-        (engine.py:802-836), the constrained-decoding surface."""
-        eng = self.lm
-        s = max(max(len(pr) for pr in prompts), 1)
-        s = ((s + bucket - 1) // bucket) * bucket
-        ids, mask = (eng._tensor(a) for a in left_pad(prompts, s, pad_id))
-        kc, vc = eng._caches(len(prompts), s)
-        hidden, _, _ = self.prefill(ids, mask, self._pixels(pixel_values), kc, vc)
-        return eng._logits(eng.params, hidden[:, -1]).cpu().numpy()
 
     def build_mm_prompt(self, text_ids: Sequence[int], bos_id: int = 2,
                         newline_ids: Sequence[int] = (), n_images: int = 1) -> List[int]:

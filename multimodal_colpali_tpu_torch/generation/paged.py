@@ -16,9 +16,14 @@ requests use (vLLM's PagedAttention memory model). On top of the parent:
   prompt with a cached prefix prefills only its tail;
 - ``kv_dtype="int8"`` keeps the pools as int8 codes plus one float32 scale
   per (token, kv head);
-- image requests (``mm_engine``, a ``PaliGemmaEngine``) page like text ones
-  once prefilled, but never share prefix pages: PaliGemma's prompt attends
-  bidirectionally, so a page's K/V depend on the whole prompt (paged.py:127-137).
+- image requests (``mm_engine``) page like text ones once prefilled. With
+  ``prefix_caching`` a ``Gemma3MMEngine``'s prompts share pages too, keyed
+  by the pixels' digest in the chain root, when every image span has exactly
+  ``mm_tokens_per_image`` tokens: its prompt is causal and each span's soft
+  tokens are fixed by the digest, so a page's K/V depend only on what comes
+  before its end. PaliGemma's prompts never share: they attend
+  bidirectionally, so a page's K/V depend on the whole prompt
+  (paged.py:127-137).
 
 The decode step is the parent's layer math with two substitutions: K/V rows
 go to (page, row) from the block table, updated in place with ``index_put_``
@@ -71,6 +76,9 @@ class PagedContinuousBatcher(ContinuousBatcher):
         self._slot_age = [0] * self.B                   # admission order
         self.preemptions = 0
         self.prefix_caching = prefix_caching
+        # image prompts share pages only where the engine declares it sound
+        self._mm_prefix_ok = (prefix_caching and mm_engine is not None
+                              and mm_engine.shares_prefix_pages)
         self.prefix_cache_hits = 0
         self.prefix_prefill_hits = 0   # tail-only prefills (prefix compute skipped)
 
@@ -177,6 +185,27 @@ class PagedContinuousBatcher(ContinuousBatcher):
             keys.append(chain)
         return keys
 
+    def _mm_spans_ok(self, tokens) -> bool:
+        """Whether every image-token run of ``tokens`` has exactly
+        ``mm_tokens_per_image`` tokens (paged.py:276-292): only then do the
+        digest and the tokens so far fix the soft tokens a page holds. A
+        malformed prompt (a truncated run) shares nothing."""
+        cfg = self.mm_engine.cfg
+        run = 0
+        for t in tokens:
+            if t == cfg.image_token_id:
+                run += 1
+            elif run:
+                if run != cfg.mm_tokens_per_image:
+                    return False
+                run = 0
+        return run in (0, cfg.mm_tokens_per_image)
+
+    def _shares(self, tokens, mm: bool) -> bool:
+        """Whether a prompt takes part in prefix caching: text always, an
+        image prompt where :meth:`_mm_spans_ok` and the engine allow it."""
+        return not mm or (self._mm_prefix_ok and self._mm_spans_ok(tokens))
+
     def _reuse_depth(self, keys, n_prompt: int) -> int:
         """Leading pages whose keys are cached, capped so the tail keeps at
         least one token (the next-token logits come from it)."""
@@ -202,8 +231,11 @@ class PagedContinuousBatcher(ContinuousBatcher):
         """Prefill only the prompt tail against cached prefix pages
         (paged.py:294-389). The tail sits right after the context rows, so
         slot distance equals token distance and Gemma-3's sliding masks stay
-        true; the returned rows are right-aligned again for install."""
-        if not self.prefix_caching or mm:
+        true; the returned rows are right-aligned again for install. An image
+        prompt (``ctx``, its pixel digest, in the chain root) takes part when
+        it shares pages and its tail holds no image token; otherwise the
+        whole prompt prefills."""
+        if not self.prefix_caching or not self._shares(prompt_eff, mm):
             return None
         page, eng, c = self.page, self.engine, self.cfg
         n_prompt = len(prompt_eff)
@@ -213,6 +245,8 @@ class PagedContinuousBatcher(ContinuousBatcher):
             return None
         n_ctx = n_reused * page
         tail = prompt_eff[n_ctx:]
+        if mm and self.mm_engine.cfg.image_token_id in tail:
+            return None      # an image span in the tail needs the image prefill
         n_tail = len(tail)
         s_tail = max(((n_tail + self.bucket - 1) // self.bucket) * self.bucket, self.bucket)
         phys = self._tensor([self._key_page[k] for k in keys[:n_reused]], torch.int64)
@@ -254,7 +288,7 @@ class PagedContinuousBatcher(ContinuousBatcher):
         if -(-worst_rows // self.page) > min(usable, self.NB):
             return False
         n_reused = reused_in_lru = 0
-        if self.prefix_caching and tokens is not None and not mm:
+        if self.prefix_caching and tokens is not None and self._shares(tokens, mm):
             keys = self._chain_keys(tokens, ctx)
             n_reused = self._reuse_depth(keys, n_prompt)
             reused_in_lru = sum(self._key_page[k] in self._cache_lru for k in keys[:n_reused])
@@ -272,12 +306,13 @@ class PagedContinuousBatcher(ContinuousBatcher):
         logical token t lands at page t // page, row t % page. Cached full
         pages are attached read-only and newly written full pages registered
         under their chain keys (paged.py:452-562). An image request
-        (``ctx``, its pixel digest) shares no page."""
+        (``ctx``, its pixel digest, in the chain root) shares pages only where
+        :meth:`_shares` allows it."""
         page = self.page
         n_pages = -(-n_prompt // page)
         keys: List[Any] = []
         n_reused = 0
-        if self.prefix_caching and tokens is not None and ctx is None:
+        if self.prefix_caching and tokens is not None and self._shares(tokens, ctx is not None):
             keys = hint[3] if hint is not None else self._chain_keys(tokens, ctx)
             if hint is not None:
                 n_reused = hint[1]

@@ -13,10 +13,10 @@ concurrency.
 Covered here: prefill into a slot and chunked decode, the exact-prompt
 prefill cache, chunked prefill, ``max_queue`` and ``admission_timeout``,
 logprobs and streaming callbacks, and image requests through a
-``PaliGemmaEngine`` (``mm_engine``): such a request prefills through the
-engine's bidirectional image prefix and then decodes in the same slot batch
-as the text requests. Engines that decode with cross-attention (Mllama) are
-not ported and are refused.
+``PaliGemmaEngine`` or a ``Gemma3MMEngine`` (``mm_engine``): such a request
+prefills through the engine's own image prefill and then decodes in the same
+slot batch as the text requests. Engines that decode with cross-attention
+(Mllama) are not ported and are refused.
 
 The dense per-slot caches ``[B, max_seq_len, Hkv, D]`` are made by
 ``_init_kv``, which the paged batcher replaces with its page pools, so a
@@ -98,10 +98,10 @@ class ContinuousBatcher:
         ``prefill_chunk > 0`` prefills text prompts longer than that in
         segments, one per scheduling point (chunked prefill).
 
-        ``mm_engine`` (a ``PaliGemmaEngine`` over the same weights and dtype
-        as ``engine``) takes image requests (``submit(pixel_values=)``); an
-        engine that says it is not batcher-compatible, or that decodes with
-        cross-attention, is refused (scheduler.py:113-128)."""
+        ``mm_engine`` (a ``PaliGemmaEngine`` or a ``Gemma3MMEngine`` whose
+        ``lm`` is ``engine``) takes image requests (``submit(pixel_values=)``);
+        an engine that says it is not batcher-compatible, or that decodes
+        with cross-attention, is refused (scheduler.py:113-128)."""
         if mm_engine is not None and not getattr(mm_engine, "batcher_compatible", True):
             raise ValueError(f"{type(mm_engine).__name__} is not batcher-compatible; serve its "
                              f"image requests through the engine's own generate")
@@ -183,9 +183,10 @@ class ContinuousBatcher:
         return k, v, eng._logits(eng.params, hidden[:, -1])[0], int(positions[0, -1])
 
     def _mm_prefill(self, tokens: Sequence[int], s: int, pixel_values: torch.Tensor):
-        """An image prompt left-padded to ``s`` through the PaliGemma prefix
-        (scheduler.py:255-306): merged image embeddings, bidirectional
-        attention, 1-indexed positions."""
+        """An image prompt left-padded to ``s`` through the engine's prefill
+        (scheduler.py:255-306): PaliGemma's bidirectional prefix at 1-indexed
+        positions, or Gemma-3's causal prompt with bidirectional image spans at
+        0-indexed ones; the last position is the engine's."""
         mm = self.mm_engine
         ids, mask = (self._tensor(a) for a in left_pad([tokens], s, self.pad_id))
         kc, vc = mm.lm._caches(1, s)
@@ -218,10 +219,14 @@ class ContinuousBatcher:
 
     def _mm_resume_prefill(self, req: _Request, s: int):
         """A preempted image request's prompt + generated tokens
-        (scheduler.py:594-667): the prompt re-prefills bidirectionally (an LRU
-        hit, usually), then the generated tokens extend it causally at their
-        decode positions, as the uninterrupted decode computed them. Returns
-        the rows left-padded to ``s`` over the whole sequence."""
+        (scheduler.py:594-667): the prompt re-prefills through the image
+        prefill (an LRU hit, usually), then the generated tokens extend it
+        causally at their decode positions, as the uninterrupted decode
+        computed them: after the prompt's last position, ``n_p`` for
+        PaliGemma, ``n_p - 1`` for Gemma-3 (the engine's ``first_position``).
+        The generated rows follow the prompt's directly, so slot distance
+        stays token distance (Gemma-3's sliding window counts slots).
+        Returns the rows left-padded to ``s`` over the whole sequence."""
         prompt, gen = req.prompt, list(req.tokens)
         n_p, n_gen = len(prompt), len(gen)
         s1 = max(((n_p + self.bucket - 1) // self.bucket) * self.bucket, self.bucket)
@@ -239,7 +244,8 @@ class ContinuousBatcher:
         mask2[0, :n_gen] = 1
         ids2 = torch.full((1, s2), self.pad_id, dtype=torch.int64, device=dev)
         ids2[0, :n_gen] = self._tensor(gen, torch.int64)
-        positions = n_p + torch.cumsum(mask2, dim=1)     # the prompt's last sits at n_p
+        last = n_p - 1 + self.mm_engine.first_position    # the prompt's last position
+        positions = last + torch.cumsum(mask2, dim=1)
         kv_valid = torch.cat([torch.ones((1, n_p), dtype=torch.bool, device=dev),
                               mask2.bool()], dim=1)
         hidden, (k2, v2) = lm._chunk(lm.params, lm._embed(lm.params, ids2), positions, kc, vc,

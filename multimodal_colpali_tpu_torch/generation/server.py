@@ -83,7 +83,7 @@ class GenerationServer:
     ``engine`` must expose ``generate(prompts, max_new_tokens, temperature,
     eos_id, seed) -> [[token_id, ...]]`` (a batcher also ``submit``);
     ``tokenizer`` must expose ``encode``/``decode`` (and optionally
-    ``eos_id``). ``mm_engine`` (a ``PaliGemmaEngine``) and
+    ``eos_id``). ``mm_engine`` (a ``PaliGemmaEngine`` or ``Gemma3MMEngine``) and
     ``image_preprocessor`` (images -> normalized ``[N, H, W, 3]``) answer
     requests with images; a batcher built with the same ``mm_engine`` serves
     them in its slot batch, otherwise the engine generates them itself.

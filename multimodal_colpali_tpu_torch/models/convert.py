@@ -16,9 +16,10 @@ over or misshapen.
 
 The decode engine keeps the JAX layout instead (a nested dict, dense kernels
 ``[in, out]``, int8 weights as ``{"q8", "scale"}`` dicts):
-:func:`engine_params_from_jax` carries a JAX engine tree over as it is, and
-:func:`engine_params_from_state_dict` turns a retriever's ``state_dict`` back
-into that layout for its Gemma LM.
+:func:`engine_params_from_jax` carries a JAX engine tree over as it is
+(:func:`gemma3_mm_params_from_jax` a Gemma-3 multimodal one, its tower as a
+``state_dict``), and :func:`engine_params_from_state_dict` turns a
+retriever's ``state_dict`` back into that layout for its Gemma LM.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from multimodal_colpali_tpu_torch.models.configs import (
     ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig)
 from multimodal_colpali_tpu_torch.models.florence2 import ColFlorModel
 from multimodal_colpali_tpu_torch.models.idefics3 import ColIdefics3Model
+from multimodal_colpali_tpu_torch.models.siglip import SiglipVisionTower
 
 ModelConfig = Union[ColPaliModelConfig, ColIdefics3ModelConfig, ColFlorModelConfig]
 
@@ -103,9 +105,14 @@ def params_from_flax(params: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, t
     """A flax tree (flat or nested; numpy arrays or tensors) of the config's
     family -> ``state_dict`` of CPU tensors: numpy leaves are copied, tensor
     leaves (``models/hf_import``'s views of a checkpoint) stay views."""
+    return state_from_flax(params, model_class(cfg)(cfg, device="meta"))
+
+
+def state_from_flax(params: Mapping[str, Any], module: nn.Module) -> Dict[str, torch.Tensor]:
+    """A flax tree -> ``module``'s ``state_dict`` (as :func:`params_from_flax`),
+    every name and shape checked against ``module`` (a meta one will do)."""
     flat = flatten_flax(params)
-    model = model_class(cfg)
-    expected = {n: tuple(p.shape) for n, p in model(cfg, device="meta").state_dict().items()}
+    expected = {n: tuple(p.shape) for n, p in module.state_dict().items()}
     state: Dict[str, torch.Tensor] = {}
     seen = set()
     problems = []
@@ -124,7 +131,7 @@ def params_from_flax(params: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, t
         state[name] = t if isinstance(t, torch.Tensor) else torch.from_numpy(np.array(t))
     problems += [f"missing parameter {n!r}" for n in expected if n not in seen]
     if problems:
-        raise ValueError(f"flax params do not fit the {model.__name__} config:\n  "
+        raise ValueError(f"flax params do not fit the {type(module).__name__} config:\n  "
                          + "\n  ".join(problems))
     return state
 
@@ -153,6 +160,22 @@ def engine_params_from_jax(tree: Mapping[str, Any], device: Any = "cuda",
         return x
 
     return conv(tree, False)
+
+
+def gemma3_mm_params_from_jax(tree: Mapping[str, Any], cfg, device: Any = "cuda",
+                              dtype: Optional[torch.dtype] = None):
+    """A JAX ``Gemma3MMEngine`` tree (``embed``, ``language_model``,
+    ``vision_tower``, ``multi_modal_projector``; numpy or JAX arrays) ->
+    (the decode engine's LM tree on ``device``, the ``SiglipVisionTower``
+    ``state_dict`` of ``cfg.vision``, the projector's tensors on ``device``).
+    ``dtype`` casts the floating leaves of the LM and the projector, as
+    :func:`engine_params_from_jax` does."""
+    lm = engine_params_from_jax({"embed": tree["embed"],
+                                 "language_model": tree["language_model"]}, device, dtype)
+    tower = state_from_flax(tree["vision_tower"],
+                            SiglipVisionTower(cfg.vision, device="meta", dtype=torch.float32))
+    projector = engine_params_from_jax(tree["multi_modal_projector"], device, dtype)
+    return lm, tower, projector
 
 
 def engine_params_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:

@@ -16,8 +16,8 @@ Two halves:
   in]`` becomes ``kernel = weight.t()`` and a conv ``[out, in, kh, kw]``
   ``permute(2, 3, 1, 0)``. ``models/convert.params_from_flax`` turns the
   retriever trees into a ``state_dict`` (its transposes undo these, so each
-  leaf is a view of the file's bytes again); the Gemma-3 tree is the decode
-  engine's layout as it is.
+  leaf is a view of the file's bytes again); the Gemma-3 trees (text and
+  multimodal) are the decode engine's layout as it is.
 """
 
 from __future__ import annotations
@@ -296,3 +296,29 @@ def gemma3_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
                 "post_feedforward_layernorm")},
         }
     return {"embed": {"embed_tokens": sd["embed_tokens.weight"]}, "language_model": language}
+
+
+def gemma3_mm_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """A ``Gemma3ForConditionalGeneration`` state dict -> the tree of JAX's
+    ``Gemma3MMEngine`` (hf_import.py:715-780), as views: the SigLIP tower as
+    ColPali's (its attention-pooling ``head`` is unused and skipped), the
+    language tree through :func:`gemma3_params_from_hf`, and the projector's
+    bias-free ``mm_input_projection`` (already ``[v_hidden, t_hidden]``) and
+    ``mm_soft_emb_norm`` RMS weight. Reads both layouts: transformers >= 4.52
+    writes ``model.language_model.*`` and ``model.vision_tower.*``, older
+    versions ``language_model.model.*`` and ``vision_tower.*``."""
+    sd = {re.sub(r"^model\.", "", k): v for k, v in sd.items()}
+    lm_sd = {k[len("language_model."):]: v for k, v in sd.items()
+             if k.startswith("language_model.")}
+    language = gemma3_params_from_hf(lm_sd, cfg.text)
+    proj = "multi_modal_projector."
+    return {
+        "embed": language["embed"],
+        "language_model": language["language_model"],
+        "vision_tower": _siglip_tower(sd, "vision_tower.vision_model.",
+                                      cfg.vision.num_hidden_layers),
+        "multi_modal_projector": {
+            "mm_input_projection": sd[proj + "mm_input_projection_weight"],
+            "mm_soft_emb_norm": _rms(sd, proj + "mm_soft_emb_norm"),
+        },
+    }

@@ -16,6 +16,8 @@ of a Gemma-3 text LM (registry.py:550-741) and the checkpoint's tokenizer:
 the checkpoint's weights or random ones from a seed, either way placed leaf
 by leaf on ``device`` (``weight_dtype="int8"`` or ``"int4"`` quantizes each
 leaf as it arrives, so the bf16 tree never exists on the card).
+``load_gemma3_mm(name, device=...)`` adds the SigLIP tower and the
+projector of the multimodal generator (registry.py:1443-1540).
 """
 
 from __future__ import annotations
@@ -32,12 +34,14 @@ import torch
 from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models import hf_import
 from multimodal_colpali_tpu_torch.models.configs import (
-    ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig, Gemma3TextConfig)
+    ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig, Gemma3MMConfig,
+    Gemma3TextConfig)
 from multimodal_colpali_tpu_torch.models.convert import (
-    ModelConfig, flax_shape, model_class, params_from_flax)
+    ModelConfig, flax_shape, model_class, params_from_flax, state_from_flax)
 from multimodal_colpali_tpu_torch.models.processing import ColPaliProcessor
 from multimodal_colpali_tpu_torch.models.processing_florence2 import ColFlorProcessor
 from multimodal_colpali_tpu_torch.models.processing_idefics3 import ColIdefics3Processor
+from multimodal_colpali_tpu_torch.models.siglip import SiglipVisionTower
 from multimodal_colpali_tpu_torch.ops.preprocess import normalize_images
 from multimodal_colpali_tpu_torch.ops.quant import quantize_lm_leaf
 
@@ -401,29 +405,32 @@ def gemma3_random_params_int8(cfg: Gemma3TextConfig, seed: int = 0,
     return _build_tree(cfg, leaf)
 
 
+def _place_lm(tree: Dict[str, Any], device: torch.device, dtype: torch.dtype,
+              weight_dtype: str) -> Dict[str, Any]:
+    """An engine tree of CPU tensors (views of a checkpoint's files) on
+    ``device``, one leaf at a time: each leaf is cast to ``dtype`` there and,
+    under ``weight_dtype="int8"|"int4"``, quantized before the next is read,
+    so the bytes equal those that quantizing the whole ``dtype`` tree gives,
+    without that tree ever existing."""
+    out = {}
+    for name, v in tree.items():
+        if isinstance(v, dict):
+            out[name] = _place_lm(v, device, dtype, weight_dtype)
+            continue
+        x = v.to(device=device, dtype=dtype)
+        out[name] = (x if weight_dtype == "native" or name not in ("kernel", "embed_tokens")
+                     else quantize_lm_leaf(name, x, weight_dtype))
+    return out
+
+
 def gemma3_params_from_checkpoint(ckpt: str, cfg: Gemma3TextConfig,
                                   dtype: torch.dtype = torch.bfloat16, device: Any = "cuda",
                                   weight_dtype: str = "native"):
     """A Gemma-3 checkpoint's engine tree on ``device``, placed one leaf at
-    a time from the files' memory maps: each leaf is cast to ``dtype`` on
-    ``device`` and, under ``weight_dtype="int8"|"int4"``, quantized there
-    before the next is read, so the bytes equal those that quantizing the
-    whole ``dtype`` tree gives, without that tree ever existing."""
+    a time from the files' memory maps (:func:`_place_lm`)."""
     device = resolve_device(device)
     tree = hf_import.gemma3_params_from_hf(hf_import.load_state_dict(ckpt), cfg)
-
-    def place(t: Dict[str, Any]) -> Dict[str, Any]:
-        out = {}
-        for name, v in t.items():
-            if isinstance(v, dict):
-                out[name] = place(v)
-                continue
-            x = v.to(device=device, dtype=dtype)
-            out[name] = (x if weight_dtype == "native" or name not in ("kernel", "embed_tokens")
-                         else quantize_lm_leaf(name, x, weight_dtype))
-        return out
-
-    return place(tree)
+    return _place_lm(tree, device, dtype, weight_dtype)
 
 
 def load_gemma3_lm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.bfloat16,
@@ -460,3 +467,95 @@ def load_gemma3_lm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.b
         params = gemma3_random_params_int8(cfg, seed, dtype=dtype, device=device,
                                            fmt=weight_dtype)
     return cfg, params, None
+
+
+# -- the Gemma-3 multimodal generator (vision + LM) ------------------------------
+
+# 1b is text-only upstream: it has no entry here and serves as text
+GEMMA3_MM_CONFIGS: Dict[str, Callable[[], Gemma3MMConfig]] = {
+    "google/gemma-3-27b-it": Gemma3MMConfig.gemma3_27b,
+    "gemma-3-27b": Gemma3MMConfig.gemma3_27b,
+    "google/gemma-3-12b-it": Gemma3MMConfig.gemma3_12b,
+    "gemma-3-12b": Gemma3MMConfig.gemma3_12b,
+    "google/gemma-3-4b-it": Gemma3MMConfig.gemma3_4b,
+    "gemma-3-4b": Gemma3MMConfig.gemma3_4b,
+    "tiny-gemma3": Gemma3MMConfig.tiny,
+}
+
+
+def _vision_parts(cfg: Gemma3MMConfig, device: torch.device, dtype: torch.dtype,
+                  tree: Optional[Dict[str, Any]] = None, seed: int = 0):
+    """The SigLIP tower (an ``nn.Module``) and the projector's tensors on
+    ``device`` in ``dtype``: from ``tree`` (the flax-named vision and
+    projector subtrees of a checkpoint, views, each copied once), else
+    random by the JAX ``fill`` rule (registry.py:1482-1492): biases 0,
+    LayerNorm weights 1, N(0, fan_in^-0.5) elsewhere, the projector's
+    (1 + w) norm weight 0."""
+    tower = SiglipVisionTower(cfg.vision, device=device, dtype=dtype).eval()
+    v_h, t_h = cfg.vision.hidden_size, cfg.text.hidden_size
+    if tree is not None:
+        tower.load_state_dict(state_from_flax(tree["vision_tower"], tower))
+        proj = tree["multi_modal_projector"]
+        projector = {"mm_input_projection": proj["mm_input_projection"].to(device, dtype),
+                     "mm_soft_emb_norm": {
+                         "weight": proj["mm_soft_emb_norm"]["weight"].to(device, dtype)}}
+        return tower, projector
+    init_random_params_(tower, seed + 1, family="siglip")
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    w = torch.randn((v_h, t_h), generator=gen, device=device, dtype=torch.float32)
+    projector = {"mm_input_projection": w.mul_(float(v_h) ** -0.5).to(dtype),
+                 "mm_soft_emb_norm": {"weight": torch.zeros(v_h, dtype=dtype, device=device)}}
+    return tower, projector
+
+
+def gemma3_mm_random_params(cfg: Gemma3MMConfig, seed: int = 0,
+                            dtype: torch.dtype = torch.bfloat16, device: Any = "cuda",
+                            weight_dtype: str = "native"):
+    """Random Gemma-3 multimodal params on ``device`` (registry.py:1466-1507):
+    the LM through ``gemma3_random_params`` or, for ``weight_dtype`` int8 /
+    int4, leaf by leaf straight into the quantized format (a 27B LM never
+    exists in bf16 beside its quantized copy); ``vision_tower`` a
+    ``SiglipVisionTower`` module and ``multi_modal_projector`` its tensors
+    (:func:`_vision_parts`)."""
+    device = resolve_device(device)
+    if weight_dtype == "native":
+        lang = gemma3_random_params(cfg.text, seed, dtype=dtype, device=device)
+    else:
+        lang = gemma3_random_params_int8(cfg.text, seed, dtype=dtype, device=device,
+                                         fmt=weight_dtype)
+    tower, projector = _vision_parts(cfg, device, dtype, seed=seed)
+    return {**lang, "vision_tower": tower, "multi_modal_projector": projector}
+
+
+def load_gemma3_mm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.bfloat16,
+                   seed: int = 0, weight_dtype: str = "native",
+                   checkpoint_dir: Optional[str] = None):
+    """The whole Gemma-3 generator (vision + LM) by name -> (cfg, params,
+    tokenizer) (registry.py:1510-1540). ``params`` holds the LM's engine
+    tree (``embed``, ``language_model``), ``vision_tower`` (a
+    ``SiglipVisionTower`` on ``device``) and ``multi_modal_projector`` (its
+    tensors). A checkpoint found by ``_find_checkpoint`` is read through
+    ``hf_import.gemma3_mm_params_from_hf`` and placed leaf by leaf, the LM
+    quantized on ``device`` as each leaf arrives under ``weight_dtype``
+    int8 / int4 (as :func:`load_gemma3_lm` does; JAX quantizes the whole
+    tree after the load); where none is found the weights are random from
+    ``seed`` (:func:`gemma3_mm_random_params`), with a warning. A name
+    without a multimodal config (gemma-3-1b) raises ``KeyError``, as in JAX."""
+    if name not in GEMMA3_MM_CONFIGS:
+        raise KeyError(f"unknown gemma3 mm model {name!r}; known: {sorted(GEMMA3_MM_CONFIGS)}")
+    if weight_dtype not in ("native", "int8", "int4"):
+        raise ValueError(f"weight_dtype must be 'native', 'int8' or 'int4', got {weight_dtype!r}")
+    cfg = GEMMA3_MM_CONFIGS[name]()
+    device = resolve_device(device)
+    ckpt = _find_checkpoint(name, checkpoint_dir)
+    if ckpt is not None:
+        tree = hf_import.gemma3_mm_params_from_hf(hf_import.load_state_dict(ckpt), cfg)
+        lang = _place_lm({"embed": tree["embed"], "language_model": tree["language_model"]},
+                         device, dtype, weight_dtype)
+        tower, projector = _vision_parts(cfg, device, dtype, tree=tree)
+        params = {**lang, "vision_tower": tower, "multi_modal_projector": projector}
+        return cfg, params, _load_tokenizer_from(ckpt)
+    warnings.warn(f"no local checkpoint for {name!r}; using random init (seed {seed}; "
+                  f"set COLPALI_TPU_CKPT_DIR to load real weights)", stacklevel=2)
+    return cfg, gemma3_mm_random_params(cfg, seed, dtype=dtype, device=device,
+                                        weight_dtype=weight_dtype), None

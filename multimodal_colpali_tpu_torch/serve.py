@@ -1,18 +1,22 @@
 """Serve generation from the port's decode engine over OpenAI HTTP.
 
-The counterpart of ``drivers/07_serve.py`` for the Gemma-3 text LMs
+The counterpart of ``drivers/07_serve.py`` for the Gemma-3 generators
 (``models/registry.GEMMA3_CONFIGS``) and the ColPali retrievers: it loads the
 model through the registry (its checkpoint under ``COLPALI_TPU_CKPT_DIR``,
 else random weights from a seed, with a warning),
 wraps it in the decode engine and a continuous batcher and serves
-``/v1/chat/completions`` and ``/health``. For a ColPali retriever it also
-builds a ``PaliGemmaEngine`` on the same weights, so requests with
-``image_url`` parts are answered on their images (07_serve.py:255-277). It
-runs on the GPU unless ``--device cpu`` asks for the CPU.
+``/v1/chat/completions`` and ``/health``. Requests with ``image_url`` parts
+are answered on their images by an image engine whose LM is the text
+engine: a ``Gemma3MMEngine`` (SigLIP at 896 px, ``load_gemma3_mm``) for a
+Gemma-3 name with a multimodal config (07_serve.py:218-245), a
+``PaliGemmaEngine`` on the same weights for a ColPali retriever
+(07_serve.py:255-277). gemma-3-1b is text-only upstream and is served as
+text (JAX's 07 raises ``KeyError`` for it). It runs on the GPU unless
+``--device cpu`` asks for the CPU.
 
 Example:
   python -m multimodal_colpali_tpu_torch.serve --model gemma-3-27b --paged \\
-      [--kv-dtype int8] [--weight-dtype int8|int4]
+      --max-seq-len 2048 [--prefix-caching] [--kv-dtype int8] [--weight-dtype int8|int4]
   COLPALI_TPU_CKPT_DIR=/ckpts python -m multimodal_colpali_tpu_torch.serve \\
       --model vidore/colpali-v1.3 --paged --max-seq-len 6144
 """
@@ -49,6 +53,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "and the tied head through the int8 kernels (K8a, K8b); int4 runs "
                         "every projection through the group-wise int4 kernel (K9) and the "
                         "head, whose table stays int8, through K8b.")
+    p.add_argument("--vision-dtype", default="native", choices=["native", "int8"],
+                   help="SigLIP tower weights (Gemma-3 multimodal only); int8 (W8A8) is "
+                        "not ported and raises.")
     p.add_argument("--kv-dtype", default="native", choices=["native", "int8"],
                    help="KV pool storage (--paged): int8 codes + per-token scales (K7b).")
     p.add_argument("--prefix-caching", action="store_true",
@@ -65,16 +72,27 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build(args: argparse.Namespace):
     """(engine, tokenizer, mm_engine, image_preprocessor) for ``args.model``;
-    the last two are None but for a ColPali retriever."""
+    the last two are None for a text-only model (gemma-3-1b)."""
     from multimodal_colpali_tpu_torch.generation.engine import (
         ByteTokenizer, GemmaDecodeEngine, ModuloTokenizer, PaliGemmaEngine)
+    from multimodal_colpali_tpu_torch.generation.gemma3_mm import Gemma3MMEngine
     from multimodal_colpali_tpu_torch.models.convert import engine_params_from_state_dict
+    from multimodal_colpali_tpu_torch.models.processing import ImagePreprocessor
     from multimodal_colpali_tpu_torch.models.registry import (
-        GEMMA3_CONFIGS, load_gemma3_lm, load_retriever)
+        GEMMA3_CONFIGS, GEMMA3_MM_CONFIGS, load_gemma3_lm, load_gemma3_mm, load_retriever)
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    retriever = None
-    if args.model in GEMMA3_CONFIGS:
+    retriever = mm_parts = None
+    if args.model in GEMMA3_MM_CONFIGS:
+        if args.vision_dtype == "int8":           # before 54 GB of weights load
+            raise NotImplementedError(
+                "--vision-dtype int8 (a W8A8 SigLIP tower: ops/quant's W8A8 projections, "
+                "quantize_encoder_params) is not ported yet; see ROADMAP.md")
+        cfg_mm, params, tok = load_gemma3_mm(args.model, device=args.device, dtype=dtype,
+                                             weight_dtype=args.weight_dtype)
+        cfg = cfg_mm.text
+        mm_parts = (cfg_mm, params.pop("vision_tower"), params.pop("multi_modal_projector"))
+    elif args.model in GEMMA3_CONFIGS:
         cfg, params, tok = load_gemma3_lm(args.model, device=args.device, dtype=dtype,
                                           weight_dtype=args.weight_dtype)
     else:
@@ -94,7 +112,12 @@ def build(args: argparse.Namespace):
         # random-weight serving: ids must fit the model vocab
         tok = ByteTokenizer() if cfg.vocab_size >= 259 else ModuloTokenizer(cfg.vocab_size)
     mm_engine = image_pre = None
-    if retriever is not None:
+    if mm_parts is not None:
+        # the LM's tree exists once: the image engine decodes through this one
+        cfg_mm, tower, projector = mm_parts
+        mm_engine = Gemma3MMEngine(cfg_mm, tower, projector, lm=engine)
+        image_pre = ImagePreprocessor(cfg_mm.vision.image_size)
+    elif retriever is not None:
         # image-conditioned generation on the same weights, its LM the text
         # engine itself (quantized or not)
         mm_engine = PaliGemmaEngine(retriever.model, lm=engine)

@@ -310,6 +310,47 @@ def test_siglip_attention_on_card_takes_the_tensor_core_path(gen):
     assert A.fused_attention_cuda.tensor_core_launches == before + 1
 
 
+def test_attention_at_the_gemma3_tower_shape(gen):
+    """K2 at Gemma-3's SigLIP-So400m at 896 px, 4,096 patches ``[2, 4096, 16,
+    72]`` bf16: its tensor-core path against the plain version (one image at
+    a time: its float32 scores are 1 GiB an image), a repeat bit-identical.
+    The outputs average 4,096 values (std about sqrt(e / 4096) = 0.026), so
+    the limit is 5e-3, under the max|err| of about 0.017 that dropping one
+    64-key block gives."""
+    q, k, v = (_randn(gen, 2, 4096, 16, 72, dtype=torch.bfloat16) for _ in range(3))
+    before = A.fused_attention_cuda.tensor_core_launches
+    got = A.fused_attention_cuda(q, k, v, scale=72 ** -0.5)
+    assert A.fused_attention_cuda.tensor_core_launches == before + 1
+    for i in range(2):
+        want = A.attention_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1], scale=72 ** -0.5)
+        torch.testing.assert_close(got[i:i + 1].float(), want.float(), rtol=0, atol=5e-3)
+    assert torch.equal(A.fused_attention_cuda(q, k, v, scale=72 ** -0.5), got)
+
+
+def test_gemma3_tower_runs_27_tensor_core_launches_a_forward(gen):
+    """Gemma-3's So400m tower at 896 px (random weights, bf16) takes K2's
+    tensor-core path in each of its 27 layers, one launch a layer for a
+    batch of images, and no fused layer (``layer_plan`` leaves So400m
+    unfused); its patches are finite."""
+    from multimodal_colpali_tpu_torch.models.configs import Gemma3MMConfig
+    from multimodal_colpali_tpu_torch.models.registry import init_random_params_
+    from multimodal_colpali_tpu_torch.models.siglip import SiglipVisionTower
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    cfg = Gemma3MMConfig.gemma3_27b().vision
+    tower = SiglipVisionTower(cfg, device="cuda", dtype=torch.bfloat16).eval()
+    init_random_params_(tower, 0, family="siglip")
+    pix = _randn(gen, 2, 896, 896, 3, dtype=torch.bfloat16)
+    before = (A.fused_attention_cuda.tensor_core_launches, A.fused_attention_cuda.launches,
+              FL.fused_vit_layer_cuda.launches)
+    with torch.inference_mode():
+        out = tower(pix)
+    assert out.shape == (2, 4096, 1152) and bool(torch.isfinite(out).all())
+    assert A.fused_attention_cuda.tensor_core_launches == before[0] + 27
+    assert A.fused_attention_cuda.launches == before[1] + 27
+    assert FL.fused_vit_layer_cuda.launches == before[2]
+
+
 @pytest.mark.parametrize("b,nq,p,nt,dim", [
     (2, 5, 7, 12, 128),     # ragged
     (1, 3, 9, 16, 8),       # B = 1, odd P, narrow

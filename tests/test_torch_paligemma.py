@@ -32,7 +32,7 @@ from multimodal_colpali_tpu.models.processing import ImagePreprocessor as JPre
 from multimodal_colpali_tpu.models.registry import fast_random_params
 from multimodal_colpali_tpu_torch import serve
 from multimodal_colpali_tpu_torch.generation import (
-    ContinuousBatcher, GemmaDecodeEngine, GenerationServer, ModuloTokenizer,
+    ContinuousBatcher, Gemma3MMEngine, GemmaDecodeEngine, GenerationServer, ModuloTokenizer,
     PagedContinuousBatcher, PaliGemmaEngine)
 from multimodal_colpali_tpu_torch.models.colpali import ColPaliModel
 from multimodal_colpali_tpu_torch.models.configs import ColPaliModelConfig
@@ -336,6 +336,8 @@ def test_serve_builds_the_image_engine_for_colpali(monkeypatch):
         bat = PagedContinuousBatcher(eng, batch_slots=2, max_seq_len=64, mm_engine=mm)
         assert bat.generate([ids], max_new_tokens=4, pixel_values=[pix]) == \
             mm.generate([ids], pix[None], max_new_tokens=4)
+    # a Gemma-3 name gets its own image engine (test_torch_gemma3_mm.py), not PaliGemma's
     args = serve.parse_args(["--model", "tiny-gemma3", "--device", "cpu"])
     with pytest.warns(UserWarning, match="random init"):
-        assert serve.build(args)[2:] == (None, None)
+        mm = serve.build(args)[2]
+    assert isinstance(mm, Gemma3MMEngine) and not isinstance(mm, PaliGemmaEngine)

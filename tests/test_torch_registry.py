@@ -82,12 +82,11 @@ def _tiny_safetensors(path):
 
 
 @pytest.mark.parametrize("name", ["tiny-colpali", "tiny-colflor"])
-def test_load_retriever_refuses_a_found_checkpoint(ckpt_env, monkeypatch, name):
+def test_load_retriever_loads_a_found_checkpoint(ckpt_env, monkeypatch, name):
     """A checkpoint the JAX registry would load is loaded, never replaced by
     random weights: found under ``COLPALI_TPU_CKPT_DIR`` or named by
     ``checkpoint_dir``, its weights are the model's, without a random-init
-    warning. (The name is the one this test had when the port refused a
-    found checkpoint; it now checks that the checkpoint loads.)"""
+    warning."""
     from tests.test_torch_checkpoint import hf_colflor, hf_colpali, save_sharded
 
     cfg = TR.RETRIEVER_CONFIGS[name]()
@@ -103,12 +102,14 @@ def test_load_retriever_refuses_a_found_checkpoint(ckpt_env, monkeypatch, name):
         assert torch.equal(got, want)
 
 
-def test_load_gemma3_lm_and_serve_refuse_a_found_checkpoint(ckpt_env, monkeypatch):
+def test_load_gemma3_lm_and_serve_load_a_found_checkpoint(ckpt_env, monkeypatch):
     """A found Gemma-3 checkpoint is loaded by ``load_gemma3_lm`` (native and
-    int4) and by ``serve.build``, as in the JAX registry. (The name is the
-    one this test had when the port refused a found checkpoint; it now
-    checks that the checkpoint loads.)"""
+    int4) and by ``serve.build``, as in the JAX registry. ``serve.build``
+    loads the whole generator through ``load_gemma3_mm``, as JAX's 07 does,
+    so the checkpoint it finds is a ``Gemma3ForConditionalGeneration``'s:
+    its LM, tower and projector are the engines'."""
     from tests.test_torch_checkpoint import hf_gemma3, save_sharded
+    from tests.test_torch_gemma3_mm import _hf_model
 
     sd, _ = hf_gemma3(TR.GEMMA3_CONFIGS["tiny-gemma3"]())
     save_sharded(sd, ckpt_env / "tiny-gemma3")
@@ -118,11 +119,23 @@ def test_load_gemma3_lm_and_serve_refuse_a_found_checkpoint(ckpt_env, monkeypatc
     assert torch.equal(params["embed"]["embed_tokens"], want)
     _, params, _ = TR.load_gemma3_lm("tiny-gemma3", device="cpu", weight_dtype="int4")
     assert params["embed"]["embed_tokens"]["q8"].shape[1] == want.shape[1]
-    eng, *_ = serve.build(serve.parse_args(["--model", "tiny-gemma3", "--device", "cpu",
-                                           "--dtype", "float32"]))
-    assert torch.equal(eng.params["embed"]["embed_tokens"], want)
     _, jparams, _ = JR.load_gemma3_lm("tiny-gemma3")
     assert np.array_equal(np.asarray(jparams["embed"]["embed_tokens"]), want.numpy())
+    mm_sd = _hf_model(TR.GEMMA3_MM_CONFIGS["tiny-gemma3"]()).state_dict()
+    save_sharded(mm_sd, ckpt_env / "mm" / "tiny-gemma3")
+    monkeypatch.setenv("COLPALI_TPU_CKPT_DIR", str(ckpt_env / "mm"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        eng, _, mm, _ = serve.build(serve.parse_args(["--model", "tiny-gemma3", "--device",
+                                                     "cpu", "--dtype", "float32"]))
+    assert torch.equal(eng.params["embed"]["embed_tokens"],
+                       mm_sd["model.language_model.embed_tokens.weight"])
+    assert mm.lm is eng
+    vt = "model.vision_tower.vision_model."
+    assert torch.equal(mm.vision_tower.position_embedding,
+                       mm_sd[vt + "embeddings.position_embedding.weight"])
+    assert torch.equal(mm.projector["mm_input_projection"],
+                       mm_sd["model.multi_modal_projector.mm_input_projection_weight"])
 
 
 @pytest.mark.parametrize("layout", ["missing", "empty"])

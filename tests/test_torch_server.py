@@ -137,12 +137,11 @@ def test_bare_engine_server_and_health(engines):
         assert "".join(e["choices"][0]["delta"].get("content", "") for e in events) == out
 
 
-def test_image_content_is_a_400(engines):
-    """An ``image_url`` part is no HTTP 400 any more: a server without an
-    image engine answers from the text, as the JAX server does (a part that
-    does not decode is skipped, a PNG decodes and goes unused), with the
-    same reply. (The name is the one this test had when the port answered
-    image content with a 400; it now checks the 200 reply.)"""
+def test_image_content_to_a_text_engine_is_answered_as_in_jax(engines):
+    """An ``image_url`` part is no HTTP 400: a server without an image
+    engine answers from the text, as the JAX server does (a part that does
+    not decode is skipped, a PNG decodes and goes unused), with the same
+    reply."""
     import base64
     import io
 
