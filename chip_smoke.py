@@ -74,7 +74,9 @@ phase; any failure exits non-zero.
    tensors after the converter's transposes. The model then embeds 16
    synthetic 448x448 pages, indexes them with ``colpali_qdrant``, answers 4
    queries with ``retrieve_colpali`` (one also under a ``username`` filter)
-   and scores them with ``score_results``.
+   and scores them with ``score_results``; ``prompt_prep_query(type=
+   "colpali")`` on the first query must build one image prompt for each page
+   ``retrieve_colpali`` finds, the pages' files in its order.
 4. ColSmol at full width: ``vidore/colSmol-256M`` (random bf16 weights)
    embeds 32 synthetic 512x512 pages, indexes them with ``colpali_qdrant``
    into an exact, an int8, a pooled and an on_disk collection (the last
@@ -129,13 +131,36 @@ phase; any failure exits non-zero.
    (a) has bf16 LM weights, run (b) int8 made leaf by leaf (K8a, K8b). The
    gates and the printout are phase 7's.
 
-Each main path (3, 4, each run of 5, 6, 7 and 8) sets every launch
+9. The dense RAG modes at full width, bf16: ``BAAI/bge-base-en-v1.5``
+   (BERT-base, ``BertConfig.bge_base()``). (a) A bf16 HF ``BertModel``
+   checkpoint of random values from ``--seed`` is written under ``build/``
+   and loaded through ``BgeEmbeddings(checkpoint_dir=)``: no random-init
+   warning, 8 leaves equal to the file's. (b) ``api.qdrant_process``
+   indexes 4,096 synthetic chunks of 64-512 tokens with langchain payloads
+   (every 8th a figure summary with an ``img_link``); its one
+   ``embed_documents`` pass (batches of 64) is timed (chunks/s and unpadded
+   tokens/s printed): unit norms within 1e-3, and on 64 chunks a cosine >=
+   0.995 with a float32 forward of the same weights. (c) 95,904 synthetic
+   unit vectors fill the collection to 100,000 chunks over 4 users. (d) 120
+   questions, each through ``embed_query``, a search without a filter,
+   ``TpuVectorStore.similarity_search_with_score(k=5)`` under the user's
+   filter and ``prompt_prep_query(type="mm_RAG")`` (and ``type=""`` once):
+   ms a query split into embed, search without and with the filter; the
+   top-5 equal to a float32 product of the same bf16 corpus with a stable
+   sort up to near-ties (gap < 1e-5), the filter keeping to the user, 16
+   chunks first by their own text within 5e-2 of 1. (e)
+   ``VectorClient(path).save()`` and a new ``VectorClient(path)``: 5 queries
+   give the same ids and scores bit for bit. No kernel counter may rise in
+   (b)-(e): BERT's attention has a key-padding mask (the plain einsum, as
+   in JAX) and the search is one product and a sort.
+
+Each main path (3, 4, each run of 5, 6, 7, 8 and 9) sets every launch
 counter to 0 before it runs and reads them after; each kernel of the path
 must have run in it (ColPali, ColSmol and ColFlor: K1's tensor-core path,
 ColSmol K4's too; ColPali, ColSmol and both runs of 7: K2's tensor-core
 path; every run of phases 5, 7 and 8: K7's tensor-core path; both runs of 8:
 K2's tensor-core path; run (c) and image runs (b): both of K8a's tiles and
-K8b; run (d): both of K9's tiles). The line before the last is a JSON object with
+K8b; run (d): both of K9's tiles; phase 9: none, every counter stays 0). The line before the last is a JSON object with
 each kernel's launches in those paths, its error against the plain version,
 its time, the plain version's, its bound and, for K2, K6, K8a, K8b and K9,
 the library call's (null where this torch has none); K8a and K9 have a row a
@@ -151,6 +176,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import base64
 import gc
 import json
 import math
@@ -1374,18 +1400,35 @@ def colpali_hf_tensors(cfg):
                   ("embedding_proj_layer.bias", (cfg.embedding_dim,))]
 
 
+def colpali_norm(name: str):
+    """The identity value of a ColPali norm tensor (1 for a LayerNorm weight,
+    0 for its bias and for Gemma's RMSNorm weight, which scales by 1 + w),
+    None for any other tensor."""
+    m = NORM.search(name)
+    if not m:
+        return None
+    return 1.0 if m.group(2) == "weight" and ".language_model." not in name else 0.0
+
+
 def write_colpali_checkpoint(torch, cfg, path: str, seed: int, shards: int = CKPT_SHARDS,
                              device: str = "cuda") -> dict:
     """A bf16 checkpoint of ``cfg`` in the HF layout (``colpali_hf_tensors``)
-    written into ``path`` as ``shards`` safetensors files by a minimal writer
-    of the format (8-byte header length, JSON header padded to 8 bytes, raw
-    bytes). Norms take their identity values; every other tensor is
+    through :func:`write_checkpoint`, its norms at their identity."""
+    return write_checkpoint(torch, colpali_hf_tensors(cfg), path, seed, shards, device,
+                            norm=colpali_norm)
+
+
+def write_checkpoint(torch, tensors, path: str, seed: int, shards: int, device: str,
+                     norm) -> dict:
+    """``tensors`` (name, shape) in bf16, written into ``path`` as ``shards``
+    safetensors files by a minimal writer of the format (8-byte header
+    length, JSON header padded to 8 bytes, raw bytes). A tensor for which
+    ``norm(name)`` gives a value is filled with it; every other is
     N(0, fan_in^-0.5), fan_in the product of the dims after the first (a
     1-D tensor's own length), drawn on ``device`` from ``seed``. -> bytes,
     files, seconds."""
     import os
 
-    tensors = colpali_hf_tensors(cfg)
     sizes = [2 * math.prod(shape) for _, shape in tensors]
     total = sum(sizes)
     free = shutil.disk_usage(path).free
@@ -1411,9 +1454,8 @@ def write_colpali_checkpoint(torch, cfg, path: str, seed: int, shards: int = CKP
         with open(files[-1], "wb") as f:
             f.write(len(raw).to_bytes(8, "little") + raw)
             for i, name, shape in group:
-                m = NORM.search(name)
-                if m:
-                    ident = 1.0 if m.group(2) == "weight" and ".language_model." not in name else 0.0
+                ident = norm(name)
+                if ident is not None:
                     t = torch.full(shape, ident, dtype=torch.bfloat16)
                 else:
                     gen = torch.Generator(device=device).manual_seed(seed * 1_000_003 + i)
@@ -1534,13 +1576,26 @@ def read_counts(wrappers) -> dict:
     return counts
 
 
+def page_files(pages, directory: str):
+    """One file a page under ``directory``, its bytes unique to the page
+    (a header naming it, then the first row of its pixels): the ``img_link``
+    ``format_msgs`` base64-encodes. -> the paths, in page order."""
+    out = []
+    for i, page in enumerate(pages):
+        path = Path(directory) / f"page{i:03d}.bin"
+        path.write_bytes(f"page {i}\n".encode() + page[0].tobytes())
+        out.append(str(path))
+    return out
+
+
 def phase_retrieval(torch, name: str, seed: int, card: str, tag: str, device_preprocess: bool,
-                    path, absent, checkpoint=None):
-    """A retriever at full width through colpali_qdrant, retrieve_colpali and
-    score_results (phases 3 and 6): the kernels in ``path`` must run, those
-    in ``absent`` must not. ``checkpoint`` (``write_colpali_checkpoint``'s
-    result) is loaded instead of a random init. -> (launches, the pages
-    retrieved for the first query)."""
+                    path, absent, link_dir: str, checkpoint=None):
+    """A retriever at full width through colpali_qdrant, retrieve_colpali,
+    prompt_prep_query(type="colpali") and score_results (phases 3 and 6): the
+    kernels in ``path`` must run, those in ``absent`` must not. Each page's
+    ``img_link`` is a file under ``link_dir``. ``checkpoint``
+    (``write_colpali_checkpoint``'s result) is loaded instead of a random
+    init. -> (launches, the pages retrieved for the first query)."""
     import warnings
 
     import numpy as np
@@ -1592,9 +1647,10 @@ def phase_retrieval(torch, name: str, seed: int, card: str, tag: str, device_pre
     users = ["alice", "bob"]
     half = N_PAGES // 2
     forwards = 2 * N_PAGES // EMBED_BATCH       # page batches embedded: the run above, indexing
+    links = page_files(pages, link_dir)
     for u, user in enumerate(users):
         dataset = [{"image": pages[i], "filename": f"doc{i // 4}.pdf", "page_no": i % 4,
-                    "img_link": ""} for i in range(u * half, (u + 1) * half)]
+                    "img_link": links[i]} for i in range(u * half, (u + 1) * half)]
         api.colpali_qdrant(dataset, [], [], retr, retr.processor, client, "smoke",
                            batch_size=EMBED_BATCH, username=user)
     require(client.count("smoke").count == N_PAGES, "collection does not hold every page")
@@ -1606,6 +1662,17 @@ def phase_retrieval(torch, name: str, seed: int, card: str, tag: str, device_pre
         res = api.retrieve_colpali(qtext, retr.processor, retr, client, "", "smoke", TOP_K)
         query_ms.append((time.perf_counter() - t0) * 1e3)
         retrieved.append([(p.payload["document_name"], p.payload["page_no"]) for p in res.points])
+    # prompt_prep_query's colpali mode: one image prompt a page retrieve_colpali finds
+    want_links = [p.payload["img_link"] for p in api.retrieve_colpali(
+        QUERIES[0], retr.processor, retr, client, "", "smoke", TOP_K).points]
+    built = api.prompt_prep_query(QUERIES[0], "Q: {query}", client, "", "smoke", None, TOP_K,
+                                  type="colpali", cp_model=retr, cp_processor=retr.processor)
+    by_bytes = {Path(f).read_bytes(): f for f in links}
+    got_links = [by_bytes[base64.b64decode(p[0]["content"][1]["image_url"]["url"].split(",")[1])]
+                 for p in built["q_prompts"]]
+    require(got_links == want_links and len(got_links) == TOP_K,
+            f"prompt_prep_query(type='colpali') built prompts of {got_links}, "
+            f"retrieve_colpali found {want_links}")
     filtered = api.retrieve_colpali(QUERIES[0], retr.processor, retr, client, users[0],
                                     "smoke", TOP_K)
     require(len(filtered.points) == TOP_K, "filtered query returned too few pages")
@@ -1645,7 +1712,8 @@ def phase_retrieval(torch, name: str, seed: int, card: str, tag: str, device_pre
           f"{N_PAGES} pages x {embs[0].shape[0]} tokens x {dim}: embed {pages_s:.2f} pages/s, "
           f"retrieve_colpali {np.mean(query_ms):.1f} ms/query (mean of "
           f"{', '.join(f'{t:.1f}' for t in query_ms)}), "
-          f"filter ok, top-{TOP_K} vs score_results "
+          f"filter ok, prompt_prep_query(colpali) built prompts of those pages, "
+          f"top-{TOP_K} vs score_results "
           f"{'identical' if exact else 'equal up to ties'}, peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB | {card}", flush=True)
     print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
@@ -2334,6 +2402,328 @@ def phase_gemma3_images(torch, seed: int, card: str):
     return runs
 
 
+BGE = "BAAI/bge-base-en-v1.5"
+# 4,096 chunks of 64-512 tokens (the chunker's range, max 512) embedded in
+# batches of 64; a corpus of 100,000 chunks (~500 papers of ~200) over 4
+# users; the Glycan benchmark's 120 questions, top-5
+DENSE = dict(chunks=4096, batch=64, corpus=100_000, users=4, questions=120, top_k=5,
+             f32_rows=64, self_rows=16, roundtrip=5, near_tie=1e-5)
+
+
+def bert_hf_tensors(cfg):
+    """(name, shape) of every tensor of a ``BertModel`` checkpoint (bge-base)
+    as transformers saves it, in its order, the pooler included."""
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    out = [("embeddings.word_embeddings.weight", (cfg.vocab_size, h)),
+           ("embeddings.position_embeddings.weight", (cfg.max_position_embeddings, h)),
+           ("embeddings.token_type_embeddings.weight", (cfg.type_vocab_size, h)),
+           ("embeddings.LayerNorm.weight", (h,)), ("embeddings.LayerNorm.bias", (h,))]
+    for i in range(cfg.num_hidden_layers):
+        p = f"encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            out += [(p + f"attention.self.{name}.weight", (h, h)),
+                    (p + f"attention.self.{name}.bias", (h,))]
+        out += [(p + "attention.output.dense.weight", (h, h)),
+                (p + "attention.output.dense.bias", (h,)),
+                (p + "attention.output.LayerNorm.weight", (h,)),
+                (p + "attention.output.LayerNorm.bias", (h,)),
+                (p + "intermediate.dense.weight", (inter, h)),
+                (p + "intermediate.dense.bias", (inter,)),
+                (p + "output.dense.weight", (h, inter)), (p + "output.dense.bias", (h,)),
+                (p + "output.LayerNorm.weight", (h,)), (p + "output.LayerNorm.bias", (h,))]
+    return out + [("pooler.dense.weight", (h, h)), ("pooler.dense.bias", (h,))]
+
+
+def bert_norm(name: str):
+    """A BERT LayerNorm at its identity (weight 1, bias 0); None otherwise."""
+    if name.endswith("LayerNorm.weight"):
+        return 1.0
+    return 0.0 if name.endswith("LayerNorm.bias") else None
+
+
+def check_bert_leaves(torch, model, cfg, path: str):
+    """Parameters across the embeddings and the first and last layers must
+    equal the file's tensors after the converter's transposes. -> their names."""
+    from multimodal_colpali_tpu_torch.models import hf_import
+    from multimodal_colpali_tpu_torch.models.convert import params_from_flax
+
+    state = params_from_flax(hf_import.bert_params_from_hf(
+        hf_import.load_state_dict(path), cfg), cfg)
+    last = cfg.num_hidden_layers - 1
+    names = ["word_embeddings", "position_embeddings", "token_type_embeddings",
+             "embeddings_layernorm.weight", "layers.0.attention.query.weight",
+             "layers.0.attention.key.bias", f"layers.{last}.intermediate.weight",
+             f"layers.{last}.output_layernorm.bias"]
+    params = dict(model.named_parameters())
+    for name in names:
+        got = params[name].detach().cpu()
+        require(torch.equal(got, state[name].to(got.dtype)),
+                f"{name} on the card differs from the checkpoint's tensor")
+    return names
+
+
+def synthetic_chunks(n: int, seed: int, lo: int = 64, hi: int = 512):
+    """``n`` texts of ``lo``-``hi`` tokens (uniform, [CLS] and [SEP] counted),
+    words drawn from a synthetic vocabulary of 20,000 lowercase words: the
+    hash tokenizer gives one token a word."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 9)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["".join(rng.choice(letters, int(k))) for k in rng.integers(3, 11, size=20_000)]
+    lens = rng.integers(lo, hi + 1, size=n) - 2
+    return [" ".join(vocab[j] for j in rng.integers(0, len(vocab), size=int(m))) for m in lens]
+
+
+class TimedEmbeddings:
+    """An embeddings object's surface that times its calls: the seconds of
+    the last ``embed_documents`` and its vectors (the embedding pass inside
+    ``qdrant_process``), and the seconds ``embed_query`` adds up (the
+    embedding share of a similarity search)."""
+
+    def __init__(self, emb):
+        self.emb, self.query_s, self.documents_s, self.documents = emb, 0.0, 0.0, None
+
+    def embed_documents(self, texts, batch_size: int = 64):
+        t0 = time.perf_counter()
+        self.documents = self.emb.embed_documents(texts, batch_size=batch_size)
+        self.documents_s = time.perf_counter() - t0
+        return self.documents
+
+    def embed_query(self, text: str):
+        t0 = time.perf_counter()
+        v = self.emb.embed_query(text)
+        self.query_s += time.perf_counter() - t0
+        return v
+
+
+def phase_dense(torch, seed: int, card: str, work: str) -> dict:
+    """Phase 9: the dense RAG modes at full width, bf16 (``BAAI/bge-base-en-v1.5``
+    = BERT-base; random values from ``seed`` in a bf16 HF checkpoint under
+    ``work``). -> the kernel launches of (b)-(e): none may rise."""
+    import os
+    import warnings
+
+    import numpy as np
+    from multimodal_colpali_tpu_torch import api
+    from multimodal_colpali_tpu_torch.documents import Document, make_metadata
+    from multimodal_colpali_tpu_torch.models.bert import BertEncoder
+    from multimodal_colpali_tpu_torch.models.configs import BertConfig
+    from multimodal_colpali_tpu_torch.models.text_encoder import BgeEmbeddings
+    from multimodal_colpali_tpu_torch.store import (
+        FieldCondition, Filter, MatchValue, PointStruct, VectorClient)
+
+    d = DENSE
+    cfg = BertConfig.bge_base()
+    wrappers = kernel_wrappers()
+    t_phase = time.perf_counter()
+    # (a) a bf16 HF checkpoint, loaded through checkpoint_dir=
+    ckpt_dir = os.path.join(work, "bge-ckpt")
+    os.makedirs(ckpt_dir)
+    ckpt = write_checkpoint(torch, bert_hf_tensors(cfg), ckpt_dir, seed, 1, "cuda",
+                            norm=bert_norm)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        emb = BgeEmbeddings(BGE, cfg=cfg, checkpoint_dir=ckpt_dir, device="cuda")
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    require(not any("random init" in str(w.message) for w in caught),
+            f"{BGE}: the checkpoint at {ckpt_dir} was not loaded")
+    leaves = check_bert_leaves(torch, emb.model, cfg, ckpt_dir)
+    shutil.rmtree(ckpt_dir)
+    n_params = sum(p.numel() for p in emb.model.parameters())
+    print(f"[dense] {BGE}: a bf16 HF checkpoint of {ckpt['bytes'] / 1e6:.1f} MB written in "
+          f"{ckpt['write_s']:.2f} s, BgeEmbeddings(checkpoint_dir=) {load_s:.2f} s, "
+          f"{n_params / 1e6:.1f}M parameters, {len(leaves)} leaves equal the file's | {card}",
+          flush=True)
+
+    # (b) + (c): the chunks through qdrant_process, whose one embed_documents
+    # pass (batch 64) is timed and gated
+    users = [f"user{u}" for u in range(d["users"])]
+    img_dir = Path(work) / "figures"
+    img_dir.mkdir()
+    figures = []
+    for k in range(8):
+        figures.append(str(img_dir / f"fig{k}.bin"))
+        Path(figures[-1]).write_bytes(f"figure {k}\n".encode() * 64)
+    chunks = synthetic_chunks(d["chunks"], seed)
+    docs = []
+    for i, text in enumerate(chunks):
+        is_fig = i % 8 == 7        # a VLM summary of a figure (multimodal RAG)
+        meta = make_metadata(f"paper{i // 200:03d}.pdf", f"doc{i}", type=(
+            "image" if is_fig else "text"), page_no=1 + i % 12,
+            img_link=figures[i // 8 % 8] if is_fig else "")
+        meta["username"] = users[i % d["users"]]
+        docs.append(Document(text, meta))
+    n_tokens = sum(len(c.split()) + 2 for c in chunks)   # a token a word, [CLS], [SEP]
+    emb.embed_documents(chunks[: d["batch"]], batch_size=d["batch"])   # warm-up
+    store_dir = os.path.join(work, "vector-db")
+    client = VectorClient(store_dir, device="cuda")
+    coll = "text_vd"
+    timed = TimedEmbeddings(emb)
+    tokenize, tokenize_s = emb._tokenize, [0.0]
+
+    def timed_tokenize(texts, bucket=32):     # the host's share of embed_documents
+        t0 = time.perf_counter()
+        out = tokenize(texts, bucket)
+        tokenize_s[0] += time.perf_counter() - t0
+        return out
+
+    emb._tokenize = timed_tokenize
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    api.qdrant_process(docs, client, coll, cfg.hidden_size, timed)
+    process_s = time.perf_counter() - t0
+    del emb._tokenize
+    embed_s = timed.documents_s
+    vecs = np.asarray(timed.documents, np.float32)
+    require(vecs.shape == (d["chunks"], cfg.hidden_size) and bool(np.isfinite(vecs).all()),
+            f"embed_documents gave {vecs.shape}")
+    norms = np.linalg.norm(vecs, axis=-1)
+    require(bool(np.all(np.abs(norms - 1) <= 1e-3)),
+            f"embeddings not unit-norm: {norms.min()}..{norms.max()}")
+    rows = np.arange(d["f32_rows"]) * (d["chunks"] // d["f32_rows"])
+    f32 = BertEncoder(cfg, device="cuda", dtype=torch.float32)
+    f32.load_state_dict(emb.model.state_dict())
+    ids, mask = emb._tokenize([chunks[i] for i in rows])
+    with torch.inference_mode():
+        ref = f32(torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()).cpu().numpy()
+    del f32
+    cos = np.sum(ref * vecs[rows], -1) / np.linalg.norm(ref, axis=-1) / norms[rows]
+    require(cos.min() >= 0.995, f"bf16 embeddings against float32: cosine {cos.min():.5f}")
+    print(f"[dense] embed_documents: {d['chunks']} chunks of 64-512 tokens (batch "
+          f"{d['batch']}) in {embed_s:.2f} s = {d['chunks'] / embed_s:.1f} chunks/s, "
+          f"{n_tokens / embed_s:.0f} tokens/s unpadded (host tokenization "
+          f"{tokenize_s[0]:.2f} s of it); unit norms within "
+          f"{np.abs(norms - 1).max():.2e}; cosine with a float32 forward on {len(rows)} "
+          f"chunks >= {cos.min():.6f}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB | {card}", flush=True)
+
+    # (c) synthetic unit vectors fill the collection to 100,000 chunks
+    rng = np.random.default_rng(seed + 11)
+    n_syn = d["corpus"] - d["chunks"]
+    syn = rng.standard_normal((n_syn, cfg.hidden_size), dtype=np.float32)
+    syn /= np.linalg.norm(syn, axis=-1, keepdims=True)
+    points = [PointStruct(id=f"syn-{j}", vector=syn[j], payload={
+        "page_content": f"synthetic chunk {j}",
+        "metadata": {"document_name": f"paper{(d['chunks'] + j) // 200:03d}.pdf",
+                     "type": "text", "img_link": "", "page_no": 1 + j % 12,
+                     "username": users[(d["chunks"] + j) % d["users"]]}})
+        for j in range(n_syn)]
+    t0 = time.perf_counter()
+    client.upsert(coll, points)
+    upsert_s = time.perf_counter() - t0
+    del points, syn
+    require(client.count(coll).count == d["corpus"], "the collection does not hold every chunk")
+
+    # (d) 120 questions: embed, search without and with the filter, the prompt functions
+    store = api.TpuVectorStore(client, coll, timed)
+    questions = [" ".join(c.split()[:12]) + "?" for c in synthetic_chunks(
+        d["questions"], seed + 1, lo=14, hi=14)]
+    store.similarity_search_with_score(questions[0], d["top_k"])       # warm-up: the upload
+    dense_store = client._get(coll)
+    corpus = dense_store._device_cache
+    host_vecs = torch.from_numpy(dense_store._vectors).cuda().to(torch.bfloat16).float()
+    device_mb = corpus.numel() * corpus.element_size() / 1e6
+    embed_ms, plain_ms, filt_ms, prep_ms, first = [], [], [], [], []
+    near_ties = 0
+    for qi, question in enumerate(questions):
+        user = users[qi % d["users"]]
+        flt = Filter(must=[FieldCondition(key="metadata.username", match=MatchValue(value=user))])
+        t0 = time.perf_counter()
+        qv = emb.embed_query(question)
+        t1 = time.perf_counter()
+        res = client.query_points(coll, query=qv, limit=d["top_k"])
+        t2 = time.perf_counter()
+        timed.query_s = 0.0
+        hits = store.similarity_search_with_score(question, d["top_k"], filter=flt)
+        t3 = time.perf_counter()
+        built = api.prompt_prep_query(question, "Answer from the context: {query}", client,
+                                      user, coll, emb, d["top_k"], type="mm_RAG")
+        t4 = time.perf_counter()
+        embed_ms.append((t1 - t0) * 1e3)
+        plain_ms.append((t2 - t1) * 1e3)
+        filt_ms.append((t3 - t2 - timed.query_s) * 1e3)
+        prep_ms.append((t4 - t3) * 1e3)
+        first.append(res)
+        # gate 3: the top-5 of a float32 product of the same bf16 corpus, stable order
+        q = np.asarray(qv, np.float32)
+        q = torch.from_numpy(q / max(np.linalg.norm(q), 1e-12)).cuda().to(torch.bfloat16)
+        ref = host_vecs @ q.float()
+        order = torch.argsort(-ref, stable=True)[: d["top_k"]].tolist()
+        got = [dense_store._id_to_idx[p.id] for p in res.points]
+        for a, b in zip(got, order):
+            if a != b:
+                require(abs(float(ref[a]) - float(ref[b])) < d["near_tie"],
+                        f"question {qi}: top-{d['top_k']} {got} against the float32 "
+                        f"product's {order} beyond near-ties")
+                near_ties += 1
+        # gate 5: the filter
+        require(len(hits) == d["top_k"] and all(doc.metadata["username"] == user
+                                               for doc, _ in hits),
+                f"question {qi}: the filtered search returned another user's chunk")
+        require([doc.page_content for doc, _ in built["context"]]
+                == [doc.page_content for doc, _ in hits] and
+                len(built["q_prompts"]) == d["top_k"],
+                f"question {qi}: prompt_prep_query(type='mm_RAG') differs from the search")
+        for (doc, _), msgs in zip(hits, built["q_prompts"]):
+            kinds = [part["type"] for part in msgs[0]["content"]]
+            require(kinds == (["text", "image_url"] if doc.metadata["type"] == "image"
+                              else ["text"]), f"question {qi}: prompt parts {kinds}")
+    none = api.prompt_prep_query(questions[0], "{query}", client, users[0], coll, emb,
+                                 d["top_k"], type="")
+    require(none["context"] == [] and none["q_prompts"] == [], "type='' built a context")
+    # gate 4: chunks queried by their own text come back first
+    self_rows = np.arange(d["self_rows"]) * (d["chunks"] // d["self_rows"]) + 3
+    worst = 0.0
+    for i in self_rows:
+        top = store.similarity_search_with_score(chunks[i], d["top_k"])
+        require(top[0][0].page_content == chunks[i] and abs(top[0][1] - 1) <= 5e-2,
+                f"chunk {i} queried by its own text: first {top[0][0].page_content[:40]!r} "
+                f"at {top[0][1]:.4f}")
+        worst = max(worst, abs(top[0][1] - 1))
+    print(f"[dense] corpus {d['corpus']} chunks x {cfg.hidden_size} ({d['users']} users): "
+          f"qdrant_process of {d['chunks']} chunks {process_s:.2f} s (its embedding pass "
+          f"included), "
+          f"upsert of {n_syn} vectors {upsert_s:.2f} s, {device_mb:.1f} MB on the card "
+          f"(bf16); {d['questions']} questions, ms a query: embed {np.mean(embed_ms):.2f} "
+          f"(median {np.median(embed_ms):.2f}), search without a filter "
+          f"{np.mean(plain_ms):.2f} (median {np.median(plain_ms):.2f}), search with the "
+          f"filter {np.mean(filt_ms):.2f} (median {np.median(filt_ms):.2f}), "
+          f"prompt_prep_query(mm_RAG) {np.mean(prep_ms):.2f}; top-{d['top_k']} equal to the "
+          f"float32 product ({near_ties} near-ties), filter ok, {len(self_rows)} chunks "
+          f"first by their own text within {worst:.2e} of 1; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}", flush=True)
+
+    # (e) the round trip through the files
+    t0 = time.perf_counter()
+    client.save()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = VectorClient(store_dir, device="cuda")
+    load_s = time.perf_counter() - t0
+    for qi in range(d["roundtrip"]):
+        qv = emb.embed_query(questions[qi])
+        res = again.query_points(coll, query=qv, limit=d["top_k"])
+        require([(p.id, p.score) for p in res.points]
+                == [(p.id, p.score) for p in first[qi].points],
+                f"question {qi}: the reloaded store gives other ids or scores")
+    torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    require(not any(launches.values()), f"the dense path launched a port kernel: {launches}")
+    size = sum(f.stat().st_size for f in Path(store_dir).rglob("*") if f.is_file())
+    print(f"[dense] VectorClient(path).save() {save_s:.2f} s ({size / 1e6:.1f} MB), "
+          f"VectorClient(path) {load_s:.2f} s; {d['roundtrip']} queries bit-identical after "
+          f"the reload; no port kernel launched; phase 9 took "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+    del client, again, emb, store, corpus, host_vecs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2357,6 +2747,7 @@ def main(argv=None) -> int:
 
     (REPO / "build").mkdir(exist_ok=True)
     ckpt_dir = tempfile.mkdtemp(prefix="colpali-ckpt-", dir=REPO / "build")
+    work = tempfile.mkdtemp(prefix="smoke-", dir=REPO / "build")
     try:
         ckpt = write_colpali_checkpoint(torch, RETRIEVER_CONFIGS[COLPALI](), ckpt_dir, args.seed)
         colpali, top_pages = phase_retrieval(
@@ -2364,19 +2755,23 @@ def main(argv=None) -> int:
             path=("maxsim", "maxsim.tensor_core", "attention", "attention.tensor_core",
                   "normalize"),
             absent=("vit_layer",),   # SigLIP-So400m is not fused
-            checkpoint=ckpt)
+            link_dir=tempfile.mkdtemp(dir=work), checkpoint=ckpt)
         images = phase_images(torch, args.seed, card, ckpt, top_pages)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        colsmol = phase_colsmol(torch, args.seed, card)
+        gen = phase_generation(torch, args.seed, card)
+        g3 = phase_gemma3_images(torch, args.seed, card)
+        # ColFlor normalizes on the host; its BART attention has a mask, so no K2
+        colflor, _ = phase_retrieval(torch, "ahmed-masry/ColFlor", args.seed, card, "colflor",
+                                     device_preprocess=False,
+                                     path=("window_attention", "window_attention.ring",
+                                           "maxsim", "maxsim.tensor_core"),
+                                     absent=("attention", "normalize"),
+                                     link_dir=tempfile.mkdtemp(dir=work))
+        dense = phase_dense(torch, args.seed, card, work)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    colsmol = phase_colsmol(torch, args.seed, card)
-    gen = phase_generation(torch, args.seed, card)
-    g3 = phase_gemma3_images(torch, args.seed, card)
-    # ColFlor normalizes on the host; its BART attention has a mask, so no K2
-    colflor, _ = phase_retrieval(torch, "ahmed-masry/ColFlor", args.seed, card, "colflor",
-                                 device_preprocess=False,
-                                 path=("window_attention", "window_attention.ring", "maxsim",
-                                       "maxsim.tensor_core"),
-                                 absent=("attention", "normalize"))
+        shutil.rmtree(work, ignore_errors=True)
 
     jax_ops = "multimodal_colpali_tpu/ops"
     meta = {
@@ -2416,7 +2811,7 @@ def main(argv=None) -> int:
     # K2 at the Gemma-3 tower's shape: its launches are phase 8's
     meta["attention.gemma3_tower"] = meta["attention"]
     paths = [colpali, images["a"], images["b"], colsmol, gen["a"], gen["b"], gen["c"],
-             gen["d"], colflor, g3["a"], g3["b"]]
+             gen["d"], colflor, g3["a"], g3["b"], dense]
     launches = {name: sum(p[tile_of.get(name, name)] for p in paths) for name in meta
                 if name != "attention.gemma3_tower"}
     launches["attention.gemma3_tower"] = g3["a"]["attention"] + g3["b"]["attention"]

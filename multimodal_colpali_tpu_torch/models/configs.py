@@ -14,6 +14,8 @@
   through vLLM (google/gemma-3-27b-it), and the whole multimodal generator
   (``Gemma3MMConfig``, configs.py:193-240): a SigLIP-So400m tower at 896 px
   (4,096 patches) average-pooled to 256 soft tokens an image, then the LM.
+- BERT-base (``BertConfig``, configs.py:169-191): the bge-base-en-v1.5 dense
+  text encoder of the text-RAG and multimodal-RAG modes.
 
 Each ``tiny()`` is the small configuration the parity tests and the
 committed ``goldens/tiny-*.npz`` use.
@@ -332,3 +334,27 @@ class ColIdefics3ModelConfig:
             image_token_id=vocab_size - 1,
             scale_factor=2,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    """bge-base-en-v1.5: standard BERT-base (configs.py:169-191)."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+
+    @classmethod
+    def bge_base(cls) -> "BertConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls) -> "BertConfig":
+        return cls(vocab_size=100, hidden_size=32, intermediate_size=64,
+                   num_hidden_layers=2, num_attention_heads=2,
+                   max_position_embeddings=64)

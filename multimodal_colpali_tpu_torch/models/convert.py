@@ -33,14 +33,15 @@ import torch
 from torch import nn
 
 from multimodal_colpali_tpu_torch._device import resolve_device
+from multimodal_colpali_tpu_torch.models.bert import BertEncoder
 from multimodal_colpali_tpu_torch.models.colpali import ColPaliModel
 from multimodal_colpali_tpu_torch.models.configs import (
-    ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig)
+    BertConfig, ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig)
 from multimodal_colpali_tpu_torch.models.florence2 import ColFlorModel
 from multimodal_colpali_tpu_torch.models.idefics3 import ColIdefics3Model
 from multimodal_colpali_tpu_torch.models.siglip import SiglipVisionTower
 
-ModelConfig = Union[ColPaliModelConfig, ColIdefics3ModelConfig, ColFlorModelConfig]
+ModelConfig = Union[ColPaliModelConfig, ColIdefics3ModelConfig, ColFlorModelConfig, BertConfig]
 
 _LAYER = re.compile(r"^layers_(\d+)$")
 
@@ -91,7 +92,10 @@ def flax_shape(name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
 
 
 def model_class(cfg: ModelConfig) -> Type[nn.Module]:
-    """The port's model class for a config: ColPali, ColIdefics3 or ColFlor."""
+    """The port's model class for a config: ColPali, ColIdefics3, ColFlor or
+    the bge BERT encoder."""
+    if isinstance(cfg, BertConfig):
+        return BertEncoder
     if isinstance(cfg, ColIdefics3ModelConfig):
         return ColIdefics3Model
     if isinstance(cfg, ColFlorModelConfig):

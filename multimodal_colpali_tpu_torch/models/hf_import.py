@@ -15,9 +15,9 @@ Two halves:
   but as torch views of the state dict's tensors: a dense ``weight [out,
   in]`` becomes ``kernel = weight.t()`` and a conv ``[out, in, kh, kw]``
   ``permute(2, 3, 1, 0)``. ``models/convert.params_from_flax`` turns the
-  retriever trees into a ``state_dict`` (its transposes undo these, so each
-  leaf is a view of the file's bytes again); the Gemma-3 trees (text and
-  multimodal) are the decode engine's layout as it is.
+  retriever and BERT trees into a ``state_dict`` (its transposes undo these,
+  so each leaf is a view of the file's bytes again); the Gemma-3 trees (text
+  and multimodal) are the decode engine's layout as it is.
 """
 
 from __future__ import annotations
@@ -322,3 +322,28 @@ def gemma3_mm_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
             "mm_soft_emb_norm": _rms(sd, proj + "mm_soft_emb_norm"),
         },
     }
+
+
+def bert_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """A ``BertModel`` state dict (bge-base), with or without the ``bert.``
+    prefix of a task model -> the flax-named tree of ``models/bert``
+    (hf_import.py:616-645), as views."""
+    sd = {re.sub(r"^bert\.", "", k): v for k, v in sd.items()}
+    params: Dict[str, Any] = {
+        "word_embeddings": sd["embeddings.word_embeddings.weight"],
+        "position_embeddings": sd["embeddings.position_embeddings.weight"],
+        "token_type_embeddings": sd["embeddings.token_type_embeddings.weight"],
+        "embeddings_layernorm": _ln(sd, "embeddings.LayerNorm"),
+    }
+    for i in range(cfg.num_hidden_layers):
+        p = f"encoder.layer.{i}."
+        params[f"layers_{i}"] = {
+            "attention": {name: _lin(sd, p + "attention.self." + name)
+                          for name in ("query", "key", "value")},
+            "attention_output": _lin(sd, p + "attention.output.dense"),
+            "attention_layernorm": _ln(sd, p + "attention.output.LayerNorm"),
+            "intermediate": _lin(sd, p + "intermediate.dense"),
+            "output": _lin(sd, p + "output.dense"),
+            "output_layernorm": _ln(sd, p + "output.LayerNorm"),
+        }
+    return params

@@ -105,10 +105,12 @@ def q_take(table: Any, ids: torch.Tensor, dtype: torch.dtype = torch.float32) ->
 LOGITS_SLICE_ROWS = 16384   # table rows widened to float32 at a time on the CPU
 
 
-def _bf16_table_logits(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """``h [B, H] @ table [V, H]^T`` with bf16 operands and float32 results
-    (quant.py:123-133): the hidden state comes out of a bf16 stack, so every
-    product is exact and only the sum order can differ from a float32 einsum.
+def bf16_matmul_f32(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``h [B, H] @ table [V, H]^T`` with bf16 operands and float32 results,
+    as an einsum with ``preferred_element_type=float32`` gives them
+    (quant.py:123-133 for the tied head; also BERT's projections and the
+    dense store's scores): every product is exact and only the sum order can
+    differ from a float32 einsum.
 
     On a CUDA tensor this is ``torch.mm(..., out_dtype=torch.float32)`` (bf16
     products accumulated and returned in float32; no float32 copy of the
@@ -133,7 +135,7 @@ def q_logits(hidden_f32: torch.Tensor, table: Any,
     are sliced off with ``out_dim``."""
     if not is_quantized(table):
         if table.dtype == torch.bfloat16:
-            return _bf16_table_logits(hidden_f32, table)
+            return bf16_matmul_f32(hidden_f32, table)
         return hidden_f32 @ table.float().T
     logits = int8_matmul_nk(hidden_f32, table["q8"], table["scale"], out_dtype=torch.float32)
     if out_dim is not None and logits.shape[-1] != out_dim:

@@ -2,8 +2,8 @@
 
 Shaped like the subset of ``qdrant_client.QdrantClient`` the reference uses
 (create/upsert/query_points/scroll/delete/count), running in-process on
-``device``. Only multivector (ColPali) collections are ported; dense
-collections raise ``NotImplementedError`` until ``store/dense`` is.
+``device``: multivector (ColPali) collections and dense (bge) ones, saved
+and loaded in the JAX client's directory layout.
 """
 
 from __future__ import annotations
@@ -17,10 +17,10 @@ import torch
 
 from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.store import types as t
+from multimodal_colpali_tpu_torch.store.dense import DenseVectorStore
 from multimodal_colpali_tpu_torch.store.multivector import MultiVectorStore
 
-_DENSE_NOT_PORTED = ("dense collections are not ported to PyTorch yet "
-                     "(see ROADMAP.md: models/bert + store/dense)")
+Store = Union[DenseVectorStore, MultiVectorStore]
 
 
 class VectorClient:
@@ -30,13 +30,13 @@ class VectorClient:
       path: directory for persistence (collections are saved there by
         ``save()`` and loaded when the client is created). ``None`` keeps
         everything in memory.
-      device: where collections keep their corpus and run MaxSim.
+      device: where collections keep their corpus and run their search.
     """
 
     def __init__(self, path: Optional[str] = None, device: Any = "cuda"):
         self.path = path
         self.device = resolve_device(device)
-        self._collections: Dict[str, MultiVectorStore] = {}
+        self._collections: Dict[str, Store] = {}
         if path:
             os.makedirs(path, exist_ok=True)
             self._load_all()
@@ -55,10 +55,8 @@ class VectorClient:
                 continue
             with open(meta_path) as f:
                 kind = json.load(f).get("kind", "dense")
-            if kind != "multivector":
-                raise NotImplementedError(f"collection {name!r}: {_DENSE_NOT_PORTED}")
-            self._collections[name] = MultiVectorStore.load(self._coll_dir(name),
-                                                            device=self.device)
+            cls = MultiVectorStore if kind == "multivector" else DenseVectorStore
+            self._collections[name] = cls.load(self._coll_dir(name), device=self.device)
 
     def collection_exists(self, collection_name: str) -> bool:
         return collection_name in self._collections
@@ -66,11 +64,14 @@ class VectorClient:
     def create_collection(self, collection_name: str, vectors_config: t.VectorParams,
                           quantized: bool = False, prefilter: str = "int8",
                           max_tokens: int = 1056, **_: Any) -> bool:
-        """A multivector collection; ``quantized``, ``prefilter`` and
-        ``vectors_config.on_disk`` select the store's search mode
-        (client.py:66-87)."""
+        """A multivector collection with a ``multivector_config`` (``quantized``,
+        ``prefilter`` and ``vectors_config.on_disk`` select its search mode),
+        else a dense one (client.py:66-87)."""
         if vectors_config.multivector_config is None:
-            raise NotImplementedError(_DENSE_NOT_PORTED)
+            self._collections[collection_name] = DenseVectorStore(
+                name=collection_name, dim=vectors_config.size,
+                distance=vectors_config.distance, device=self.device)
+            return True
         self._collections[collection_name] = MultiVectorStore(
             name=collection_name, dim=vectors_config.size, max_tokens=max_tokens,
             distance=vectors_config.distance, device=self.device,
@@ -89,7 +90,7 @@ class VectorClient:
         return t.CollectionsResponse(
             collections=[t.CollectionDescription(name=n) for n in self._collections])
 
-    def _get(self, name: str) -> MultiVectorStore:
+    def _get(self, name: str) -> Store:
         if name not in self._collections:
             raise KeyError(f"collection {name!r} does not exist")
         return self._collections[name]
@@ -104,9 +105,12 @@ class VectorClient:
                      query_filter: Optional[t.Filter] = None,
                      search_params: Optional[t.SearchParams] = None,
                      with_vectors: bool = False, **_: Any) -> t.QueryResponse:
-        return self._get(collection_name).query(
-            query, limit=limit, query_filter=query_filter,
-            search_params=search_params, with_vectors=with_vectors)
+        store = self._get(collection_name)
+        if isinstance(store, MultiVectorStore):
+            return store.query(query, limit=limit, query_filter=query_filter,
+                               search_params=search_params, with_vectors=with_vectors)
+        return store.query(query, limit=limit, query_filter=query_filter,
+                           with_vectors=with_vectors)
 
     def scroll(self, collection_name: str, scroll_filter: Optional[t.Filter] = None,
                limit: int = 100, offset: int = 0, with_vectors: bool = False,

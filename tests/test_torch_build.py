@@ -278,14 +278,18 @@ def test_entry_points_default_to_the_card(monkeypatch):
         ColPaliProcessor, score_multi_vector)
     from multimodal_colpali_tpu_torch.models.processing_florence2 import ColFlorProcessor
     from multimodal_colpali_tpu_torch.models.processing_idefics3 import ColIdefics3Processor
-    from multimodal_colpali_tpu_torch.store import VectorClient
+    from multimodal_colpali_tpu_torch.models.bert import BertEncoder
+    from multimodal_colpali_tpu_torch.models.configs import BertConfig
+    from multimodal_colpali_tpu_torch.models.text_encoder import BgeEmbeddings
+    from multimodal_colpali_tpu_torch.store import DenseVectorStore, VectorClient, VectorParams
 
     entry_points = [R.load_retriever, VectorClient.__init__, ColPaliModel.__init__,
                     ColIdefics3Model.__init__, ColFlorModel.__init__, score_multi_vector,
                     ColPaliProcessor.score_multi_vector, ColIdefics3Processor.score_multi_vector,
                     ColFlorProcessor.score_multi_vector,
                     R.load_gemma3_lm, R.gemma3_random_params, R.gemma3_random_params_int8,
-                    engine_params_from_jax]
+                    engine_params_from_jax, BgeEmbeddings.__init__, BertEncoder.__init__,
+                    DenseVectorStore.__init__, DenseVectorStore.load]
     for fn in entry_points:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     fields = {f.name: f.default for f in dataclasses.fields(GemmaDecodeEngine)}
@@ -305,7 +309,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
              lambda: R.load_gemma3_lm("tiny-gemma3"),
              lambda: R.gemma3_random_params_int8(cfg),
              lambda: GemmaDecodeEngine(cfg, params),
-             lambda: serve.build(serve.parse_args(["--model", "tiny-gemma3"]))]
+             lambda: serve.build(serve.parse_args(["--model", "tiny-gemma3"])),
+             lambda: BgeEmbeddings(cfg=BertConfig.tiny()), lambda: BertEncoder(BertConfig.tiny()),
+             lambda: DenseVectorStore("d", dim=8)]
+    # a dense collection on a CPU client keeps its corpus on the CPU
+    client = VectorClient(device="cpu")
+    client.create_collection("d", VectorParams(size=8))
+    assert client._get("d").device == torch.device("cpu")
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

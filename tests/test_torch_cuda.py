@@ -1454,3 +1454,57 @@ def test_int4_engine_on_card_takes_k9_and_k8b(gen):
     want = cpu.next_token_logits([[5, 9, 17, 3], [40, 2]])
     assert logits.shape == want.shape == (2, 64)
     assert float(abs(logits - want).max()) < 0.05 * float(abs(want).max()) + 1e-3
+
+
+# -- the dense RAG path: BERT and the dense store run no port kernel ----------------------
+
+def test_bge_base_on_card_launches_no_port_kernel(gen):
+    """A bge-base forward (BERT-base at full width, bf16) on the card takes
+    the plain einsum attention (its key-padding mask) and cuBLAS products:
+    no port kernel's counter rises. Its embeddings are unit-norm and agree
+    with a float32 forward of the same weights; the dense store on the card
+    returns the CPU store's ids."""
+    import warnings
+
+    from multimodal_colpali_tpu_torch.models.bert import BertEncoder
+    from multimodal_colpali_tpu_torch.models.text_encoder import BgeEmbeddings
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+    from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
+    from multimodal_colpali_tpu_torch.store import DenseVectorStore, PointStruct
+
+    wrappers = [M.maxsim_scores_cuda, M.maxsim_scores_int8_cuda, A.fused_attention_cuda,
+                PP.normalize_images_cuda, FL.fused_vit_layer_cuda,
+                FL.fused_vit_attention_block_cuda, FL.fused_mlp_block_cuda, FL.fused_gemm_cuda,
+                FL.ln_stats_cuda, PA.paged_attention_cuda, PA.paged_attention_int8_cuda,
+                IM.int8_matmul_kn_cuda, IM.int8_matmul_nk_cuda, WA.window_attention_cuda,
+                I4.int4_matmul_kn_cuda]
+    before = [w.launches for w in wrappers]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        emb = BgeEmbeddings(device="cuda", seed=1)
+    texts = ["glycans bind lectins " * k for k in (1, 20, 100)] + ["sialyl Lewis x"]
+    vecs = np.asarray(emb.embed_documents(texts), np.float32)
+    f32 = BertEncoder(emb.cfg, device="cuda", dtype=torch.float32)
+    f32.load_state_dict(emb.model.state_dict())
+    ids, mask = emb._tokenize(texts)
+    with torch.inference_mode():
+        ref = f32(torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()).cpu().numpy()
+    np.testing.assert_allclose(np.linalg.norm(vecs, axis=-1), 1.0, atol=1e-3)
+    cos = np.sum(ref * vecs, -1) / np.linalg.norm(ref, axis=-1) / np.linalg.norm(vecs, axis=-1)
+    assert cos.min() >= 0.995
+
+    rng = np.random.default_rng(2)
+    corpus = rng.standard_normal((1001, 768)).astype(np.float32)
+    stores = [DenseVectorStore("d", device=dev) for dev in ("cuda", "cpu")]
+    for s in stores:
+        s.upsert([PointStruct(id=i, vector=corpus[i]) for i in range(len(corpus))])
+    q = corpus[17] + 0.5 * rng.standard_normal(768).astype(np.float32)
+    got, want = (s.query(q, limit=10).points for s in stores)
+    assert [p.id for p in got] == [p.id for p in want] and got[0].id == 17
+    np.testing.assert_allclose([p.score for p in got], [p.score for p in want], rtol=1e-5,
+                               atol=1e-6)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == before

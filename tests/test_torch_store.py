@@ -193,9 +193,16 @@ def test_unported_store_modes_raise(kwargs):
 
 
 def test_dense_collections_raise():
+    """Dense collections are ported: the client makes one, and what still
+    raises is what raises in JAX's (a vector of another size) or is not
+    ported (sharding over a mesh)."""
     client = ts.VectorClient(device="cpu")
-    with pytest.raises(NotImplementedError, match="dense"):
-        client.create_collection("d", ts.VectorParams(size=DIM))
+    client.create_collection("d", ts.VectorParams(size=DIM))
+    assert isinstance(client._get("d"), ts.DenseVectorStore)
+    with pytest.raises(ValueError, match="expected dim"):
+        client.upsert("d", [ts.PointStruct(id=0, vector=np.zeros(DIM + 1, np.float32))])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ts.DenseVectorStore("d", dim=DIM, device="cpu", mesh=object())
 
 
 def test_upsert_rejects_bad_shapes_and_missing_collections():
