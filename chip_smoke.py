@@ -34,9 +34,11 @@ phase; any failure exits non-zero.
    on the normalized input beside each, timed only) and the LayerNorm
    statistics pre-pass, and at gemma-3-27b's
    shapes K7a paged attention and K7b over int8 pools (window 0 and 1024, at
-   phase 2's 8 slots of up to 4,096 tokens and at the paged batcher's decode
-   step, 4 slots at 309-1,509 tokens; bf16 on K7's tensor-core path, float32
-   on its CUDA-core path; repeat bit-identical), K8a
+   phase 2's 8 slots of up to 4,096 tokens, at the paged batcher's decode
+   step, 4 slots at 309-1,509 tokens, and at run (e)'s decode step, 16 slots
+   of 1,024 at its first 16 prompts' lengths plus the reply so far, where
+   the launch takes one block a slot and head and no combine; bf16 on K7's
+   tensor-core path, float32 on its CUDA-core path; repeat bit-identical), K8a
    int8 projections and K9 group-wise int4 projections (decode rows of 8
    tokens, prefill rows of 512 and 1,504 tokens through the up and down
    projections; both exact on grid inputs, both bit-identical on a repeated
@@ -96,6 +98,30 @@ phase; any failure exits non-zero.
    0.05; the two sampled replies must agree; the MCQ reply must be a choice.
    Run (d) serves the greedy requests again from int4 weights made leaf by
    leaf (K9 on every projection; K8b on the head, whose table stays int8).
+   Run (e), right after (a) on its engine, is the experiment's MCQ sweep
+   through the port's own client (``generation/client``, on the standard
+   library): ``PagedContinuousBatcher`` (16 slots of 1,024 tokens) behind
+   the server, whose ``/health`` must answer (and must not once it stops,
+   ``utils.health``); 120 synthetic questions in driver 05's wording (~0.9k
+   tokens each) go out at once twice. Sweep 1, ``run_inference(...,
+   use_schema=True)`` as driver 02 sends them: every reply must parse as
+   ``{"answer": X}``, X in A-D, through ``parse.response_real_out``, and 8
+   of them sent again one at a time must agree or differ only where the
+   top two choices' logits at the scaffold are within 0.05; the server
+   runs these constrained prefills one at a time (fault F4), so the peak
+   memory stays near the pools'. Sweep 2, ``get_responses`` with 8 new
+   tokens, greedy, through the batcher: no sentinel, 8 tokens each, 4 equal
+   to ``engine.generate`` under phase 5's tie rule, K7a's tensor-core path
+   launched. ``utils.housekeeping``'s stats are read after each sweep:
+   the card's used memory (``mem_get_info``, the driver's count) must hold
+   the allocator's reserved bytes, which hold its ``bytes_in_use``, within
+   4 GiB (the CUDA context and module images), and ``bytes_limit`` must be
+   the card's total memory; its peak equal to
+   ``torch.cuda.max_memory_allocated()`` and its least used card 0 on one
+   card only exercise the API (they read the same counters).
+   Each sweep's wall time and requests/s, sweep 2's prompt and decode
+   tokens/s and TTFT p50/p95, the peaks and the requests in the server at
+   once are printed with the card.
 6. ColFlor at full width: ``ahmed-masry/ColFlor`` (random bf16 weights)
    embeds 16 synthetic 768x768 pages, indexes them with ``colpali_qdrant``,
    answers 4 queries with ``retrieve_colpali`` (one also filtered) and scores
@@ -154,11 +180,12 @@ phase; any failure exits non-zero.
    (b)-(e): BERT's attention has a key-padding mask (the plain einsum, as
    in JAX) and the search is one product and a sort.
 
-Each main path (3, 4, each run of 5, 6, 7, 8 and 9) sets every launch
+Each main path (3, 4, each run of 5, 6, 7, 8 and 9; run (e) a sweep at a time) sets every launch
 counter to 0 before it runs and reads them after; each kernel of the path
 must have run in it (ColPali, ColSmol and ColFlor: K1's tensor-core path,
 ColSmol K4's too; ColPali, ColSmol and both runs of 7: K2's tensor-core
-path; every run of phases 5, 7 and 8: K7's tensor-core path; both runs of 8:
+path; every run of phases 5, 7 and 8 and run (e)'s sweep 2: K7's tensor-core
+path; both runs of 8:
 K2's tensor-core path; run (c) and image runs (b): both of K8a's tiles and
 K8b; run (d): both of K9's tiles; phase 9: none, every counter stays 0). The line before the last is a JSON object with
 each kernel's launches in those paths, its error against the plain version,
@@ -517,7 +544,7 @@ def phase_kernels(torch, seed: int):
     results.update(normalize_kernel(torch, g))
     results.update(fused_layer_kernels(torch, g))
     results.update(window_attention_kernel(torch, g))
-    results.update(generation_kernels(torch, g))
+    results.update(generation_kernels(torch, g, seed))
     paligemma_kernels(torch, g, results)
     gemma3_prefill_kernels(torch, g)
     # its own generator: the inputs drawn from g above stay as they were
@@ -895,10 +922,12 @@ def fused_layer_kernels(torch, g):
     return results
 
 
-def paged_kernels(torch, g):
+def paged_kernels(torch, g, seed: int):
     """K7a and K7b at gemma-3-27b's heads, windows 0 and 1,024: phase 2's case
-    (8 slots of up to 4,096 tokens) and the paged batcher's decode step (4
-    slots of 2,048 at 309-1,509 tokens, as in the generation breakdown)."""
+    (8 slots of up to 4,096 tokens), the paged batcher's decode step (4
+    slots of 2,048 at 309-1,509 tokens, as in the generation breakdown) and
+    run (e)'s decode step (16 slots of 1,024: ``split_plan`` gives one
+    block a slot and head there, so no partials and no combine)."""
     from multimodal_colpali_tpu_torch._timing import cycle, graph_ms
     from multimodal_colpali_tpu_torch.ops import paged_attention as PA
 
@@ -939,7 +968,8 @@ def paged_kernels(torch, g):
     # the 50 MB L2 cache.
     rtol = 2.0 ** -7
     shapes = (("phase 2", c["b"], c["nb"], None, 1),
-              ("decode step", 4, 128, [309, 709, 1109, 1509], 4))
+              ("decode step", 4, 128, [309, 709, 1109, 1509], 4),
+              ("run (e)", SWEEP["slots"], SWEEP["max_seq_len"] // page, sweep_lengths(seed), 1))
     results, errs = {}, {"paged_attention": [], "paged_attention_int8": []}
     for label, b, nb, lengths, sets in shapes:
         q, pools, bt, lens = case(b, nb, lengths, sets)
@@ -1019,13 +1049,13 @@ def paged_kernels(torch, g):
     return results
 
 
-def generation_kernels(torch, g):
+def generation_kernels(torch, g, seed: int):
     """K7a, K7b, K8a and K8b at gemma-3-27b's decode shapes."""
     from multimodal_colpali_tpu_torch._timing import eager_ms, graph_ms
     from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
 
     dev = torch.device("cuda")
-    results = paged_kernels(torch, g)
+    results = paged_kernels(torch, g, seed)
 
     h, inter, vocab = K8["h"], K8["inter"], K8["vocab"]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2038,8 +2068,226 @@ def serve_run(torch, engine, tok, tag: str, kv_dtype: str, requests, card: str):
     return launches
 
 
+SWEEP = dict(questions=120, slots=16, max_seq_len=1024, chunk=8, page=16, max_tokens=8,
+             resend=8, check=4, prompt_tokens=(860, 1000))
+RESP_LABELS = ["A", "B", "C", "D"]
+
+
+def exp02_prompt(question: str, answers) -> str:
+    """Driver 05's generation prompt (drivers/05_experiment02.py:69-90)."""
+    question_string = "".join(f"{label}. {option}" for label, option in zip(RESP_LABELS, answers))
+    return (
+        f"You are an experienced senior researcher tasked with providing in-depth analysis.\n"
+        f"Use all the information at your disposal, such as uploaded files and other sources. "
+        f"Think about the following statement or question: {question}\n"
+        f"Below are the possible answers, where letters mark each answer. "
+        f"First, exclude the unlikely answer or answers, rethink, and select an output from the "
+        f"rest. The output is only ONE letter from the list {RESP_LABELS}. "
+        f"Check that you return only one letter; if two letters, choose one. No explanations. "
+        f"The answers are:\n{question_string}"
+    )
+
+
+def sweep_questions(seed: int, tok, n: int):
+    """Run (e)'s first ``n`` synthetic benchmark questions in driver 05's
+    wording, each chat prompt (BOS included) of ``SWEEP["prompt_tokens"]``
+    tokens, so that it buckets below the 1,024-token slot with room for 8
+    new tokens."""
+    import numpy as np
+    from multimodal_colpali_tpu_torch.generation import render_chat_prompt
+
+    rng = np.random.default_rng(seed + 14)
+    lo, hi = SWEEP["prompt_tokens"]
+    out = []
+    for _ in range(n):
+        target = int(rng.integers(lo, hi))
+        answers = [" ".join(rng.choice(WORDS, size=int(rng.integers(3, 7)))) for _ in range(4)]
+        question, msgs = "Which statement about", None
+        while True:
+            nxt = question + " " + str(rng.choice(WORDS))
+            cand = [{"role": "user", "content": exp02_prompt(nxt + "?", answers)}]
+            if len(tok.encode(render_chat_prompt(cand), add_special_tokens=True)) > target:
+                break
+            question, msgs = nxt, cand
+        out.append(msgs)
+    return out
+
+
+def sweep_lengths(seed: int):
+    """K7's lengths at one of run (e)'s decode steps: its first 16 questions'
+    prompts in the 16 slots, slot i ``i % 8`` tokens into its reply."""
+    from multimodal_colpali_tpu_torch.generation import ModuloTokenizer, render_chat_prompt
+    from multimodal_colpali_tpu_torch.models.registry import GEMMA3_CONFIGS
+
+    tok = ModuloTokenizer(GEMMA3_CONFIGS[GEN_MODEL]().vocab_size)
+    return [len(tok.encode(render_chat_prompt(m), add_special_tokens=True))
+            + i % SWEEP["max_tokens"]
+            for i, m in enumerate(sweep_questions(seed, tok, SWEEP["slots"]))]
+
+
+def choice_gap(engine, srv, msgs) -> float:
+    """The gap between the two best choices' logits at the constrained
+    scaffold, scored as ``srv`` scores them (its ``_constrained_prompt``)."""
+    import numpy as np
+    from multimodal_colpali_tpu_torch.generation import extract_chat_content, mcq_response_format
+
+    field, choices = srv._schema_enum({"response_format": mcq_response_format()})
+    _, ids, firsts = srv._constrained_prompt(extract_chat_content(msgs)[0], field, choices)
+    top2 = np.sort(engine.next_token_logits([ids])[0][firsts])[-2:]
+    return float(top2[1] - top2[0])
+
+
+def mcq_sweep(torch, engine, tok, seed: int, card: str):
+    """Run (e): the experiment's 120-question sweep through the port's client,
+    structured (sweep 1, the server's constrained path) then free text (sweep
+    2, the batcher). Returns the launch counts of both sweeps."""
+    import resource
+    import threading
+
+    import numpy as np
+    from multimodal_colpali_tpu_torch.generation import (
+        ERROR_SENTINEL, GenerationServer, PagedContinuousBatcher, get_responses, identity_perm,
+        mcq_response_format, render_chat_prompt, resolve_endpoint, response_real_out,
+        run_inference, run_sync)
+    from multimodal_colpali_tpu_torch.utils import health, housekeeping
+
+    t_run = time.perf_counter()
+    wrappers = kernel_wrappers()
+    msgs = sweep_questions(seed, tok, SWEEP["questions"])
+    n_prompt = [len(tok.encode(render_chat_prompt(m), add_special_tokens=True)) for m in msgs]
+    require(max(n_prompt) + SWEEP["max_tokens"] <= SWEEP["max_seq_len"] - 16,
+            f"(e) a prompt of {max(n_prompt)} tokens leaves no room for the reply")
+    bat = PagedContinuousBatcher(engine, batch_slots=SWEEP["slots"],
+                                 max_seq_len=SWEEP["max_seq_len"], chunk=SWEEP["chunk"],
+                                 page_size=SWEEP["page"], eos_id=tok.eos_id).serve()
+    srv = GenerationServer(bat, tok, model_name=GEN_MODEL, host="127.0.0.1", port=0).start()
+    health_url = srv.base_url.rsplit("/v1", 1)[0] + "/health"
+    inflight, lock, complete = {"now": 0, "peak": 0}, threading.Lock(), srv._complete
+
+    def counted(req):          # the requests inside the server at once
+        with lock:
+            inflight["now"] += 1
+            inflight["peak"] = max(inflight["peak"], inflight["now"])
+        try:
+            return complete(req)
+        finally:
+            with lock:
+                inflight["now"] -= 1
+    srv._complete = counted
+    url, headers = resolve_endpoint(GEN_MODEL, base_url=srv.base_url)
+    res = {}
+    try:
+        require(health.check_vllm_status(health_url), f"(e) {health_url} is not healthy")
+        for body in ({"messages": msgs[0], "max_tokens": 2},
+                     {"messages": msgs[0], "response_format": mcq_response_format()}):
+            require(chat(srv.base_url, body)[0] == 200, "(e) warm-up request failed")
+        torch.cuda.synchronize()
+        for sweep in ("structured", "free"):
+            bat.decode_s, bat.decode_steps, bat.decode_tokens, bat.ttft_s = 0.0, 0, 0, []
+            inflight["peak"] = 0
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            if sweep == "structured":
+                replies = run_sync(run_inference(GEN_MODEL, msgs, url, headers, use_schema=True))
+            else:
+                replies = run_sync(get_responses(GEN_MODEL, 0, msgs, base_url=srv.base_url,
+                                                 extra_body={"max_tokens": SWEEP["max_tokens"]}))
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            stats = housekeeping.device_memory_stats()
+            free, total = torch.cuda.mem_get_info()
+            res[sweep] = dict(replies=replies, wall=wall, launches=read_counts(wrappers),
+                              peak=torch.cuda.max_memory_allocated(), stats=stats,
+                              used=total - free, reserved=torch.cuda.memory_reserved(),
+                              inflight=inflight["peak"], decode_s=bat.decode_s,
+                              tokens=bat.decode_tokens, steps=bat.decode_steps,
+                              ttft=list(bat.ttft_s))
+        resent = [chat(srv.base_url, {"messages": msgs[i], "response_format":
+                                      mcq_response_format()})
+                  for i in range(SWEEP["resend"])]
+    finally:
+        srv.stop()
+        bat.shutdown()
+    require(not health.check_vllm_status(health_url), f"(e) {health_url} healthy after stop")
+    gaps = {i: choice_gap(engine, srv, msgs[i]) for i, r in enumerate(resent)
+            if r[1] != res["structured"]["replies"][i]}
+    del srv, bat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    s1, s2 = res["structured"], res["free"]
+    for i, reply in enumerate(s1["replies"]):
+        require(isinstance(reply, str) and reply != ERROR_SENTINEL,
+                f"(e) structured reply {i} failed: {reply!r}")
+        answer = json.loads(reply).get("answer")
+        require(answer in RESP_LABELS and response_real_out(reply, identity_perm())
+                == (answer, answer), f"(e) structured reply {i} is not a choice: {reply!r}")
+    tie_notes = []
+    for i, (status, text, _, _) in enumerate(resent):
+        require(status == 200, f"(e) re-sent question {i} failed: {status}")
+        if i in gaps:
+            gap = gaps[i]
+            require(gap <= 0.05, f"(e) question {i} alone gives {text}, in the sweep "
+                                 f"{s1['replies'][i]}; the top two choices are {gap:.4f} apart")
+            tie_notes.append(f"q{i} differs at a {gap:.4f} gap")
+    require(s1["launches"]["paged_attention"] == 0,
+            f"(e) the constrained sweep went through the batcher: {s1['launches']}")
+    for i, reply in enumerate(s2["replies"]):
+        require(reply != ERROR_SENTINEL and len(reply.split()) == SWEEP["max_tokens"],
+                f"(e) free-text reply {i}: {reply!r}")
+    require(s2["launches"]["paged_attention.tensor_core"] > 0,
+            f"(e) sweep 2 never launched K7a's tensor-core path: {s2['launches']}")
+    greedy_notes = []
+    for i in range(SWEEP["check"]):
+        ids = tok.encode(render_chat_prompt(msgs[i]), add_special_tokens=True)
+        got = [int(t) for t in s2["replies"][i].split()]
+        want = engine.generate([ids], max_new_tokens=SWEEP["max_tokens"], eos_id=tok.eos_id)[0]
+        div = first_divergence(engine, ids, got, want)
+        require(div is None or div[1] <= 0.05,
+                f"(e) free-text reply {i} first differs from engine.generate at step {div}")
+        greedy_notes.append("identical" if div is None else
+                            f"differs at step {div[0]} (gap {div[1]:.4f})")
+    # the driver's count of used memory against the allocator's: an
+    # independent reading. The peak and the least used card below read the
+    # counters housekeeping reads, so they only exercise its API.
+    card_total = torch.cuda.get_device_properties(0).total_memory
+    for sweep in (s1, s2):
+        st = sweep["stats"]
+        require(st["bytes_in_use"] <= sweep["reserved"] <= sweep["used"]
+                <= sweep["reserved"] + 4 * 2**30 and st["bytes_limit"] == card_total,
+                f"(e) housekeeping's {st} against the card's used {sweep['used']}, the "
+                f"allocator's reserved {sweep['reserved']} and total {card_total}")
+        require(st["peak_bytes_in_use"] == sweep["peak"],
+                f"(e) housekeeping's peak {st} != max_memory_allocated {sweep['peak']}")
+    require(housekeeping.get_less_used_device() == 0, "(e) the least used card is not 0")
+
+    n = SWEEP["questions"]
+    ttft = np.array(s2["ttft"]) * 1e3
+    nofile = resource.getrlimit(resource.RLIMIT_NOFILE)
+    print(f"[gen-e] MCQ sweep, {n} questions of {min(n_prompt)}-{max(n_prompt)} tokens (mean "
+          f"{np.mean(n_prompt):.0f}) through the port's client, connector_limit 512 "
+          f"(RLIMIT_NOFILE {nofile[0]}) | sweep 1 structured: {s1['wall']:.2f} s, "
+          f"{n / s1['wall']:.2f} requests/s, {s1['inflight']} requests in the server at once, "
+          f"peak {s1['peak'] / 2**30:.2f} GiB, re-sent {SWEEP['resend']} one at a time: "
+          f"{'; '.join(tie_notes) or 'identical'} | sweep 2 free text ({SWEEP['max_tokens']} "
+          f"tokens, {SWEEP['slots']} slots of {SWEEP['max_seq_len']}): {s2['wall']:.2f} s, "
+          f"{n / s2['wall']:.2f} requests/s, {s2['inflight']} in the server at once, prompt "
+          f"{sum(n_prompt) / (ttft.max() / 1e3):.0f} tokens/s (to the last first token), decode "
+          f"{s2['tokens'] / s2['decode_s'] if s2['decode_s'] else 0.0:.1f} tokens/s "
+          f"({1e3 * s2['decode_s'] / max(s2['steps'], 1):.1f} ms a step), TTFT p50 "
+          f"{np.percentile(ttft, 50):.0f} ms p95 {np.percentile(ttft, 95):.0f} ms, peak "
+          f"{s2['peak'] / 2**30:.2f} GiB; the card's used memory beyond the allocator's "
+          f"reserved {(s1['used'] - s1['reserved']) / 2**30:.2f} / "
+          f"{(s2['used'] - s2['reserved']) / 2**30:.2f} GiB; greedy vs engine.generate: {'; '.join(greedy_notes)} "
+          f"| run (e) {time.perf_counter() - t_run:.1f} s in all | {card}", flush=True)
+    launches = {k: s1["launches"][k] + s2["launches"][k] for k in s2["launches"]}
+    print(f"[gen-e] launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
 def phase_generation(torch, seed: int, card: str):
-    """Full-width gemma-3-27b served over HTTP: runs (a), (b), (c) and (d)."""
+    """Full-width gemma-3-27b served over HTTP: runs (a), (e), (b), (c) and (d)."""
     import numpy as np
     from multimodal_colpali_tpu_torch.generation import GemmaDecodeEngine, ModuloTokenizer
     from multimodal_colpali_tpu_torch.models.registry import load_gemma3_lm, tree_leaves
@@ -2073,6 +2321,7 @@ def phase_generation(torch, seed: int, card: str):
     runs = {"a": serve_run(torch, engine, tok, "a", "native", requests, card)}
     require(runs["a"]["paged_attention.tensor_core"] > 0,
             f"(a) never launched K7a's tensor-core path: {runs['a']}")
+    runs["e"] = mcq_sweep(torch, engine, tok, seed, card)
     runs["b"] = serve_run(torch, engine, tok, "b", "int8", greedy, card)
     require(runs["b"]["paged_attention_int8.tensor_core"] > 0,
             f"(b) never launched K7b's tensor-core path: {runs['b']}")
@@ -2811,7 +3060,7 @@ def main(argv=None) -> int:
     # K2 at the Gemma-3 tower's shape: its launches are phase 8's
     meta["attention.gemma3_tower"] = meta["attention"]
     paths = [colpali, images["a"], images["b"], colsmol, gen["a"], gen["b"], gen["c"],
-             gen["d"], colflor, g3["a"], g3["b"], dense]
+             gen["d"], gen["e"], colflor, g3["a"], g3["b"], dense]
     launches = {name: sum(p[tile_of.get(name, name)] for p in paths) for name in meta
                 if name != "attention.gemma3_tower"}
     launches["attention.gemma3_tower"] = g3["a"]["attention"] + g3["b"]["attention"]

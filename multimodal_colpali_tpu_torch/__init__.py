@@ -20,7 +20,13 @@ Ported:
 - the generation tier for the Gemma-1/Gemma-3 text LMs and their image
   engines (``generation/``: decode engine, ``PaliGemmaEngine``,
   ``Gemma3MMEngine``, dense and paged continuous batchers, OpenAI server;
-  ``serve.py``).
+  ``serve.py``);
+- the experiment's client and statistics: the OpenAI client
+  (``generation/client``, on the standard library), ``config``,
+  ``utils/{health,housekeeping,io,userops}``, ``evalstats`` and the
+  evaluation drivers 02a, 04 and 06 (``drivers/``). ``evalstats``,
+  ``utils/io`` and ``drivers`` need pandas, which the GPU host lacks; no
+  serving or retrieval module imports them.
 
 Every TPU kernel has a hand-written CUDA C++ counterpart (``csrc/``, built
 for ``sm_90a``) beside a plain PyTorch version:

@@ -15,26 +15,30 @@ the JAX package does:
   the prompt functions of the three retrieval modes (``prompt_prep_query``:
   no-RAG, mm_RAG, colpali); the multi-user collection management and the
   tarball snapshots.
+- The image summaries (``get_img_summary``, ``process_models``) through the
+  port's HTTP client (``generation/client``), and model discovery
+  (``models_local``, ``models_used``) over ``urllib``.
 
-Not ported yet, each raising ``NotImplementedError``: the image-summary and
-model-discovery functions (``get_img_summary``, ``process_models``,
-``models_local``, ``models_used``), which need the HTTP client (ROADMAP
-queue 1 item 2), and ``create_document_embeddings``, which needs the PDF
-ingest stage (item 4).
+Not ported yet: ``create_document_embeddings``, which raises
+``NotImplementedError``: it needs the PDF ingest stage (ROADMAP queue 1
+item 4).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
 import tarfile
 import time
+import urllib.request
 import uuid
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from multimodal_colpali_tpu_torch.documents import Document
+from multimodal_colpali_tpu_torch.generation.client import get_responses
 from multimodal_colpali_tpu_torch.generation.messages import format_msgs
 from multimodal_colpali_tpu_torch.models.processing import pad_multivectors
 from multimodal_colpali_tpu_torch.ops.maxsim import maxsim_scores
@@ -321,24 +325,82 @@ def show_results(qdrant_retrieval, display_fn=print):
 
 async def get_img_summary(docs_multi, prompts, model, vllm_port, save_output,
                           base_url: Optional[str] = None):
-    """Replace image docs' text with VLM summaries (api.py:484-503): needs
-    the HTTP client, not ported yet."""
-    raise _not_ported("get_img_summary", "item 2, the HTTP client")
+    """Replace image docs' text with VLM summaries (api.py:484-503,
+    reference functions.py:1261-1296)."""
+    import copy
+
+    tmp_docs = [copy.deepcopy(d) for d in docs_multi]
+    img_idx = [i for i, el in enumerate(tmp_docs) if el.metadata["type"] == "image"]
+    if not img_idx:
+        return tmp_docs
+    img_docs = [tmp_docs[i] for i in img_idx]
+    processed_prompts = prompt_prep(img_docs, prompts["img_summary"], prompts["text_summary"])
+    processed_out = await get_responses(model, vllm_port, processed_prompts,
+                                        base_url=base_url)
+    for i, text in zip(img_idx, processed_out):
+        tmp_docs[i].page_content = text
+    if save_output != "":
+        with open(save_output, "wb") as f:
+            pickle.dump(tmp_docs, f)
+    return tmp_docs
 
 
-async def process_models(processed_multi, prompts, MODELS, base_url: Optional[str] = None):
-    """Per-model image summaries (api.py:506-516): needs the HTTP client."""
-    raise _not_ported("process_models", "item 2, the HTTP client")
+async def process_models(processed_multi, prompts, MODELS,
+                         base_url: Optional[str] = None):
+    """Per-model image summaries -> {"orig_model": docs, short: docs, ...}
+    (api.py:506-516, reference functions.py:1299-1308)."""
+    dict_out = {"orig_model": processed_multi}
+    for model in MODELS:
+        dict_out[model["model_short"]] = await get_img_summary(
+            dict_out["orig_model"], prompts, model["model_name"], model["port"],
+            "", base_url=base_url,
+        )
+    return dict_out
 
 
-def models_local(ports: Sequence[int], api_key: str = "EMPTY"):
-    """Probe local OpenAI endpoints (api.py:523-541): needs the HTTP client."""
-    raise _not_ported("models_local", "item 2, the HTTP client")
+# ---------------------------------------------------------------------------
+# Model discovery (reference functions.py:408-445)
+# ---------------------------------------------------------------------------
+
+def models_local(ports: Sequence[int], api_key: str = "EMPTY") -> List[Dict[str, Any]]:
+    """Probe local OpenAI-compatible endpoints for their model ids
+    (api.py:523-541): GET ``{api_url}/models`` with a 5 s timeout. A status
+    other than 2xx, or any other error, prints ``api connection error: ...``
+    and lists the endpoint as ``Not_working``.
+
+    ``"api_key"`` is ``os.getenv("API_URL", api_key)``: the reference reads
+    the URL's variable there, and the JAX package keeps that, bug for bug."""
+    out = []
+    for port in ports:
+        api_url = os.getenv("API_URL", f"http://localhost:{port}/v1")
+        try:
+            with urllib.request.urlopen(api_url.rstrip("/") + "/models", timeout=5) as r:
+                status, payload = r.status, json.loads(r.read())
+            model_id = payload["data"][0]["id"]
+            print(f"{status}, port: {port}")
+            out.append({"model_id": model_id, "api_url": api_url,
+                        "api_key": os.getenv("API_URL", api_key)})
+        except Exception as err:  # noqa: BLE001 - parity with reference
+            print(f"api connection error: {err}")
+            out.append({"model_id": "Not_working", "api_url": api_url,
+                        "api_key": os.getenv("API_URL", api_key)})
+    return out
 
 
 def models_used(local_ports, gpt_models, VD_text, VD_MM):
-    """Merge local and GPT model configs (api.py:544-556): needs the HTTP client."""
-    raise _not_ported("models_used", "item 2, the HTTP client")
+    """Merge local + GPT model configs (api.py:544-556, reference
+    functions.py:429-445)."""
+    used = models_local(local_ports)
+    gpt = [{"model_id": g,
+            "api_url": os.getenv("API_URL", "https://api.openai.com/v1/"),
+            "api_key": os.getenv("OPENAI_API_KEY")} for g in gpt_models]
+    used = [*used, *gpt]
+    used = [{**m, "vd_text": VD_text} for m in used]
+    if len(VD_MM) == len(used):
+        used = [{**m, "vd_MM": vd} for m, vd in zip(used, VD_MM)]
+    else:
+        print(f"Length of multimodal vectoDB {len(VD_MM)} not equals to models  {len(used)}.")
+    return [m for m in used if m["model_id"] != "Not_working"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,19 @@
 """The generation tier in PyTorch: decode engine, continuous batchers, OpenAI
-server, and the message formatters and answer parser.
+server, the HTTP client, and the message formatters and answer parser.
 
 Counterparts of ``multimodal_colpali_tpu/generation/{engine,scheduler,paged,
-server,messages,parse}.py`` for the text LMs of Gemma-1 (ColPali) and
+server,client,messages,parse}.py`` for the text LMs of Gemma-1 (ColPali) and
 Gemma-3, and for image-conditioned generation on the ColPali weights
 (``PaliGemmaEngine``) and on Gemma-3's (``Gemma3MMEngine``,
-``generation/gemma3_mm.py``). Not ported yet: the HTTP client
-(``generation/client.py``: it needs ``aiohttp``), speculative decoding and
-the Qwen2-VL, LLaVA-NeXT and Mllama image engines.
+``generation/gemma3_mm.py``). The client (``generation/client.py``) runs on
+the standard library. Not ported yet: speculative decoding and the Qwen2-VL,
+LLaVA-NeXT and Mllama image engines.
 """
 
+from multimodal_colpali_tpu_torch.generation.client import (  # noqa: F401
+    ERROR_SENTINEL, get_response_context, get_responses, mcq_response_format,
+    post_request_with_retries, post_request_with_retries_raising, resolve_endpoint,
+    run_inference, run_sync)
 from multimodal_colpali_tpu_torch.generation.engine import (  # noqa: F401
     LOGPROB_K, ByteTokenizer, GemmaDecodeEngine, ModuloTokenizer, PaliGemmaEngine,
     filter_top_p_top_k, sample_per_slot)

@@ -99,6 +99,11 @@ class GenerationServer:
         self.default_max_new = max_new_tokens
         self.mm_engine = mm_engine
         self.image_preprocessor = image_preprocessor
+        # constrained requests run their prefill outside the batcher, each
+        # with caches of its own: one at a time, or a burst of them (an MCQ
+        # sweep sends 120 at once) holds all their caches on the card at
+        # once and runs out of memory
+        self._constrained_lock = threading.Lock()
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -178,7 +183,27 @@ class GenerationServer:
         """Constrained decoding for enum outputs: force the JSON scaffold as
         prompt text and pick the choice whose first token the model scores
         highest (server.py:167-203); with images and an ``mm_engine``, the
-        logits are conditioned on all of them."""
+        logits are conditioned on all of them. The forwards run one at a
+        time (``_constrained_lock``); the JAX server runs them all at once."""
+        scaffold, ids, first_tokens = self._constrained_prompt(prompt, field, choices)
+        if images and self.mm_engine is not None:
+            pix = self.image_preprocessor(images)        # [N, H, W, 3]
+            ids = self.mm_engine.build_mm_prompt(
+                self._encode(scaffold), bos_id=getattr(self.tokenizer, "bos_id", 2),
+                n_images=len(images))
+            with self._constrained_lock:
+                logits = self.mm_engine.next_token_logits([ids], pix[None])[0]
+        else:
+            engine = getattr(self.engine, "engine", self.engine)  # unwrap a batcher
+            with self._constrained_lock:
+                logits = engine.next_token_logits([ids])[0]
+        best = choices[int(np.argmax([logits[t] for t in first_tokens]))]
+        return json.dumps({field: best})
+
+    def _constrained_prompt(self, prompt: str, field: str, choices: List[str]):
+        """-> (the JSON scaffold forced as prompt text, its token ids for a
+        text-only forward (BOS first), the first token of each choice past
+        the scaffold): what :meth:`_constrained_choice` scores."""
         scaffold = prompt + f'\n{{"{field}": "'
         # Context-aware choice tokens: tokenize scaffold+choice and take the
         # first token PAST the scaffold - encode(choice) alone returns the
@@ -190,18 +215,7 @@ class GenerationServer:
             full = self._encode(scaffold + c)
             first_tokens.append(full[base_len] if len(full) > base_len
                                 else full[-1])
-        if images and self.mm_engine is not None:
-            pix = self.image_preprocessor(images)        # [N, H, W, 3]
-            ids = self.mm_engine.build_mm_prompt(
-                self._encode(scaffold), bos_id=getattr(self.tokenizer, "bos_id", 2),
-                n_images=len(images))
-            logits = self.mm_engine.next_token_logits([ids], pix[None])[0]
-        else:
-            engine = getattr(self.engine, "engine", self.engine)  # unwrap a batcher
-            ids = self._encode(scaffold, add_special_tokens=True)
-            logits = engine.next_token_logits([ids])[0]
-        best = choices[int(np.argmax([logits[t] for t in first_tokens]))]
-        return json.dumps({field: best})
+        return scaffold, self._encode(scaffold, add_special_tokens=True), first_tokens
 
     def _encode(self, text: str, add_special_tokens: bool = False):
         """Encode through any tokenizer honoring the documented contract

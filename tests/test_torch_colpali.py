@@ -339,6 +339,14 @@ def test_port_source_imports_no_jax(path):
     assert "importlib" not in text or "jax" not in text, path
 
 
+def test_source_scan_covers_the_client_and_statistics_modules():
+    scanned = {str(p.relative_to(PORT_DIR)) for p in PORT_DIR.rglob("*.py")}
+    assert {"config.py", "generation/client.py", "utils/health.py", "utils/housekeeping.py",
+            "utils/io.py", "utils/userops.py", "evalstats/ci.py", "evalstats/wilcoxon.py",
+            "evalstats/summary.py", "drivers/stat_test.py", "drivers/experiment01_eval.py",
+            "drivers/experiment02_eval.py"} <= scanned
+
+
 def test_source_scan_catches_forbidden_imports():
     for line in ("import jax", "import jax.numpy as jnp", "from flax import linen",
                  "from multimodal_colpali_tpu.ops import maxsim",
