@@ -129,8 +129,8 @@ phase; any failure exits non-zero.
    launches a forward), never K2.
 
 7. Image-context serving at full width, right after phase 3, on its
-   checkpoint's weights (reloaded; the directory is deleted after this
-   phase): ``PaliGemmaEngine`` runs the retriever's own SigLIP tower and
+   checkpoint's weights (reloaded; the directory is kept for phase 10 and
+   deleted at the end): ``PaliGemmaEngine`` runs the retriever's own SigLIP tower and
    projector and decodes through the text engine's LM.
    ``PagedContinuousBatcher`` (4 slots of 6,144 tokens, pages of 16) serves
    two greedy image requests, one page and the 5 pages phase 3 retrieved for
@@ -179,15 +179,47 @@ phase; any failure exits non-zero.
    give the same ids and scores bit for bit. No kernel counter may rise in
    (b)-(e): BERT's attention has a key-padding mask (the plain einsum, as
    in JAX) and the search is one product and a sort.
+10. PDF ingest at full width (last). ``native/src/mmpdf.cpp`` is built by
+   g++ with the port's JPEG decoder (``native/jpeg``; no libjpeg). 16
+   synthetic letter-size papers of 8-12 pages are written with the port's
+   ``PdfWriter`` (~40 text lines a page, a 240 x 320 figure on every second
+   page, every other one a JPEG, a 1400 x 1800 figure on paper 1's fourth
+   page, a ruled table on every fourth) beside a 3-page scan (paper 1's
+   rasters as full-page images, no text layer). (a) The port's driver
+   ``create_context --skip-summaries`` with bge-base and
+   ``vidore/colpali-v1.3`` (phase 3's checkpoint and a bf16 bge-base one,
+   found through ``COLPALI_TPU_CKPT_DIR``: no random init may warn) and
+   ``MMCP_DEVICE_PREPROCESS=1`` builds the text and multimodal
+   collections, the page PNGs and the ColPali collection: every page in
+   it, with (b)'s vectors within 2e-2. (b) ``api.create_document_embeddings``
+   and (c) ``PipelinedEmbedder(batch_size=8).embed_pdf_dir`` embed the same
+   directory on one retriever: the same records, embeddings within 2e-2.
+   K2 (tensor-core path) and K3 must launch in (a)-(c). The scan goes
+   through ``check_ocr`` and ``AutoOcr`` on the card in (a): its text holds
+   each source page's title, and ``AutoOcr(device="cpu")``, run in a spawned
+   worker process during (a), reads the same text, runs and ConvOcr words;
+   ConvOcr's logits on the card are within 1e-4 of the CPU's on every glyph
+   batch the CPU ran (TF32 off). Then
+   every page is rasterized, uploaded and resized on the card (LANCZOS to
+   ``resize_image``'s size, BICUBIC to 448) and must equal the host's int64
+   resample bit for bit (checked on 8 host threads); so must every
+   extracted figure's ``resize_image`` on the card, and each JPEG figure
+   must decode within 2.5 levels a pixel of its source, none skipped.
+   Printed: pages/s of
+   (a)-(c), the driver's stages, ms a page for rasterize, upload + LANCZOS,
+   PNG write (every 4th page) and BICUBIC, the OCR's ms a page (template, ConvOcr, its
+   classifier's device time), the device's idle share over (c) (CUDA
+   events around the forwards against the wall) and the peak memory.
 
-Each main path (3, 4, each run of 5, 6, 7, 8 and 9; run (e) a sweep at a time) sets every launch
+Each main path (3, 4, each run of 5, 6, 7, 8, 9 and 10; run (e) a sweep at a time) sets every launch
 counter to 0 before it runs and reads them after; each kernel of the path
 must have run in it (ColPali, ColSmol and ColFlor: K1's tensor-core path,
 ColSmol K4's too; ColPali, ColSmol and both runs of 7: K2's tensor-core
 path; every run of phases 5, 7 and 8 and run (e)'s sweep 2: K7's tensor-core
 path; both runs of 8:
 K2's tensor-core path; run (c) and image runs (b): both of K8a's tiles and
-K8b; run (d): both of K9's tiles; phase 9: none, every counter stays 0). The line before the last is a JSON object with
+K8b; run (d): both of K9's tiles; phase 9: none, every counter stays 0; phase 10: K2's
+tensor-core path and K3). The line before the last is a JSON object with
 each kernel's launches in those paths, its error against the plain version,
 its time, the plain version's, its bound and, for K2, K6, K8a, K8b and K9,
 the library call's (null where this torch has none); K8a and K9 have a row a
@@ -1923,6 +1955,463 @@ def phase_colsmol(torch, seed: int, card: str):
 GEN_MODEL = "google/gemma-3-27b-it"
 GEN = dict(slots=4, max_seq_len=2048, chunk=8, page=16, max_tokens=32)
 PROMPT_TOKENS = (320, 1100, 700, 1300, 1550)   # the chat prompt's tokens, roughly
+INGEST = dict(papers=16, pages=(8, 12), lines=40, scanned=3, batch=8, figure=(240, 320),
+              large_figure=(1400, 1800), jpeg_quality=90, table_lines=12, host_threads=8,
+              ocr_threads=2, png_every=4)
+INGEST_MODELS = [{"model_name": GEN_MODEL, "model_short": "gemma3", "port": 8006,
+                  "text_vd": "RAG_TEXT", "mm_vd": "RAG_MM_gemma3", "late_inter": COLPALI,
+                  "late_inter_short": "colpali"}]
+
+
+def ingest_corpus(directory: Path, seed: int):
+    """Phase 10's PDFs, written with the port's ``PdfWriter``: ``papers``
+    letter-size papers of 8-12 pages (~40 text lines a page, a 240 x 320
+    figure on every second page, every other one of them a baseline JPEG
+    (DCTDecode, 4:2:0) and the rest zlib (FlateDecode), a ruled 4-row table
+    on every fourth; paper 1's fourth page holds a 1400 x 1800 figure), and
+    ``scan.pdf``: the first ``scanned`` pages of paper 1 rasterized at 144
+    DPI and embedded as full-page images (no text layer). -> (the papers'
+    paths, the scan's path, the titles of the scanned pages, [(paper path,
+    page index, the JPEG figure's source pixels)])."""
+    import numpy as np
+    from multimodal_colpali_tpu_torch.ingest.pdfwrite import PdfWriter, encode_jpeg
+    from multimodal_colpali_tpu_torch.ingest.rasterize import PdfDocument
+
+    rng = np.random.default_rng(seed)
+    paths, jpegs = [], []
+    for k in range(INGEST["papers"]):
+        w = PdfWriter()
+        path = directory / f"paper{k + 1:02d}.pdf"
+        for page in range(int(rng.integers(INGEST["pages"][0], INGEST["pages"][1] + 1))):
+            table = page % 4 == 3
+            lines = [f"GLYCANS BIND SELECTINS PAPER {k + 1} PAGE {page + 1}"]
+            for i in range(INGEST["lines"] - 1 - (INGEST["table_lines"] if table else 0)):
+                words = " ".join(rng.choice(WORDS, size=int(rng.integers(5, 9))))
+                lines.append(f"{i + 1}. {words} ({int(rng.integers(0, 10_000))}).")
+            image = None
+            if page % 2 == 1:
+                fh, fw = INGEST["large_figure" if (k, page) == (0, 3) else "figure"]
+                yy, xx = np.mgrid[0:fh, 0:fw]
+                image = np.stack([(xx * 255 // fw), (yy * 255 // fh),
+                                  np.full_like(xx, 40 * (k % 6))], -1).astype(np.uint8)
+                for _ in range(6):
+                    y, x = int(rng.integers(0, fh - 40)), int(rng.integers(0, fw - 60))
+                    image[y: y + 40, x: x + 60] = rng.integers(0, 256, 3)
+            if page % 4 == 1:
+                jpegs.append((path, page, image))
+                image = encode_jpeg(image, INGEST["jpeg_quality"])
+            runs, rules = [], []
+            if table:
+                top = 200
+                runs.append((72, top + 14, f"Table {page // 4 + 1}: binding constants, "
+                                           f"paper {k + 1}"))
+                rows = [["Glycan", "Lectin", "Kd (nM)"]] + [
+                    [f"sLe{'xa'[r % 2]}-{r}", f"{'EPL'[r % 3]}-selectin",
+                     str(int(rng.integers(10, 999)))] for r in range(3)]
+                for r, row in enumerate(rows):
+                    runs += [(x, top - 18 * r, cell) for x, cell in zip((72, 220, 380), row)]
+                rules = [(68, top + 10, 470, top + 10), (68, top - 6, 470, top - 6),
+                         (68, top - 62, 470, top - 62)]
+            w.add_page(text_lines=lines, image=image, image_rect=(330, 420, 240, 180),
+                       runs=runs, lines=rules)
+        paths.append(path)
+        w.save(str(path))
+    source = PdfDocument(str(paths[0]))
+    scan = PdfWriter()
+    for page in range(INGEST["scanned"]):
+        scan.add_page(image=source.render(page, dpi=144.0), image_rect=(0, 0, 612, 792))
+    scan_path = directory / "scan.pdf"
+    scan.save(str(scan_path))
+    titles = [f"GLYCANS BIND SELECTINS PAPER 1 PAGE {page + 1}"
+              for page in range(INGEST["scanned"])]
+    return paths, scan_path, titles, jpegs
+
+
+class Patched:
+    """Replace ``owner.name`` by ``wrap(original)`` inside a ``with`` block:
+    the script's own timers and recorders around the port's methods."""
+
+    def __init__(self, owner, name: str, wrap):
+        self.owner, self.name, self.wrap = owner, name, wrap
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+        setattr(self.owner, self.name, self.wrap(self.orig))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def ocr_lines(lines) -> str:
+    """``ConvOcr._page_words``' lines -> the text ``recognize`` returns."""
+    return "\n".join(t for t in (" ".join(w for _, w in words)
+                                 for _, _, words in lines if words) if t.strip())
+
+
+def cpu_ocr_reference(scan_path: str, repo: str, threads: int):
+    """Phase 10's CPU reading of the scan, run in a worker process beside the
+    card's: ``AutoOcr(device="cpu").pdf_text_and_runs`` -> (its texts and
+    runs, ConvOcr's page words, every classifier call's inputs and logits,
+    seconds)."""
+    sys.path.insert(0, repo)
+    import torch
+
+    from multimodal_colpali_tpu_torch.ingest import ocr_conv
+
+    torch.set_num_threads(threads)
+    lines, calls = [], []
+
+    def page_words(orig):
+        def run(self, image):
+            out = orig(self, image)
+            lines.append(out[0])
+            return out
+        return run
+
+    def capture(orig):
+        def run(self, patches, feats):
+            out = orig(self, patches, feats)
+            calls.append((patches, feats, out))
+            return out
+        return run
+
+    t0 = time.perf_counter()
+    with Patched(ocr_conv.ConvOcr, "_page_words", page_words), \
+            Patched(ocr_conv.ConvOcr, "_forward", capture):
+        out = ocr_conv.AutoOcr(device="cpu").pdf_text_and_runs(scan_path)
+    return out, lines, calls, time.perf_counter() - t0
+
+
+def phase_ingest(torch, seed: int, card: str, work: str, checkpoint: dict) -> dict:
+    """Phase 10: PDF ingest at full width, on phase 3's ColPali checkpoint.
+    -> the kernel launches of (a)-(c)."""
+    import multiprocessing
+    import os
+    import warnings
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    import numpy as np
+    from multimodal_colpali_tpu_torch import api
+    from multimodal_colpali_tpu_torch._build import build_native
+    from multimodal_colpali_tpu_torch.ingest import rasterize
+    from multimodal_colpali_tpu_torch.drivers import create_context
+    from multimodal_colpali_tpu_torch.ingest import imageops
+    from multimodal_colpali_tpu_torch.ingest import ocr as template_ocr
+    from multimodal_colpali_tpu_torch.ingest import ocr_conv
+    from multimodal_colpali_tpu_torch.ingest.pipeline import PipelinedEmbedder
+    from multimodal_colpali_tpu_torch.ingest.preprocess import resize_image, resize_image_on
+    from multimodal_colpali_tpu_torch.ingest.rasterize import PdfDocument
+    from multimodal_colpali_tpu_torch.models import load_retriever
+    from multimodal_colpali_tpu_torch.models.configs import BertConfig
+    from multimodal_colpali_tpu_torch.store import VectorClient
+
+    t_phase = time.perf_counter()
+    lib = build_native()
+    root = Path(work) / "ingest"
+    papers_dir = root / "papers"
+    papers_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    papers, scan_path, titles, jpegs = ingest_corpus(papers_dir, seed)
+    pdfs = sorted(papers_dir.glob("*.pdf"))
+    n_pages = sum(len(PdfDocument(str(p))) for p in pdfs)
+    skipped_before = rasterize.skipped_jpeg_images()
+    print(f"[ingest] mmpdf built by g++ with the port's JPEG decoder into {lib.name}; corpus: "
+          f"{len(papers)} papers + a {INGEST['scanned']}-page scan, {n_pages} pages "
+          f"({len(jpegs)} JPEG figures, one {INGEST['large_figure'][0]}x"
+          f"{INGEST['large_figure'][1]} figure), written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    (root / "models.json").write_text(json.dumps(INGEST_MODELS))
+
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+
+    # (a) the create_context driver, with the OCR of the scan recorded and timed
+    ocr = {"template_s": [], "conv_s": [], "device_ms": [], "lines": {}, "auto": None}
+
+    def timed(key):
+        def wrap(orig):
+            def run(self, *a, **k):
+                t = time.perf_counter()
+                try:
+                    return orig(self, *a, **k)
+                finally:
+                    ocr[key].append(time.perf_counter() - t)
+            return run
+        return wrap
+
+    def device_timed(orig):
+        def run(self, patches, feats):
+            if self.device.type != "cuda":
+                return orig(self, patches, feats)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(self, patches, feats)
+            end.record()
+            end.synchronize()
+            ocr["device_ms"].append(start.elapsed_time(end))
+            return out
+        return run
+
+    def page_words(orig):
+        def run(self, image):
+            t = time.perf_counter()
+            out = orig(self, image)
+            ocr["conv_s"].append(time.perf_counter() - t)
+            ocr["lines"].setdefault(self.device.type, []).append(out[0])
+            return out
+        return run
+
+    def auto_runs(orig):
+        def run(self, path):
+            out = orig(self, path)
+            if self.conv is not None and self.conv.device.type == "cuda":
+                ocr["auto"] = out
+            return out
+        return run
+
+    # the driver finds phase 3's ColPali checkpoint and a bge-base one by the
+    # models' names
+    ckpt_root = Path(checkpoint["path"]).parent
+    bge_dir = ckpt_root / BGE.replace("/", "--")
+    bge_dir.mkdir()
+    write_checkpoint(torch, bert_hf_tensors(BertConfig.bge_base()), str(bge_dir), seed, 1,
+                     "cuda", norm=bert_norm)
+    os.environ["COLPALI_TPU_CKPT_DIR"] = str(ckpt_root)
+    os.environ["MMCP_DEVICE_PREPROCESS"] = "1"
+    vd = root / "vd"
+    # the CPU's reading of the scan runs in a worker process during (a)
+    cpu_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_future = cpu_pool.submit(cpu_ocr_reference, str(scan_path), str(REPO),
+                                     INGEST["ocr_threads"])
+        with warnings.catch_warnings(record=True) as caught, \
+                Patched(template_ocr.TemplateOcr, "recognize", timed("template_s")), \
+                Patched(ocr_conv.ConvOcr, "_page_words", page_words), \
+                Patched(ocr_conv.ConvOcr, "_forward", device_timed), \
+                Patched(ocr_conv.AutoOcr, "pdf_text_and_runs", auto_runs):
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            stages = create_context.main([
+                "--papers-dir", str(papers_dir), "--vd-dir", str(vd),
+                "--models-config", str(root / "models.json"), "--prompts-path", "",
+                "--skip-summaries", "--device", "cuda"])
+            torch.cuda.synchronize()
+            driver_s = time.perf_counter() - t0
+        inits = [str(w.message) for w in caught if "random init" in str(w.message)]
+        require(not inits, f"ingest (a) did not load the checkpoints: {inits}")
+        t0 = time.perf_counter()
+        cpu_auto, cpu_lines, calls, cpu_ocr_s = cpu_future.result()
+        cpu_wait_s = time.perf_counter() - t0
+        # (b) and (c) on one retriever: create_document_embeddings, then the
+        # pipelined embedder over the same directory
+        retr = load_retriever(COLPALI, device="cuda", dtype=torch.bfloat16,
+                              checkpoint_dir=checkpoint["path"], device_preprocess=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq = api.create_document_embeddings(str(papers_dir), retr, batch_size=INGEST["batch"])
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        spans = []
+
+        def evented(orig):
+            def run(*a, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = orig(*a, **k)
+                end.record()
+                spans.append((start, end))
+                return out
+            return run
+
+        with Patched(retr, "_embed", evented):
+            t0 = time.perf_counter()
+            pipe = PipelinedEmbedder(retr, batch_size=INGEST["batch"]).embed_pdf_dir(
+                str(papers_dir))
+            torch.cuda.synchronize()
+            pipe_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MMCP_DEVICE_PREPROCESS", None)
+        os.environ.pop("COLPALI_TPU_CKPT_DIR", None)
+        cpu_pool.shutdown(cancel_futures=True)
+    launches = read_counts(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(launches["attention"] > 0 and launches["attention.tensor_core"] > 0,
+            f"ingest: K2 did not run on its tensor-core path: {launches}")
+    require(launches["normalize"] > 0, f"ingest: K3 did not run: {launches}")
+    busy_ms = sum(a.elapsed_time(b) for a, b in spans)
+    idle = 1.0 - busy_ms / (pipe_s * 1e3)
+
+    # what came out: (b) = (c); the driver's files and collections
+    require(len(seq) == len(pipe) == n_pages, f"embedded {len(seq)} / {len(pipe)} of "
+            f"{n_pages} pages")
+    worst = 0.0
+    for a, b in zip(seq, pipe):
+        require((a["doc_id"], a["page_id"], a["file_name"]) ==
+                (b["doc_id"], b["page_id"], b["file_name"]),
+                f"create_document_embeddings {a['file_name']} {a['page_id']} vs pipelined "
+                f"{b['file_name']} {b['page_id']}")
+        require(a["embedding"].shape == b["embedding"].shape
+                and bool(np.isfinite(a["embedding"]).all()), "embedding shape or values")
+        worst = max(worst, float(np.abs(a["embedding"] - b["embedding"]).max()))
+    require(worst <= 2e-2, f"pipelined embeddings differ from create_document_embeddings' by "
+            f"{worst:.3e} > 2e-2")
+    pngs = sorted((vd / "pg_images").iterdir())
+    require(len(pngs) == n_pages, f"{len(pngs)} page PNGs for {n_pages} pages")
+    client = VectorClient(path=str(vd / "storage"), device="cuda")
+    counts = {c.name: client.count(c.name).count for c in client.get_collections().collections}
+    require(counts.get("colpali") == n_pages and counts.get("RAG_TEXT", 0) > 0
+            and counts.get("RAG_MM_gemma3", 0) > counts.get("RAG_TEXT", 0),
+            f"collections {counts}")
+    points, _ = client.scroll("colpali", limit=n_pages + 1, with_vectors=True)
+    by_page = {(r["file_name"], r["page_id"] + 1): r["embedding"] for r in seq}
+    coll_worst = 0.0
+    for pt in points:
+        want = by_page[(pt.payload["document_name"], pt.payload["page_no"])]
+        got = np.asarray(pt.vector, np.float32)
+        require(got.shape == want.shape, f"collection vector {got.shape} vs {want.shape}")
+        coll_worst = max(coll_worst, float(np.abs(got - want).max()))
+    require(coll_worst <= 2e-2, f"the colpali collection's vectors differ from "
+            f"create_document_embeddings' by {coll_worst:.3e}")
+    n_tables = sum(1 for p in (vd / "tables").glob("*.png")) if (vd / "tables").exists() else 0
+
+    # per page: the stages of the chain, and the card's resample against the host's
+    pre = retr.processor.image_preprocessor
+    tmp_png = root / "stage.png"
+    kept, t_ms = [], {"rasterize": [], "upload+lanczos": [], "png_write": [], "bicubic": []}
+    for path in pdfs:
+        doc = PdfDocument(str(path))
+        for i in range(len(doc)):
+            t0 = time.perf_counter()
+            raster = doc.render(i, dpi=144.0)
+            t1 = time.perf_counter()
+            lz = resize_image(torch.from_numpy(raster).to("cuda"))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if len(kept) % INGEST["png_every"] == 0:
+                imageops.write_png(tmp_png, lz)
+            t3 = time.perf_counter()
+            u8 = pre.u8([lz], device="cuda")
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            for key, dt in zip(t_ms, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                if key != "png_write" or len(kept) % INGEST["png_every"] == 0:
+                    t_ms[key].append(dt * 1e3)
+            kept.append((raster, lz.cpu().numpy(), u8[0].cpu().numpy()))
+
+    def host_equal(item):
+        raster, lz, u8 = item
+        host_lz = resize_image(raster)
+        host_u8 = imageops.resize(host_lz, (pre.image_size, pre.image_size), "bicubic")
+        return bool(np.array_equal(host_lz, lz) and np.array_equal(host_u8, u8))
+
+    # the host's int64 resample of every page, on threads (numpy releases the
+    # interpreter lock)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(INGEST["host_threads"]) as pool:
+        equal = list(pool.map(host_equal, kept))
+    host_s = time.perf_counter() - t0
+    require(all(equal), f"the card's float64 resample differs from the host int64 path on "
+            f"{equal.count(False)} of {len(equal)} pages")
+    require(not any(launches[k] for k in ("maxsim", "window_attention", "vit_layer")),
+            f"ingest launched a kernel off its path: {launches}")
+
+    # the figures pdf_loader saves: every one resized by resize_image on the
+    # card as on the host (the large one LANCZOS to 1,300), and each JPEG
+    # figure decoded by the port's decoder close to the pixels it was made from
+    figures, fig_ms = [], []
+    for path in pdfs:
+        doc = PdfDocument(str(path))
+        for i in range(len(doc)):
+            for img, _ in doc.extract_images(i):
+                t0 = time.perf_counter()
+                card_fig = resize_image_on(img, torch.device("cuda")).cpu().numpy()
+                fig_ms.append((time.perf_counter() - t0) * 1e3)
+                figures.append((path, i, img, card_fig))
+    fig_equal = [bool(np.array_equal(resize_image(img), got)) for _, _, img, got in figures]
+    require(all(fig_equal), f"the card's resample of {fig_equal.count(False)} of "
+            f"{len(figures)} figures differs from the host's")
+    large = [got.shape for _, _, img, got in figures
+             if img.shape[:2] == INGEST["large_figure"]]
+    require(large == [(1011, 1300, 3)], f"the large figure's resized shapes: {large}")
+    jpeg_err = 0.0
+    for path, page, src in jpegs:
+        got = [img for p, i, img, _ in figures if (p, i) == (path, page)]
+        require(len(got) == 1 and got[0].shape == src.shape,
+                f"{path.name} page {page + 1}: the JPEG figure was not extracted at "
+                f"{src.shape}: {[g.shape for g in got]}")
+        jpeg_err = max(jpeg_err, float(np.abs(got[0].astype(np.int16) - src).mean()))
+    require(jpeg_err < 2.5, f"a JPEG figure decodes {jpeg_err:.2f} levels from its source "
+            f"on average")
+    skipped = rasterize.skipped_jpeg_images() - skipped_before
+    require(skipped == 0, f"{skipped} JPEG images could not be decoded in phase 10")
+
+    # the scan: the card's OCR against the CPU's
+    require(ocr["auto"] is not None, "the scanned paper did not go through AutoOcr on the card")
+    texts, _ = ocr["auto"]
+    for title, text in zip(titles, texts):
+        require("GLYCANS" in text and "SELECTINS" in text and title in text,
+                f"the scan's OCR text lacks its source's words {title!r}: {text[:200]!r}")
+    require(cpu_auto == ocr["auto"], "AutoOcr on the card read the scan otherwise than on the "
+            "CPU")
+    card_lines = ocr["lines"].get("cuda", [])
+    require(len(card_lines) == len(cpu_lines) == INGEST["scanned"]
+            and [ocr_lines(x) for x in card_lines] == [ocr_lines(x) for x in cpu_lines]
+            and card_lines == cpu_lines, "ConvOcr's text or word positions on the card differ "
+            "from the CPU's")
+    conv_card = ocr_conv.ConvOcr(device="cuda")
+    logit_err = max(float(np.abs(conv_card._forward(pa, fe) - out).max())
+                    for pa, fe, out in calls)
+    require(logit_err <= 1e-4, f"ConvOcr logits on the card differ from the CPU's by "
+            f"{logit_err:.3e} > 1e-4")
+    glyphs = sum(len(pa) for pa, _, _ in calls)
+    ms = {k: float(np.mean(v)) for k, v in t_ms.items()}
+    scan_pages = INGEST["scanned"]
+    print(f"[ingest] (a) create_context --skip-summaries (bge-base and {COLPALI} from bf16 checkpoints, "
+          f"MMCP_DEVICE_PREPROCESS=1): {driver_s:.1f} s for {n_pages} pages = "
+          f"{n_pages / driver_s:.2f} pages/s; stages (s) "
+          f"{json.dumps({k: round(v, 2) for k, v in stages.items()})}; collections {counts}, "
+          f"{len(pngs)} page PNGs, {n_tables} table crops | {card}", flush=True)
+    print(f"[ingest] (b) create_document_embeddings {seq_s:.2f} s = {n_pages / seq_s:.2f} "
+          f"pages/s; (c) PipelinedEmbedder(batch_size={INGEST['batch']}) {pipe_s:.2f} s = "
+          f"{n_pages / pipe_s:.2f} pages/s, forwards {busy_ms:.0f} ms of device time "
+          f"({busy_ms / len(spans):.1f} ms a batch of {INGEST['batch']}), device idle "
+          f"{100 * idle:.1f}% of (c)'s wall; (b) = (c) within {worst:.2e}, the colpali "
+          f"collection = (b) within {coll_worst:.2e}; peak {peak:.2f} GiB | {card}",
+          flush=True)
+    print(f"[ingest] ms a page (means over {len(kept)} pages): rasterize "
+          f"{ms['rasterize']:.1f} (host, 144 DPI), upload + LANCZOS {ms['upload+lanczos']:.2f} "
+          f"(card, to {kept[0][1].shape[1]}x{kept[0][1].shape[0]}), PNG write "
+          f"{ms['png_write']:.1f} (host zlib; every {INGEST['png_every']}th page), BICUBIC "
+          f"{ms['bicubic']:.2f} (card, to {pre.image_size}); the card's float64 resample "
+          f"bit-equal to the host's int64 on every page (host check {host_s:.1f} s on "
+          f"{INGEST['host_threads']} threads) | "
+          f"{card}", flush=True)
+    print(f"[ingest] figures: {len(figures)} extracted ({len(jpegs)} JPEG, decoded by the "
+          f"port's decoder within {jpeg_err:.2f} levels a pixel of their sources, none "
+          f"skipped), resize_image on the card {float(np.mean(fig_ms)):.2f} ms a figure "
+          f"(upload, resample, copy back; {max(fig_ms):.1f} ms the 1400x1800 one), bit-equal "
+          f"to the host's | {card}", flush=True)
+    print(f"[ingest] OCR of the {scan_pages}-page scan in (a): template "
+          f"{1e3 * sum(ocr['template_s']) / scan_pages:.0f} ms a page, ConvOcr "
+          f"{1e3 * sum(ocr['conv_s']) / scan_pages:.0f} ms a page (288 DPI) of which its "
+          f"classifier on the card {sum(ocr['device_ms']) / scan_pages:.1f} ms "
+          f"({len(ocr['device_ms'])} forwards); the same on the CPU {cpu_ocr_s:.1f} s in a "
+          f"worker process beside (a) ({cpu_wait_s:.1f} s waited after it): text, "
+          f"runs and ConvOcr's words identical, logits within {logit_err:.2e} over {glyphs} "
+          f"glyphs; the source's titles read back | {card}", flush=True)
+    print(f"[ingest] launches {json.dumps(launches)}; phase 10 took "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+    del retr, client, conv_card, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 MCQ_FORMAT = {"type": "json_schema", "json_schema": {"name": "mcq", "schema": {
     "type": "object", "properties": {"answer": {"type": "string",
                                                 "enum": ["A", "B", "C", "D"]}}}}}
@@ -2998,7 +3487,11 @@ def main(argv=None) -> int:
     ckpt_dir = tempfile.mkdtemp(prefix="colpali-ckpt-", dir=REPO / "build")
     work = tempfile.mkdtemp(prefix="smoke-", dir=REPO / "build")
     try:
-        ckpt = write_colpali_checkpoint(torch, RETRIEVER_CONFIGS[COLPALI](), ckpt_dir, args.seed)
+        # where COLPALI_TPU_CKPT_DIR finds it by the model's name (phase 10's driver)
+        ckpt_path = Path(ckpt_dir) / COLPALI.replace("/", "--")
+        ckpt_path.mkdir()
+        ckpt = write_colpali_checkpoint(torch, RETRIEVER_CONFIGS[COLPALI](), str(ckpt_path),
+                                        args.seed)
         colpali, top_pages = phase_retrieval(
             torch, COLPALI, args.seed, card, "main", device_preprocess=True,
             path=("maxsim", "maxsim.tensor_core", "attention", "attention.tensor_core",
@@ -3006,7 +3499,6 @@ def main(argv=None) -> int:
             absent=("vit_layer",),   # SigLIP-So400m is not fused
             link_dir=tempfile.mkdtemp(dir=work), checkpoint=ckpt)
         images = phase_images(torch, args.seed, card, ckpt, top_pages)
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
         colsmol = phase_colsmol(torch, args.seed, card)
         gen = phase_generation(torch, args.seed, card)
         g3 = phase_gemma3_images(torch, args.seed, card)
@@ -3018,6 +3510,7 @@ def main(argv=None) -> int:
                                      absent=("attention", "normalize"),
                                      link_dir=tempfile.mkdtemp(dir=work))
         dense = phase_dense(torch, args.seed, card, work)
+        ingest = phase_ingest(torch, args.seed, card, work, ckpt)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -3060,7 +3553,7 @@ def main(argv=None) -> int:
     # K2 at the Gemma-3 tower's shape: its launches are phase 8's
     meta["attention.gemma3_tower"] = meta["attention"]
     paths = [colpali, images["a"], images["b"], colsmol, gen["a"], gen["b"], gen["c"],
-             gen["d"], gen["e"], colflor, g3["a"], g3["b"], dense]
+             gen["d"], gen["e"], colflor, g3["a"], g3["b"], dense, ingest]
     launches = {name: sum(p[tile_of.get(name, name)] for p in paths) for name in meta
                 if name != "attention.gemma3_tower"}
     launches["attention.gemma3_tower"] = g3["a"]["attention"] + g3["b"]["attention"]

@@ -13,11 +13,17 @@ nothing falls back to another implementation.
 GEMM that K5a-c are built from and its LayerNorm statistics pre-pass,
 ``paged_attention.cu`` K7a and K7b, ``int8_matmul.cu`` K8a and K8b,
 ``window_attention.cu`` K6, ``int4_matmul.cu`` K9, ``normalize.cu`` K3.
+
+The host PDF library of the ingest stage, ``native/src/mmpdf.cpp``, is C++
+for the CPU: :func:`build_native` compiles it with g++, together with the
+port's JPEG decoder ``native/jpeg/jpegdec.cpp`` (libjpeg's interface), into
+``build/native/libmmpdf-<hash>.so`` at first use, on the same terms.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -193,6 +199,51 @@ def build_variant(name: str, flags: str) -> ctypes.CDLL:
                                f"(exit {proc.returncode}):\n{(proc.stdout + proc.stderr)[-6000:]}")
         os.replace(tmp, so)
     return _typed(name, so)
+
+
+NATIVE_SRC = PACKAGE_DIR / "native" / "src" / "mmpdf.cpp"
+# libjpeg's interface served by the port's own decoder (jpegdec.cpp), which
+# mmpdf.cpp is built against on every machine: the card's has no libjpeg
+JPEG_DIR = PACKAGE_DIR / "native" / "jpeg"
+JPEG_SRC = JPEG_DIR / "jpegdec.cpp"
+NATIVE_DIR = BUILD_DIR / "native"
+GXX_FLAGS = ("-O2", "-fPIC", "-shared")
+_native_lock = threading.Lock()
+
+
+def native_command(out: Path) -> list:
+    """The g++ command that builds ``mmpdf.cpp`` with the port's JPEG decoder
+    into ``out`` (zlib from the machine, no libjpeg)."""
+    return ["g++", *GXX_FLAGS, f"-I{JPEG_DIR}", "-o", str(out), str(NATIVE_SRC),
+            str(JPEG_SRC), "-lz"]
+
+
+def native_library_path() -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for p in (NATIVE_SRC, JPEG_DIR / "jpeglib.h", JPEG_SRC):
+        h.update(p.read_bytes())
+    return NATIVE_DIR / f"libmmpdf-{h.hexdigest()[:16]}.so"
+
+
+def build_native() -> Path:
+    """``mmpdf.cpp`` built with g++ (once; later calls find it on disk) -> the
+    shared library. A failed build raises."""
+    with _native_lock:
+        out = native_library_path()
+        NATIVE_DIR.mkdir(parents=True, exist_ok=True)
+        # another process may be building the same library: wait for it
+        with open(NATIVE_DIR / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not out.exists():
+                tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+                proc = subprocess.run(native_command(tmp), capture_output=True, text=True)
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(
+                        f"g++ failed for native/src/mmpdf.cpp (exit {proc.returncode}):\n"
+                        f"{(proc.stdout + proc.stderr)[-6000:]}")
+                os.replace(tmp, out)
+        return out
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -4,9 +4,10 @@
 Names, signatures and payloads follow the reference's ``functions.py`` as
 the JAX package does:
 
-- ColPali: indexing (``colpali_qdrant``), the Qdrant-style search
-  (``retrieve_colpali``) and the in-memory scoring of experiment 02
-  (``score_results``). ``model`` is a
+- ColPali: corpus embedding from a directory of PDFs
+  (``create_document_embeddings``, through ``ingest``), indexing
+  (``colpali_qdrant``), the Qdrant-style search (``retrieve_colpali``) and
+  the in-memory scoring of experiment 02 (``score_results``). ``model`` is a
   :class:`~multimodal_colpali_tpu_torch.models.Retriever`; queries are
   encoded and scored on its device.
 - The dense RAG modes (api.py:243-726): ``qdrant_process`` and
@@ -18,10 +19,6 @@ the JAX package does:
 - The image summaries (``get_img_summary``, ``process_models``) through the
   port's HTTP client (``generation/client``), and model discovery
   (``models_local``, ``models_used``) over ``urllib``.
-
-Not ported yet: ``create_document_embeddings``, which raises
-``NotImplementedError``: it needs the PDF ingest stage (ROADMAP queue 1
-item 4).
 """
 
 from __future__ import annotations
@@ -35,11 +32,13 @@ import urllib.request
 import uuid
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from multimodal_colpali_tpu_torch.documents import Document
 from multimodal_colpali_tpu_torch.generation.client import get_responses
 from multimodal_colpali_tpu_torch.generation.messages import format_msgs
+from multimodal_colpali_tpu_torch.ingest.rasterize import pdf_names, resized_pages
 from multimodal_colpali_tpu_torch.models.processing import pad_multivectors
 from multimodal_colpali_tpu_torch.ops.maxsim import maxsim_scores
 from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
@@ -49,15 +48,29 @@ from multimodal_colpali_tpu_torch.store import (
     VectorParams)
 
 
-def _not_ported(name: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"api.{name} is not ported to PyTorch yet (ROADMAP.md "
-                               f"queue 1 {item})")
+def create_document_embeddings(pdf_dir: str, model, processor=None,
+                               batch_size: int = 32) -> List[Dict[str, Any]]:
+    """Embed every page of every PDF in a directory (api.py:46-71).
 
-
-def create_document_embeddings(pdf_dir: str, model, processor=None, batch_size: int = 32):
-    """Embed every page of every PDF in a directory (api.py:46-70): needs
-    the PDF ingest stage, not ported yet."""
-    raise _not_ported("create_document_embeddings", "item 4, ingest")
+    Entries: {embedding: np.ndarray [n_tokens, dim], doc_id, page_id,
+    file_name} - the same record shape the reference builds with torch
+    DataLoader batches (functions.py:765-809). ``model`` is a Retriever
+    (processor arg kept for signature parity); the pages are rasterized on
+    the host and resized on the retriever's device, one PDF at a time (the
+    order and records of ``convert_pdf_dir_to_images``), so that no more
+    than one document's pages are held there."""
+    out: List[Dict[str, Any]] = []
+    for doc_idx, filename in enumerate(pdf_names(pdf_dir)):
+        images = resized_pages(os.path.join(pdf_dir, filename), device=model.device)
+        embs = model.embed_images(images, batch_size=batch_size)
+        for page_id, emb in enumerate(embs):
+            out.append({
+                "embedding": np.asarray(emb, np.float32),
+                "doc_id": doc_idx,
+                "page_id": page_id,
+                "file_name": filename,
+            })
+    return out
 
 
 def upsert_to_qdrant(client: VectorClient, collection_name: str, points,

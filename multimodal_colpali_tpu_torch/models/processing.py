@@ -6,6 +6,12 @@ copy. Behaviour is the same:
 
 - images -> fixed 448x448 bicubic resize, rescale 1/255, normalize to
   [-1, 1], prompt ``<image>*1024 <bos> Describe the image.\\n``;
+  the resize is ``ingest.imageops.resize``, whose pixels equal Pillow's
+  (no retriever needs Pillow: a PIL image is read through its own
+  ``convert("RGB")`` and ``np.asarray``). The pages are resized and
+  normalized as torch tensors on ``device``: on the CPU (returned as numpy
+  arrays) or uploaded as uint8 to a CUDA device (the same pixels and the
+  same float32 operations);
 - queries -> ``<bos> Query: {query}`` + 10 ``<pad>`` augmentation tokens.
 
 ``score_multi_vector`` runs the port's MaxSim (K1 on a CUDA device).
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from multimodal_colpali_tpu_torch._device import resolve_device
+from multimodal_colpali_tpu_torch.ingest.imageops import resize
 from multimodal_colpali_tpu_torch.models.configs import ColPaliModelConfig
 from multimodal_colpali_tpu_torch.ops.maxsim import maxsim_scores
 
@@ -54,25 +61,50 @@ class SimpleTokenizer:
         return out
 
 
-def _resized(img: Any, size: int, dtype) -> np.ndarray:
-    """A page at ``size`` x ``size``: an array already that size as it is,
-    anything else through Pillow (imported only here, so arrays at the
-    model size need no Pillow)."""
-    if isinstance(img, np.ndarray) and img.shape[:2] == (size, size):
-        return img.astype(dtype)
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ValueError("resizing a page, or reading a PIL image, needs Pillow; pass "
-                         "arrays already at the model size") from e
-    if isinstance(img, Image.Image):
-        im = img.convert("RGB").resize((size, size), Image.BICUBIC)
-        return np.asarray(im, dtype=dtype)
-    a = np.asarray(img)
-    if a.shape[:2] == (size, size):
-        return a.astype(dtype)
-    im = Image.fromarray(a.astype(np.uint8)).resize((size, size), Image.BICUBIC)
-    return np.asarray(im, dtype=dtype)
+def _rgb(img: Any) -> Any:
+    """A PIL image as an RGB array (its own ``convert``; Pillow is not
+    imported here); arrays and tensors as they are."""
+    if not isinstance(img, (np.ndarray, torch.Tensor)) and hasattr(img, "convert"):
+        return np.asarray(img.convert("RGB"))
+    return img
+
+
+def _resized(img: Any, size: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A page at ``size`` x ``size`` on ``device`` as ``dtype``: its uint8
+    pixels uploaded, then (unless already that size) BICUBIC-resized there
+    (``imageops``' float64 sums, equal to its host int64 path and to
+    Pillow)."""
+    a = _rgb(img)
+    t = (a.to(device) if isinstance(a, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    if tuple(t.shape[:2]) == (size, size):
+        return t.to(dtype)
+    return resize(t.to(torch.uint8), (size, size), "bicubic").to(dtype)
+
+
+def normalize_on(x: torch.Tensor, mean: Any, std: Any) -> torch.Tensor:
+    """``(x / 255 - mean) / std`` in float32 on ``x``'s device, each step the
+    host's IEEE operation. The constants are tensors on that device: CUDA
+    divides by a CPU scalar as a product with its reciprocal, which can
+    differ from the division by one ulp."""
+    def const(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=x.device)
+
+    return (x / const(255.0) - const(mean)) / const(std)
+
+
+def image_device(images: Sequence[Any], device: Any = None) -> torch.device:
+    """Where to resize ``images``: ``device`` if given, else the device of
+    tensor pages, else the CPU."""
+    if device is None and images and isinstance(images[0], torch.Tensor):
+        device = images[0].device
+    return torch.device("cpu" if device is None else device)
+
+
+def on_host(pix: torch.Tensor) -> Any:
+    """Pixels as the processors return them: a numpy array on the CPU, the
+    tensor itself on a CUDA device."""
+    return pix.numpy() if pix.device.type == "cpu" else pix
 
 
 @dataclasses.dataclass
@@ -83,18 +115,21 @@ class ImagePreprocessor:
     mean: float = 0.5
     std: float = 0.5
 
-    def __call__(self, images: Sequence[Any]) -> np.ndarray:
-        arrs = []
-        for img in images:
-            a = _resized(img, self.image_size, np.float32)
-            a = a / 255.0
-            arrs.append((a - self.mean) / self.std)
-        return np.stack(arrs, axis=0)
+    def __call__(self, images: Sequence[Any], device: Any = None):
+        """-> normalized ``[B, S, S, 3]`` float32 on ``image_device(images,
+        device)``: a numpy array on the CPU, a tensor on a CUDA device."""
+        dev = image_device(images, device)
+        return on_host(normalize_on(torch.stack([_resized(img, self.image_size, dev,
+                                                          torch.float32) for img in images]),
+                                    self.mean, self.std))
 
-    def u8(self, images: Sequence[Any]) -> np.ndarray:
-        """-> resized uint8 NHWC; normalization happens on the device
+    def u8(self, images: Sequence[Any], device: Any = None):
+        """-> resized uint8 NHWC (numpy on the CPU, a tensor on a CUDA
+        device); normalization happens on the device
         (``ops/preprocess.normalize_images``, K3 on a CUDA device)."""
-        return np.stack([_resized(img, self.image_size, np.uint8) for img in images], axis=0)
+        dev = image_device(images, device)
+        return on_host(torch.stack([_resized(img, self.image_size, dev, torch.uint8)
+                                    for img in images]))
 
 
 class ColPaliProcessor:
@@ -120,13 +155,15 @@ class ColPaliProcessor:
     def _special(self, name: str, default: int) -> int:
         return getattr(self.tokenizer, name, default)
 
-    def process_images(self, images: Sequence[Any], device_preprocess: bool = False) -> dict:
+    def process_images(self, images: Sequence[Any], device_preprocess: bool = False,
+                       device: Any = None) -> dict:
         """-> {input_ids, attention_mask [B, S], pixel_values [B, H, W, 3]};
-        ``device_preprocess=True`` leaves the pixels as uint8."""
+        ``device_preprocess=True`` leaves the pixels as uint8. The pixels are
+        a tensor on a CUDA ``device`` (or the pages' own), else host arrays."""
         if device_preprocess:
-            pix = self.image_preprocessor.u8(images)
+            pix = self.image_preprocessor.u8(images, device)
         else:
-            pix = self.image_preprocessor(images)
+            pix = self.image_preprocessor(images, device)
         seq = ([self.cfg.image_token_id] * self.image_seq_length
                + [self._special("bos_id", 2)] + self._ids(IMAGE_PROMPT + "\n"))
         input_ids = np.tile(np.asarray(seq, np.int32), (len(images), 1))

@@ -1,15 +1,15 @@
 """Input processing for ColFlor (counterpart of
 ``multimodal_colpali_tpu/models/processing_florence2.py``).
 
-Florence-2 preprocessing on the host: a bicubic resize to the square canvas
-(768 x 768 for the base model; an array already at that size is not
-resized, so Pillow is needed only for other pages) and ImageNet
-normalization. A page contributes 1 pooled + (size / 32)^2 patch tokens as
+Florence-2 preprocessing: a bicubic resize to the square canvas (768 x 768
+for the base model; an array already at that size is not resized;
+``ingest.imageops``, Pillow's pixels without Pillow) and ImageNet
+normalization, on the host, or on a CUDA ``device`` with the same float32
+operations. A page contributes 1 pooled + (size / 32)^2 patch tokens as
 ``<image>`` placeholders (577 at 768 px), followed by the prompt ``Describe
 the image.\\n``; queries are ``Query: {query}\\n`` plus 10 ``<pad>``
-augmentation tokens, padded to a multiple of 16. There is no on-device
-preprocessing: ``process_images`` takes no ``device_preprocess``, as in the
-JAX package.
+augmentation tokens, padded to a multiple of 16. ``process_images`` takes
+no ``device_preprocess`` (K3's uint8 path), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,10 +17,11 @@ from __future__ import annotations
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from multimodal_colpali_tpu_torch.models.configs import ColFlorModelConfig
 from multimodal_colpali_tpu_torch.models.processing import (
-    SimpleTokenizer, _resized, score_multi_vector)
+    SimpleTokenizer, _resized, image_device, normalize_on, on_host, score_multi_vector)
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -45,16 +46,13 @@ class ColFlorProcessor:
         except TypeError:
             return list(self.tokenizer.encode(text))
 
-    def process_images(self, images: Sequence[Any]) -> dict:
-        """-> {input_ids, attention_mask [B, S], pixel_values [B, H, W, 3] float32}."""
+    def process_images(self, images: Sequence[Any], device: Any = None) -> dict:
+        """-> {input_ids, attention_mask [B, S], pixel_values [B, H, W, 3] float32};
+        the pixels are a tensor on a CUDA ``device`` (or the pages' own)."""
         size = self.cfg.image_size
-        pix = np.empty((len(images), size, size, 3), np.float32)
-        for i, im in enumerate(images):
-            pix[i] = _resized(im, size, np.float32)
-        # (x / 255 - mean) / std, the same float32 operations done in place
-        pix /= 255.0
-        pix -= IMAGENET_MEAN
-        pix /= IMAGENET_STD
+        dev = image_device(images, device)
+        pix = on_host(normalize_on(torch.stack([_resized(im, size, dev, torch.float32)
+                                                for im in images]), IMAGENET_MEAN, IMAGENET_STD))
         seq = [self.cfg.image_token_id] * self.n_image_tokens + self._ids(IMAGE_PROMPT + "\n")
         input_ids = np.tile(np.asarray(seq, np.int32), (len(images), 1))
         return {"input_ids": input_ids, "attention_mask": np.ones_like(input_ids),

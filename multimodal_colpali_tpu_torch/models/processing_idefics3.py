@@ -39,11 +39,13 @@ class ColIdefics3Processor:
         except TypeError:
             return list(self.tokenizer.encode(text))
 
-    def process_images(self, images: Sequence[Any], device_preprocess: bool = False) -> dict:
+    def process_images(self, images: Sequence[Any], device_preprocess: bool = False,
+                       device: Any = None) -> dict:
         """-> {input_ids, attention_mask [B, S], pixel_values [B, H, W, 3]};
-        ``device_preprocess=True`` leaves the pixels as uint8."""
-        pix = (self.image_preprocessor.u8(images) if device_preprocess
-               else self.image_preprocessor(images))
+        ``device_preprocess=True`` leaves the pixels as uint8; on a CUDA
+        ``device`` they are a tensor there."""
+        pix = (self.image_preprocessor.u8(images, device) if device_preprocess
+               else self.image_preprocessor(images, device))
         seq = [self.cfg.image_token_id] * self.n_image_tokens + self._ids(IMAGE_PROMPT + "\n")
         input_ids = np.tile(np.asarray(seq, np.int32), (len(images), 1))
         return {"input_ids": input_ids, "attention_mask": np.ones_like(input_ids),

@@ -125,14 +125,18 @@ class Retriever:
                              f"{type(self.processor).__name__} (fixed-resolution "
                              f"ColPali-family processors only)")
 
-    def _pixels(self, pv: np.ndarray) -> torch.Tensor:
-        """Host pixels -> the model's pixel input on ``device`` (registry.py:137-163)."""
-        if pv.dtype == np.uint8:
+    def _pixels(self, pv: Any) -> torch.Tensor:
+        """Pixels (host arrays or device tensors) -> the model's pixel input
+        on ``device`` (registry.py:137-163)."""
+        x = (pv if isinstance(pv, torch.Tensor)
+             else torch.from_numpy(np.asarray(pv, np.uint8 if pv.dtype == np.uint8
+                                              else np.float32)))
+        x = x.to(self.device)
+        if x.dtype == torch.uint8:
             pre = self.processor.image_preprocessor
             mean, std = (float(pre.mean),) * 3, (float(pre.std),) * 3
-            x = torch.from_numpy(pv).to(self.device)
             return normalize_images(x, mean, std).to(self.dtype)
-        return torch.from_numpy(np.asarray(pv, np.float32)).to(self.device, self.dtype)
+        return x.to(torch.float32).to(self.dtype)
 
     @torch.inference_mode()
     def _embed(self, batch: Dict[str, Any], with_image: bool) -> List[np.ndarray]:
@@ -148,8 +152,10 @@ class Retriever:
         out: List[np.ndarray] = []
         for start in range(0, len(images), batch_size):
             chunk = list(images[start: start + batch_size])
-            batch = (self.processor.process_images(chunk, device_preprocess=True)
-                     if self.device_preprocess else self.processor.process_images(chunk))
+            batch = (self.processor.process_images(chunk, device_preprocess=True,
+                                                   device=self.device)
+                     if self.device_preprocess
+                     else self.processor.process_images(chunk, device=self.device))
             out += self._embed(batch, with_image=True)
         return out
 

@@ -282,6 +282,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from multimodal_colpali_tpu_torch.models.configs import BertConfig
     from multimodal_colpali_tpu_torch.models.text_encoder import BgeEmbeddings
     from multimodal_colpali_tpu_torch.store import DenseVectorStore, VectorClient, VectorParams
+    from multimodal_colpali_tpu_torch.drivers import create_context
+    from multimodal_colpali_tpu_torch.ingest import rasterize as RA
+    from multimodal_colpali_tpu_torch.ingest import remote_parse as RP
+    from multimodal_colpali_tpu_torch.ingest.ocr_conv import AutoOcr, ConvOcr
+    # ``ingest/__init__`` re-exports the function ``pdf_loader`` over its module
+    PL = sys.modules["multimodal_colpali_tpu_torch.ingest.pdf_loader"]
 
     entry_points = [R.load_retriever, VectorClient.__init__, ColPaliModel.__init__,
                     ColIdefics3Model.__init__, ColFlorModel.__init__, score_multi_vector,
@@ -289,12 +295,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
                     ColFlorProcessor.score_multi_vector,
                     R.load_gemma3_lm, R.gemma3_random_params, R.gemma3_random_params_int8,
                     engine_params_from_jax, BgeEmbeddings.__init__, BertEncoder.__init__,
-                    DenseVectorStore.__init__, DenseVectorStore.load]
+                    DenseVectorStore.__init__, DenseVectorStore.load, PL.pdf_loader,
+                    PL.data_preparation, RA.convert_pdfs_to_images, RA.convert_pdf_dir_to_images,
+                    RP.pdf_loader1, ConvOcr.__init__, AutoOcr.__init__]
     for fn in entry_points:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
     fields = {f.name: f.default for f in dataclasses.fields(GemmaDecodeEngine)}
     assert fields["device"] == "cuda"
     assert serve.parse_args([]).device == "cuda"
+    assert create_context.parse_args([]).device == "cuda"
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Gemma3TextConfig.tiny()
@@ -311,7 +320,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
              lambda: GemmaDecodeEngine(cfg, params),
              lambda: serve.build(serve.parse_args(["--model", "tiny-gemma3"])),
              lambda: BgeEmbeddings(cfg=BertConfig.tiny()), lambda: BertEncoder(BertConfig.tiny()),
-             lambda: DenseVectorStore("d", dim=8)]
+             lambda: DenseVectorStore("d", dim=8), lambda: ConvOcr(), lambda: AutoOcr(),
+             lambda: RA.convert_pdf_dir_to_images(str(REPO)),
+             lambda: PL.pdf_loader([], [], [], str(REPO / "build"), None)]
     # a dense collection on a CPU client keeps its corpus on the CPU
     client = VectorClient(device="cpu")
     client.create_collection("d", VectorParams(size=8))

@@ -491,7 +491,7 @@ def test_constrained_forwards_run_one_at_a_time(engines):
 CARD_SET = textwrap.dedent("""
     import importlib.abc, sys
     BLOCKED = {"jax", "jaxlib", "flax", "multimodal_colpali_tpu", "aiohttp", "httpx",
-               "pandas", "PIL", "transformers", "safetensors", "tokenizers"}
+               "pandas", "PIL", "transformers", "safetensors", "tokenizers", "matplotlib"}
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -511,6 +511,24 @@ CARD_SET = textwrap.dedent("""
         GemmaDecodeEngine, GenerationServer, ModuloTokenizer, PagedContinuousBatcher,
         get_responses, resolve_endpoint, run_inference, run_sync)
     from multimodal_colpali_tpu_torch.models.registry import load_gemma3_lm
+    from multimodal_colpali_tpu_torch.ingest import (  # noqa: F401
+        annotate, chunker, imageops, ocr, ocr_conv, pdf_loader, pdfwrite, pipeline,
+        preprocess, rasterize, remote_parse, tables)
+    from multimodal_colpali_tpu_torch.drivers import create_context  # noqa: F401
+    from multimodal_colpali_tpu_torch.models import load_retriever
+
+    # ingest's main path: a written PDF rasterized, resized (LANCZOS), through
+    # the processor (BICUBIC) and embedded by create_document_embeddings
+    import os, tempfile
+    pdfs = tempfile.mkdtemp()
+    pdfwrite.make_sample_pdf(os.path.join(pdfs, "p.pdf"), n_pages=1, lines_per_page=4)
+    page = preprocess.resize_image(rasterize.PdfDocument(os.path.join(pdfs, "p.pdf")).render(0))
+    assert page.shape == (1300, 1005, 3), page.shape
+    retr = load_retriever("tiny-colpali", device="cpu", device_preprocess=True)
+    batch = retr.processor.process_images([page], device_preprocess=True)
+    assert batch["pixel_values"].shape == (1, 28, 28, 3)
+    (entry,) = api.create_document_embeddings(pdfs, retr)
+    assert entry["file_name"] == "p.pdf" and entry["embedding"].ndim == 2
 
     try:
         import multimodal_colpali_tpu_torch.evalstats  # noqa: F401

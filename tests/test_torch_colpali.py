@@ -344,7 +344,11 @@ def test_source_scan_covers_the_client_and_statistics_modules():
     assert {"config.py", "generation/client.py", "utils/health.py", "utils/housekeeping.py",
             "utils/io.py", "utils/userops.py", "evalstats/ci.py", "evalstats/wilcoxon.py",
             "evalstats/summary.py", "drivers/stat_test.py", "drivers/experiment01_eval.py",
-            "drivers/experiment02_eval.py"} <= scanned
+            "drivers/experiment02_eval.py", "drivers/create_context.py",
+            *(f"ingest/{m}.py" for m in (
+                "__init__", "annotate", "chunker", "imageops", "ocr", "ocr_conv", "pdf_loader",
+                "pdfwrite", "pipeline", "preprocess", "rasterize", "remote_parse",
+                "tables"))} <= scanned
 
 
 def test_source_scan_catches_forbidden_imports():

@@ -1508,3 +1508,136 @@ def test_bge_base_on_card_launches_no_port_kernel(gen):
                                atol=1e-6)
     torch.cuda.synchronize()
     assert [w.launches for w in wrappers] == before
+
+
+# -- ingest (the resample, ConvOcr, create_document_embeddings) ---------------------------
+
+def test_float64_resample_on_card_equals_host_int64(gen):
+    """``imageops.resize`` on a CUDA tensor (float64 banded sums) is bit-equal
+    to the host int64 path, for every filter, up and down, RGB and gray."""
+    from multimodal_colpali_tpu_torch.ingest import imageops
+
+    rng = np.random.default_rng(0)
+    page = rng.integers(0, 256, (1584, 1224, 3)).astype(np.uint8)
+    page[::7] = 255
+    cases = [((1005, 1300), "lanczos"), ((448, 448), "bicubic"), ((2448, 3168), "bilinear"),
+             ((13, 1700), "lanczos"), ((1224, 77), "bicubic")]
+    for size, name in cases:
+        host = imageops.resize(page, size, name)
+        dev = imageops.resize(torch.from_numpy(page).cuda(), size, name)
+        assert dev.is_cuda and dev.dtype == torch.uint8
+        assert np.array_equal(dev.cpu().numpy(), host), (size, name)
+    gray = page[..., 0].copy()
+    assert np.array_equal(imageops.resize(torch.from_numpy(gray).cuda(), (300, 500),
+                                          "bilinear").cpu().numpy(),
+                          imageops.resize(gray, (300, 500), "bilinear"))
+
+
+def test_conv_ocr_on_card_reads_as_on_cpu(gen, tmp_path):
+    """ConvOcr's classifier on the card (TF32 off) gives the CPU's text, and
+    logits within 1e-4 on the same glyphs."""
+    from multimodal_colpali_tpu_torch.ingest.ocr_conv import ConvOcr
+    from multimodal_colpali_tpu_torch.ingest.pdfwrite import PdfWriter
+    from multimodal_colpali_tpu_torch.ingest.rasterize import PdfDocument
+
+    src = PdfWriter()
+    src.add_page(text_lines=["Glycans bind selectins on cells 42", "second line of text"],
+                 font_size=14)
+    page = PdfDocument(src.tobytes()).render(0, dpi=288.0)
+    cpu, card = ConvOcr(device="cpu"), ConvOcr(device="cuda")
+    assert card.recognize(page, return_score=True)[0] == cpu.recognize(page)
+    assert card.recognize_runs(page, dpi=288.0) == cpu.recognize_runs(page, dpi=288.0)
+    rng = np.random.default_rng(1)
+    patches = rng.uniform(0, 1, (64, 20, 20)).astype(np.float32)
+    feats = rng.normal(0, 1, (64, 6)).astype(np.float32)
+    np.testing.assert_allclose(card._forward(patches, feats), cpu._forward(patches, feats),
+                               rtol=0, atol=1e-4)
+
+
+def test_create_document_embeddings_on_card_launches_k2_and_k3(gen, tmp_path):
+    from multimodal_colpali_tpu_torch import api
+    from multimodal_colpali_tpu_torch.ingest.pdfwrite import make_sample_pdf
+    from multimodal_colpali_tpu_torch.ingest.pipeline import PipelinedEmbedder
+    from multimodal_colpali_tpu_torch.ingest.rasterize import convert_pdf_dir_to_images
+    from multimodal_colpali_tpu_torch.models import load_retriever
+
+    for i in range(2):
+        make_sample_pdf(str(tmp_path / f"p{i}.pdf"), n_pages=2, lines_per_page=6, seed=i)
+    with pytest.warns(UserWarning, match="random init"):
+        r = load_retriever("tiny-colpali", device="cuda", device_preprocess=True)
+    k2, k3 = A.fused_attention_cuda.launches, PP.normalize_images_cuda.launches
+    seq = api.create_document_embeddings(str(tmp_path), r, batch_size=2)
+    assert A.fused_attention_cuda.launches > k2 and PP.normalize_images_cuda.launches > k3
+    pipe = PipelinedEmbedder(r, batch_size=3).embed_pdf_dir(str(tmp_path))
+    assert len(seq) == len(pipe) == 4
+    for a, b in zip(seq, pipe):
+        assert (a["doc_id"], a["page_id"], a["file_name"]) == \
+            (b["doc_id"], b["page_id"], b["file_name"])
+        np.testing.assert_allclose(a["embedding"], b["embedding"], rtol=0, atol=2e-2)
+    # the pages as the CPU resizes them: the same pixels reach the processor
+    cpu = convert_pdf_dir_to_images(str(tmp_path), device="cpu")
+    card = convert_pdf_dir_to_images(str(tmp_path), device="cuda")
+    for name in cpu:
+        for a, b in zip(cpu[name], card[name]):
+            assert b.is_cuda and np.array_equal(b.cpu().numpy(), a)
+
+
+def test_processors_on_card_give_the_host_pixels(gen):
+    """A processor given the card resizes and normalizes there: the pixels
+    equal the host's bit for bit (every byte value in each channel, pages
+    at and off the model size), for ColPali's [-1, 1], ColSmol's and
+    ColFlor's ImageNet statistics, float32 and uint8."""
+    from multimodal_colpali_tpu_torch.models.configs import (
+        ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig)
+    from multimodal_colpali_tpu_torch.models.processing import ColPaliProcessor
+    from multimodal_colpali_tpu_torch.models.processing_florence2 import ColFlorProcessor
+    from multimodal_colpali_tpu_torch.models.processing_idefics3 import ColIdefics3Processor
+
+    rng = np.random.default_rng(2)
+    for proc in (ColPaliProcessor(ColPaliModelConfig.tiny()),
+                 ColIdefics3Processor(ColIdefics3ModelConfig.tiny()),
+                 ColFlorProcessor(ColFlorModelConfig.tiny())):
+        size = (proc.cfg.image_size if isinstance(proc, ColFlorProcessor)
+                else proc.image_preprocessor.image_size)
+        ramp = np.arange(size * size * 3) % 256
+        pages = [ramp.astype(np.uint8).reshape(size, size, 3),
+                 rng.integers(0, 256, (size + 37, size // 2 + 5, 3), dtype=np.uint8)]
+        host = proc.process_images(pages)["pixel_values"]
+        card = proc.process_images(pages, device="cuda")["pixel_values"]
+        assert card.is_cuda and card.dtype == torch.float32
+        assert np.array_equal(card.cpu().numpy(), host), type(proc).__name__
+        if not isinstance(proc, ColFlorProcessor):
+            host = proc.process_images(pages, device_preprocess=True)["pixel_values"]
+            card = proc.process_images(pages, device_preprocess=True, device="cuda")
+            assert np.array_equal(card["pixel_values"].cpu().numpy(), host)
+
+
+def test_pdf_loader_figures_resize_on_card(gen, tmp_path):
+    """pdf_loader's figure PNGs, resized by ``resize_image`` on the card (a
+    JPEG figure wider than 1,300 px, decoded by the port's decoder, and a
+    Flate one narrower than 224), are the CPU's pixels."""
+    import importlib
+
+    from multimodal_colpali_tpu_torch.ingest import pdfwrite
+    from multimodal_colpali_tpu_torch.ingest.imageops import read_png
+    from multimodal_colpali_tpu_torch.models.processing import SimpleTokenizer
+
+    loader = importlib.import_module("multimodal_colpali_tpu_torch.ingest.pdf_loader")
+    rng = np.random.default_rng(3)
+    w = pdfwrite.PdfWriter()
+    big = rng.integers(0, 256, (1000, 1500, 3), dtype=np.uint8)
+    w.add_page(text_lines=["a large JPEG figure"], image=pdfwrite.encode_jpeg(big, 85))
+    w.add_page(text_lines=["a small figure"],
+               image=rng.integers(0, 256, (40, 180, 3), dtype=np.uint8))
+    pdf = str(tmp_path / "figs.pdf")
+    w.save(pdf)
+    pngs = {}
+    for dev in ("cpu", "cuda"):
+        out = tmp_path / dev
+        loader.pdf_loader([pdf], [""], ["figs.pdf"], str(out), SimpleTokenizer(1000, 999),
+                          device=dev)
+        pngs[dev] = sorted((out / "images").iterdir())
+    assert [p.name for p in pngs["cpu"]] == [p.name for p in pngs["cuda"]] and len(pngs["cpu"]) == 2
+    for a, b in zip(pngs["cpu"], pngs["cuda"]):
+        assert np.array_equal(read_png(a), read_png(b)), a.name
+    assert read_png(pngs["cpu"][0]).shape[:2] == (867, 1300)

@@ -14,6 +14,7 @@ encoder of each package.
 import hashlib
 import os
 import pickle
+import tempfile
 import warnings
 
 import numpy as np
@@ -644,20 +645,21 @@ def test_tarfile_roundtrip_and_pickle(tmp_path):
     ("create_document_embeddings", "item 4"), ("get_img_summary", "item 2"),
     ("process_models", "item 2"), ("models_local", "item 2"), ("models_used", "item 2")])
 def test_unported_api_functions_raise(name, item):
-    """Only item 4's ``create_document_embeddings`` still raises; item 2's
-    client functions are ported (``tests/test_torch_utils.py`` holds them
-    against JAX's) and give JAX's output on empty inputs."""
+    """None of them raises any more: item 4's ``create_document_embeddings``
+    (``tests/test_torch_ingest_embed.py`` holds it against JAX's) and item
+    2's client functions (``tests/test_torch_utils.py``) are ported, with
+    JAX's signatures, and give JAX's output on empty inputs."""
     import asyncio
     import inspect
+    import types
 
     fn = getattr(tapi, name)
     assert inspect.signature(fn).parameters.keys() == \
         inspect.signature(getattr(japi, name)).parameters.keys()
     if item == "item 4":
-        args = [None] * len([p for p in inspect.signature(fn).parameters.values()
-                             if p.default is inspect.Parameter.empty])
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-            fn(*args)
+        empty_dir = tempfile.mkdtemp()
+        got = fn(empty_dir, types.SimpleNamespace(device=torch.device("cpu")))
+        assert got == getattr(japi, name)(empty_dir, None) == []
         return
     empty = {"get_img_summary": ([], {}, "m", 0, ""), "process_models": ([], {}, []),
              "models_local": ([],), "models_used": ([], [], "RAG_TEXT", [])}[name]
