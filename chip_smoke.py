@@ -230,6 +230,41 @@ tower's shape (``attention.gemma3_tower``, phase 8's launches), the K5 GEMM a ro
 ``cublas_bare_ms``) and its statistics pre-pass one (``ln_stats``). The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
 result.
+
+11. ColQwen2.5 at full width, from a checkpoint (after phase 10): a bf16
+    HF-layout checkpoint of ``vidore/colqwen2.5-v0.2`` (3.75B parameters,
+    7.5 GB in 4 files; norms at identity, the rest N(0, fan_in^-0.5) from
+    ``--seed``) beside phase 3's, loaded by ``load_retriever(checkpoint_dir=)``
+    with ten leaves compared with the file; 16 synthetic pages at the 54 x 54
+    bucket (756 px) embedded in batches of 8, indexed through
+    ``colpali_qdrant``, 4 queries through ``retrieve_colpali`` against
+    ``score_results`` (the same top 5 up to near-ties), then 4 pages of two
+    other sizes under ``dynamic_resolution`` (a group a grid). K2 must run at
+    both of the tower's shapes, ``[8 * 49, 64, 16, 80]`` with ``kv_lens`` (28
+    window layers) and ``[8, 3136, 16, 80]`` with ``kv_valid`` (4 full
+    blocks), every launch on its tensor cores; phase 2 holds K2 at both
+    against the plain version (rows ``attention.colqwen_window`` and
+    ``attention.colqwen_full``, SDPA with the boolean mask beside).
+12. The experiment drivers through the port's server (last): ``serve`` as a
+    subprocess on phase 3's ColPali checkpoint (``PaliGemmaEngine``, the
+    paged batcher); against it, each driver as a subprocess; the server and
+    every driver under an import guard refusing jax, PIL, pandas and
+    aiohttp, which also counts the process's kernel launches (the server's
+    at its ``/stats``): ``experiment01`` on phase 10's collections (no-RAG,
+    mm_RAG, colpali with a ``gpt*`` name, so the MCQ schema is sent and the
+    server answers by one constrained forward; colpali again with a local
+    model's name, so the server decodes), ``experiment01_run`` over the four
+    modes (``--repeats 1``, 8 legs), ``experiment02 --retrievers
+    vidore/colqwen2.5-v0.2 vidore/colpali-v1.3 --context`` on phase 10's
+    PDFs; synthetic questions in driver 05's wording (24 of the reference's
+    120; 4 a leg and for the local model). Every schema answer one of A-D,
+    every colpali / --context request with its 5 images decoded in the
+    server (its ``/stats``), every context reference a corpus page, the
+    pickles' and CSVs' schemas; K1 in experiment01's colpali search, K2 on
+    its tensor cores and K1 in experiment 02's embedding and
+    ``score_results``, K2 on its tensor cores in the server's image
+    forwards and K7a in its decode; experiment 02's wall split into embed /
+    retrieve / encode / serve. Its launches join the kernels line.
 """
 
 from __future__ import annotations
@@ -253,11 +288,22 @@ PACKAGE = "multimodal_colpali_tpu_torch"
 K1 = dict(b=4, nq=32, dim=128, p=4096, nt=1030)
 K2 = dict(b=8, s=1024, h=16, d=72)
 K2_GEMMA3 = dict(b=5, s=4096, h=16, d=72)   # Gemma-3's So400m at 896 px, 5 images
+# phase 11: ColQwen2.5 pages at the 54 x 54 bucket (756 px), a batch of 8,
+# and pages of two other sizes under dynamic resolution
+QWEN = dict(pages=16, batch=8, size=756, dyn=((1000, 700), (560, 1100)), dyn_pages=4)
 # N(0, 1) inputs at scale 72^-0.5 average 4,096 values: outputs of std about
 # sqrt(e / 4096) = 0.026, so K2's 2e-2 (set at 1,024 keys) would pass a kernel
 # that dropped a 64-key block (max|err| about 0.017); bf16 rounding of P and
 # the output stays near 2e-3 here
 K2_GEMMA3_ATOL = 5e-3
+# ColQwen2.5's windows average 16-64 values, so their outputs reach ~3 in
+# magnitude, where one bf16 step is 2^-6. The kernel rounds P to bf16 (2^-9
+# of each p) before P V and its output once more, the plain version its
+# output: each element is held within 2^-7 |want| + 2^-8 (P |V|), twice
+# those roundings, with P |V| the plain version on |V|, and within K2's
+# general 2e-2. Its full blocks average 2,916 (as the Gemma-3 tower's
+# 4,096): atol 5e-3
+K2_QWEN_RTOL, K2_QWEN_PV = 2.0 ** -7, 2.0 ** -8
 K3 = dict(b=8, size=448, sets=12)  # 12 x 4.8 MB of pixels: more than the 50 MB L2
 K5 = dict(b=8, s=1024, h=768, heads=12, inter=3072)  # ColSmol's SigLIP layer
 # gemma-3-27b: 32 q / 16 kv heads of 128, pages of 16, 8 slots of up to 4096 tokens
@@ -582,6 +628,7 @@ def phase_kernels(torch, seed: int):
     # its own generator: the inputs drawn from g above stay as they were
     g3 = torch.Generator(device=dev).manual_seed(seed + 3)
     results.update(gemma3_tower_attention(torch, g3))
+    results.update(colqwen_attention_kernels(torch, g3))
     return results
 
 
@@ -633,6 +680,91 @@ def gemma3_tower_attention(torch, g):
     del qkv, got
     torch.cuda.empty_cache()
     return {"attention.gemma3_tower": r}
+
+
+def colqwen_attention_kernels(torch, g):
+    """K2 at the two shapes ColQwen2.5's tower gives it at the 54 x 54 bucket,
+    batch ``QWEN["batch"]``: its 49 windows of up to 64 patches folded into
+    the batch, ``[8 * 49, 64, 16, 80]`` with each window's ``kv_lens`` (the
+    edge windows hold 32 or 16 real patches), and its full blocks over the
+    padded sequence, ``[8, 3136, 16, 80]`` with ``kv_valid`` (2,916 real
+    keys). Each on the tensor-core path, the windows within 2^-7 |want| +
+    2^-8 (P |V|) of the plain version an element, the full blocks within 5e-3 (the
+    plain version (the full blocks' one image at a time), a repeat bit for
+    bit; ``scaled_dot_product_attention`` with the equivalent boolean
+    ``attn_mask`` beside, timed only. The bound counts the keys each row
+    attends."""
+    from multimodal_colpali_tpu_torch._timing import eager_ms
+    import torch.nn.functional as F
+    from multimodal_colpali_tpu_torch.models.configs import ColQwen2ModelConfig
+    from multimodal_colpali_tpu_torch.models.qwen2vl import window_layout
+    from multimodal_colpali_tpu_torch.ops import attention as A
+
+    cfg = ColQwen2ModelConfig.colqwen2_5_v0_2()
+    v, b = cfg.vision, QWEN["batch"]
+    lay = window_layout(v, cfg.grid_h, cfg.grid_w)
+    n_win, w = lay["win"]
+    dev = torch.device("cuda")
+    lens = torch.from_numpy(lay["win_lens"]).to(dev).repeat(b)
+    valid = torch.from_numpy(lay["full_valid"]).to(dev)[None].expand(b, -1).contiguous()
+    s_full = valid.shape[1]
+    scale = v.head_dim ** -0.5
+    out = {}
+    for tag, shape, kw in (("window", (b * n_win, w, v.num_heads, v.head_dim), {"kv_lens": lens}),
+                           ("full", (b, s_full, v.num_heads, v.head_dim), {"kv_valid": valid})):
+        qkv = [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(3)]
+        tc = A.fused_attention_cuda.tensor_core_launches
+        got = A.fused_attention_cuda(*qkv, scale=scale, **kw)
+        require(A.fused_attention_cuda.tensor_core_launches == tc + 1,
+                f"K2 at ColQwen2.5's {tag} shape did not take the tensor-core path")
+        step = 64 if tag == "window" else 1
+
+        def plain(q_, k_, v_):
+            return torch.cat([A.attention_reference(
+                q_[i: i + step], k_[i: i + step], v_[i: i + step], scale=scale,
+                **{k: t[i: i + step] for k, t in kw.items()}) for i in range(0, shape[0], step)])
+
+        want = plain(*qkv)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if tag == "window":
+            pv = plain(qkv[0], qkv[1], qkv[2].abs()).float()
+            excess = float((diff - K2_QWEN_RTOL * want.float().abs() - K2_QWEN_PV * pv).max())
+            del pv
+            limit = (f"max(|err| - 2^-7|want| - 2^-8 P|V|) {excess:.3g} (limit 0; max|err| "
+                     f"limit 2e-2)")
+            require(excess <= 0 and err <= 2e-2,
+                    f"K2 at ColQwen2.5's window shape {list(shape)}: max|err| {err}, {limit}")
+        else:
+            limit = f"atol {K2_GEMMA3_ATOL}"
+            require(err <= K2_GEMMA3_ATOL, f"K2 at ColQwen2.5's full shape {list(shape)}: "
+                                           f"max|err| {err} > {K2_GEMMA3_ATOL}")
+        del diff
+        require(torch.equal(A.fused_attention_cuda(*qkv, scale=scale, **kw), got),
+                f"K2 at ColQwen2.5's {tag} shape: a repeated call differs")
+        del want
+        torch.cuda.empty_cache()
+        k_ms, p_ms = timed_pair(torch, lambda: A.fused_attention_cuda(*qkv, scale=scale, **kw),
+                                lambda: plain(*qkv), iters=3)
+        keys = (torch.arange(shape[1], device=dev)[None] < lens[:, None] if tag == "window"
+                else valid.bool())
+        qt, kt, vt = (x.transpose(1, 2) for x in qkv)
+        mask = keys[:, None, None, :]
+        lib_ms = eager_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                 scale=scale), iters=5)
+        flops = 4.0 * v.num_heads * v.head_dim * shape[1] * float(keys.sum())
+        r = row(err, k_ms, p_ms, 4 * qkv[0].numel() * 2 + keys.numel() * 4, flops,
+                library_ms=lib_ms)
+        print(f"[kernels] K2 attention at ColQwen2.5's {tag} shape {list(shape)} bf16 with "
+              f"{next(iter(kw))} (tensor cores, {A.block_rows(torch.bfloat16, shape[1], shape[3])}"
+              f"-row blocks): max|err| {err:.3g}, {limit}, repeat bit-identical | "
+              f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, scaled_dot_product_attention with "
+              f"the boolean mask {lib_ms:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}), {flops / k_ms / 1e9:.1f} TFLOP/s", flush=True)
+        out[f"attention.colqwen_{tag}"] = r
+        del qkv, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def normalize_kernel(torch, g):
@@ -1480,6 +1612,61 @@ def write_colpali_checkpoint(torch, cfg, path: str, seed: int, shards: int = CKP
                             norm=colpali_norm)
 
 
+COLQWEN = "vidore/colqwen2.5-v0.2"
+# Qwen2's RMSNorms and the qwen2 variant's LayerNorms: identity = weight 1, bias 0
+QWEN_NORM = re.compile(r"(norm1|norm2|ln_q|input_layernorm|post_attention_layernorm|\.norm)"
+                       r"\.(weight|bias)$")
+
+
+def colqwen_hf_tensors(cfg):
+    """(name, shape) of every tensor of a ``ColQwen2ForRetrieval``
+    checkpoint as transformers saves it: the vision tower (a conv patch
+    embed over [2, 14, 14] blocks, the blocks, the merger), the Qwen2 LM
+    and the retrieval head."""
+    v, t = cfg.vision, cfg.text
+    e, m2e, is_25 = v.embed_dim, v.spatial_merge_size ** 2 * v.embed_dim, v.variant == "qwen2_5"
+    vis = "vlm.model.visual."
+    out = [(vis + "patch_embed.proj.weight",
+            (e, v.in_channels, v.temporal_patch_size, v.patch_size, v.patch_size))]
+
+    def norm(prefix):
+        return [(prefix + ".weight", (e,))] + ([] if is_25 else [(prefix + ".bias", (e,))])
+
+    def lin(prefix, o, i):
+        return [(prefix + ".weight", (o, i)), (prefix + ".bias", (o,))]
+
+    for i in range(v.depth):
+        p = f"{vis}blocks.{i}."
+        out += norm(p + "norm1") + norm(p + "norm2")
+        out += lin(p + "attn.qkv", 3 * e, e) + lin(p + "attn.proj", e, e)
+        if is_25:
+            out += (lin(p + "mlp.gate_proj", v.mlp_hidden, e) + lin(p + "mlp.up_proj", v.mlp_hidden, e)
+                    + lin(p + "mlp.down_proj", e, v.mlp_hidden))
+        else:
+            out += lin(p + "mlp.fc1", v.mlp_hidden, e) + lin(p + "mlp.fc2", e, v.mlp_hidden)
+    out += norm(vis + "merger.ln_q") + lin(vis + "merger.mlp.0", m2e, m2e)
+    out += lin(vis + "merger.mlp.2", v.hidden_size, m2e)
+    lm = "vlm.model.language_model."
+    d, hd, ffn = t.hidden_size, t.head_dim, t.intermediate_size
+    q, kv = t.num_attention_heads * hd, t.num_key_value_heads * hd
+    out.append((lm + "embed_tokens.weight", (t.vocab_size, d)))
+    for i in range(t.num_hidden_layers):
+        p = f"{lm}layers.{i}."
+        out += (lin(p + "self_attn.q_proj", q, d) + lin(p + "self_attn.k_proj", kv, d)
+                + lin(p + "self_attn.v_proj", kv, d))
+        out += [(p + "self_attn.o_proj.weight", (d, q)), (p + "mlp.gate_proj.weight", (ffn, d)),
+                (p + "mlp.up_proj.weight", (ffn, d)), (p + "mlp.down_proj.weight", (d, ffn)),
+                (p + "input_layernorm.weight", (d,)), (p + "post_attention_layernorm.weight", (d,))]
+    return out + [(lm + "norm.weight", (d,))] + lin("embedding_proj_layer", cfg.embedding_dim, d)
+
+
+def colqwen_norm(name: str):
+    """The identity value of a ColQwen2 norm tensor (weight 1, bias 0), None
+    for any other tensor."""
+    m = QWEN_NORM.search(name)
+    return None if not m else (1.0 if m.group(2) == "weight" else 0.0)
+
+
 def write_checkpoint(torch, tensors, path: str, seed: int, shards: int, device: str,
                      norm) -> dict:
     """``tensors`` (name, shape) in bf16, written into ``path`` as ``shards``
@@ -1974,8 +2161,8 @@ def ingest_corpus(directory: Path, seed: int):
     paths, the scan's path, the titles of the scanned pages, [(paper path,
     page index, the JPEG figure's source pixels)])."""
     import numpy as np
-    from multimodal_colpali_tpu_torch.ingest.pdfwrite import PdfWriter, encode_jpeg
-    from multimodal_colpali_tpu_torch.ingest.rasterize import PdfDocument
+    from multimodal_colpali_tpu_torch.ingest.pdfwrite import PdfWriter
+    from multimodal_colpali_tpu_torch.ingest.rasterize import PdfDocument, encode_jpeg
 
     rng = np.random.default_rng(seed)
     paths, jpegs = [], []
@@ -3462,6 +3649,505 @@ def phase_dense(torch, seed: int, card: str, work: str) -> dict:
     return launches
 
 
+def check_colqwen_leaves(torch, model, cfg, path: str):
+    """Ten parameters across the tower, the merger, the LM and the head must
+    equal the file's tensors after the converter's reshapes and transposes.
+    -> their names."""
+    from multimodal_colpali_tpu_torch.models import hf_import
+    from multimodal_colpali_tpu_torch.models.convert import params_from_flax
+
+    state = params_from_flax(hf_import.colqwen2_params_from_hf(
+        hf_import.load_state_dict(path), cfg), cfg)
+    lv, lt = cfg.vision.depth - 1, cfg.text.num_hidden_layers - 1
+    names = ["visual.patch_embed.weight", "visual.blocks_0.qkv.weight",
+             f"visual.blocks_{lv}.down_proj.bias", "visual.ln_q.weight",
+             "visual.merger_fc2.weight", "embed_tokens", "layers.0.self_attn.k_proj.bias",
+             f"layers.{lt}.down_proj.weight", "norm.weight", "embedding_proj_layer.weight"]
+    params = dict(model.named_parameters())
+    for name in names:
+        got = params[name].detach().cpu()
+        require(torch.equal(got, state[name].to(got.dtype)),
+                f"{name} on the card differs from the checkpoint's tensor")
+    return names
+
+
+def phase_colqwen(torch, seed: int, card: str, ckpt_root: Path) -> dict:
+    """Phase 11: ``vidore/colqwen2.5-v0.2`` at full width from a bf16 HF
+    checkpoint written beside phase 3's (``ckpt_root``, kept for phase 12):
+    16 synthetic pages at the 54 x 54 bucket in batches of 8, indexed through
+    ``colpali_qdrant``, 4 queries through ``retrieve_colpali`` against
+    ``score_results`` (the same top 5 up to near-ties), then 4 pages of two
+    other sizes under ``dynamic_resolution``. K2 must run at both of the
+    tower's shapes, every launch on its tensor-core path, K1 on the store's
+    search. -> the launches, and K2's at each shape."""
+    import warnings
+
+    import numpy as np
+    from multimodal_colpali_tpu_torch import api
+    from multimodal_colpali_tpu_torch.models import load_retriever
+    from multimodal_colpali_tpu_torch.models.processing_qwen2vl import ColQwen2Processor
+    from multimodal_colpali_tpu_torch.models.registry import RETRIEVER_CONFIGS, Retriever
+    from multimodal_colpali_tpu_torch.models import layers as L
+    from multimodal_colpali_tpu_torch.store import VectorClient
+
+    t_phase = time.perf_counter()
+    cfg = RETRIEVER_CONFIGS[COLQWEN]()
+    path = ckpt_root / COLQWEN.replace("/", "--")
+    path.mkdir()
+    ck = write_checkpoint(torch, colqwen_hf_tensors(cfg), str(path), seed, 4, "cuda",
+                          norm=colqwen_norm)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught, PeakRss() as host:
+        warnings.simplefilter("always")
+        retr = load_retriever(COLQWEN, device="cuda", dtype=torch.bfloat16, checkpoint_dir=str(path))
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    require(not any("random init" in str(w.message) for w in caught),
+            f"{COLQWEN}: the checkpoint at {path} was not loaded")
+    leaves = check_colqwen_leaves(torch, retr.model, cfg, str(path))
+    n_params = sum(p.numel() for p in retr.model.parameters())
+    print(f"[colqwen] {COLQWEN} {n_params / 1e9:.3f}B params: wrote a bf16 HF checkpoint of "
+          f"{ck['bytes'] / 1e9:.2f} GB in {ck['files']} files in {ck['write_s']:.1f} s; "
+          f"load_retriever(checkpoint_dir=) {load_s:.2f} s = {ck['bytes'] / 1e9 / load_s:.2f} "
+          f"GB/s | host peak RSS growth {host.growth / 1e9:.2f} GB | {len(leaves)} leaves equal "
+          f"the file's | {card}", flush=True)
+
+    shapes = {}
+
+    def recorded(orig):
+        def run(q, k, v, kv_lens=None, kv_valid=None, **kw):
+            key = (tuple(q.shape), "kv_lens" if kv_lens is not None else
+                   "kv_valid" if kv_valid is not None else "none")
+            shapes[key] = shapes.get(key, 0) + 1
+            return orig(q, k, v, kv_lens, kv_valid, **kw)
+        return run
+
+    wrappers = kernel_wrappers()
+    pages = synthetic_pages(QWEN["pages"], QWEN["size"], seed)
+    b = QWEN["batch"]
+    retr.embed_images(pages[:b], batch_size=b)          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    # the tower's calls of the dispatcher, which launch K2 on a CUDA tensor
+    with Patched(L, "fused_attention", recorded):
+        t0 = time.perf_counter()
+        embs = retr.embed_images(pages, batch_size=b)
+        torch.cuda.synchronize()
+        embed_s = time.perf_counter() - t0
+        fwd = QWEN["pages"] // b
+        v = cfg.vision
+        n_full = len(v.fullatt_block_indexes)
+        want = {((b * 49, 64, v.num_heads, v.head_dim), "kv_lens"): (v.depth - n_full) * fwd,
+                ((b, 3136, v.num_heads, v.head_dim), "kv_valid"): n_full * fwd}
+        require(shapes == want, f"ColQwen2.5's tower launched K2 at {shapes}, not {want}")
+        dim = cfg.embedding_dim
+        for e in embs:
+            require(e.shape == (embs[0].shape[0], dim) and bool(np.isfinite(e).all()),
+                    f"embedding shape {e.shape} or non-finite values")
+            require(bool(np.allclose(np.linalg.norm(e, axis=-1), 1.0, atol=1e-3)),
+                    "valid tokens are not unit-norm")
+        client = VectorClient(device="cuda")
+        api.ensure_colpali_collection(client, "qwen", vector_size=dim)
+        dataset = [{"image": pages[i], "filename": f"doc{i // 4}.pdf", "page_no": i % 4,
+                    "img_link": ""} for i in range(len(pages))]
+        api.colpali_qdrant(dataset, [], [], retr, retr.processor, client, "qwen", batch_size=b)
+        api.retrieve_colpali("warm-up query", retr.processor, retr, client, "", "qwen", TOP_K)
+        query_ms, retrieved = [], []
+        for qtext in QUERIES:
+            t0 = time.perf_counter()
+            res = api.retrieve_colpali(qtext, retr.processor, retr, client, "", "qwen", TOP_K)
+            query_ms.append((time.perf_counter() - t0) * 1e3)
+            retrieved.append([(p.payload["document_name"], p.payload["page_no"])
+                              for p in res.points])
+        store = [{"embedding": embs[i], "doc_id": i // 4, "page_id": i % 4,
+                  "file_name": f"doc{i // 4}.pdf"} for i in range(len(pages))]
+        per_pdf = {f"doc{j}.pdf": pages[4 * j: 4 * j + 4] for j in range(len(pages) // 4)}
+        scored = api.score_results(QUERIES, retr.processor, retr, store, per_pdf, TOP_K)
+        full = retr.processor.score_multi_vector(retr.embed_queries(QUERIES), embs, device="cuda")
+        index = {(f"doc{i // 4}.pdf", i % 4): i for i in range(len(pages))}
+        exact = True
+        for qi, (ret, sc) in enumerate(zip(retrieved, scored)):
+            got = [(r["file_name"], r["page_id"]) for r in sc]
+            require(len(ret) == TOP_K, f"query {qi}: retrieve_colpali returned {len(ret)} pages")
+            exact &= ret == got
+            for x, y in zip(ret, got):
+                sa, sb = full[qi, index[x]], full[qi, index[y]]
+                require(abs(sa - sb) <= 1e-2 * abs(sb) + 1e-2,
+                        f"query {qi}: retrieve_colpali {ret} vs score_results {got} beyond ties")
+        torch.cuda.synchronize()
+        launches = read_counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        qwen_k2 = dict(shapes)
+        # dynamic resolution on the same weights: two grids, a group each
+        dyn = Retriever(name=COLQWEN, model=retr.model, device=retr.device, dtype=retr.dtype,
+                        family="colqwen2",
+                        processor=ColQwen2Processor(cfg, tokenizer=retr.processor.tokenizer,
+                                                    dynamic_resolution=True))
+        half = QWEN["dyn_pages"] // 2
+        dpages = [synthetic_pages(1, max(hw), seed + 20 + i)[0][:hw[0], :hw[1]]
+                  for hw in QWEN["dyn"] for i in range(half)]
+        grids = dyn.processor.group_by_grid(dpages)
+        shapes.clear()
+        t0 = time.perf_counter()
+        dembs = dyn.embed_images(dpages, batch_size=b)
+        torch.cuda.synchronize()
+        dyn_s = time.perf_counter() - t0
+    require(len(grids) == 2 and all(g != (cfg.grid_h, cfg.grid_w) for g, _ in grids),
+            f"dynamic resolution gave the grids {grids}")
+    m = cfg.vision.spatial_merge_size
+    for (g, idxs) in grids:
+        for i in idxs:
+            n_tok = (g[0] // m) * (g[1] // m)
+            require(dembs[i].shape[0] == embs[0].shape[0] - cfg.grid_h * cfg.grid_w // 4 + n_tok,
+                    f"dynamic page {i} at grid {g}: {dembs[i].shape[0]} tokens")
+            require(bool(np.isfinite(dembs[i]).all()), "non-finite dynamic embedding")
+    require(launches["attention"] == launches["attention.tensor_core"] > 0
+            and launches["maxsim"] > 0,
+            f"ColQwen2.5: K2 off its tensor-core path, or no K1: {launches}")
+    # every K2 launch came from the tower's dispatcher calls counted above
+    require(sum(qwen_k2.values()) == launches["attention"],
+            f"ColQwen2.5: K2's wrapper counted {launches['attention']} launches, the tower's "
+            f"calls {sum(qwen_k2.values())}")
+    require(sum(shapes.values()) == cfg.vision.depth * len(grids),
+            f"dynamic resolution: K2 launches {shapes}")
+    print(f"[colqwen] {QWEN['pages']} pages of {QWEN['size']} px (54 x 54 patches, "
+          f"{embs[0].shape[0]} tokens) in batches of {b}: embed {QWEN['pages'] / embed_s:.2f} "
+          f"pages/s; retrieve_colpali {np.mean(query_ms):.1f} ms/query (mean of "
+          f"{', '.join(f'{t:.1f}' for t in query_ms)}); top-{TOP_K} vs score_results "
+          f"{'identical' if exact else 'equal up to near-ties'}; K2 a forward: "
+          f"{want[((b * 49, 64, v.num_heads, v.head_dim), 'kv_lens')] // fwd} window launches "
+          f"[{b * 49}, 64, 16, 80] with kv_lens, {n_full} full [{b}, 3136, 16, 80] with "
+          f"kv_valid, all on its tensor cores; dynamic resolution: "
+          f"{QWEN['dyn_pages']} pages at grids {[g for g, _ in grids]} in {dyn_s:.2f} s "
+          f"(K2 {dict((str(k[0]), n) for k, n in shapes.items())}); peak {peak:.1f} GiB; "
+          f"phase 11 {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+    print(f"[colqwen] launches {json.dumps(launches)}", flush=True)
+    del retr, dyn, client
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches,
+            "attention.colqwen_window": sum(n for (sh, kind), n in qwen_k2.items()
+                                            if kind == "kv_lens"),
+            "attention.colqwen_full": sum(n for (sh, kind), n in qwen_k2.items()
+                                          if kind == "kv_valid")}
+
+
+# phase 12: the experiment drivers against the port's server; the question
+# tables are synthetic, in driver 05's wording
+EXPERIMENTS = dict(questions=24, run_questions=4, top_k=5, serve_timeout=600)
+IMPORT_GUARD = """
+import json, sys, time
+REFUSED = ("jax", "PIL", "pandas", "aiohttp")
+class Refuse:
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError("refused in a card process: " + name)
+sys.meta_path.insert(0, Refuse())
+import chip_smoke as smoke
+module, out, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+m = __import__(module, fromlist=["main"])
+wrappers = smoke.kernel_wrappers()
+smoke.reset_counts(wrappers)
+if module.endswith(".serve"):
+    # the server's launches since it started, at GET /stats
+    from multimodal_colpali_tpu_torch.generation.server import GenerationServer
+    stats = GenerationServer.stats
+    GenerationServer.stats = lambda self: dict(stats(self), launches=smoke.read_counts(wrappers))
+    m.main(argv)
+    sys.exit(0)
+spent = {}
+def timed(owner, name, key):
+    orig = getattr(owner, name)
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **k)
+        finally:
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+    setattr(owner, name, run)
+from multimodal_colpali_tpu_torch.generation import messages
+from multimodal_colpali_tpu_torch import api
+timed(messages, "_data_url", "encode_s")
+timed(api, "score_results", "retrieve_s")
+if hasattr(m, "load_or_embed"):
+    timed(m, "load_or_embed", "embed_s")
+    timed(m, "run_sync", "send_s")
+t0 = time.perf_counter()
+m.main(argv)
+spent["wall_s"] = time.perf_counter() - t0
+spent["launches"] = smoke.read_counts(wrappers)
+spent["modules"] = sorted(n for n in sys.modules if n.split(".")[0] in REFUSED)
+with open(out, "w") as f:
+    json.dump(spent, f)
+"""
+
+
+def question_table(path: Path, n: int, papers, seed: int) -> None:
+    """A question table in driver 05's wording (benchmark_placeholder.csv's
+    columns), ``n`` synthetic questions about the corpus's papers."""
+    import csv
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 12)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(["Question_nr", "Paper_id", "Nr_data_suppl", "doi", "title", "question",
+                    "A", "B", "C", "D", "Correct", "Difficulty"])
+        for i in range(n):
+            paper = papers[i % len(papers)]
+            words = " ".join(rng.choice(WORDS, size=int(rng.integers(6, 14))))
+            w.writerow([i + 1, paper, 0, f"https://doi.org/10.0000/{paper}", f"{paper} title",
+                        f"Which statement about {words}?",
+                        *[" ".join(rng.choice(WORDS, size=int(rng.integers(2, 6))))
+                          for _ in range(4)],
+                        "ABCD"[int(rng.integers(4))], ("Easy", "Medium", "Hard")[i % 3]])
+
+
+def server_stats(base: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(base + "/stats", timeout=30) as r:
+        return json.loads(r.read())
+
+
+def stats_delta(after: dict, before: dict) -> dict:
+    per = {k: v - before["images_per_request"].get(k, 0)
+           for k, v in after["images_per_request"].items()}
+    return {"requests": after["requests"] - before["requests"],
+            "images_decoded": after["images_decoded"] - before["images_decoded"],
+            "images_skipped": after["images_skipped"] - before["images_skipped"],
+            "images_per_request": {k: v for k, v in per.items() if v},
+            "launches": {k: v - before["launches"][k] for k, v in after["launches"].items()}}
+
+
+def phase_experiments(torch, seed: int, card: str, work: str, ckpt_root: Path) -> list:
+    """Phase 12: experiments 01 and 02 as the reference runs them, through
+    the port's server. ``serve`` runs as a subprocess on phase 3's ColPali
+    checkpoint (``PaliGemmaEngine`` behind ``PagedContinuousBatcher``);
+    against it, each driver as a subprocess; the server and the drivers run
+    under ``IMPORT_GUARD``, which refuses jax, PIL, pandas and aiohttp and
+    counts each process's kernel launches (the server's through ``/stats``,
+    taken as deltas a driver): ``experiment01`` on phase 10's collections in
+    modes no-RAG, mm_RAG and colpali, and in colpali again with a local
+    model's name (no schema: the server decodes); ``experiment01_run`` over
+    the four modes (``--repeats 1``, its own smaller table); ``experiment02
+    --retrievers vidore/colqwen2.5-v0.2 vidore/colpali-v1.3 --context`` on
+    phase 10's PDFs (phase 11's checkpoint). Every schema answer must be
+    one of A-D, every colpali / --context request must reach the server with
+    its 5 images decoded, every context reference must name a corpus page,
+    the artifacts' schemas must hold, and each kernel of the path must run
+    where it belongs. -> the launch counts of every process, for the
+    kernels line."""
+    import csv
+    import os
+    import pickle
+    import socket
+    import urllib.request
+
+    t_phase = time.perf_counter()
+    root = Path(work) / "ingest"
+    papers_dir, storage = root / "papers", root / "vd" / "storage"
+    pdfs = sorted(p.name for p in papers_dir.glob("*.pdf"))
+    from multimodal_colpali_tpu_torch.ingest.rasterize import PdfDocument
+
+    n_pages = {Path(p).stem: len(PdfDocument(str(papers_dir / p))) for p in pdfs}
+    out = Path(work) / "experiments"
+    out.mkdir()
+    qa, qa_small = out / "questions.csv", out / "questions_small.csv"
+    question_table(qa, EXPERIMENTS["questions"], [Path(p).stem for p in pdfs], seed)
+    question_table(qa_small, EXPERIMENTS["run_questions"], [Path(p).stem for p in pdfs], seed)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, COLPALI_TPU_CKPT_DIR=str(ckpt_root),
+               PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
+    log = open(out / "serve.log", "w")
+    t0 = time.perf_counter()
+    server = subprocess.Popen([sys.executable, "-c", IMPORT_GUARD, f"{PACKAGE}.serve", "-",
+                               "--model", COLPALI, "--paged", "--max-seq-len", "8192",
+                               "--port", str(port)],
+                              env=env, stdout=log, stderr=subprocess.STDOUT, cwd=str(out))
+    base = f"http://127.0.0.1:{port}"
+    results = {}
+    try:
+        while True:
+            require(server.poll() is None, f"serve exited with {server.returncode}: "
+                    f"{(out / 'serve.log').read_text()[-3000:]}")
+            try:
+                urllib.request.urlopen(base + "/health", timeout=5).read()
+                break
+            except OSError:
+                require(time.perf_counter() - t0 < EXPERIMENTS["serve_timeout"],
+                        "serve did not come up")
+                time.sleep(1.0)
+        serve_up_s = time.perf_counter() - t0
+
+        def drive(tag, module, argv, timeout=900):
+            before = server_stats(base)
+            spent = out / f"{tag}.json"
+            t1 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-c", IMPORT_GUARD, f"{PACKAGE}.drivers.{module}",
+                                str(spent), *argv], env=env, cwd=str(out), capture_output=True,
+                               text=True, timeout=timeout)
+            require(r.returncode == 0, f"{module} ({tag}) exited {r.returncode}:\n"
+                    f"{(r.stdout + r.stderr)[-4000:]}")
+            info = json.loads(spent.read_text())
+            require(info["modules"] == [], f"{module} imported {info['modules']}")
+            info["delta"] = stats_delta(server_stats(base), before)
+            info["proc_s"] = time.perf_counter() - t1
+            results[tag] = info
+            return info
+
+        common = ["--vllm_port", str(port), "--model_name", "gpt-5", "--base-url", base + "/v1",
+                  "--seed", str(seed), "--storage-path", str(storage), "--retriever", COLPALI,
+                  "--top_k", str(EXPERIMENTS["top_k"])]
+        n_q = EXPERIMENTS["questions"]
+        refs_ok = set()
+        for mode, vdb in (("", ""), ("mm_RAG", "RAG_MM_gemma3"), ("colpali", "colpali")):
+            tag = f"e01_{mode or 'no_RAG'}"
+            info = drive(tag, "experiment01", [*common, "--qa_path", str(qa), "--type", mode,
+                                               "--vector_db", vdb, "--filepath_output",
+                                               str(out / tag / "eval")])
+            (pkl,) = (out / tag).glob("eval_*.pkl")
+            blob = pickle.loads(pkl.read_bytes())
+            require(sorted(blob) == ["elapsed_time", "evaluation", "model", "permuted_answers",
+                                     "timestamp"] and len(blob["evaluation"]) == n_q,
+                    f"{tag}: pickle schema {sorted(blob)}")
+            for rec in blob["evaluation"]:
+                require(sorted(rec) == ["Question_nr", "answer", "context_refs", "filt_resp",
+                                        "quest_order", "question", "resp_init"],
+                        f"{tag}: record keys {sorted(rec)}")
+                require(rec["answer"] in ("A", "B", "C", "D"), f"{tag}: answer {rec['answer']!r}")
+                for ref in rec["context_refs"]:
+                    stem, _, pg = ref.rpartition("_pg_")
+                    require(stem.removesuffix(".pdf") in n_pages, f"{tag}: reference {ref!r}")
+                    refs_ok.add(ref)
+            d = info["delta"]
+            require(d["requests"] == n_q and d["images_skipped"] == 0,
+                    f"{tag}: the server saw {d}")
+            if mode == "colpali":
+                require(d["images_per_request"] == {str(EXPERIMENTS["top_k"]): n_q},
+                        f"{tag}: images a request {d['images_per_request']}, not "
+                        f"{EXPERIMENTS['top_k']} in each of {n_q}")
+                require(all(len(r["context_refs"]) == EXPERIMENTS["top_k"]
+                            for r in blob["evaluation"]), f"{tag}: context references")
+                # K1 in the store's search; the server's SigLIP forwards on K2
+                require(info["launches"]["maxsim"] > 0, f"{tag}: no K1 in the driver: "
+                        f"{info['launches']}")
+                require(d["launches"]["attention"] == d["launches"]["attention.tensor_core"] > 0,
+                        f"{tag}: the server's image forwards did not run K2 on its tensor "
+                        f"cores: {d['launches']}")
+        # a local model's name: no schema, so the server decodes (K7a)
+        n_local = EXPERIMENTS["run_questions"]
+        local = drive("e01_local", "experiment01", [
+            *[a if a != "gpt-5" else "paligemma-local" for a in common], "--qa_path",
+            str(qa_small), "--type", "colpali", "--vector_db", "colpali", "--filepath_output",
+            str(out / "e01_local" / "eval")])
+        (pkl,) = (out / "e01_local").glob("eval_*.pkl")
+        blob = pickle.loads(pkl.read_bytes())
+        require(len(blob["evaluation"]) == n_local and all(
+            r["answer"] in ("", "A", "B", "C", "D") and isinstance(r["resp_init"], str)
+            for r in blob["evaluation"]), f"e01_local: records {blob['evaluation']}")
+        d = local["delta"]
+        require(d["requests"] == n_local and d["images_skipped"] == 0
+                and d["images_per_request"] == {str(EXPERIMENTS["top_k"]): n_local},
+                f"e01_local: the server saw {d}")
+        require(d["launches"]["paged_attention"] == d["launches"]["paged_attention.tensor_core"]
+                > 0 and d["launches"]["attention.tensor_core"] > 0,
+                f"e01_local: the server's decode did not run K7a, or its image prefill K2, on "
+                f"the tensor cores: {d['launches']}")
+        run = drive("e01_run", "experiment01_run", [
+            "--vllm_port", str(port), "--model_name", "gpt-5", "--model_name_short", "gpt5",
+            "--vd_mm_name", "RAG_MM_gemma3", "--vd_colpali_name", "colpali",
+            "--vd_text_name", "RAG_TEXT", "--repeats", "1", "--top_k", str(EXPERIMENTS["top_k"]),
+            "--qa_path", str(qa_small), "--base-url", base + "/v1", "--storage-path",
+            str(storage), "--retriever", COLPALI])
+        legs = sorted((out / "results" / "eval").glob("*.pkl"))
+        require(len(legs) == 8, f"experiment01_run wrote {len(legs)} pickles, not 8")
+        for leg in legs:
+            blob = pickle.loads(leg.read_bytes())
+            require(all(r["answer"] in ("A", "B", "C", "D") for r in blob["evaluation"]),
+                    f"{leg.name}: answers {[r['answer'] for r in blob['evaluation']]}")
+        require(run["delta"]["requests"] == 8 * EXPERIMENTS["run_questions"]
+                and run["delta"]["images_skipped"] == 0
+                and run["delta"]["launches"]["attention.tensor_core"] > 0,
+                f"experiment01_run: {run['delta']}")
+        k = EXPERIMENTS["top_k"]
+        e2 = drive("e02", "experiment02", [
+            "--qa_path", str(qa), "--pdf_dir", str(papers_dir), "--results_dir",
+            str(out / "evals"), "--cache_dir", str(out / "cache"), "--models", "gpt-5",
+            "--retrievers", COLQWEN, COLPALI, "--iterations", "1", "--top_k", str(k),
+            "--context", "--base-url", base + "/v1", "--seed", str(seed)])
+        csvs = sorted((out / "evals").glob("eval_*.csv"), key=lambda p: p.stat().st_mtime_ns)
+        require([p.name.split("_")[1] for p in csvs] == ["colqwen2.5", "colpali"],
+                f"experiment02 wrote {[p.name for p in csvs]}")
+        for p in csvs:
+            with open(p, newline="") as f:
+                rows = list(csv.DictReader(f))
+            require(len(rows) == n_q and list(rows[0])[-5:] == [
+                "Model", "Model_ret", "Answer", "Context_papers", "Cor_answer"],
+                f"{p.name}: header {list(rows[0])}")
+            for r in rows:
+                require(r["Answer"] in ("A", "B", "C", "D") and r["Cor_answer"] in ("0", "1"),
+                        f"{p.name}: answer {r['Answer']!r}")
+                refs = eval(r["Context_papers"])        # noqa: S307 - the driver's own str(list)
+                require(len(refs) == k, f"{p.name}: {len(refs)} context pages")
+                for ref in refs:
+                    stem, _, pg = ref.rpartition("_pg_")
+                    require(stem in n_pages and 0 <= int(pg) < n_pages[stem],
+                            f"{p.name}: reference {ref!r} names no corpus page")
+        for name in (COLQWEN, COLPALI):
+            cache = out / "cache" / f"{name.replace('/', '_')}_pdf_emb.pkl"
+            entries = pickle.loads(cache.read_bytes())
+            require(len(entries) == sum(n_pages.values()) and all(
+                sorted(e) == ["doc_id", "embedding", "file_name", "page_id"]
+                and e["embedding"].dtype.name == "float32" for e in entries),
+                f"{cache.name}: schema")
+        d = e2["delta"]
+        require(d["requests"] == 2 * n_q and d["images_skipped"] == 0
+                and d["images_per_request"] == {str(k): 2 * n_q},
+                f"experiment02: the server saw {d}")
+        # the two towers on K2's tensor cores, score_results' float32 MaxSim
+        # on K1's CUDA cores; the server's image forwards on K2
+        e2l = e2["launches"]
+        require(e2l["attention"] == e2l["attention.tensor_core"] > 0
+                and e2l["maxsim.cuda_core"] > 0,
+                f"experiment02: the driver's launches {e2l}")
+        require(d["launches"]["attention"] == d["launches"]["attention.tensor_core"] > 0,
+                f"experiment02: the server's launches {d['launches']}")
+    finally:
+        server.terminate()
+        try:
+            server.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+        log.close()
+    e01 = {t: results[t]["proc_s"] for t in ("e01_no_RAG", "e01_mm_RAG", "e01_colpali",
+                                             "e01_local")}
+    serve_s = e2["send_s"] - e2.get("encode_s", 0.0) - e2.get("retrieve_s", 0.0)
+    print(f"[experiments] serve ({COLPALI}, PaliGemmaEngine, paged) up in {serve_up_s:.1f} s; "
+          f"{n_q} questions (of the reference's 120; driver 05's wording, synthetic) | "
+          f"experiment01 process s: " + ", ".join(f"{t} {s:.1f}" for t, s in e01.items())
+          + f"; every colpali request {EXPERIMENTS['top_k']} images decoded, "
+          f"{len(refs_ok)} distinct context pages | experiment01_run 8 legs of "
+          f"{EXPERIMENTS['run_questions']} questions {run['proc_s']:.1f} s | experiment02 "
+          f"({COLQWEN}, {COLPALI}; --context, top {k}) wall {e2['wall_s']:.1f} s: embed "
+          f"{e2['embed_s']:.1f} (both retrievers, {sum(n_pages.values())} pages each), "
+          f"retrieve {e2['retrieve_s']:.1f}, encode {e2['encode_s']:.1f} "
+          f"({2 * n_q * k} JPEG data URLs), serve {serve_s:.1f}; "
+          f"no driver or server imported jax, PIL, pandas or aiohttp; phase 12 "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+    for tag, info in results.items():
+        print(f"[experiments] {tag} launches: driver "
+              f"{json.dumps({k: v for k, v in info['launches'].items() if v})}, server "
+              f"{json.dumps({k: v for k, v in info['delta']['launches'].items() if v})}",
+              flush=True)
+    return [c for info in results.values() for c in (info["launches"],
+                                                     info["delta"]["launches"])]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3511,6 +4197,8 @@ def main(argv=None) -> int:
                                      link_dir=tempfile.mkdtemp(dir=work))
         dense = phase_dense(torch, args.seed, card, work)
         ingest = phase_ingest(torch, args.seed, card, work, ckpt)
+        qwen = phase_colqwen(torch, args.seed, card, ckpt_path.parent)
+        experiments = phase_experiments(torch, args.seed, card, work, ckpt_path.parent)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -3552,11 +4240,18 @@ def main(argv=None) -> int:
     tile_of = {"int8_matmul_kn": "int8_matmul_kn.decode", "int4_matmul_kn": "int4_matmul_kn.decode"}
     # K2 at the Gemma-3 tower's shape: its launches are phase 8's
     meta["attention.gemma3_tower"] = meta["attention"]
+    # K2 at ColQwen2.5's window and full-block shapes: phase 11's launches
+    meta["attention.colqwen_window"] = meta["attention"]
+    meta["attention.colqwen_full"] = meta["attention"]
     paths = [colpali, images["a"], images["b"], colsmol, gen["a"], gen["b"], gen["c"],
-             gen["d"], gen["e"], colflor, g3["a"], g3["b"], dense, ingest]
+             gen["d"], gen["e"], colflor, g3["a"], g3["b"], dense, ingest, qwen["launches"],
+             *experiments]
+    shape_rows = ("attention.gemma3_tower", "attention.colqwen_window", "attention.colqwen_full")
     launches = {name: sum(p[tile_of.get(name, name)] for p in paths) for name in meta
-                if name != "attention.gemma3_tower"}
+                if name not in shape_rows}
     launches["attention.gemma3_tower"] = g3["a"]["attention"] + g3["b"]["attention"]
+    launches["attention.colqwen_window"] = qwen["attention.colqwen_window"]
+    launches["attention.colqwen_full"] = qwen["attention.colqwen_full"]
     rows = [dict(name=name, route=route, source=src, replaces=rep, launches=launches[name],
                  **kernels[name])
             for name, (route, src, rep) in meta.items()]

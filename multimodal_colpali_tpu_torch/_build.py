@@ -206,6 +206,8 @@ NATIVE_SRC = PACKAGE_DIR / "native" / "src" / "mmpdf.cpp"
 # mmpdf.cpp is built against on every machine: the card's has no libjpeg
 JPEG_DIR = PACKAGE_DIR / "native" / "jpeg"
 JPEG_SRC = JPEG_DIR / "jpegdec.cpp"
+# the port's baseline encoder (Pillow's bytes), linked into the same library
+JPEG_ENC_SRC = JPEG_DIR / "jpegenc.cpp"
 NATIVE_DIR = BUILD_DIR / "native"
 GXX_FLAGS = ("-O2", "-fPIC", "-shared")
 _native_lock = threading.Lock()
@@ -213,14 +215,14 @@ _native_lock = threading.Lock()
 
 def native_command(out: Path) -> list:
     """The g++ command that builds ``mmpdf.cpp`` with the port's JPEG decoder
-    into ``out`` (zlib from the machine, no libjpeg)."""
+    and encoder into ``out`` (zlib from the machine, no libjpeg)."""
     return ["g++", *GXX_FLAGS, f"-I{JPEG_DIR}", "-o", str(out), str(NATIVE_SRC),
-            str(JPEG_SRC), "-lz"]
+            str(JPEG_SRC), str(JPEG_ENC_SRC), "-lz"]
 
 
 def native_library_path() -> Path:
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    for p in (NATIVE_SRC, JPEG_DIR / "jpeglib.h", JPEG_SRC):
+    for p in (NATIVE_SRC, JPEG_DIR / "jpeglib.h", JPEG_SRC, JPEG_ENC_SRC):
         h.update(p.read_bytes())
     return NATIVE_DIR / f"libmmpdf-{h.hexdigest()[:16]}.so"
 

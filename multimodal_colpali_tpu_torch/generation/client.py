@@ -153,15 +153,19 @@ class ClientSession:
         self._pool.shutdown(wait=False, cancel_futures=True)
         self._pool = None
 
-    async def post(self, url: str, headers: Dict[str, str], data: Any) -> Response:
-        """POST ``data`` as a JSON body; -> the read :class:`Response`."""
+    async def post(self, url: str, headers: Dict[str, str], data: Any,
+                   timeout: Optional[float] = None) -> Response:
+        """POST ``data`` as a JSON body; -> the read :class:`Response`, within
+        ``timeout`` seconds (aiohttp's ``post(..., timeout=)``; default
+        ``TOTAL_TIMEOUT_S``)."""
         if self._pool is None:
             raise RuntimeError("ClientSession.post outside `async with`")
+        timeout = TOTAL_TIMEOUT_S if timeout is None else timeout
         body = json.dumps(data).encode("utf-8")
-        deadline = time.monotonic() + TOTAL_TIMEOUT_S
+        deadline = time.monotonic() + timeout
         loop = asyncio.get_running_loop()
         fut = loop.run_in_executor(self._pool, _post_blocking, url, headers, body, deadline)
-        return await asyncio.wait_for(fut, TOTAL_TIMEOUT_S)
+        return await asyncio.wait_for(fut, timeout)
 
 
 async def post_request_with_retries(

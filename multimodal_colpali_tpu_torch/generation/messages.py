@@ -4,17 +4,26 @@
 Behavior parity with reference functions.py:450-453 (encode_image),
 471-488 (format_msgs), 715-763 (encode_image_to_data_url,
 build_choice_string, build_instruction_block, build_reference_from_metadata,
-document_to_context_entry). The JAX module imports Pillow at its top; this
-one imports it inside the functions that decode or resize images, so the
-text formatters (and ``format_msgs``, which base64-encodes image files as
-they are) work where Pillow is not installed.
+document_to_context_entry) and 05_experiment02.py:142-166 (the page images'
+JPEG data URLs). The JAX module does its image work with Pillow; this one
+needs no Pillow: files decode through ``imageops.decode_image`` (PNG, and
+JPEG through the port's decoder), images resize with ``imageops.resize``
+(Pillow's LANCZOS pixels; a CUDA tensor on its device), PNGs encode with
+``imageops.encode_png`` (Pillow's pixels, not its bytes: every row
+Up-filtered) and JPEGs with ``rasterize.encode_jpeg`` (Pillow's bytes at its
+defaults). PIL images are still accepted, read through their own
+``convert("RGB")``.
 """
 
 from __future__ import annotations
 
 import base64
-from io import BytesIO
 from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from multimodal_colpali_tpu_torch.ingest.imageops import decode_image, encode_png, resize
 
 
 def encode_image(image_path: str) -> str:
@@ -35,37 +44,50 @@ def format_msgs(prompt: str, img_links: List[str], text: str = "") -> List[Dict]
     return [{"role": "user", "content": part}]
 
 
-def encode_image_to_data_url(image_path: str, fixed_width: int = 1024) -> Optional[str]:
-    """Resize to fixed width (LANCZOS) and emit a PNG data URL."""
-    from PIL import Image
+def _to_width(img: Any, fixed_width: int) -> np.ndarray:
+    """A PIL image, uint8 ``[H, W, 3]`` array or tensor -> its LANCZOS resize
+    to ``fixed_width`` (height ``max(int(fixed_width * h / w), 1)``) as a host
+    array."""
+    if not isinstance(img, (np.ndarray, torch.Tensor)) and hasattr(img, "convert"):
+        img = np.asarray(img.convert("RGB"))
+    h, w = int(img.shape[0]), int(img.shape[1])
+    out = resize(img, (fixed_width, max(int(fixed_width * h / w), 1)), "lanczos")
+    return out.cpu().numpy() if isinstance(out, torch.Tensor) else out
 
+
+def _data_url(rgb: np.ndarray, fmt: str) -> str:
+    if fmt.upper() == "JPEG":
+        from multimodal_colpali_tpu_torch.ingest.rasterize import encode_jpeg
+
+        data, mime = encode_jpeg(rgb), "jpeg"
+    elif fmt.upper() == "PNG":
+        data, mime = encode_png(rgb), "png"
+    else:
+        raise ValueError(f"data URLs are JPEG or PNG, not {fmt!r}")
+    return f"data:image/{mime};base64," + base64.b64encode(data).decode("utf-8")
+
+
+def encode_image_to_data_url(image_path: str, fixed_width: int = 1024,
+                             device: Any = None) -> Optional[str]:
+    """An image file resized to ``fixed_width`` (LANCZOS) -> a PNG data URL,
+    or None where the file does not read or decode. With a CUDA ``device``
+    the resize runs there (the same pixels as the host's)."""
     try:
-        img = Image.open(image_path).convert("RGB")
-    except Exception:
+        with open(image_path, "rb") as f:
+            rgb = decode_image(f.read())
+    except OSError:
         return None
-    w, h = img.size
-    if w <= 0 or h <= 0:
+    if rgb is None or 0 in rgb.shape[:2]:
         return None
-    resized = img.resize((fixed_width, max(int(fixed_width * h / w), 1)),
-                         resample=Image.LANCZOS)
-    buf = BytesIO()
-    resized.save(buf, format="PNG")
-    return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode("utf-8")
+    if device is not None and torch.device(device).type == "cuda":
+        rgb = torch.from_numpy(rgb).to(device)
+    return _data_url(_to_width(rgb, fixed_width), "PNG")
 
 
 def pil_image_to_data_url(img: Any, fixed_width: int = 1024, fmt: str = "JPEG") -> str:
-    """In-memory variant used by the experiment-02 path
-    (reference 05_experiment02.py:142-152: JPEG at width 1024)."""
-    from PIL import Image
-
-    w, h = img.size
-    resized = img.convert("RGB").resize(
-        (fixed_width, max(int(fixed_width * h / w), 1)), resample=Image.LANCZOS
-    )
-    buf = BytesIO()
-    resized.save(buf, format=fmt)
-    mime = "jpeg" if fmt.upper() == "JPEG" else fmt.lower()
-    return f"data:image/{mime};base64," + base64.b64encode(buf.getvalue()).decode("utf-8")
+    """An in-memory page (PIL image, uint8 array or tensor) -> a data URL at
+    ``fixed_width``, JPEG by default (reference 05_experiment02.py:142-152)."""
+    return _data_url(_to_width(img, fixed_width), fmt)
 
 
 def build_choice_string(answers: List[str]) -> str:
@@ -103,7 +125,7 @@ def document_to_context_entry(doc: Any, score: float) -> Dict[str, Any]:
 
 
 def image_context_messages(images: List[Any], fixed_width: int = 1024) -> List[Dict]:
-    """Retrieved page images (PIL) -> message content parts
+    """Retrieved page images (PIL, arrays or tensors) -> message content parts
     (reference 05_experiment02.py:155-166)."""
     return [
         {"type": "image_url", "image_url": {"url": pil_image_to_data_url(im, fixed_width)}}

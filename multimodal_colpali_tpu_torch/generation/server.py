@@ -7,19 +7,22 @@ port's ``GemmaDecodeEngine`` or one of its batchers, so a GPU host serves
 its own generation. Point an OpenAI client's ``base_url`` at it.
 
 Scope: chat completions with string, text-part and ``image_url`` content
-(base64 data URLs, decoded with Pillow where it is installed; with an
-``mm_engine``, every image of a request conditions its answer),
+(base64 PNG or JPEG data URLs, decoded by the port's own decoders to
+Pillow's pixels; with an ``mm_engine``, every image of a request conditions
+its answer),
 ``max_tokens``, ``temperature``, ``top_p``, ``top_k``, ``seed``,
 ``logprobs``, ``stop`` via the tokenizer's eos, constrained enum outputs
 (``response_format``), SSE streaming (``stream: true``, per token with a
 batcher), 429/504 back-pressure from the batcher's bounded queue and
-admission deadline, and ``/health``.
+admission deadline, ``/health``, and ``/stats``: the requests served, the
+images decoded and skipped, and how many requests carried each number of
+decoded images.
 """
 
 from __future__ import annotations
 
 import base64
-import io
+import collections
 import json
 import threading
 import time
@@ -30,6 +33,7 @@ import numpy as np
 
 from multimodal_colpali_tpu_torch.generation.engine import LOGPROB_K
 from multimodal_colpali_tpu_torch.generation.scheduler import AdmissionQueueFull
+from multimodal_colpali_tpu_torch.ingest.imageops import decode_image
 
 
 def render_chat_prompt(messages: List[Dict[str, Any]]) -> str:
@@ -38,22 +42,26 @@ def render_chat_prompt(messages: List[Dict[str, Any]]) -> str:
 
 
 def _decode_image(url: str):
-    """A base64 data URL -> an RGB PIL image, or None where it does not
-    decode (or Pillow is missing): such a part is skipped, as in
+    """A base64 data URL -> uint8 ``[H, W, 3]`` RGB, Pillow's pixels
+    (``imageops.decode_image``: PNG and JPEG with the port's own decoders),
+    or None where it does not decode: such a part is skipped, as in
     server.py:53-60."""
     if not url.startswith("data:"):
         return None
     try:
-        from PIL import Image
-
         raw = base64.b64decode(url.split(",", 1)[1])
-        return Image.open(io.BytesIO(raw)).convert("RGB")
-    except Exception:  # noqa: BLE001 - as the JAX server: a bad image is skipped
+    except (ValueError, IndexError):
         return None
+    return decode_image(raw)
+
+
+def _image_parts(messages: List[Dict[str, Any]]) -> int:
+    return sum(1 for m in messages if isinstance(m.get("content"), list)
+               for p in m["content"] if isinstance(p, dict) and p.get("type") == "image_url")
 
 
 def extract_chat_content(messages: List[Dict[str, Any]]):
-    """-> (prompt text, [PIL images]) from OpenAI chat messages; ``image_url``
+    """-> (prompt text, [RGB arrays]) from OpenAI chat messages; ``image_url``
     parts carry base64 data URLs (the reference's encode_image_to_data_url
     format)."""
     lines = []
@@ -104,6 +112,9 @@ class GenerationServer:
         # sweep sends 120 at once) holds all their caches on the card at
         # once and runs out of memory
         self._constrained_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        self._stats = {"requests": 0, "images_decoded": 0, "images_skipped": 0,
+                       "images_per_request": collections.Counter()}
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -111,8 +122,10 @@ class GenerationServer:
                 pass
 
             def do_GET(self):
-                if self.path.rstrip("/").endswith("health"):
-                    body = b'{"status": "ok"}'
+                path = self.path.rstrip("/")
+                if path.endswith("health") or path.endswith("stats"):
+                    body = (b'{"status": "ok"}' if path.endswith("health")
+                            else json.dumps(outer.stats()).encode())
                     self.send_response(200)
                     self.send_header("Content-Type", "application/json")
                     self.send_header("Content-Length", str(len(body)))
@@ -162,6 +175,21 @@ class GenerationServer:
         self._thread: Optional[threading.Thread] = None
 
     # -- protocol ------------------------------------------------------------
+
+    def stats(self) -> Dict[str, Any]:
+        """The requests served so far and their images (``GET /stats``)."""
+        with self._stats_lock:
+            st = dict(self._stats)
+            st["images_per_request"] = {str(k): v for k, v in
+                                        sorted(st["images_per_request"].items())}
+            return st
+
+    def _note_images(self, req: Dict[str, Any], images: List[Any]) -> None:
+        with self._stats_lock:
+            self._stats["requests"] += 1
+            self._stats["images_decoded"] += len(images)
+            self._stats["images_skipped"] += _image_parts(req.get("messages", [])) - len(images)
+            self._stats["images_per_request"][len(images)] += 1
 
     @staticmethod
     def _schema_enum(req: Dict[str, Any]) -> Optional[tuple]:
@@ -320,6 +348,7 @@ class GenerationServer:
 
         max_new, temperature, top_p, top_k, seed = self._parse_sampling(req)
         prompt, images = extract_chat_content(req.get("messages", []))
+        self._note_images(req, images)
         enum = self._schema_enum(req)
         rid = f"chatcmpl-{int(time.time() * 1e3)}"
         created = int(time.time())
@@ -451,6 +480,7 @@ class GenerationServer:
     def _complete(self, req: Dict[str, Any]) -> Dict[str, Any]:
         max_new, temperature, top_p, top_k, seed = self._parse_sampling(req)
         prompt, images = extract_chat_content(req.get("messages", []))
+        self._note_images(req, images)
         ids = self._encode(prompt, add_special_tokens=True)  # usage default
         # OpenAI logprobs surface: per-token logprob + top-N alternatives,
         # served through the batcher submit payload; bare engines degrade

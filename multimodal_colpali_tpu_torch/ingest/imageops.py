@@ -30,7 +30,7 @@ import functools
 import math
 import struct
 import zlib
-from typing import Any, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -199,8 +199,13 @@ def crop(img: np.ndarray, box: Sequence[int]) -> np.ndarray:
 # -- PNG ------------------------------------------------------------------------
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_COLOR_TYPES = {0: 1, 2: 3, 6: 4}            # PNG color type -> channels
-_TYPE_OF_CHANNELS = {1: 0, 3: 2, 4: 6}
+_TYPE_OF_CHANNELS = {1: 0, 3: 2, 4: 6}       # what encode_png writes
+# PNG color type -> (samples a pixel, the bit depths it allows)
+_COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+                4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -259,11 +264,57 @@ def _average_row(f: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
     return np.frombuffer(bytes(out), np.uint8)
 
 
+def _unfilter(raw: np.ndarray, rows: int, stride: int, bpp: int) -> np.ndarray:
+    """A (sub)image's filtered scanlines ``[rows, 1 + stride]`` -> its bytes
+    ``[rows, stride]``."""
+    out = np.empty((rows, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(rows):
+        kind, f = raw[y, 0], raw[y, 1:]
+        if kind == 0:
+            row = f
+        elif kind == 1:
+            row = np.cumsum(f.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif kind == 2:
+            row = f + prior
+        elif kind == 3:
+            row = _average_row(f, prior, bpp)
+        elif kind == 4:
+            row = _paeth_row(f, prior, bpp)
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {kind}")
+        out[y] = row
+        prior = out[y]
+    return out
+
+
+def _samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered bytes ``[rows, stride]`` -> samples ``[rows, width,
+    channels]`` (uint16 at depth 16, else uint8 at their own scale)."""
+    n = width * channels
+    if depth == 16:
+        v = rows.reshape(rows.shape[0], -1, 2).astype(np.uint16)
+        v = (v[..., 0] << 8) | v[..., 1]
+    elif depth == 8:
+        v = rows
+    else:
+        bits = np.unpackbits(rows, axis=1)[:, : n * depth].reshape(rows.shape[0], n, depth)
+        v = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(-1, dtype=np.uint8)
+    return v[:, :n].reshape(rows.shape[0], width, channels)
+
+
 def decode_png(blob: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 ``[H, W]`` (gray), ``[H, W, 3]`` or ``[H, W, 4]``."""
+    """PNG bytes -> uint8 ``[H, W]`` (gray), ``[H, W, 2]`` (gray and alpha),
+    ``[H, W, 3]`` (RGB, or a palette image's colors) or ``[H, W, 4]`` (RGBA),
+    for every color type, bit depth and interlace method of the standard.
+    The values are those Pillow gives: gray of 1, 2 or 4 bits scaled to
+    0-255, 16-bit samples cut to their high byte, except 16-bit gray, which
+    Pillow's ``I;16`` clips at 255; a transparency chunk is ignored. Raises
+    ValueError for what is not a valid PNG (a palette index past the
+    palette included)."""
     if blob[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
-    pos, header, idat = 8, None, []
+    pos, header, idat, palette = 8, None, [], None
     while pos + 8 <= len(blob):
         (length,) = struct.unpack(">I", blob[pos: pos + 4])
         kind = blob[pos + 4: pos + 8]
@@ -279,41 +330,86 @@ def decode_png(blob: bytes) -> np.ndarray:
         elif kind == b"IEND":
             break
         elif kind == b"PLTE":
-            raise ValueError("palette PNGs are not supported")
+            if not data or len(data) % 3:
+                raise ValueError(f"PNG palette of {len(data)} bytes")
+            palette = np.frombuffer(data, np.uint8).reshape(-1, 3)
     if header is None or not idat:
         raise ValueError("PNG without IHDR or IDAT")
     w, h, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in _COLOR_TYPES or interlace != 0:
+    if ctype not in _COLOR_TYPES or depth not in _COLOR_TYPES[ctype][1] or interlace > 1:
         raise ValueError(f"unsupported PNG: bit depth {depth}, color type {ctype}, "
-                         f"interlace {interlace} (8-bit gray, RGB or RGBA, not interlaced)")
-    bpp = _COLOR_TYPES[ctype]
-    stride = w * bpp
+                         f"interlace {interlace}")
+    if ctype == 3 and palette is None:
+        raise ValueError("palette PNG without a PLTE chunk")
+    channels = _COLOR_TYPES[ctype][0]
+    bpp = max(1, channels * depth // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (stride + 1):
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [(-(-(w - x0) // dx), -(-(h - y0) // dy)) for x0, y0, dx, dy in passes]
+    strides = [-(-pw * channels * depth // 8) for pw, _ in sizes]
+    want = sum(ph * (st + 1) for (pw, ph), st in zip(sizes, strides) if pw and ph)
+    if raw.size != want:
         raise ValueError("PNG image data has the wrong size")
-    raw = raw.reshape(h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, f = raw[y, 0], raw[y, 1:]
-        if kind == 0:
-            row = f
-        elif kind == 1:
-            row = np.cumsum(f.reshape(w, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif kind == 2:
-            row = f + prior
-        elif kind == 3:
-            row = _average_row(f, prior, bpp)
-        elif kind == 4:
-            row = _paeth_row(f, prior, bpp)
-        else:
-            raise ValueError(f"PNG row {y}: unknown filter type {kind}")
-        out[y] = row
-        prior = out[y]
-    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
+    img = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    at = 0
+    for (x0, y0, dx, dy), (pw, ph), st in zip(passes, sizes, strides):
+        if not (pw and ph):
+            continue
+        rows = _unfilter(raw[at: at + ph * (st + 1)].reshape(ph, st + 1), ph, st, bpp)
+        at += ph * (st + 1)
+        img[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
+    if ctype == 3:
+        if int(img.max()) >= len(palette):
+            raise ValueError(f"PNG palette index {int(img.max())} past its {len(palette)} "
+                             f"colors")
+        return palette[img[..., 0]]
+    if depth == 16:
+        img = np.minimum(img, 255) if ctype == 0 else img >> 8
+    elif depth < 8:
+        img = img * (255 // ((1 << depth) - 1))
+    img = img.astype(np.uint8)
+    return img[..., 0] if channels == 1 else img
 
 
 def read_png(path: Any) -> np.ndarray:
     with open(path, "rb") as f:
         return decode_png(f.read())
 
+
+
+def to_rgb(arr: np.ndarray) -> np.ndarray:
+    """A decoded uint8 gray, gray-and-alpha, RGB or RGBA array as RGB, as
+    Pillow's ``convert("RGB")`` makes it (gray copied to the three channels,
+    alpha dropped)."""
+    if arr.ndim == 2 or arr.shape[2] <= 2:
+        gray = arr if arr.ndim == 2 else arr[..., 0]
+        return np.repeat(gray[..., None], 3, axis=2)
+    return np.ascontiguousarray(arr[..., :3])
+
+
+def decode_image(blob: bytes) -> Optional[np.ndarray]:
+    """Image bytes -> uint8 ``[H, W, 3]`` RGB, the pixels of Pillow's
+    ``Image.open(...).convert("RGB")``, or None where they do not decode.
+    PNG goes through :func:`decode_png`, JPEG through the port's decoder
+    (``ingest/rasterize.decode_jpeg``); neither needs Pillow, and a PNG or
+    JPEG that they do not decode is None. Only another format (GIF, WebP,
+    ...) is read by Pillow, where it is installed."""
+    if blob[:8] == _SIGNATURE:
+        try:
+            return to_rgb(decode_png(blob))
+        except (ValueError, zlib.error, struct.error):
+            return None
+    if blob[:2] == b"\xff\xd8":
+        from multimodal_colpali_tpu_torch.ingest.rasterize import decode_jpeg
+
+        return decode_jpeg(blob)
+    try:
+        import io
+
+        from PIL import Image
+    except ImportError:
+        return None
+    try:
+        return np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"))
+    except Exception:  # noqa: BLE001 - any undecodable image is None
+        return None

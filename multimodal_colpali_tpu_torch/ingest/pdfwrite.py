@@ -2,8 +2,9 @@
 
 The port's copy of ``multimodal_colpali_tpu/ingest/pdfwrite.py``, numpy and the
 standard library only, with one addition: ``PdfWriter`` also embeds a JPEG
-(bytes, written with the DCTDecode filter), and :func:`encode_jpeg` makes one,
-so that PDFs with JPEG figures are written where Pillow is missing.
+(bytes, written with the DCTDecode filter), such as
+``ingest/rasterize.encode_jpeg`` makes, so that PDFs with JPEG figures are
+written where Pillow is missing.
 
 Produces valid classic-xref PDFs with Helvetica text lines and optional
 embedded FlateDecode RGB or DCTDecode images, exercising the exact subset
@@ -165,145 +166,6 @@ def jpeg_size(data: bytes) -> Tuple[int, int, int]:
             return w, h, data[i + 9]
         i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
     raise ValueError("no JPEG frame header")
-
-
-# The JPEG standard's example quantization tables (Annex K.1), natural order.
-_LUMA_Q = np.array([
-    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
-    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
-    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
-    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
-_CHROMA_Q = np.full(64, 99)
-_CHROMA_Q[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [17, 18, 24, 47, 18, 21, 26, 66,
-                                                            24, 26, 56, 47, 66]
-# zig-zag index -> natural index
-_ZIGZAG = np.array(sorted(range(64), key=lambda n: (n // 8 + n % 8,
-                                                    n // 8 if (n // 8 + n % 8) % 2 else n % 8)))
-# Huffman code lengths: the standard's counts (Annex K.3) for the DC
-# categories 0-11 and for all 162 AC symbols (EOB, ZRL, run/size)
-_DC_BITS = [0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]
-_AC_BITS = [0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125]
-_AC_SYMBOLS = sorted([0x00, 0xF0] + [r << 4 | s for r in range(16) for s in range(1, 11)],
-                     key=lambda v: (v != 0, (v >> 4) + (v & 15), v))
-
-
-def _huffman_codes(bits: Sequence[int], symbols: Sequence[int]) -> dict:
-    """Canonical codes {symbol: (code, length)} for a DHT's counts."""
-    codes, code, k = {}, 0, 0
-    for length, n in enumerate(bits, start=1):
-        for _ in range(n):
-            codes[symbols[k]] = (code, length)
-            code += 1
-            k += 1
-        code <<= 1
-    return codes
-
-
-def encode_jpeg(pixels: np.ndarray, quality: int = 90, sampling: Tuple[int, int] = (2, 2),
-                restart_interval: int = 0) -> bytes:
-    """A baseline JFIF JPEG of a uint8 ``[H, W, 3]`` (YCbCr, luma sampled
-    ``sampling`` = (horizontal, vertical) times the chroma) or ``[H, W]``
-    (gray) array, with the standard's tables scaled to ``quality`` as libjpeg
-    does, and an RSTn marker every ``restart_interval`` MCUs if positive."""
-    arr = np.asarray(pixels, np.uint8)
-    height, width = arr.shape[:2]
-    if arr.ndim == 2:
-        planes, factors = [arr.astype(np.float64)], [(1, 1)]
-    else:
-        r, g, b = (arr[..., k].astype(np.float64) for k in range(3))
-        planes = [0.299 * r + 0.587 * g + 0.114 * b,
-                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
-                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
-        factors = [tuple(sampling), (1, 1), (1, 1)]
-    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
-    mcus_x, mcus_y = -(-width // (8 * hmax)), -(-height // (8 * vmax))
-    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
-    tables = [np.clip((q * scale + 50) // 100, 1, 255) for q in (_LUMA_Q, _CHROMA_Q)]
-    u = np.arange(8)
-    dct = np.cos((2 * u[None, :] + 1) * u[:, None] * np.pi / 16) / 2
-    dct[0] /= np.sqrt(2)
-    coefs = []   # per component: [blocks_y, blocks_x, 64] quantized, zig-zag order
-    for k, (plane, (h, v)) in enumerate(zip(planes, factors)):
-        fh, fv = hmax // h, vmax // v
-        full = np.pad(plane, ((0, mcus_y * 8 * vmax - height), (0, mcus_x * 8 * hmax - width)),
-                      mode="edge")
-        down = full.reshape(full.shape[0] // fv, fv, full.shape[1] // fh, fh).mean(axis=(1, 3))
-        blocks = down.reshape(down.shape[0] // 8, 8, down.shape[1] // 8, 8).transpose(0, 2, 1, 3)
-        freq = dct @ (blocks - 128) @ dct.T
-        q = tables[min(k, 1)].reshape(8, 8)
-        coefs.append(np.round(freq / q).astype(np.int64).reshape(*freq.shape[:2], 64)[..., _ZIGZAG])
-
-    dc_codes = _huffman_codes(_DC_BITS, list(range(12)))
-    ac_codes = _huffman_codes(_AC_BITS, _AC_SYMBOLS)
-    out = bytearray()
-    acc, nacc = 0, 0
-
-    def put(code: int, length: int) -> None:
-        nonlocal acc, nacc
-        acc, nacc = (acc << length) | code, nacc + length
-        while nacc >= 8:
-            nacc -= 8
-            byte = (acc >> nacc) & 0xFF
-            out.append(byte)
-            if byte == 0xFF:
-                out.append(0)
-        acc &= (1 << nacc) - 1
-
-    def put_value(value: int, table: dict, symbol_run: int = -1) -> None:
-        size = int(abs(value)).bit_length()
-        symbol = size if symbol_run < 0 else (symbol_run << 4) | size
-        put(*table[symbol])
-        if size:
-            put(value if value > 0 else value + (1 << size) - 1, size)
-
-    last_dc = [0] * len(planes)
-    for m in range(mcus_x * mcus_y):
-        if restart_interval and m and m % restart_interval == 0:
-            if nacc:
-                put((1 << (8 - nacc)) - 1, 8 - nacc)
-            out += bytes([0xFF, 0xD0 + (m // restart_interval - 1) % 8])
-            last_dc = [0] * len(planes)
-        my, mx = divmod(m, mcus_x)
-        for k, (h, v) in enumerate(factors):
-            dc_t, ac_t = (dc_codes, ac_codes)
-            for by in range(v):
-                for bx in range(h):
-                    zz = coefs[k][my * v + by, mx * h + bx]
-                    put_value(int(zz[0]) - last_dc[k], dc_t)
-                    last_dc[k] = int(zz[0])
-                    run = 0
-                    for c in zz[1:]:
-                        if c == 0:
-                            run += 1
-                            continue
-                        while run > 15:
-                            put(*ac_t[0xF0])
-                            run -= 16
-                        put_value(int(c), ac_t, run)
-                        run = 0
-                    if run:
-                        put(*ac_t[0x00])
-    if nacc:
-        put((1 << (8 - nacc)) - 1, 8 - nacc)
-    data = bytes(out)
-
-    def segment(marker: int, payload: bytes) -> bytes:
-        return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + payload
-
-    n = len(planes)
-    head = b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    for t, table in enumerate(tables[:n]):
-        head += segment(0xDB, bytes([t]) + bytes(int(x) for x in table[_ZIGZAG]))
-    head += segment(0xC0, bytes([8]) + height.to_bytes(2, "big") + width.to_bytes(2, "big")
-                    + bytes([n]) + b"".join(bytes([k + 1, h << 4 | v, min(k, 1)])
-                                            for k, (h, v) in enumerate(factors)))
-    head += segment(0xC4, bytes([0x00]) + bytes(_DC_BITS) + bytes(range(12)))
-    head += segment(0xC4, bytes([0x10]) + bytes(_AC_BITS) + bytes(_AC_SYMBOLS))
-    if restart_interval:
-        head += segment(0xDD, restart_interval.to_bytes(2, "big"))
-    head += segment(0xDA, bytes([n]) + b"".join(bytes([k + 1, 0x00]) for k in range(n))
-                    + bytes([0, 63, 0]))
-    return head + data + b"\xff\xd9"
 
 
 def make_sample_pdf(

@@ -15,8 +15,9 @@ On a CUDA retriever each page raster is uploaded in stage 1 and resized
 there (LANCZOS by ``resize_image``, then BICUBIC to the model size in stage
 2, both ``imageops`` on the device, pixels equal to the host's), so the
 host threads only rasterize and launch; stage 3 is the retriever's own
-forward, ``Retriever._embed``. Dynamic-resolution processors are not
-ported: the branch raises.
+forward, ``Retriever._embed``. A dynamic-resolution processor (ColQwen2's
+smart grids) is fed one sub-batch per grid; one without ``group_by_grid``
+(idefics3 image splitting, not ported) raises.
 """
 
 from __future__ import annotations
@@ -119,13 +120,19 @@ class PipelinedEmbedder:
         dynamic = getattr(proc, "dynamic_resolution", False)
         dev_pre = getattr(self.retriever, "device_preprocess", False)
         device = self.retriever.device
-        if dynamic:
+        if dynamic and not hasattr(proc, "group_by_grid"):
             raise NotImplementedError(
-                "dynamic-resolution processors (per-grid sub-batches) are not ported "
-                "yet; see ROADMAP.md queue 1 item 6")
+                "dynamic layouts other than colqwen2's grids (idefics3 image "
+                "splitting) are not ported yet; see ROADMAP.md queue 1 item 6")
 
         def emit(buf):
-            if dev_pre:
+            if dynamic:
+                # one sub-batch per grid (pipeline.py:104-121)
+                for grid, idxs in proc.group_by_grid([r[3] for r in buf]):
+                    sub = [buf[i] for i in idxs]
+                    yield sub, proc.process_images([r[3] for r in sub], grid=grid,
+                                                   device=device)
+            elif dev_pre:
                 # resize-only stage; normalize runs on the device in the
                 # forward (ops/preprocess.py, K3 on a CUDA device)
                 yield buf, proc.process_images([r[3] for r in buf], device_preprocess=True,

@@ -28,7 +28,7 @@ import os
 import threading
 import warnings
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,7 +112,62 @@ def _typed_lib() -> ctypes.CDLL:
                                         ctypes.POINTER(ctypes.c_int)]
     lib.mmpdf_font_atlas.restype = ctypes.POINTER(ctypes.c_uint8)
     lib.mmpdf_font_atlas.argtypes = []
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.mmjpeg_decode_rgb.restype = ctypes.c_int
+    lib.mmjpeg_decode_rgb.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(u8p),
+                                      ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.mmjpeg_encode.restype = ctypes.c_int
+    lib.mmjpeg_encode.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [
+        ctypes.POINTER(u8p), ctypes.POINTER(ctypes.c_size_t)]
+    lib.mmjpeg_free.argtypes = [ctypes.c_void_p]
     return lib
+
+
+def decode_jpeg(blob: bytes) -> Optional[np.ndarray]:
+    """JPEG bytes -> uint8 ``[H, W, 3]`` RGB through the port's decoder
+    (``native/jpeg/jpegdec.cpp``, libjpeg-turbo's pixels: what Pillow's
+    ``Image.open(...).convert("RGB")`` gives), or None where it does not
+    decode."""
+    lib = get_lib()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    if lib.mmjpeg_decode_rgb(bytes(blob), len(blob), ctypes.byref(out), ctypes.byref(w),
+                             ctypes.byref(h)) != 0:
+        return None
+    try:
+        return np.ctypeslib.as_array(out, (h.value, w.value, 3)).copy()
+    finally:
+        lib.mmjpeg_free(out)
+
+
+def encode_jpeg(pixels: np.ndarray, quality: int = 75, sampling: Tuple[int, int] = (2, 2),
+                restart_interval: int = 0) -> bytes:
+    """uint8 ``[H, W, 3]`` RGB or ``[H, W]`` gray -> baseline JFIF JPEG bytes
+    at ``quality`` through the port's encoder (``native/jpeg/jpegenc.cpp``,
+    libjpeg-turbo's compression path): YCbCr with the luma sampled
+    ``sampling`` = (horizontal, vertical) times the chroma, 1-4 each with a
+    product of at most 8, and an RSTn marker every ``restart_interval`` MCUs
+    if positive. With the defaults these are the bytes of Pillow's
+    ``save(format="JPEG")`` (4:2:0, the standard Huffman tables); Pillow's
+    ``subsampling`` 1 (4:2:2) is ``sampling=(2, 1)`` and 0 (4:4:4) ``(1, 1)``."""
+    a = np.ascontiguousarray(pixels)
+    ncomp = 1 if a.ndim == 2 else (a.shape[2] if a.ndim == 3 else 0)
+    if a.dtype != np.uint8 or ncomp not in (1, 3) or 0 in a.shape[:2]:
+        raise ValueError(f"encode_jpeg takes uint8 [H, W, 3] or [H, W] images, not {a.dtype} "
+                         f"{a.shape}")
+    h_samp, v_samp = (int(x) for x in sampling)
+    lib = get_lib()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_size_t()
+    if lib.mmjpeg_encode(a.ctypes.data, a.shape[1], a.shape[0], ncomp, int(quality), h_samp,
+                         v_samp, int(restart_interval), ctypes.byref(out), ctypes.byref(n)) != 0:
+        raise ValueError(f"JPEG encoding of a {a.shape} image at sampling {sampling}, restart "
+                         f"interval {restart_interval} failed (at most 65,535 pixels a side, "
+                         f"sampling 1-4 with a product of at most 8)")
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.mmjpeg_free(out)
 
 
 def font_atlas() -> "np.ndarray":

@@ -16,6 +16,10 @@
   (4,096 patches) average-pooled to 256 soft tokens an image, then the LM.
 - BERT-base (``BertConfig``, configs.py:169-191): the bge-base-en-v1.5 dense
   text encoder of the text-RAG and multimodal-RAG modes.
+- ColQwen2 / ColQwen2.5 (``ColQwen2ModelConfig``, qwen2vl.py:42-217): the
+  Qwen2-VL vision tower (patches of 2 x 14 x 14, 2 x 2 merge; the 2.5
+  variant with RMSNorm, a gated SiLU MLP and windows of 112 px) + a Qwen2
+  decoder with mrope + 128-d projection.
 
 Each ``tiny()`` is the small configuration the parity tests and the
 committed ``goldens/tiny-*.npz`` use.
@@ -358,3 +362,121 @@ class BertConfig:
         return cls(vocab_size=100, hidden_size=32, intermediate_size=64,
                    num_hidden_layers=2, num_attention_heads=2,
                    max_position_embeddings=64)
+
+
+@dataclasses.dataclass(frozen=True)
+class Qwen2VisionConfig:
+    """The Qwen2-VL / Qwen2.5-VL vision tower (qwen2vl.py:42-74)."""
+
+    depth: int = 32
+    embed_dim: int = 1280
+    hidden_size: int = 3584          # merger output = the LM's width
+    num_heads: int = 16
+    patch_size: int = 14
+    temporal_patch_size: int = 2
+    spatial_merge_size: int = 2
+    mlp_ratio: float = 4.0
+    in_channels: int = 3
+    variant: str = "qwen2"           # "qwen2" | "qwen2_5"
+    intermediate_size: int = 0       # the 2.5 MLP width (0 -> mlp_ratio * embed_dim)
+    window_size: int = 112
+    fullatt_block_indexes: tuple = (7, 15, 23, 31)
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @property
+    def patch_dim(self) -> int:
+        return self.in_channels * self.temporal_patch_size * self.patch_size ** 2
+
+    @property
+    def mlp_hidden(self) -> int:
+        return self.intermediate_size or int(self.embed_dim * self.mlp_ratio)
+
+
+@dataclasses.dataclass(frozen=True)
+class Qwen2TextConfig:
+    """The Qwen2 decoder with mrope (qwen2vl.py:77-118): GQA with q/k/v
+    biases, plain RMSNorm, SiLU-gated MLP. Defaults are Qwen2-VL-2B's."""
+
+    vocab_size: int = 151936
+    hidden_size: int = 1536
+    intermediate_size: int = 8960
+    num_hidden_layers: int = 28
+    num_attention_heads: int = 12
+    num_key_value_heads: int = 2
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1_000_000.0
+    mrope_section: tuple = (16, 24, 24)
+    tie_word_embeddings: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class ColQwen2ModelConfig:
+    """ColQwen2 = Qwen2-VL + 128-d head (qwen2vl.py:121-217); ``grid_h`` x
+    ``grid_w`` patches is the static resolution bucket (54 x 54 = 756 px)."""
+
+    vision: Qwen2VisionConfig = dataclasses.field(default_factory=Qwen2VisionConfig)
+    text: Qwen2TextConfig = dataclasses.field(default_factory=Qwen2TextConfig)
+    embedding_dim: int = 128
+    image_token_id: int = 151655
+    vision_start_token_id: int = 151652
+    vision_end_token_id: int = 151653
+    grid_h: int = 54
+    grid_w: int = 54
+
+    @classmethod
+    def colqwen2_v1(cls) -> "ColQwen2ModelConfig":
+        """vidore/colqwen2-v1.0: the Qwen2-VL-2B backbone."""
+        return cls(vision=Qwen2VisionConfig(hidden_size=1536), text=Qwen2TextConfig())
+
+    @classmethod
+    def colqwen2_5_v0_2(cls) -> "ColQwen2ModelConfig":
+        """vidore/colqwen2.5-v0.2: the Qwen2.5-VL-3B backbone."""
+        return cls(
+            vision=Qwen2VisionConfig(
+                depth=32, embed_dim=1280, hidden_size=2048, num_heads=16,
+                variant="qwen2_5", intermediate_size=3420,
+                window_size=112, fullatt_block_indexes=(7, 15, 23, 31)),
+            text=Qwen2TextConfig(
+                vocab_size=151936, hidden_size=2048, intermediate_size=11008,
+                num_hidden_layers=36, num_attention_heads=16,
+                num_key_value_heads=2, rope_theta=1_000_000.0,
+                mrope_section=(16, 24, 24)))
+
+    @classmethod
+    def tiny_25(cls, vocab_size: int = 64) -> "ColQwen2ModelConfig":
+        return cls(
+            vision=Qwen2VisionConfig(depth=3, embed_dim=32, hidden_size=24,
+                                     num_heads=2, variant="qwen2_5",
+                                     intermediate_size=64, window_size=56,
+                                     fullatt_block_indexes=(1,)),
+            text=Qwen2TextConfig(vocab_size=vocab_size, hidden_size=24,
+                                 intermediate_size=48, num_hidden_layers=2,
+                                 num_attention_heads=2, num_key_value_heads=1,
+                                 rope_theta=10000.0, mrope_section=(1, 2, 3)),
+            embedding_dim=8,
+            image_token_id=vocab_size - 1,
+            vision_start_token_id=vocab_size - 2,
+            vision_end_token_id=vocab_size - 3,
+            grid_h=8, grid_w=8)
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 64) -> "ColQwen2ModelConfig":
+        return cls(
+            vision=Qwen2VisionConfig(depth=2, embed_dim=32, hidden_size=24,
+                                     num_heads=2, mlp_ratio=2.0),
+            text=Qwen2TextConfig(vocab_size=vocab_size, hidden_size=24,
+                                 intermediate_size=48, num_hidden_layers=2,
+                                 num_attention_heads=2, num_key_value_heads=1,
+                                 rope_theta=10000.0, mrope_section=(1, 2, 3)),
+            embedding_dim=8,
+            image_token_id=vocab_size - 1,
+            vision_start_token_id=vocab_size - 2,
+            vision_end_token_id=vocab_size - 3,
+            grid_h=4, grid_w=4)

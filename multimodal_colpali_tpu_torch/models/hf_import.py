@@ -277,6 +277,52 @@ def colidefics3_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
     return params
 
 
+def colqwen2_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """A ``ColQwen2ForRetrieval`` (or colpali-engine ColQwen2 / ColQwen2.5)
+    state dict -> the flax-named tree (hf_import.py:108-165): the tower's
+    conv patch embed as a ``[patch_dim, embed_dim]`` kernel, LayerNorm or
+    RMSNorm blocks by ``cfg.vision.variant``, the head from
+    ``embedding_proj_layer`` or ``custom_text_proj``."""
+    sd = _normalize_prefixes(sd)
+    is_25 = cfg.vision.variant == "qwen2_5"
+    norm_fn = _rms if is_25 else _ln
+    visual: Dict[str, Any] = {
+        "patch_embed": {"kernel": sd["visual.patch_embed.proj.weight"]
+                        .reshape(cfg.vision.embed_dim, -1).t()},
+        "ln_q": norm_fn(sd, "visual.merger.ln_q"),
+        "merger_fc1": _lin(sd, "visual.merger.mlp.0"),
+        "merger_fc2": _lin(sd, "visual.merger.mlp.2"),
+    }
+    for i in range(cfg.vision.depth):
+        p = f"visual.blocks.{i}."
+        block = {"norm1": norm_fn(sd, p + "norm1"), "norm2": norm_fn(sd, p + "norm2"),
+                 "qkv": _lin(sd, p + "attn.qkv"), "attn_proj": _lin(sd, p + "attn.proj")}
+        for name in (("gate_proj", "up_proj", "down_proj") if is_25 else ("fc1", "fc2")):
+            block[name] = _lin(sd, p + "mlp." + name)
+        visual[f"blocks_{i}"] = block
+    params: Dict[str, Any] = {
+        "embed_tokens": sd["language_model.embed_tokens.weight"],
+        "visual": visual,
+        "norm": _rms(sd, "language_model.norm"),
+    }
+    if "embedding_proj_layer.weight" in sd:
+        params["embedding_proj_layer"] = _lin(sd, "embedding_proj_layer")
+    for i in range(cfg.text.num_hidden_layers):
+        p = f"language_model.layers.{i}."
+        params[f"layers_{i}"] = {
+            "self_attn": {
+                "q_proj": _lin(sd, p + "self_attn.q_proj"),
+                "k_proj": _lin(sd, p + "self_attn.k_proj"),
+                "v_proj": _lin(sd, p + "self_attn.v_proj"),
+                "o_proj": _lin(sd, p + "self_attn.o_proj", bias=False),
+            },
+            **_gated_mlp(sd, p),
+            "input_layernorm": _rms(sd, p + "input_layernorm"),
+            "post_attention_layernorm": _rms(sd, p + "post_attention_layernorm"),
+        }
+    return params
+
+
 def gemma3_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
     """A ``Gemma3ForCausalLM`` state dict -> the decode engine's tree
     (hf_import.py:670-712): kernels ``[in, out]`` (views), Gemma-3's q/k and

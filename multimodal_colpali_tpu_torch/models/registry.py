@@ -2,7 +2,7 @@
 ``multimodal_colpali_tpu/models/registry.py``).
 
 ``load_retriever(name, device=...)`` returns a :class:`Retriever`: the
-encoder of the name's family (ColPali, ColIdefics3 or ColFlor) on ``device``
+encoder of the name's family (ColPali, ColIdefics3, ColFlor or ColQwen2) on ``device``
 plus its processor. Weights come from a flax parameter tree (``params=``,
 e.g. ``load_params_npz`` of a committed golden), else from the checkpoint
 that ``_find_checkpoint`` finds (``checkpoint_dir=`` or under
@@ -34,13 +34,14 @@ import torch
 from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models import hf_import
 from multimodal_colpali_tpu_torch.models.configs import (
-    ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig, Gemma3MMConfig,
-    Gemma3TextConfig)
+    ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig, ColQwen2ModelConfig,
+    Gemma3MMConfig, Gemma3TextConfig)
 from multimodal_colpali_tpu_torch.models.convert import (
     ModelConfig, flax_shape, model_class, params_from_flax, state_from_flax)
 from multimodal_colpali_tpu_torch.models.processing import ColPaliProcessor
 from multimodal_colpali_tpu_torch.models.processing_florence2 import ColFlorProcessor
 from multimodal_colpali_tpu_torch.models.processing_idefics3 import ColIdefics3Processor
+from multimodal_colpali_tpu_torch.models.processing_qwen2vl import ColQwen2Processor
 from multimodal_colpali_tpu_torch.models.siglip import SiglipVisionTower
 from multimodal_colpali_tpu_torch.ops.preprocess import normalize_images
 from multimodal_colpali_tpu_torch.ops.quant import quantize_lm_leaf
@@ -56,13 +57,18 @@ RETRIEVER_CONFIGS: Dict[str, Callable[[], ModelConfig]] = {
     "tiny-colidefics3": ColIdefics3ModelConfig.tiny,
     "ahmed-masry/ColFlor": ColFlorModelConfig.colflor,
     "tiny-colflor": ColFlorModelConfig.tiny,
+    "vidore/colqwen2-v1.0": ColQwen2ModelConfig.colqwen2_v1,
+    "vidore/colqwen2.5-v0.2": ColQwen2ModelConfig.colqwen2_5_v0_2,
+    "tiny-colqwen2": ColQwen2ModelConfig.tiny,
+    "tiny-colqwen2.5": ColQwen2ModelConfig.tiny_25,
 }
 
 PROCESSORS = {"colpali": ColPaliProcessor, "colidefics3": ColIdefics3Processor,
-              "colflor": ColFlorProcessor}
+              "colflor": ColFlorProcessor, "colqwen2": ColQwen2Processor}
 CONVERTERS = {"colpali": hf_import.colpali_params_from_hf,
               "colidefics3": hf_import.colidefics3_params_from_hf,
-              "colflor": hf_import.colflor_params_from_hf}
+              "colflor": hf_import.colflor_params_from_hf,
+              "colqwen2": hf_import.colqwen2_params_from_hf}
 
 # Gemma's RMSNorm multiplies by (1 + w), so its neutral weight is 0; it
 # exists only in the colpali family (Llama's RMSNorm multiplies by w).
@@ -75,6 +81,8 @@ def family_of(cfg: ModelConfig) -> str:
         return "colidefics3"
     if isinstance(cfg, ColFlorModelConfig):
         return "colflor"
+    if isinstance(cfg, ColQwen2ModelConfig):
+        return "colqwen2"
     return "colpali"
 
 
@@ -83,7 +91,7 @@ def init_random_params_(model: torch.nn.Module, seed: int = 0, family: str = "co
     """Fill ``model`` in place, on its device and in its dtype, by the rules
     of the JAX package's ``fast_random_params`` (registry.py:264-294):
     biases 0, Gemma RMSNorm weights 0 (colpali family only), other norm
-    weights 1, everything else N(0, fan_in^-0.5) with ``fan_in`` the first
+    weights 1 (Llama's and Qwen2's RMSNorm, LayerNorms), everything else N(0, fan_in^-0.5) with ``fan_in`` the first
     dim of the flax layout."""
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -107,8 +115,12 @@ class Retriever:
     ``device_preprocess=True`` uploads uint8 pixels and normalizes them on
     ``device`` inside the forward (K3 on a CUDA device); the host stage is
     resize-only. A processor whose ``process_images`` takes no
-    ``device_preprocess`` (ColFlor's) refuses it, as the JAX Retriever does
-    (registry.py:51-60)."""
+    ``device_preprocess`` (ColFlor's, ColQwen2's) refuses it, as does a
+    dynamic-resolution one, as the JAX Retriever does (registry.py:51-64).
+
+    The colqwen2 family's forward also takes the batch's mrope
+    ``position_ids`` and its ``grid``; under ``dynamic_resolution`` its
+    pages are embedded in per-grid groups (registry.py:170-200)."""
 
     name: str
     model: torch.nn.Module
@@ -124,6 +136,9 @@ class Retriever:
             raise ValueError(f"device_preprocess is not supported by "
                              f"{type(self.processor).__name__} (fixed-resolution "
                              f"ColPali-family processors only)")
+        if self.device_preprocess and getattr(self.processor, "dynamic_resolution", False):
+            raise ValueError("device_preprocess requires the fixed square layout; "
+                             "disable dynamic_resolution/image splitting")
 
     def _pixels(self, pv: Any) -> torch.Tensor:
         """Pixels (host arrays or device tensors) -> the model's pixel input
@@ -144,11 +159,27 @@ class Retriever:
         mask_np = batch["attention_mask"]
         mask = torch.from_numpy(mask_np).to(self.device)
         pix = self._pixels(batch["pixel_values"]) if with_image else None
-        emb = self.model(ids, mask, pix).float().cpu().numpy()
+        if self.family == "colqwen2":
+            pos = torch.from_numpy(batch["position_ids"]).to(self.device)
+            out = self.model(ids, mask, pos, pix, grid=batch.get("grid"))
+        else:
+            out = self.model(ids, mask, pix)
+        emb = out.float().cpu().numpy()
         return [emb[i][mask_np[i] == 1] for i in range(emb.shape[0])]
 
     def embed_images(self, images: Sequence[Any], batch_size: int = 32) -> List[np.ndarray]:
-        """Page images -> list of ``[n_tokens, dim]`` float32 arrays."""
+        """Page images -> list of ``[n_tokens, dim]`` float32 arrays, in the
+        pages' order."""
+        if getattr(self.processor, "dynamic_resolution", False):
+            grouped: List[Any] = [None] * len(images)
+            for grid, idxs in self.processor.group_by_grid(images):
+                for start in range(0, len(idxs), batch_size):
+                    sel = idxs[start: start + batch_size]
+                    batch = self.processor.process_images([images[i] for i in sel], grid=grid,
+                                                          device=self.device)
+                    for i, emb in zip(sel, self._embed(batch, with_image=True)):
+                        grouped[i] = emb
+            return grouped
         out: List[np.ndarray] = []
         for start in range(0, len(images), batch_size):
             chunk = list(images[start: start + batch_size])
@@ -254,8 +285,9 @@ def load_retriever(
     on ``device``, by the rules of the name's family, with a warning
     (registry.py:520-531). ``quantize`` and ``device_preprocess`` left None
     read ``MMCP_QUANTIZE`` and ``MMCP_DEVICE_PREPROCESS == "1"``, as the JAX
-    registry does (registry.py:532-535). Only the fixed square layout is
-    ported: ``dynamic_resolution=True`` (idefics3 image splitting) raises."""
+    registry does (registry.py:532-535). ``dynamic_resolution=True`` gives
+    colqwen2 its smart-resize grids; ColPali and ColFlor have one layout and
+    ignore it, as in JAX; idefics3 image splitting is not ported and raises."""
     if name not in RETRIEVER_CONFIGS:
         raise KeyError(f"unknown retriever {name!r}; known: {sorted(RETRIEVER_CONFIGS)}")
     if quantize is None:
@@ -268,15 +300,16 @@ def load_retriever(
             "see ROADMAP.md, kernels K8/K9 and ops/quant")
     if quantize is not None:
         raise ValueError(f"unknown quantize mode {quantize!r}")
-    if dynamic_resolution:
+    cfg = RETRIEVER_CONFIGS[name]()
+    family = family_of(cfg)
+    if dynamic_resolution and family == "colidefics3":
         raise NotImplementedError(
             "dynamic_resolution (idefics3 image splitting) is not ported yet; "
             "see ROADMAP.md")
-    cfg = RETRIEVER_CONFIGS[name]()
-    family = family_of(cfg)
     device = resolve_device(device)
     model = model_class(cfg)(cfg, device=device, dtype=dtype).eval()
-    processor = PROCESSORS[family](cfg, tokenizer=tokenizer)
+    processor = (ColQwen2Processor(cfg, tokenizer=tokenizer, dynamic_resolution=dynamic_resolution)
+                 if family == "colqwen2" else PROCESSORS[family](cfg, tokenizer=tokenizer))
     ckpt = None if params is not None else _find_checkpoint(name, checkpoint_dir)
     if params is not None:
         model.load_state_dict(params_from_flax(params, cfg))

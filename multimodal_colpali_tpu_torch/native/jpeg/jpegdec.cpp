@@ -13,6 +13,7 @@
 // longjmp in mmpdf.cpp) from a frame that holds no objects.
 
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <new>
 #include <vector>
@@ -1010,5 +1011,31 @@ void jpeg_destroy_decompress(j_decompress_ptr cinfo) {
 }
 
 int mmpdf_jpeg_failures(void) { return tl_failures; }
+
+// A whole JPEG in memory -> malloc'd RGB rows (*out, *w x *h x 3), the
+// pixels jpeg_read_scanlines gives. 0 on success; 1 where the stream does
+// not decode (nothing is allocated then). Free *out with mmjpeg_free.
+int mmjpeg_decode_rgb(const unsigned char* buf, size_t size, unsigned char** out, int* w,
+                      int* h) {
+  *out = nullptr;
+  *w = *h = 0;
+  Decoder d;
+  d.data = buf;
+  d.size = size;
+  try {
+    d.read_header();
+    d.decode_image();
+  } catch (...) {
+    return 1;
+  }
+  size_t n = d.rgb.size();
+  unsigned char* rgb = static_cast<unsigned char*>(malloc(n ? n : 1));
+  if (!rgb) return 1;
+  memcpy(rgb, d.rgb.data(), n);
+  *out = rgb;
+  *w = d.width;
+  *h = d.height;
+  return 0;
+}
 
 }  // extern "C"

@@ -1620,13 +1620,14 @@ def test_pdf_loader_figures_resize_on_card(gen, tmp_path):
 
     from multimodal_colpali_tpu_torch.ingest import pdfwrite
     from multimodal_colpali_tpu_torch.ingest.imageops import read_png
+    from multimodal_colpali_tpu_torch.ingest.rasterize import encode_jpeg
     from multimodal_colpali_tpu_torch.models.processing import SimpleTokenizer
 
     loader = importlib.import_module("multimodal_colpali_tpu_torch.ingest.pdf_loader")
     rng = np.random.default_rng(3)
     w = pdfwrite.PdfWriter()
     big = rng.integers(0, 256, (1000, 1500, 3), dtype=np.uint8)
-    w.add_page(text_lines=["a large JPEG figure"], image=pdfwrite.encode_jpeg(big, 85))
+    w.add_page(text_lines=["a large JPEG figure"], image=encode_jpeg(big, 85))
     w.add_page(text_lines=["a small figure"],
                image=rng.integers(0, 256, (40, 180, 3), dtype=np.uint8))
     pdf = str(tmp_path / "figs.pdf")
@@ -1641,3 +1642,96 @@ def test_pdf_loader_figures_resize_on_card(gen, tmp_path):
     for a, b in zip(pngs["cpu"], pngs["cuda"]):
         assert np.array_equal(read_png(a), read_png(b)), a.name
     assert read_png(pngs["cpu"][0]).shape[:2] == (867, 1300)
+
+
+@pytest.mark.parametrize("form", ["windows", "full"])
+def test_attention_at_the_colqwen25_tower_shapes(gen, form):
+    """K2 at D = 80, ColQwen2.5's tower at the 54 x 54 bucket for 2 pages:
+    its 49 windows of 64 patches folded into the batch with each window's
+    ``kv_lens`` (edge windows hold 32 or 16 real patches), ``[98, 64, 16,
+    80]``, and its full blocks over the padded 3,136 patches with
+    ``kv_valid`` (2,916 real keys), ``[2, 3136, 16, 80]``. The tensor-core
+    path against the plain version, a repeat bit-identical."""
+    from multimodal_colpali_tpu_torch.models.configs import ColQwen2ModelConfig
+    from multimodal_colpali_tpu_torch.models.qwen2vl import window_layout
+
+    cfg = ColQwen2ModelConfig.colqwen2_5_v0_2()
+    lay = window_layout(cfg.vision, 54, 54)
+    b = 2
+    if form == "windows":
+        n_win, w = lay["win"]
+        assert (n_win, w) == (49, 64)
+        shape = (b * n_win, w, 16, 80)
+        kw = {"kv_lens": torch.from_numpy(lay["win_lens"]).cuda().repeat(b)}
+    else:
+        valid = torch.from_numpy(lay["full_valid"]).cuda()
+        assert valid.numel() == 3136 and int(valid.sum()) == 2916
+        shape = (b, 3136, 16, 80)
+        kw = {"kv_valid": valid[None].expand(b, -1)}
+    q, k, v = (_randn(gen, *shape, dtype=torch.bfloat16) for _ in range(3))
+    before = A.fused_attention_cuda.tensor_core_launches
+    got = A.fused_attention_cuda(q, k, v, scale=80 ** -0.5, **kw)
+    # a window averages 16-64 values (outputs up to ~3, where a bf16 step is
+    # 2^-6): within 2^-7 |want| + 2^-8 (P |V|) an element, twice the bf16
+    # roundings of the outputs and of P, and within 2e-2; a full block
+    # 2,916: atol 5e-3
+    assert A.fused_attention_cuda.tensor_core_launches == before + 1
+    step = 1 if form == "full" else shape[0]
+    want = torch.cat([A.attention_reference(
+        q[i: i + step], k[i: i + step], v[i: i + step], scale=80 ** -0.5,
+        **{n: t[i: i + step] for n, t in kw.items()}) for i in range(0, shape[0], step)])
+    if form == "windows":
+        pv = torch.cat([A.attention_reference(
+            q[i: i + step], k[i: i + step], v[i: i + step].abs(), scale=80 ** -0.5,
+            **{n: t[i: i + step] for n, t in kw.items()}) for i in range(0, shape[0], step)])
+        excess = (got.float() - want.float()).abs() - 2 ** -7 * want.float().abs() \
+            - 2 ** -8 * pv.float()
+        assert float(excess.max()) <= 0, float(excess.max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=5e-3)
+    assert torch.equal(A.fused_attention_cuda(q, k, v, scale=80 ** -0.5, **kw), got)
+
+
+def test_colqwen25_tower_on_card_launches_k2_at_both_forms(gen):
+    """A 4-block qwen2_5 tower at ColQwen2.5's width (1,280, 16 heads of 80)
+    on a ragged 10 x 14 grid (4 windows padded to 64 patches): window layers
+    take K2 with ``kv_lens``, the full block with ``kv_valid``, all on the
+    tensor cores; the bf16 output stays within 5% of its largest value of
+    the same tower in float32 on the CPU."""
+    import dataclasses
+
+    from multimodal_colpali_tpu_torch.models.configs import ColQwen2ModelConfig
+    from multimodal_colpali_tpu_torch.models.qwen2vl import Qwen2VisionTower
+    from multimodal_colpali_tpu_torch.models.registry import init_random_params_
+
+    v = dataclasses.replace(ColQwen2ModelConfig.colqwen2_5_v0_2().vision, depth=4,
+                            fullatt_block_indexes=(3,))
+    cpu = Qwen2VisionTower(v, device="cpu", dtype=torch.float32).eval()
+    init_random_params_(cpu, seed=1, family="colqwen2")
+    card = Qwen2VisionTower(v, device="cuda", dtype=torch.bfloat16).eval()
+    card.load_state_dict({n: t.to(torch.bfloat16) for n, t in cpu.state_dict().items()})
+    x = torch.randn(2, 140, v.patch_dim, generator=torch.Generator().manual_seed(2))
+    from multimodal_colpali_tpu_torch.models import layers as L
+
+    calls = []
+    orig = L.fused_attention
+
+    def spy(q, k, v_, kv_lens=None, kv_valid=None, **kw):
+        calls.append((tuple(q.shape), kv_lens is not None, kv_valid is not None))
+        return orig(q, k, v_, kv_lens, kv_valid, **kw)
+
+    L.fused_attention = spy
+    try:
+        before = A.fused_attention_cuda.tensor_core_launches
+        with torch.no_grad():
+            got = card(x.cuda().to(torch.bfloat16), 10, 14)
+    finally:
+        L.fused_attention = orig
+    assert A.fused_attention_cuda.tensor_core_launches == before + 4
+    assert calls == [((2 * 4, 64, 16, 80), True, False)] * 3 + [((2, 256, 16, 80), False, True)]
+    with torch.no_grad():
+        want = cpu(x, 10, 14)
+    assert got.shape == want.shape == (2, 35, v.hidden_size)
+    torch.testing.assert_close(got.float().cpu(), want, rtol=0,
+                               atol=5e-2 * float(want.abs().max()))

@@ -201,26 +201,123 @@ def test_png_reader_takes_every_filter_type():
     np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(blob))), img)
 
 
+def _chunk(kind, data):
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def _png(samples, ctype, depth, interlace=0, palette=None, trns=None, seed=0):
+    """A PNG written by hand: ``samples`` ``[H, W, C]`` at ``depth`` bits,
+    packed and filtered (every filter type, rows chosen at random), one pass
+    or Adam7's seven, the data split over two IDAT chunks."""
+    rng = np.random.default_rng(seed)
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+              (1, 0, 2, 2), (0, 1, 1, 2)) if interlace else ((0, 0, 1, 1),)
+    raw = b""
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        if depth == 16:
+            rows = sub.astype(">u2").reshape(sub.shape[0], -1).view(np.uint8).astype(int)
+        elif depth == 8:
+            rows = sub.reshape(sub.shape[0], -1).astype(int)
+        else:
+            bits = ((sub.reshape(sub.shape[0], -1, 1).astype(np.uint8)
+                     >> np.arange(depth - 1, -1, -1, dtype=np.uint8)) & 1)
+            rows = np.packbits(bits.reshape(sub.shape[0], -1), axis=1).astype(int)
+        prior = np.zeros(rows.shape[1], int)
+        for row in rows:
+            kind = int(rng.integers(0, 5))
+            out = []
+            for i, x in enumerate(row):
+                left = row[i - bpp] if i >= bpp else 0
+                ul = prior[i - bpp] if i >= bpp else 0
+                pa, pb, pc = abs(prior[i] - ul), abs(left - ul), abs(left + prior[i] - 2 * ul)
+                paeth = left if pa <= pb and pa <= pc else (prior[i] if pb <= pc else ul)
+                pred = [0, left, prior[i], (left + prior[i]) // 2, paeth][kind]
+                out.append((x - pred) % 256)
+            raw += bytes([kind] + out)
+            prior = row
+    blob = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype,
+                                                                 0, 0, interlace))
+    if palette is not None:
+        blob += _chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    if trns is not None:
+        blob += _chunk(b"tRNS", trns)
+    z = zlib.compress(bytes(raw))                  # in two IDAT chunks
+    return (blob + _chunk(b"IDAT", z[: len(z) // 2]) + _chunk(b"IDAT", z[len(z) // 2:])
+            + _chunk(b"IEND", b""))
+
+
+KINDS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2), (3, 4),
+         (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("ctype,depth", KINDS)
+def test_png_reader_takes_every_color_type_and_depth(ctype, depth, interlace):
+    """Every color type at every bit depth the standard allows, plain and
+    Adam7-interlaced, at sizes that leave some of Adam7's passes empty:
+    ``decode_image`` gives Pillow's ``convert("RGB")`` pixels, and
+    ``decode_png`` Pillow's values in its own mode."""
+    rng = np.random.default_rng(ctype * 100 + depth + 7 * interlace)
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    for h, w in ((1, 1), (3, 2), (9, 13), (20, 7)):
+        top = 1 << depth
+        palette = trns = None
+        if ctype == 3:
+            n = min(top, 11)
+            palette = rng.integers(0, 256, (n, 3))
+            samples = rng.integers(0, n, (h, w, 1))
+            trns = bytes(rng.integers(0, 256, n // 2, dtype=np.uint8))
+        else:
+            samples = rng.integers(0, top, (h, w, channels))
+            if depth == 16 and ctype == 0:      # values on both sides of 255
+                samples[::2] = rng.integers(0, 300, samples[::2].shape)
+            if ctype in (0, 2):
+                trns = b"\x00\x01" * channels
+        blob = _png(samples, ctype, depth, interlace, palette, trns, seed=h * w)
+        want = Image.open(io.BytesIO(blob))
+        np.testing.assert_array_equal(imageops.decode_image(blob),
+                                      np.asarray(want.convert("RGB")))
+        mode = {0: "L", 2: "RGB", 3: "RGB", 4: "LA", 6: "RGBA"}[ctype]
+        np.testing.assert_array_equal(imageops.decode_png(blob), np.asarray(want.convert(mode)))
+
+
 def test_png_refuses_what_it_does_not_read(tmp_path):
-    pal = tmp_path / "p.png"
-    Image.fromarray(np.zeros((4, 4), np.uint8)).convert("P").save(pal)
-    with pytest.raises(ValueError, match="palette|unsupported"):
-        imageops.read_png(pal)
-    sixteen = tmp_path / "i16.png"
-    Image.fromarray(np.zeros((4, 4), np.uint16)).save(sixteen)
-    with pytest.raises(ValueError, match="unsupported"):
-        imageops.read_png(sixteen)
+    """What is not a valid PNG raises in ``decode_png`` and is None in
+    ``decode_image``: a bit depth its color type does not allow, an
+    unknown interlace method, a palette image without a palette or with an
+    index past it, a bad CRC, data of the wrong size, not a PNG."""
     blob = imageops.encode_png(np.zeros((4, 4, 3), np.uint8))
-    ihdr = blob[16:28] + b"\x01"                  # interlace method 1 (Adam7)
-    crc = struct.pack(">I", zlib.crc32(b"IHDR" + ihdr) & 0xFFFFFFFF)
-    with pytest.raises(ValueError, match="interlace 1"):
-        imageops.decode_png(blob[:16] + ihdr + crc + blob[33:])
+    for depth, ctype, interlace in ((4, 2, 0), (16, 3, 0), (8, 5, 0), (8, 2, 2)):
+        ihdr = struct.pack(">IIBBBBB", 4, 4, depth, ctype, 0, 0, interlace)
+        bad = blob[:8] + _chunk(b"IHDR", ihdr) + blob[33:]
+        with pytest.raises(ValueError, match="unsupported"):
+            imageops.decode_png(bad)
+        assert imageops.decode_image(bad) is None
+    pal = _png(np.array([[[0], [1]], [[2], [1]]]), 3, 8, palette=np.zeros((3, 3)))
+    past = _png(np.array([[[0], [3]], [[2], [1]]]), 3, 8, palette=np.zeros((3, 3)))
+    np.testing.assert_array_equal(imageops.decode_png(pal), np.zeros((2, 2, 3), np.uint8))
+    with pytest.raises(ValueError, match="palette index 3"):
+        imageops.decode_png(past)
+    no_plte = _png(np.array([[[0]]]), 3, 8)
+    with pytest.raises(ValueError, match="without a PLTE"):
+        imageops.decode_png(no_plte)
+    short = blob[:33] + _chunk(b"IDAT", zlib.compress(b"\x00" * 10)) + _chunk(b"IEND", b"")
+    with pytest.raises(ValueError, match="wrong size"):
+        imageops.decode_png(short)
     bad = bytearray(blob)
     bad[30] ^= 0xFF                                # a byte of the IHDR CRC
     with pytest.raises(ValueError, match="CRC"):
         imageops.decode_png(bytes(bad))
     with pytest.raises(ValueError, match="PNG"):
         imageops.decode_png(b"GIF89a")
+    for data in (past, no_plte, short, bytes(bad)):
+        assert imageops.decode_image(data) is None
     with pytest.raises(ValueError, match="uint8"):
         imageops.encode_png(np.zeros((4, 4, 2), np.uint8))
 

@@ -154,10 +154,10 @@ def test_jpeg_decoder_matches_libjpeg_on_every_sampling(shape, sampling):
     components 2 or fewer samples wide), with restart markers and in gray,
     decode to libjpeg's pixels."""
     img = _smooth_image(np.random.default_rng(sum(shape) + 7 * sampling[0] + sampling[1]), *shape)
-    assert _decoded_like_libjpeg(_jpeg_pdf(tpdfwrite.encode_jpeg(img, 75, sampling))) == 1
+    assert _decoded_like_libjpeg(_jpeg_pdf(traster.encode_jpeg(img, 75, sampling))) == 1
     assert _decoded_like_libjpeg(_jpeg_pdf(
-        tpdfwrite.encode_jpeg(img, 40, sampling, restart_interval=3))) == 1
-    assert _decoded_like_libjpeg(_jpeg_pdf(tpdfwrite.encode_jpeg(img[..., 1], 80))) == 1
+        traster.encode_jpeg(img, 40, sampling, restart_interval=3))) == 1
+    assert _decoded_like_libjpeg(_jpeg_pdf(traster.encode_jpeg(img[..., 1], 80))) == 1
 
 
 @pytest.mark.parametrize("subsampling", [0, 1, 2])
@@ -186,7 +186,7 @@ def test_jpeg_decoder_matches_libjpeg_on_damaged_streams():
     with a warning: the one case where the port's page differs."""
     rng = np.random.default_rng(5)
     img = _smooth_image(rng, 120, 160)
-    full = tpdfwrite.encode_jpeg(img, 90, restart_interval=4)
+    full = traster.encode_jpeg(img, 90, restart_interval=4)
     garbled = bytearray(full)
     garbled[len(full) // 3:len(full) // 3 + 40] = rng.integers(0, 255, 40, dtype=np.uint8).tobytes()
     for data in (full[:len(full) // 2], bytes(garbled)):
@@ -206,11 +206,11 @@ def test_encode_jpeg_is_read_back_by_pillow():
     img = np.stack([128 + 100 * np.sin(x / 7 + k) * np.cos(y / 9 - k) for k in range(3)], -1)
     img = np.clip(img, 0, 255).astype(np.uint8)
     for sampling in ((2, 2), (1, 1)):
-        data = tpdfwrite.encode_jpeg(img, 90, sampling)
+        data = traster.encode_jpeg(img, 90, sampling)
         assert tpdfwrite.jpeg_size(data) == (72, 48, 3)
         back = np.asarray(Image.open(io.BytesIO(data)).convert("RGB")).astype(int)
         assert back.shape == img.shape and np.abs(back - img).mean() < 2.5
-    gray = tpdfwrite.encode_jpeg(img[..., 0], 90)
+    gray = traster.encode_jpeg(img[..., 0], 90)
     assert tpdfwrite.jpeg_size(gray) == (72, 48, 1)
     assert np.abs(np.asarray(Image.open(io.BytesIO(gray))).astype(int) - img[..., 0]).max() <= 3
 
