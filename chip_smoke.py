@@ -64,7 +64,8 @@ phase; any failure exits non-zero.
    Last, K2 at the shape phase 8 gives it, Gemma-3's SigLIP-So400m at 896 px:
    5 images of 4,096 patches ``[5, 4096, 16, 72]`` (the plain version one
    image at a time, SDPA beside) at atol 5e-3, which the outputs' smaller
-   scale at 4,096 keys calls for.
+   scale at 4,096 keys calls for; and at phase 13's ColGranite tower, a
+   batch of 8 pages of 729 patches ``[8, 729, 16, 72]``, also at 5e-3.
 3. ColPali at full width, from a checkpoint: a bf16 HF-layout checkpoint of
    ``vidore/colpali-v1.3`` (the ``ColPaliForRetrieval`` tensors, 5.85 GB,
    norms at their identity, every other tensor N(0, fan_in^-0.5) from
@@ -211,7 +212,8 @@ phase; any failure exits non-zero.
    classifier's device time), the device's idle share over (c) (CUDA
    events around the forwards against the wall) and the peak memory.
 
-Each main path (3, 4, each run of 5, 6, 7, 8, 9 and 10; run (e) a sweep at a time) sets every launch
+Each main path (3, 4, each run of 5, 6, 7, 8, 9 and 10; run (e) a sweep at a
+time; 11; each process of 12; each part of 13) sets every launch
 counter to 0 before it runs and reads them after; each kernel of the path
 must have run in it (ColPali, ColSmol and ColFlor: K1's tensor-core path,
 ColSmol K4's too; ColPali, ColSmol and both runs of 7: K2's tensor-core
@@ -219,13 +221,17 @@ path; every run of phases 5, 7 and 8 and run (e)'s sweep 2: K7's tensor-core
 path; both runs of 8:
 K2's tensor-core path; run (c) and image runs (b): both of K8a's tiles and
 K8b; run (d): both of K9's tiles; phase 9: none, every counter stays 0; phase 10: K2's
-tensor-core path and K3). The line before the last is a JSON object with
+tensor-core path and K3; phase 13: (a) K2's tensor-core path at the tower's shapes and K1's
+tensor-core path, (b) K5a with every GEMM on ``gemm_wgmma`` and K1, (c)
+K2's tensor-core path and K1, and no K5 GEMM, K8a or K8b). The line before the last is a JSON object with
 each kernel's launches in those paths, its error against the plain version,
 its time, the plain version's, its bound and, for K2, K6, K8a, K8b and K9,
 the library call's (null where this torch has none); K8a and K9 have a row a
 tile (``int8_matmul_kn`` / ``int4_matmul_kn`` the decode tile at 8 tokens,
-``*.prefill`` the prefill tile at 512), K2 a second row at the Gemma-3
-tower's shape (``attention.gemma3_tower``, phase 8's launches), the K5 GEMM a row a role
+``*.prefill`` the prefill tile at 512), K2 a row at the Gemma-3
+tower's shape (``attention.gemma3_tower``, phase 8's launches), at ColQwen2.5's window
+and full-block shapes (phase 11's) and at ColGranite's tower shape
+(``attention.granite_tower``, phase 13 (a)'s square layout), the K5 GEMM a row a role
 (``gemm.qkv``, ``gemm.out_proj``, ``gemm.fc1``, ``gemm.fc2``, each with
 ``cublas_bare_ms``) and its statistics pre-pass one (``ln_stats``). The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
@@ -265,6 +271,39 @@ result.
     ``score_results``, K2 on its tensor cores in the server's image
     forwards and K7a in its decode; experiment 02's wall split into embed /
     retrieve / encode / serve. Its launches join the kernels line.
+13. The rest of the reference's retriever grid (after phase 11, while phase
+    3's checkpoint exists; phase 12 stays last), three main paths each with
+    its own counts. (a) ColGranite at full width:
+    ``ibm-granite/granite-vision-3.3-2b-embedding`` (2.95B, random bf16
+    weights from ``--seed`` made on the card): 16 synthetic 384 x 384 pages in
+    batches of 8 through ``colpali_qdrant``, 4 queries through
+    ``retrieve_colpali`` against ``score_results`` (the same top 5 up to
+    near-ties); K2 27 launches a forward at ``[8, 729, 16, 72]`` on its
+    tensor cores; then 4 pages of two aspects under ``dynamic_resolution``
+    (anyres), one group a layout, each page's tokens
+    ``n_image_tokens_for`` its layout; then K2 against its plain version on
+    the tower's own q, k, v at each shape it ran (``[8, 729]`` square,
+    ``[10, 729]`` anyres). (b) ColSmol with image splitting at
+    full width (``vidore/colSmol-256M``, random bf16): 2 PDFs of 4 letter
+    pages (5 sub-images, 320 image tokens a page) through
+    ``PipelinedEmbedder`` and ``create_document_embeddings`` (``embed_images``
+    a PDF), within 2e-2 of each other; 12 K5a launches a forward, every GEMM
+    on ``gemm_wgmma``; K1 in the scores; K5a against its plain version on
+    every layer's input at both batches of sub-images it ran (``[40, 1024,
+    768]`` and ``[20, 1024, 768]``, atol 3e-2 + rtol 3e-2); then the same
+    tower quantized (W8A8) over one page: no K5a or K5 GEMM, K2 on each
+    layer, mean cosine with bf16 >= 0.98. (c) W8A8: ``vidore/colpali-v1.3``
+    from phase 3's checkpoint with ``quantize="int8"`` against the same
+    checkpoint in bf16 on phase 3's pages and queries, both timed alike (mean
+    per-token cosine >= 0.98; each query's top-1 page bf16's, or within
+    twice the other queries' largest |int8 - bf16| score of it; K2 and K1, no
+    K5 GEMM, K8a or K8b); ``w8a8_dense`` at ColPali's Gemma MLP ``[8 x 1,030,
+    2,048] -> 16,384``, its int32 sums equal to an exact product on the host
+    (float64: these integer sums stay below 2^53), timed beside one bf16
+    ``torch.mm``; Gemma-3's SigLIP-So400m at 896 px (as ``_vision_parts``
+    builds it) int8 against bf16 over 5 images: the soft tokens' mean cosine
+    >= 0.98. Printed: pages/s (square, anyres, ColSmol both ways, W8A8), ms
+    a query, image tokens a page, peaks, the phase's wall time.
 """
 
 from __future__ import annotations
@@ -296,6 +335,11 @@ QWEN = dict(pages=16, batch=8, size=756, dyn=((1000, 700), (560, 1100)), dyn_pag
 # that dropped a 64-key block (max|err| about 0.017); bf16 rounding of P and
 # the output stays near 2e-3 here
 K2_GEMMA3_ATOL = 5e-3
+# ColGranite's SigLIP-So400m at 384 px (27 x 27 patches), phase 13's batch of
+# 8 pages; its outputs average 729 values (std about sqrt(e / 729) = 0.06):
+# dropping a 64-key block moves them by about 0.02, bf16 rounding by ~2e-3
+K2_GRANITE = dict(b=8, s=729, h=16, d=72)
+K2_GRANITE_ATOL = 5e-3
 # ColQwen2.5's windows average 16-64 values, so their outputs reach ~3 in
 # magnitude, where one bf16 step is 2^-6. The kernel rounds P to bf16 (2^-9
 # of each p) before P V and its output once more, the plain version its
@@ -628,6 +672,7 @@ def phase_kernels(torch, seed: int):
     # its own generator: the inputs drawn from g above stay as they were
     g3 = torch.Generator(device=dev).manual_seed(seed + 3)
     results.update(gemma3_tower_attention(torch, g3))
+    results.update(granite_tower_attention(torch, g3))
     results.update(colqwen_attention_kernels(torch, g3))
     return results
 
@@ -635,15 +680,29 @@ def phase_kernels(torch, seed: int):
 def gemma3_tower_attention(torch, g):
     """K2 at the shape phase 8 gives it: Gemma-3's SigLIP-So400m at 896 px,
     5 images (exp-02's top 5) of 4,096 patches, ``[5, 4096, 16, 72]`` bf16,
-    no mask. The plain version runs one image at a time (its float32 scores
-    are 1 GiB an image); the kernel must take its tensor-core path, stay
-    within ``K2_GEMMA3_ATOL`` and repeat bit for bit. SDPA on the same tensors
+    no mask (``tower_attention``)."""
+    return {"attention.gemma3_tower": tower_attention(torch, g, K2_GEMMA3, K2_GEMMA3_ATOL,
+                                                      "the Gemma-3 tower's shape")}
+
+
+def granite_tower_attention(torch, g):
+    """K2 at the shape phase 13 (a) gives it: ColGranite's SigLIP-So400m at
+    384 px, a batch of 8 pages of 729 patches, ``[8, 729, 16, 72]`` bf16, no
+    mask (``tower_attention``)."""
+    return {"attention.granite_tower": tower_attention(torch, g, K2_GRANITE, K2_GRANITE_ATOL,
+                                                       "ColGranite's tower shape")}
+
+
+def tower_attention(torch, g, c: dict, atol: float, label: str) -> dict:
+    """K2 at a SigLIP tower's shape ``c`` (bf16, no mask) -> its kernels row.
+    The plain version runs one image at a time (at 4,096 patches its float32
+    scores are 1 GiB an image); the kernel must take its tensor-core path,
+    stay within ``atol`` and repeat bit for bit. SDPA on the same tensors
     beside."""
     from multimodal_colpali_tpu_torch._timing import eager_ms
     import torch.nn.functional as F
     from multimodal_colpali_tpu_torch.ops import attention as A
 
-    c = K2_GEMMA3
     dev = torch.device("cuda")
     shape = (c["b"], c["s"], c["h"], c["d"])
     qkv = [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16) for _ in range(3)]
@@ -651,7 +710,7 @@ def gemma3_tower_attention(torch, g):
     tc = A.fused_attention_cuda.tensor_core_launches
     got = A.fused_attention_cuda(*qkv, scale=scale)
     require(A.fused_attention_cuda.tensor_core_launches == tc + 1,
-            "K2 at the Gemma-3 tower's shape did not take the tensor-core path")
+            f"K2 at {label} did not take the tensor-core path")
 
     def plain():
         return torch.cat([A.attention_reference(*(x[i: i + 1] for x in qkv), scale=scale)
@@ -659,27 +718,28 @@ def gemma3_tower_attention(torch, g):
 
     want = plain()
     err = float((got.float() - want.float()).abs().max())
-    require(err <= K2_GEMMA3_ATOL, f"K2 at [{', '.join(map(str, shape))}]: max|err| {err} > "
-                                   f"{K2_GEMMA3_ATOL}")
+    require(err <= atol, f"K2 at [{', '.join(map(str, shape))}]: max|err| {err} > {atol}")
     require(torch.equal(A.fused_attention_cuda(*qkv, scale=scale), got),
-            "K2 at the Gemma-3 tower's shape: a repeated call differs")
+            f"K2 at {label}: a repeated call differs")
     del want
     torch.cuda.empty_cache()
+    iters = 3 if c["s"] >= 4096 else 10
     k_ms, p_ms = timed_pair(torch, lambda: A.fused_attention_cuda(*qkv, scale=scale), plain,
-                            iters=3)
+                            iters=iters)
     qt, kt, vt = (x.transpose(1, 2) for x in qkv)
-    lib_ms = eager_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=5)
+    lib_ms = eager_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+                      iters=iters + 2)
     r = row(err, k_ms, p_ms, 4 * qkv[0].numel() * 2,
             4.0 * c["b"] * c["h"] * c["s"] ** 2 * c["d"], library_ms=lib_ms)
-    print(f"[kernels] K2 attention at the Gemma-3 tower's shape {list(shape)} bf16 (tensor "
+    print(f"[kernels] K2 attention at {label} {list(shape)} bf16 (tensor "
           f"cores, {A.block_rows(torch.bfloat16, c['s'], c['d'])}-row blocks): max|err| "
-          f"{err:.3g} (atol {K2_GEMMA3_ATOL}), repeat bit-identical | kernel {k_ms:.3f} ms, plain "
+          f"{err:.3g} (atol {atol}), repeat bit-identical | kernel {k_ms:.3f} ms, plain "
           f"{p_ms:.3f} ms (one image at a time), scaled_dot_product_attention {lib_ms:.3f} ms, "
           f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
           f"{4.0 * c['b'] * c['h'] * c['s'] ** 2 * c['d'] / k_ms / 1e9:.1f} TFLOP/s", flush=True)
     del qkv, got
     torch.cuda.empty_cache()
-    return {"attention.gemma3_tower": r}
+    return r
 
 
 def colqwen_attention_kernels(torch, g):
@@ -3832,6 +3892,526 @@ def phase_colqwen(torch, seed: int, card: str, ckpt_root: Path) -> dict:
                                           if kind == "kv_valid")}
 
 
+# phase 13: the rest of the reference's retriever grid. ColGranite: 16 square
+# pages in batches of 8, then 4 pages of two aspects (h, w) under anyres in
+# batches of 2 (about 3,000 image tokens a page: the LM's float32 attention
+# scores are ~1.2 GB a page a layer); ColSmol with image splitting: 2 PDFs of
+# 4 letter pages (5 sub-images a page at longest_edge 1,024); W8A8: phase 3's
+# checkpoint and pages, and Gemma-3's 896-px tower over 5 images
+GRANITE = "ibm-granite/granite-vision-3.3-2b-embedding"
+COLSMOL = "vidore/colSmol-256M"
+GRID = dict(pages=16, batch=8, size=384, anyres=((1100, 850), (600, 1000)), anyres_pages=4,
+            anyres_batch=2, smol_pdfs=2, smol_pages=4, smol_batch=8, cos=0.98, g3_images=5,
+            mlp=(8 * 1030, 2048, 16384))
+
+
+def unit_rows(np, embs, n_tokens=None):
+    """Each embedding finite, of ``n_tokens`` rows where given, unit-norm rows."""
+    for e in embs:
+        require(n_tokens is None or e.shape[0] == n_tokens,
+                f"an embedding of {e.shape[0]} tokens, not {n_tokens}")
+        require(bool(np.isfinite(e).all()), "non-finite embedding")
+        require(bool(np.allclose(np.linalg.norm(e, axis=-1), 1.0, atol=1e-3)),
+                "valid tokens are not unit-norm")
+
+
+def search_agrees(np, retr, embs, pages, client, collection: str, batch: int):
+    """``colpali_qdrant`` of ``pages`` (``embs`` their embeddings) into
+    ``collection``, ``QUERIES`` through ``retrieve_colpali`` against
+    ``score_results``: the same top 5 up to near-ties of the full scores.
+    The store holds bf16 pages and scores a bf16 query, so each of a query's
+    n token maxima may move by 2^-7 (two roundings of unit vectors) and a
+    page's score by n 2^-7: two pages may swap where their float32 scores
+    are within n 2^-6. -> (ms a query, whether identical)."""
+    from multimodal_colpali_tpu_torch import api
+
+    dim = embs[0].shape[1]
+    # the store keeps max_tokens rows a page (1,056 by default, as JAX's) and
+    # drops the rest: ColGranite's square pages hold 1,489
+    api.ensure_colpali_collection(client, collection, vector_size=dim,
+                                  max_tokens=max(e.shape[0] for e in embs))
+    dataset = [{"image": pages[i], "filename": f"doc{i // 4}.pdf", "page_no": i % 4,
+                "img_link": ""} for i in range(len(pages))]
+    api.colpali_qdrant(dataset, [], [], retr, retr.processor, client, collection,
+                       batch_size=batch)
+    api.retrieve_colpali("warm-up query", retr.processor, retr, client, "", collection, TOP_K)
+    query_ms, retrieved = [], []
+    for qtext in QUERIES:
+        t0 = time.perf_counter()
+        res = api.retrieve_colpali(qtext, retr.processor, retr, client, "", collection, TOP_K)
+        query_ms.append((time.perf_counter() - t0) * 1e3)
+        retrieved.append([(p.payload["document_name"], p.payload["page_no"]) for p in res.points])
+    store = [{"embedding": embs[i], "doc_id": i // 4, "page_id": i % 4,
+              "file_name": f"doc{i // 4}.pdf"} for i in range(len(pages))]
+    per_pdf = {f"doc{j}.pdf": pages[4 * j: 4 * j + 4] for j in range(len(pages) // 4)}
+    scored = api.score_results(QUERIES, retr.processor, retr, store, per_pdf, TOP_K)
+    q_embs = retr.embed_queries(QUERIES)
+    full = retr.processor.score_multi_vector(q_embs, embs, device="cuda")
+    index = {(f"doc{i // 4}.pdf", i % 4): i for i in range(len(pages))}
+    exact, gap = True, 0.0
+    for qi, (ret, sc) in enumerate(zip(retrieved, scored)):
+        got = [(r["file_name"], r["page_id"]) for r in sc]
+        require(len(ret) == TOP_K, f"query {qi}: retrieve_colpali returned {len(ret)} pages")
+        exact &= ret == got
+        tie = q_embs[qi].shape[0] * 2.0 ** -6
+        for x, y in zip(ret, got):
+            sa, sb = full[qi, index[x]], full[qi, index[y]]
+            gap = max(gap, abs(sa - sb))
+            require(abs(sa - sb) <= tie,
+                    f"query {qi}: retrieve_colpali {ret} vs score_results {got}: float32 "
+                    f"scores {sa:.4f} / {sb:.4f} beyond a bf16 tie ({tie:.3f})")
+    return float(np.mean(query_ms)), exact, gap
+
+
+def tower_k2_against_plain(torch, inputs: dict) -> dict:
+    """K2 against its plain version on the q, k, v a tower gave it, one set
+    at each shape (``inputs``: shape -> (q, k, v, kv_lens, kv_valid), kw).
+    Activations of a random tower are not N(0, 1) as phase 2's are, so the
+    bound is phase 2's ``K2_GRANITE_ATOL`` plus 2e-2 of the plain value (a
+    bf16 output rounds by 2^-9 of itself). -> max|err| a shape."""
+    from multimodal_colpali_tpu_torch.ops import attention as A
+
+    errs = {}
+    for shape, (args, kw) in sorted(inputs.items()):
+        q, k, v, kv_lens, kv_valid = args
+        got = A.fused_attention_cuda(q, k, v, kv_lens, kv_valid, **kw)
+        want = torch.cat([A.attention_reference(
+            q[i: i + 1], k[i: i + 1], v[i: i + 1], None,
+            None if kv_lens is None else kv_lens[i: i + 1],
+            None if kv_valid is None else kv_valid[i: i + 1], **kw) for i in range(q.shape[0])])
+        err = float((got.float() - want.float()).abs().max())
+        require(torch.allclose(got.float(), want.float(), rtol=2e-2, atol=K2_GRANITE_ATOL),
+                f"K2 at the tower's {list(shape)}: max|err| {err} beyond atol "
+                f"{K2_GRANITE_ATOL} + rtol 2e-2 (max|plain| {float(want.float().abs().max())})")
+        errs[str(list(shape))] = float(f"{err:.3g}")
+    return errs
+
+
+def grid_granite(torch, seed: int, card: str) -> dict:
+    """Phase 13 (a): ColGranite at full width, random bf16 weights made on the
+    card. The square layout through ``colpali_qdrant``, ``retrieve_colpali``
+    and ``score_results``; then anyres, one group a layout, each page's
+    tokens ``n_image_tokens_for`` its layout. K2 on its tensor cores at the
+    tower's shapes, K1 in the searches; K2 against its plain version on the
+    tower's q, k, v at each shape. -> launches and K2's at [8, 729]."""
+    import warnings
+
+    import numpy as np
+    from multimodal_colpali_tpu_torch.models import layers as L
+    from multimodal_colpali_tpu_torch.models import load_retriever
+    from multimodal_colpali_tpu_torch.models.processing_granite import ColGraniteProcessor
+    from multimodal_colpali_tpu_torch.models.registry import Retriever
+    from multimodal_colpali_tpu_torch.store import VectorClient
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # random weights: the init warns
+        retr = load_retriever(GRANITE, device="cuda", dtype=torch.bfloat16, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg = retr.model.cfg
+    n_params = sum(p.numel() for p in retr.model.parameters())
+    shapes = {}
+
+    inputs = {}                 # the first q, k, v at each shape, for K2 against plain
+
+    def recorded(orig):
+        def run(q, k, v, kv_lens=None, kv_valid=None, **kw):
+            shapes[tuple(q.shape)] = shapes.get(tuple(q.shape), 0) + 1
+            if tuple(q.shape) not in inputs:
+                inputs[tuple(q.shape)] = ([None if x is None else x.clone()
+                                          for x in (q, k, v, kv_lens, kv_valid)], kw)
+            return orig(q, k, v, kv_lens, kv_valid, **kw)
+        return run
+
+    wrappers = kernel_wrappers()
+    b = GRID["batch"]
+    pages = synthetic_pages(GRID["pages"], GRID["size"], seed + 30)
+    retr.embed_images(pages[:b], batch_size=b)            # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    with Patched(L, "fused_attention", recorded):
+        t0 = time.perf_counter()
+        embs = retr.embed_images(pages, batch_size=b)
+        torch.cuda.synchronize()
+        embed_s = time.perf_counter() - t0
+        n_tok = retr.processor.process_images(pages[:1])["input_ids"].shape[1]
+        unit_rows(np, embs, n_tok)
+        client = VectorClient(device="cuda")
+        ms_query, exact, gap = search_agrees(np, retr, embs, pages, client, "granite", b)
+        torch.cuda.synchronize()
+        launches = read_counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        square_k2 = dict(shapes)
+        forwards = 2 * GRID["pages"] // b                 # embed_images, colpali_qdrant
+        layers = cfg.feature_layers
+        heads = cfg.vision.num_attention_heads
+        head_dim = cfg.vision.hidden_size // heads
+        want = {(b, cfg.grid ** 2, heads, head_dim): layers * forwards}
+        require(square_k2 == want, f"ColGranite's tower launched K2 at {square_k2}, not {want}")
+        # anyres on the same weights: one group a layout
+        dyn = Retriever(name=GRANITE, model=retr.model, device=retr.device, dtype=retr.dtype,
+                        family="colgranite",
+                        processor=ColGraniteProcessor(cfg, tokenizer=retr.processor.tokenizer,
+                                                      anyres=True))
+        half = GRID["anyres_pages"] // 2
+        dpages = [synthetic_pages(1, max(hw), seed + 40 + i)[0][:hw[0], :hw[1]]
+                  for hw in GRID["anyres"] for i in range(half)]
+        groups = dyn.processor.group_by_grid(dpages)
+        dyn.embed_images(dpages[:1], batch_size=1)        # warm-up
+        shapes.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dembs = dyn.embed_images(dpages, batch_size=GRID["anyres_batch"])
+        torch.cuda.synchronize()
+        dyn_s = time.perf_counter() - t0
+        dyn_peak = torch.cuda.max_memory_allocated() / 2**30
+        launches_all = read_counts(wrappers)
+    require(len(groups) == 2, f"anyres gave the layouts {groups}")
+    extra = n_tok - cfg.n_image_tokens
+    for grid, idxs in groups:
+        unit_rows(np, [dembs[i] for i in idxs], cfg.n_image_tokens_for(grid) + extra)
+    tiles = [g[0] * g[1] for g, idxs in groups for _ in idxs]
+    require(sum(shapes.values()) == layers * len(groups) and all(
+        s[1:] == (cfg.grid ** 2, heads, head_dim) for s in shapes),
+            f"anyres: K2 launches {shapes}")
+    require(launches_all["attention"] == launches_all["attention.tensor_core"] > 0
+            and launches["maxsim"] > 0 and launches["maxsim.tensor_core"] > 0,
+            f"ColGranite: K2 off its tensor-core path, or no K1: {launches_all}")
+    k2_errs = tower_k2_against_plain(torch, inputs)
+    print(f"[grid] (a) {GRANITE} {n_params / 1e9:.3f}B params bf16 (random init on the card "
+          f"{init_s:.1f} s): {GRID['pages']} square pages of {GRID['size']} px ({n_tok} tokens, "
+          f"{cfg.n_image_tokens} image) in batches of {b}: embed {GRID['pages'] / embed_s:.2f} "
+          f"pages/s; retrieve_colpali {ms_query:.1f} ms/query; top-{TOP_K} vs score_results "
+          f"{'identical' if exact else f'equal up to bf16 ties (largest gap {gap:.4f})'}; "
+          f"K2 {want[next(iter(want))]} "
+          f"launches at {list(next(iter(want)))} on its tensor cores; peak {peak:.1f} GiB | "
+          f"anyres: {len(dpages)} pages at layouts {[g for g, _ in groups]} "
+          f"({[dembs[i].shape[0] for _, idxs in groups for i in idxs]} tokens, "
+          f"{sum(tiles) + len(tiles)} sub-images) in batches of {GRID['anyres_batch']}: "
+          f"{len(dpages) / dyn_s:.2f} pages/s, peak {dyn_peak:.1f} GiB | K2 against its plain "
+          f"version on the tower's first q, k, v at each shape: {k2_errs} | {card}", flush=True)
+    del retr, dyn, client, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches_all, "attention.granite_tower": sum(square_k2.values())}
+
+
+def grid_colsmol(torch, seed: int, card: str, work: str) -> dict:
+    """Phase 13 (b): ColSmol-256M at full width with image splitting (random
+    bf16 weights): letter-size PDFs through ``PipelinedEmbedder`` and through
+    ``create_document_embeddings`` (``embed_images`` a PDF), within 2e-2 of
+    each other; every tower GEMM on ``gemm_wgmma`` (K5a), K1 in the scores;
+    K5a against its plain version on every layer's input of the path; the
+    tower quantized takes K2 and no K5a. -> launches."""
+    import warnings
+
+    import numpy as np
+    from multimodal_colpali_tpu_torch import api
+    from multimodal_colpali_tpu_torch.ingest.pdfwrite import make_sample_pdf
+    from multimodal_colpali_tpu_torch.ingest.pipeline import PipelinedEmbedder
+    from multimodal_colpali_tpu_torch.models import load_retriever
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+    from multimodal_colpali_tpu_torch.ops.quant import quantize_encoder_params
+
+    pdfs = Path(tempfile.mkdtemp(dir=work))
+    for i in range(GRID["smol_pdfs"]):
+        make_sample_pdf(str(pdfs / f"p{i}.pdf"), n_pages=GRID["smol_pages"], lines_per_page=40,
+                        seed=seed + i)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        retr = load_retriever(COLSMOL, device="cuda", dtype=torch.bfloat16, seed=seed,
+                              dynamic_resolution=True)
+    cfg = retr.model.cfg
+    b = GRID["smol_batch"]
+    wrappers = kernel_wrappers()
+    PipelinedEmbedder(retr, batch_size=b).embed_pdf_dir(str(pdfs))      # warm-up
+    torch.cuda.synchronize()
+    layer_inputs = {}           # batch -> each layer's input of its first forward
+
+    def recorded(orig):
+        def run(x, *params, **kw):
+            seen = layer_inputs.setdefault(x.shape[0], [])
+            if len(seen) < cfg.vision.num_hidden_layers:
+                seen.append((x.clone(), params, kw))
+            return orig(x, *params, **kw)
+        return run
+
+    reset_counts(wrappers)
+    with Patched(FL, "fused_vit_layer", recorded):
+        t0 = time.perf_counter()
+        piped = PipelinedEmbedder(retr, batch_size=b).embed_pdf_dir(str(pdfs))
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        seq = api.create_document_embeddings(str(pdfs), retr, batch_size=b)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+    n = GRID["smol_pdfs"] * GRID["smol_pages"]
+    require(len(piped) == len(seq) == n, f"{len(piped)} / {len(seq)} records, not {n}")
+    err = 0.0
+    for a, c in zip(piped, seq):
+        require((a["doc_id"], a["page_id"], a["file_name"]) == (c["doc_id"], c["page_id"],
+                                                               c["file_name"]),
+                "PipelinedEmbedder and create_document_embeddings disagree on the records")
+        require(a["embedding"].shape == c["embedding"].shape, "embedding shapes differ")
+        err = max(err, float(np.abs(a["embedding"] - c["embedding"]).max()))
+    require(err <= 2e-2, f"PipelinedEmbedder vs embed_images: max|diff| {err} > 2e-2")
+    embs = [r["embedding"] for r in piped]
+    unit_rows(np, embs)
+    qs = retr.embed_queries(QUERIES)
+    scores = retr.processor.score_multi_vector(qs, embs, device="cuda")
+    require(scores.shape == (len(QUERIES), n) and bool(np.isfinite(scores).all()),
+            "ColSmol scores")
+    torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    from multimodal_colpali_tpu_torch.ingest.preprocess import resize_image
+    from multimodal_colpali_tpu_torch.ingest.rasterize import PdfDocument
+
+    page = resize_image(PdfDocument(str(pdfs / "p0.pdf")).render(0, dpi=144.0))
+    tiles = retr.processor.tiling_for(page)
+    subs = tiles[0] * tiles[1] + 1
+    # one tiling for every page: the pipeline's batches, then each PDF's
+    forwards = -(-n // b) + GRID["smol_pdfs"] * -(-GRID["smol_pages"] // b)
+    layers = cfg.vision.num_hidden_layers
+    require(launches["vit_layer"] == layers * forwards
+            and launches["gemm"] == launches["gemm.wgmma"] == 4 * launches["vit_layer"]
+            and launches["gemm.cuda_core"] == 0,
+            f"ColSmol's split tower: {launches['vit_layer']} K5a launches (want "
+            f"{layers * forwards}), GEMMs {launches['gemm']} ({launches['gemm.wgmma']} wgmma)")
+    # score_multi_vector pads float32 embeddings: K1's CUDA-core path, as in JAX's order
+    require(launches["maxsim"] > 0, "ColSmol: no K1")
+    n_img = int((retr.processor.process_images([page], grid=tiles)["input_ids"]
+                 == cfg.image_token_id).sum())
+    require(n_img == subs * cfg.n_image_tokens, f"{n_img} image tokens a page")
+    # K5a against its plain version on every layer's input, at each batch of
+    # sub-images the path gave it (the pipeline's 8 pages, each PDF's 4). The
+    # tower's activations reach ~34, not phase 2's N(0, 1), and the kernel and
+    # the plain bf16 layer round apart by a bf16 ulp of the row's largest
+    # terms (0.25 at 16-32), so phase 2's elementwise allclose fails on a
+    # small output beside them. Held instead: (1) |kernel - plain| within
+    # 3e-2 of the row's largest plain value; (2) the kernel within 1.25x the
+    # plain bf16 layer's own error against the plain layer in float32; (3) the
+    # first half of the batch, alone, equal bit for bit to the full batch's
+    # first half (a fault of the batch size alone shows here)
+    k5_err = {}
+    for bsz, seen in sorted(layer_inputs.items()):
+        for li, (x, params, kw) in enumerate(seen):
+            where = f"K5a at [{bsz}, {x.shape[1]}, {x.shape[2]}], layer {li}"
+            got = FL.fused_vit_layer_cuda(x, *params, **kw).float()
+            want = FL.fused_vit_layer_reference(x, *params, **kw).float()
+            want32 = FL.fused_vit_layer_reference(x.float(), *(t.float() for t in params), **kw)
+            e5 = float((got - want).abs().max())
+            e_row = float(((got - want).abs()
+                           / want.abs().amax(-1, keepdim=True).clamp_min(1e-6)).max())
+            e_k, e_p = (float((t - want32).abs().max()) for t in (got, want))
+            half = FL.fused_vit_layer_cuda(x[: bsz // 2].contiguous(), *params, **kw).float()
+            require(e_row <= 3e-2, f"{where}: max|err| {e5}, {e_row:.4f} of its row's "
+                                   f"largest value, beyond 3e-2")
+            require(e_k <= 1.25 * e_p, f"{where}: {e_k:.4f} from the float32 layer, beyond "
+                                       f"1.25x the bf16 plain layer's {e_p:.4f}")
+            require(torch.equal(half, got[: bsz // 2]),
+                    f"{where}: the batch's first half alone differs from the full batch's")
+            k5_err[bsz] = [max(a, b) for a, b in zip(k5_err.get(bsz, [0.0] * 4),
+                                                     (e5, e_row, e_k, e_p))]
+            del got, want, want32, half
+    layer_inputs.clear()
+    # the K5 gate: the same tower with int8 (W8A8) projections takes K2 and
+    # never K5a; its embedding within the W8A8 cosine of bf16's
+    ref = retr.embed_images([page])[0]
+    quantize_encoder_params(retr.model)
+    reset_counts(wrappers)
+    q8 = retr.embed_images([page])[0]
+    torch.cuda.synchronize()
+    q8_launches = read_counts(wrappers)
+    cos8 = float(np.mean(np.sum(q8 * ref, axis=-1)))
+    require(q8_launches["vit_layer"] == q8_launches["gemm"] == 0
+            and q8_launches["attention.tensor_core"] == layers,
+            f"ColSmol's int8 tower: K5a {q8_launches['vit_layer']}, GEMMs {q8_launches['gemm']}, "
+            f"K2 {q8_launches['attention.tensor_core']} (want 0, 0, {layers})")
+    require(cos8 >= GRID["cos"], f"ColSmol W8A8: mean per-token cosine {cos8:.4f} < {GRID['cos']}")
+    print(f"[grid] (b) {COLSMOL} with image splitting: {n} letter pages ({page.shape[1]} x "
+          f"{page.shape[0]} px rasters, tiling {tiles}: {subs} sub-images, {n_img} image tokens, "
+          f"{embs[0].shape[0]} tokens a page): PipelinedEmbedder {n / pipe_s:.2f} pages/s, "
+          f"create_document_embeddings {n / seq_s:.2f} pages/s, max|diff| {err:.3g} (2e-2); "
+          f"K5a {launches['vit_layer']} launches, {launches['gemm.wgmma']} wgmma GEMMs; K5a against "
+          f"its plain version on every layer's input, a batch of sub-images: [max|err|, of "
+          f"the row's largest, kernel / bf16 plain from float32] "
+          f"{ {k: [float(f'{e:.3g}') for e in v] for k, v in k5_err.items()} }, "
+          f"half batches bit-equal | "
+          f"int8 tower: no K5a, K2 {q8_launches['attention.tensor_core']} launches, mean cosine "
+          f"with bf16 {cos8:.4f} | {card}", flush=True)
+    del retr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def grid_w8a8(torch, seed: int, card: str, checkpoint: dict) -> dict:
+    """Phase 13 (c): W8A8. ``vidore/colpali-v1.3`` from phase 3's checkpoint
+    with ``quantize="int8"`` against the same checkpoint in bf16 on phase
+    3's pages and queries, both timed alike: mean per-token cosine >= 0.98,
+    each query's top-1 page bf16's up to near-ties of the measured scores;
+    K2 and K1 launched, no K5 GEMM and no K8a.
+    ``w8a8_dense`` at ColPali's Gemma MLP: its int32 sums equal an exact
+    product on the host. Gemma-3's SigLIP tower (896 px) int8 against bf16
+    over 5 images: mean cosine of the soft tokens >= 0.98. -> launches."""
+    import types
+
+    import numpy as np
+    from multimodal_colpali_tpu_torch._timing import eager_ms
+    from multimodal_colpali_tpu_torch.generation.gemma3_mm import Gemma3MMEngine
+    from multimodal_colpali_tpu_torch.models import load_retriever
+    from multimodal_colpali_tpu_torch.models.configs import Gemma3MMConfig
+    from multimodal_colpali_tpu_torch.models.registry import _vision_parts
+    from multimodal_colpali_tpu_torch.ops import quant as Q
+
+    pages = synthetic_pages(N_PAGES, 448, seed)               # phase 3's pages
+    bf = load_retriever(COLPALI, device="cuda", dtype=torch.bfloat16,
+                        checkpoint_dir=checkpoint["path"])
+    # bf16 timed as the int8 run below is: the same warm-up, pages and syncs
+    bf.embed_images(pages[:EMBED_BATCH], batch_size=EMBED_BATCH)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_pages = bf.embed_images(pages, batch_size=EMBED_BATCH)
+    torch.cuda.synchronize()
+    bf_embed_s = time.perf_counter() - t0
+    ref_q = bf.embed_queries(QUERIES)
+    ref_scores = bf.processor.score_multi_vector(ref_q, ref_pages, device="cuda")
+    del bf
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    q8 = load_retriever(COLPALI, device="cuda", dtype=torch.bfloat16,
+                        checkpoint_dir=checkpoint["path"], quantize="int8")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_int8 = sum(p.numel() for p in q8.model.parameters() if p.dtype == torch.int8)
+    wrappers = kernel_wrappers()
+    q8.embed_images(pages[:EMBED_BATCH], batch_size=EMBED_BATCH)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    embs = q8.embed_images(pages, batch_size=EMBED_BATCH)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    qs = q8.embed_queries(QUERIES)
+    scores = q8.processor.score_multi_vector(qs, embs, device="cuda")
+    torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    unit_rows(np, embs)
+    cos_p = float(np.mean([np.mean(np.sum(a * r, axis=-1)) for a, r in zip(embs, ref_pages)]))
+    cos_q = float(np.mean([np.mean(np.sum(a * r, axis=-1)) for a, r in zip(qs, ref_q)]))
+    require(cos_p >= GRID["cos"] and cos_q >= GRID["cos"],
+            f"W8A8 ColPali: mean per-token cosine with bf16 {cos_p:.4f} (pages), {cos_q:.4f} "
+            f"(queries) < {GRID['cos']}")
+    # a near-tie, from the measured scores: d is the largest |int8 - bf16|
+    # score of the other queries' pairs (not of the pair it judges); a
+    # query's top-1 may differ from bf16's only where their bf16 scores are
+    # within 2 d
+    dev_scores = np.abs(np.asarray(scores) - np.asarray(ref_scores))
+    d = float(dev_scores.max())
+    ties = 0
+    for qi in range(len(QUERIES)):
+        a, r = int(np.argmax(scores[qi])), int(np.argmax(ref_scores[qi]))
+        if a != r:
+            sa, sr = ref_scores[qi, a], ref_scores[qi, r]
+            tie = 2 * float(np.delete(dev_scores, qi, axis=0).max())
+            require(abs(sa - sr) <= tie, f"query {qi}: W8A8 top-1 page {a}, bf16's {r}: bf16 "
+                                         f"scores {sa:.4f} / {sr:.4f} beyond a near-tie "
+                                         f"({tie:.4f}, twice the other queries' largest "
+                                         f"score change)")
+            ties += 1
+    margin = float(np.min([np.diff(np.sort(ref_scores[qi]))[-1] for qi in range(len(QUERIES))]))
+    require(launches["attention"] == launches["attention.tensor_core"] > 0
+            and launches["maxsim"] > 0,
+            f"W8A8 ColPali: K2 off its tensor cores or no K1: {launches}")
+    # So400m is outside K5's plan in any dtype: phase 13 (b) shows the int8
+    # gate on ColSmol's tower, which K5a takes in bf16
+    require(launches["gemm"] == launches["vit_layer"] == launches["int8_matmul_kn"]
+            == launches["int8_matmul_nk"] == 0,
+            f"W8A8 ColPali reached a K5 GEMM or K8: {launches}")
+    del q8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # w8a8_dense at ColPali's Gemma MLP: [8 x 1,030, 2,048] -> 16,384
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    m, k, n = GRID["mlp"]
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(n, k, generator=g, device=dev) * k ** -0.5).to(torch.bfloat16)
+    qw = Q.quantize_int8(w, axis=1)
+    xq, _ = Q.quantize_act_int8(x)
+    acc = Q.int8_mm(xq, qw["q8"])
+    # float64 sums of these integers stay below 2^53: exact in any order
+    want = xq.cpu().double() @ qw["q8"].cpu().double().T
+    require(torch.equal(acc.cpu().double(), want), "int8_mm's int32 sums differ from the "
+                                                   "exact product on the host")
+    del want
+    w8_ms = eager_ms(lambda: Q.w8a8_dense(x, qw["q8"], qw["scale"]), iters=10)
+    mm_ms = eager_ms(lambda: Q.int8_mm(xq, qw["q8"]), iters=10)
+    bf_ms = eager_ms(lambda: torch.mm(x, w.T), iters=10)
+    ops = 2.0 * m * k * n
+    del x, w, qw, xq, acc
+    torch.cuda.empty_cache()
+
+    # Gemma-3's SigLIP-So400m at 896 px as _vision_parts builds it, alone
+    gcfg = Gemma3MMConfig.gemma3_27b()
+    tower, projector = _vision_parts(gcfg, dev, torch.bfloat16, seed=seed)
+    lm = types.SimpleNamespace(dtype=torch.bfloat16, device=dev)     # the tower needs no LM
+    pg = torch.Generator().manual_seed(seed + 14)
+    side = gcfg.vision.image_size
+    pix = torch.rand(1, GRID["g3_images"], side, side, 3, generator=pg).mul_(2).sub_(1).to(dev)
+    before = read_counts(wrappers)["attention.tensor_core"]
+    with torch.inference_mode():
+        soft_bf = Gemma3MMEngine(gcfg, tower, projector, lm=lm)._image_features(pix).float()
+        mm8 = Gemma3MMEngine(gcfg, tower, projector, lm=lm, vision_dtype="int8")
+        soft_q = mm8._image_features(pix).float()
+    torch.cuda.synchronize()
+    g3_k2 = read_counts(wrappers)["attention.tensor_core"] - before
+    cos_g3 = float(torch.nn.functional.cosine_similarity(soft_q, soft_bf, dim=-1).mean())
+    require(soft_q.shape == (1, GRID["g3_images"] * gcfg.mm_tokens_per_image,
+                             gcfg.text.hidden_size), f"soft tokens {tuple(soft_q.shape)}")
+    require(cos_g3 >= GRID["cos"], f"Gemma-3 W8A8 tower: mean cosine {cos_g3:.4f} < "
+                                   f"{GRID['cos']}")
+    require(g3_k2 == 2 * gcfg.vision.num_hidden_layers,
+            f"Gemma-3 towers launched K2 {g3_k2} times on its tensor cores")
+    launches = read_counts(wrappers)
+    print(f"[grid] (c) W8A8 {COLPALI} from phase 3's checkpoint (load + quantize {load_s:.1f} s, "
+          f"{n_int8 / 1e9:.3f}B int8 weights): {N_PAGES} pages {N_PAGES / embed_s:.2f} pages/s "
+          f"against the same checkpoint in bf16 {N_PAGES / bf_embed_s:.2f} pages/s (int8 "
+          f"{embed_s / bf_embed_s:.2f}x the time), "
+          f"peak {peak:.1f} GiB; mean per-token cosine with bf16 {cos_p:.4f} (pages), "
+          f"{cos_q:.4f} (queries); top-1 equal to bf16's for {len(QUERIES) - ties} of "
+          f"{len(QUERIES)} queries ({ties} near-ties; largest |int8 - bf16| score {d:.4f}, "
+          f"smallest bf16 top-1 margin {margin:.4f}) | w8a8_dense [{m}, {k}] -> {n}: int32 sums "
+          f"exact, {w8_ms:.3f} ms ({mm_ms:.3f} ms of it torch._int_mm, "
+          f"{ops / mm_ms / 1e9:.0f} TOP/s), one bf16 torch.mm {bf_ms:.3f} ms | Gemma-3 tower "
+          f"at {side} px, {GRID['g3_images']} images: int8 soft tokens' mean cosine with bf16 "
+          f"{cos_g3:.4f} | {card}", flush=True)
+    del tower, projector, mm8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "w8a8_ms": w8_ms, "int_mm_ms": mm_ms, "bf16_mm_ms": bf_ms}
+
+
+def phase_grid(torch, seed: int, card: str, work: str, checkpoint: dict) -> dict:
+    """Phase 13: ColGranite (a), ColSmol's image splitting (b) and W8A8 (c) at
+    full width, each a main path with its own counts. -> their launches and
+    K2's at ColGranite's tower shape."""
+    t_phase = time.perf_counter()
+    a = grid_granite(torch, seed, card)
+    b = grid_colsmol(torch, seed, card, work)
+    c = grid_w8a8(torch, seed, card, checkpoint)
+    for tag, part in (("a", a), ("b", b), ("c", c)):
+        print(f"[grid] ({tag}) launches {json.dumps(part['launches'])}", flush=True)
+    print(f"[grid] phase 13 {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+    return {"paths": [a["launches"], b["launches"], c["launches"]],
+            "attention.granite_tower": a["attention.granite_tower"]}
+
+
 # phase 12: the experiment drivers against the port's server; the question
 # tables are synthetic, in driver 05's wording
 EXPERIMENTS = dict(questions=24, run_questions=4, top_k=5, serve_timeout=600)
@@ -4198,6 +4778,7 @@ def main(argv=None) -> int:
         dense = phase_dense(torch, args.seed, card, work)
         ingest = phase_ingest(torch, args.seed, card, work, ckpt)
         qwen = phase_colqwen(torch, args.seed, card, ckpt_path.parent)
+        grid = phase_grid(torch, args.seed, card, work, ckpt)
         experiments = phase_experiments(torch, args.seed, card, work, ckpt_path.parent)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -4243,15 +4824,19 @@ def main(argv=None) -> int:
     # K2 at ColQwen2.5's window and full-block shapes: phase 11's launches
     meta["attention.colqwen_window"] = meta["attention"]
     meta["attention.colqwen_full"] = meta["attention"]
+    # K2 at ColGranite's tower shape: phase 13 (a)'s square-layout launches
+    meta["attention.granite_tower"] = meta["attention"]
     paths = [colpali, images["a"], images["b"], colsmol, gen["a"], gen["b"], gen["c"],
              gen["d"], gen["e"], colflor, g3["a"], g3["b"], dense, ingest, qwen["launches"],
-             *experiments]
-    shape_rows = ("attention.gemma3_tower", "attention.colqwen_window", "attention.colqwen_full")
+             *grid["paths"], *experiments]
+    shape_rows = ("attention.gemma3_tower", "attention.colqwen_window", "attention.colqwen_full",
+                  "attention.granite_tower")
     launches = {name: sum(p[tile_of.get(name, name)] for p in paths) for name in meta
                 if name not in shape_rows}
     launches["attention.gemma3_tower"] = g3["a"]["attention"] + g3["b"]["attention"]
     launches["attention.colqwen_window"] = qwen["attention.colqwen_window"]
     launches["attention.colqwen_full"] = qwen["attention.colqwen_full"]
+    launches["attention.granite_tower"] = grid["attention.granite_tower"]
     rows = [dict(name=name, route=route, source=src, replaces=rep, launches=launches[name],
                  **kernels[name])
             for name, (route, src, rep) in meta.items()]

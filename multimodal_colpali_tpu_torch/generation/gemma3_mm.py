@@ -32,6 +32,7 @@ import torch
 from multimodal_colpali_tpu_torch.generation.engine import (
     GemmaDecodeEngine, _ImageEngine, _rms, attn_scale, layer_stack)
 from multimodal_colpali_tpu_torch.models import layers as L
+from multimodal_colpali_tpu_torch.ops.quant import quantize_encoder_params
 
 
 class Gemma3MMEngine(_ImageEngine):
@@ -40,7 +41,8 @@ class Gemma3MMEngine(_ImageEngine):
     ``tower`` is the ``SiglipVisionTower`` of ``cfg.vision`` and
     ``projector`` its tensors (``mm_input_projection [v_hidden, t_hidden]``,
     ``mm_soft_emb_norm.weight``), both on ``lm``'s device in its dtype, as
-    ``models/registry.load_gemma3_mm`` makes them."""
+    ``models/registry.load_gemma3_mm`` makes them. ``vision_dtype="int8"``
+    makes the tower's projections W8A8 (``ops/quant``), in place."""
 
     # positions are 0-indexed, and causal prompts with fixed-length image
     # spans may share prefix pages (paged.py:127-137)
@@ -48,9 +50,15 @@ class Gemma3MMEngine(_ImageEngine):
     shares_prefix_pages = True
 
     def __init__(self, cfg, tower: torch.nn.Module, projector: Dict[str, Any],
-                 lm: GemmaDecodeEngine):
+                 lm: GemmaDecodeEngine, vision_dtype: str = "native"):
+        if vision_dtype not in ("native", "int8"):
+            raise ValueError(f"vision_dtype must be 'native' or 'int8', got {vision_dtype!r}")
         self.cfg = cfg
         self.vision_tower = tower
+        if vision_dtype == "int8":
+            # W8A8 SigLIP (gemma3_mm.py:63-78): the tower's projections only,
+            # in place; the projector stays in the LM's dtype
+            quantize_encoder_params(tower)
         self.projector = projector
         self.lm = lm
 

@@ -16,8 +16,9 @@ there (LANCZOS by ``resize_image``, then BICUBIC to the model size in stage
 2, both ``imageops`` on the device, pixels equal to the host's), so the
 host threads only rasterize and launch; stage 3 is the retriever's own
 forward, ``Retriever._embed``. A dynamic-resolution processor (ColQwen2's
-smart grids) is fed one sub-batch per grid; one without ``group_by_grid``
-(idefics3 image splitting, not ported) raises.
+smart grids, ColSmol's image splitting, ColGranite's anyres tiles) is fed
+one sub-batch per layout through its ``group_by_grid``; one without it
+raises.
 """
 
 from __future__ import annotations
@@ -122,12 +123,12 @@ class PipelinedEmbedder:
         device = self.retriever.device
         if dynamic and not hasattr(proc, "group_by_grid"):
             raise NotImplementedError(
-                "dynamic layouts other than colqwen2's grids (idefics3 image "
-                "splitting) are not ported yet; see ROADMAP.md queue 1 item 6")
+                f"{type(proc).__name__} has a dynamic layout but no group_by_grid, so its "
+                f"pages cannot be grouped into batches of one layout")
 
         def emit(buf):
             if dynamic:
-                # one sub-batch per grid (pipeline.py:104-121)
+                # one sub-batch per layout (pipeline.py:104-121)
                 for grid, idxs in proc.group_by_grid([r[3] for r in buf]):
                     sub = [buf[i] for i in idxs]
                     yield sub, proc.process_images([r[3] for r in sub], grid=grid,

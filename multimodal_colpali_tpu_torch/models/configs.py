@@ -20,6 +20,9 @@
   Qwen2-VL vision tower (patches of 2 x 14 x 14, 2 x 2 merge; the 2.5
   variant with RMSNorm, a gated SiLU MLP and windows of 112 px) + a Qwen2
   decoder with mrope + 128-d projection.
+- ColGranite (``ColGraniteModelConfig``, granite.py:35-103): granite-vision's
+  SigLIP-So400m tower at 384 px, a 2-layer projector, LLaVA-Next anyres
+  packing and a Granite LM (40 x 2,048) + 128-d projection.
 
 Each ``tiny()`` is the small configuration the parity tests and the
 committed ``goldens/tiny-*.npz`` use.
@@ -480,3 +483,93 @@ class ColQwen2ModelConfig:
             vision_start_token_id=vocab_size - 2,
             vision_end_token_id=vocab_size - 3,
             grid_h=4, grid_w=4)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraniteTextConfig(LlamaTextConfig):
+    """The Granite LM of granite-vision (granite.py:35-39): a Llama decoder
+    whose attention scale is ``attention_multiplier`` (not head_dim^-0.5),
+    whose residual branches are scaled by ``residual_multiplier`` and whose
+    input embeddings by ``embedding_multiplier``."""
+
+    embedding_multiplier: float = 12.0
+    attention_multiplier: float = 0.015625
+    residual_multiplier: float = 0.22
+
+
+@dataclasses.dataclass(frozen=True)
+class ColGraniteModelConfig:
+    """ColGranite = granite-vision-3.3-2b-embedding (granite.py:42-103): a
+    SigLIP-So400m tower at 384 px (27 x 27 patches) whose features are the
+    ``vision_feature_layer`` hidden states (no post-LayerNorm), a 2-layer
+    GELU projector, LLaVA-Next packing (base image, then the tiles' spatial
+    grid with an ``image_newline`` token closing each row) and a Granite LM
+    (40 x 2,048, 32 query heads over 8 KV heads of 64) + a 128-d head."""
+
+    vision: SiglipVisionConfig = dataclasses.field(default_factory=lambda: SiglipVisionConfig(
+        hidden_size=1152, intermediate_size=4304, num_hidden_layers=27,
+        num_attention_heads=16, image_size=384, patch_size=14))
+    text: GraniteTextConfig = dataclasses.field(default_factory=lambda: GraniteTextConfig(
+        vocab_size=49156, hidden_size=2048, intermediate_size=8192,
+        num_hidden_layers=40, num_attention_heads=32, num_key_value_heads=8,
+        rope_theta=300_000.0))
+    embedding_dim: int = 128
+    image_token_id: int = 49155
+    vision_feature_layer: int = -1  # the last encoder layer's output, before post-LN
+
+    @property
+    def grid(self) -> int:
+        return self.vision.image_size // self.vision.patch_size
+
+    @property
+    def n_image_tokens(self) -> int:
+        """The square layout: g^2 base tokens + the same image as one tile
+        with a newline closing each of its g rows."""
+        g = self.grid
+        return g * g + g * (g + 1)
+
+    def n_image_tokens_for(self, tiles) -> int:
+        """Packed tokens of an anyres layout ``(ty, tx[, dy, dx])``: the base
+        grid plus the tiled spatial grid less ``dy`` / ``dx`` feature rows /
+        columns cropped from each side (HF ``unpad_image``), one newline per
+        remaining row (granite.py:63-75)."""
+        if tiles is None:
+            return self.n_image_tokens
+        g = self.grid
+        ty, tx, dy, dx = (tuple(tiles) + (0, 0))[:4]
+        rows, cols = ty * g - 2 * dy, tx * g - 2 * dx
+        return g * g + rows * (cols + 1)
+
+    def default_pinpoints(self, max_tiles: int = 4):
+        """anyres canvases ``(a * S, b * S)`` (H, W) of at most ``max_tiles``
+        tiles (granite.py:77-84)."""
+        s = self.vision.image_size
+        return [(a * s, b * s) for a in range(1, max_tiles + 1)
+                for b in range(1, max_tiles + 1) if a * b <= max_tiles]
+
+    @property
+    def feature_layers(self) -> int:
+        """How many encoder layers the tower runs (and holds): up to
+        ``vision_feature_layer`` (granite.py:124-128)."""
+        n, f = self.vision.num_hidden_layers, self.vision_feature_layer
+        return min(n + 1 + f if f < 0 else f, n)
+
+    @classmethod
+    def granite_vision_3(cls) -> "ColGraniteModelConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 64) -> "ColGraniteModelConfig":
+        """Small config for tests and CPU parity (granite.py:90-103)."""
+        return cls(
+            vision=SiglipVisionConfig(hidden_size=32, intermediate_size=64,
+                                      num_hidden_layers=2, num_attention_heads=2,
+                                      image_size=32, patch_size=8),
+            text=GraniteTextConfig(vocab_size=vocab_size, hidden_size=24,
+                                   intermediate_size=48, num_hidden_layers=2,
+                                   num_attention_heads=2, num_key_value_heads=1,
+                                   rope_theta=10000.0, embedding_multiplier=2.0,
+                                   attention_multiplier=0.5, residual_multiplier=0.8),
+            embedding_dim=8,
+            image_token_id=vocab_size - 1,
+        )

@@ -36,15 +36,16 @@ from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models.bert import BertEncoder
 from multimodal_colpali_tpu_torch.models.colpali import ColPaliModel
 from multimodal_colpali_tpu_torch.models.configs import (
-    BertConfig, ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig,
-    ColQwen2ModelConfig)
+    BertConfig, ColFlorModelConfig, ColGraniteModelConfig, ColIdefics3ModelConfig,
+    ColPaliModelConfig, ColQwen2ModelConfig)
 from multimodal_colpali_tpu_torch.models.florence2 import ColFlorModel
+from multimodal_colpali_tpu_torch.models.granite import ColGraniteModel
 from multimodal_colpali_tpu_torch.models.idefics3 import ColIdefics3Model
 from multimodal_colpali_tpu_torch.models.qwen2vl import ColQwen2Model
 from multimodal_colpali_tpu_torch.models.siglip import SiglipVisionTower
 
 ModelConfig = Union[ColPaliModelConfig, ColIdefics3ModelConfig, ColFlorModelConfig,
-                    ColQwen2ModelConfig, BertConfig]
+                    ColQwen2ModelConfig, ColGraniteModelConfig, BertConfig]
 
 _LAYER = re.compile(r"^layers_(\d+)$")
 
@@ -96,9 +97,11 @@ def flax_shape(name: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
 
 def model_class(cfg: ModelConfig) -> Type[nn.Module]:
     """The port's model class for a config: ColPali, ColIdefics3, ColFlor,
-    ColQwen2 or the bge BERT encoder."""
+    ColQwen2, ColGranite or the bge BERT encoder."""
     if isinstance(cfg, BertConfig):
         return BertEncoder
+    if isinstance(cfg, ColGraniteModelConfig):
+        return ColGraniteModel
     if isinstance(cfg, ColQwen2ModelConfig):
         return ColQwen2Model
     if isinstance(cfg, ColIdefics3ModelConfig):
@@ -191,12 +194,17 @@ def engine_params_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str
     """The ``embed`` and ``language_model`` entries of a ColPali
     ``state_dict`` -> the engine's nested tree: ``layers.<i>`` becomes
     ``layers_<i>`` and each 2-D dense ``weight [out, in]`` a ``kernel [in, out]``
-    (a transposed view, no copy)."""
+    (a transposed view, no copy). A W8A8 retriever's LM (int8 encoder
+    projections, ``quantize="int8"``) is refused: the engine's int8 weights
+    are weight-only dicts of another layout."""
     tree: Dict[str, Any] = {}
     for name, t in state.items():
         parts = name.split(".")
         if parts[0] not in ("embed", "language_model"):
             continue
+        if t.dtype == torch.int8 or parts[-1] == "weight_scale":
+            raise ValueError(f"{name} is a W8A8 encoder projection: load the retriever "
+                             f"without quantize to serve its LM")
         path = []
         i = 0
         while i < len(parts):

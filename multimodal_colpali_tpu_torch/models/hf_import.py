@@ -277,6 +277,35 @@ def colidefics3_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
     return params
 
 
+def colgranite_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """A granite-vision / LLaVA-Next (ColGranite) state dict -> the
+    flax-named tree (hf_import.py:550-613). Only the tower's layers up to
+    ``vision_feature_layer`` are read; its post-LayerNorm and attention-pool
+    head are skipped, as LLaVA-Next reads the features before them."""
+    sd = _normalize_prefixes(sd)
+    vision = _siglip_tower(sd, "vision_tower.vision_model.", cfg.feature_layers)
+    del vision["post_layernorm"]
+    params: Dict[str, Any] = {
+        "embed_tokens": sd["language_model.embed_tokens.weight"],
+        "vision_tower": vision,
+        "projector_linear_1": _lin(sd, "multi_modal_projector.linear_1"),
+        "projector_linear_2": _lin(sd, "multi_modal_projector.linear_2"),
+        "image_newline": sd["image_newline"],
+        "norm": _rms(sd, "language_model.norm"),
+    }
+    for i in range(cfg.text.num_hidden_layers):
+        p = f"language_model.layers.{i}."
+        params[f"layers_{i}"] = {
+            "self_attn": _bare_attn(sd, p),
+            **_gated_mlp(sd, p),
+            "input_layernorm": _rms(sd, p + "input_layernorm"),
+            "post_attention_layernorm": _rms(sd, p + "post_attention_layernorm"),
+        }
+    if "embedding_proj_layer.weight" in sd:
+        params["embedding_proj_layer"] = _lin(sd, "embedding_proj_layer")
+    return params
+
+
 def colqwen2_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
     """A ``ColQwen2ForRetrieval`` (or colpali-engine ColQwen2 / ColQwen2.5)
     state dict -> the flax-named tree (hf_import.py:108-165): the tower's

@@ -1,6 +1,6 @@
 """ColIdefics3 / ColSmol retrieval model (counterpart of ``multimodal_colpali_tpu/models/idefics3.py``).
 
-SmolVLM backbone + 128-d head, for the fixed square layout:
+SmolVLM backbone + 128-d head:
 
 - vision: the SigLIP tower with Idefics3's bucketized position ids
   (:func:`idefics3_position_index`); at SigLIP-768 its layers take the fused
@@ -14,7 +14,10 @@ SmolVLM backbone + 128-d head, for the fixed square layout:
 
 A batch without pixels runs the language model in float32, as the JAX
 module does (its embeddings take the pixels' dtype, else float32;
-idefics3.py:201-204). Image splitting (``tiles``) is not ported.
+idefics3.py:201-204). With image splitting (``tiles``) the pixels are
+``[B, T + 1, S, S, 3]``, the tiles row-major and the global view last; the
+tower and the connector run over every sub-image and their features fill
+the prompt's image tokens in that order (idefics3.py:180-214).
 
 Parameter names follow the flax tree (``vision_model``, ``modality_projection``,
 ``layers.<i>``, ``norm``, ``embedding_proj_layer``, ``embed_tokens``).
@@ -67,6 +70,7 @@ class LlamaAttention(nn.Module):
         self.k_proj = L.Dense(cfg.hidden_size, cfg.num_key_value_heads * hd, **kw)
         self.v_proj = L.Dense(cfg.hidden_size, cfg.num_key_value_heads * hd, **kw)
         self.o_proj = L.Dense(cfg.num_attention_heads * hd, cfg.hidden_size, **kw)
+        self.scale = hd ** -0.5
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
@@ -77,16 +81,18 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(x).view(b, s, c.num_key_value_heads, c.head_dim)
         q = L.rope(q, positions, theta=c.rope_theta)
         k = L.rope(k, positions, theta=c.rope_theta)
-        out = L.attention(q, k, v, mask=mask, scale=c.head_dim ** -0.5)
+        out = L.attention(q, k, v, mask=mask, scale=self.scale)
         return self.o_proj(out.reshape(b, s, c.num_attention_heads * c.head_dim))
 
 
 class LlamaDecoderLayer(nn.Module):
+    attention_cls = LlamaAttention
+
     def __init__(self, cfg: LlamaTextConfig, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.input_layernorm = L.LlamaRMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
-        self.self_attn = LlamaAttention(cfg, **kw)
+        self.self_attn = self.attention_cls(cfg, **kw)
         self.post_attention_layernorm = L.LlamaRMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
         nb = dict(bias=False, **kw)
         self.gate_proj = L.Dense(cfg.hidden_size, cfg.intermediate_size, **nb)
@@ -119,17 +125,23 @@ class ColIdefics3Model(nn.Module):
         self.embedding_proj_layer = L.Dense(t.hidden_size, cfg.embedding_dim, **kw)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                pixel_values: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pixel_values: Optional[torch.Tensor] = None,
+                tiles: Optional[tuple] = None) -> torch.Tensor:
         """input_ids/attention_mask ``[B, S]``; pixel_values ``[B, H, W, 3]``
-        NHWC normalized -> ``[B, S, embedding_dim]`` float32."""
+        (or ``[B, T + 1, S, S, 3]`` with ``tiles``) NHWC normalized ->
+        ``[B, S, embedding_dim]`` float32."""
         c = self.cfg
         is_img = input_ids == c.image_token_id
         dtype = pixel_values.dtype if pixel_values is not None else torch.float32
         embeds = F.embedding(torch.where(is_img, torch.zeros_like(input_ids), input_ids),
                              self.embed_tokens).to(dtype)
         if pixel_values is not None:
-            feats = pixel_shuffle(self.vision_model(pixel_values), c.scale_factor)
+            b = pixel_values.shape[0]
+            pix = pixel_values if tiles is None else pixel_values.flatten(0, 1)
+            feats = pixel_shuffle(self.vision_model(pix), c.scale_factor)
             feats = self.modality_projection(feats)
+            if tiles is not None:  # [B * N, tok, D] -> [B, N * tok, D], sub-images in order
+                feats = feats.reshape(b, -1, feats.shape[-1])
             # image slot s takes feature cumsum(is_img)[s] - 1 (idefics3.py:223-226)
             img_pos = (torch.cumsum(is_img.long(), dim=1) - 1).clamp(0, feats.shape[1] - 1)
             gathered = torch.gather(feats, 1, img_pos[..., None].expand(-1, -1, feats.shape[-1]))

@@ -15,29 +15,38 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_colpali_tpu_torch.ops.attention import attention_reference, fused_attention
+from multimodal_colpali_tpu_torch.ops.quant import w8a8_dense
 
 
 def empty_param(*shape: int, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
 
 
-def dense(x: torch.Tensor, weight: torch.Tensor,
-          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+          scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x @ weight.T (+ bias) in x's dtype (layers.py:18-36).
 
-    ``weight`` is ``[out, in]``, the transpose of the flax ``kernel``."""
+    ``weight`` is ``[out, in]``, the transpose of the flax ``kernel``. An
+    int8 ``weight`` with its per-output-channel ``scale`` (an encoder under
+    ``quantize="int8"``) runs W8A8 (``ops/quant.w8a8_dense``)."""
+    if weight.dtype == torch.int8:
+        return w8a8_dense(x, weight, scale, bias)
     return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
 class Dense(nn.Module):
+    """A dense projection; ``ops/quant.quantize_encoder_params`` turns its
+    weight into int8 codes and sets ``weight_scale``."""
+
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
                  device, dtype):
         super().__init__()
         self.weight = empty_param(out_features, in_features, device=device, dtype=dtype)
         self.bias = empty_param(out_features, device=device, dtype=dtype) if bias else None
+        self.register_buffer("weight_scale", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.weight, self.bias)
+        return dense(x, self.weight, self.bias, self.weight_scale)
 
 
 class RMSNorm(nn.Module):

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,17 +69,41 @@ def _rgb(img: Any) -> Any:
     return img
 
 
+def _size_of(img: Any) -> Tuple[int, int]:
+    """(height, width) of a PIL image, array or tensor."""
+    if not isinstance(img, (np.ndarray, torch.Tensor)) and hasattr(img, "size"):
+        w_px, h_px = img.size
+        return h_px, w_px
+    return int(img.shape[0]), int(img.shape[1])
+
+
+def _upload(img: Any, device: torch.device) -> torch.Tensor:
+    """A page's RGB pixels as a tensor on ``device``, in their own dtype."""
+    a = _rgb(img)
+    return (a.to(device) if isinstance(a, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(a)).to(device))
+
+
 def _resized(img: Any, size: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """A page at ``size`` x ``size`` on ``device`` as ``dtype``: its uint8
     pixels uploaded, then (unless already that size) BICUBIC-resized there
     (``imageops``' float64 sums, equal to its host int64 path and to
     Pillow)."""
-    a = _rgb(img)
-    t = (a.to(device) if isinstance(a, torch.Tensor)
-         else torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    t = _upload(img, device)
     if tuple(t.shape[:2]) == (size, size):
         return t.to(dtype)
     return resize(t.to(torch.uint8), (size, size), "bicubic").to(dtype)
+
+
+def group_by_layout(images: Sequence[Any],
+                    key: Callable[[Any], Any]) -> List[Tuple[Any, List[int]]]:
+    """Image indices grouped by ``key(image)``, a processor's layout (its
+    grid or tiling; None for the fixed square), the square layout first,
+    then the layouts in order. Each processor's ``group_by_grid``."""
+    groups: Dict[Any, List[int]] = {}
+    for i, img in enumerate(images):
+        groups.setdefault(key(img), []).append(i)
+    return sorted(groups.items(), key=lambda kv: (kv[0] is not None, kv[0]))
 
 
 def normalize_on(x: torch.Tensor, mean: Any, std: Any) -> torch.Tensor:

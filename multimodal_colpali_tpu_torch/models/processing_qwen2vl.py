@@ -18,7 +18,7 @@ Retriever does (registry.py:51-64).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +26,8 @@ import torch
 from multimodal_colpali_tpu_torch.ingest.imageops import resize
 from multimodal_colpali_tpu_torch.models.configs import ColQwen2ModelConfig
 from multimodal_colpali_tpu_torch.models.processing import (
-    SimpleTokenizer, _rgb, image_device, normalize_on, on_host, score_multi_vector)
+    SimpleTokenizer, _size_of, _upload, group_by_layout, image_device, normalize_on, on_host,
+    score_multi_vector)
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -78,14 +79,6 @@ def smart_grid(h_px: int, w_px: int, factor: int,
     return h, w
 
 
-def _size_of(img: Any) -> Tuple[int, int]:
-    """(height, width) of a PIL image, array or tensor."""
-    if not isinstance(img, (np.ndarray, torch.Tensor)) and hasattr(img, "size"):
-        w_px, h_px = img.size
-        return h_px, w_px
-    return int(img.shape[0]), int(img.shape[1])
-
-
 class ColQwen2Processor:
     def __init__(self, cfg: ColQwen2ModelConfig, tokenizer: Optional[Any] = None,
                  query_pad_to_multiple: int = 16, dynamic_resolution: bool = False,
@@ -112,12 +105,9 @@ class ColQwen2Processor:
     def group_by_grid(self, images: Sequence[Any]) -> List[Tuple[Tuple[int, int], List[int]]]:
         """Image indices grouped by grid (the static bucket when dynamic
         resolution is off), grids in sorted order."""
-        groups: Dict[Tuple[int, int], List[int]] = {}
-        for i, img in enumerate(images):
-            g = (self.smart_grid(img) if self.dynamic_resolution
-                 else (self.cfg.grid_h, self.cfg.grid_w))
-            groups.setdefault(g, []).append(i)
-        return sorted(groups.items())
+        static = (self.cfg.grid_h, self.cfg.grid_w)
+        return group_by_layout(images, self.smart_grid if self.dynamic_resolution
+                               else lambda _: static)
 
     def _ids(self, text: str) -> List[int]:
         try:
@@ -129,9 +119,7 @@ class ColQwen2Processor:
 
     def _pixels(self, img: Any, h_px: int, w_px: int, device: torch.device) -> torch.Tensor:
         """One image's uint8 pixels at ``h_px`` x ``w_px`` on ``device``."""
-        a = _rgb(img)
-        t = (a.to(device) if isinstance(a, torch.Tensor)
-             else torch.from_numpy(np.ascontiguousarray(a)).to(device))
+        t = _upload(img, device)
         if tuple(t.shape[:2]) != (h_px, w_px):
             t = resize(t.to(torch.uint8), (w_px, h_px), "bicubic")
         return t

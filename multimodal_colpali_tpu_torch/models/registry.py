@@ -2,8 +2,9 @@
 ``multimodal_colpali_tpu/models/registry.py``).
 
 ``load_retriever(name, device=...)`` returns a :class:`Retriever`: the
-encoder of the name's family (ColPali, ColIdefics3, ColFlor or ColQwen2) on ``device``
-plus its processor. Weights come from a flax parameter tree (``params=``,
+encoder of the name's family (ColPali, ColIdefics3, ColFlor, ColQwen2 or
+ColGranite) on ``device`` plus its processor, its projections W8A8 under
+``quantize="int8"``. Weights come from a flax parameter tree (``params=``,
 e.g. ``load_params_npz`` of a committed golden), else from the checkpoint
 that ``_find_checkpoint`` finds (``checkpoint_dir=`` or under
 ``COLPALI_TPU_CKPT_DIR``; ``models/hf_import`` reads it and each tensor is
@@ -34,17 +35,18 @@ import torch
 from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models import hf_import
 from multimodal_colpali_tpu_torch.models.configs import (
-    ColFlorModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig, ColQwen2ModelConfig,
-    Gemma3MMConfig, Gemma3TextConfig)
+    ColFlorModelConfig, ColGraniteModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig,
+    ColQwen2ModelConfig, Gemma3MMConfig, Gemma3TextConfig)
 from multimodal_colpali_tpu_torch.models.convert import (
     ModelConfig, flax_shape, model_class, params_from_flax, state_from_flax)
 from multimodal_colpali_tpu_torch.models.processing import ColPaliProcessor
 from multimodal_colpali_tpu_torch.models.processing_florence2 import ColFlorProcessor
+from multimodal_colpali_tpu_torch.models.processing_granite import ColGraniteProcessor
 from multimodal_colpali_tpu_torch.models.processing_idefics3 import ColIdefics3Processor
 from multimodal_colpali_tpu_torch.models.processing_qwen2vl import ColQwen2Processor
 from multimodal_colpali_tpu_torch.models.siglip import SiglipVisionTower
 from multimodal_colpali_tpu_torch.ops.preprocess import normalize_images
-from multimodal_colpali_tpu_torch.ops.quant import quantize_lm_leaf
+from multimodal_colpali_tpu_torch.ops.quant import quantize_encoder_params, quantize_lm_leaf
 
 RETRIEVER_CONFIGS: Dict[str, Callable[[], ModelConfig]] = {
     "vidore/colpali-v1.2": ColPaliModelConfig.colpali_v1_3,
@@ -61,14 +63,22 @@ RETRIEVER_CONFIGS: Dict[str, Callable[[], ModelConfig]] = {
     "vidore/colqwen2.5-v0.2": ColQwen2ModelConfig.colqwen2_5_v0_2,
     "tiny-colqwen2": ColQwen2ModelConfig.tiny,
     "tiny-colqwen2.5": ColQwen2ModelConfig.tiny_25,
+    "ibm-granite/granite-vision-3.3-2b-embedding": ColGraniteModelConfig.granite_vision_3,
+    "tiny-colgranite": ColGraniteModelConfig.tiny,
 }
 
 PROCESSORS = {"colpali": ColPaliProcessor, "colidefics3": ColIdefics3Processor,
-              "colflor": ColFlorProcessor, "colqwen2": ColQwen2Processor}
+              "colflor": ColFlorProcessor, "colqwen2": ColQwen2Processor,
+              "colgranite": ColGraniteProcessor}
 CONVERTERS = {"colpali": hf_import.colpali_params_from_hf,
               "colidefics3": hf_import.colidefics3_params_from_hf,
               "colflor": hf_import.colflor_params_from_hf,
-              "colqwen2": hf_import.colqwen2_params_from_hf}
+              "colqwen2": hf_import.colqwen2_params_from_hf,
+              "colgranite": hf_import.colgranite_params_from_hf}
+# each family's processor keyword for dynamic_resolution (registry.py:470-506);
+# ColPali and ColFlor have one layout and ignore the flag
+DYNAMIC_KWARG = {"colqwen2": "dynamic_resolution", "colidefics3": "image_splitting",
+                 "colgranite": "anyres"}
 
 # Gemma's RMSNorm multiplies by (1 + w), so its neutral weight is 0; it
 # exists only in the colpali family (Llama's RMSNorm multiplies by w).
@@ -83,6 +93,8 @@ def family_of(cfg: ModelConfig) -> str:
         return "colflor"
     if isinstance(cfg, ColQwen2ModelConfig):
         return "colqwen2"
+    if isinstance(cfg, ColGraniteModelConfig):
+        return "colgranite"
     return "colpali"
 
 
@@ -119,8 +131,15 @@ class Retriever:
     dynamic-resolution one, as the JAX Retriever does (registry.py:51-64).
 
     The colqwen2 family's forward also takes the batch's mrope
-    ``position_ids`` and its ``grid``; under ``dynamic_resolution`` its
-    pages are embedded in per-grid groups (registry.py:170-200)."""
+    ``position_ids`` and its ``grid``, colgranite's and colidefics3's a
+    grouped batch's layout as ``tiles``; under a dynamic-resolution
+    processor pages are embedded in per-layout groups (registry.py:107-114,
+    170-200).
+
+    ``quantize="int8"`` makes every dense projection of the model W8A8
+    (``ops/quant.quantize_encoder_params``, in place, from the weights in
+    the model's dtype on its device, as registry.py:80-93 quantizes after
+    the cast); any other mode raises ``ValueError``."""
 
     name: str
     model: torch.nn.Module
@@ -129,6 +148,7 @@ class Retriever:
     dtype: torch.dtype = torch.bfloat16
     device_preprocess: bool = False
     family: str = "colpali"
+    quantize: Optional[str] = None
 
     def __post_init__(self):
         if self.device_preprocess and "device_preprocess" not in inspect.signature(
@@ -139,6 +159,10 @@ class Retriever:
         if self.device_preprocess and getattr(self.processor, "dynamic_resolution", False):
             raise ValueError("device_preprocess requires the fixed square layout; "
                              "disable dynamic_resolution/image splitting")
+        if self.quantize is not None:
+            if self.quantize != "int8":
+                raise ValueError(f"unknown quantize mode {self.quantize!r}; only 'int8'")
+            quantize_encoder_params(self.model)
 
     def _pixels(self, pv: Any) -> torch.Tensor:
         """Pixels (host arrays or device tensors) -> the model's pixel input
@@ -162,6 +186,8 @@ class Retriever:
         if self.family == "colqwen2":
             pos = torch.from_numpy(batch["position_ids"]).to(self.device)
             out = self.model(ids, mask, pos, pix, grid=batch.get("grid"))
+        elif batch.get("grid") is not None:       # a tiled layout (idefics3, granite)
+            out = self.model(ids, mask, pix, tiles=batch["grid"])
         else:
             out = self.model(ids, mask, pix)
         emb = out.float().cpu().numpy()
@@ -285,31 +311,25 @@ def load_retriever(
     on ``device``, by the rules of the name's family, with a warning
     (registry.py:520-531). ``quantize`` and ``device_preprocess`` left None
     read ``MMCP_QUANTIZE`` and ``MMCP_DEVICE_PREPROCESS == "1"``, as the JAX
-    registry does (registry.py:532-535). ``dynamic_resolution=True`` gives
-    colqwen2 its smart-resize grids; ColPali and ColFlor have one layout and
-    ignore it, as in JAX; idefics3 image splitting is not ported and raises."""
+    registry does (registry.py:532-535); ``quantize="int8"`` is W8A8 (see
+    :class:`Retriever`). ``dynamic_resolution=True`` gives colqwen2 its
+    smart-resize grids, colidefics3 SmolVLM's image splitting and colgranite
+    LLaVA-Next's anyres tiles; ColPali and ColFlor have one layout and
+    ignore it, as in JAX."""
     if name not in RETRIEVER_CONFIGS:
         raise KeyError(f"unknown retriever {name!r}; known: {sorted(RETRIEVER_CONFIGS)}")
     if quantize is None:
         quantize = os.environ.get("MMCP_QUANTIZE") or None
     if device_preprocess is None:
         device_preprocess = os.environ.get("MMCP_DEVICE_PREPROCESS") == "1"
-    if quantize == "int8":
-        raise NotImplementedError(
-            "W8A8 int8 projections (quantize='int8') are not ported yet; "
-            "see ROADMAP.md, kernels K8/K9 and ops/quant")
-    if quantize is not None:
-        raise ValueError(f"unknown quantize mode {quantize!r}")
+    if quantize not in (None, "int8"):             # before any weight is made
+        raise ValueError(f"unknown quantize mode {quantize!r}; only 'int8'")
     cfg = RETRIEVER_CONFIGS[name]()
     family = family_of(cfg)
-    if dynamic_resolution and family == "colidefics3":
-        raise NotImplementedError(
-            "dynamic_resolution (idefics3 image splitting) is not ported yet; "
-            "see ROADMAP.md")
     device = resolve_device(device)
     model = model_class(cfg)(cfg, device=device, dtype=dtype).eval()
-    processor = (ColQwen2Processor(cfg, tokenizer=tokenizer, dynamic_resolution=dynamic_resolution)
-                 if family == "colqwen2" else PROCESSORS[family](cfg, tokenizer=tokenizer))
+    dyn = {DYNAMIC_KWARG[family]: dynamic_resolution} if family in DYNAMIC_KWARG else {}
+    processor = PROCESSORS[family](cfg, tokenizer=tokenizer, **dyn)
     ckpt = None if params is not None else _find_checkpoint(name, checkpoint_dir)
     if params is not None:
         model.load_state_dict(params_from_flax(params, cfg))
@@ -326,7 +346,7 @@ def load_retriever(
                       f"set COLPALI_TPU_CKPT_DIR to load real weights)", stacklevel=2)
         init_random_params_(model, seed, family)
     return Retriever(name=name, model=model, processor=processor, device=device, dtype=dtype,
-                     device_preprocess=bool(device_preprocess), family=family)
+                     device_preprocess=bool(device_preprocess), family=family, quantize=quantize)
 
 
 # -- Gemma-3 generator LMs (not retrievers) -----------------------------------

@@ -9,10 +9,13 @@ A layer whose shape ``layer_plan`` admits (SigLIP-768, ColSmol's tower)
 takes the fused path on a CUDA tensor, as siglip.py:85-121 does on a TPU:
 K5a for the whole layer, or K5b / K5c for one half
 (``layers.set_fused_parts``). SigLIP-So400m (ColPali) is refused by the plan
-and runs the unfused layer, whose attention is K2.
+and runs the unfused layer, whose attention is K2. So does a layer whose
+projections are W8A8 int8 (``ops/quant``), on ``w8a8_dense``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -78,7 +81,10 @@ class SiglipEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
         parts = None
-        if L._fused_layer_enabled(x, c.hidden_size, c.intermediate_size, c.num_attention_heads):
+        # int8 (W8A8) projections never take K5a-c (siglip.py:52-84); the
+        # quantizer gives every projection its weight_scale at once
+        if (L._fused_layer_enabled(x, c.hidden_size, c.intermediate_size, c.num_attention_heads)
+                and self.mlp.fc1.weight_scale is None):
             parts = L._FUSED_PARTS
         kw = dict(eps=c.layer_norm_eps)
         if parts == "both":
@@ -99,9 +105,12 @@ class SiglipVisionTower(nn.Module):
 
     ``pos_index``: the row of the position table for each patch. SigLIP in
     ColPali uses them in order (empty); Idefics3 passes its bucketized
-    fractional coordinates (siglip.py:124-155)."""
+    fractional coordinates (siglip.py:124-155). ``n_layers`` (default all)
+    and ``post_layernorm=False`` make the feature tower LLaVA-Next reads
+    (``models/granite.SiglipFeatureTower``)."""
 
-    def __init__(self, cfg: SiglipVisionConfig, *, device, dtype, pos_index: tuple = ()):
+    def __init__(self, cfg: SiglipVisionConfig, *, device, dtype, pos_index: tuple = (),
+                 n_layers: Optional[int] = None, post_layernorm: bool = True):
         super().__init__()
         self.cfg = cfg
         self.register_buffer("pos_index", torch.tensor(pos_index, dtype=torch.long,
@@ -114,9 +123,10 @@ class SiglipVisionTower(nn.Module):
         self.patch_embedding.weight = L.empty_param(cfg.hidden_size, 3, p, p, **kw)
         self.patch_embedding.bias = L.empty_param(cfg.hidden_size, **kw)
         self.position_embedding = L.empty_param(cfg.num_patches, cfg.hidden_size, **kw)
-        self.layers = nn.ModuleList(
-            SiglipEncoderLayer(cfg, **kw) for _ in range(cfg.num_hidden_layers))
-        self.post_layernorm = L.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
+        n = cfg.num_hidden_layers if n_layers is None else n_layers
+        self.layers = nn.ModuleList(SiglipEncoderLayer(cfg, **kw) for _ in range(n))
+        self.post_layernorm = (L.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
+                               if post_layernorm else None)
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -130,4 +140,4 @@ class SiglipVisionTower(nn.Module):
         x = x + pos.to(x.dtype)[None]
         for layer in self.layers:
             x = layer(x)
-        return self.post_layernorm(x)
+        return x if self.post_layernorm is None else self.post_layernorm(x)

@@ -1,5 +1,6 @@
-"""Weight-only int8 and group-wise int4 quantization for the decode engine
-(counterpart of ``multimodal_colpali_tpu/ops/quant.py:36-259, :331-372``).
+"""Weight-only int8 and group-wise int4 quantization for the decode engine,
+and W8A8 int8 projections for the encoders (counterpart of
+``multimodal_colpali_tpu/ops/quant.py``).
 
 Representations, byte for byte the JAX package's:
 
@@ -22,6 +23,18 @@ and K8b (``x @ codes [N, K]^T * scale``, the tied LM head) of
 before the dot: K9 of ``ops/int4_matmul.py`` on a CUDA tensor. On a CPU
 tensor each takes its plain version, which repeats the JAX package's XLA
 path.
+
+W8A8 (quant.py:262-327), the encoders' ``quantize="int8"``: every dense
+projection of an encoder (an ``L.Dense``, a flax 2-D ``kernel``) holds int8
+codes ``[out, in]`` and a float32 scale per output channel, made from its
+weights in the model's dtype (:func:`quantize_encoder_params`). Its
+activations are quantized per row at each call (:func:`quantize_act_int8`),
+the codes multiply into exact int32 sums (:func:`int8_mm`:
+``torch._int_mm`` on a CUDA tensor, a plain integer product on the CPU) and
+the scales follow as a float32 epilogue (:func:`w8a8_dense`). No Pallas
+kernel runs this product in JAX either (XLA's ``dot_general``). These
+weights are never sent to K8a, whose ``{q8, scale}`` operands are the
+decode engine's weight-only ``[in, out]`` codes with bf16 activations.
 """
 
 from __future__ import annotations
@@ -241,3 +254,73 @@ def _quantize_lm_tree(params: Any, fmt: str, group: int = 256) -> Any:
         emb["embed_tokens"] = quantize_lm_leaf("embed_tokens", emb["embed_tokens"], fmt)
     out["embed"] = emb
     return out
+
+
+# -- W8A8: the encoders' int8 projections ------------------------------------------
+
+INT_MM_MIN_ROWS = 32   # torch._int_mm on CUDA needs more than 16 rows
+
+
+def quantize_act_int8(x: torch.Tensor):
+    """Per-row (last-dim) symmetric absmax int8 quantization of activations
+    -> (codes int8, scale float32 ``[..., 1]``), bit for bit JAX's eager
+    result (quant.py:282-289): a zero row keeps scale 1/127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    # tensor divisors: a CUDA division by a Python scalar multiplies by the reciprocal
+    scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / torch.full_like(amax, 127.0)
+    return torch.round(xf / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def int8_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] @ w [N, K]^T`` for int8 codes -> int32, exact.
+
+    On a CUDA tensor this is ``torch._int_mm``, whose shape rules (M > 16,
+    K and N multiples of 8) are met by zero rows and columns, sliced off
+    after: zeros add nothing to an integer sum. On the CPU it is a plain
+    int32 product."""
+    if a.device.type != "cuda":
+        return a.to(torch.int32) @ w.to(torch.int32).T
+    m, k = a.shape
+    n = w.shape[0]
+    pk, pn = (-k) % 8, (-n) % 8
+    if pk:
+        a, w = F.pad(a, (0, pk)), F.pad(w, (0, pk))
+    if pn:
+        w = F.pad(w, (0, 0, 0, pn))
+    if m < INT_MM_MIN_ROWS:
+        a = F.pad(a, (0, 0, 0, INT_MM_MIN_ROWS - m))
+    return torch._int_mm(a.contiguous(), w.T)[:m, :n]
+
+
+def w8a8_dense(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ W^T (+ bias)`` for ``W`` held as int8 ``codes [out, in]`` and a
+    float32 ``scale [out]`` (quant.py:292-305): x quantized per row, the
+    exact int32 product, then ``acc * sx * scale`` and the bias in float32,
+    in JAX's order; the result in x's dtype."""
+    lead = x.shape[:-1]
+    xq, sx = quantize_act_int8(x.reshape(-1, x.shape[-1]))
+    y = int8_mm(xq, codes).float() * sx * scale
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype).reshape(*lead, codes.shape[0])
+
+
+@torch.no_grad()
+def quantize_encoder_params(model: torch.nn.Module) -> torch.nn.Module:
+    """Every dense projection of ``model`` (each ``models.layers.Dense``: the
+    flax tree's 2-D ``kernel`` leaves) becomes int8 codes plus a per-output-
+    channel float32 scale, on its device, from its weight as it is (in the
+    model's dtype), as quant.py:308-327 rewrites the tree. Convolutions,
+    norms, biases, embedding tables and position tables keep their dtype.
+    In place; returns ``model``."""
+    from multimodal_colpali_tpu_torch.models.layers import Dense
+
+    for mod in model.modules():
+        if isinstance(mod, Dense) and mod.weight.dtype != torch.int8:
+            q = quantize_int8(mod.weight, axis=1)
+            mod.weight = torch.nn.Parameter(q["q8"], requires_grad=False)
+            mod.weight_scale = q["scale"]
+    return model
+

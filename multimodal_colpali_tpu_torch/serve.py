@@ -54,8 +54,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "every projection through the group-wise int4 kernel (K9) and the "
                         "head, whose table stays int8, through K8b.")
     p.add_argument("--vision-dtype", default="native", choices=["native", "int8"],
-                   help="SigLIP tower weights (Gemma-3 multimodal only); int8 (W8A8) is "
-                        "not ported and raises.")
+                   help="SigLIP tower weights (Gemma-3 multimodal only): int8 makes its "
+                        "projections W8A8 (int8 activations and weights, int32 sums); the "
+                        "projector stays in --dtype.")
     p.add_argument("--kv-dtype", default="native", choices=["native", "int8"],
                    help="KV pool storage (--paged): int8 codes + per-token scales (K7b).")
     p.add_argument("--prefix-caching", action="store_true",
@@ -84,10 +85,6 @@ def build(args: argparse.Namespace):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     retriever = mm_parts = None
     if args.model in GEMMA3_MM_CONFIGS:
-        if args.vision_dtype == "int8":           # before 54 GB of weights load
-            raise NotImplementedError(
-                "--vision-dtype int8 (a W8A8 SigLIP tower: ops/quant's W8A8 projections, "
-                "quantize_encoder_params) is not ported yet; see ROADMAP.md")
         cfg_mm, params, tok = load_gemma3_mm(args.model, device=args.device, dtype=dtype,
                                              weight_dtype=args.weight_dtype)
         cfg = cfg_mm.text
@@ -115,7 +112,8 @@ def build(args: argparse.Namespace):
     if mm_parts is not None:
         # the LM's tree exists once: the image engine decodes through this one
         cfg_mm, tower, projector = mm_parts
-        mm_engine = Gemma3MMEngine(cfg_mm, tower, projector, lm=engine)
+        mm_engine = Gemma3MMEngine(cfg_mm, tower, projector, lm=engine,
+                                   vision_dtype=args.vision_dtype)
         image_pre = ImagePreprocessor(cfg_mm.vision.image_size)
     elif retriever is not None:
         # image-conditioned generation on the same weights, its LM the text

@@ -529,6 +529,11 @@ CARD_SET = textwrap.dedent("""
     assert batch["pixel_values"].shape == (1, 28, 28, 3)
     (entry,) = api.create_document_embeddings(pdfs, retr)
     assert entry["file_name"] == "p.pdf" and entry["embedding"].ndim == 2
+    # the dynamic layouts' processors (anyres tiles, image splitting) and W8A8
+    for name in ("tiny-colgranite", "tiny-colidefics3"):
+        dyn = load_retriever(name, device="cpu", dynamic_resolution=True, quantize="int8")
+        (emb,) = dyn.embed_images([page])
+        assert emb.ndim == 2 and emb.shape[0] > 40, (name, emb.shape)
 
     try:
         import multimodal_colpali_tpu_torch.evalstats  # noqa: F401

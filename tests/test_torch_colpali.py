@@ -301,10 +301,18 @@ def test_random_init_in_bf16_embeds_finite_unit_vectors():
 
 
 def test_load_retriever_rejects_int8_and_unknown_names():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_retriever("tiny-colpali", quantize="int8")
-    with pytest.raises(KeyError):     # ColGranite is not ported (ROADMAP queue 1 item 6)
-        load_retriever("ibm-granite/granite-vision-3.3-2b-embedding")
+    """W8A8 and ColGranite are ported: ``quantize="int8"`` builds int8
+    projections and the granite names load; an unknown quantize mode raises
+    ``ValueError`` and an unknown name ``KeyError``."""
+    with pytest.warns(UserWarning, match="random init"):
+        r = load_retriever("tiny-colpali", device="cpu", quantize="int8")
+    assert r.quantize == "int8" and r.model.multi_modal_projector.weight.dtype == torch.int8
+    with pytest.raises(ValueError, match="unknown quantize mode 'int4'"):
+        load_retriever("tiny-colpali", device="cpu", quantize="int4")
+    with pytest.raises(KeyError):
+        load_retriever("ibm-granite/granite-vision-3.3-2b")
+    with pytest.warns(UserWarning, match="random init"):
+        assert load_retriever("tiny-colgranite", device="cpu").family == "colgranite"
 
 
 @pytest.mark.parametrize("name", ["vidore/colpali-v1.2", "vidore/colpali-v1.3",

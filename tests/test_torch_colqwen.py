@@ -296,8 +296,10 @@ def test_registry_family_rules():
     assert [e.shape for e in embs] == [(22, 8)] * 3
     with pytest.raises(ValueError, match="device_preprocess"):
         load_retriever("tiny-colqwen2.5", device="cpu", device_preprocess=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_retriever("tiny-colidefics3", device="cpu", dynamic_resolution=True)
+    # image splitting is ported: idefics3's dynamic_resolution is its splitting processor
+    with pytest.warns(UserWarning, match="random init"):
+        split = load_retriever("tiny-colidefics3", device="cpu", dynamic_resolution=True)
+    assert split.processor.dynamic_resolution
 
 
 def test_dynamic_resolution_embeds_per_grid_like_jax():

@@ -25,6 +25,8 @@ from multimodal_colpali_tpu_torch.models import convert, idefics3, load_retrieve
 from multimodal_colpali_tpu_torch.models import layers as TL
 from multimodal_colpali_tpu_torch.models.configs import ColIdefics3ModelConfig
 from multimodal_colpali_tpu_torch.models.idefics3 import ColIdefics3Model
+from multimodal_colpali_tpu_torch.models.processing_idefics3 import (
+    ColIdefics3Processor as idefics3_processor)
 from multimodal_colpali_tpu_torch.ops.maxsim import maxsim_scores
 from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
 
@@ -309,8 +311,117 @@ def test_random_init_follows_the_family():
 
 
 def test_dynamic_resolution_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_retriever("tiny-colidefics3", dynamic_resolution=True)
+    """Image splitting is ported: ``dynamic_resolution=True`` builds the
+    splitting processor; it raises only with ``device_preprocess``, whose
+    uint8 path holds the square layout alone (registry.py:51-65)."""
+    with pytest.warns(UserWarning, match="random init"):
+        r = load_retriever("tiny-colidefics3", device="cpu", dynamic_resolution=True)
+    assert r.processor.dynamic_resolution
+    with pytest.raises(ValueError, match="device_preprocess requires the fixed square layout"):
+        load_retriever("tiny-colidefics3", device="cpu", dynamic_resolution=True,
+                       device_preprocess=True)
+    with pytest.raises(ValueError, match="square layout"):
+        r.processor.process_images(_pages(1, n=1), grid=(1, 1), device_preprocess=True)
+
+
+# -- image splitting ------------------------------------------------------------------
+
+# (h, w) of pages: wide, tall, square, and a long strip the max_tiles clamp cuts
+SPLIT_SIZES = [(40, 90), (90, 40), (45, 37), (33, 33), (20, 200), (300, 70)]
+
+
+def _split_pages(seed, sizes=SPLIT_SIZES):
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    return [Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), "RGB")
+            for h, w in sizes]
+
+
+@pytest.mark.parametrize("max_tiles,longest_edge", [(4, None), (2, 80), (6, 100)])
+def test_split_pixels_and_ids_equal_jax(max_tiles, longest_edge):
+    """Tilings, groups, prompt ids and the split pixels (JAX's through
+    Pillow's LANCZOS) within one float32 ulp, a uint8 array among the PIL
+    pages."""
+    cfg = JI.ColIdefics3ModelConfig.tiny()
+    kw = dict(image_splitting=True, max_tiles=max_tiles, longest_edge=longest_edge)
+    jp = JProcessor(cfg, **kw)
+    tp = idefics3_processor(ColIdefics3ModelConfig.tiny(), **kw)
+    pages = _split_pages(max_tiles)
+    pages[1] = np.asarray(pages[1])
+    assert [tp.tiling_for(p) for p in pages] == [jp.tiling_for(p) for p in pages]
+    assert all(ty * tx <= max_tiles for ty, tx in map(tp.tiling_for, pages))
+    groups = tp.group_by_grid(pages)
+    assert groups == jp.group_by_grid(pages) and len(groups) >= 2
+    for grid, idxs in groups:
+        sel = [pages[i] for i in idxs]
+        a, b = tp.process_images(sel, grid=grid), jp.process_images(sel, grid=grid)
+        assert tp._split_prompt_ids(grid) == jp._split_prompt_ids(grid)
+        for key in ("input_ids", "attention_mask"):
+            np.testing.assert_array_equal(a[key], b[key])
+        assert a["pixel_values"].shape == b["pixel_values"].shape == \
+            (len(sel), grid[0] * grid[1] + 1, 32, 32, 3)
+        np.testing.assert_array_max_ulp(a["pixel_values"], b["pixel_values"], maxulp=1)
+
+
+@pytest.mark.parametrize("tiles", [(1, 2), (2, 2), (3, 1)])
+def test_multi_tile_model_matches_flax(nested_params, port_model, tiles):
+    """The tower and the connector over every sub-image, features in order
+    into the prompt's image tokens, float32 at atol 1e-4."""
+    cfg = JI.ColIdefics3ModelConfig.tiny()
+    proc = JProcessor(cfg, image_splitting=True)
+    seq = proc._split_prompt_ids(tiles) + [5, 9]
+    ids = np.tile(np.asarray(seq, np.int32), (2, 1))
+    mask = np.ones_like(ids)
+    pix = np.random.default_rng(8).uniform(-1, 1, (2, tiles[0] * tiles[1] + 1, 32, 32, 3))
+    pix = pix.astype(np.float32)
+    want = JI.ColIdefics3Model(cfg).apply({"params": nested_params}, jnp.asarray(ids),
+                                          jnp.asarray(mask), jnp.asarray(pix), tiles=tiles)
+    with torch.no_grad():
+        got = port_model(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                         torch.from_numpy(pix), tiles=tiles)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
+def test_splitting_retriever_matches_jax(nested_params, flat_params):
+    """Grouped embedding end to end, one group a tiling, pages back in their
+    order: the JAX Retriever's embeddings at atol 1e-4."""
+    cfg = JI.ColIdefics3ModelConfig.tiny()
+    jr = JR.Retriever(name="tiny-colidefics3", model=JI.ColIdefics3Model(cfg),
+                      params=nested_params, processor=JProcessor(cfg, image_splitting=True),
+                      dtype=jnp.float32, family="colidefics3")
+    tr = load_retriever("tiny-colidefics3", device="cpu", dtype=torch.float32,
+                        params=flat_params, dynamic_resolution=True)
+    pages = _split_pages(1)
+    want = jr.embed_images(pages, batch_size=2)
+    got = tr.embed_images(pages, batch_size=2)
+    assert len({a.shape for a in got}) >= 2
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, b, rtol=0, atol=ATOL)
+
+
+def test_pipelined_embedder_with_splitting_equals_embed_images(flat_params, tmp_path):
+    """``PipelinedEmbedder`` feeds one sub-batch a tiling: the records and
+    embeddings of ``create_document_embeddings`` (``embed_images`` a PDF)."""
+    from multimodal_colpali_tpu_torch import api as tapi
+    from multimodal_colpali_tpu_torch.ingest import pipeline as tpipeline
+    from multimodal_colpali_tpu_torch.ingest.pdfwrite import PdfWriter, make_sample_pdf
+
+    make_sample_pdf(str(tmp_path / "a.pdf"), n_pages=2, lines_per_page=3, seed=0)
+    w = PdfWriter(width=700, height=300)             # a landscape page: another tiling
+    w.add_page(text_lines=["wide page"])
+    w.save(str(tmp_path / "b.pdf"))
+    r = load_retriever("tiny-colidefics3", device="cpu", dtype=torch.float32,
+                       params=flat_params, dynamic_resolution=True)
+    want = tapi.create_document_embeddings(str(tmp_path), r, batch_size=3)
+    got = tpipeline.PipelinedEmbedder(r, batch_size=2).embed_pdf_dir(str(tmp_path))
+    assert len(got) == len(want) == 3
+    assert len({e["embedding"].shape for e in got}) == 2
+    for g, w in zip(got, want):
+        assert (g["doc_id"], g["page_id"], g["file_name"]) == \
+            (w["doc_id"], w["page_id"], w["file_name"])
+        np.testing.assert_allclose(g["embedding"], w["embedding"], rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("name", ["vidore/colSmol-256M", "vidore/colidefics3-v1.0"])

@@ -1735,3 +1735,95 @@ def test_colqwen25_tower_on_card_launches_k2_at_both_forms(gen):
     assert got.shape == want.shape == (2, 35, v.hidden_size)
     torch.testing.assert_close(got.float().cpu(), want, rtol=0,
                                atol=5e-2 * float(want.abs().max()))
+
+
+def test_attention_at_the_granite_tower_shape(gen):
+    """K2 at ColGranite's SigLIP-So400m at 384 px, 729 patches, a batch of 8
+    ``[8, 729, 16, 72]`` bf16: its tensor-core path against the plain
+    version within 5e-3 (the outputs average 729 values), a repeat
+    bit-identical."""
+    q, k, v = (_randn(gen, 8, 729, 16, 72, dtype=torch.bfloat16) for _ in range(3))
+    before = A.fused_attention_cuda.tensor_core_launches
+    got = A.fused_attention_cuda(q, k, v, scale=72 ** -0.5)
+    assert A.fused_attention_cuda.tensor_core_launches == before + 1
+    want = A.attention_reference(q, k, v, scale=72 ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=5e-3)
+    assert torch.equal(A.fused_attention_cuda(q, k, v, scale=72 ** -0.5), got)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 32), (9, 37, 21), (16, 576, 192), (300, 2048, 1024),
+                                   (40, 3420, 1280), (2060, 1152, 136)])
+def test_w8a8_dense_on_card_equals_the_exact_cpu_product(gen, m, k, n):
+    """``torch._int_mm`` with its shape rules met by zero padding (rows to
+    32, K and N to multiples of 8): the int32 sums equal an exact int64
+    product on the host, and ``w8a8_dense`` (codes, sums, float32 epilogue)
+    the CPU's bit for bit."""
+    from multimodal_colpali_tpu_torch.ops import quant as Q
+
+    x = _randn(gen, m, k, dtype=torch.bfloat16)
+    w = _randn(gen, n, k, dtype=torch.bfloat16) * 0.05
+    b = _randn(gen, n, dtype=torch.bfloat16)
+    q = Q.quantize_int8(w, axis=1)
+    xq, _ = Q.quantize_act_int8(x)
+    acc = Q.int8_mm(xq, q["q8"])
+    want = xq.cpu().long() @ q["q8"].cpu().long().T
+    assert acc.dtype == torch.int32 and torch.equal(acc.cpu().long(), want)
+    got = Q.w8a8_dense(x, q["q8"], q["scale"], b)
+    cpu = Q.w8a8_dense(x.cpu(), q["q8"].cpu(), q["scale"].cpu(), b.cpu())
+    assert got.dtype == torch.bfloat16 and torch.equal(got.cpu(), cpu)
+
+
+def _card_tower_vs_float32(tower_cls_kw, cfg, pix_shape, gen):
+    """(bf16 forward on the card, float32 forward on the CPU) of one tower."""
+    from multimodal_colpali_tpu_torch.models.registry import init_random_params_
+    from multimodal_colpali_tpu_torch.models.siglip import SiglipVisionTower
+
+    cpu = SiglipVisionTower(cfg, device="cpu", dtype=torch.float32, **tower_cls_kw).eval()
+    init_random_params_(cpu, seed=1, family="siglip")
+    card = SiglipVisionTower(cfg, device="cuda", dtype=torch.bfloat16, **tower_cls_kw).eval()
+    card.load_state_dict({n: t.to(torch.bfloat16) for n, t in cpu.state_dict().items()})
+    pix = torch.randn(pix_shape, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        got = card(pix.cuda().to(torch.bfloat16))
+        want = cpu(pix)
+    return got, want
+
+
+def test_colsmol_split_tower_on_card_takes_k5a(gen):
+    """ColSmol's SigLIP-768 at full width over a page's 4 tiles and global
+    view (image splitting at 1,024 px): every layer on K5a (4 wgmma GEMMs a
+    launch), the patches within 5e-2 of their scale of the float32 tower."""
+    from multimodal_colpali_tpu_torch.models.configs import ColIdefics3ModelConfig
+    from multimodal_colpali_tpu_torch.models.idefics3 import idefics3_position_index
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    cfg = ColIdefics3ModelConfig.colsmol_256m().vision
+    before = (FL.fused_vit_layer_cuda.launches, FL.fused_gemm_cuda.wgmma_launches)
+    got, want = _card_tower_vs_float32(dict(pos_index=idefics3_position_index(32)), cfg,
+                                       (5, 512, 512, 3), gen)
+    assert FL.fused_vit_layer_cuda.launches == before[0] + 12
+    assert FL.fused_gemm_cuda.wgmma_launches == before[1] + 48
+    assert got.shape == want.shape == (5, 1024, 768)
+    torch.testing.assert_close(got.float().cpu(), want, rtol=0,
+                               atol=5e-2 * float(want.abs().max()))
+
+
+def test_granite_tower_on_card_runs_k2(gen):
+    """ColGranite's feature tower (SigLIP-So400m at 384 px, cut to 4 blocks
+    here, no post-LayerNorm) at full width: one K2 tensor-core launch a
+    block at ``[3, 729, 16, 72]``, no fused layer, the patches within 5e-2
+    of their scale of the float32 tower on the CPU."""
+    import dataclasses
+
+    from multimodal_colpali_tpu_torch.models.configs import ColGraniteModelConfig
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+
+    cfg = dataclasses.replace(ColGraniteModelConfig.granite_vision_3().vision,
+                              num_hidden_layers=4)
+    before = (A.fused_attention_cuda.tensor_core_launches, FL.fused_vit_layer_cuda.launches)
+    got, want = _card_tower_vs_float32(dict(post_layernorm=False), cfg, (3, 384, 384, 3), gen)
+    assert A.fused_attention_cuda.tensor_core_launches == before[0] + 4
+    assert FL.fused_vit_layer_cuda.launches == before[1]
+    assert got.shape == want.shape == (3, 729, 1152)
+    torch.testing.assert_close(got.float().cpu(), want, rtol=0,
+                               atol=5e-2 * float(want.abs().max()))

@@ -183,17 +183,23 @@ def test_two_images_both_condition_the_logits(tiny4):
     assert not np.allclose(a, b)
 
 
-def test_vision_int8_raises_and_the_engine_shares_the_lm(tiny_params):
-    """W8A8 SigLIP is not ported: ``--vision-dtype int8`` makes
-    ``serve.build`` raise NotImplementedError naming ops/quant (JAX builds
-    it), and an unknown value is refused by the argument parser as JAX's
-    engine refuses it with a ValueError. The image engine decodes through
-    the text engine it is given: one LM tree."""
+def test_vision_int8_raises_and_the_engine_shares_the_lm(tiny_params, monkeypatch):
+    """``--vision-dtype int8`` builds, as JAX's: a W8A8 SigLIP tower (its
+    projections int8, ``ops/quant``) beside a projector in the LM's dtype.
+    Only an unknown value raises: the argument parser refuses it, as JAX's
+    engine and the port's refuse it with a ValueError. The image engine
+    decodes through the text engine it is given: one LM tree."""
     jcfg, cfg, params = tiny_params
     eng, mm = _port(cfg, params, "int8")
-    with pytest.raises(NotImplementedError, match="ops/quant"):
-        serve.build(serve.parse_args(["--model", "tiny-gemma3", "--device", "cpu",
-                                      "--vision-dtype", "int8"]))
+    monkeypatch.delenv("COLPALI_TPU_CKPT_DIR", raising=False)
+    with pytest.warns(UserWarning, match="random init"):
+        e8, _, m8, _ = serve.build(serve.parse_args(["--model", "tiny-gemma3", "--device",
+                                                     "cpu", "--vision-dtype", "int8"]))
+    assert m8.lm is e8 and m8.vision_tower.layers[0].mlp.fc1.weight.dtype == torch.int8
+    assert m8.vision_tower.patch_embedding.weight.dtype == torch.bfloat16
+    assert m8.projector["mm_input_projection"].dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="vision_dtype"):
+        Gemma3MMEngine(cfg, mm.vision_tower, mm.projector, lm=eng, vision_dtype="fp8")
     with pytest.raises(SystemExit):
         serve.parse_args(["--model", "tiny-gemma3", "--vision-dtype", "fp8"])
     with pytest.raises(ValueError):
@@ -680,14 +686,20 @@ def test_serve_builds_the_image_engine_for_gemma3(monkeypatch):
 
 
 def test_serve_refuses_vision_int8_before_loading(monkeypatch):
+    """int8 is a vision dtype now (``serve.build`` loads and quantizes the
+    tower); a dtype the server does not know is refused by the argument
+    parser, before anything loads."""
     def boom(*a, **k):
         raise AssertionError("loaded before refusing")
 
     monkeypatch.setattr(TR, "load_gemma3_mm", boom)
     args = serve.parse_args(["--model", "tiny-gemma3", "--device", "cpu", "--vision-dtype",
                              "int8"])
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        serve.build(args)
+    assert args.vision_dtype == "int8"
+    with pytest.raises(AssertionError, match="loaded before refusing"):
+        serve.build(args)                   # int8 goes on to load
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--model", "tiny-gemma3", "--vision-dtype", "int4"])
 
 
 def test_gemma3_1b_is_served_as_text_where_jax_raises(monkeypatch):

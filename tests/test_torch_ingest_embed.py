@@ -139,7 +139,7 @@ def test_pipelined_embedder_refuses_dynamic_resolution(retriever_pair, pdf_dir):
 
     saved, tr.processor = tr.processor, Dynamic()
     try:
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        with pytest.raises(NotImplementedError, match="no group_by_grid"):
             tpipeline.PipelinedEmbedder(tr, batch_size=2).embed_pdf_dir(pdf_dir)
     finally:
         tr.processor = saved

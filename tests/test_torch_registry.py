@@ -177,8 +177,10 @@ def test_without_a_checkpoint_random_init_stays(ckpt_env, monkeypatch):
 def test_mmcp_quantize_acts_as_quantize(monkeypatch):
     monkeypatch.delenv("COLPALI_TPU_CKPT_DIR", raising=False)
     monkeypatch.setenv("MMCP_QUANTIZE", "int8")
-    with pytest.raises(NotImplementedError, match="W8A8"):
-        TR.load_retriever("tiny-colpali", device="cpu")
+    with pytest.warns(UserWarning, match="random init"):
+        r = TR.load_retriever("tiny-colpali", device="cpu")
+    assert r.quantize == "int8"
+    assert {p.dtype for p in r.model.parameters()} == {torch.int8, torch.bfloat16}
     monkeypatch.setenv("MMCP_QUANTIZE", "int3")
     with pytest.raises(ValueError, match="int3"):
         TR.load_retriever("tiny-colpali", device="cpu")
