@@ -213,7 +213,7 @@ phase; any failure exits non-zero.
    events around the forwards against the wall) and the peak memory.
 
 Each main path (3, 4, each run of 5, 6, 7, 8, 9 and 10; run (e) a sweep at a
-time; 11; each process of 12; each part of 13) sets every launch
+time; 11; each process of 12; each part of 13; each run of 14) sets every launch
 counter to 0 before it runs and reads them after; each kernel of the path
 must have run in it (ColPali, ColSmol and ColFlor: K1's tensor-core path,
 ColSmol K4's too; ColPali, ColSmol and both runs of 7: K2's tensor-core
@@ -223,7 +223,9 @@ K2's tensor-core path; run (c) and image runs (b): both of K8a's tiles and
 K8b; run (d): both of K9's tiles; phase 9: none, every counter stays 0; phase 10: K2's
 tensor-core path and K3; phase 13: (a) K2's tensor-core path at the tower's shapes and K1's
 tensor-core path, (b) K5a with every GEMM on ``gemm_wgmma`` and K1, (c)
-K2's tensor-core path and K1, and no K5 GEMM, K8a or K8b). The line before the last is a JSON object with
+K2's tensor-core path and K1, and no K5 GEMM, K8a or K8b; phase 14: K2's and K7's
+tensor-core paths in every run, K8a and K8b in the int8 runs, K9 and K8b in the int4
+run). The line before the last is a JSON object with
 each kernel's launches in those paths, its error against the plain version,
 its time, the plain version's, its bound and, for K2, K6, K8a, K8b and K9,
 the library call's (null where this torch has none); K8a and K9 have a row a
@@ -304,6 +306,32 @@ result.
     builds it) int8 against bf16 over 5 images: the soft tokens' mean cosine
     >= 0.98. Printed: pages/s (square, anyres, ColSmol both ways, W8A8), ms
     a query, image tokens a page, peaks, the phase's wall time.
+14. The old-model tier (after phase 13, before phase 12), random weights
+    from ``--seed`` made on the card, behind ``GenerationServer`` on 4 slots
+    of 6,144 with pages of 16. Each run sends at once two RAG text requests
+    of 600 and 1,500 byte tokens whose context repeats a passage, a 1-image and
+    a 5-image request (PNG data URLs decoded by the port) and an MCQ
+    ``response_format`` request, 32 new tokens each; every greedy reply must
+    equal the isolated engine's (``Qwen2VLMMEngine.generate`` /
+    ``engine.generate``) or first differ where its top two logits are within
+    0.05 (a k-row verify and a 1-row decode round differently in bf16).
+    (a) ``AdaptLLM/biomed-Qwen2-VL-2B-Instruct`` at full width and depth
+    (2.2B) on ``SpeculativePagedContinuousBatcher(spec_k=4)``: bf16 weights
+    and KV (K2 at ``[5, 2916, 16, 80]`` on its tensor cores, 32 a 5-image
+    tower; K7a over the verify's ``[16, 12, 128]`` rows on its tensor
+    cores), int8 weights with int8 KV (K8a, K8b on the tied 151,936-row
+    head, K7b), int4 weights (K9, K8b). (b)
+    ``AdaptLLM/biomed-LLaVA-NeXT-Llama3-8B`` at full width (8.4B, images at
+    336 px, 1,176 tokens each): bf16 through the plain paged batcher (K2 at
+    CLIP's ``[5, 577, 16, 64]``, 23 a tower), then speculative with int8 KV
+    (K7b over ``[16, 32, 128]``), then (b2) int8 weights made leaf by leaf
+    (K8a on every projection and on the untied 128,320-column head),
+    speculative. Then K2 at both towers and K7a / K7b at the verify rows
+    against their plain versions on the path's own tensors (rows
+    ``attention.qwen2vl_tower``, ``attention.clip_tower``,
+    ``paged_attention.verify``, ``paged_attention_int8.verify``). Printed a
+    run: accepted tokens a verify, each request's TTFT, decode tokens/s and
+    the peak; the phase's wall time.
 """
 
 from __future__ import annotations
@@ -3963,6 +3991,25 @@ def search_agrees(np, retr, embs, pages, client, collection: str, batch: int):
     return float(np.mean(query_ms)), exact, gap
 
 
+class CallRecorder:
+    """Wraps a kernel's entry point (``Patched``): counts its calls by the q
+    shape and keeps the first call's arguments at each shape, for the
+    kernel-against-plain checks after the run."""
+
+    def __init__(self):
+        self.shapes, self.inputs = {}, {}
+
+    def __call__(self, orig):
+        def run(q, *args, **kw):
+            shape = tuple(q.shape)
+            self.shapes[shape] = self.shapes.get(shape, 0) + 1
+            if shape not in self.inputs:
+                self.inputs[shape] = ([x.clone() if hasattr(x, "clone") else x
+                                       for x in (q, *args)], dict(kw))
+            return orig(q, *args, **kw)
+        return run
+
+
 def tower_k2_against_plain(torch, inputs: dict) -> dict:
     """K2 against its plain version on the q, k, v a tower gave it, one set
     at each shape (``inputs``: shape -> (q, k, v, kv_lens, kv_valid), kw).
@@ -4011,18 +4058,8 @@ def grid_granite(torch, seed: int, card: str) -> dict:
     init_s = time.perf_counter() - t0
     cfg = retr.model.cfg
     n_params = sum(p.numel() for p in retr.model.parameters())
-    shapes = {}
-
-    inputs = {}                 # the first q, k, v at each shape, for K2 against plain
-
-    def recorded(orig):
-        def run(q, k, v, kv_lens=None, kv_valid=None, **kw):
-            shapes[tuple(q.shape)] = shapes.get(tuple(q.shape), 0) + 1
-            if tuple(q.shape) not in inputs:
-                inputs[tuple(q.shape)] = ([None if x is None else x.clone()
-                                          for x in (q, k, v, kv_lens, kv_valid)], kw)
-            return orig(q, k, v, kv_lens, kv_valid, **kw)
-        return run
+    rec = CallRecorder()        # K2's calls by shape, the first q, k, v at each
+    shapes = rec.shapes
 
     wrappers = kernel_wrappers()
     b = GRID["batch"]
@@ -4030,7 +4067,7 @@ def grid_granite(torch, seed: int, card: str) -> dict:
     retr.embed_images(pages[:b], batch_size=b)            # warm-up
     torch.cuda.reset_peak_memory_stats()
     reset_counts(wrappers)
-    with Patched(L, "fused_attention", recorded):
+    with Patched(L, "fused_attention", rec):
         t0 = time.perf_counter()
         embs = retr.embed_images(pages, batch_size=b)
         torch.cuda.synchronize()
@@ -4078,7 +4115,7 @@ def grid_granite(torch, seed: int, card: str) -> dict:
     require(launches_all["attention"] == launches_all["attention.tensor_core"] > 0
             and launches["maxsim"] > 0 and launches["maxsim.tensor_core"] > 0,
             f"ColGranite: K2 off its tensor-core path, or no K1: {launches_all}")
-    k2_errs = tower_k2_against_plain(torch, inputs)
+    k2_errs = tower_k2_against_plain(torch, rec.inputs)
     print(f"[grid] (a) {GRANITE} {n_params / 1e9:.3f}B params bf16 (random init on the card "
           f"{init_s:.1f} s): {GRID['pages']} square pages of {GRID['size']} px ({n_tok} tokens, "
           f"{cfg.n_image_tokens} image) in batches of {b}: embed {GRID['pages'] / embed_s:.2f} "
@@ -4091,7 +4128,7 @@ def grid_granite(torch, seed: int, card: str) -> dict:
           f"{sum(tiles) + len(tiles)} sub-images) in batches of {GRID['anyres_batch']}: "
           f"{len(dpages) / dyn_s:.2f} pages/s, peak {dyn_peak:.1f} GiB | K2 against its plain "
           f"version on the tower's first q, k, v at each shape: {k2_errs} | {card}", flush=True)
-    del retr, dyn, client, inputs
+    del retr, dyn, client, rec
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches_all, "attention.granite_tower": sum(square_k2.values())}
@@ -4410,6 +4447,361 @@ def phase_grid(torch, seed: int, card: str, work: str, checkpoint: dict) -> dict
     print(f"[grid] phase 13 {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
     return {"paths": [a["launches"], b["launches"], c["launches"]],
             "attention.granite_tower": a["attention.granite_tower"]}
+
+
+# -- phase 14: the old-model tier -----------------------------------------------------------
+
+QWEN2VL = "AdaptLLM/biomed-Qwen2-VL-2B-Instruct"
+LLAVA = "AdaptLLM/biomed-LLaVA-NeXT-Llama3-8B"
+OLD = dict(slots=4, max_seq_len=6144, chunk=8, page=16, max_tokens=32, spec_k=4,
+           text_tokens=(600, 1500), images=5)
+OLD_SIZE = {"qwen": 756, "llava": 336}      # page pixels: each tower's own input size
+
+
+def rag_text(rng, n_tokens: int) -> str:
+    """``n_tokens`` byte tokens of retrieved context whose passages repeat (a
+    chunk retrieved twice, as RAG contexts hold), then an MCQ."""
+    half = mcq_prompt(rng, n_tokens // 2 + 150)
+    ctx = half[: half.index("\nQuestion:")]
+    require(n_tokens - 1 - len(half) <= len(ctx), f"a RAG prompt of {n_tokens} tokens "
+            f"repeats more than its context")
+    text = ctx[: n_tokens - 1 - len(half)] + "\n" + half
+    require(len(text.encode()) == n_tokens, f"a RAG prompt of {len(text.encode())} bytes, "
+            f"not {n_tokens}")
+    return text
+
+
+def png_url(page) -> str:
+    """An RGB page as a PNG data URL (the port's encoder, no Pillow)."""
+    import base64
+
+    from multimodal_colpali_tpu_torch.ingest.imageops import encode_png
+
+    return "data:image/png;base64," + base64.b64encode(encode_png(page)).decode()
+
+
+def old_model_requests(seed: int, size: int):
+    """Phase 14's requests, sent at once: two RAG text requests, a 1-image and
+    a 5-image request of pages at ``size`` px, each for ``OLD["max_tokens"]``
+    tokens, and an MCQ ``response_format`` request. -> [(key, body)]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 60)
+    pages = synthetic_pages(OLD["images"], size, seed + 61)
+    out = [(f"text {n}", {"messages": [{"role": "user", "content": rag_text(rng, n)}],
+                          "max_tokens": OLD["max_tokens"]}) for n in OLD["text_tokens"]]
+    for n in (1, OLD["images"]):
+        content = [{"type": "image_url", "image_url": {"url": png_url(p)}} for p in pages[:n]]
+        out.append((f"{n} image{'s' if n > 1 else ''}", {
+            "messages": [{"role": "user", "content": content + [
+                {"type": "text", "text": QUESTION}]}], "max_tokens": OLD["max_tokens"]}))
+    out.append(("mcq", {"messages": [{"role": "user", "content": mcq_prompt(rng, 600)}],
+                        "max_tokens": 8, "response_format": MCQ_FORMAT}))
+    return out
+
+
+def old_model_run(torch, mm, pre, tok, tag: str, kv_dtype: str, spec_k: int, requests,
+                  card: str, refs: dict, k2=None, k7=None) -> dict:
+    """One run of phase 14: the paged batcher (speculative when ``spec_k``)
+    and the HTTP server over ``mm`` and its LM, every request sent at once.
+    Each greedy reply is held against the isolated engine's (``refs``: key ->
+    (stream, top-2 gaps), filled on first use), and K2 and K7 ran on their
+    tensor cores. ``k2`` / ``k7`` record the tower's attention and the
+    verify's paged attention. -> launch counts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multimodal_colpali_tpu_torch.generation import (
+        GenerationServer, PagedContinuousBatcher, SpeculativePagedContinuousBatcher,
+        extract_chat_content)
+    from multimodal_colpali_tpu_torch.generation import speculative as S
+    from multimodal_colpali_tpu_torch.models import layers as L
+
+    wrappers = kernel_wrappers()
+    eng = mm.lm
+    kw = dict(batch_slots=OLD["slots"], max_seq_len=OLD["max_seq_len"], chunk=OLD["chunk"],
+              page_size=OLD["page"], kv_dtype=kv_dtype, eos_id=tok.eos_id, mm_engine=mm)
+    bat = (SpeculativePagedContinuousBatcher(eng, spec_k=spec_k, **kw) if spec_k
+           else PagedContinuousBatcher(eng, **kw)).serve()
+    srv = GenerationServer(bat, tok, model_name=tag, host="127.0.0.1", port=0, mm_engine=mm,
+                           image_preprocessor=pre).start()
+    ttft = {}
+    admit = bat._finish_admission
+
+    def noted(slot, req, *a, **k):
+        fresh = not req.tokens
+        admit(slot, req, *a, **k)
+        if fresh:
+            ttft[len(req.prompt)] = time.monotonic() - req.t_submit
+
+    bat._finish_admission = noted
+    verify_fn = "paged_attention_int8" if kv_dtype == "int8" else "paged_attention"
+    try:
+        warm = synthetic_pages(1, OLD_SIZE[tag.split("-")[0]], 7)[0]
+        for body in ({"messages": [{"role": "user", "content": "warm"}], "max_tokens": 2},
+                     {"messages": [{"role": "user", "content": [
+                         {"type": "image_url", "image_url": {"url": png_url(warm)}},
+                         {"type": "text", "text": "warm"}]}], "max_tokens": 2}):
+            require(chat(srv.base_url, body)[0] == 200, f"[{tag}] warm-up request failed")
+        torch.cuda.synchronize()
+        bat.decode_s, bat.decode_steps, bat.decode_tokens = 0.0, 0, 0
+        bat.spec_forwards = bat.spec_accepted = 0
+        ttft.clear()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        with Patched(L, "fused_attention", k2 or (lambda f: f)), \
+                Patched(S, verify_fn, k7 or (lambda f: f)):
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(requests)) as ex:
+                outs = list(ex.map(lambda r: chat(srv.base_url, r[1]), requests))
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        launches = read_counts(wrappers)
+        require(launches["attention"] == launches["attention.tensor_core"] > 0
+                and launches["paged_attention"] + launches["paged_attention_int8"]
+                == launches["paged_attention.tensor_core"]
+                + launches["paged_attention_int8.tensor_core"] > 0,
+                f"[{tag}] K2 or K7 off its tensor cores: {launches}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        accepted = bat.spec_accepted / max(bat.spec_forwards, 1) if spec_k else 1.0
+        decode = (bat.decode_tokens, bat.decode_s, bat.decode_steps)
+    finally:
+        srv.stop()
+        bat.shutdown()
+    del bat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    notes, ttft_ms = [], {}
+    eng.record_top2 = True
+    for (key, body), (status, text, finish, secs) in zip(requests, outs):
+        require(status == 200 and text, f"[{tag}] {key} request failed: {status} {text!r}")
+        if key == "mcq":
+            require(json.loads(text).get("answer") in ("A", "B", "C", "D"),
+                    f"[{tag}] the MCQ reply is not a choice: {text!r}")
+            ttft_ms[key] = round(secs * 1e3, 1)
+            continue
+        got = [int(t) for t in text.split()]
+        require(finish == "length", f"[{tag}] {key}: finish {finish}")
+        ids, pix = srv._prepare_ids(*extract_chat_content(body["messages"]))
+        ttft_ms[key] = round(ttft.get(len(ids), float("nan")) * 1e3, 1)
+        if key not in refs:
+            want = (eng.generate([ids], max_new_tokens=OLD["max_tokens"], eos_id=tok.eos_id)
+                    if pix is None else mm.generate([ids], pix[None],
+                                                    max_new_tokens=OLD["max_tokens"],
+                                                    eos_id=tok.eos_id))[0]
+            refs[key] = (want, eng.top2_gaps[0])
+        want, gaps = refs[key]
+        notes.append(check_greedy(tag, key, got, want, lambda i, g=gaps: float(g[i])))
+    eng.record_top2 = False
+    tokens, secs, steps = decode
+    print(f"[{tag}] {eng.weight_dtype} weights, {kv_dtype} KV, "
+          f"{f'speculative k={spec_k}' if spec_k else 'no speculation'}: {len(requests)} "
+          f"requests at once in {wall:.2f} s | accepted tokens a verify {accepted:.3f} | TTFT "
+          f"ms {ttft_ms} | decode {tokens / max(secs, 1e-9):.1f} tokens/s over "
+          f"{OLD['slots']} slots, {1e3 * secs / max(steps, 1):.1f} ms a step | peak "
+          f"{peak:.1f} GiB | greedy vs the isolated engines: {'; '.join(notes)} | {card}",
+          flush=True)
+    print(f"[{tag}] launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def path_attention_row(torch, inputs, label: str) -> dict:
+    """K2 against its plain version on the q, k, v a tower gave it at its
+    5-image shape (``tower_k2_against_plain``), on its tensor cores, a repeat
+    bit-identical; timed beside the plain version and SDPA."""
+    from multimodal_colpali_tpu_torch._timing import eager_ms
+    import torch.nn.functional as F
+    from multimodal_colpali_tpu_torch.ops import attention as A
+
+    (q, k, v, kv_lens, kv_valid), kw = inputs
+    require(kv_lens is None and kv_valid is None, f"K2 at {label}: the tower passed a mask")
+    b, s, h, d = q.shape
+    tc = A.fused_attention_cuda.tensor_core_launches
+    err = tower_k2_against_plain(torch, {tuple(q.shape): inputs})[str(list(q.shape))]
+    require(A.fused_attention_cuda.tensor_core_launches == tc + 1,
+            f"K2 at {label}: off its tensor-core path")
+    require(torch.equal(A.fused_attention_cuda(q, k, v, **kw),
+                        A.fused_attention_cuda(q, k, v, **kw)),
+            f"K2 at {label}: a repeated call differs")
+
+    def plain():
+        return torch.cat([A.attention_reference(q[i: i + 1], k[i: i + 1], v[i: i + 1], **kw)
+                          for i in range(b)])
+
+    k_ms, p_ms = timed_pair(torch, lambda: A.fused_attention_cuda(q, k, v, **kw), plain,
+                            iters=10)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = eager_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=kw["scale"]),
+                      iters=12)
+    r = row(err, k_ms, p_ms, 4 * q.numel() * 2, 4.0 * b * h * s * s * d, library_ms=lib_ms)
+    print(f"[kernels] K2 attention at {label} {list(q.shape)} on the path's own q, k, v "
+          f"(tensor cores): max|err| {err:.3g}, repeat bit-identical | kernel {k_ms:.3f} ms, "
+          f"plain {p_ms:.3f} ms (one image at a time), scaled_dot_product_attention "
+          f"{lib_ms:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
+    return r
+
+
+def path_verify_row(torch, inputs, int8: bool, label: str) -> dict:
+    """K7a / K7b against its plain version on the q, pools, repeated block
+    table and per-row lengths a speculative verify gave it, with phase 2's
+    limits (floor 2e-2 / 0.035, 2^-7 |want| + 2e-3 / 4e-3), a repeat
+    bit-identical; timed beside the plain version (no single PyTorch call
+    reads paged pools)."""
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+
+    args, kw = inputs
+    q, bt, lens = args[0], args[-2], args[-1]
+    fn = PA.paged_attention_int8_cuda if int8 else PA.paged_attention_cuda
+    ref = PA.paged_attention_int8_reference if int8 else PA.paged_attention_reference
+    floor, atol = (0.035, 4e-3) if int8 else (2e-2, 2e-3)
+    tc = fn.tensor_core_launches
+    got = fn(*args, **kw).float()
+    require(fn.tensor_core_launches == tc + 1, f"K7 at {label}: off its tensor-core path")
+    want = ref(*args, **kw).float()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    excess = float((diff - 2.0 ** -7 * want.abs()).max())
+    require(err <= floor and excess <= atol,
+            f"K7 at {label} {list(q.shape)}: max|err| {err} (floor {floor}), max(|err| - "
+            f"2^-7|want|) {excess} > {atol}")
+    require(torch.equal(fn(*args, **kw).float(), got), f"K7 at {label}: two calls differ")
+    k_ms, p_ms = timed_pair(torch, lambda: fn(*args, **kw), lambda: ref(*args, **kw), iters=20)
+    hkv, d, k = args[1].shape[-2], q.shape[-1], OLD["spec_k"]
+    require(torch.equal(bt[::k].repeat_interleave(k, dim=0), bt),
+            f"K7 at {label}: the block table is not each slot's repeated {k} times")
+    # the k rows of a slot read the same pages: the function needs each slot's
+    # K/V once, up to its longest row; each query row does its own products
+    kv_rows = int(lens.view(-1, k).max(dim=1).values.sum())
+    per_row = (d + 4) if int8 else 2 * d
+    nbytes = 2 * kv_rows * hkv * per_row + 2 * q.numel() * 2 + bt.numel() * 4
+    r = row(err, k_ms, p_ms, nbytes, 4.0 * q.shape[1] * d * int(lens.sum()))
+    print(f"[kernels] {'K7b' if int8 else 'K7a'} at {label}: q {list(q.shape)}, block table "
+          f"{list(bt.shape)} (each slot's repeated), lengths {lens.tolist()}: max|err| "
+          f"{err:.3g}, max(|err| - 2^-7|want|) {excess:.3g}, repeat bit-identical | kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+          flush=True)
+    return r
+
+
+def phase_old_models(torch, seed: int, card: str) -> dict:
+    """Phase 14, the old-model tier, random weights made on the card from
+    ``seed``, behind ``GenerationServer`` on 4 slots of 6,144, pages of 16.
+    (a) Qwen2-VL-2B at full width and depth on the speculative paged
+    batcher (k = 4): bf16 weights and KV (K2 in the tower, K7a over the verify
+    rows), int8 weights with int8 KV (K8a, K8b on the tied head, K7b), int4
+    weights (K9, K8b). (b) LLaVA-NeXT-Llama3-8B at full width: bf16 through
+    the plain paged batcher, then speculative with int8 KV (K7b), then (b2)
+    int8 weights made leaf by leaf (K8a on every projection and the untied
+    head), speculative. Every greedy reply equals the isolated engine's up to
+    near-ties. Then K2 and K7 against their plain versions on the path's own
+    tensors. -> {"paths": launch counts a run, kernels-line rows, "launches"
+    of the rows}."""
+    import warnings
+
+    from multimodal_colpali_tpu_torch.generation import (
+        LlamaDecodeEngine, LlavaNextImagePreprocessor, LlavaNextMMEngine, ModuloTokenizer,
+        Qwen2DecodeEngine, Qwen2VLImagePreprocessor, Qwen2VLMMEngine)
+    from multimodal_colpali_tpu_torch.models import registry as R
+
+    t_phase = time.perf_counter()
+    paths, out = [], {}
+    k = OLD["spec_k"]
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")          # random weights: the init warns
+        cfg, params, _ = R.load_qwen2vl_mm(QWEN2VL, device="cuda", dtype=torch.bfloat16,
+                                           seed=seed)
+    torch.cuda.synchronize()
+    n_params = sum(int(t.numel()) for _, t in R.tree_leaves(
+        {"embed": params["embed"], "language_model": params["language_model"]})) + sum(
+        p.numel() for p in params["visual"].parameters())
+    print(f"[old-qwen] {QWEN2VL}: {n_params / 1e9:.3f}B params bf16, random init on the card "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tok = ModuloTokenizer(cfg.text.vocab_size)
+    pre = Qwen2VLImagePreprocessor(cfg, device="cuda")
+    requests = old_model_requests(seed, OLD_SIZE["qwen"])
+    tower_shape = (OLD["images"], cfg.grid_h * cfg.grid_w, cfg.vision.num_heads,
+                   cfg.vision.head_dim)
+    verify_shape = (OLD["slots"] * k, cfg.text.num_attention_heads, cfg.text.head_dim)
+    k2, k7, k7b = CallRecorder(), CallRecorder(), CallRecorder()
+    for wd, kv, rec in (("native", "native", k7), ("int8", "int8", k7b), ("int4", "native", None)):
+        lm = Qwen2DecodeEngine(cfg.text, params, dtype=torch.bfloat16, weight_dtype=wd,
+                               device="cuda")
+        mm = Qwen2VLMMEngine(cfg, params["visual"], lm)
+        launches = old_model_run(torch, mm, pre, tok, f"qwen-{wd}", kv, k, requests, card, {},
+                                 k2=k2 if wd == "native" else None, k7=rec)
+        paths.append(launches)
+        if wd != "native":
+            require(launches["int8_matmul_nk"] > 0 and launches[
+                "int8_matmul_kn" if wd == "int8" else "int4_matmul_kn"] > 0,
+                f"[qwen-{wd}] the quantized weights did not run K8a / K9 and K8b: {launches}")
+        del lm, mm
+        gc.collect()
+        torch.cuda.empty_cache()
+    require(k2.shapes.get(tower_shape) == cfg.vision.depth,
+            f"Qwen2-VL's tower launched K2 at {k2.shapes}, not {cfg.vision.depth} times at "
+            f"{tower_shape}")
+    require(k7.shapes.get(verify_shape, 0) > 0 and k7b.shapes.get(verify_shape, 0) > 0,
+            f"the verify did not run K7a / K7b at {verify_shape}: {k7.shapes} {k7b.shapes}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["attention.qwen2vl_tower"] = path_attention_row(torch, k2.inputs[tower_shape],
+                                                        "Qwen2-VL's tower")
+    out["paged_attention.verify"] = path_verify_row(torch, k7.inputs[verify_shape], False,
+                                                    "Qwen2-VL-2B's verify (group 6)")
+    launches = {"attention.qwen2vl_tower": k2.shapes[tower_shape],
+                "paged_attention.verify": k7.shapes[verify_shape],
+                "paged_attention_int8.verify": k7b.shapes[verify_shape]}
+    del k2, k7, k7b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    requests = old_model_requests(seed, OLD_SIZE["llava"])
+    k2, k7b = CallRecorder(), CallRecorder()
+    for wd in ("native", "int8"):
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            cfg, params, _ = R.load_llava_next_mm(LLAVA, device="cuda", dtype=torch.bfloat16,
+                                                  seed=seed, weight_dtype=wd)
+        torch.cuda.synchronize()
+        print(f"[old-llava] {LLAVA}: {wd} LM weights, random init on the card "
+              f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2**30:.1f} "
+              f"GiB", flush=True)
+        tok = ModuloTokenizer(cfg.text.vocab_size)
+        lm = LlamaDecodeEngine(cfg.text, params, dtype=torch.bfloat16, device="cuda")
+        mm = LlavaNextMMEngine(cfg, params["vision_tower"], params["multi_modal_projector"], lm)
+        pre = LlavaNextImagePreprocessor(cfg, device="cuda")
+        refs: dict = {}
+        runs = ([("native", 0, k2, None), ("int8", k, None, k7b)] if wd == "native"
+                else [("native", k, None, None)])
+        for kv, spec, rec2, rec7 in runs:
+            run = old_model_run(torch, mm, pre, tok, f"llava-{wd}", kv, spec, requests, card,
+                                refs, k2=rec2, k7=rec7)
+            paths.append(run)
+            require(wd == "native" or run["int8_matmul_kn"] > 0, f"[llava-int8] no K8a: {run}")
+        del lm, mm, params, refs
+        gc.collect()
+        torch.cuda.empty_cache()
+    clip_shape = (OLD["images"], cfg.vision.num_positions, cfg.vision.num_attention_heads,
+                  cfg.vision.hidden_size // cfg.vision.num_attention_heads)
+    verify_shape = (OLD["slots"] * k, cfg.text.num_attention_heads, cfg.text.head_dim)
+    require(k2.shapes.get(clip_shape) == cfg.feature_layers,
+            f"CLIP launched K2 at {k2.shapes}, not {cfg.feature_layers} times at {clip_shape}")
+    require(k7b.shapes.get(verify_shape, 0) > 0,
+            f"LLaVA's verify did not run K7b at {verify_shape}: {k7b.shapes}")
+    out["attention.clip_tower"] = path_attention_row(torch, k2.inputs[clip_shape],
+                                                     "CLIP-L/336's tower")
+    out["paged_attention_int8.verify"] = path_verify_row(
+        torch, k7b.inputs[verify_shape], True, "Llama-3-8B's verify over int8 pools (group 4)")
+    launches["attention.clip_tower"] = k2.shapes[clip_shape]
+    launches["paged_attention_int8.verify"] += k7b.shapes[verify_shape]
+    del k2, k7b
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[old] phase 14 took {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+    return {"paths": paths, "rows": out, "launches": launches}
 
 
 # phase 12: the experiment drivers against the port's server; the question
@@ -4779,6 +5171,7 @@ def main(argv=None) -> int:
         ingest = phase_ingest(torch, args.seed, card, work, ckpt)
         qwen = phase_colqwen(torch, args.seed, card, ckpt_path.parent)
         grid = phase_grid(torch, args.seed, card, work, ckpt)
+        old = phase_old_models(torch, args.seed, card)
         experiments = phase_experiments(torch, args.seed, card, work, ckpt_path.parent)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -4826,17 +5219,25 @@ def main(argv=None) -> int:
     meta["attention.colqwen_full"] = meta["attention"]
     # K2 at ColGranite's tower shape: phase 13 (a)'s square-layout launches
     meta["attention.granite_tower"] = meta["attention"]
+    # phase 14's shapes: K2 at Qwen2-VL's and CLIP's towers, K7a / K7b over
+    # the speculative verify's B * k rows
+    meta["attention.qwen2vl_tower"] = meta["attention"]
+    meta["attention.clip_tower"] = meta["attention"]
+    meta["paged_attention.verify"] = meta["paged_attention"]
+    meta["paged_attention_int8.verify"] = meta["paged_attention_int8"]
+    kernels.update(old["rows"])
     paths = [colpali, images["a"], images["b"], colsmol, gen["a"], gen["b"], gen["c"],
              gen["d"], gen["e"], colflor, g3["a"], g3["b"], dense, ingest, qwen["launches"],
-             *grid["paths"], *experiments]
+             *grid["paths"], *old["paths"], *experiments]
     shape_rows = ("attention.gemma3_tower", "attention.colqwen_window", "attention.colqwen_full",
-                  "attention.granite_tower")
+                  "attention.granite_tower", *old["launches"])
     launches = {name: sum(p[tile_of.get(name, name)] for p in paths) for name in meta
                 if name not in shape_rows}
     launches["attention.gemma3_tower"] = g3["a"]["attention"] + g3["b"]["attention"]
     launches["attention.colqwen_window"] = qwen["attention.colqwen_window"]
     launches["attention.colqwen_full"] = qwen["attention.colqwen_full"]
     launches["attention.granite_tower"] = grid["attention.granite_tower"]
+    launches.update(old["launches"])
     rows = [dict(name=name, route=route, source=src, replaces=rep, launches=launches[name],
                  **kernels[name])
             for name, (route, src, rep) in meta.items()]

@@ -2,12 +2,15 @@
 server, the HTTP client, and the message formatters and answer parser.
 
 Counterparts of ``multimodal_colpali_tpu/generation/{engine,scheduler,paged,
-server,client,messages,parse}.py`` for the text LMs of Gemma-1 (ColPali) and
-Gemma-3, and for image-conditioned generation on the ColPali weights
-(``PaliGemmaEngine``) and on Gemma-3's (``Gemma3MMEngine``,
-``generation/gemma3_mm.py``). The client (``generation/client.py``) runs on
-the standard library. Not ported yet: speculative decoding and the Qwen2-VL,
-LLaVA-NeXT and Mllama image engines.
+speculative,server,client,messages,parse}.py`` for the text LMs of Gemma-1
+(ColPali), Gemma-3, Qwen2(-VL) and Llama, and for image-conditioned
+generation on the ColPali weights (``PaliGemmaEngine``), on Gemma-3's
+(``Gemma3MMEngine``, ``generation/gemma3_mm.py``), on Qwen2-VL's
+(``Qwen2VLMMEngine``, ``generation/qwen2vl_mm.py``) and on LLaVA-NeXT's
+(``LlavaNextMMEngine``, ``generation/llava_next_mm.py``), with prompt-lookup
+speculative decoding (``generation/speculative.py``). The client
+(``generation/client.py``) runs on the standard library. Not ported yet: the
+Mllama image engine (per-step cross-attention).
 """
 
 from multimodal_colpali_tpu_torch.generation.client import (  # noqa: F401
@@ -15,9 +18,11 @@ from multimodal_colpali_tpu_torch.generation.client import (  # noqa: F401
     post_request_with_retries, post_request_with_retries_raising, resolve_endpoint,
     run_inference, run_sync)
 from multimodal_colpali_tpu_torch.generation.engine import (  # noqa: F401
-    LOGPROB_K, ByteTokenizer, GemmaDecodeEngine, ModuloTokenizer, PaliGemmaEngine,
-    filter_top_p_top_k, sample_per_slot)
+    LOGPROB_K, ByteTokenizer, GemmaDecodeEngine, LlamaDecodeEngine, ModuloTokenizer,
+    PaliGemmaEngine, Qwen2DecodeEngine, filter_top_p_top_k, sample_per_slot)
 from multimodal_colpali_tpu_torch.generation.gemma3_mm import Gemma3MMEngine  # noqa: F401
+from multimodal_colpali_tpu_torch.generation.llava_next_mm import (  # noqa: F401
+    LlavaNextImagePreprocessor, LlavaNextMMEngine)
 from multimodal_colpali_tpu_torch.generation.messages import (  # noqa: F401
     build_choice_string, build_instruction_block, build_reference_from_metadata,
     document_to_context_entry, encode_image, encode_image_to_data_url, format_msgs,
@@ -25,7 +30,11 @@ from multimodal_colpali_tpu_torch.generation.messages import (  # noqa: F401
 from multimodal_colpali_tpu_torch.generation.paged import PagedContinuousBatcher  # noqa: F401
 from multimodal_colpali_tpu_torch.generation.parse import (  # noqa: F401
     identity_perm, response_real_out)
+from multimodal_colpali_tpu_torch.generation.qwen2vl_mm import (  # noqa: F401
+    Qwen2VLImagePreprocessor, Qwen2VLMMEngine, mrope_positions_from_ids)
 from multimodal_colpali_tpu_torch.generation.scheduler import (  # noqa: F401
     AdmissionQueueFull, ContinuousBatcher)
+from multimodal_colpali_tpu_torch.generation.speculative import (  # noqa: F401
+    SpeculativeContinuousBatcher, SpeculativePagedContinuousBatcher, speculative_generate)
 from multimodal_colpali_tpu_torch.generation.server import (  # noqa: F401
     GenerationServer, extract_chat_content, render_chat_prompt)

@@ -1,6 +1,6 @@
-"""Autoregressive decode engine over a Gemma LM, and image-conditioned
-generation on the ColPali / PaliGemma weights (counterpart of
-``multimodal_colpali_tpu/generation/engine.py:69-609, :649-898``).
+"""Autoregressive decode engines over a Gemma, Qwen2 or Llama LM, and
+image-conditioned generation on the ColPali / PaliGemma weights (counterpart
+of ``multimodal_colpali_tpu/generation/engine.py:69-646, :649-898``).
 
 The engine serves the text LM of a Gemma-1 (ColPali's PaliGemma LM) or
 Gemma-3 parameter tree: the JAX layout, kept as a nested dict (``embed`` and
@@ -20,6 +20,12 @@ step; where the JAX engine jits a whole generation, this one runs eagerly:
   holds: a (prompt, seed, temperature) triple gives the same stream whatever
   the slot, the batch or the admission timing, and ``generate`` and the
   batchers agree. Greedy streams and ``filter_top_p_top_k`` equal JAX's.
+
+``Qwen2DecodeEngine`` and ``LlamaDecodeEngine`` run the Qwen2/Llama body
+(plain RMSNorm, q/k/v biases for Qwen2, mrope, a SiLU MLP) with unscaled
+embeddings and a tied or untied head; the old-model image engines
+(``generation/qwen2vl_mm.py``, ``generation/llava_next_mm.py``) decode
+through them.
 
 ``PaliGemmaEngine`` puts page images in front of the prompt: the retriever's
 SigLIP tower (K2 on the card) and projector fill the ``<image>`` slots, the
@@ -44,15 +50,14 @@ import torch.nn.functional as F
 
 from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models import layers as L
+from multimodal_colpali_tpu_torch.ops.int4_matmul import int4_matmul_kn
+from multimodal_colpali_tpu_torch.ops.int8_matmul import int8_matmul_kn
 from multimodal_colpali_tpu_torch.ops.quant import (
     is_quantized, is_quantized_int4, q_dense, q_logits, q_take, quantize_lm_params,
     quantize_lm_params_int4)
 from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
 
 LOGPROB_K = 5   # top alternatives recorded per decode step (OpenAI cap)
-
-_NOT_PORTED_BODY = ("the Qwen2/Llama decode body (Qwen2DecodeEngine, LlamaDecodeEngine of "
-                    "generation/engine.py) is not ported yet")
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -64,9 +69,14 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def _dense(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] = None):
     """``x @ kernel [in, out]`` in x's dtype; a bias is added to the float32
-    product before the cast (models/layers.py:18-36)."""
+    product before the cast (models/layers.py:18-36). On the card a bf16
+    product is accumulated and returned in float32 by ``torch.mm(...,
+    out_dtype=torch.float32)``, with no float32 copy of the kernel."""
     if bias is None:
         return x @ kernel.to(x.dtype)
+    if x.device.type == "cuda" and x.dtype == kernel.dtype == torch.bfloat16:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), kernel, out_dtype=torch.float32)
+        return (y + bias.float()).to(x.dtype).reshape(*x.shape[:-1], kernel.shape[1])
     return (x.float() @ kernel.float() + bias.float()).to(x.dtype)
 
 
@@ -175,12 +185,12 @@ def layer_stack(p, c, x: torch.Tensor, positions: torch.Tensor, kv_write, attend
     ``[B, S, Hkv, D]`` and returns what ``attend(i, q, kc, vc)`` reads; the
     attention may come back in any shape that reshapes to ``[B, S, Hq * D]``.
     Returns (hidden after the final norm, (k caches, v caches))."""
+    if getattr(c, "is_qwen2", False) or getattr(c, "is_llama", False):
+        return _layer_stack_qwen2(p, c, x, positions, kv_write, attend, interleave)
     if interleave is not None:
         raise NotImplementedError("interleave hooks belong to the Qwen2/Llama body")
     if getattr(c, "is_gemma3", False):
         return _layer_stack_gemma3(p, c, x, positions, kv_write, attend)
-    if getattr(c, "is_qwen2", False) or getattr(c, "is_llama", False):
-        raise NotImplementedError(_NOT_PORTED_BODY)
     b, s, _ = x.shape
     tables = _rope_tables(positions, c.rope_theta, c.head_dim)
     new_k, new_v = [], []
@@ -241,6 +251,61 @@ def _layer_stack_gemma3(p, c, x: torch.Tensor, positions: torch.Tensor, kv_write
         ff = _lin(F.gelu(gate, approximate="tanh") * up, lp["mlp"]["down_proj"])
         x = x + _rms(ff, lp["post_feedforward_layernorm"]["weight"], c.rms_norm_eps)
     x = _rms(x, p["language_model"]["norm"]["weight"], c.rms_norm_eps)
+    return x, (tuple(new_k), tuple(new_v))
+
+
+def _rms_plain(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Qwen2's / Llama's RMSNorm, ``x / rms(x) * w`` in float32 (engine.py:269-273)."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def _layer_stack_qwen2(p, c, x: torch.Tensor, positions: torch.Tensor, kv_write, attend,
+                       interleave=None):
+    """The Qwen2(-VL) and Llama body (engine.py:276-340): plain RMSNorm,
+    q/k/v projections with biases where the tree has them (Qwen2; Llama's
+    have none), mrope from ``positions`` ``[B, S]`` (text: the three streams
+    equal) or ``[3, B, S]`` (an image prompt's temporal / height / width
+    streams; Llama's config puts every channel on the first), a SiLU-gated
+    MLP. ``interleave`` maps a layer index to a hook ``x -> x`` run before
+    that layer (``num_hidden_layers``: after the last, before the final norm).
+    The injection contract is :func:`layer_stack`'s."""
+    from multimodal_colpali_tpu_torch.models.qwen2vl import mrope_cos_sin
+
+    b, s, _ = x.shape
+    pos3 = positions[None].expand(3, *positions.shape) if positions.dim() == 2 else positions
+    cos, sin = mrope_cos_sin(c, pos3)              # [B, S, head_dim] float32
+    cosb, sinb = cos[:, :, None, :], sin[:, :, None, :]
+
+    def rot(t):
+        tf = t.float()
+        half = tf.shape[-1] // 2
+        rh = torch.cat([-tf[..., half:], tf[..., :half]], dim=-1)
+        return ((tf * cosb) + (rh * sinb)).to(t.dtype)
+
+    new_k, new_v = [], []
+    for i in range(c.num_hidden_layers):
+        if interleave is not None and i in interleave:
+            x = interleave[i](x)
+        lp = p["language_model"][f"layers_{i}"]
+        y = _rms_plain(x, lp["input_layernorm"]["weight"], c.rms_norm_eps)
+        q = _lin(y, lp["self_attn"]["q_proj"]).reshape(b, s, c.num_attention_heads, c.head_dim)
+        k = _lin(y, lp["self_attn"]["k_proj"]).reshape(b, s, c.num_key_value_heads, c.head_dim)
+        v = _lin(y, lp["self_attn"]["v_proj"]).reshape(b, s, c.num_key_value_heads, c.head_dim)
+        q, k = rot(q), rot(k)
+        kc, vc = kv_write(i, k, v)
+        new_k.append(kc)
+        new_v.append(vc)
+        att = attend(i, q, kc, vc)
+        x = x + _lin(att.reshape(b, s, -1), lp["self_attn"]["o_proj"])
+        y = _rms_plain(x, lp["post_attention_layernorm"]["weight"], c.rms_norm_eps)
+        gate = _lin(y, lp["mlp"]["gate_proj"])
+        up = _lin(y, lp["mlp"]["up_proj"])
+        x = x + _lin(F.silu(gate) * up, lp["mlp"]["down_proj"])
+    if interleave is not None and c.num_hidden_layers in interleave:
+        x = interleave[c.num_hidden_layers](x)
+    x = _rms_plain(x, p["language_model"]["norm"]["weight"], c.rms_norm_eps)
     return x, (tuple(new_k), tuple(new_v))
 
 
@@ -452,6 +517,52 @@ class GemmaDecodeEngine:
         return results
 
 
+def _head_logits(hidden_f32: torch.Tensor, kernel: Any) -> torch.Tensor:
+    """An untied LM head ``hidden @ kernel [H, V]`` in float32 (engine.py:
+    626-635, where JAX's ``L.dense`` multiplies float32 hidden by the kernel
+    cast to float32). Hidden holds model-dtype values, so on the card a bf16
+    kernel is one ``torch.mm`` of bf16 operands with float32 accumulation and
+    output, and an int8 / int4 kernel is K8a / K9 with float32 output: every
+    product exact, only the sum order can differ."""
+    h = hidden_f32
+    on_card = h.device.type == "cuda"
+    if is_quantized(kernel) or is_quantized_int4(kernel):
+        x = h.to(torch.bfloat16) if on_card else h
+        if is_quantized_int4(kernel):
+            return int4_matmul_kn(x, kernel["q4"], kernel["scale"], out_dtype=torch.float32)
+        return int8_matmul_kn(x, kernel["q8"], kernel["scale"], out_dtype=torch.float32)
+    if on_card and kernel.dtype == torch.bfloat16:
+        return torch.mm(h.to(torch.bfloat16), kernel, out_dtype=torch.float32)
+    return h @ kernel.float()
+
+
+@dataclasses.dataclass
+class Qwen2DecodeEngine(GemmaDecodeEngine):
+    """Causal Qwen2 LM (the text stack of Qwen2-VL) over an engine tree
+    (engine.py:613-635). The layer body is :func:`_layer_stack_qwen2`, chosen
+    by the config's ``is_qwen2`` marker, so every decode path (``generate``,
+    both batchers, the speculative verify) serves it. Embeddings are not
+    scaled; the head is ``language_model.lm_head`` where the tree has one
+    (untied, sliced to the vocab), else the embedding table."""
+
+    def _embed(self, p, ids: torch.Tensor) -> torch.Tensor:
+        return q_take(p["embed"]["embed_tokens"], ids, torch.float32).to(self.dtype)
+
+    def _logits(self, p, hidden: torch.Tensor) -> torch.Tensor:
+        lm = p["language_model"]
+        if "lm_head" in lm:
+            return _head_logits(hidden.float(), lm["lm_head"]["kernel"])[
+                ..., : self.cfg.vocab_size]
+        return q_logits(hidden.float(), p["embed"]["embed_tokens"], out_dim=self.cfg.vocab_size)
+
+
+@dataclasses.dataclass
+class LlamaDecodeEngine(Qwen2DecodeEngine):
+    """Causal Llama LM (engine.py:638-646): Qwen2's engine math, the body
+    without biases and with plain rotary (the config's ``is_llama``). The LM
+    of AdaptLLM/biomed-LLaVA-NeXT-Llama3-8B."""
+
+
 class _ImageEngine:
     """What both image engines share: the pixels on the LM's device, the
     tower over every image of a batch, the prefill of the merged prompt, and
@@ -459,9 +570,10 @@ class _ImageEngine:
     An engine sets ``cfg``, ``vision_tower`` and ``lm``, supplies
     ``_project``, ``_merge``, ``_prefill_embeds`` and ``build_mm_prompt``,
     and declares what the batchers read: ``first_position``, the prompt's
-    first position (its last token then sits at n_p - 1 + first_position),
-    and ``shares_prefix_pages``, whether image prompts may share prefix
-    pages. ``pixel_values`` are normalized NHWC, ``[B, H, W, 3]`` or ``[B, N,
+    first position (:meth:`prompt_positions` counts on from it; an engine
+    with mrope overrides that), ``tokens_per_image`` where prompts share
+    prefix pages, and ``shares_prefix_pages``, whether image prompts may
+    share them. ``pixel_values`` are normalized NHWC, ``[B, H, W, 3]`` or ``[B, N,
     H, W, 3]`` for N images a row."""
 
     batcher_compatible = True
@@ -482,6 +594,13 @@ class _ImageEngine:
 
     def _image_features(self, pix: torch.Tensor) -> torch.Tensor:
         return self._project(self._tower(pix), pix.shape[0])
+
+    def prompt_positions(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Each token's position ``[B, S]`` in a left-padded image prompt;
+        the last column is where decoding goes on from. An engine whose
+        prompt has more than one position stream (Qwen2-VL's mrope) gives
+        the largest."""
+        return torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0) + self.first_position
 
     def _merged_embeds(self, ids: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
         return self._merge(ids, self._image_features(pix))

@@ -62,6 +62,10 @@ class Gemma3MMEngine(_ImageEngine):
         self.projector = projector
         self.lm = lm
 
+    @property
+    def tokens_per_image(self) -> int:
+        return self.cfg.mm_tokens_per_image
+
     # -- vision ----------------------------------------------------------------
 
     def _project(self, vis: torch.Tensor, b: int) -> torch.Tensor:

@@ -186,20 +186,23 @@ class PagedContinuousBatcher(ContinuousBatcher):
         return keys
 
     def _mm_spans_ok(self, tokens) -> bool:
-        """Whether every image-token run of ``tokens`` has exactly
-        ``mm_tokens_per_image`` tokens (paged.py:276-292): only then do the
-        digest and the tokens so far fix the soft tokens a page holds. A
-        malformed prompt (a truncated run) shares nothing."""
-        cfg = self.mm_engine.cfg
+        """Whether every image-token run of ``tokens`` has exactly the
+        engine's ``tokens_per_image`` tokens (paged.py:276-292): only then do
+        the digest and the tokens so far fix the soft tokens and the positions
+        a page holds. A malformed prompt (a truncated run) shares nothing.
+        (JAX reads ``cfg.mm_tokens_per_image``, which only Gemma-3's config
+        has: a Qwen2-VL or LLaVA-NeXT image prompt under prefix caching raises
+        ``AttributeError`` there.)"""
+        img, per = self.mm_engine.cfg.image_token_id, self.mm_engine.tokens_per_image
         run = 0
         for t in tokens:
-            if t == cfg.image_token_id:
+            if t == img:
                 run += 1
             elif run:
-                if run != cfg.mm_tokens_per_image:
+                if run != per:
                     return False
                 run = 0
-        return run in (0, cfg.mm_tokens_per_image)
+        return run in (0, per)
 
     def _shares(self, tokens, mm: bool) -> bool:
         """Whether a prompt takes part in prefix caching: text always, an
@@ -264,7 +267,14 @@ class PagedContinuousBatcher(ContinuousBatcher):
         mask[0, :n_tail] = 1
         ids = torch.full((1, s_tail), self.pad_id, dtype=torch.int64, device=self.device)
         ids[0, :n_tail] = self._tensor(tail, torch.int64)
-        positions = torch.clamp(n_ctx + torch.cumsum(mask, dim=1) - 1, min=0)
+        if mm:
+            # the tail is text: its position continues the image prompt's
+            # (mrope's largest stream for Qwen2-VL), counted over the whole prompt
+            full = self._tensor([prompt_eff], torch.int64)
+            pos = self.mm_engine.prompt_positions(full, torch.ones_like(full))[0, n_ctx:]
+            positions = torch.cat([pos, pos[-1] + torch.cumsum(mask[0, n_tail:], 0)])[None]
+        else:
+            positions = torch.clamp(n_ctx + torch.cumsum(mask, dim=1) - 1, min=0)
         kv_valid = torch.cat([torch.ones((1, n_ctx), dtype=torch.bool, device=self.device),
                               mask.bool()], dim=1)
         hidden, (k, v) = eng._chunk(eng.params, eng._embed(eng.params, ids), positions, kc, vc,
@@ -273,7 +283,8 @@ class PagedContinuousBatcher(ContinuousBatcher):
         v_tail = tuple(torch.roll(vv[:, n_ctx:], s_tail - n_tail, dims=1) for vv in v)
         logits = eng._logits(eng.params, hidden[:, n_tail - 1])[0]
         self.prefix_prefill_hits += 1
-        return k_tail, v_tail, logits, n_ctx + n_tail - 1, ("tail", n_reused, s_tail, keys)
+        return (k_tail, v_tail, logits, int(positions[0, n_tail - 1]),
+                ("tail", n_reused, s_tail, keys))
 
     # -- ContinuousBatcher hooks ------------------------------------------------------
 

@@ -13,10 +13,12 @@ concurrency.
 Covered here: prefill into a slot and chunked decode, the exact-prompt
 prefill cache, chunked prefill, ``max_queue`` and ``admission_timeout``,
 logprobs and streaming callbacks, and image requests through a
-``PaliGemmaEngine`` or a ``Gemma3MMEngine`` (``mm_engine``): such a request
-prefills through the engine's own image prefill and then decodes in the same
-slot batch as the text requests. Engines that decode with cross-attention
-(Mllama) are not ported and are refused.
+``PaliGemmaEngine``, ``Gemma3MMEngine``, ``Qwen2VLMMEngine`` or
+``LlavaNextMMEngine`` (``mm_engine``): such a request prefills through the
+engine's own image prefill and then decodes in the same slot batch as the
+text requests, from the position its prefill ends at (mrope's for Qwen2-VL)
+while its K/V rows follow the prompt's. Engines that decode with
+cross-attention (Mllama) are not ported and are refused.
 
 The dense per-slot caches ``[B, max_seq_len, Hkv, D]`` are made by
 ``_init_kv``, which the paged batcher replaces with its page pools, so a
@@ -185,8 +187,9 @@ class ContinuousBatcher:
     def _mm_prefill(self, tokens: Sequence[int], s: int, pixel_values: torch.Tensor):
         """An image prompt left-padded to ``s`` through the engine's prefill
         (scheduler.py:255-306): PaliGemma's bidirectional prefix at 1-indexed
-        positions, or Gemma-3's causal prompt with bidirectional image spans at
-        0-indexed ones; the last position is the engine's."""
+        positions, Gemma-3's causal prompt with bidirectional image spans at
+        0-indexed ones, Qwen2-VL's and LLaVA-NeXT's causal prompts at mrope's
+        or plain positions; the last position is the engine's."""
         mm = self.mm_engine
         ids, mask = (self._tensor(a) for a in left_pad([tokens], s, self.pad_id))
         kc, vc = mm.lm._caches(1, s)
@@ -222,15 +225,17 @@ class ContinuousBatcher:
         (scheduler.py:594-667): the prompt re-prefills through the image
         prefill (an LRU hit, usually), then the generated tokens extend it
         causally at their decode positions, as the uninterrupted decode
-        computed them: after the prompt's last position, ``n_p`` for
-        PaliGemma, ``n_p - 1`` for Gemma-3 (the engine's ``first_position``).
-        The generated rows follow the prompt's directly, so slot distance
-        stays token distance (Gemma-3's sliding window counts slots).
-        Returns the rows left-padded to ``s`` over the whole sequence."""
+        computed them: after the prompt's last position as its prefill gave
+        it (``n_p`` for PaliGemma, ``n_p - 1`` for Gemma-3 and LLaVA-NeXT,
+        mrope's for Qwen2-VL, smaller than ``n_p - 1``; JAX's
+        scheduler.py:613 takes ``n_p - 1`` for every causal engine). The
+        generated rows follow the prompt's directly, so slot distance stays
+        token distance (Gemma-3's sliding window counts slots). Returns the
+        rows left-padded to ``s`` over the whole sequence."""
         prompt, gen = req.prompt, list(req.tokens)
         n_p, n_gen = len(prompt), len(gen)
         s1 = max(((n_p + self.bucket - 1) // self.bucket) * self.bucket, self.bucket)
-        k1, v1, _, _ = self._prefill_raw(prompt, s1, req.pixel_values, req.pix_digest)
+        k1, v1, _, last = self._prefill_raw(prompt, s1, req.pixel_values, req.pix_digest)
         s2 = max(((n_gen + self.bucket - 1) // self.bucket) * self.bucket, self.bucket)
         lm, c, dev = self.mm_engine.lm, self.cfg, self.device
         shape = (1, n_p + s2, c.num_key_value_heads, c.head_dim)
@@ -244,7 +249,6 @@ class ContinuousBatcher:
         mask2[0, :n_gen] = 1
         ids2 = torch.full((1, s2), self.pad_id, dtype=torch.int64, device=dev)
         ids2[0, :n_gen] = self._tensor(gen, torch.int64)
-        last = n_p - 1 + self.mm_engine.first_position    # the prompt's last position
         positions = last + torch.cumsum(mask2, dim=1)
         kv_valid = torch.cat([torch.ones((1, n_p), dtype=torch.bool, device=dev),
                               mask2.bool()], dim=1)

@@ -23,6 +23,10 @@
 - ColGranite (``ColGraniteModelConfig``, granite.py:35-103): granite-vision's
   SigLIP-So400m tower at 384 px, a 2-layer projector, LLaVA-Next anyres
   packing and a Granite LM (40 x 2,048) + 128-d projection.
+- The old-model generators: plain Qwen2-VL-2B/7B (``ColQwen2ModelConfig.
+  qwen2_vl_2b``: the ColQwen2 tower, the Qwen2 LM with its head) and
+  LLaVA-NeXT-Llama3-8B (``LlavaNextMMConfig``, clip.py:30-102: CLIP
+  ViT-L/14-336 read at layer -2, a 2-layer projector, Llama-3-8B).
 
 Each ``tiny()`` is the small configuration the parity tests and the
 committed ``goldens/tiny-*.npz`` use.
@@ -302,10 +306,34 @@ class LlamaTextConfig:
     num_key_value_heads: int = 3
     rms_norm_eps: float = 1e-5
     rope_theta: float = 100_000.0
+    tie_word_embeddings: bool = True
+
+    # the decode engine's marker (idefics3.py:53-58): Llama's body is Qwen2's
+    # without the q/k/v biases, and plain rotary is mrope with every channel
+    # on the temporal stream (``mrope_section``)
+    is_llama = True
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @property
+    def mrope_section(self) -> tuple:
+        return (self.head_dim // 2, 0, 0)
+
+    @classmethod
+    def llama3_8b(cls) -> "LlamaTextConfig":
+        """Llama-3-8B(-Instruct), the LM of AdaptLLM/biomed-LLaVA-NeXT-Llama3-8B
+        (idefics3.py:65-75): an untied head, theta 500,000."""
+        return cls(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+                   num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+                   rms_norm_eps=1e-5, rope_theta=500_000.0, tie_word_embeddings=False)
+
+    @classmethod
+    def tiny_lm(cls, vocab_size: int = 64) -> "LlamaTextConfig":
+        return cls(vocab_size=vocab_size, hidden_size=24, intermediate_size=48,
+                   num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+                   rope_theta=10000.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -414,9 +442,30 @@ class Qwen2TextConfig:
     mrope_section: tuple = (16, 24, 24)
     tie_word_embeddings: bool = True
 
+    is_qwen2 = True   # the decode engine's marker (qwen2vl.py:86)
+
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def qwen2_vl_2b(cls) -> "Qwen2TextConfig":
+        """Qwen2-VL-2B-Instruct's LM, the dataclass defaults (qwen2vl.py:93-97)."""
+        return cls()
+
+    @classmethod
+    def qwen2_vl_7b(cls) -> "Qwen2TextConfig":
+        """Qwen2-VL-7B-Instruct's LM, with an untied head (qwen2vl.py:99-105)."""
+        return cls(vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+                   num_hidden_layers=28, num_attention_heads=28, num_key_value_heads=4,
+                   tie_word_embeddings=False)
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 64) -> "Qwen2TextConfig":
+        """``ColQwen2ModelConfig.tiny().text`` (qwen2vl.py:107-113)."""
+        return cls(vocab_size=vocab_size, hidden_size=24, intermediate_size=48,
+                   num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+                   rope_theta=10000.0, mrope_section=(1, 2, 3))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -437,6 +486,18 @@ class ColQwen2ModelConfig:
     def colqwen2_v1(cls) -> "ColQwen2ModelConfig":
         """vidore/colqwen2-v1.0: the Qwen2-VL-2B backbone."""
         return cls(vision=Qwen2VisionConfig(hidden_size=1536), text=Qwen2TextConfig())
+
+    @classmethod
+    def qwen2_vl_2b(cls) -> "ColQwen2ModelConfig":
+        """Plain Qwen2-VL-2B-Instruct (qwen2vl.py:154-161): the whole
+        generator of AdaptLLM/biomed-Qwen2-VL-2B-Instruct; no retrieval head."""
+        return cls(vision=Qwen2VisionConfig(hidden_size=1536),
+                   text=Qwen2TextConfig.qwen2_vl_2b())
+
+    @classmethod
+    def qwen2_vl_7b(cls) -> "ColQwen2ModelConfig":
+        return cls(vision=Qwen2VisionConfig(hidden_size=3584),
+                   text=Qwen2TextConfig.qwen2_vl_7b())
 
     @classmethod
     def colqwen2_5_v0_2(cls) -> "ColQwen2ModelConfig":
@@ -573,3 +634,66 @@ class ColGraniteModelConfig:
             embedding_dim=8,
             image_token_id=vocab_size - 1,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipVisionConfig:
+    """CLIP ViT-L/14-336, LLaVA-NeXT's image tower (clip.py:30-47)."""
+
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    image_size: int = 336
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def num_positions(self) -> int:
+        return self.num_patches + 1          # CLS + patches
+
+
+@dataclasses.dataclass(frozen=True)
+class LlavaNextMMConfig:
+    """The whole LLaVA-NeXT generator, CLIP tower + Llama LM (clip.py:50-102).
+    Images are packed at the static square layout: the base image's tokens,
+    then the base as its one tile with a newline feature a row."""
+
+    vision: ClipVisionConfig = dataclasses.field(default_factory=ClipVisionConfig)
+    text: LlamaTextConfig = dataclasses.field(default_factory=LlamaTextConfig.llama3_8b)
+    image_token_id: int = 128256
+    vision_feature_layer: int = -2
+
+    @property
+    def grid(self) -> int:
+        return self.vision.image_size // self.vision.patch_size
+
+    @property
+    def n_image_tokens(self) -> int:
+        """g^2 base tokens + g (g + 1) for the tile with its newlines."""
+        g = self.grid
+        return g * g + g * (g + 1)
+
+    @property
+    def feature_layers(self) -> int:
+        """Encoder layers the feature layer reads (23 of CLIP-L's 24)."""
+        n, f = self.vision.num_hidden_layers, self.vision_feature_layer
+        return min(n + 1 + f if f < 0 else f, n)
+
+    @classmethod
+    def llava_next_llama3_8b(cls) -> "LlavaNextMMConfig":
+        """llama3-llava-next-8b, the base of AdaptLLM/biomed-LLaVA-NeXT-Llama3-8B:
+        ``<image>`` appended at 128,256 and the vocab padded to 128,320."""
+        return cls(text=dataclasses.replace(LlamaTextConfig.llama3_8b(), vocab_size=128320))
+
+    @classmethod
+    def tiny(cls, vocab_size: int = 64) -> "LlavaNextMMConfig":
+        return cls(vision=ClipVisionConfig(hidden_size=32, intermediate_size=64,
+                                           num_hidden_layers=3, num_attention_heads=2,
+                                           image_size=28, patch_size=14),
+                   text=LlamaTextConfig.tiny_lm(vocab_size=vocab_size),
+                   image_token_id=vocab_size - 1)

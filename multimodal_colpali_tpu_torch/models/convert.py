@@ -17,9 +17,11 @@ over or misshapen.
 The decode engine keeps the JAX layout instead (a nested dict, dense kernels
 ``[in, out]``, int8 weights as ``{"q8", "scale"}`` dicts):
 :func:`engine_params_from_jax` carries a JAX engine tree over as it is
-(:func:`gemma3_mm_params_from_jax` a Gemma-3 multimodal one, its tower as a
-``state_dict``), and :func:`engine_params_from_state_dict` turns a
-retriever's ``state_dict`` back into that layout for its Gemma LM.
+(Gemma, Qwen2 and Llama LMs alike; :func:`gemma3_mm_params_from_jax`,
+:func:`qwen2vl_mm_params_from_jax` and :func:`llava_next_params_from_jax` a
+multimodal one, its tower as a ``state_dict``), and
+:func:`engine_params_from_state_dict` turns a retriever's ``state_dict`` back
+into that layout for its Gemma LM.
 """
 
 from __future__ import annotations
@@ -186,6 +188,35 @@ def gemma3_mm_params_from_jax(tree: Mapping[str, Any], cfg, device: Any = "cuda"
                                  "language_model": tree["language_model"]}, device, dtype)
     tower = state_from_flax(tree["vision_tower"],
                             SiglipVisionTower(cfg.vision, device="meta", dtype=torch.float32))
+    projector = engine_params_from_jax(tree["multi_modal_projector"], device, dtype)
+    return lm, tower, projector
+
+
+def qwen2vl_mm_params_from_jax(tree: Mapping[str, Any], cfg, device: Any = "cuda",
+                               dtype: Optional[torch.dtype] = None):
+    """A JAX ``Qwen2VLMMEngine`` tree (``embed``, ``language_model`` with its
+    biases and any ``lm_head``, ``visual``) -> (the LM tree on ``device``, the
+    ``Qwen2VisionTower`` ``state_dict`` of ``cfg.vision``)."""
+    from multimodal_colpali_tpu_torch.models.qwen2vl import Qwen2VisionTower
+
+    lm = engine_params_from_jax({"embed": tree["embed"],
+                                 "language_model": tree["language_model"]}, device, dtype)
+    tower = state_from_flax(tree["visual"],
+                            Qwen2VisionTower(cfg.vision, device="meta", dtype=torch.float32))
+    return lm, tower
+
+
+def llava_next_params_from_jax(tree: Mapping[str, Any], cfg, device: Any = "cuda",
+                               dtype: Optional[torch.dtype] = None):
+    """A JAX ``LlavaNextMMEngine`` tree -> (the LM tree on ``device``, the
+    ``ClipFeatureTower`` ``state_dict`` of ``cfg``, the projector's tensors
+    (``linear_1``, ``linear_2``, ``image_newline``) on ``device``)."""
+    from multimodal_colpali_tpu_torch.models.clip import ClipFeatureTower
+
+    lm = engine_params_from_jax({"embed": tree["embed"],
+                                 "language_model": tree["language_model"]}, device, dtype)
+    tower = state_from_flax(tree["vision_tower"], ClipFeatureTower(
+        cfg.vision, cfg.vision_feature_layer, device="meta", dtype=torch.float32))
     projector = engine_params_from_jax(tree["multi_modal_projector"], device, dtype)
     return lm, tower, projector
 

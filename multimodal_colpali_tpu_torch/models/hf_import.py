@@ -16,8 +16,9 @@ Two halves:
   in]`` becomes ``kernel = weight.t()`` and a conv ``[out, in, kh, kw]``
   ``permute(2, 3, 1, 0)``. ``models/convert.params_from_flax`` turns the
   retriever and BERT trees into a ``state_dict`` (its transposes undo these,
-  so each leaf is a view of the file's bytes again); the Gemma-3 trees (text
-  and multimodal) are the decode engine's layout as it is.
+  so each leaf is a view of the file's bytes again); the generators' trees
+  (Gemma-3, Qwen2-VL, Llama and LLaVA-NeXT) are the decode engine's layout
+  as it is, their towers flax-named for ``convert.state_from_flax``.
 """
 
 from __future__ import annotations
@@ -350,6 +351,94 @@ def colqwen2_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
             "post_attention_layernorm": _rms(sd, p + "post_attention_layernorm"),
         }
     return params
+
+
+def _engine_layers(flat: Dict[str, Any], n_layers: int) -> Dict[str, Any]:
+    """A converter's flat decoder layers -> the engine tree's (mlp nested)."""
+    lm: Dict[str, Any] = {}
+    for i in range(n_layers):
+        li = flat[f"layers_{i}"]
+        lm[f"layers_{i}"] = {
+            "self_attn": li["self_attn"],
+            "mlp": {name: li[name] for name in ("gate_proj", "up_proj", "down_proj")},
+            "input_layernorm": li["input_layernorm"],
+            "post_attention_layernorm": li["post_attention_layernorm"],
+        }
+    return lm
+
+
+def qwen2vl_lm_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """A ``Qwen2VLForConditionalGeneration`` state dict (AdaptLLM/biomed-
+    Qwen2-VL-2B-Instruct) -> the engine tree ``{"embed", "language_model",
+    "visual"}`` (hf_import.py:168-189), through :func:`colqwen2_params_from_hf`;
+    ``cfg`` is a ``ColQwen2ModelConfig``. An untied config takes
+    ``lm_head.weight`` as ``language_model.lm_head``."""
+    flat = colqwen2_params_from_hf(sd, cfg)
+    lm = {"norm": flat["norm"], **_engine_layers(flat, cfg.text.num_hidden_layers)}
+    if not cfg.text.tie_word_embeddings:
+        lm["lm_head"] = {"kernel": sd["lm_head.weight"].t()}
+    return {"embed": {"embed_tokens": flat["embed_tokens"]}, "language_model": lm,
+            "visual": flat["visual"]}
+
+
+def llama_lm_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """A Llama LM state dict -> the engine tree ``{"embed", "language_model"}``
+    (hf_import.py:192-230): a bare ``LlamaForCausalLM`` or the LM nested in a
+    ``LlavaNextForConditionalGeneration`` (its other subtrees ignored).
+    Projections carry no biases; ``cfg`` is a ``LlamaTextConfig``."""
+    norm: Dict[str, Any] = {}
+    for k, v in sd.items():
+        k = re.sub(r"^model\.", "", k)
+        norm[re.sub(r"^language_model\.(model\.)?", "", k)] = v
+    flat: Dict[str, Any] = {}
+    for i in range(cfg.num_hidden_layers):
+        p = f"layers.{i}."
+        flat[f"layers_{i}"] = {
+            "self_attn": {name: _lin(norm, p + "self_attn." + name, bias=False)
+                          for name in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            **{name: _lin(norm, p + "mlp." + name, bias=False)
+               for name in ("gate_proj", "up_proj", "down_proj")},
+            "input_layernorm": _rms(norm, p + "input_layernorm"),
+            "post_attention_layernorm": _rms(norm, p + "post_attention_layernorm"),
+        }
+    lm = {"norm": _rms(norm, "norm"), **_engine_layers(flat, cfg.num_hidden_layers)}
+    if not cfg.tie_word_embeddings:
+        lm["lm_head"] = {"kernel": norm["lm_head.weight"].t()}
+    return {"embed": {"embed_tokens": norm["embed_tokens.weight"]}, "language_model": lm}
+
+
+def llava_next_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """A ``LlavaNextForConditionalGeneration`` state dict (AdaptLLM/biomed-
+    LLaVA-NeXT-Llama3-8B) -> ``{"embed", "language_model", "vision_tower",
+    "multi_modal_projector"}`` (hf_import.py:233-281): the LM through
+    :func:`llama_lm_params_from_hf`, the CLIP tower's layers up to the feature
+    layer (the engine never runs the rest), the projector with
+    ``image_newline`` beside its two linears."""
+    out = llama_lm_params_from_hf(sd, cfg.text)
+    sd = {re.sub(r"^model\.", "", k): v for k, v in sd.items()}
+    vt = "vision_tower.vision_model."
+    vision: Dict[str, Any] = {
+        "patch_embedding": {"kernel": _conv(sd[vt + "embeddings.patch_embedding.weight"])},
+        "class_embedding": sd[vt + "embeddings.class_embedding"],
+        "position_embedding": sd[vt + "embeddings.position_embedding.weight"],
+        "pre_layrnorm": _ln(sd, vt + "pre_layrnorm"),
+    }
+    for i in range(cfg.feature_layers):
+        p = f"{vt}encoder.layers.{i}."
+        vision[f"layers_{i}"] = {
+            "self_attn": {name: _lin(sd, p + "self_attn." + name)
+                          for name in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "layer_norm1": _ln(sd, p + "layer_norm1"),
+            "layer_norm2": _ln(sd, p + "layer_norm2"),
+            "mlp": {"fc1": _lin(sd, p + "mlp.fc1"), "fc2": _lin(sd, p + "mlp.fc2")},
+        }
+    out["vision_tower"] = vision
+    out["multi_modal_projector"] = {
+        "linear_1": _lin(sd, "multi_modal_projector.linear_1"),
+        "linear_2": _lin(sd, "multi_modal_projector.linear_2"),
+        "image_newline": sd["image_newline"],
+    }
+    return out
 
 
 def gemma3_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:

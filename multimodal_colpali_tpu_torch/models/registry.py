@@ -19,6 +19,14 @@ by leaf on ``device`` (``weight_dtype="int8"`` or ``"int4"`` quantizes each
 leaf as it arrives, so the bf16 tree never exists on the card).
 ``load_gemma3_mm(name, device=...)`` adds the SigLIP tower and the
 projector of the multimodal generator (registry.py:1443-1540).
+
+The old-model generators (registry.py:756-1169): ``load_qwen2vl_lm`` /
+``load_qwen2vl_mm`` (Qwen2-VL-2B/7B, the LM alone or with the ColQwen2 tower),
+``load_llama_lm`` and ``load_llava_next_mm`` (LLaVA-NeXT-Llama3-8B: CLIP tower,
+projector, Llama-3-8B). Their random weights are made on ``device``, the LM
+leaf by leaf like Gemma-3's (straight into int8 / int4 under ``weight_dtype``,
+so the 8B LM never exists in bf16 beside its quantized copy); norm weights 1
+(plain RMSNorm), biases 0, the rest N(0, fan_in^-0.5).
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.models import hf_import
 from multimodal_colpali_tpu_torch.models.configs import (
     ColFlorModelConfig, ColGraniteModelConfig, ColIdefics3ModelConfig, ColPaliModelConfig,
-    ColQwen2ModelConfig, Gemma3MMConfig, Gemma3TextConfig)
+    ColQwen2ModelConfig, Gemma3MMConfig, Gemma3TextConfig, LlamaTextConfig, LlavaNextMMConfig,
+    Qwen2TextConfig)
 from multimodal_colpali_tpu_torch.models.convert import (
     ModelConfig, flax_shape, model_class, params_from_flax, state_from_flax)
 from multimodal_colpali_tpu_torch.models.processing import ColPaliProcessor
@@ -402,10 +411,10 @@ def tree_leaves(tree: Dict[str, Any], prefix=()):
             yield prefix + (k,), v
 
 
-def _build_tree(cfg: Gemma3TextConfig, make_leaf) -> Dict[str, Any]:
+def _build_tree(shapes: Dict[str, Any], make_leaf) -> Dict[str, Any]:
     """Fill the shape tree leaf by leaf, largest first (the embed table's
     float32 transient is the biggest, made while the tree is still empty)."""
-    flat = list(tree_leaves(gemma3_param_shapes(cfg)))
+    flat = list(tree_leaves(shapes))
     order = sorted(range(len(flat)), key=lambda i: -int(np.prod(flat[i][1])))
     tree: Dict[str, Any] = {}
     for i in order:
@@ -438,7 +447,7 @@ def gemma3_random_params(cfg: Gemma3TextConfig, seed: int = 0,
             return torch.zeros(shape, dtype=dtype, device=device)
         return _normal_leaf(i, shape, seed, device).to(dtype)
 
-    return _build_tree(cfg, leaf)
+    return _build_tree(gemma3_param_shapes(cfg), leaf)
 
 
 def gemma3_random_params_int8(cfg: Gemma3TextConfig, seed: int = 0,
@@ -461,7 +470,7 @@ def gemma3_random_params_int8(cfg: Gemma3TextConfig, seed: int = 0,
             return torch.zeros(shape, dtype=dtype, device=device)
         return quantize_lm_leaf(name, _normal_leaf(i, shape, seed, device), fmt)
 
-    return _build_tree(cfg, leaf)
+    return _build_tree(gemma3_param_shapes(cfg), leaf)
 
 
 def _place_lm(tree: Dict[str, Any], device: torch.device, dtype: torch.dtype,
@@ -618,3 +627,270 @@ def load_gemma3_mm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.b
                   f"set COLPALI_TPU_CKPT_DIR to load real weights)", stacklevel=2)
     return cfg, gemma3_mm_random_params(cfg, seed, dtype=dtype, device=device,
                                         weight_dtype=weight_dtype), None
+
+
+# -- the old-model generators: Qwen2-VL, Llama, LLaVA-NeXT --------------------------
+
+QWEN2VL_CONFIGS: Dict[str, Callable[[], Qwen2TextConfig]] = {
+    "AdaptLLM/biomed-Qwen2-VL-2B-Instruct": Qwen2TextConfig.qwen2_vl_2b,
+    "Qwen/Qwen2-VL-2B-Instruct": Qwen2TextConfig.qwen2_vl_2b,
+    "qwen2-vl-2b": Qwen2TextConfig.qwen2_vl_2b,
+    "Qwen/Qwen2-VL-7B-Instruct": Qwen2TextConfig.qwen2_vl_7b,
+    "qwen2-vl-7b": Qwen2TextConfig.qwen2_vl_7b,
+    "tiny-qwen2vl": Qwen2TextConfig.tiny,
+}
+# the whole generator (tower + LM) under the same names
+_QWEN2VL_FULL: Dict[str, Callable[[], ColQwen2ModelConfig]] = {
+    "AdaptLLM/biomed-Qwen2-VL-2B-Instruct": ColQwen2ModelConfig.qwen2_vl_2b,
+    "Qwen/Qwen2-VL-2B-Instruct": ColQwen2ModelConfig.qwen2_vl_2b,
+    "qwen2-vl-2b": ColQwen2ModelConfig.qwen2_vl_2b,
+    "Qwen/Qwen2-VL-7B-Instruct": ColQwen2ModelConfig.qwen2_vl_7b,
+    "qwen2-vl-7b": ColQwen2ModelConfig.qwen2_vl_7b,
+    "tiny-qwen2vl": ColQwen2ModelConfig.tiny,
+}
+LLAMA_CONFIGS: Dict[str, Callable[[], LlamaTextConfig]] = {
+    "AdaptLLM/biomed-LLaVA-NeXT-Llama3-8B": LlamaTextConfig.llama3_8b,
+    "meta-llama/Meta-Llama-3-8B-Instruct": LlamaTextConfig.llama3_8b,
+    "llama-3-8b": LlamaTextConfig.llama3_8b,
+    "tiny-llama": LlamaTextConfig.tiny_lm,
+}
+LLAVA_NEXT_CONFIGS: Dict[str, Callable[[], LlavaNextMMConfig]] = {
+    "AdaptLLM/biomed-LLaVA-NeXT-Llama3-8B": LlavaNextMMConfig.llava_next_llama3_8b,
+    "llava-next-llama3-8b": LlavaNextMMConfig.llava_next_llama3_8b,
+    "tiny-llava-next": LlavaNextMMConfig.tiny,
+}
+
+
+def qwen2vl_param_shapes(cfg) -> Dict[str, Any]:
+    """The Qwen2 / Llama engine tree's leaf shapes (registry.py:781-820):
+    q/k/v biases for a Qwen2 config only, mlp nested, ``lm_head`` for an
+    untied one."""
+    h, hd = cfg.hidden_size, cfg.head_dim
+    nq, nkv, inter = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.intermediate_size
+    biased = getattr(cfg, "is_qwen2", False)
+
+    def proj(k, n):
+        return {"kernel": (k, n), **({"bias": (n,)} if biased else {})}
+
+    layer = {
+        "self_attn": {"q_proj": proj(h, nq * hd), "k_proj": proj(h, nkv * hd),
+                      "v_proj": proj(h, nkv * hd), "o_proj": {"kernel": (nq * hd, h)}},
+        "mlp": {"gate_proj": {"kernel": (h, inter)}, "up_proj": {"kernel": (h, inter)},
+                "down_proj": {"kernel": (inter, h)}},
+        "input_layernorm": {"weight": (h,)},
+        "post_attention_layernorm": {"weight": (h,)},
+    }
+    language: Dict[str, Any] = {f"layers_{i}": layer for i in range(cfg.num_hidden_layers)}
+    language["norm"] = {"weight": (h,)}
+    if not cfg.tie_word_embeddings:
+        language["lm_head"] = {"kernel": (h, cfg.vocab_size)}
+    return {"embed": {"embed_tokens": (cfg.vocab_size, h)}, "language_model": language}
+
+
+def qwen2vl_random_params(cfg, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
+                          device: Any = "cuda", weight_dtype: str = "native"):
+    """Random Qwen2 / Llama LM params on ``device`` (registry.py:823-840):
+    plain RMSNorm weights 1, biases 0, kernels and the table N(0,
+    fan_in^-0.5) in ``dtype``, or under ``weight_dtype`` int8 / int4 each
+    made straight into its quantized format, one leaf at a time
+    (registry.py:1037-1090)."""
+    _check_weight_dtype(weight_dtype)
+    device = resolve_device(device)
+
+    def leaf(i, name, shape):
+        if name in ("weight", "bias"):
+            fill = torch.ones if name == "weight" else torch.zeros
+            return fill(shape, dtype=dtype, device=device)
+        w = _normal_leaf(i, shape, seed, device)
+        return w.to(dtype) if weight_dtype == "native" else quantize_lm_leaf(name, w,
+                                                                              weight_dtype)
+
+    return _build_tree(qwen2vl_param_shapes(cfg), leaf)
+
+
+def _random_module(module: torch.nn.Module, seed: int, family: str) -> torch.nn.Module:
+    init_random_params_(module, seed, family=family)
+    return module.eval()
+
+
+def qwen2vl_mm_random_params(cfg: ColQwen2ModelConfig, seed: int = 0,
+                             dtype: torch.dtype = torch.bfloat16, device: Any = "cuda",
+                             weight_dtype: str = "native"):
+    """Random whole Qwen2-VL params (registry.py:873-898): the LM by
+    :func:`qwen2vl_random_params` and ``visual``, a ``Qwen2VisionTower`` on
+    ``device`` (norm weights 1, biases 0, the rest N(0, fan_in^-0.5))."""
+    from multimodal_colpali_tpu_torch.models.qwen2vl import Qwen2VisionTower
+
+    device = resolve_device(device)
+    lm = qwen2vl_random_params(cfg.text, seed, dtype, device, weight_dtype)
+    lm["visual"] = _random_module(Qwen2VisionTower(cfg.vision, device=device, dtype=dtype),
+                                  seed + 1, "colqwen2")
+    return lm
+
+
+def _llava_projector(cfg: LlavaNextMMConfig, seed: int, dtype: torch.dtype,
+                     device: torch.device) -> Dict[str, Any]:
+    v_h, t_h = cfg.vision.hidden_size, cfg.text.hidden_size
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+
+    def normal(shape, fan_in):
+        w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        return w.mul_(float(fan_in) ** -0.5).to(dtype)
+
+    return {"linear_1": {"kernel": normal((v_h, t_h), v_h),
+                         "bias": torch.zeros(t_h, dtype=dtype, device=device)},
+            "linear_2": {"kernel": normal((t_h, t_h), t_h),
+                         "bias": torch.zeros(t_h, dtype=dtype, device=device)},
+            "image_newline": normal((t_h,), t_h)}
+
+
+def llava_next_random_params(cfg: LlavaNextMMConfig, seed: int = 0,
+                             dtype: torch.dtype = torch.bfloat16, device: Any = "cuda"):
+    """Random whole LLaVA-NeXT params on ``device`` (registry.py:997-1034):
+    the Llama LM by :func:`qwen2vl_random_params`, ``vision_tower`` a
+    ``ClipFeatureTower`` (LayerNorm weights 1, biases 0), the projector's
+    linears and ``image_newline``."""
+    return _llava_random(cfg, seed, dtype, device, "native")
+
+
+def llava_next_random_params_int8(cfg: LlavaNextMMConfig, seed: int = 0,
+                                  dtype: torch.dtype = torch.bfloat16, device: Any = "cuda",
+                                  fmt: str = "int8"):
+    """The same with the LM made straight into weight-only int8 (or int4),
+    one leaf at a time (registry.py:1037-1127): the 8B LM never exists in
+    bf16; the peak is the quantized tree plus one leaf's float32 transient.
+    The tower and the projector stay in ``dtype``."""
+    if fmt not in ("int8", "int4"):
+        raise ValueError(f"fmt must be 'int8' or 'int4', got {fmt!r}")
+    return _llava_random(cfg, seed, dtype, device, fmt)
+
+
+def _llava_random(cfg, seed, dtype, device, weight_dtype):
+    from multimodal_colpali_tpu_torch.models.clip import ClipFeatureTower
+
+    device = resolve_device(device)
+    lm = qwen2vl_random_params(cfg.text, seed, dtype, device, weight_dtype)
+    lm["vision_tower"] = _random_module(ClipFeatureTower(
+        cfg.vision, cfg.vision_feature_layer, device=device, dtype=dtype), seed + 1, "clip")
+    lm["multi_modal_projector"] = _llava_projector(cfg, seed, dtype, device)
+    return lm
+
+
+def _warn_random(name: str) -> None:
+    """The JAX loaders' warning on random init (registry.py:862-866)."""
+    warnings.warn(f"no local checkpoint for {name!r}; using random init "
+                  f"(set COLPALI_TPU_CKPT_DIR to load real weights)", stacklevel=3)
+
+
+def _check_weight_dtype(weight_dtype: str) -> None:
+    if weight_dtype not in ("native", "int8", "int4"):
+        raise ValueError(f"weight_dtype must be 'native', 'int8' or 'int4', got {weight_dtype!r}")
+
+
+def _loaded_module(module: torch.nn.Module, flax_tree: Dict[str, Any]) -> torch.nn.Module:
+    """``module`` (made on its device) filled from a checkpoint's flax-named subtree."""
+    module.load_state_dict(state_from_flax(flax_tree, module))
+    return module.eval()
+
+
+def load_qwen2vl_lm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.bfloat16,
+                    seed: int = 0, weight_dtype: str = "native",
+                    checkpoint_dir: Optional[str] = None):
+    """A Qwen2-VL generator's LM by name -> (cfg, engine params, tokenizer)
+    (registry.py:843-870): a checkpoint (the whole VL one; its tower is
+    dropped) placed leaf by leaf on ``device``, else random from ``seed``
+    with JAX's warning."""
+    if name not in QWEN2VL_CONFIGS:
+        raise KeyError(f"unknown qwen2-vl LM {name!r}; known: {sorted(QWEN2VL_CONFIGS)}")
+    _check_weight_dtype(weight_dtype)
+    cfg = QWEN2VL_CONFIGS[name]()
+    device = resolve_device(device)
+    ckpt = _find_checkpoint(name, checkpoint_dir)
+    if ckpt is not None:
+        tree = hf_import.qwen2vl_lm_params_from_hf(hf_import.load_state_dict(ckpt),
+                                                   _QWEN2VL_FULL[name]())
+        tree.pop("visual")
+        return cfg, _place_lm(tree, device, dtype, weight_dtype), _load_tokenizer_from(ckpt)
+    _warn_random(name)
+    return cfg, qwen2vl_random_params(cfg, seed, dtype, device, weight_dtype), None
+
+
+def load_qwen2vl_mm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.bfloat16,
+                    seed: int = 0, weight_dtype: str = "native",
+                    checkpoint_dir: Optional[str] = None):
+    """The whole Qwen2-VL generator by name -> (cfg, params, tokenizer)
+    (registry.py:901-931): ``cfg`` the plain-VL ``ColQwen2ModelConfig``;
+    ``params`` the LM's engine tree and ``visual``, a ``Qwen2VisionTower`` on
+    ``device``. A checkpoint converts through
+    ``hf_import.qwen2vl_lm_params_from_hf`` (the ColQwen2 path), the LM
+    placed leaf by leaf (quantized as it arrives under ``weight_dtype``)."""
+    from multimodal_colpali_tpu_torch.models.qwen2vl import Qwen2VisionTower
+
+    if name not in _QWEN2VL_FULL:
+        raise KeyError(f"unknown qwen2-vl model {name!r}; known: {sorted(_QWEN2VL_FULL)}")
+    _check_weight_dtype(weight_dtype)
+    cfg = _QWEN2VL_FULL[name]()
+    device = resolve_device(device)
+    ckpt = _find_checkpoint(name, checkpoint_dir)
+    if ckpt is not None:
+        tree = hf_import.qwen2vl_lm_params_from_hf(hf_import.load_state_dict(ckpt), cfg)
+        visual = tree.pop("visual")
+        params = _place_lm(tree, device, dtype, weight_dtype)
+        params["visual"] = _loaded_module(
+            Qwen2VisionTower(cfg.vision, device=device, dtype=dtype), visual)
+        return cfg, params, _load_tokenizer_from(ckpt)
+    _warn_random(name)
+    return cfg, qwen2vl_mm_random_params(cfg, seed, dtype, device, weight_dtype), None
+
+
+def load_llama_lm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.bfloat16,
+                  seed: int = 0, weight_dtype: str = "native",
+                  checkpoint_dir: Optional[str] = None):
+    """A Llama generator LM by name -> (cfg, engine params, tokenizer)
+    (registry.py:951-977): a bare Llama or a LLaVA-NeXT checkpoint (its
+    nesting stripped, its vision subtrees ignored), else random from
+    ``seed`` with JAX's warning."""
+    if name not in LLAMA_CONFIGS:
+        raise KeyError(f"unknown llama LM {name!r}; known: {sorted(LLAMA_CONFIGS)}")
+    _check_weight_dtype(weight_dtype)
+    cfg = LLAMA_CONFIGS[name]()
+    device = resolve_device(device)
+    ckpt = _find_checkpoint(name, checkpoint_dir)
+    if ckpt is not None:
+        tree = hf_import.llama_lm_params_from_hf(hf_import.load_state_dict(ckpt), cfg)
+        return cfg, _place_lm(tree, device, dtype, weight_dtype), _load_tokenizer_from(ckpt)
+    _warn_random(name)
+    return cfg, qwen2vl_random_params(cfg, seed, dtype, device, weight_dtype), None
+
+
+def load_llava_next_mm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.bfloat16,
+                       seed: int = 0, weight_dtype: str = "native",
+                       checkpoint_dir: Optional[str] = None):
+    """The whole LLaVA-NeXT generator by name -> (cfg, params, tokenizer)
+    (registry.py:1130-1169): ``params`` the LM's engine tree,
+    ``vision_tower`` (a ``ClipFeatureTower`` on ``device``) and
+    ``multi_modal_projector`` (its tensors). A checkpoint's embedding rows set
+    the vocab, as in JAX; without one the weights are random from ``seed``,
+    the LM made straight into int8 / int4 under ``weight_dtype``."""
+    from multimodal_colpali_tpu_torch.models.clip import ClipFeatureTower
+
+    if name not in LLAVA_NEXT_CONFIGS:
+        raise KeyError(f"unknown llava-next model {name!r}; known: "
+                       f"{sorted(LLAVA_NEXT_CONFIGS)}")
+    _check_weight_dtype(weight_dtype)
+    cfg = LLAVA_NEXT_CONFIGS[name]()
+    device = resolve_device(device)
+    ckpt = _find_checkpoint(name, checkpoint_dir)
+    if ckpt is not None:
+        tree = hf_import.llava_next_params_from_hf(hf_import.load_state_dict(ckpt), cfg)
+        rows = int(tree["embed"]["embed_tokens"].shape[0])
+        if rows != cfg.text.vocab_size:
+            cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, vocab_size=rows))
+        vision, proj = tree.pop("vision_tower"), tree.pop("multi_modal_projector")
+        params = _place_lm(tree, device, dtype, weight_dtype)
+        params["vision_tower"] = _loaded_module(ClipFeatureTower(
+            cfg.vision, cfg.vision_feature_layer, device=device, dtype=dtype), vision)
+        params["multi_modal_projector"] = _place_lm(proj, device, dtype, "native")
+        return cfg, params, _load_tokenizer_from(ckpt)
+    _warn_random(name)
+    return cfg, _llava_random(cfg, seed, dtype, device, weight_dtype), None

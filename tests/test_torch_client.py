@@ -534,6 +534,32 @@ CARD_SET = textwrap.dedent("""
         dyn = load_retriever(name, device="cpu", dynamic_resolution=True, quantize="int8")
         (emb,) = dyn.embed_images([page])
         assert emb.ndim == 2 and emb.shape[0] > 40, (name, emb.shape)
+    # the old-model tier: Qwen2-VL and LLaVA-NeXT image requests through the
+    # speculative paged batcher, their pages resized by the port's own code
+    import warnings
+    from multimodal_colpali_tpu_torch.generation import (
+        LlamaDecodeEngine, LlavaNextImagePreprocessor, LlavaNextMMEngine, Qwen2DecodeEngine,
+        Qwen2VLImagePreprocessor, Qwen2VLMMEngine, SpeculativePagedContinuousBatcher)
+    from multimodal_colpali_tpu_torch.models import registry as R
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        qcfg, qp, _ = R.load_qwen2vl_mm("tiny-qwen2vl", device="cpu", dtype=torch.float32)
+        lcfg, lp, _ = R.load_llava_next_mm("tiny-llava-next", device="cpu",
+                                           dtype=torch.float32)
+    qlm = Qwen2DecodeEngine(qcfg.text, qp, dtype=torch.float32, device="cpu")
+    llm = LlamaDecodeEngine(lcfg.text, lp, dtype=torch.float32, device="cpu")
+    for lm, mm, pre in ((qlm, Qwen2VLMMEngine(qcfg, qp["visual"], qlm),
+                         Qwen2VLImagePreprocessor(qcfg)),
+                        (llm, LlavaNextMMEngine(lcfg, lp["vision_tower"],
+                                                lp["multi_modal_projector"], llm),
+                         LlavaNextImagePreprocessor(lcfg))):
+        pix = pre([page])
+        prompt = mm.build_mm_prompt([3, 5, 7])
+        bat = SpeculativePagedContinuousBatcher(lm, batch_slots=2, max_seq_len=64, chunk=2,
+                                                page_size=8, mm_engine=mm, spec_k=3)
+        fut = bat.submit(prompt, max_new_tokens=5, pixel_values=pix[0])
+        bat.drain()
+        assert fut.result(30) == mm.generate([prompt], pix[None], max_new_tokens=5)[0]
 
     try:
         import multimodal_colpali_tpu_torch.evalstats  # noqa: F401

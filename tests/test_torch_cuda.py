@@ -1827,3 +1827,116 @@ def test_granite_tower_on_card_runs_k2(gen):
     assert got.shape == want.shape == (3, 729, 1152)
     torch.testing.assert_close(got.float().cpu(), want, rtol=0,
                                atol=5e-2 * float(want.abs().max()))
+
+
+# -- the old-model tier: Qwen2-VL-2B, LLaVA-NeXT-Llama3-8B, speculative verify ------------
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("hq,hkv", [(12, 2), (32, 8)])   # group 6 (Qwen2-VL-2B), 4 (Llama-3-8B)
+def test_paged_attention_at_the_verify_shape(gen, kv, hq, hkv):
+    """K7a / K7b over a speculative verify window: 4 slots x k = 4 queries
+    ``[16, Hq, 128]``, each slot's block table repeated k times and row i of
+    a slot attending ``length + i + 1`` rows (an inactive slot its length);
+    the tensor-core path, against the plain version."""
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+
+    b, k, d, page, nb = 4, 4, 128, 16, 384
+    PA_, _, kp, vp, bt, _ = _paged_case(gen, b, hq, hkv, d, page, nb, torch.bfloat16)
+    length = torch.tensor([900, 0, 4077, 2311], device="cuda")
+    active = length > 0
+    lens = torch.where(active[:, None], length[:, None] + torch.arange(k, device="cuda") + 1,
+                       length[:, None]).reshape(-1).to(torch.int32)
+    btf = bt.repeat_interleave(k, dim=0)
+    q = _randn(gen, b * k, hq, d, dtype=torch.bfloat16)
+    if kv == "int8":
+        kc, ks = PA.quantize_kv_rows(kp)
+        vc, vs = PA.quantize_kv_rows(vp)
+        fn, args = PA.paged_attention_int8_cuda, (kc, ks, vc, vs)
+        want = PA.paged_attention_int8_reference(q, *args, btf, lens, scale=d ** -0.5)
+        atol = 0.035
+    else:
+        fn, args = PA.paged_attention_cuda, (kp, vp)
+        want = PA.paged_attention_reference(q, *args, btf, lens, scale=d ** -0.5)
+        atol = 2e-2
+    before = fn.tensor_core_launches
+    got = fn(q, *args, btf, lens, scale=d ** -0.5)
+    assert fn.tensor_core_launches == before + 1
+    assert float((got.float() - want.float()).abs().max()) < atol
+
+
+@pytest.mark.parametrize("s,h,d", [(577, 16, 64), (2916, 16, 80)])   # CLIP-L/336; Qwen2-VL
+def test_attention_at_the_old_model_tower_shapes(gen, s, h, d):
+    """K2 at LLaVA-NeXT's CLIP tower (577 keys, D 64, with its CLS row) and
+    Qwen2-VL's (2,916 patches, D 80), a batch of 5 images: the tensor-core
+    path within 5e-3 of the plain version (one image at a time), a repeat
+    bit-identical."""
+    q, k, v = (_randn(gen, 5, s, h, d, dtype=torch.bfloat16) for _ in range(3))
+    before = A.fused_attention_cuda.tensor_core_launches
+    got = A.fused_attention_cuda(q, k, v, scale=d ** -0.5)
+    assert A.fused_attention_cuda.tensor_core_launches == before + 1
+    want = torch.cat([A.attention_reference(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                            scale=d ** -0.5) for i in range(5)])
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=5e-3)
+    assert torch.equal(A.fused_attention_cuda(q, k, v, scale=d ** -0.5), got)
+
+
+@pytest.mark.parametrize("m", [4, 16, 40])
+def test_int8_matmul_on_the_untied_llama_head(gen, m):
+    """K8a on Llama-3-8B's untied head ``[M, 4096] -> 128,320`` (decode, a
+    verify window, a prefill's rows), float32 out as the engine asks, within
+    2% of the largest value of the plain version."""
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+    from multimodal_colpali_tpu_torch.ops import quant as Q
+
+    w = _randn(gen, 4096, 128320, dtype=torch.bfloat16) * 0.02
+    head = Q.quantize_int8(w, axis=0)
+    del w
+    x = _randn(gen, m, 4096, dtype=torch.bfloat16)
+    before = IM.int8_matmul_kn_cuda.launches
+    got = IM.int8_matmul_kn(x, head["q8"], head["scale"], out_dtype=torch.float32)
+    assert IM.int8_matmul_kn_cuda.launches == before + 1 and got.dtype == torch.float32
+    want = IM.int8_matmul_reference(x.float(), head["q8"], head["scale"])
+    assert float((got - want).abs().max()) <= 0.02 * float(want.abs().max())
+
+
+def test_speculative_paged_batcher_on_card_takes_k7_at_the_verify_rows(gen):
+    """A tiny Qwen2-VL in float32 on the card through the speculative paged
+    batcher with an image request: K7a runs over ``B * spec_k`` verify rows
+    every step, and the stream equals the engine's ``generate``."""
+    import numpy as np
+    import warnings
+
+    from multimodal_colpali_tpu_torch.generation.engine import Qwen2DecodeEngine
+    from multimodal_colpali_tpu_torch.generation.qwen2vl_mm import (
+        Qwen2VLImagePreprocessor, Qwen2VLMMEngine)
+    from multimodal_colpali_tpu_torch.generation.speculative import (
+        SpeculativePagedContinuousBatcher)
+    from multimodal_colpali_tpu_torch.models import registry as R
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cfg, params, _ = R.load_qwen2vl_mm("tiny-qwen2vl", device="cuda", dtype=torch.float32)
+    lm = Qwen2DecodeEngine(cfg.text, params, dtype=torch.float32, device="cuda")
+    mm = Qwen2VLMMEngine(cfg, params["visual"], lm)
+    pix = Qwen2VLImagePreprocessor(cfg, device="cuda")([np.full((60, 40, 3), 77, np.uint8)])
+    prompt = mm.build_mm_prompt([5, 9, 11, 5, 9, 11])
+    want = mm.generate([prompt], pix[None], max_new_tokens=12)[0]
+    calls = []
+    orig = PA.paged_attention_cuda
+
+    def seen(q, *a, **kw):
+        calls.append(q.shape[0])
+        return orig(q, *a, **kw)
+
+    import multimodal_colpali_tpu_torch.generation.speculative as S
+    S.paged_attention = seen
+    try:
+        bat = SpeculativePagedContinuousBatcher(lm, batch_slots=2, max_seq_len=64, chunk=2,
+                                                page_size=8, mm_engine=mm, spec_k=4)
+        fut = bat.submit(prompt, max_new_tokens=12, pixel_values=pix[0])
+        bat.drain()
+    finally:
+        S.paged_attention = orig
+    assert calls and set(calls) == {2 * 4}
+    assert fut.result(30) == want

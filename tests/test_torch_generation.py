@@ -398,9 +398,13 @@ def test_unported_paths_raise(monkeypatch):
     with pytest.warns(UserWarning, match="random init"):
         TR.load_gemma3_lm("tiny-gemma3", device="cpu", checkpoint_dir="/nonexistent")
 
-    @dataclasses.dataclass(frozen=True)
-    class Qwen(TC.GemmaTextConfig):
-        is_qwen2: bool = True
-
-    with pytest.raises(NotImplementedError, match="Qwen2.*generation/engine.py"):
-        TE.layer_stack({}, Qwen(), torch.zeros(1, 1, 4), torch.zeros(1, 1), None, None)
+    # the Qwen2/Llama body runs now; the engines over it refuse a mesh too
+    for qcfg in (TC.Qwen2TextConfig.tiny(), TC.LlamaTextConfig.tiny_lm()):
+        qparams = TR.qwen2vl_random_params(qcfg, seed=0, dtype=torch.float32, device="cpu")
+        with pytest.raises(NotImplementedError, match="generation/engine.py"):
+            TE.Qwen2DecodeEngine(qcfg, qparams, device="cpu", mesh=object())
+        hidden, (ks, vs) = TE.layer_stack(
+            qparams, qcfg, torch.randn(1, 3, qcfg.hidden_size), torch.arange(3)[None],
+            lambda i, k, v: (k, v), lambda i, q, k, v: q)
+        assert hidden.shape == (1, 3, qcfg.hidden_size) and torch.isfinite(hidden).all()
+        assert len(ks) == len(vs) == qcfg.num_hidden_layers
