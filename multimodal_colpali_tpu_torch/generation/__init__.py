@@ -7,10 +7,11 @@ speculative,server,client,messages,parse}.py`` for the text LMs of Gemma-1
 generation on the ColPali weights (``PaliGemmaEngine``), on Gemma-3's
 (``Gemma3MMEngine``, ``generation/gemma3_mm.py``), on Qwen2-VL's
 (``Qwen2VLMMEngine``, ``generation/qwen2vl_mm.py``) and on LLaVA-NeXT's
-(``LlavaNextMMEngine``, ``generation/llava_next_mm.py``), with prompt-lookup
-speculative decoding (``generation/speculative.py``). The client
-(``generation/client.py``) runs on the standard library. Not ported yet: the
-Mllama image engine (per-step cross-attention).
+(``LlavaNextMMEngine``, ``generation/llava_next_mm.py``) and on
+Llama-3.2-Vision's (``MllamaMMEngine``, ``generation/mllama_mm.py``: per-step
+gated cross-attention, per-slot cross pools in every batcher), with
+prompt-lookup speculative decoding (``generation/speculative.py``). The client
+(``generation/client.py``) runs on the standard library.
 """
 
 from multimodal_colpali_tpu_torch.generation.client import (  # noqa: F401
@@ -27,6 +28,8 @@ from multimodal_colpali_tpu_torch.generation.messages import (  # noqa: F401
     build_choice_string, build_instruction_block, build_reference_from_metadata,
     document_to_context_entry, encode_image, encode_image_to_data_url, format_msgs,
     image_context_messages, pil_image_to_data_url)
+from multimodal_colpali_tpu_torch.generation.mllama_mm import (  # noqa: F401
+    MllamaImagePreprocessor, MllamaMMEngine)
 from multimodal_colpali_tpu_torch.generation.paged import PagedContinuousBatcher  # noqa: F401
 from multimodal_colpali_tpu_torch.generation.parse import (  # noqa: F401
     identity_perm, response_real_out)

@@ -384,11 +384,12 @@ class GemmaDecodeEngine:
         return (x * scale).to(self.dtype)
 
     def _chunk(self, p, x, positions, kcaches, vcaches, write_idx: int, kv_valid,
-               causal: bool = True):
+               causal: bool = True, interleave=None):
         """Run a chunk of tokens through all layers (engine.py:407-451),
         writing K/V into the caches at ``write_idx`` (in place) and attending
         under ``kv_valid [B, T]`` plus, when ``causal``, global causality.
-        x ``[B, S, H]``; positions ``[B, S]``."""
+        x ``[B, S, H]``; positions ``[B, S]``; ``interleave`` as
+        :func:`layer_stack`'s (Mllama's cross blocks)."""
         c = self.cfg
         b, s, _ = x.shape
         t = kcaches[0].shape[1]
@@ -415,7 +416,7 @@ class GemmaDecodeEngine:
                 m = sl_mask
             return L.attention(q, kc, vc, mask=m, scale=sc)
 
-        return layer_stack(p, c, x, positions, kv_write, attend)
+        return layer_stack(p, c, x, positions, kv_write, attend, interleave)
 
     def _logits(self, p, hidden: torch.Tensor) -> torch.Tensor:
         """Tied LM head in float32, sliced back to the true vocab."""
@@ -471,10 +472,10 @@ class GemmaDecodeEngine:
 
     def _decode(self, last_hidden, last_pos, kc, vc, s: int, kv_valid, max_new_tokens: int,
                 temperature: float, eos_id: int, pad_id: int, seed: int, top_p: float,
-                top_k: int) -> List[List[int]]:
+                top_k: int, interleave=None) -> List[List[int]]:
         """Sample from the prefill's last hidden state, then decode one token
-        a step into caches ``[B, s + max_new_tokens]`` at rows ``s``...;
-        rows cut at ``eos_id``."""
+        a step into caches ``[B, s + max_new_tokens]`` at rows ``s``...,
+        every step through ``interleave``'s hooks; rows cut at ``eos_id``."""
         p = self.params
         b = last_hidden.shape[0]
         vec = lambda v, dt: torch.full((b,), v, dtype=dt, device=self.device)  # noqa: E731
@@ -499,7 +500,7 @@ class GemmaDecodeEngine:
         for step in range(1, max_new_tokens):
             hidden, _ = self._chunk(p, self._embed(p, tok[:, None]),
                                     (last_pos + step)[:, None], kc, vc, s + step - 1,
-                                    kv_valid)
+                                    kv_valid, interleave=interleave)
             nxt = sample(self._logits(p, hidden[:, -1]), step)
             nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
             done = done | (nxt == eos_id)

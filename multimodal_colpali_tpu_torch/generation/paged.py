@@ -23,7 +23,10 @@ requests use (vLLM's PagedAttention memory model). On top of the parent:
   tokens are fixed by the digest, so a page's K/V depend only on what comes
   before its end. PaliGemma's prompts never share: they attend
   bidirectionally, so a page's K/V depend on the whole prompt
-  (paged.py:127-137).
+  (paged.py:127-137). Nor do a cross-decode engine's (Mllama): its image
+  context lives in the per-slot cross pools, not in prompt pages;
+- a cross-decode engine's per-slot cross pools are the parent's, and a
+  preempted image request's rows are packed again at readmission.
 
 The decode step is the parent's layer math with two substitutions: K/V rows
 go to (page, row) from the block table, updated in place with ``index_put_``
@@ -55,7 +58,8 @@ class PagedContinuousBatcher(ContinuousBatcher):
                  eos_id: int = -1, pad_id: int = 0, prefill_cache_entries: int = 8,
                  mm_engine: Any = None, page_size: int = 16, pool_pages: Optional[int] = None,
                  kv_dtype: str = "native", prefix_caching: bool = False,
-                 prefill_chunk: int = 0, max_queue: int = 0, admission_timeout: float = 0.0):
+                 prefill_chunk: int = 0, max_queue: int = 0, admission_timeout: float = 0.0,
+                 cross_max_images: int = 1):
         """``pool_pages`` sizes the pool (default: every slot can reach
         ``max_seq_len``); ``page_size`` tokens per page. See the module
         docstring for ``kv_dtype`` and ``prefix_caching``."""
@@ -69,7 +73,8 @@ class PagedContinuousBatcher(ContinuousBatcher):
         self.kv_dtype = kv_dtype
         super().__init__(engine, batch_slots, max_seq_len, chunk, prompt_bucket, eos_id,
                          pad_id, prefill_cache_entries, mm_engine, prefill_chunk=prefill_chunk,
-                         max_queue=max_queue, admission_timeout=admission_timeout)
+                         max_queue=max_queue, admission_timeout=admission_timeout,
+                         cross_max_images=cross_max_images)
         self._len = torch.zeros(self.B, dtype=torch.int64, device=self.device)
         self._reset_allocator()
         self._admit_seq = 0
@@ -78,7 +83,7 @@ class PagedContinuousBatcher(ContinuousBatcher):
         self.prefix_caching = prefix_caching
         # image prompts share pages only where the engine declares it sound
         self._mm_prefix_ok = (prefix_caching and mm_engine is not None
-                              and mm_engine.shares_prefix_pages)
+                              and mm_engine.shares_prefix_pages and not self._cross_mode)
         self.prefix_cache_hits = 0
         self.prefix_prefill_hits = 0   # tail-only prefills (prefix compute skipped)
 
@@ -170,6 +175,7 @@ class PagedContinuousBatcher(ContinuousBatcher):
         self._release(victim)
         self._remaining[victim] = 0
         self._len[victim] = 0
+        self._reset_cross(victim)       # its cross rows are packed again at readmission
         self._readmit.insert(0, req)
         self.preemptions += 1
         return True

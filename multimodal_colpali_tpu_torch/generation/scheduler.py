@@ -17,8 +17,13 @@ logprobs and streaming callbacks, and image requests through a
 ``LlavaNextMMEngine`` (``mm_engine``): such a request prefills through the
 engine's own image prefill and then decodes in the same slot batch as the
 text requests, from the position its prefill ends at (mrope's for Qwen2-VL)
-while its K/V rows follow the prompt's. Engines that decode with
-cross-attention (Mllama) are not ported and are refused.
+while its K/V rows follow the prompt's. An engine that decodes with
+cross-attention (``MllamaMMEngine``, ``cross_decode``) gets per-slot cross
+pools of ``cross_max_images`` images (scheduler.py:157-172): an image
+request's prefill yields its images' packed cross K/V, installed in its
+slot, and every decode step runs the engine's cross blocks over the pools;
+text slots run them under a uniform mask and keep their input, so their
+streams equal the text engine's.
 
 The dense per-slot caches ``[B, max_seq_len, Hkv, D]`` are made by
 ``_init_kv``, which the paged batcher replaces with its page pools, so a
@@ -46,10 +51,6 @@ from multimodal_colpali_tpu_torch.generation.engine import (
     LOGPROB_K, GemmaDecodeEngine, _step_logprobs, attn_scale, layer_stack, left_pad,
     sample_per_slot)
 from multimodal_colpali_tpu_torch.models import layers as L
-
-_CROSS_NOT_PORTED = ("decodes with per-step cross-attention (the Mllama engine of "
-                     "generation/mllama), which is not ported")
-
 
 class AdmissionQueueFull(RuntimeError):
     """Raised into a submitted future when the admission queue is at its
@@ -93,22 +94,22 @@ class ContinuousBatcher:
                  max_seq_len: int = 512, chunk: int = 8, prompt_bucket: int = 16,
                  eos_id: int = -1, pad_id: int = 0, prefill_cache_entries: int = 8,
                  mm_engine: Any = None, prefill_chunk: int = 0, max_queue: int = 0,
-                 admission_timeout: float = 0.0):
+                 admission_timeout: float = 0.0, cross_max_images: int = 1):
         """``max_queue > 0`` bounds the admission queue (a submit past it
         fails with ``AdmissionQueueFull``); ``admission_timeout > 0`` fails a
         request still queued after that many seconds with ``TimeoutError``.
         ``prefill_chunk > 0`` prefills text prompts longer than that in
         segments, one per scheduling point (chunked prefill).
 
-        ``mm_engine`` (a ``PaliGemmaEngine`` or a ``Gemma3MMEngine`` whose
-        ``lm`` is ``engine``) takes image requests (``submit(pixel_values=)``);
-        an engine that says it is not batcher-compatible, or that decodes
-        with cross-attention, is refused (scheduler.py:113-128)."""
+        ``mm_engine`` (an image engine whose ``lm`` is ``engine``) takes image
+        requests (``submit(pixel_values=)``); an engine that says it is not
+        batcher-compatible is refused (scheduler.py:113-119). A cross-decode
+        engine's pools hold ``cross_max_images`` images a slot; a request
+        with more is refused at submit."""
         if mm_engine is not None and not getattr(mm_engine, "batcher_compatible", True):
             raise ValueError(f"{type(mm_engine).__name__} is not batcher-compatible; serve its "
                              f"image requests through the engine's own generate")
-        if getattr(mm_engine, "cross_decode", False):
-            raise NotImplementedError(f"{type(mm_engine).__name__} {_CROSS_NOT_PORTED}")
+        self._cross_mode = bool(getattr(mm_engine, "cross_decode", False))
         self.engine = engine
         self.mm_engine = mm_engine
         self.cfg = engine.cfg
@@ -146,6 +147,16 @@ class ContinuousBatcher:
         self._gen_step = torch.zeros(b, dtype=torch.int64, device=dev)
         self._top_p = torch.ones(b, dtype=torch.float32, device=dev)
         self._top_k = torch.zeros(b, dtype=torch.int64, device=dev)
+        if self._cross_mode:
+            # per-slot pools of the packed real-tile cross K/V, written at
+            # install; a slot's rows in use on the host (0: a text slot)
+            c = self.cfg
+            self._cross_skv = int(cross_max_images) * mm_engine.packed_cross_tokens_per_image
+            pool = (len(mm_engine.cfg.cross_attention_layers), b, self._cross_skv,
+                    c.num_key_value_heads, c.head_dim)
+            self._cross_k = torch.zeros(pool, dtype=engine.dtype, device=dev)
+            self._cross_v = torch.zeros(pool, dtype=engine.dtype, device=dev)
+            self._cross_len = [0] * b
 
         self._slots: List[Optional[_Request]] = [None] * self.B
         self._queue: "queue.Queue[_Request]" = queue.Queue()
@@ -193,14 +204,23 @@ class ContinuousBatcher:
         mm = self.mm_engine
         ids, mask = (self._tensor(a) for a in left_pad([tokens], s, self.pad_id))
         kc, vc = mm.lm._caches(1, s)
-        hidden, (k, v), positions = mm.prefill(ids, mask, mm._pixels(pixel_values)[None],
-                                               kc, vc)
+        pix = mm._pixels(pixel_values)[None]
+        if self._cross_mode:
+            # Mllama (scheduler.py:268-276): the prefill also yields the
+            # packed cross K/V the slot's pools take at install
+            hidden, (k, v), positions, ckv = mm.prefill_cross(ids, mask, pix, kc, vc)
+            return (k, v, mm.lm._logits(mm.lm.params, hidden[:, -1])[0],
+                    int(positions[0, -1]), mm.packed_cross_kv(ckv, pix.shape[1]))
+        hidden, (k, v), positions = mm.prefill(ids, mask, pix, kc, vc)
         return k, v, mm.lm._logits(mm.lm.params, hidden[:, -1])[0], int(positions[0, -1])
 
     def _full_prefill(self, req: _Request, prompt_eff, s: int):
         """Whole-prompt prefill (scheduler.py:537-559). A resumed image
-        request extends its prompt causally instead (:meth:`_mm_resume_prefill`)."""
-        if req.pixel_values is not None and req.tokens:
+        request extends its prompt causally instead (:meth:`_mm_resume_prefill`),
+        except a cross-decode one: its prefill is causal at plain positions and
+        a generated token attends every image there as in decode, so prompt
+        and generated tokens re-prefill as one (scheduler.py:547-560)."""
+        if req.pixel_values is not None and req.tokens and not self._cross_mode:
             return self._mm_resume_prefill(req, s)
         return self._prefill_raw(prompt_eff, s, req.pixel_values, req.pix_digest)
 
@@ -267,6 +287,35 @@ class ContinuousBatcher:
 
     # -- decode -----------------------------------------------------------------
 
+    def _cross_hooks(self):
+        """The cross blocks of a decode or verify step over the slots' pools,
+        cut to the most rows a slot uses (masked rows weigh nothing), or None
+        when no slot holds an image: every text slot keeps its input then."""
+        if not self._cross_mode or not any(self._cross_len):
+            return None
+        n = max(self._cross_len)
+        clen = self._tensor(self._cross_len, torch.int64)
+        return self.mm_engine.pool_hooks(self._cross_k[:, :, :n], self._cross_v[:, :, :n], clen)
+
+    def _install_cross(self, slot: int, cross) -> None:
+        """An image request's packed cross K/V ``[n_cross, 1, R, Hkv, D]``
+        into its slot's pools (scheduler.py:701-709); None: a text slot."""
+        if not self._cross_mode:
+            return
+        if cross is None:
+            self._cross_len[slot] = 0
+            return
+        ks, vs = cross
+        rows = ks.shape[2]
+        self._cross_k[:, slot, :rows] = ks[:, 0]
+        self._cross_v[:, slot, :rows] = vs[:, 0]
+        self._cross_len[slot] = rows
+
+    def _reset_cross(self, slot: Optional[int] = None) -> None:
+        if self._cross_mode:
+            for i in (range(self.B) if slot is None else [slot]):
+                self._cross_len[i] = 0
+
     def _decode_step(self, p, kv_write, attend):
         """One decode token for every slot; the caller's ``kv_write`` and
         ``attend`` decide where K/V live. Returns (token, logprob, top ids,
@@ -274,7 +323,8 @@ class ContinuousBatcher:
         eng, c, b = self.engine, self.cfg, self.B
         x = eng._embed(p, self._tok[:, None])
         active = self._remaining > 0
-        xx, _ = layer_stack(p, c, x, self._pos[:, None], kv_write, attend)
+        xx, _ = layer_stack(p, c, x, self._pos[:, None], kv_write, attend,
+                            interleave=self._cross_hooks())
         logits = eng._logits(p, xx[:, 0])
         with_filter, with_logprobs = self._flags
         nxt = sample_per_slot(logits, self._seed, self._gen_step, self._temp, self._top_p,
@@ -359,6 +409,13 @@ class ContinuousBatcher:
                 pixel_values = torch.from_numpy(np.asarray(pixel_values))
             if pixel_values.dim() == getattr(self.mm_engine, "image_rank", 3):
                 pixel_values = pixel_values[None]
+            if self._cross_mode:
+                need = pixel_values.shape[0] * self.mm_engine.packed_cross_tokens_per_image
+                if need > self._cross_skv:
+                    fut.set_exception(ValueError(
+                        f"{pixel_values.shape[0]} images need {need} cross-KV rows > pool "
+                        f"{self._cross_skv}; raise cross_max_images"))
+                    return fut
         self._queue.put(_Request(
             list(prompt), max_new_tokens, float(temperature), seed, fut,
             eos_id=self.eos_id if eos_id is None else eos_id, t_submit=time.monotonic(),
@@ -479,7 +536,7 @@ class ContinuousBatcher:
                     continue
                 self._readmit.insert(0, req)
                 return
-            hint = None
+            hint = cross = None
             pre = self._prefix_prefill(prompt_eff, req.pix_digest, mm)
             if pre is not None:
                 k, v, logits, last_pos, hint = pre
@@ -490,12 +547,15 @@ class ContinuousBatcher:
                 self._advance_chunked()
                 continue   # the slot stays free for other admissions
             else:
-                k, v, logits, last_pos = self._full_prefill(req, prompt_eff, s)
+                out = self._full_prefill(req, prompt_eff, s)
+                k, v, logits, last_pos = out[:4]
+                if len(out) > 4:          # a cross-decode engine's packed cross K/V
+                    cross = out[4]
             self._finish_admission(slot, req, s, prompt_eff, k, v, logits, last_pos, hint,
-                                   req.pix_digest)
+                                   req.pix_digest, cross=cross)
 
     def _finish_admission(self, slot, req, s, prompt_eff, k, v, logits, last_pos,
-                          hint, ctx=None) -> None:
+                          hint, ctx=None, cross=None) -> None:
         """Sample the first token from the prefill logits and install the
         request; a resumed request samples at its own step index."""
         n0 = len(req.tokens)
@@ -522,6 +582,7 @@ class ContinuousBatcher:
         done0 = tok0 == req.eos_id or budget <= 1
         self._install_slot(slot, s, len(prompt_eff), k, v, tokens=prompt_eff, ctx=ctx,
                            hint=hint)
+        self._install_cross(slot, cross)
         self._tok[slot] = tok0
         self._pos[slot] = int(last_pos) + 1
         self._temp[slot] = req.temperature
@@ -537,6 +598,7 @@ class ContinuousBatcher:
     def _finish(self, slot: int) -> None:
         req = self._slots[slot]
         self._slots[slot] = None
+        self._reset_cross(slot)
         toks = req.tokens
         if req.eos_id in toks:
             toks = toks[: toks.index(req.eos_id)]
@@ -569,6 +631,7 @@ class ContinuousBatcher:
             if not req.future.done():
                 req.future.set_exception(exc)
         self._remaining = torch.zeros_like(self._remaining)
+        self._reset_cross()
 
     def _decode_flags(self):
         """(with_filter, with_logprobs) for the slots now active."""

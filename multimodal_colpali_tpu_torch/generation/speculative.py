@@ -33,8 +33,10 @@ in which a slot asks for logprobs runs the parent's decode, after which the
 draft history is rebuilt from the requests. The paged verify writes k rows
 a slot by the block table and runs K7a / K7b once over ``[B * k, Hq, D]``
 queries with the block table repeated and per-row lengths ``length + i + 1``.
-Tensor-parallel meshes and engines that decode with cross-attention (Mllama)
-are not ported.
+A cross-decode engine's (Mllama's) blocks run in the verify forward over the
+slots' cross pools (speculative.py:378-416): every verify row is a generated
+token, so it attends all of its slot's cross rows, as a decode step does.
+Tensor-parallel meshes are not ported.
 """
 
 from __future__ import annotations
@@ -51,11 +53,6 @@ from multimodal_colpali_tpu_torch.generation.scheduler import ContinuousBatcher
 from multimodal_colpali_tpu_torch.models import layers as L
 from multimodal_colpali_tpu_torch.ops.paged_attention import (
     paged_attention, paged_attention_int8, quantize_kv_rows)
-
-_CROSS_NOT_PORTED = ("decodes with per-step cross-attention (the Mllama engine of "
-                     "generation/mllama_mm, ROADMAP queue 1 item 7's next slice), which the "
-                     "speculative batchers do not carry")
-
 
 def _draft(tokens: torch.Tensor, first: torch.Tensor, cur_end: torch.Tensor, k: int,
            ngram: int, pad_id: int) -> torch.Tensor:
@@ -197,9 +194,6 @@ class _SpecHostMixin:
     which moves its K/V length."""
 
     def __init__(self, *args, spec_k: int = 4, spec_ngram: int = 2, **kwargs):
-        mm = kwargs.get("mm_engine")
-        if getattr(mm, "cross_decode", False):
-            raise NotImplementedError(f"{type(mm).__name__} {_CROSS_NOT_PORTED}")
         super().__init__(*args, **kwargs)
         self.spec_k = int(spec_k)
         self.spec_ngram = int(spec_ngram)
@@ -251,7 +245,8 @@ class _SpecHostMixin:
         fed = torch.cat([self._tok.long()[:, None], drafts[:, : k - 1]], dim=1)
         ii = torch.arange(k, device=dev)[None]
         kv_write, attend = self._verify_kv(active)
-        xx, _ = layer_stack(p, c, eng._embed(p, fed), self._pos[:, None] + ii, kv_write, attend)
+        xx, _ = layer_stack(p, c, eng._embed(p, fed), self._pos[:, None] + ii, kv_write, attend,
+                            interleave=self._cross_hooks())
         logits = eng._logits(p, xx.reshape(b * k, -1)).reshape(b, k, -1)
         greedy = torch.argmax(logits, dim=-1)
         j = _accepted(drafts, greedy, k)

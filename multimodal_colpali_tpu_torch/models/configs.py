@@ -35,6 +35,7 @@ committed ``goldens/tiny-*.npz`` use.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,6 +308,11 @@ class LlamaTextConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 100_000.0
     tie_word_embeddings: bool = True
+    # Llama-3.1-style rope frequency scaling (HF rope_type="llama3",
+    # idefics3.py:43-48): (factor, low_freq_factor, high_freq_factor,
+    # original_max_position_embeddings), or None for plain rotary. Applied to
+    # inv_freq in qwen2vl.mrope_cos_sin; Llama-3.2-Vision sets (8, 1, 4, 8192).
+    rope_llama3: Optional[tuple] = None
 
     # the decode engine's marker (idefics3.py:53-58): Llama's body is Qwen2's
     # without the q/k/v biases, and plain rotary is mrope with every channel

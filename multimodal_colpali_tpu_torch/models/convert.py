@@ -18,8 +18,8 @@ The decode engine keeps the JAX layout instead (a nested dict, dense kernels
 ``[in, out]``, int8 weights as ``{"q8", "scale"}`` dicts):
 :func:`engine_params_from_jax` carries a JAX engine tree over as it is
 (Gemma, Qwen2 and Llama LMs alike; :func:`gemma3_mm_params_from_jax`,
-:func:`qwen2vl_mm_params_from_jax` and :func:`llava_next_params_from_jax` a
-multimodal one, its tower as a ``state_dict``), and
+:func:`qwen2vl_mm_params_from_jax`, :func:`llava_next_params_from_jax` and
+:func:`mllama_params_from_jax` a multimodal one, its tower as a ``state_dict``), and
 :func:`engine_params_from_state_dict` turns a retriever's ``state_dict`` back
 into that layout for its Gemma LM.
 """
@@ -219,6 +219,23 @@ def llava_next_params_from_jax(tree: Mapping[str, Any], cfg, device: Any = "cuda
         cfg.vision, cfg.vision_feature_layer, device="meta", dtype=torch.float32))
     projector = engine_params_from_jax(tree["multi_modal_projector"], device, dtype)
     return lm, tower, projector
+
+
+def mllama_params_from_jax(tree: Mapping[str, Any], cfg, device: Any = "cuda",
+                           dtype: Optional[torch.dtype] = None):
+    """A JAX ``MllamaMMEngine`` tree (``embed``, ``language_model``,
+    ``cross_layers``, ``vision_tower``, ``multi_modal_projector``) -> (the LM
+    tree, the ``MllamaVisionTower`` ``state_dict`` of ``cfg.vision``, the
+    projector's tensors, the cross layers' tree), the tensors on ``device``."""
+    from multimodal_colpali_tpu_torch.models.mllama import MllamaVisionTower
+
+    lm = engine_params_from_jax({"embed": tree["embed"],
+                                 "language_model": tree["language_model"]}, device, dtype)
+    tower = state_from_flax(tree["vision_tower"],
+                            MllamaVisionTower(cfg.vision, device="meta", dtype=torch.float32))
+    projector = engine_params_from_jax(tree["multi_modal_projector"], device, dtype)
+    cross = engine_params_from_jax(tree["cross_layers"], device, dtype)
+    return lm, tower, projector, cross
 
 
 def engine_params_from_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:

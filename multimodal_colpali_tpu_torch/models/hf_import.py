@@ -441,6 +441,78 @@ def llava_next_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
     return out
 
 
+def mllama_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """A ``MllamaForConditionalGeneration`` state dict (AdaptLLM/biomed-
+    Llama-3.2-11B-Vision-Instruct) -> ``{"embed", "language_model",
+    "cross_layers", "vision_tower", "multi_modal_projector"}``
+    (hf_import.py:284-407). The interleaved text stack splits in two: the
+    self-attention layers renumbered densely (a plain Llama), the cross
+    layers keyed by their global index; the embed table keeps HF's
+    ``vocab_size + 8`` rows; the tower flax-named for
+    ``convert.state_from_flax``."""
+    sd = {re.sub(r"^language_model\.model\.", "language_model.", re.sub(r"^model\.", "", k)): v
+          for k, v in sd.items()}
+    cross_set = set(cfg.cross_attention_layers)
+    lm: Dict[str, Any] = {"norm": _rms(sd, "language_model.norm")}
+    cross: Dict[str, Any] = {}
+    self_idx = 0
+    for g in range(cfg.total_layers):
+        p = f"language_model.layers.{g}."
+        norms = {"input_layernorm": _rms(sd, p + "input_layernorm"),
+                 "post_attention_layernorm": _rms(sd, p + "post_attention_layernorm")}
+        if g in cross_set:
+            attn = {name: _lin(sd, p + "cross_attn." + name, bias=False)
+                    for name in ("q_proj", "k_proj", "v_proj", "o_proj")}
+            attn["q_norm"] = _rms(sd, p + "cross_attn.q_norm")
+            attn["k_norm"] = _rms(sd, p + "cross_attn.k_norm")
+            cross[f"{g}"] = {"cross_attn": attn, **norms, "mlp": _gated_mlp(sd, p),
+                             "gate_attn": sd[p + "cross_attn_attn_gate"],
+                             "gate_mlp": sd[p + "cross_attn_mlp_gate"]}
+            continue
+        lm[f"layers_{self_idx}"] = {"self_attn": _bare_attn(sd, p), "mlp": _gated_mlp(sd, p),
+                                    **norms}
+        self_idx += 1
+    if self_idx != cfg.text.num_hidden_layers:
+        raise ValueError(f"{self_idx} self-attention layers, the config has "
+                         f"{cfg.text.num_hidden_layers}")
+    if not cfg.text.tie_word_embeddings:
+        lm["lm_head"] = {"kernel": sd["lm_head.weight"].t()}
+
+    vt = "vision_model."
+    gpe = vt + "gated_positional_embedding."
+    vision: Dict[str, Any] = {
+        "patch_embedding": {"kernel": _conv(sd[vt + "patch_embedding.weight"])},
+        "class_embedding": sd[vt + "class_embedding"],
+        "pos_embedding": sd[gpe + "embedding"],
+        "pos_gate": sd[gpe + "gate"],
+        "tile_pos_embedding": sd[gpe + "tile_embedding.weight"],
+        "pre_tile_embedding": sd[vt + "pre_tile_positional_embedding.embedding.weight"],
+        "pre_tile_gate": sd[vt + "pre_tile_positional_embedding.gate"],
+        "post_tile_embedding": sd[vt + "post_tile_positional_embedding.embedding.weight"],
+        "post_tile_gate": sd[vt + "post_tile_positional_embedding.gate"],
+        "layernorm_pre": _ln(sd, vt + "layernorm_pre"),
+        "layernorm_post": _ln(sd, vt + "layernorm_post"),
+    }
+
+    def vlayer(prefix: str, gated: bool) -> Dict[str, Any]:
+        out = {"self_attn": _bare_attn(sd, prefix),
+               "input_layernorm": _ln(sd, prefix + "input_layernorm"),
+               "post_attention_layernorm": _ln(sd, prefix + "post_attention_layernorm"),
+               "fc1": _lin(sd, prefix + "mlp.fc1"), "fc2": _lin(sd, prefix + "mlp.fc2")}
+        if gated:
+            out["gate_attn"] = sd[prefix + "gate_attn"]
+            out["gate_ffn"] = sd[prefix + "gate_ffn"]
+        return out
+
+    for i in range(cfg.vision.num_hidden_layers):
+        vision[f"local_{i}"] = vlayer(f"{vt}transformer.layers.{i}.", False)
+    for i in range(cfg.vision.num_global_layers):
+        vision[f"global_{i}"] = vlayer(f"{vt}global_transformer.layers.{i}.", True)
+    return {"embed": {"embed_tokens": sd["language_model.embed_tokens.weight"]},
+            "language_model": lm, "cross_layers": cross, "vision_tower": vision,
+            "multi_modal_projector": _lin(sd, "multi_modal_projector")}
+
+
 def gemma3_params_from_hf(sd: Dict[str, Any], cfg) -> Dict[str, Any]:
     """A ``Gemma3ForCausalLM`` state dict -> the decode engine's tree
     (hf_import.py:670-712): kernels ``[in, out]`` (views), Gemma-3's q/k and

@@ -263,13 +263,32 @@ class Qwen2VisionTower(nn.Module):
 
 # -- language model --------------------------------------------------------------
 
+def llama3_inv_freq(inv_freq: np.ndarray, scaling) -> np.ndarray:
+    """HF's ``_compute_llama3_parameters`` (qwen2vl.py:445-458): long
+    wavelengths divide by ``factor``, short ones pass through, the band
+    between interpolates. ``scaling`` = (factor, low_freq_factor,
+    high_freq_factor, original_max_position_embeddings)."""
+    factor, low_f, high_f, old_len = scaling
+    wavelen = 2.0 * np.pi / inv_freq
+    low_wl, high_wl = old_len / low_f, old_len / high_f
+    scaled = np.where(wavelen > low_wl, inv_freq / factor, inv_freq)
+    smooth = (old_len / wavelen - low_f) / (high_f - low_f)
+    smoothed = (1.0 - smooth) * scaled / factor + smooth * scaled
+    medium = (wavelen >= high_wl) & (wavelen <= low_wl)
+    return np.where(medium, smoothed, scaled).astype(np.float32)
+
+
 def mrope_cos_sin(cfg: Qwen2TextConfig,
                   position_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """position_ids ``[3, B, S]`` -> (cos, sin) ``[B, S, head_dim]`` float32,
     each channel taken from its temporal / height / width stream
-    (qwen2vl.py:461-485)."""
+    (qwen2vl.py:461-485); a config with ``rope_llama3`` (Llama-3.2-Vision)
+    rescales ``inv_freq`` first."""
     half = cfg.head_dim // 2
     inv = 1.0 / (cfg.rope_theta ** (np.arange(0, half, dtype=np.float32) / half))
+    scaling = getattr(cfg, "rope_llama3", None)
+    if scaling is not None:
+        inv = llama3_inv_freq(inv, scaling)
     inv = torch.from_numpy(np.asarray(inv, np.float32)).to(position_ids.device)
     ang = position_ids[..., None].float() * inv                  # [3, B, S, half]
     emb = torch.cat([ang, ang], dim=-1)                          # [3, B, S, head_dim]

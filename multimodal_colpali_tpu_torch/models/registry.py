@@ -23,7 +23,8 @@ projector of the multimodal generator (registry.py:1443-1540).
 The old-model generators (registry.py:756-1169): ``load_qwen2vl_lm`` /
 ``load_qwen2vl_mm`` (Qwen2-VL-2B/7B, the LM alone or with the ColQwen2 tower),
 ``load_llama_lm`` and ``load_llava_next_mm`` (LLaVA-NeXT-Llama3-8B: CLIP tower,
-projector, Llama-3-8B). Their random weights are made on ``device``, the LM
+projector, Llama-3-8B), and ``load_mllama_mm`` (Llama-3.2-11B-Vision: the tiled
+tower, projector, cross layers and Llama-3.1-8B, registry.py:1170-1440). Their random weights are made on ``device``, the LM
 leaf by leaf like Gemma-3's (straight into int8 / int4 under ``weight_dtype``,
 so the 8B LM never exists in bf16 beside its quantized copy); norm weights 1
 (plain RMSNorm), biases 0, the rest N(0, fan_in^-0.5).
@@ -894,3 +895,125 @@ def load_llava_next_mm(name: str, device: Any = "cuda", dtype: torch.dtype = tor
         return cfg, params, _load_tokenizer_from(ckpt)
     _warn_random(name)
     return cfg, _llava_random(cfg, seed, dtype, device, weight_dtype), None
+
+
+# -- Mllama (Llama-3.2-Vision) ---------------------------------------------------------
+
+def _mllama_configs() -> Dict[str, Callable[[], Any]]:
+    from multimodal_colpali_tpu_torch.models.mllama import MllamaMMConfig
+
+    return {
+        "AdaptLLM/biomed-Llama-3.2-11B-Vision-Instruct": MllamaMMConfig.llama32_11b_vision,
+        "meta-llama/Llama-3.2-11B-Vision-Instruct": MllamaMMConfig.llama32_11b_vision,
+        "llama-3.2-11b-vision": MllamaMMConfig.llama32_11b_vision,
+        "tiny-mllama": MllamaMMConfig.tiny,
+    }
+
+
+MLLAMA_CONFIGS: Dict[str, Callable[[], Any]] = _mllama_configs()
+# the random cross blocks' and tower's tanh gates (registry.py:1237-1238,
+# :1258-1259): at 0 every cross block and gated embedding would be an identity
+RANDOM_GATE = 0.25
+
+
+def mllama_param_shapes(cfg) -> Dict[str, Any]:
+    """The LM and cross-layer leaf shapes (registry.py:1265-1293): the Llama
+    tree with HF's ``vocab_size + 8`` embedding rows (``<|image|>`` lies past
+    the head's vocab) and ``cross_layers`` keyed by global index."""
+    c = cfg.text
+    h, hd, inter = c.hidden_size, c.head_dim, c.intermediate_size
+    shapes = qwen2vl_param_shapes(c)
+    shapes["embed"]["embed_tokens"] = (c.vocab_size + 8, h)
+    layer = {
+        "cross_attn": {
+            "q_proj": {"kernel": (h, c.num_attention_heads * hd)},
+            "k_proj": {"kernel": (h, c.num_key_value_heads * hd)},
+            "v_proj": {"kernel": (h, c.num_key_value_heads * hd)},
+            "o_proj": {"kernel": (c.num_attention_heads * hd, h)},
+            "q_norm": {"weight": (hd,)},
+            "k_norm": {"weight": (hd,)},
+        },
+        "input_layernorm": {"weight": (h,)},
+        "post_attention_layernorm": {"weight": (h,)},
+        "mlp": {"gate_proj": {"kernel": (h, inter)}, "up_proj": {"kernel": (h, inter)},
+                "down_proj": {"kernel": (inter, h)}},
+        "gate_attn": (1,),
+        "gate_mlp": (1,),
+    }
+    shapes["cross_layers"] = {str(g): layer for g in cfg.cross_attention_layers}
+    return shapes
+
+
+def mllama_random_params(cfg, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
+                         device: Any = "cuda", weight_dtype: str = "native"):
+    """Random whole Mllama params on ``device`` (registry.py:1193-1262,
+    :1296-1397): the LM and the cross layers leaf by leaf (norm weights 1,
+    gates ``RANDOM_GATE``, the rest N(0, fan_in^-0.5); under ``weight_dtype``
+    int8 / int4 each kernel and the table made straight into its quantized
+    format, so the 11B tree never exists in bf16 beside its quantized copy),
+    ``vision_tower`` an ``MllamaVisionTower`` (LayerNorm weights 1, biases 0,
+    gates ``RANDOM_GATE``) and the projector's tensors, in ``dtype``."""
+    from multimodal_colpali_tpu_torch.models.mllama import MllamaVisionTower
+
+    _check_weight_dtype(weight_dtype)
+    device = resolve_device(device)
+
+    def leaf(i, name, shape):
+        if name == "weight":
+            return torch.ones(shape, dtype=dtype, device=device)
+        if name in ("gate_attn", "gate_mlp"):
+            return torch.full(shape, RANDOM_GATE, dtype=torch.float32, device=device)
+        w = _normal_leaf(i, shape, seed, device)
+        return w.to(dtype) if weight_dtype == "native" else quantize_lm_leaf(name, w,
+                                                                              weight_dtype)
+
+    params = _build_tree(mllama_param_shapes(cfg), leaf)
+    tower = _random_module(MllamaVisionTower(cfg.vision, device=device, dtype=dtype),
+                           seed + 1, "mllama")
+    with torch.no_grad():
+        for name, p in tower.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("pre_tile_gate", "pos_gate", "post_tile_gate",
+                                           "gate_attn", "gate_ffn"):
+                p.fill_(RANDOM_GATE)
+    params["vision_tower"] = tower
+    v, th = cfg.vision.output_dim, cfg.text.hidden_size
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    w = torch.randn((v, th), generator=gen, device=device, dtype=torch.float32)
+    params["multi_modal_projector"] = {"kernel": w.mul_(float(v) ** -0.5).to(dtype),
+                                       "bias": torch.zeros(th, dtype=dtype, device=device)}
+    return params
+
+
+def load_mllama_mm(name: str, device: Any = "cuda", dtype: torch.dtype = torch.bfloat16,
+                   seed: int = 0, weight_dtype: str = "native",
+                   checkpoint_dir: Optional[str] = None):
+    """The whole Llama-3.2-Vision generator by name -> (cfg, params,
+    tokenizer) (registry.py:1400-1440): ``params`` the LM's engine tree,
+    ``cross_layers``, ``vision_tower`` (an ``MllamaVisionTower`` on
+    ``device``) and ``multi_modal_projector``. A checkpoint converts through
+    ``hf_import.mllama_params_from_hf``, the LM and the cross layers placed
+    leaf by leaf (quantized as they arrive under ``weight_dtype``), its head's
+    columns setting the vocab; without one the weights are random from
+    ``seed`` (:func:`mllama_random_params`) with JAX's warning."""
+    from multimodal_colpali_tpu_torch.models.mllama import MllamaVisionTower
+
+    if name not in MLLAMA_CONFIGS:
+        raise KeyError(f"unknown mllama model {name!r}; known: {sorted(MLLAMA_CONFIGS)}")
+    _check_weight_dtype(weight_dtype)
+    cfg = MLLAMA_CONFIGS[name]()
+    device = resolve_device(device)
+    ckpt = _find_checkpoint(name, checkpoint_dir)
+    if ckpt is not None:
+        tree = hf_import.mllama_params_from_hf(hf_import.load_state_dict(ckpt), cfg)
+        head = tree["language_model"].get("lm_head")
+        if head is not None and int(head["kernel"].shape[1]) != cfg.text.vocab_size:
+            cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+                cfg.text, vocab_size=int(head["kernel"].shape[1])))
+        vision, proj = tree.pop("vision_tower"), tree.pop("multi_modal_projector")
+        params = _place_lm(tree, device, dtype, weight_dtype)
+        params["vision_tower"] = _loaded_module(
+            MllamaVisionTower(cfg.vision, device=device, dtype=dtype), vision)
+        params["multi_modal_projector"] = _place_lm(proj, device, dtype, "native")
+        return cfg, params, _load_tokenizer_from(ckpt)
+    _warn_random(name)
+    return cfg, mllama_random_params(cfg, seed, dtype, device, weight_dtype), None

@@ -238,17 +238,20 @@ def quantize_lm_leaf(name: str, w: torch.Tensor, fmt: str, group: int = 256):
     return quantize_int4(w, group=g) if g else quantize_int8(w, axis=0)
 
 
-def _quantize_lm_tree(params: Any, fmt: str, group: int = 256) -> Any:
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: (quantize_lm_leaf(k, v, fmt, group)
-                        if k == "kernel" and isinstance(v, torch.Tensor) and v.dim() == 2
-                        else walk(v))
-                    for k, v in t.items()}
-        return t
+def quantize_kernels(tree: Any, fmt: str, group: int = 256) -> Any:
+    """Every 2-D ``kernel`` of a tree as :func:`quantize_lm_leaf` makes it
+    (an already quantized dict holds none and passes as it is)."""
+    if isinstance(tree, dict):
+        return {k: (quantize_lm_leaf(k, v, fmt, group)
+                    if k == "kernel" and isinstance(v, torch.Tensor) and v.dim() == 2
+                    else quantize_kernels(v, fmt, group))
+                for k, v in tree.items()}
+    return tree
 
+
+def _quantize_lm_tree(params: Any, fmt: str, group: int = 256) -> Any:
     out = dict(params)
-    out["language_model"] = walk(params["language_model"])
+    out["language_model"] = quantize_kernels(params["language_model"], fmt, group)
     emb = dict(params["embed"])
     if not is_quantized(emb["embed_tokens"]):
         emb["embed_tokens"] = quantize_lm_leaf("embed_tokens", emb["embed_tokens"], fmt)

@@ -13,8 +13,10 @@ engine: a ``Qwen2VLMMEngine`` for a Qwen2-VL name (07_serve.py:125-152), a
 ``LlavaNextMMEngine`` for LLaVA-NeXT (:153-178; a bare Llama name serves
 text only, :206-217), a ``Gemma3MMEngine`` (SigLIP at 896 px,
 ``load_gemma3_mm``) for a Gemma-3 name with a multimodal config
-(07_serve.py:218-245), a ``PaliGemmaEngine`` on the same weights for a
-ColPali retriever (07_serve.py:255-277). gemma-3-1b is text-only upstream and
+(07_serve.py:218-245), an ``MllamaMMEngine`` for a Llama-3.2-Vision name
+(07_serve.py:179-205; ``--tiles RxC`` the static tile layout, ``--cross-max-images
+N`` the images a slot's cross pools hold), a ``PaliGemmaEngine`` on the same
+weights for a ColPali retriever (07_serve.py:255-277). gemma-3-1b is text-only upstream and
 is served as text (JAX's 07 raises ``KeyError`` for it). ``--speculative K``
 serves through the speculative dense or paged batcher (prompt lookup, K
 tokens verified a forward; 07_serve.py:294-312). Image data URLs decode with
@@ -28,6 +30,8 @@ Example:
       --model vidore/colpali-v1.3 --paged --max-seq-len 6144
   python -m multimodal_colpali_tpu_torch.serve --model AdaptLLM/biomed-Qwen2-VL-2B-Instruct \\
       --paged --max-seq-len 6144 --speculative 4
+  python -m multimodal_colpali_tpu_torch.serve --model llama-3.2-11b-vision --paged \\
+      --max-seq-len 6144 [--tiles 2x2] [--cross-max-images 5]
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Serve the port's generation engine.")
     p.add_argument("--model", default="tiny-colpali",
-                   help="A Gemma-3, Qwen2-VL, LLaVA-NeXT or Llama generator, or a "
+                   help="A Gemma-3, Qwen2-VL, LLaVA-NeXT, Llama-3.2-Vision or Llama generator, or a "
                         "colpali-family retriever (its Gemma LM is served).")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8006)
@@ -78,6 +82,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="Bound the admission queue: submits past N get HTTP 429 (0 = no bound).")
     p.add_argument("--admission-timeout", type=float, default=0.0, metavar="SECONDS",
                    help="A request queued longer than this gets HTTP 504 (0 = none).")
+    p.add_argument("--tiles", default="1x1", metavar="RxC",
+                   help="Llama-3.2-Vision: the static tile layout of every image (2x2 gives "
+                        "document pages 4x the pixels); one of the checkpoint's aspect ratios.")
+    p.add_argument("--cross-max-images", type=int, default=10, metavar="N",
+                   help="Llama-3.2-Vision: images a slot's cross-KV pools hold at the tile "
+                        "layout (10: the reference's --limit_mm_per_prompt).")
     p.add_argument("--speculative", type=int, default=0, metavar="K",
                    help="Prompt-lookup speculative decoding: verify K drafted tokens a slot a "
                         "forward (greedy slots accept; sampled slots advance one). Composes "
@@ -102,6 +112,8 @@ def build(args: argparse.Namespace):
     load = dict(device=args.device, dtype=dtype, weight_dtype=args.weight_dtype)
     if args.model in R.QWEN2VL_CONFIGS or args.model in R.LLAVA_NEXT_CONFIGS:
         return _build_old_model(args, load)
+    if args.model in R.MLLAMA_CONFIGS:
+        return _build_mllama(args, load)
     if args.model in R.LLAMA_CONFIGS:
         # a bare Llama LM (LLaVA-NeXT's decoder without the tower): text only
         cfg, params, tok = R.load_llama_lm(args.model, **load)
@@ -184,6 +196,26 @@ def _build_old_model(args: argparse.Namespace, load: dict):
     return engine, tok or _random_tokenizer(cfg.text.vocab_size), mm, pre
 
 
+def _build_mllama(args: argparse.Namespace, load: dict):
+    """Llama-3.2-Vision (07_serve.py:179-205): the text engine over the
+    renumbered self-attention layers (a plain Llama) and the image engine
+    decoding through it with the cross blocks, at ``--tiles``."""
+    from multimodal_colpali_tpu_torch.generation.engine import LlamaDecodeEngine
+    from multimodal_colpali_tpu_torch.generation.mllama_mm import (
+        MllamaImagePreprocessor, MllamaMMEngine)
+    from multimodal_colpali_tpu_torch.models import registry as R
+
+    cfg, params, tok = R.load_mllama_mm(args.model, **load)
+    engine = LlamaDecodeEngine(cfg.text, params, dtype=load["dtype"],
+                               weight_dtype=args.weight_dtype, device=args.device)
+    tiles = tuple(int(x) for x in args.tiles.lower().split("x"))
+    mm = MllamaMMEngine(cfg, params["vision_tower"], params["multi_modal_projector"],
+                        params["cross_layers"], engine, vision_dtype=args.vision_dtype,
+                        tiles=tiles)
+    pre = MllamaImagePreprocessor(cfg, tiles=tiles, device=args.device)
+    return engine, tok or _random_tokenizer(cfg.text.vocab_size), mm, pre
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     from multimodal_colpali_tpu_torch.generation.paged import PagedContinuousBatcher
@@ -197,6 +229,8 @@ def main(argv=None) -> None:
                   eos_id=getattr(tok, "eos_id", -1), mm_engine=mm_engine,
                   prefill_chunk=args.prefill_chunk, max_queue=args.max_queue,
                   admission_timeout=args.admission_timeout)
+        if getattr(mm_engine, "cross_decode", False):
+            kw["cross_max_images"] = args.cross_max_images
         if args.speculative:
             from multimodal_colpali_tpu_torch.generation.speculative import (
                 SpeculativeContinuousBatcher, SpeculativePagedContinuousBatcher)

@@ -1940,3 +1940,102 @@ def test_speculative_paged_batcher_on_card_takes_k7_at_the_verify_rows(gen):
         S.paged_attention = orig
     assert calls and set(calls) == {2 * 4}
     assert fut.result(30) == want
+
+
+@pytest.mark.parametrize("rows,block", [(6432, 512), (4, 4)])
+def test_mllama_blocked_attention_tensor_cores_equal_the_float32_einsum(gen, rows, block):
+    """bf16 operands on the card take ``torch.bmm(..., out_dtype=float32)``:
+    the einsum's exact products and float32 sums in another order, so each
+    output is within a bf16 step of ``layers.attention``'s float32 einsum
+    (the tower's shape, and a folded cross-attention decode over 1,601 rows)."""
+    from multimodal_colpali_tpu_torch.models import layers as L
+    from multimodal_colpali_tpu_torch.models.mllama import blocked_masked_attention
+
+    t = 6432 if rows > 4 else 1601
+    q = _randn(gen, 1, rows, 16, 80, dtype=torch.bfloat16)
+    k, v = (_randn(gen, 1, t, 16, 80, dtype=torch.bfloat16) for _ in range(2))
+    mask = torch.rand((1, 1, rows, t), generator=gen, device="cuda") < 0.9
+    got = blocked_masked_attention(q, k, v, mask, scale=80 ** -0.5, block=block).float()
+    want = L.attention(q, k, v, mask=mask, scale=80 ** -0.5).float()
+    assert float((got - want).abs().sub(2.0 ** -7 * want.abs()).max()) <= 1e-3
+
+
+def _mllama_layer(device, dtype, seed=0):
+    """A full-width gated Mllama tower layer (ViT-H/14: 1,280 wide, 16 heads
+    of 80, MLP 5,120), N(0, fan_in^-0.5) weights from ``seed``."""
+    from multimodal_colpali_tpu_torch.models.mllama import MllamaMMConfig, MllamaVisionLayer
+    from multimodal_colpali_tpu_torch.models.registry import init_random_params_
+
+    cfg = MllamaMMConfig.llama32_11b_vision().vision
+    layer = MllamaVisionLayer(cfg, True, device="cpu", dtype=torch.float32)
+    init_random_params_(layer, seed, family="mllama")
+    with torch.no_grad():
+        layer.gate_attn.fill_(0.25)
+        layer.gate_ffn.fill_(0.25)
+    return cfg, layer.to(device, dtype).eval()
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_mllama_tower_layer_at_full_width_matches_the_cpu(gen, dtype, rel):
+    """One gated tower layer over an image's 4 tile slots (6,432 tokens, one
+    real tile) with HF's invalid-invalid mask: the card (its query-blocked
+    attention, past 2,048 tokens) against the CPU in float32, relative L2."""
+    cfg, cpu = _mllama_layer("cpu", torch.float32)
+    _, card = _mllama_layer("cuda", dtype)
+    t, pp, p = cfg.max_num_tiles, cfg.num_patches_padded, cfg.num_patches
+    x = torch.randn((1, t * pp, cfg.hidden_size), generator=torch.Generator().manual_seed(1))
+    valid = (torch.arange(t)[:, None] < 1) & (torch.arange(pp)[None] < p)
+    inv = ~valid.reshape(1, -1)
+    mask = ~(inv[:, :, None] & inv[:, None, :])[:, None]
+    with torch.inference_mode():
+        want = cpu(x, mask)
+        got = card(x.to("cuda", dtype), mask.cuda()).float().cpu()
+    assert torch.isfinite(got).all()
+    assert float((got - want).norm() / want.norm()) <= rel
+
+
+def test_mllama_cross_block_at_full_width_matches_the_cpu(gen):
+    """One gated cross-attention block at Llama-3.2-11B-Vision's width (32
+    query heads over 8 KV heads of 128, MLP 14,336) on 4 verify rows over an
+    image's 1,601 pooled rows plus masked padding: bf16 on the card against
+    float32 on the CPU from the same bf16 weights, relative L2 within 2e-2."""
+    import types
+
+    from multimodal_colpali_tpu_torch.generation.mllama_mm import MllamaMMEngine
+    from multimodal_colpali_tpu_torch.models.mllama import MllamaMMConfig
+
+    cfg = MllamaMMConfig.llama32_11b_vision()
+    c = cfg.text
+    g = torch.Generator().manual_seed(2)
+    h, hd, inter = c.hidden_size, c.head_dim, c.intermediate_size
+
+    def mat(i, o):
+        return (torch.randn((i, o), generator=g) * i ** -0.5).to(torch.bfloat16)
+
+    ones = lambda n: torch.ones(n, dtype=torch.bfloat16)  # noqa: E731
+    lp = {"cross_attn": {"q_proj": {"kernel": mat(h, 32 * hd)}, "o_proj": {"kernel": mat(32 * hd, h)},
+                         "q_norm": {"weight": ones(hd)}},
+          "input_layernorm": {"weight": ones(h)}, "post_attention_layernorm": {"weight": ones(h)},
+          "mlp": {"gate_proj": {"kernel": mat(h, inter)}, "up_proj": {"kernel": mat(h, inter)},
+                  "down_proj": {"kernel": mat(inter, h)}},
+          "gate_attn": torch.full((1,), 0.25, dtype=torch.bfloat16),
+          "gate_mlp": torch.full((1,), 0.25, dtype=torch.bfloat16)}
+    rows = 2 * cfg.vision.num_patches
+    ck, cv = (torch.randn((1, rows, c.num_key_value_heads, hd), generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    x = torch.randn((1, 4, h), generator=g).to(torch.bfloat16)
+    mask = (torch.arange(rows) < cfg.vision.num_patches)[None, None, None, :]
+    eng = types.SimpleNamespace(cfg=cfg)
+
+    def tree(t, dev, dt):
+        return ({k: tree(v, dev, dt) for k, v in t.items()} if isinstance(t, dict)
+                else t.to(dev, dt))
+
+    with torch.inference_mode():
+        want = MllamaMMEngine._cross_block(eng, tree(lp, "cpu", torch.float32), x.float(),
+                                           ck.float(), cv.float(), mask, None)
+        got = MllamaMMEngine._cross_block(eng, tree(lp, "cuda", torch.bfloat16), x.cuda(),
+                                          ck.cuda(), cv.cuda(), mask.cuda(), None)
+    got = got.float().cpu()
+    assert torch.isfinite(got).all()
+    assert float((got - want).norm() / (want - x.float()).norm()) <= 2e-2

@@ -386,13 +386,6 @@ def test_unported_paths_raise(monkeypatch):
     params = TR.gemma3_random_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="generation/engine.py"):
         TE.GemmaDecodeEngine(cfg, params, device="cpu", mesh=object())
-    eng = TE.GemmaDecodeEngine(cfg, params, device="cpu")
-
-    class Mllama:          # an image engine that decodes with cross-attention
-        cross_decode = True
-
-    with pytest.raises(NotImplementedError, match="Mllama .*generation/mllama"):
-        ContinuousBatcher(eng, mm_engine=Mllama())
     # a checkpoint_dir without weights is no checkpoint: random init, as in JAX
     monkeypatch.delenv("COLPALI_TPU_CKPT_DIR", raising=False)
     with pytest.warns(UserWarning, match="random init"):

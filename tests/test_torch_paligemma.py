@@ -246,19 +246,11 @@ class _NotBatchable:
     batcher_compatible = False
 
 
-class _CrossDecode:
-    """An engine that, like Mllama's, decodes with cross-attention."""
-    batcher_compatible = True
-    cross_decode = True
-
-
 @pytest.mark.parametrize("cls", [ContinuousBatcher, PagedContinuousBatcher])
 def test_batchers_refuse_engines_they_cannot_carry(engines, cls):
     eng = engines[2]
     with pytest.raises(ValueError, match="_NotBatchable is not batcher-compatible"):
         cls(eng, mm_engine=_NotBatchable())
-    with pytest.raises(NotImplementedError, match="_CrossDecode .*generation/mllama"):
-        cls(eng, mm_engine=_CrossDecode())
 
 
 # -- the HTTP server -----------------------------------------------------------------

@@ -292,16 +292,3 @@ def test_spec_paged_prefix_caching(lm):
     bat.drain()
     assert [f0.result(30), f1.result(30)] == _greedy(eng, prompts, 12)
     assert bat.prefix_cache_hits > 0
-
-
-def test_spec_batchers_refuse_cross_decode(lm):
-    """An engine that decodes with cross-attention (Mllama) is the next
-    slice's: both speculative tiers refuse it, naming it."""
-    _, _, _, eng = lm
-
-    class Mllama:
-        cross_decode = True
-
-    for kind in ("dense", "paged"):
-        with pytest.raises(NotImplementedError, match="Mllama .*item 7"):
-            _bat(kind, eng, mm_engine=Mllama())
