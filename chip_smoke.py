@@ -6,8 +6,9 @@ drives ``multimodal_colpali_tpu_torch`` (never JAX) and prints one line per
 phase; any failure exits non-zero.
 
 1. Device: the card's name and power limit (nvidia-smi), the torch and CUDA
-   versions, and the build time of the kernels (nvcc for K1/K4, K2, K3, the
-   K5 GEMM, K6, K7a/K7b, K8a/K8b and K9 into ``build/kernels``, all at once).
+   versions, and the build time of the kernels (nvcc for K1/K4, K2, K2's
+   backward, K3, the K5 GEMM, K6, K7a/K7b, K8a/K8b and K9 into
+   ``build/kernels``, all at once).
 2. Kernels against their plain PyTorch versions, both on the card, at the
    main paths' shapes, with the time of each beside its bound (the larger of
    the bytes it must move over 3.35 TB/s and its operations over the peak
@@ -183,7 +184,7 @@ phase; any failure exits non-zero.
    (b)-(e): BERT's attention has a key-padding mask (the plain einsum, as
    in JAX) and the search is one product and a sort.
 10. PDF ingest at full width (last). ``native/src/mmpdf.cpp`` is built by
-   g++ with the port's JPEG decoder (``native/jpeg``; no libjpeg). 16
+   g++ with the port's JPEG decoder (``native/jpeg``; no libjpeg). 8
    synthetic letter-size papers of 8-12 pages are written with the port's
    ``PdfWriter`` (~40 text lines a page, a 240 x 320 figure on every second
    page, every other one a JPEG, a 1400 x 1800 figure on paper 1's fourth
@@ -266,7 +267,7 @@ result.
     model's name, so the server decodes), ``experiment01_run`` over the four
     modes (``--repeats 1``, 8 legs), ``experiment02 --retrievers
     vidore/colqwen2.5-v0.2 vidore/colpali-v1.3 --context`` on phase 10's
-    PDFs; synthetic questions in driver 05's wording (24 of the reference's
+    PDFs; synthetic questions in driver 05's wording (12 of the reference's
     120; 4 a leg and for the local model). Every schema answer one of A-D,
     every colpali / --context request with its 5 images decoded in the
     server (its ``/stats``), every context reference a corpus page, the
@@ -355,6 +356,33 @@ result.
     decode tokens/s and ms a step, accepted tokens a verify, the 5-image
     prefill split into tower / projector / cross K/V / LM by CUDA events,
     peaks, the phase's wall time.
+16. Training (right after phase 2, on a clean card), float32, the JAX
+    trainer's dtype, with TF32 off and cuDNN deterministic: (a)
+    ``vidore/colpali-v1.3`` at full width and depth (2.925B, random from
+    ``--seed``) takes 5 AdamW steps (``training.make_training_setup``,
+    optax's defaults, lr 1e-5; ``make_train_step``) on a fixed batch of 3
+    queries and 3 synthetic 448-px pages normalized as the processor does
+    (2 pages peaked at 54.8 GiB, so the third fits):
+    every loss and gradient finite, the last loss below the first, K2's
+    forward (CUDA cores) and backward kernels 27 launches each a step (the
+    page forward's tower) and no other kernel. (b) 2 SigLIP + 2 Gemma layers
+    at full width: one step with the kernels against the same step under
+    ``layers.set_fused_attention(False)`` (the plain attention and its
+    autograd, on the card; loss rel 1e-5, every gradient within 1e-4 of its
+    leaf's largest element plus 1e-6 of the largest gradient), ``remat=True``
+    against it (loss rel 1e-6), and a checkpoint saved after step 2
+    (``training.checkpoint``) restored into a fresh model and optimizer,
+    whose step 3 equals the uninterrupted step 3 bit for bit. (c) K2's
+    backward against ``attention_backward_reference`` at ``[3, 1024, 16,
+    72]`` and at a masked case (kv_lens, kv_valid, causal, a fully masked
+    row), within 1e-4 of the largest element, repeats bit-identical; K2's
+    float32 forward at that shape (row ``attention.training``). Printed:
+    step seconds (median of steps 2-5), tokens/s, model TFLOP/s, peak GiB,
+    the loss per step, K2's times beside their float32 bounds, SDPA's
+    forward and backward beside, the phase's wall time.
+
+Phases 10 and 12 (host-bound) run at half the depth they had before phase 16
+was added (8 papers, 12 questions), which keeps the script under 17 minutes.
 """
 
 from __future__ import annotations
@@ -1899,6 +1927,7 @@ def kernel_wrappers():
     from multimodal_colpali_tpu_torch.ops import window_attention as WA
 
     return {"maxsim": M.maxsim_scores_cuda, "attention": A.fused_attention_cuda,
+            "attention_backward": A.fused_attention_backward_cuda,
             "normalize": PP.normalize_images_cuda, "maxsim_int8": M.maxsim_scores_int8_cuda,
             "vit_layer": FL.fused_vit_layer_cuda, "attn_block": FL.fused_vit_attention_block_cuda,
             "mlp_block": FL.fused_mlp_block_cuda, "gemm": FL.fused_gemm_cuda,
@@ -2278,7 +2307,7 @@ def cut_depth(configs: dict, name: str, layers: int):
         configs[name] = full
 GEN = dict(slots=4, max_seq_len=2048, chunk=8, page=16, max_tokens=32)
 PROMPT_TOKENS = (320, 1100, 700, 1300, 1550)   # the chat prompt's tokens, roughly
-INGEST = dict(papers=16, pages=(8, 12), lines=40, scanned=3, batch=8, figure=(240, 320),
+INGEST = dict(papers=8, pages=(8, 12), lines=40, scanned=3, batch=8, figure=(240, 320),
               large_figure=(1400, 1800), jpeg_quality=90, table_lines=12, host_threads=8,
               ocr_threads=2, png_every=4)
 INGEST_MODELS = [{"model_name": GEN_MODEL, "model_short": "gemma3", "port": 8006,
@@ -5081,7 +5110,346 @@ def phase_mllama(torch, seed: int, card: str) -> dict:
 
 # phase 12: the experiment drivers against the port's server; the question
 # tables are synthetic, in driver 05's wording
-EXPERIMENTS = dict(questions=24, run_questions=4, top_k=5, serve_timeout=600)
+# phase 16: training. ColPali v1.3 at full width and depth in float32, 3 pages
+# of 448 px and 3 queries (2 peaked at 54.8 GiB, so a third page fits the 80 GB),
+# 5 AdamW steps on the fixed batch; then 2 SigLIP + 2 Gemma layers at full width
+# for the checks against the plain versions and the checkpoint round trip. lr
+# 1e-5: at optax's default 1e-4, Adam's first steps (every weight moved by about
+# lr) swing the random 2.9B model's loss (3 pages: 1.06 -> 1.84 -> 1.08)
+TRAIN = dict(pages=3, queries=3, steps=5, lr=1e-5, depth=(2, 2), loss_rel=1e-5, grad_rel=1e-4,
+             grad_floor=1e-6, remat_rel=1e-6, bwd_rel=1e-4)
+K2_TRAIN = dict(b=TRAIN["pages"], s=1024, h=16, d=72)   # the tower's attention over the pages
+
+
+class Float32Numerics:
+    """float32 products and convolutions in full float32 (no TF32) and
+    cuDNN's deterministic algorithms (the patch embedding's weight gradient;
+    a resumed step must repeat bit for bit), restored on exit."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        b = self.torch.backends
+        self.saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32, b.cudnn.deterministic)
+        b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+        b.cudnn.deterministic = True
+        return self
+
+    def __exit__(self, *exc):
+        b = self.torch.backends
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32, b.cudnn.deterministic = self.saved
+
+
+def train_batch(torch, cfg, seed: int):
+    """``TRAIN``'s queries (the processor's prompt, 32 tokens with its
+    padding) and synthetic 448-px pages (1,024 image tokens and the prompt),
+    normalized as the processor does, on the card."""
+    from multimodal_colpali_tpu_torch.models.processing import ColPaliProcessor
+
+    proc = ColPaliProcessor(cfg)
+    pages = synthetic_pages(TRAIN["pages"], cfg.vision.image_size, seed + 16)
+    docs = proc.process_images(pages, device="cuda")
+    qs = proc.process_queries(QUERIES[: TRAIN["queries"]])
+    dev = torch.device("cuda")
+    as_long = lambda a: torch.as_tensor(a, device=dev).long()  # noqa: E731
+    return {"query_ids": as_long(qs["input_ids"]), "query_mask": as_long(qs["attention_mask"]),
+            "doc_ids": as_long(docs["input_ids"]), "doc_mask": as_long(docs["attention_mask"]),
+            "doc_pixels": torch.as_tensor(docs["pixel_values"], device=dev).float()}
+
+
+def train_flops(cfg, batch) -> float:
+    """Model FLOPs of one training step, counted analytically: 6 per
+    parameter a token meets (the tower's per patch, the projector's per
+    image token, Gemma's and the head's per token; the embedding table is a
+    lookup) plus 3 x the attention's 4 S^2 (heads x head_dim) a layer."""
+    v, t = cfg.vision, cfg.text
+    h, hv = t.hidden_size, v.hidden_size
+    siglip = v.num_hidden_layers * (4 * hv * hv + 2 * hv * v.intermediate_size) \
+        + 3 * v.patch_size ** 2 * hv
+    gemma = t.num_hidden_layers * (h * t.num_attention_heads * t.head_dim * 2
+                                   + 2 * h * t.num_key_value_heads * t.head_dim
+                                   + 3 * h * t.intermediate_size)
+    flops = 0.0
+    for ids, pix in ((batch["query_ids"], False), (batch["doc_ids"], True)):
+        b, s = ids.shape
+        flops += 6.0 * b * s * (gemma + h * cfg.embedding_dim)
+        flops += 3 * 4.0 * b * s * s * t.num_attention_heads * t.head_dim * t.num_hidden_layers
+        if pix:
+            p = v.num_patches
+            flops += 6.0 * b * p * (siglip + hv * v.projection_dim)
+            flops += 3 * 4.0 * b * p * p * hv * v.num_hidden_layers
+    return flops
+
+
+def grads_of(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def grads_close(got: dict, want: dict, rel: float, floor: float) -> tuple:
+    """Each leaf within ``rel`` of its largest element plus ``floor`` of the
+    largest gradient of the model (leaves whose true gradient is 0, the
+    k-projection biases, hold rounding noise on both sides) -> (worst ratio
+    of error to bound, its leaf)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = (0.0, "")
+    for n, w in want.items():
+        err = float((got[n] - w).abs().max())
+        ratio = err / (rel * float(w.abs().max()) + floor * top)
+        worst = max(worst, (ratio, n))
+    return worst
+
+
+def k2_training_rows(torch, g) -> dict:
+    """K2's forward (float32, CUDA cores) and its backward kernel at the
+    training path's ``[3, 1024, 16, 72]`` against their plain versions, and
+    the backward at a masked case (kv_lens, kv_valid, causal, batch 0's row 0
+    seeing no key); times by CUDA events beside the float32 bounds; SDPA's
+    forward and its backward (one ``autograd.grad`` of its float32 output)
+    on the same tensors as yardsticks, timed only. -> the two kernel rows."""
+    import torch.nn.functional as F
+    from multimodal_colpali_tpu_torch._timing import eager_ms
+    from multimodal_colpali_tpu_torch.ops import attention as A
+
+    c = K2_TRAIN
+    dev = torch.device("cuda")
+    shape = (c["b"], c["s"], c["h"], c["d"])
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev) for _ in range(4))
+    scale = c["d"] ** -0.5
+    n = q.numel()
+    pairs = c["b"] * c["h"] * c["s"] ** 2 * c["d"]
+
+    cc = A.fused_attention_cuda.cuda_core_launches
+    out = A.fused_attention_cuda(q, k, v, scale=scale)
+    require(A.fused_attention_cuda.cuda_core_launches == cc + 1,
+            "K2 in float32 did not take its CUDA-core path")
+    want = A.attention_reference(q, k, v, scale=scale)
+    f_err = float((out - want).abs().max())
+    require(f_err <= 1e-4, f"K2 float32 at {list(shape)}: max|err| {f_err} > 1e-4")
+    f_ms, f_plain = timed_pair(torch, lambda: A.fused_attention_cuda(q, k, v, scale=scale),
+                               lambda: A.attention_reference(q, k, v, scale=scale), iters=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    f_lib = eager_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=5)
+    fwd = row(f_err, f_ms, f_plain, 4 * n * 4, 4.0 * pairs, peak=F32_FLOPS, library_ms=f_lib)
+
+    def bwd_check(kw, label):
+        o = A.attention_reference(q, k, v, scale=scale, **kw)
+        got = A.fused_attention_backward_cuda(q, k, v, o, do, scale=scale, **kw)
+        ref = A.attention_backward_reference(q, k, v, o, do, scale=scale, **kw)
+        errs = []
+        for name, a, w in zip(("dq", "dk", "dv"), got, ref):
+            err = float((a - w).abs().max())
+            bound_ = TRAIN["bwd_rel"] * float(w.abs().max())
+            require(torch.isfinite(a).all() and err <= bound_,
+                    f"K2 backward {label}: {name} max|err| {err} > {bound_:.3g}")
+            errs.append(err)
+        again = A.fused_attention_backward_cuda(q, k, v, o, do, scale=scale, **kw)
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"K2 backward {label}: a repeated call differs")
+        return got, max(errs)
+
+    _, b_err = bwd_check({}, "at the path's shape")
+    valid = torch.rand(c["b"], c["s"], generator=g, device=dev) > 0.1
+    valid[0, 0] = False        # causal: batch 0's row 0 sees no key
+    lens = torch.full((c["b"],), 700, dtype=torch.int32, device=dev)
+    lens[0] = c["s"]
+    masked = dict(kv_lens=lens, kv_valid=valid, causal=True)
+    (dq, dk, dv), m_err = bwd_check(masked, "masked")
+    require(not dq[0, 0].any(), "K2 backward: the fully masked row has a dq")
+    print(f"[train] K2 backward against attention_backward_reference: max|err| {b_err:.3g} at "
+          f"{list(shape)}, {m_err:.3g} with kv_lens, kv_valid, causal and a fully masked row "
+          f"(each within {TRAIN['bwd_rel']} of the largest element), repeats bit-identical",
+          flush=True)
+
+    b_ms, b_plain = timed_pair(
+        torch, lambda: A.fused_attention_backward_cuda(q, k, v, out, do, scale=scale),
+        lambda: A.attention_backward_reference(q, k, v, out, do, scale=scale), iters=5)
+    xs = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+    lib_out = F.scaled_dot_product_attention(*xs, scale=scale)
+    lib_do = do.transpose(1, 2)
+    b_lib = eager_ms(lambda: torch.autograd.grad(lib_out, xs, lib_do, retain_graph=True),
+                     iters=5)
+    bwd = row(max(b_err, m_err), b_ms, b_plain, 8 * n * 4, 10.0 * pairs, peak=F32_FLOPS,
+              library_ms=b_lib)
+    for label, r, lib in (("forward (CUDA cores)", fwd, "scaled_dot_product_attention"),
+                          ("backward", bwd, "SDPA's backward")):
+        print(f"[train] K2 {label} float32 at {list(shape)}: kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, {lib} {r['library_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']}, float32 at 67 TFLOP/s)", flush=True)
+    del q, k, v, do, out, want, xs, lib_out
+    torch.cuda.empty_cache()
+    return {"attention.training": fwd, "attention_backward": bwd}
+
+
+def phase_training(torch, seed: int, card: str, work: str) -> dict:
+    """Phase 16, training ColPali (``training/``) on the card, float32 (the
+    JAX trainer's dtype). (a) ``vidore/colpali-v1.3`` at full width and depth
+    (2.925B), random from ``seed``: 5 AdamW steps (lr 1e-5, optax's defaults)
+    of ``make_train_step`` on a fixed batch of 3 queries and 3 pages; every
+    loss and gradient finite, the last loss below the first, K2's forward and
+    backward kernels launched 27 times a step (the page forward's tower).
+    (b) 2 SigLIP + 2 Gemma layers at full width: one step against the same
+    step under ``set_fused_attention(False)`` (the plain attention and its
+    autograd, on the card): loss rel 1e-5, every gradient within 1e-4 of its
+    leaf's largest element plus 1e-6 of the largest; ``remat=True`` against
+    it: loss rel 1e-6; a checkpoint saved after step 2 and restored into a
+    fresh model and optimizer: step 3 equals the uninterrupted step 3 bit for
+    bit. (c) K2's rows at the path's shape (``k2_training_rows``).
+    -> {"path", "rows", "launches"}."""
+    import statistics
+
+    from multimodal_colpali_tpu_torch.models import layers as L
+    from multimodal_colpali_tpu_torch.models.colpali import ColPaliModel
+    from multimodal_colpali_tpu_torch.models.registry import (RETRIEVER_CONFIGS,
+                                                              init_random_params_)
+    from multimodal_colpali_tpu_torch.training import make_train_step, make_training_setup
+    from multimodal_colpali_tpu_torch.training.checkpoint import (
+        make_checkpoint_manager, restore_train_state, save_train_state)
+
+    t_phase = time.perf_counter()
+    wrappers = kernel_wrappers()
+    cfg = RETRIEVER_CONFIGS[COLPALI]()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] start: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated", flush=True)
+    with Float32Numerics(torch):
+        # (a) full width and depth
+        batch = train_batch(torch, cfg, seed)
+        t0 = time.perf_counter()
+        model = ColPaliModel(cfg, device="cuda", dtype=torch.float32)
+        init_random_params_(model, seed)
+        opt = make_training_setup(model, learning_rate=TRAIN["lr"])
+        step = make_train_step(model, opt)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        setup_s = time.perf_counter() - t0
+        layers = cfg.vision.num_hidden_layers
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        losses, walls = [], []
+        for i in range(TRAIN["steps"]):
+            t0 = time.perf_counter()
+            losses.append(float(step(batch)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            finite = torch.stack([torch.isfinite(p.grad).all() for p in model.parameters()])
+            require(bool(finite.all()), f"train step {i + 1}: a gradient is not finite")
+            require(math.isfinite(losses[-1]), f"train step {i + 1}: loss {losses[-1]}")
+        path = read_counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = TRAIN["steps"]
+        require(path["attention"] == path["attention.cuda_core"] == steps * layers,
+                f"train: K2 forward launches {path['attention']} (CUDA cores "
+                f"{path['attention.cuda_core']}), not {steps * layers}")
+        require(path["attention_backward"] == steps * layers,
+                f"train: K2 backward launches {path['attention_backward']}, not {steps * layers}")
+        require(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+        others = {k: n for k, n in path.items()
+                  if n and not k.startswith("attention")}
+        require(not others, f"train: unexpected kernels on the training path: {others}")
+        step_s = statistics.median(walls[1:])
+        tokens = sum(batch[k].numel() for k in ("query_ids", "doc_ids"))
+        flops = train_flops(cfg, batch)
+        print(f"[train] (a) {COLPALI} float32, {n_params / 1e9:.3f}B parameters, built and "
+              f"initialized in {setup_s:.1f} s; {steps} AdamW steps (lr {TRAIN['lr']}) on "
+              f"{TRAIN['queries']} queries x {batch['query_ids'].shape[1]} tokens + "
+              f"{TRAIN['pages']} pages x {batch['doc_ids'].shape[1]} tokens: losses "
+              f"{[round(x, 6) for x in losses]} | step {step_s:.3f} s (median of steps 2-"
+              f"{steps}; first {walls[0]:.3f} s) = {tokens / step_s:.0f} tokens/s, "
+              f"{flops / step_s / 1e12:.1f} model TFLOP/s ({flops / 1e12:.2f} TFLOP a step) | "
+              f"peak {peak:.2f} GiB | K2 {path['attention']} forward + "
+              f"{path['attention_backward']} backward launches | {card}", flush=True)
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) reduced depth, full width
+        sv, st = TRAIN["depth"]
+        small = dataclasses.replace(
+            cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=sv),
+            text=dataclasses.replace(cfg.text, num_hidden_layers=st))
+        model = ColPaliModel(small, device="cuda", dtype=torch.float32)
+        init_random_params_(model, seed)
+        start = {n: t.clone() for n, t in model.state_dict().items()}
+
+        def fresh(remat=False):
+            model.load_state_dict(start)
+            o = make_training_setup(model, learning_rate=TRAIN["lr"])
+            return o, make_train_step(model, o, remat=remat)
+
+        def counted_step(stp):
+            reset_counts(wrappers)
+            loss = float(stp(batch))
+            return loss, read_counts(wrappers)
+
+        _, stp = fresh()
+        l_k, c_k = counted_step(stp)
+        g_k = grads_of(model)
+        L.set_fused_attention(False)
+        try:
+            _, stp = fresh()
+            l_p, c_p = counted_step(stp)
+        finally:
+            L.set_fused_attention(None)
+        worst, leaf = grads_close(grads_of(model), g_k, TRAIN["grad_rel"], TRAIN["grad_floor"])
+        del g_k
+        require(c_k["attention"] == c_k["attention_backward"] == sv
+                and c_p["attention"] == c_p["attention_backward"] == 0,
+                f"train (b): K2 launches {c_k['attention']} / {c_k['attention_backward']} with "
+                f"the kernels, {c_p['attention']} / {c_p['attention_backward']} plain")
+        require(abs(l_k - l_p) <= TRAIN["loss_rel"] * abs(l_p),
+                f"train (b): loss {l_k} with the kernels, {l_p} plain")
+        require(worst <= 1.0, f"train (b): gradient of {leaf} off by {worst:.3g}x its bound")
+        _, stp = fresh(remat=True)
+        l_r, c_r = counted_step(stp)
+        require(abs(l_r - l_k) <= TRAIN["remat_rel"] * abs(l_k)
+                and c_r["attention"] == 2 * sv and c_r["attention_backward"] == sv,
+                f"train (b): remat loss {l_r} against {l_k}; K2 {c_r['attention']} forward, "
+                f"{c_r['attention_backward']} backward launches")
+
+        opt, stp = fresh()
+        stp(batch)
+        stp(batch)
+        mgr = make_checkpoint_manager(Path(work) / "train-ckpt", max_to_keep=2)
+        t0 = time.perf_counter()
+        save_train_state(mgr, 2, model, opt)
+        save_s = time.perf_counter() - t0
+        ckpt_gb = sum(f.stat().st_size for f in mgr.step_dir(2).iterdir()) / 1e9
+        l3 = float(stp(batch))
+        want = {n: p.detach().clone() for n, p in model.named_parameters()}
+        del opt, stp, model, start
+        gc.collect()
+        model = ColPaliModel(small, device="cuda", dtype=torch.float32)
+        opt = make_training_setup(model, learning_rate=TRAIN["lr"])
+        t0 = time.perf_counter()
+        require(restore_train_state(mgr, model, opt) == 2, "train (b): restored the wrong step")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        r3 = float(make_train_step(model, opt)(batch))
+        same = all(torch.equal(p.detach(), want[n]) for n, p in model.named_parameters())
+        require(r3 == l3 and same, f"train (b): the resumed step 3 differs: loss {r3} against "
+                f"{l3}, parameters {'equal' if same else 'differ'}")
+        print(f"[train] (b) {sv} SigLIP + {st} Gemma layers at full width "
+              f"({sum(p.numel() for p in model.parameters()) / 1e9:.3f}B): loss {l_k:.7f} with "
+              f"K2 and its backward, {l_p:.7f} plain (rel {abs(l_k - l_p) / abs(l_p):.2g}); "
+              f"gradients within {worst:.3g} of their bound (worst {leaf}); remat {l_r:.7f} "
+              f"(rel {abs(l_r - l_k) / abs(l_k):.2g}); checkpoint of step 2 {ckpt_gb:.2f} GB "
+              f"saved in {save_s:.1f} s, restored in {load_s:.1f} s, step 3 resumed bit for "
+              f"bit (loss {r3:.7f}) | {card}", flush=True)
+        del model, opt, want
+        shutil.rmtree(mgr.directory, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the kernels against their plain versions at the path's shape
+        rows = k2_training_rows(torch, torch.Generator(device="cuda").manual_seed(seed + 16))
+    print(f"[train] phase 16 {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
+    return {"path": path, "rows": rows,
+            "launches": {"attention.training": path["attention"],
+                         "attention_backward": path["attention_backward"]}}
+
+
+EXPERIMENTS = dict(questions=12, run_questions=4, top_k=5, serve_timeout=600)
 IMPORT_GUARD = """
 import json, sys, time
 REFUSED = ("jax", "PIL", "pandas", "aiohttp")
@@ -5430,6 +5798,7 @@ def main(argv=None) -> int:
     ckpt_dir = tempfile.mkdtemp(prefix="colpali-ckpt-", dir=REPO / "build")
     work = tempfile.mkdtemp(prefix="smoke-", dir=REPO / "build")
     try:
+        train = run("16", phase_training, torch, args.seed, card, work)
         # where COLPALI_TPU_CKPT_DIR finds it by the model's name (phase 10's driver)
         ckpt_path = Path(ckpt_dir) / COLPALI.replace("/", "--")
         ckpt_path.mkdir()
@@ -5473,6 +5842,10 @@ def main(argv=None) -> int:
     meta = {
         "maxsim": ("cuda", f"{PACKAGE}/csrc/maxsim.cu", f"{jax_ops}/maxsim.py:196"),
         "attention": ("cuda", f"{PACKAGE}/csrc/attention.cu", f"{jax_ops}/attention.py:135"),
+        # K2's gradient: no pallas_call (the Pallas kernel has no reverse mode);
+        # the JAX trainer differentiates the einsum branch
+        "attention_backward": ("cuda", f"{PACKAGE}/csrc/attention_backward.cu",
+                               "jax.vjp of multimodal_colpali_tpu/models/layers.py:210-231"),
         "normalize": ("cuda", f"{PACKAGE}/csrc/normalize.cu", f"{jax_ops}/preprocess.py:54"),
         "maxsim_int8": ("cuda", f"{PACKAGE}/csrc/maxsim.cu", f"{jax_ops}/maxsim.py:307"),
         "vit_layer": ("cuda", f"{PACKAGE}/csrc/fused_layer.cu", f"{jax_ops}/fused_layer.py:367"),
@@ -5519,16 +5892,20 @@ def main(argv=None) -> int:
     meta["paged_attention_int8.verify"] = meta["paged_attention_int8"]
     # phase 15's shapes: K7a at Mllama's decode step, K7b over its verify, K8a's
     # prefill tile on the cross K/V rows of 5 images at 2x2
+    # phase 16's shape: K2's float32 forward over the training batch's pages
+    meta["attention.training"] = meta["attention"]
     meta["paged_attention.mllama_decode"] = meta["paged_attention"]
     meta["paged_attention_int8.mllama_verify"] = meta["paged_attention_int8"]
     meta["int8_matmul_kn.mllama_cross_kv"] = meta["int8_matmul_kn"]
     kernels.update(old["rows"])
     kernels.update(mllama["rows"])
+    kernels.update(train["rows"])
     paths = [colpali, images["a"], images["b"], colsmol, gen["a"], gen["b"], gen["c"],
              gen["d"], gen["e"], colflor, g3["a"], g3["b"], dense, ingest, qwen["launches"],
-             *grid["paths"], *old["paths"], *mllama["paths"], *experiments]
+             *grid["paths"], *old["paths"], *mllama["paths"], *experiments, train["path"]]
     shape_rows = ("attention.gemma3_tower", "attention.colqwen_window", "attention.colqwen_full",
-                  "attention.granite_tower", *old["launches"], *mllama["launches"])
+                  "attention.granite_tower", *old["launches"], *mllama["launches"],
+                  *train["launches"])
     launches = {name: sum(p[tile_of.get(name, name)] for p in paths) for name in meta
                 if name not in shape_rows}
     launches["attention.gemma3_tower"] = g3["a"]["attention"] + g3["b"]["attention"]
@@ -5537,6 +5914,7 @@ def main(argv=None) -> int:
     launches["attention.granite_tower"] = grid["attention.granite_tower"]
     launches.update(old["launches"])
     launches.update(mllama["launches"])
+    launches.update(train["launches"])
     rows = [dict(name=name, route=route, source=src, replaces=rep, launches=launches[name],
                  **kernels[name])
             for name, (route, src, rep) in meta.items()]

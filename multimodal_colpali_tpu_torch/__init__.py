@@ -45,6 +45,11 @@ for ``sm_90a``) beside a plain PyTorch version:
 - K9 group-wise int4-weight products (``csrc/int4_matmul.cu``,
   ``ops/int4_matmul.py``; K8a's and K9's prefill tile in ``csrc/wstream.cuh``)
 
+and K2's backward (``csrc/attention_backward.cu``), which the TPU kernel
+lacks: ``training/`` (the ColBERT loss, the AdamW step with optional remat,
+versioned train-state checkpoints) trains ColPali in float32 with K2 and its
+backward on the card; every other kernel wrapper raises under grad.
+
 The dense path runs none of them: BERT's attention has a key-padding mask
 and takes the plain einsum, as in JAX, and the dense search is one product
 and a stable sort.

@@ -9,10 +9,11 @@ as integers, and every entry point returns ``cudaGetLastError()`` after its
 launch, which :func:`check` turns into an exception. A failed build raises;
 nothing falls back to another implementation.
 
-``maxsim.cu`` holds K1 and K4, ``attention.cu`` K2, ``fused_layer.cu`` the
-GEMM that K5a-c are built from and its LayerNorm statistics pre-pass,
-``paged_attention.cu`` K7a and K7b, ``int8_matmul.cu`` K8a and K8b,
-``window_attention.cu`` K6, ``int4_matmul.cu`` K9, ``normalize.cu`` K3.
+``maxsim.cu`` holds K1 and K4, ``attention.cu`` K2, ``attention_backward.cu``
+K2's backward, ``fused_layer.cu`` the GEMM that K5a-c are built from and its
+LayerNorm statistics pre-pass, ``paged_attention.cu`` K7a and K7b,
+``int8_matmul.cu`` K8a and K8b, ``window_attention.cu`` K6, ``int4_matmul.cu``
+K9, ``normalize.cu`` K3.
 
 The host PDF library of the ingest stage, ``native/src/mmpdf.cpp``, is C++
 for the CPU: :func:`build_native` compiles it with g++, together with the
@@ -59,6 +60,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # block_q, stream
         "attention_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              ctypes.c_float, _I, _I, _I, _P),
+    },
+    "attention_backward": {
+        # q, k, v, o, dout, dq, dk, dv, stats, kv_lens, kv_valid, B, S, H, D, scale,
+        # causal, stream
+        "attention_backward_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, ctypes.c_float, _I, _P),
     },
     "fused_layer": {
         # A, stats, ln_g, ln_b, eps, w0, w1, w2, b0, b1, b2, resid, C, M, N, K,

@@ -19,7 +19,18 @@ from multimodal_colpali_tpu_torch.ops.quant import w8a8_dense
 
 
 def empty_param(*shape: int, device, dtype) -> nn.Parameter:
+    """A frozen parameter: inference builds no autograd graph. The trainer
+    thaws a model with :func:`set_trainable`."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
+
+
+def set_trainable(model: nn.Module, trainable: bool = True) -> nn.Module:
+    """Make every floating-point parameter of ``model`` require grad (or
+    not); int8 codes stay frozen. Returns ``model``."""
+    for p in model.parameters():
+        if p.is_floating_point():
+            p.requires_grad_(trainable)
+    return model
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -132,6 +143,18 @@ def set_fused_parts(parts: str) -> None:
     _FUSED_PARTS = parts
 
 
+# The K2 route of ``attention`` (layers.py:111-126): None = today's rule, K2
+# for every CUDA tensor (the plain version on the CPU); True the same; False
+# sends every call to ``attention_reference``, the einsum branch, also on
+# the card (chip_smoke's plain-version training step).
+_FUSED_ATTENTION: Optional[bool] = None
+
+
+def set_fused_attention(enabled: Optional[bool]) -> None:
+    global _FUSED_ATTENTION
+    _FUSED_ATTENTION = None if enabled is None else bool(enabled)
+
+
 def _fused_layer_enabled(x: torch.Tensor, hidden: int, inter: int, heads: int) -> bool:
     """Whether a SigLIP layer on ``x [B, S, hidden]`` takes the fused path."""
     if _FUSED_LAYER is False:
@@ -163,8 +186,9 @@ def attention(
     Routing follows layers.py:204-209: with no explicit ``mask`` and S == T
     the call goes to ``fused_attention``, which runs K2 for a CUDA tensor at
     any length (the JAX package's 512-token gate was a TPU measurement) and
-    the plain version for a CPU tensor. An explicit mask takes the plain
-    einsum path.
+    the plain version for a CPU tensor, with K2's backward under grad. An
+    explicit mask, or ``set_fused_attention(False)``, takes the plain einsum
+    path.
     """
     hq, hkv = q.shape[2], k.shape[2]
     if hkv != hq:
@@ -172,6 +196,6 @@ def attention(
         v = v.repeat_interleave(hq // hkv, dim=2)
     if kv_valid is not None and kv_valid.dim() == 1:
         kv_valid = kv_valid[None].expand(q.shape[0], k.shape[1])
-    if mask is None and q.shape[1] == k.shape[1]:
+    if mask is None and q.shape[1] == k.shape[1] and _FUSED_ATTENTION is not False:
         return fused_attention(q, k, v, kv_lens, kv_valid, scale=scale, causal=causal)
     return attention_reference(q, k, v, mask, kv_lens, kv_valid, scale=scale, causal=causal)

@@ -49,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_colpali_tpu_torch import _build
+from multimodal_colpali_tpu_torch.ops._grad import refuse_grad
 from multimodal_colpali_tpu_torch.ops.attention import attention_reference, fused_attention_cuda
 
 _VMEM_BUDGET = 14 * 1024 * 1024
@@ -254,6 +255,7 @@ def ln_stats_cuda(a: torch.Tensor, eps: float) -> torch.Tensor:
     """``csrc/fused_layer.cu`` ``ln_stats_kernel``: :func:`ln_stats_reference`
     of ``a [M, K]`` bf16 on the card, a warp a row. Adds one to
     ``.launches`` per call."""
+    refuse_grad("ln_stats_cuda", a)
     if not a.is_cuda or a.dtype != torch.bfloat16 or a.dim() != 2:
         raise ValueError(f"ln_stats_cuda takes a CUDA bf16 [M, K], got {a.dtype} "
                          f"{tuple(a.shape)} on {a.device}")
@@ -291,6 +293,7 @@ def _gemm_launch(a, weights, biases, epilogue, ln=None, eps=0.0, resid=None, rol
                  lib=None):
     """One call of :func:`fused_gemm_cuda`, counted on it; ``lib`` (default
     the package's build) is for ``fused_gemm_sweep``'s probe builds."""
+    refuse_grad("fused_gemm_cuda", a, *weights, *biases, *(ln or ()), resid)
     if not a.is_cuda:
         raise ValueError("fused_gemm_cuda needs a CUDA tensor")
     if a.dtype not in _DTYPE_CODES:
@@ -405,6 +408,7 @@ def fused_vit_attention_block_cuda(x, ln_g, ln_b, wq, bq, wk, bk, wv, bv, wo, bo
                                    *, heads: int, eps: float = 1e-6) -> torch.Tensor:
     """K5b on the card: LN1·QKV and K2, then out_proj + residual, on
     ``x [B, S, H]`` (bf16 or float32, the weights in the same dtype). Adds one to ``.launches`` per call."""
+    refuse_grad("fused_vit_attention_block_cuda", x, ln_g, ln_b, wq, bq, wk, bk, wv, bv, wo, bo)
     x = _check_x(x, "fused_vit_attention_block_cuda")
     if x.dim() != 3:
         raise ValueError(f"expected [B, S, H], got {tuple(x.shape)}")
@@ -416,6 +420,7 @@ def fused_vit_attention_block_cuda(x, ln_g, ln_b, wq, bq, wk, bk, wv, bv, wo, bo
 def fused_mlp_block_cuda(x, ln_g, ln_b, w1, b1, w2, b2, *, eps: float = 1e-6) -> torch.Tensor:
     """K5c on the card: LN2·fc1 + gelu_tanh, then fc2 + residual, over the
     last axis of ``x`` (bf16 or float32). Adds one to ``.launches`` per call."""
+    refuse_grad("fused_mlp_block_cuda", x, ln_g, ln_b, w1, b1, w2, b2)
     x = _check_x(x, "fused_mlp_block_cuda")
     y = _mlp_block_cuda(x, ln_g, ln_b, w1, b1, w2, b2, eps)
     fused_mlp_block_cuda.launches += 1
@@ -429,6 +434,8 @@ def fused_vit_layer_cuda(x, ln1_g, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo,
     as four GEMMs and K2 (LN1·QKV, K2, out_proj + residual, LN2·fc1 + gelu,
     fc2 + residual; bf16 adds a LayerNorm statistics launch before each LN
     GEMM). Adds one to ``.launches`` per call."""
+    refuse_grad("fused_vit_layer_cuda", x, ln1_g, ln1_b, wq, bq, wk, bk, wv, bv, wo, bo,
+                ln2_g, ln2_b, w1, b1, w2, b2)
     x = _check_x(x, "fused_vit_layer_cuda")
     if x.dim() != 3:
         raise ValueError(f"expected [B, S, H], got {tuple(x.shape)}")

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from multimodal_colpali_tpu_torch import _build
+from multimodal_colpali_tpu_torch.ops._grad import refuse_grad
 from multimodal_colpali_tpu_torch.ops.int8_matmul import (
     DECODE_ROWS, decode_splits, even_splits, prefill_splits)
 
@@ -77,6 +78,7 @@ def int4_matmul_kn_cuda(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tens
     a prefill launch on the gathered path (:func:`gathers`) also adds one to
     ``.gathered_launches``."""
     name = "int4_matmul_kn_cuda"
+    refuse_grad(name, x, packed, scale)
     if not (x.is_cuda and packed.device == x.device and scale.device == x.device):
         raise ValueError(f"{name} needs x, packed and scale on one CUDA device")
     if x.dim() != 2 or packed.dim() != 2 or scale.dim() != 2:

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from multimodal_colpali_tpu_torch import _build
+from multimodal_colpali_tpu_torch.ops._grad import refuse_grad
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # K8b's tile (csrc/int8_matmul.cu)
@@ -102,6 +103,7 @@ def split_count(m: int, n: int, k: int, sms: int, nk: bool = False) -> int:
 def _int8_matmul_cuda(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                       nk: bool, out_dtype: Optional[torch.dtype], wrapper) -> torch.Tensor:
     name = wrapper.__name__
+    refuse_grad(name, x, codes, scale)
     if not (x.is_cuda and codes.device == x.device and scale.device == x.device):
         raise ValueError(f"{name} needs x, codes and scale on one CUDA device")
     if x.dim() != 2 or codes.dim() != 2:

@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from multimodal_colpali_tpu_torch import _build
+from multimodal_colpali_tpu_torch.ops._grad import refuse_grad
 
 # Large but finite: a page with zero valid tokens ranks last and never
 # produces NaN in the per-query sums.
@@ -243,6 +244,7 @@ def _launch(wrapper, q, d, scales, q_lens, d_lens, lib=None):
     name = wrapper.__name__
     int8 = scales is not None
     tensors = [q, d, scales] if int8 else [q, d]
+    refuse_grad(name, *tensors)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{name} needs every input on one CUDA device")
     if q.dim() != 3 or d.dim() != 3 or q.shape[2] != d.shape[2]:

@@ -38,6 +38,7 @@ import functools
 import torch
 
 from multimodal_colpali_tpu_torch import _build
+from multimodal_colpali_tpu_torch.ops._grad import refuse_grad
 
 NEG = -1e30
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -156,6 +157,7 @@ def _launch(wrapper, q, k_pool, v_pool, k_scale, v_scale, block_tables, lengths,
     tensors = [q, k_pool, v_pool, block_tables, lengths]
     if k_scale is not None:
         tensors += [k_scale, v_scale]
+    refuse_grad(name, *tensors)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{name} needs every input on one CUDA device")
     if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:

@@ -44,6 +44,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from multimodal_colpali_tpu_torch.ops._grad import refuse_grad
 from multimodal_colpali_tpu_torch.ops.int4_matmul import int4_matmul_kn
 from multimodal_colpali_tpu_torch.ops.int8_matmul import int8_matmul_kn, int8_matmul_nk
 
@@ -301,7 +302,9 @@ def w8a8_dense(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     """``x @ W^T (+ bias)`` for ``W`` held as int8 ``codes [out, in]`` and a
     float32 ``scale [out]`` (quant.py:292-305): x quantized per row, the
     exact int32 product, then ``acc * sx * scale`` and the bias in float32,
-    in JAX's order; the result in x's dtype."""
+    in JAX's order; the result in x's dtype. Rounding x to codes has no
+    gradient, so it raises under grad (``ops/_grad.refuse_grad``)."""
+    refuse_grad("w8a8_dense", x, codes, scale, bias)
     lead = x.shape[:-1]
     xq, sx = quantize_act_int8(x.reshape(-1, x.shape[-1]))
     y = int8_mm(xq, codes).float() * sx * scale

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from multimodal_colpali_tpu_torch import _build
+from multimodal_colpali_tpu_torch.ops._grad import refuse_grad
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -78,6 +79,7 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Adds one to ``window_attention_cuda.launches`` per launch, and to
     ``.ring_launches``, ``.wmma_launches`` or ``.cuda_core_launches`` by
     :func:`kernel_path`."""
+    refuse_grad("window_attention_cuda", q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("window_attention_cuda needs q, k, v on one CUDA device")
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:

@@ -1,0 +1,5 @@
+from multimodal_colpali_tpu_torch.training.trainer import (  # noqa: F401
+    colbert_loss,
+    make_train_step,
+    make_training_setup,
+)

@@ -334,7 +334,8 @@ def test_full_width_configs_match_jax(name):
 # -- source scan --------------------------------------------------------------------
 
 _FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|multimodal_colpali_tpu|triton)(?=[\s.,]|$)",
+    r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|multimodal_colpali_tpu|triton)"
+    r"(?=[\s.,]|$)",
     re.M)
 
 
@@ -363,7 +364,8 @@ def test_source_scan_catches_forbidden_imports():
     for line in ("import jax", "import jax.numpy as jnp", "from flax import linen",
                  "from multimodal_colpali_tpu.ops import maxsim",
                  "    import multimodal_colpali_tpu", "    import triton",
-                 "import triton.language as tl", "from triton import jit"):
+                 "import triton.language as tl", "from triton import jit", "import optax",
+                 "    import orbax.checkpoint as ocp"):
         assert _FORBIDDEN.search(line), line
     for line in ("import torch", "from multimodal_colpali_tpu_torch import api",
                  "import jaxtyping_like_name_is_fine", "import tritonclient_like_name"):

@@ -2039,3 +2039,216 @@ def test_mllama_cross_block_at_full_width_matches_the_cpu(gen):
     got = got.float().cpu()
     assert torch.isfinite(got).all()
     assert float((got - want).norm() / (want - x.float()).norm()) <= 2e-2
+
+
+# -- K2's backward (training) -----------------------------------------------------
+
+def _bwd_case(gen, b, s, h, d, masks):
+    q, k, v, g = (_randn(gen, b, s, h, d) for _ in range(4))
+    kw = _attention_masks(gen, b, s, masks)
+    out = A.attention_reference(q, k, v, scale=d ** -0.5, **kw)
+    return q, k, v, out, g, kw
+
+
+def _assert_grads_close(got, want, rel=1e-4):
+    """Each of dq, dk, dv within ``rel`` of its largest element: float32
+    sums over up to 1,031 keys or queries in another order than the plain
+    version's einsums (relative errors of ~1e-6 seen on the CPU)."""
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape, name
+        assert torch.isfinite(a).all(), name
+        err = float((a - w).abs().max())
+        assert err <= rel * float(w.abs().max()) + 1e-7, (name, err, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("d", [8, 20, 72, 128])
+@pytest.mark.parametrize("s", [40, 1031])
+@pytest.mark.parametrize("masks", ["none", "kv_lens", "kv_valid", "causal", "all"])
+def test_attention_backward_kernel_matches_plain(gen, d, s, masks):
+    """K2's backward against ``attention_backward_reference``: D = 8, 20 (not
+    a multiple of 8), 72 (So400m's), 128; ragged tiles; each mask and all
+    three, the last batch row's keys all masked under kv_valid."""
+    b, h = 2, 3
+    q, k, v, out, g, kw = _bwd_case(gen, b, s, h, d, masks)
+    before = A.fused_attention_backward_cuda.launches
+    got = A.fused_attention_backward_cuda(q, k, v, out, g, scale=d ** -0.5, **kw)
+    assert A.fused_attention_backward_cuda.launches == before + 1
+    want = A.attention_backward_reference(q, k, v, out, g, scale=d ** -0.5, **kw)
+    _assert_grads_close(got, want)
+    if "kv_valid" in kw:  # a fully masked row: uniform P, gradient to dv only
+        assert not got[0][-1].any() and not got[1][-1].any()
+        torch.testing.assert_close(got[2][-1], g[-1].sum(0, keepdim=True).expand(s, h, d) / s,
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_attention_backward_at_the_training_shape(gen):
+    """At the training path's ``[3, 1024, 16, 72]`` (ColPali's So400m over
+    chip_smoke's 3 pages), no mask: against the plain version, and a repeat
+    bit-identical (no atomics)."""
+    q, k, v, out, g, _ = _bwd_case(gen, 3, 1024, 16, 72, "none")
+    got = A.fused_attention_backward_cuda(q, k, v, out, g, scale=72 ** -0.5)
+    _assert_grads_close(got, A.attention_backward_reference(q, k, v, out, g, scale=72 ** -0.5))
+    again = A.fused_attention_backward_cuda(q, k, v, out, g, scale=72 ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_fused_attention_function_runs_both_kernels(gen):
+    """Under grad, float32 q, k, v that require grad go through the autograd
+    Function: one K2 forward launch, one backward launch, and the gradients
+    are the backward kernel's."""
+    q, k, v, _, g, kw = _bwd_case(gen, 2, 150, 3, 72, "all")
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (A.fused_attention_cuda.launches, A.fused_attention_backward_cuda.launches)
+    out = A.fused_attention(*xs, scale=0.1, **kw)
+    assert A.fused_attention_cuda.launches == before[0] + 1
+    out.backward(g)
+    assert A.fused_attention_backward_cuda.launches == before[1] + 1
+    want = A.fused_attention_backward_cuda(q, k, v, out.detach(), g, scale=0.1, **kw)
+    assert all(torch.equal(x.grad, w) for x, w in zip(xs, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_inference_attention_is_unchanged_by_the_function(gen, dtype):
+    """The Function is entered only under grad: an inference call is the
+    same launch with no graph, and the Function's forward output is that
+    launch's bit for bit (float32; bf16 has no gradient)."""
+    q, k, v = (_randn(gen, 2, 1024, 16, 72, dtype=dtype) for _ in range(3))
+    direct = A.fused_attention_cuda(q, k, v, scale=72 ** -0.5)
+    plain = A.fused_attention(q, k, v, scale=72 ** -0.5)
+    assert plain.grad_fn is None and torch.equal(plain, direct)
+    with torch.no_grad():
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        assert torch.equal(A.fused_attention(*xs, scale=72 ** -0.5), direct)
+    if dtype == torch.float32:
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = A.fused_attention(*xs, scale=72 ** -0.5)
+        assert out.grad_fn is not None and torch.equal(out.detach(), direct)
+
+
+def test_fused_attention_refuses_bf16_under_grad(gen):
+    x = _randn(gen, 1, 64, 2, 72, dtype=torch.bfloat16).requires_grad_()
+    before = A.fused_attention_cuda.launches
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        A.fused_attention(x, x, x, scale=0.1)
+    assert A.fused_attention_cuda.launches == before
+
+
+def _card_no_backward_calls():
+    from multimodal_colpali_tpu_torch.ops import fused_layer as FL
+    from multimodal_colpali_tpu_torch.ops import int4_matmul as I4
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+    from multimodal_colpali_tpu_torch.ops import quant as Q
+    from multimodal_colpali_tpu_torch.ops import window_attention as WA
+
+    dev = "cuda"
+    bf = torch.bfloat16
+
+    def g(*shape, dtype=torch.float32):
+        return torch.randn(shape, device=dev).to(dtype).requires_grad_()
+
+    w, b = torch.zeros(64, 64, dtype=bf, device=dev), torch.zeros(64, device=dev)
+    pool = torch.zeros(3, 16, 1, 64, device=dev)
+    pool8 = torch.zeros(3, 16, 1, 64, dtype=torch.int8, device=dev)
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    lens = torch.ones(1, dtype=torch.int32, device=dev)
+    return {
+        "attention": (A.fused_attention_cuda,
+                      lambda: A.fused_attention_cuda(*(g(1, 64, 2, 72),) * 3, scale=0.1)),
+        "attention_backward": (A.fused_attention_backward_cuda,
+                               lambda: A.fused_attention_backward_cuda(
+                                   *(g(1, 64, 2, 72),) * 5, scale=0.1)),
+        "maxsim": (M.maxsim_scores_cuda,
+                   lambda: M.maxsim_scores_cuda(g(1, 4, 128), torch.zeros(3, 8, 128, device=dev))),
+        "maxsim_int8": (M.maxsim_scores_int8_cuda, lambda: M.maxsim_scores_int8_cuda(
+            g(1, 4, 128), torch.zeros(3, 8, 128, dtype=torch.int8, device=dev),
+            torch.ones(3, 8, device=dev))),
+        "vit_layer": (FL.fused_vit_layer_cuda, lambda: FL.fused_vit_layer_cuda(
+            g(1, 16, 64, dtype=bf), b, b, *(w, b) * 4, b, b, w, b, w, b, heads=2)),
+        "attn_block": (FL.fused_vit_attention_block_cuda, lambda: FL.fused_vit_attention_block_cuda(
+            torch.zeros(1, 16, 64, dtype=bf, device=dev), g(64), b, *(w, b) * 4, heads=2)),
+        "mlp_block": (FL.fused_mlp_block_cuda, lambda: FL.fused_mlp_block_cuda(
+            torch.zeros(1, 16, 64, dtype=bf, device=dev), b, b, g(64, 64, dtype=bf), b, w, b)),
+        "fused_gemm": (FL.fused_gemm_cuda, lambda: FL.fused_gemm_cuda(
+            g(64, 64, dtype=bf), (w,), (b,), "bias")),
+        "ln_stats": (FL.ln_stats_cuda, lambda: FL.ln_stats_cuda(g(64, 64, dtype=bf), 1e-6)),
+        "window_attention": (WA.window_attention_cuda, lambda: WA.window_attention_cuda(
+            *(g(3, 144, 32, dtype=bf),) * 3, scale=0.1)),
+        "paged_attention": (PA.paged_attention_cuda, lambda: PA.paged_attention_cuda(
+            g(1, 2, 64), pool, pool, bt, lens, scale=0.1)),
+        "paged_attention_int8": (PA.paged_attention_int8_cuda, lambda: PA.paged_attention_int8_cuda(
+            g(1, 2, 64), pool8, torch.ones(3, 16, 1, device=dev), pool8,
+            torch.ones(3, 16, 1, device=dev), bt, lens, scale=0.1)),
+        "int8_matmul_kn": (IM.int8_matmul_kn_cuda, lambda: IM.int8_matmul_kn_cuda(
+            g(8, 64, dtype=bf), torch.zeros(64, 32, dtype=torch.int8, device=dev),
+            torch.ones(32, device=dev))),
+        "int8_matmul_nk": (IM.int8_matmul_nk_cuda, lambda: IM.int8_matmul_nk_cuda(
+            g(8, 64, dtype=bf), torch.zeros(32, 64, dtype=torch.int8, device=dev),
+            torch.ones(32, device=dev))),
+        "int4_matmul_kn": (I4.int4_matmul_kn_cuda, lambda: I4.int4_matmul_kn_cuda(
+            g(8, 64, dtype=bf), torch.zeros(32, 32, dtype=torch.uint8, device=dev),
+            torch.ones(1, 32, device=dev))),
+        "w8a8_dense": (None, lambda: Q.w8a8_dense(
+            g(4, 64), torch.zeros(32, 64, dtype=torch.int8, device=dev),
+            torch.ones(32, device=dev))),
+    }
+
+
+_NO_BACKWARD = ["attention", "attention_backward", "maxsim", "maxsim_int8", "vit_layer",
+                "attn_block", "mlp_block", "fused_gemm", "ln_stats", "window_attention",
+                "paged_attention", "paged_attention_int8", "int8_matmul_kn", "int8_matmul_nk",
+                "int4_matmul_kn", "w8a8_dense"]
+
+
+@pytest.mark.parametrize("name", _NO_BACKWARD)
+def test_kernels_without_backward_refuse_grad_on_card(gen, name):
+    """No wrapper hands back a tensor without a gradient while grad is on
+    and an input requires it: each raises and launches nothing (K2's own
+    wrappers too: ``fused_attention`` carries their gradient)."""
+    wrapper, call = _card_no_backward_calls()[name]
+    before = None if wrapper is None else wrapper.launches
+    with pytest.raises(NotImplementedError, match="has no backward"):
+        call()
+    assert wrapper is None or wrapper.launches == before
+
+
+def test_siglip_layer_gradient_on_card_matches_the_plain_step(gen):
+    """One So400m encoder layer (width 1,152, 16 heads of 72) over 2 x 1,024
+    patches in float32: the loss ``sum(layer(x) * w)`` and every gradient
+    with K2 and its backward against ``set_fused_attention(False)`` (the
+    einsum's autograd). The loss within 1e-6 of ``sum|layer(x) * w|``; each
+    leaf within 1e-4 of its largest element plus 1e-6 of the largest
+    gradient of the layer (the k-projection bias's true gradient is 0: both
+    sides return rounding noise there)."""
+    from multimodal_colpali_tpu_torch.models import layers as L
+    from multimodal_colpali_tpu_torch.models.configs import SiglipVisionConfig
+    from multimodal_colpali_tpu_torch.models.siglip import SiglipEncoderLayer
+
+    cfg = SiglipVisionConfig()
+    layer = SiglipEncoderLayer(cfg, device="cuda", dtype=torch.float32)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * p.shape[-1] ** -0.5
+                    if p.dim() > 1 else torch.ones_like(p))
+    L.set_trainable(layer)
+    x = _randn(gen, 2, 1024, cfg.hidden_size)
+    w = _randn(gen, 2, 1024, cfg.hidden_size)
+    grads, losses = [], []
+    for fused in (None, False):
+        L.set_fused_attention(fused)
+        try:
+            before = A.fused_attention_backward_cuda.launches
+            layer.zero_grad(set_to_none=True)
+            terms = layer(x) * w
+            loss = terms.sum()
+            loss.backward()
+            assert A.fused_attention_backward_cuda.launches == before + (fused is None)
+        finally:
+            L.set_fused_attention(None)
+        losses.append((float(loss), float(terms.detach().abs().sum())))
+        grads.append({n: p.grad.clone() for n, p in layer.named_parameters()})
+    assert abs(losses[0][0] - losses[1][0]) <= 1e-6 * losses[1][1]
+    top = max(float(g.abs().max()) for g in grads[1].values())
+    for n, want in grads[1].items():
+        err = float((grads[0][n] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()) + 1e-6 * top, (n, err)
