@@ -46,9 +46,10 @@ phase; any failure exits non-zero.
    call), K8b the int8 tied LM head; K6 window attention at ColFlor's four
    DaViT stage shapes in bf16 on its ring kernel (graph replays, a repeat
    bit-identical, ``scaled_dot_product_attention`` on the same inputs) and at
-   stage 0 in float32. K2 must take its tensor-core path for bf16 with D % 8 == 0
-   and its CUDA-core path otherwise, K8a and K9 their decode tile for M <= 16
-   and their prefill tile above. K1, K4, K7, K8 and K9 (K7-K9's decode calls
+   stage 0 in float32. K2 must take its tensor-core path for bf16 with D % 8 == 0,
+   its CUDA-core path for other bf16 D and its 3xTF32 path for float32, K8a
+   and K9 their decode tile for M <= 16 and their prefill tile above. K1, K4,
+   K7, K8 and K9 (K7-K9's decode calls
    are shorter than their Python launch) are timed as CUDA-graph replays (their eager
    per-call time printed beside), with ``torch._weight_int8pack_mm`` and
    ``torch._weight_int4pack_mm`` on the same inputs as yardsticks where this
@@ -364,7 +365,7 @@ result.
     queries and 3 synthetic 448-px pages normalized as the processor does
     (2 pages peaked at 54.8 GiB, so the third fits):
     every loss and gradient finite, the last loss below the first, K2's
-    forward (CUDA cores) and backward kernels 27 launches each a step (the
+    forward and backward kernels (both 3xTF32) 27 launches each a step (the
     page forward's tower) and no other kernel. (b) 2 SigLIP + 2 Gemma layers
     at full width: one step with the kernels against the same step under
     ``layers.set_fused_attention(False)`` (the plain attention and its
@@ -373,13 +374,15 @@ result.
     against it (loss rel 1e-6), and a checkpoint saved after step 2
     (``training.checkpoint``) restored into a fresh model and optimizer,
     whose step 3 equals the uninterrupted step 3 bit for bit. (c) K2's
-    backward against ``attention_backward_reference`` at ``[3, 1024, 16,
-    72]`` and at a masked case (kv_lens, kv_valid, causal, a fully masked
-    row), within 1e-4 of the largest element, repeats bit-identical; K2's
-    float32 forward at that shape (row ``attention.training``). Printed:
-    step seconds (median of steps 2-5), tokens/s, model TFLOP/s, peak GiB,
-    the loss per step, K2's times beside their float32 bounds, SDPA's
-    forward and backward beside, the phase's wall time.
+    float32 forward (row ``attention.training``) and its backward, both on
+    the 3xTF32 path, against ``attention_reference`` (atol 1e-4) and
+    ``attention_backward_reference`` (1e-4 of the largest element) at
+    ``[3, 1024, 16, 72]`` and at a masked case (kv_lens, kv_valid, causal, a
+    fully masked row), repeats bit-identical. Printed: step seconds (median
+    of steps 2-5), tokens/s, model TFLOP/s, peak GiB, the loss per step,
+    K2's times beside their float32 and 3xTF32 bounds with the registers and
+    spills ptxas gave the launched instantiations, SDPA's forward and
+    backward beside, the phase's wall time.
 
 Phases 10 and 12 (host-bound) run at half the depth they had before phase 16
 was added (8 papers, 12 questions), which keeps the script under 17 minutes.
@@ -437,6 +440,7 @@ K8 = dict(h=5376, inter=21504, vocab=262208)   # gemma-3-27b, also K9's (group 2
 K6 = dict(n=8192, s=144, d=32)    # ColFlor stage 0 at batch 8: 8 x 256 windows x 4 heads
 K6_STAGES = (8192, 4096, 2048, 1024)  # ColFlor's four DaViT stages at batch 8 (heads 4 ... 32)
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12   # H100 SXM peaks (data sheet)
+TF32_FLOPS = 495e12   # dense TF32 on the tensor cores (data sheet)
 N_PAGES, EMBED_BATCH, TOP_K = 16, 8, 5
 SMOL_PAGES, SMOL_BATCH = 32, 16
 QUERIES = [
@@ -708,20 +712,21 @@ def phase_kernels(torch, seed: int):
     want = A.attention_reference(*qkv, scale=scale)
     k2_err = float((got.float() - want.float()).abs().max())
     require(k2_err <= 2e-2, f"K2: max|err| {k2_err} > 2e-2")
-    # small masked cases: float32 (CUDA cores), bf16 D = 24 (tensor cores), D = 20 (CUDA cores)
-    for dtype, d, atol, tensor_core in ((torch.float32, 24, 1e-4, False),
-                                        (torch.bfloat16, 24, 2e-2, True),
-                                        (torch.bfloat16, 20, 2e-2, False)):
+    # small masked cases: float32 (3xTF32 tensor cores), bf16 D = 24 (tensor cores), D = 20
+    # (CUDA cores)
+    for dtype, d, atol, path in ((torch.float32, 24, 1e-4, "tf32"),
+                                 (torch.bfloat16, 24, 2e-2, "tensor_core"),
+                                 (torch.bfloat16, 20, 2e-2, "cuda_core")):
         sq = [torch.randn((2, 40, 3, d), generator=g, device=dev).to(dtype) for _ in range(3)]
         lens = torch.tensor([40, 17], dtype=torch.int32, device=dev)
         valid = torch.rand(2, 40, generator=g, device=dev) > 0.4
         valid[1] = False  # a row with every key masked: uniform weights
         for kw in (dict(kv_lens=lens), dict(kv_valid=valid), dict(causal=True),
                    dict(kv_lens=lens, kv_valid=valid, causal=True)):
-            tc = A.fused_attention_cuda.tensor_core_launches
+            tc = getattr(A.fused_attention_cuda, f"{path}_launches")
             a = A.fused_attention_cuda(*sq, scale=0.2, **kw)
-            require(A.fused_attention_cuda.tensor_core_launches == tc + tensor_core,
-                    f"K2 small case {dtype} D={d} took the wrong path")
+            require(getattr(A.fused_attention_cuda, f"{path}_launches") == tc + 1,
+                    f"K2 small case {dtype} D={d} did not take its {path} path")
             b = A.attention_reference(*sq, scale=0.2, **kw)
             err = float((a.float() - b.float()).abs().max())
             require(err <= atol, f"K2 small case {dtype} D={d} {sorted(kw)}: max|err| {err} > "
@@ -1938,12 +1943,13 @@ def kernel_wrappers():
 
 
 # the per-path counters of a wrapper beside its ``.launches``: K1's, K4's, K2's
-# and K7's tensor-core and CUDA-core paths, K8a's and K9's decode and prefill
-# tiles, the K5 GEMM's wgmma and CUDA-core paths and its four roles, K6's ring,
-# WMMA and CUDA-core kernels
+# and K7's tensor-core and CUDA-core paths (K2's float32 path: 3xTF32), K8a's
+# and K9's decode and prefill tiles, the K5 GEMM's wgmma and CUDA-core paths
+# and its four roles, K6's ring, WMMA and CUDA-core kernels
 PATHS = {"maxsim": ("tensor_core", "cuda_core"), "maxsim_int8": ("tensor_core", "cuda_core"),
          "gemm": ("wgmma", "cuda_core", "qkv", "out_proj", "fc1", "fc2"),
-         "attention": ("tensor_core", "cuda_core"), "int8_matmul_kn": ("decode", "prefill"),
+         "attention": ("tensor_core", "tf32", "cuda_core"),
+         "int8_matmul_kn": ("decode", "prefill"),
          "int4_matmul_kn": ("decode", "prefill"),
          "paged_attention": ("tensor_core", "cuda_core"),
          "paged_attention_int8": ("tensor_core", "cuda_core"),
@@ -5201,13 +5207,21 @@ def grads_close(got: dict, want: dict, rel: float, floor: float) -> tuple:
 
 
 def k2_training_rows(torch, g) -> dict:
-    """K2's forward (float32, CUDA cores) and its backward kernel at the
-    training path's ``[3, 1024, 16, 72]`` against their plain versions, and
-    the backward at a masked case (kv_lens, kv_valid, causal, batch 0's row 0
-    seeing no key); times by CUDA events beside the float32 bounds; SDPA's
-    forward and its backward (one ``autograd.grad`` of its float32 output)
-    on the same tensors as yardsticks, timed only. -> the two kernel rows."""
+    """K2's float32 forward and its backward, both on the tensor cores in
+    3xTF32, at the training path's ``[3, 1024, 16, 72]`` against their plain
+    versions (1e-4: the forward's atol, the backward's share of each
+    gradient's largest element), unmasked and at a masked case (kv_lens,
+    kv_valid, causal, batch 0's row 0 seeing no key), repeats bit-identical;
+    the unmasked errors of kernel and plain version against float64 (the
+    forward's largest absolute error, each gradient's over its largest
+    element); times by CUDA events beside the bound of the kernels' design
+    (``bound_ms``: three TF32 products at 495 TFLOP/s for each float32 one)
+    and the float32 one at 67 TFLOP/s (``bound_f32_ms``), the registers and
+    spills ptxas reported for the launched instantiations; SDPA's forward
+    and its backward (one ``autograd.grad`` of its float32 output) on the
+    same tensors as yardsticks, timed only. -> the two kernel rows."""
     import torch.nn.functional as F
+    from multimodal_colpali_tpu_torch import _build
     from multimodal_colpali_tpu_torch._timing import eager_ms
     from multimodal_colpali_tpu_torch.ops import attention as A
 
@@ -5218,19 +5232,36 @@ def k2_training_rows(torch, g) -> dict:
     scale = c["d"] ** -0.5
     n = q.numel()
     pairs = c["b"] * c["h"] * c["s"] ** 2 * c["d"]
+    n8 = (c["d"] + 7) // 8
+    valid = torch.rand(c["b"], c["s"], generator=g, device=dev) > 0.1
+    valid[0, 0] = False        # causal: batch 0's row 0 sees no key
+    lens = torch.full((c["b"],), 700, dtype=torch.int32, device=dev)
+    lens[0] = c["s"]
+    masked = dict(kv_lens=lens, kv_valid=valid, causal=True)
 
-    cc = A.fused_attention_cuda.cuda_core_launches
-    out = A.fused_attention_cuda(q, k, v, scale=scale)
-    require(A.fused_attention_cuda.cuda_core_launches == cc + 1,
-            "K2 in float32 did not take its CUDA-core path")
-    want = A.attention_reference(q, k, v, scale=scale)
-    f_err = float((out - want).abs().max())
-    require(f_err <= 1e-4, f"K2 float32 at {list(shape)}: max|err| {f_err} > 1e-4")
+    def fwd_check(kw, label):
+        before = A.fused_attention_cuda.tf32_launches
+        got = A.fused_attention_cuda(q, k, v, scale=scale, **kw)
+        require(A.fused_attention_cuda.tf32_launches == before + 1,
+                f"K2 in float32 ({label}) did not take its 3xTF32 tensor-core path")
+        err = float((got - A.attention_reference(q, k, v, scale=scale, **kw)).abs().max())
+        require(math.isfinite(err) and err <= 1e-4,
+                f"K2 float32 {label} at {list(shape)}: max|err| {err} > 1e-4")
+        require(torch.equal(A.fused_attention_cuda(q, k, v, scale=scale, **kw), got),
+                f"K2 float32 {label}: a repeated call differs")
+        return got, err
+
+    out, f_err = fwd_check({}, "at the path's shape")
+    _, fm_err = fwd_check(masked, "masked")
     f_ms, f_plain = timed_pair(torch, lambda: A.fused_attention_cuda(q, k, v, scale=scale),
                                lambda: A.attention_reference(q, k, v, scale=scale), iters=5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     f_lib = eager_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), iters=5)
-    fwd = row(f_err, f_ms, f_plain, 4 * n * 4, 4.0 * pairs, peak=F32_FLOPS, library_ms=f_lib)
+    fwd = row(max(f_err, fm_err), f_ms, f_plain, 4 * n * 4, 4.0 * pairs, peak=TF32_FLOPS / 3,
+              library_ms=f_lib)
+    print(f"[train] K2 float32 forward (3xTF32) against attention_reference: max|err| "
+          f"{f_err:.3g} at {list(shape)}, {fm_err:.3g} with kv_lens, kv_valid, causal and a "
+          f"fully masked row (atol 1e-4), repeats bit-identical", flush=True)
 
     def bwd_check(kw, label):
         o = A.attention_reference(q, k, v, scale=scale, **kw)
@@ -5249,17 +5280,12 @@ def k2_training_rows(torch, g) -> dict:
         return got, max(errs)
 
     _, b_err = bwd_check({}, "at the path's shape")
-    valid = torch.rand(c["b"], c["s"], generator=g, device=dev) > 0.1
-    valid[0, 0] = False        # causal: batch 0's row 0 sees no key
-    lens = torch.full((c["b"],), 700, dtype=torch.int32, device=dev)
-    lens[0] = c["s"]
-    masked = dict(kv_lens=lens, kv_valid=valid, causal=True)
     (dq, dk, dv), m_err = bwd_check(masked, "masked")
     require(not dq[0, 0].any(), "K2 backward: the fully masked row has a dq")
-    print(f"[train] K2 backward against attention_backward_reference: max|err| {b_err:.3g} at "
-          f"{list(shape)}, {m_err:.3g} with kv_lens, kv_valid, causal and a fully masked row "
-          f"(each within {TRAIN['bwd_rel']} of the largest element), repeats bit-identical",
-          flush=True)
+    print(f"[train] K2 backward (3xTF32) against attention_backward_reference: max|err| "
+          f"{b_err:.3g} at {list(shape)}, {m_err:.3g} with kv_lens, kv_valid, causal and a "
+          f"fully masked row (each within {TRAIN['bwd_rel']} of the largest element), repeats "
+          f"bit-identical", flush=True)
 
     b_ms, b_plain = timed_pair(
         torch, lambda: A.fused_attention_backward_cuda(q, k, v, out, do, scale=scale),
@@ -5269,14 +5295,45 @@ def k2_training_rows(torch, g) -> dict:
     lib_do = do.transpose(1, 2)
     b_lib = eager_ms(lambda: torch.autograd.grad(lib_out, xs, lib_do, retain_graph=True),
                      iters=5)
-    bwd = row(max(b_err, m_err), b_ms, b_plain, 8 * n * 4, 10.0 * pairs, peak=F32_FLOPS,
+    bwd = row(max(b_err, m_err), b_ms, b_plain, 8 * n * 4, 10.0 * pairs, peak=TF32_FLOPS / 3,
               library_ms=b_lib)
-    for label, r, lib in (("forward (CUDA cores)", fwd, "scaled_dot_product_attention"),
+    fwd["bound_f32_ms"] = 4.0 * pairs / F32_FLOPS * 1e3
+    bwd["bound_f32_ms"] = 10.0 * pairs / F32_FLOPS * 1e3
+
+    # against float64, unmasked: the kernel's error beside the plain version's
+    q64, k64, v64, o64, do64 = (x.double() for x in (q, k, v, out, do))
+    want = A.attention_reference(q64, k64, v64, scale=scale)
+    fwd["err_f64"] = float((out.double() - want).abs().max())
+    fwd["plain_err_f64"] = float(
+        (A.attention_reference(q, k, v, scale=scale).double() - want).abs().max())
+    got = A.fused_attention_backward_cuda(q, k, v, out, do, scale=scale)
+    plain = A.attention_backward_reference(q, k, v, out, do, scale=scale)
+    ref = A.attention_backward_reference(q64, k64, v64, o64, do64, scale=scale)
+    bwd["rel_err_f64"], bwd["plain_rel_err_f64"] = (
+        {name: float((a.double() - r).abs().max() / r.abs().max())
+         for name, a, r in zip(("dq", "dk", "dv"), grads, ref)} for grads in (got, plain))
+    del q64, k64, v64, o64, do64, want, got, plain, ref
+    fwd["ptxas"] = {"attention_tf32": _build.ptxas_registers("attention",
+                                                             f"attention_tf32ILi{n8}EE")}
+    bwd["ptxas"] = {kern: _build.ptxas_registers("attention_backward", f"{kern}ILi{n8}EE")
+                    for kern in ("bwd_dq_tf32", "bwd_dkdv_tf32")}
+    spilled = {kern: rs for r in (fwd, bwd) for kern, rs in r["ptxas"].items() if rs[1]}
+    require(not spilled, f"K2's float32 kernels at D = {c['d']} spill (registers, bytes): "
+                         f"{spilled}")
+    for label, r, lib in (("forward", fwd, "scaled_dot_product_attention"),
                           ("backward", bwd, "SDPA's backward")):
-        print(f"[train] K2 {label} float32 at {list(shape)}: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, {lib} {r['library_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.3f} ms ({r['bound_by']}, float32 at 67 TFLOP/s)", flush=True)
-    del q, k, v, do, out, want, xs, lib_out
+        regs = ", ".join(f"{kern}<{n8}> {rg} registers, {sp} bytes spilled"
+                         for kern, (rg, sp) in r["ptxas"].items())
+        print(f"[train] K2 {label} float32 (3xTF32) at {list(shape)}: kernel {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.3f} ms, {lib} {r['library_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']}: 3 TF32 products at 495 TFLOP/s), "
+              f"float32 bound {r['bound_f32_ms']:.3f} ms (67 TFLOP/s) | ptxas: {regs}",
+              flush=True)
+    print(f"[train] against float64: forward max|err| {fwd['err_f64']:.3g} (plain "
+          f"{fwd['plain_err_f64']:.3g}); backward over each gradient's largest element "
+          + ", ".join(f"{n} {bwd['rel_err_f64'][n]:.3g} (plain {bwd['plain_rel_err_f64'][n]:.3g})"
+                      for n in ("dq", "dk", "dv")), flush=True)
+    del q, k, v, do, out, xs, lib_out, dq, dk, dv
     torch.cuda.empty_cache()
     return {"attention.training": fwd, "attention_backward": bwd}
 
@@ -5338,11 +5395,12 @@ def phase_training(torch, seed: int, card: str, work: str) -> dict:
         path = read_counts(wrappers)
         peak = torch.cuda.max_memory_allocated() / 2**30
         steps = TRAIN["steps"]
-        require(path["attention"] == path["attention.cuda_core"] == steps * layers,
-                f"train: K2 forward launches {path['attention']} (CUDA cores "
-                f"{path['attention.cuda_core']}), not {steps * layers}")
+        require(path["attention"] == path["attention.tf32"] == steps * layers,
+                f"train: K2 forward launches {path['attention']} (3xTF32 "
+                f"{path['attention.tf32']}), not {steps * layers}")
         require(path["attention_backward"] == steps * layers,
-                f"train: K2 backward launches {path['attention_backward']}, not {steps * layers}")
+                f"train: K2 backward launches {path['attention_backward']}, not "
+                f"{steps * layers}")
         require(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
         others = {k: n for k, n in path.items()
                   if n and not k.startswith("attention")}

@@ -27,6 +27,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -164,6 +165,21 @@ def build_all() -> Dict[str, Path]:
     for name in SIGNATURES:
         load(name)
     return {name: library_path(name) for name in SIGNATURES}
+
+
+def ptxas_registers(name: str, kernel: str) -> Tuple[int, int]:
+    """(registers, spill-store bytes) that ``-Xptxas=-v`` reported, in the log
+    of library ``name``'s build, for the entry function whose mangled name
+    holds ``kernel`` (a name and its template arguments as mangled, e.g.
+    ``attention_tf32ILi9EE``). Raises ``ValueError`` when the log has none."""
+    log = library_path(name).with_suffix(".log")
+    text = log.read_text() if log.exists() else ""
+    for part in text.split("Compiling entry function '")[1:]:
+        if kernel in part.split("'", 1)[0]:
+            regs = re.search(r"Used (\d+) registers", part)
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            return int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else -1
+    raise ValueError(f"no entry function {kernel} in {log}")
 
 
 def _typed(name: str, path: Path) -> ctypes.CDLL:

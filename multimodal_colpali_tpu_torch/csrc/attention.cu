@@ -21,9 +21,13 @@
 // ColPali's So400m tower; ColSmol's [16, 1024, 12, 64] inside K5a/K5b) every
 // K/V byte serves a whole tile of query rows, so the work is 4 * B * H * S^2 * D
 // operations against 8 bytes an element of q, k, v and o: ~0.04 ms of bf16
-// tensor-core time, ~0.02 ms of memory. It is bound by operations.
+// tensor-core time, ~0.02 ms of memory. It is bound by operations. In float32
+// at the training path's [3, 1024, 16, 72]: 14.5 GFLOP, 0.216 ms at the 67
+// TFLOP/s of float32 on the CUDA cores, 0.088 ms as three TF32 products at
+// 495 TFLOP/s.
 //
-// Two paths, chosen by the wrapper (ops/attention.py) from dtype and D:
+// Three paths, chosen by the wrapper (ops/attention.kernel_path) from dtype, D
+// and the scale's sign:
 //   - Tensor cores (bf16, D % 8 == 0, D <= 128). A block of 4 warps serves
 //     64 or 128 query rows of one (batch, head): one 16-row tile a warp, or
 //     two (D <= 80, the SigLIP shapes), which then share every K and V
@@ -46,13 +50,34 @@
 //     two products of every tile with no warp specialisation to hide them,
 //     and ldmatrix feeds every product from shared memory (wgmma on 64-row
 //     warpgroup tiles with TMA-fed K/V is the next step).
-//   - CUDA cores (float32, and bf16 with D % 8 != 0). One thread owns one
+//   - Tensor cores in 3xTF32 (float32, every D from 1 to 128, any scale).
+//     float32 must stay within 1e-4 of the plain version, which TF32 alone
+//     (10 significand bits) misses by 5-10x; so each operand is split into
+//     two TF32 values and each product taken as three (mma.cuh). A block of
+//     4 warps serves 64 query rows, 16 a warp; K and V tiles of 64 keys (32
+//     past D = 80) are double-buffered in shared memory by cp.async (16-byte
+//     chunks when D % 4 == 0 and the pointers allow, else 4-byte ones, in
+//     the same kernel) as mma.cuh's F32Tile, D zero-padded to a multiple of
+//     8. Q stays in shared memory and each depth step's fragment is read and
+//     split there, which leaves the registers to the float32 sums (no spill
+//     at any D). S = Q.K^T is scaled to base-2 logits in registers; the
+//     online softmax is the bf16 path's, in float32, and P stays float32 (the
+//     TPU's rounding point for float32): its unnormalised values go from the
+//     accumulators straight into the A fragments of P.V, whose depth takes
+//     each 8 keys in the order (0, 2, 4, 6, 1, 3, 5, 7), with V's rows read
+//     in that order. Every depth step's products start from zero and are
+//     added in float32 (mma.cuh's mma_3xtf32): the tensor cores truncate
+//     what they accumulate, and a sum kept in the accumulator loses the low
+//     bits of every product (chip_smoke.py's training rows read this
+//     kernel's error against float64 beside the plain version's). What
+//     holds it above its bound: three tensor-core instructions a product,
+//     the splits and the adds on the ALUs beside them, and mma.sync's
+//     m16n8k8 from one warp at a time.
+//   - CUDA cores (bf16 with D % 8 != 0, or a scale <= 0). One thread owns one
 //     query row, 128 rows to a block; K and V tiles are staged in shared
 //     memory as float32 and every thread of a warp reads the same key
 //     (broadcasts); 2 * D scalar FMAs a query-key pair. D is rounded up to a
-//     multiple of 8 with zero columns. float32 keeps 1e-4 against the plain
-//     version, which no tensor-core type does; the probabilities stay float32
-//     (for float32 that is the TPU's rounding point).
+//     multiple of 8 with zero columns; the probabilities stay float32.
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
@@ -502,13 +527,231 @@ cudaError_t launch_mma_d(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+// ---- the float32 tensor-core path (3xTF32) ---------------------------------------
+
+// Shared memory of the float32 path: Q [BQ] rows, K and V [2][KEYS] rows each
+// (F32Tile rows of LD floats), then the key flags [2][KEYS].
+template <int N8>
+struct Tf32Layout {
+  static constexpr int kWarps = 4;
+  static constexpr int BQ = 16 * kWarps;           // query rows a block, 16 a warp
+  static constexpr int DP = 8 * N8;
+  static constexpr int KEYS = N8 <= 10 ? 64 : 32;  // keys a K/V tile: two blocks an SM
+  static constexpr int LD = F32Tile<DP>::LD;
+  static constexpr size_t kBytes =
+      (static_cast<size_t>(BQ) + 4 * KEYS) * LD * 4 + 2 * KEYS * 4;
+};
+
+// N8 = DP / 8: D rounded up to whole 8-column steps with zero columns (the
+// depth of Q.K^T and the output tiles of P.V). A warp owns 16 query rows.
+template <int N8>
+__global__ void __launch_bounds__(Tf32Layout<N8>::kWarps * 32)
+attention_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
+               const int* __restrict__ kv_lens, const int* __restrict__ kv_valid, int S, int H,
+               int D, float scale_log2, int causal, bool vec) {
+  using L = Tf32Layout<N8>;
+  constexpr int BQ = L::BQ, DP = L::DP, KEYS = L::KEYS, LD = L::LD, NK = KEYS / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + BQ * LD;
+  float* Vs = Ks + 2 * KEYS * LD;
+  int* flags = reinterpret_cast<int*>(Vs + 2 * KEYS * LD);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;  // a fragment's row and column pair
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int q0 = blockIdx.x * BQ;
+  const int r0 = q0 + warp * 16;  // the warp's first query row
+  const size_t row = static_cast<size_t>(H) * D;  // elements between tokens
+  const size_t base = static_cast<size_t>(b) * S * row + static_cast<size_t>(h) * D;
+  const int kv_len = min(kv_lens[b], S);
+  const int tiles = (S + KEYS - 1) / KEYS;
+  // a masked logit, -1e30, in the base-2 units of the scaled logits below
+  const float neg = kNeg * 1.4426950408889634f;
+
+  auto issue = [&](int tile) {
+    const int t0 = tile * KEYS, buf = tile & 1;
+    stage_f32<DP>(Ks + buf * KEYS * LD, k + base, t0, KEYS, S, D, row, vec);
+    stage_f32<DP>(Vs + buf * KEYS * LD, v + base, t0, KEYS, S, D, row, vec);
+    if (kv_valid != nullptr)
+      for (int j = threadIdx.x; j < KEYS; j += blockDim.x)
+        flags[buf * KEYS + j] = t0 + j < S && kv_valid[static_cast<size_t>(b) * S + t0 + j] != 0;
+  };
+
+  stage_f32<DP>(Qs, q + base, q0, BQ, S, D, row, vec);
+  issue(0);
+  cp_async_commit();
+
+  float acc[N8][4];
+  float mx[2], l[2];  // per row (g, g + 8): running max of the base-2 logits, and this lane's
+                      // share of the denominator
+#pragma unroll
+  for (int n = 0; n < N8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  mx[0] = mx[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int t0 = tile * KEYS, buf = tile & 1;
+    if (tile + 1 < tiles) issue(tile + 1);  // into the buffer the last tile freed
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this tile (and Q) has arrived
+    const float* Kt = Ks + buf * KEYS * LD;
+    const float* Vt = Vs + buf * KEYS * LD;
+
+    // S = Q.K^T: NK tiles of 8 keys; c[0..1] row g, c[2..3] row g + 8
+    float sc[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    tf32_product_over_columns<DP, NK>(sc, Qs, warp * 16, Kt, g, t4);
+
+    // scaled to base-2 logits; masked keys take -1e30 (scaled), keys past S weigh 0
+    const bool open = t0 + KEYS <= kv_len && kv_valid == nullptr &&
+                      !(causal && t0 + KEYS - 1 > r0);
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[n][e] * scale_log2;
+        if (!open) {
+          const int j = n * 8 + 2 * t4 + (e & 1);
+          const int t = t0 + j;
+          const int i = r0 + g + 8 * (e >> 1);
+          const bool ok = t < kv_len && (kv_valid == nullptr || flags[buf * KEYS + j]) &&
+                          !(causal && t > i);
+          x = t >= S ? -INFINITY : (ok ? x : neg);
+        }
+        sc[n][e] = x;
+      }
+
+    // online softmax: the tile's row max over the quad, rescale, exponentiate
+    float m0 = mx[0], m1 = mx[1];
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      m0 = fmaxf(m0, fmaxf(sc[n][0], sc[n][1]));
+      m1 = fmaxf(m1, fmaxf(sc[n][2], sc[n][3]));
+    }
+#pragma unroll
+    for (int x = 1; x < 4; x *= 2) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, x));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, x));
+    }
+    // every tile holds key t0 < S, whose logit is finite, so m0 and m1 are
+    // finite; the first tile rescales from -inf, which gives 0
+    const float a0 = ex2(mx[0] - m0);
+    const float a1 = ex2(mx[1] - m1);
+    mx[0] = m0;
+    mx[1] = m1;
+    l[0] *= a0;
+    l[1] *= a1;
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      acc[n][0] *= a0;
+      acc[n][1] *= a0;
+      acc[n][2] *= a1;
+      acc[n][3] *= a1;
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      // a masked row's equal fills give exactly 2^0
+      sc[n][0] = ex2(sc[n][0] - m0);
+      sc[n][1] = ex2(sc[n][1] - m0);
+      sc[n][2] = ex2(sc[n][2] - m1);
+      sc[n][3] = ex2(sc[n][3] - m1);
+      l[0] += sc[n][0] + sc[n][1];
+      l[1] += sc[n][2] + sc[n][3];
+    }
+
+    // P.V: the unnormalised float32 probabilities of 8 keys are the A fragment,
+    // its depth read in key order (0, 2, 4, 6, 1, 3, 5, 7): the accumulator's
+    // keys (2t, 2t + 1) are the A pair (t, t + 4), and V's rows are taken in
+    // the same order
+    tf32_product_over_rows<DP, NK>(acc, sc, Vt, g, t4);
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float den = l[hh];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    const int i = r0 + g + 8 * hh;
+    if (i >= S) continue;
+    float* dst = o + base + static_cast<size_t>(i) * row;
+#pragma unroll
+    for (int n = 0; n < N8; ++n) {
+      const int c = n * 8 + 2 * t4;
+      if (c < D) dst[c] = acc[n][2 * hh] / den;
+      if (c + 1 < D) dst[c + 1] = acc[n][2 * hh + 1] / den;
+    }
+  }
+}
+
+template <int N8>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
+                        const int* kv_lens, const int* kv_valid, int B, int S, int H, int D,
+                        float scale, int causal, cudaStream_t stream) {
+  using L = Tf32Layout<N8>;
+  const auto kernel = attention_tf32<N8>;
+  // above 48 KB only after the opt-in, which belongs to the current device
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(L::kBytes));
+  if (e != cudaSuccess) return e;
+  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const dim3 grid((S + L::BQ - 1) / L::BQ, B * H);
+  kernel<<<grid, L::kWarps * 32, L::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), kv_lens, kv_valid, S, H, D, scale * 1.4426950408889634f, causal,
+      vec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tf32_d(const void* q, const void* k, const void* v, void* o,
+                          const int* kv_lens, const int* kv_valid, int B, int S, int H, int D,
+                          float scale, int causal, cudaStream_t stream) {
+  switch ((D + 7) / 8) {
+#define ATTN_TF32_CASE(N)                                                                   \
+  case N:                                                                                   \
+    return launch_tf32<N>(q, k, v, o, kv_lens, kv_valid, B, S, H, D, scale, causal, stream);
+    ATTN_TF32_CASE(1)
+    ATTN_TF32_CASE(2)
+    ATTN_TF32_CASE(3)
+    ATTN_TF32_CASE(4)
+    ATTN_TF32_CASE(5)
+    ATTN_TF32_CASE(6)
+    ATTN_TF32_CASE(7)
+    ATTN_TF32_CASE(8)
+    ATTN_TF32_CASE(9)
+    ATTN_TF32_CASE(10)
+    ATTN_TF32_CASE(11)
+    ATTN_TF32_CASE(12)
+    ATTN_TF32_CASE(13)
+    ATTN_TF32_CASE(14)
+    ATTN_TF32_CASE(15)
+    ATTN_TF32_CASE(16)
+#undef ATTN_TF32_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Self-attention over contiguous [B, S, H, D] q, k, v into o (same shape and
 // type). kv_lens [B] int32; kv_valid [B, S] int32 or null; D from 1 to 128.
-// block_q 0 takes the CUDA-core path (float32 or bf16); 64 or 128 the
-// tensor-core path with that many query rows a block (bf16, D % 8 == 0; 128:
-// two 16-row tiles a warp, D <= 80).
+// float32 takes the 3xTF32 tensor-core path (block_q 0). bf16: block_q 0 takes
+// the CUDA-core path; 64 or 128 the tensor-core path with that many query rows
+// a block (D % 8 == 0; 128: two 16-row tiles a warp, D <= 80).
 extern "C" int attention_launch(const void* q, const void* k, const void* v, void* o,
                                 const int* kv_lens, const int* kv_valid, int B, int S, int H,
                                 int D, float scale, int causal, int dtype, int block_q,
@@ -517,18 +760,20 @@ extern "C" int attention_launch(const void* q, const void* k, const void* v, voi
   if (B <= 0 || S <= 0 || H <= 0 || D < 1 || D > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (block_q != 0) {
-    if (dtype != kBFloat16 || D % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (block_q == 64)
-      err = launch_mma_d<1>(q, k, v, o, kv_lens, kv_valid, B, S, H, D, scale, causal, s);
-    else if (block_q == 128 && D <= 80)
-      err = launch_mma_d<2>(q, k, v, o, kv_lens, kv_valid, B, S, H, D, scale, causal, s);
-    else
-      err = cudaErrorInvalidValue;
-  } else if (dtype == kBFloat16) {
+  if (dtype == kFloat32) {
+    err = block_q != 0 ? cudaErrorInvalidValue
+                       : launch_tf32_d(q, k, v, o, kv_lens, kv_valid, B, S, H, D, scale, causal,
+                                       s);
+  } else if (dtype != kBFloat16) {
+    err = cudaErrorInvalidValue;
+  } else if (block_q == 0) {
     err = launch_dp<__nv_bfloat16>(q, k, v, o, kv_lens, kv_valid, B, S, H, D, scale, causal, s);
-  } else if (dtype == kFloat32) {
-    err = launch_dp<float>(q, k, v, o, kv_lens, kv_valid, B, S, H, D, scale, causal, s);
+  } else if (D % 8 != 0) {
+    err = cudaErrorInvalidValue;
+  } else if (block_q == 64) {
+    err = launch_mma_d<1>(q, k, v, o, kv_lens, kv_valid, B, S, H, D, scale, causal, s);
+  } else if (block_q == 128 && D <= 80) {
+    err = launch_mma_d<2>(q, k, v, o, kv_lens, kv_valid, B, S, H, D, scale, causal, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -6,19 +6,21 @@
   (the einsum branch of the JAX ``models/layers.attention``, layers.py:210-231).
 - :func:`fused_attention_cuda` - the hand-written CUDA kernel K2
   (``csrc/attention.cu``) that replaces the TPU kernel ``_attn_kernel``:
-  a tensor-core path for bf16 with D % 8 == 0 and a CUDA-core path for the
-  rest, chosen by :func:`block_rows`.
+  three paths, chosen by :func:`kernel_path`: float32 on the tensor cores in
+  3xTF32, bf16 with D % 8 == 0 on the tensor cores (:func:`block_rows`), and
+  the rest of bf16 on the CUDA cores.
 - :func:`attention_backward_reference` - the plain version of K2's gradient,
   and :func:`fused_attention_backward_cuda` its hand-written CUDA kernel
-  (``csrc/attention_backward.cu``, float32). The TPU kernel has no backward
-  (``pallas_call`` has no reverse mode, so ``jax.grad`` through it raises):
-  the JAX trainer's gradient is autodiff of the einsum branch, whose
-  counterpart this is.
+  (``csrc/attention_backward.cu``, float32 on the tensor cores in 3xTF32).
+  The TPU kernel has no backward (``pallas_call`` has no reverse mode, so
+  ``jax.grad`` through it raises): the JAX trainer's gradient is autodiff of
+  the einsum branch, whose counterpart this is.
 - :func:`fused_attention` - the dispatcher: CPU tensors take the plain
   version, CUDA tensors the kernel, with no fallback between them. Under
   grad, with q, k or v requiring grad, it goes through the autograd Function
   ``_FusedAttention`` (the same forward, then the backward kernel or its
-  plain version); otherwise it calls the forward alone and saves nothing.
+  plain version), or on the CPU in bf16 or float16 through autograd of the
+  plain version; otherwise it calls the forward alone and saves nothing.
 
 Layouts are the JAX package's: ``[B, S, H, D]`` for q, k and v.
 """
@@ -39,15 +41,28 @@ _MAX_HEAD_DIM = 128
 
 
 def block_rows(dtype: torch.dtype, s: int, d: int) -> int:
-    """Query rows a block of K2's tensor-core path takes for ``[B, S, H, D]``
-    inputs of ``dtype``, or 0 for the CUDA-core path. bf16 with D a multiple
-    of 8 (the row stride is then whole 16-byte cp.async chunks) and at most
-    128 goes to the tensor cores: 128 rows a block (two 16-row tiles a warp,
-    sharing each K and V fragment) from S = 512 on where D <= 80 leaves the
-    registers for it, else 64. float32 and other D keep the CUDA cores."""
+    """Query rows a block of K2's bf16 tensor-core path takes for ``[B, S,
+    H, D]`` inputs of ``dtype``, or 0 where that path is not taken. bf16
+    with D a multiple of 8 (the row stride is then whole 16-byte cp.async
+    chunks) and at most 128 goes to it: 128 rows a block (two 16-row tiles a
+    warp, sharing each K and V fragment) from S = 512 on where D <= 80
+    leaves the registers for it, else 64. Other bf16 D take the CUDA cores;
+    float32 takes its own 3xTF32 path (64 rows a block, :func:`kernel_path`)."""
     if dtype != torch.bfloat16 or d % 8 or not 1 <= d <= _MAX_HEAD_DIM:
         return 0
     return 128 if s >= 512 and d <= 80 else 64
+
+
+def kernel_path(dtype: torch.dtype, s: int, d: int, scale: float) -> Tuple[str, int]:
+    """The path K2 takes for ``[B, S, H, D]`` inputs of ``dtype`` and the
+    query rows a block that its launch is given -> ``(path, rows)``: ("tf32",
+    0) for float32, every D (3xTF32 on the tensor cores); ("tensor_core",
+    :func:`block_rows`) for bf16 where that is > 0 and scale > 0 (the path
+    takes each row's max before the scale); else ("cuda_core", 0)."""
+    if dtype == torch.float32:
+        return "tf32", 0
+    rows = block_rows(dtype, s, d)
+    return ("tensor_core", rows) if rows and scale > 0 else ("cuda_core", 0)
 
 
 def attention_reference(
@@ -156,10 +171,10 @@ def fused_attention_cuda(
 
     q, k and v share one shape and one dtype (float32 or bf16); repeat K/V
     heads for GQA first. Adds one to ``fused_attention_cuda.launches`` per
-    kernel launch, and one to ``.tensor_core_launches`` or
-    ``.cuda_core_launches`` by the path it took. Under grad, with an input
-    that requires grad, it raises: :func:`fused_attention` carries the
-    gradient."""
+    kernel launch, and one to ``.tf32_launches``, ``.tensor_core_launches``
+    or ``.cuda_core_launches`` by the path it took (:func:`kernel_path`).
+    Under grad, with an input that requires grad, it raises:
+    :func:`fused_attention` carries the gradient."""
     refuse_grad("fused_attention_cuda", q, k, v)
     q, k, v, kv_lens, kv_valid = _checked("fused_attention_cuda", (q, k, v), kv_lens,
                                           kv_valid, _DTYPE_CODES)
@@ -167,8 +182,7 @@ def fused_attention_cuda(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    # the tensor-core path takes each row's max before the scale: scale > 0
-    rows = block_rows(q.dtype, s, d) if scale > 0 else 0
+    path, rows = kernel_path(q.dtype, s, d, scale)
     lib = _build.load("attention")
     code = lib.attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -177,14 +191,13 @@ def fused_attention_cuda(
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "attention_launch")
     fused_attention_cuda.launches += 1
-    if rows:
-        fused_attention_cuda.tensor_core_launches += 1
-    else:
-        fused_attention_cuda.cuda_core_launches += 1
+    setattr(fused_attention_cuda, f"{path}_launches",
+            getattr(fused_attention_cuda, f"{path}_launches") + 1)
     return out
 
 
 fused_attention_cuda.launches = 0
+fused_attention_cuda.tf32_launches = 0
 fused_attention_cuda.tensor_core_launches = 0
 fused_attention_cuda.cuda_core_launches = 0
 
@@ -233,9 +246,10 @@ def fused_attention_backward_cuda(
     :func:`attention_backward_reference` for float32 ``[B, S, H, D]`` q, k, v,
     the forward's ``out`` and its gradient ``dout`` -> ``(dq, dk, dv)``.
 
-    Two launches: dQ over query blocks (which first takes each row's max,
-    sum of exponentials and ``rowsum(dO * O)`` into a float32 scratch), then
-    dK and dV over key blocks. Adds one to
+    Two launches, every product on the tensor cores in 3xTF32: dQ over
+    query blocks (which first takes each row's max, the inverse of its sum
+    of exponentials and ``rowsum(dO * O)`` into a float32 scratch), then dK
+    and dV over key blocks. Adds one to
     ``fused_attention_backward_cuda.launches`` per call."""
     refuse_grad("fused_attention_backward_cuda", q, k, v, out, dout)
     q, k, v, out, dout, kv_lens, kv_valid = _checked(
@@ -302,14 +316,19 @@ def fused_attention(
     on ``[B, S, H, D]``.
 
     A CUDA tensor runs K2, a CPU tensor the plain version. Under grad, with
-    q, k or v requiring grad, the call goes through ``_FusedAttention``,
-    whose backward is K2's backward kernel (float32 only: a bf16 input raises
-    ``NotImplementedError``, since K2's bf16 forward rounds P to bf16, another
-    function than the float32 one the JAX trainer differentiates) or, on the
-    CPU, its plain version (float32 or float64)."""
+    q, k or v requiring grad, a float32 (or, on the CPU, float64) call goes
+    through ``_FusedAttention``, whose backward is K2's backward kernel or,
+    on the CPU, its plain version. On the CPU a bf16 or float16 call takes
+    autograd through the plain version, as the JAX trainer differentiates
+    its einsum in any dtype. On the card a bf16 call under grad raises
+    ``NotImplementedError``: K2's bf16 forward rounds P to bf16, and no
+    kernel computes that function's gradient."""
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q.device.type == "cpu" and q.dtype in (torch.bfloat16, torch.float16):
+            return attention_reference(q, k, v, None, kv_lens, kv_valid, scale=scale,
+                                       causal=causal)
         allowed = (torch.float32,) if q.device.type == "cuda" else (torch.float32, torch.float64)
         if q.dtype not in allowed:
             raise NotImplementedError(

@@ -100,6 +100,25 @@ def test_build_variant_adds_flags_and_builds_apart(fake_build, tmp_path, monkeyp
         _build.build_variant("maxsim", "-DBAD")
 
 
+def test_ptxas_registers_reads_the_build_log(fake_build):
+    """Registers and spill stores of one instantiation, from nvcc's
+    ``-Xptxas=-v`` output as the build saves it beside the library."""
+    log = _build.library_path("attention").with_suffix(".log")
+    log.parent.mkdir(parents=True)
+    log.write_text(
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114attention_tf32ILi9EEEvPKf' "
+        "for 'sm_90a'\nptxas info    : Function properties for _ZN...\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 181 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114attention_tf32ILi1EEEvPKf' "
+        "for 'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 64 registers\n")
+    assert _build.ptxas_registers("attention", "attention_tf32ILi9EE") == (181, 8)
+    assert _build.ptxas_registers("attention", "attention_tf32ILi1EE") == (64, 0)
+    with pytest.raises(ValueError, match="ILi16EE"):
+        _build.ptxas_registers("attention", "attention_tf32ILi16EE")
+
+
 def test_check_raises_on_cuda_error_codes():
     class Lib:
         @staticmethod

@@ -216,12 +216,16 @@ def test_attention_kernel_matches_plain(gen, dtype, atol, d, masks):
         kw["kv_valid"] = valid
     if masks in ("causal", "all"):
         kw["causal"] = True
-    before = (A.fused_attention_cuda.launches, A.fused_attention_cuda.tensor_core_launches)
+    fn = A.fused_attention_cuda
+    before = (fn.launches, fn.tensor_core_launches, fn.tf32_launches, fn.cuda_core_launches)
     got = A.fused_attention(q, k, v, scale=d ** -0.5, **kw)
-    assert A.fused_attention_cuda.launches == before[0] + 1
-    # bf16 with D % 8 == 0 takes the tensor cores; float32 and D = 20 the CUDA cores
+    # float32 takes the 3xTF32 tensor-core path at every D; bf16 with D % 8 == 0
+    # the bf16 tensor cores, bf16 at D = 20 the CUDA cores
+    tf32 = dtype == torch.float32
     tensor_core = dtype == torch.bfloat16 and d % 8 == 0
-    assert A.fused_attention_cuda.tensor_core_launches == before[1] + tensor_core
+    assert (fn.launches, fn.tensor_core_launches, fn.tf32_launches, fn.cuda_core_launches) == (
+        before[0] + 1, before[1] + tensor_core, before[2] + tf32,
+        before[3] + (not tf32 and not tensor_core))
     want = A.attention_reference(q, k, v, scale=d ** -0.5, **kw)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
@@ -289,6 +293,65 @@ def test_attention_tensor_core_path_takes_unaligned_views(gen):
     got = A.fused_attention_cuda(*off, scale=0.1)
     assert A.fused_attention_cuda.tensor_core_launches == before + 1
     assert torch.equal(got, A.fused_attention_cuda(*qkv, scale=0.1))
+
+
+def _tf32_forward_check(gen, b, s, h, d, masks):
+    """K2's float32 forward (3xTF32) against the plain version at atol 1e-4,
+    its path counter, and a repeat bit-identical."""
+    q, k, v = (_randn(gen, b, s, h, d) for _ in range(3))
+    kw = _attention_masks(gen, b, s, masks)
+    if "kv_lens" in kw:  # one length a batch row, the last one short
+        kw["kv_lens"] = torch.tensor([s] * (b - 1) + [s // 3 + 1], dtype=torch.int32,
+                                     device="cuda")
+    fn = A.fused_attention_cuda
+    before = (fn.tf32_launches, fn.tensor_core_launches, fn.cuda_core_launches)
+    got = fn(q, k, v, scale=d ** -0.5, **kw)
+    assert (fn.tf32_launches, fn.tensor_core_launches, fn.cuda_core_launches) == (
+        before[0] + 1, before[1], before[2])
+    want = A.attention_reference(q, k, v, scale=d ** -0.5, **kw)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert torch.equal(fn(q, k, v, scale=d ** -0.5, **kw), got)
+    if "kv_valid" in kw:  # the last batch row sees no key: the mean of V
+        torch.testing.assert_close(got[-1], v[-1].mean(dim=0, keepdim=True).expand(s, h, d),
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [6, 72, 128])
+@pytest.mark.parametrize("s", [40, 577, 1031])
+@pytest.mark.parametrize("masks", ["none", "kv_lens", "kv_valid", "causal", "all"])
+def test_attention_tf32_path_matches_plain(gen, d, s, masks):
+    """K2's float32 path on the tensor cores in 3xTF32: ragged key tiles (S =
+    40, 577, 1031), D = 6 (4-byte copies), So400m's 72, 128 (32-key tiles),
+    each mask and all three."""
+    _tf32_forward_check(gen, 2, s, 2, d, masks)
+
+
+@pytest.mark.parametrize("masks", ["none", "kv_lens", "kv_valid", "causal", "all"])
+def test_attention_tf32_path_at_the_training_shape(gen, masks):
+    """The training path's ``[3, 1024, 16, 72]`` float32 forward (ColPali's
+    So400m over 3 pages) on the 3xTF32 path, each mask."""
+    _tf32_forward_check(gen, 3, 1024, 16, 72, masks)
+
+
+def test_attention_tf32_paths_take_unaligned_views(gen):
+    """float32 views 4 bytes off a 16-byte boundary take 4-byte copies
+    inside the same kernels, forward and backward: the same bits."""
+    b, s, h, d = 1, 130, 2, 72
+    xs = [_randn(gen, b, s, h, d) for _ in range(4)]
+    off = []
+    for x in xs:
+        y = torch.empty(x.numel() + 1, device="cuda")[1:].view(x.shape)
+        y.copy_(x)
+        assert y.data_ptr() % 16
+        off.append(y)
+    before = A.fused_attention_cuda.tf32_launches
+    got = A.fused_attention_cuda(*off[:3], scale=0.1)
+    assert A.fused_attention_cuda.tf32_launches == before + 1
+    assert torch.equal(got, A.fused_attention_cuda(*xs[:3], scale=0.1))
+    grads = A.fused_attention_backward_cuda(*off[:3], got, off[3], scale=0.1)
+    want = A.fused_attention_backward_cuda(*xs[:3], got, xs[3], scale=0.1)
+    assert all(torch.equal(a, w) for a, w in zip(grads, want))
 
 
 def test_siglip_attention_on_card_takes_the_tensor_core_path(gen):
@@ -2094,15 +2157,16 @@ def test_attention_backward_at_the_training_shape(gen):
 
 def test_fused_attention_function_runs_both_kernels(gen):
     """Under grad, float32 q, k, v that require grad go through the autograd
-    Function: one K2 forward launch, one backward launch, and the gradients
-    are the backward kernel's."""
+    Function: one K2 forward launch on its 3xTF32 path, one backward launch,
+    and the gradients are the backward kernel's."""
     q, k, v, _, g, kw = _bwd_case(gen, 2, 150, 3, 72, "all")
     xs = [x.clone().requires_grad_() for x in (q, k, v)]
-    before = (A.fused_attention_cuda.launches, A.fused_attention_backward_cuda.launches)
+    fwd, bwd = A.fused_attention_cuda, A.fused_attention_backward_cuda
+    before = (fwd.launches, fwd.tf32_launches, bwd.launches)
     out = A.fused_attention(*xs, scale=0.1, **kw)
-    assert A.fused_attention_cuda.launches == before[0] + 1
+    assert (fwd.launches, fwd.tf32_launches) == (before[0] + 1, before[1] + 1)
     out.backward(g)
-    assert A.fused_attention_backward_cuda.launches == before[1] + 1
+    assert bwd.launches == before[2] + 1
     want = A.fused_attention_backward_cuda(q, k, v, out.detach(), g, scale=0.1, **kw)
     assert all(torch.equal(x.grad, w) for x, w in zip(xs, want))
 

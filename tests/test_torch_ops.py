@@ -220,11 +220,11 @@ def test_attention_fully_masked_row_is_uniform():
     (torch.bfloat16, 577, 20, 0),      # D not whole 16-byte chunks: CUDA cores
     (torch.bfloat16, 1024, 128, 64),   # D > 80: one 16-row tile a warp
     (torch.bfloat16, 64, 136, 0),      # past the widest head
-    (torch.float32, 1024, 72, 0),      # float32: CUDA cores
+    (torch.float32, 1024, 72, 0),      # float32: not this path (3xTF32, kernel_path)
 ])
 def test_attention_block_rows_choose_the_path(dtype, s, d, rows):
-    """K2's wrapper picks the tensor-core path (and its query block) or the
-    CUDA-core path from dtype and shape alone, before any launch."""
+    """K2's wrapper picks the bf16 tensor-core path (and its query block) or
+    another path from dtype and shape alone, before any launch."""
     assert TA.block_rows(dtype, s, d) == rows
 
 
