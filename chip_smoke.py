@@ -383,6 +383,30 @@ result.
     K2's times beside their float32 and 3xTF32 bounds with the registers and
     spills ptxas gave the launched instantiations, SDPA's forward and
     backward beside, the phase's wall time.
+17. The scale-out at world size 1 (after phase 15, before phase 12): a
+    1-rank NCCL group opened through ``parallel.initialize_distributed``
+    and closed at the end; each of (a)-(c) is a main path with its own
+    launch counts, and every mesh result is held against the mesh-less one.
+    (a) 8,192 synthetic pages of 1,056 x 128 (2.2 GB bf16, 1.1 GB of int8
+    codes on the card) in exact, int8 and pooled collections of
+    ``VectorClient(mesh=)`` and ``VectorClient()``, 4 queries each, one
+    filtered: equal ids, scores within K1's rtol 1e-3 (the largest
+    difference printed; bit-equal expected), each mode's query ms for both;
+    ``DistributedCorpusView`` over the same rows equals the single-device
+    two-stage search on its own tensors. (b) ``load_retriever(
+    "vidore/colSmol-256M", mesh=)`` embeds phase 4's pages bit-equal to the
+    mesh-less retriever (pages/s of both). (c) gemma-3-27b at full width and
+    ``SCALE["depth"]`` layers (random weights) served by
+    ``PagedContinuousBatcher`` + ``GenerationServer`` over a ``("data",
+    "model")`` mesh engine in bf16 (native and int8 KV pools) and int8
+    weights: 4 greedy requests of 16 tokens equal the mesh-less
+    ``generate`` under phase 5's tie rule (0.05); decode tokens/s beside
+    the mesh-less engine's behind the same batcher (bf16). (d) The kernels at the shapes a rank of tp = 2 and 4
+    gives them: K7a/K7b at 16/8 and 8/4 heads (the decode step's 4 slots,
+    windows 0 and 1,024), K8a's decode and prefill tiles on the column
+    slices 5,376 -> 2,048, 1,024, 10,752, 5,376 and the row slices 2,048,
+    1,024, 10,752, 5,376 -> 5,376, K1/K4 on a shard of 2,048 pages and on an
+    odd one, each against its plain version at phase 2's limits.
 
 Phases 10 and 12 (host-bound) run at half the depth they had before phase 16
 was added (8 papers, 12 questions), which keeps the script under 17 minutes.
@@ -5821,6 +5845,526 @@ def phase_experiments(torch, seed: int, card: str, work: str, ckpt_root: Path) -
                                                      info["delta"]["launches"])]
 
 
+# phase 17: the scale-out at world size 1
+SCALE = dict(pages=8192, nt=1056, dim=128, queries=4, nq=32, limit=5, depth=4, new_tokens=16,
+             shard=2048, slots=4, max_seq_len=2048, chunk=8, page=16, repeats=7, embed_repeats=5,
+             rate_tokens=128, rate_repeats=4)
+
+
+def spread(xs) -> str:
+    """``median [min-max]`` of a list of readings."""
+    import statistics
+
+    return f"{statistics.median(xs):.2f} [{min(xs):.2f}-{max(xs):.2f}]"
+
+
+def interleaved(repeats: int, fns: dict) -> dict:
+    """Each of the two callables ``fns`` (name -> fn returning a reading) run
+    ``repeats`` times, alternating which goes first (ABBA...), so a drift of
+    the host or the card reaches both alike -> name -> list of readings."""
+    a, b = fns
+    out = {a: [], b: []}
+    for r in range(repeats):
+        for who in ((a, b) if r % 2 == 0 else (b, a)):
+            out[who].append(fns[who]())
+    return out
+SCALE_MODES = {"exact": {}, "int8": dict(quantized=True),
+               "pooled": dict(quantized=True, prefilter="pooled")}
+
+
+def scale_corpus(torch, g):
+    """The phase's pages: unit bf16 tokens with ragged lengths (a quarter of
+    ``nt`` to ``nt``, the rest zero), made on the card; and a float32 host copy."""
+    import torch.nn.functional as F
+
+    c, dev = SCALE, torch.device("cuda")
+    d = torch.empty(c["pages"], c["nt"], c["dim"], dtype=torch.bfloat16, device=dev)
+    lens = torch.randint(c["nt"] // 4, c["nt"] + 1, (c["pages"],), generator=g, device=dev,
+                         dtype=torch.int32)
+    cols = torch.arange(c["nt"], device=dev)
+    for s in range(0, c["pages"], 512):
+        part = F.normalize(torch.randn(min(512, c["pages"] - s), c["nt"], c["dim"], generator=g,
+                                       device=dev), dim=-1)
+        part *= (cols[None, :] < lens[s: s + 512, None])[..., None]
+        d[s: s + 512] = part.to(torch.bfloat16)
+    return d, lens, d.float().cpu().numpy(), lens.cpu().numpy()
+
+
+def scale_store(torch, card: str, mesh, seed: int, g) -> dict:
+    """(a): the sharded collections against the mesh-less ones, and the view."""
+    import numpy as np
+    from multimodal_colpali_tpu_torch.ops import two_stage as T2
+    from multimodal_colpali_tpu_torch.store import (
+        DistributedCorpusView, FieldCondition, Filter, MatchValue, MultiVectorConfig,
+        PointStruct, VectorClient, VectorParams)
+
+    c = SCALE
+    t0 = time.perf_counter()
+    d, lens, host, host_lens = scale_corpus(torch, g)
+    del d
+    rng = np.random.default_rng(seed + 17)
+    qs = rng.standard_normal((c["queries"], c["nq"], c["dim"])).astype(np.float32)
+    flt = Filter(must=[FieldCondition(key="doc", match=MatchValue(value=1))])
+    points = [PointStruct(id=i, vector=host[i, : host_lens[i]], payload={"doc": i % 4})
+              for i in range(c["pages"])]
+    clients = {"mesh": VectorClient(device="cuda", mesh=mesh), "plain": VectorClient(device="cuda")}
+    vp = VectorParams(size=c["dim"], multivector_config=MultiVectorConfig())
+    for client in clients.values():
+        for mode, kw in SCALE_MODES.items():
+            client.create_collection(mode, vp, max_tokens=c["nt"], **kw)
+    # one upsert through the client (phase 4 times that path); the other five
+    # collections take its host copy as it is: this phase is about the queries
+    clients["plain"].upsert("exact", points)
+    first = clients["plain"]._get("exact")
+    for client in clients.values():
+        for mode in SCALE_MODES:
+            st = client._get(mode)
+            if st is not first:
+                st._vectors, st._lens, st._ids = first._vectors, first._lens, first._ids
+                st._payloads, st._id_to_idx = first._payloads, first._id_to_idx
+    del points
+    setup_s = time.perf_counter() - t0
+    wrappers = kernel_wrappers()
+    results, ms, worst = {}, {}, 0.0
+    for who in ("mesh", "plain"):
+        if who == "mesh":
+            reset_counts(wrappers)
+        for mode in SCALE_MODES:
+            out = [clients[who].query_points(mode, q, limit=c["limit"],
+                                             query_filter=flt if i == 3 else None)
+                   for i, q in enumerate(qs)]     # the first query uploads the collection
+            torch.cuda.synchronize()
+            results[who, mode] = [[(p.id, p.score) for p in r.points] for r in out]
+        if who == "mesh":
+            launches = read_counts(wrappers)
+    for mode in SCALE_MODES:
+        for got, want in zip(results["mesh", mode], results["plain", mode]):
+            require([i for i, _ in got] == [i for i, _ in want] and len(got) == c["limit"],
+                    f"(a) {mode}: sharded ids {got} differ from the mesh-less store's {want}")
+            for (_, a), (_, b) in zip(got, want):
+                require(abs(a - b) <= 1e-3 * abs(b), f"(a) {mode}: score {a} vs {b}")
+                worst = max(worst, abs(a - b))
+        require(all(i % 4 == 1 for i, _ in results["mesh", mode][3]),
+                f"(a) {mode}: the filtered query returned another document")
+
+        def one_round(who, mode=mode):   # the queries' time a query, the collection already up
+            t1 = time.perf_counter()
+            for i, q in enumerate(qs):
+                clients[who].query_points(mode, q, limit=c["limit"],
+                                          query_filter=flt if i == 3 else None)
+            return 1e3 * (time.perf_counter() - t1) / len(qs)
+
+        for who, xs in interleaved(c["repeats"], {w: (lambda w=w: one_round(w))
+                                                  for w in ("mesh", "plain")}).items():
+            ms[who, mode] = xs
+    require(launches["maxsim"] > 0 and launches["maxsim_int8"] > 0,
+            f"(a) the sharded queries never launched K1 and K4: {launches}")
+    del clients
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    # the rows are unit tokens with zero padding already
+    view = DistributedCorpusView(host, host_lens, mesh=mesh, prefilter="pooled",
+                                 normalize=False)
+    view_s = time.perf_counter() - t1
+    agree = 0
+    for q in qs:
+        vals, ids = view.query(q, limit=c["limit"], oversampling=2.0)
+        qn = torch.from_numpy(q / np.linalg.norm(q, axis=-1, keepdims=True)).cuda()
+        wv, wi = T2.two_stage_maxsim_topk(qn, c["nq"], view.pooled, view.d_int8, view.d_scale,
+                                          view.d_lens, k=c["limit"], n_candidates=2 * c["limit"],
+                                          d_full=view.d)
+        require(ids.tolist() == wi.cpu().tolist(),
+                f"(a) the view's ids {ids.tolist()} differ from the single-device two-stage "
+                f"search's {wi.cpu().tolist()}")
+        agree += 1
+    # whether the card's matrix-vector products score a page alike wherever
+    # it sits (the CPU path reduces row by row for that): three shards of the
+    # pooled index against the same rows of the whole
+    from multimodal_colpali_tpu_torch.store.dense import scores_f32
+
+    qn = torch.from_numpy(qs[0] / np.linalg.norm(qs[0], axis=-1, keepdims=True)).cuda()
+    whole_c = T2._coarse_scores(qn, c["nq"], view.pooled, view.d_lens)[0]
+    whole_d = scores_f32(view.pooled, qn[0])
+    alike = {"coarse": True, "dense": True}
+    for lo, n in ((0, c["shard"]), (c["shard"], c["shard"]), (c["pages"] - c["shard"] + 3,
+                                                             c["shard"] - 3)):
+        part = view.pooled[lo: lo + n]
+        alike["coarse"] &= torch.equal(
+            T2._coarse_scores(qn, c["nq"], part, view.d_lens[lo: lo + n])[0], whole_c[lo: lo + n])
+        alike["dense"] &= torch.equal(scores_f32(part, qn[0]), whole_d[lo: lo + n])
+    del view, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[scale-a] {c['pages']} pages x {c['nt']} x {c['dim']} (ragged {c['nt'] // 4}-{c['nt']}) in "
+          f"exact / int8 / pooled collections of VectorClient(mesh=) and VectorClient(), built "
+          f"and loaded in {setup_s:.1f} s: ids equal, max |score diff| {worst:.3g} (limit rtol "
+          f"1e-3) | query ms a query, median [min-max] of {c['repeats']} interleaved rounds of "
+          f"{c['queries']} (mesh / mesh-less): "
+          + ", ".join(f"{m} {spread(ms['mesh', m])} / {spread(ms['plain', m])}"
+                      for m in SCALE_MODES)
+          + f" | DistributedCorpusView built in {view_s:.1f} s, {agree} queries equal to the "
+          f"single-device two-stage search | shards of {c['shard']} / {c['shard'] - 3} rows "
+          f"bit-equal to the whole index's rows: coarse GEMV {alike['coarse']}, bf16 dense mm "
+          f"{alike['dense']} | launches {json.dumps(launches)} | {card}", flush=True)
+    return dict(launches=launches, ms={f"{w}.{m}": v for (w, m), v in ms.items()}, alike=alike)
+
+
+def scale_embed(torch, card: str, mesh, seed: int) -> dict:
+    """(b): data-parallel ColSmol against the mesh-less retriever."""
+    import numpy as np
+    from multimodal_colpali_tpu_torch.models import load_retriever
+
+    wrappers = kernel_wrappers()
+    retr = {m: load_retriever(COLSMOL, device="cuda", dtype=torch.bfloat16, seed=seed,
+                              device_preprocess=True, mesh=mesh if m == "mesh" else None)
+            for m in ("mesh", "plain")}
+    size = retr["plain"].processor.image_preprocessor.image_size
+    pages = synthetic_pages(SMOL_PAGES, size, seed + 1)
+    embs = {}
+    for who in ("plain", "mesh"):
+        retr[who].embed_images(pages[:SMOL_BATCH], batch_size=SMOL_BATCH)   # warm-up
+        torch.cuda.synchronize()
+        if who == "mesh":
+            reset_counts(wrappers)
+        embs[who] = retr[who].embed_images(pages, batch_size=SMOL_BATCH)
+        if who == "mesh":
+            launches = read_counts(wrappers)
+
+    def pages_s(who):
+        t0 = time.perf_counter()
+        retr[who].embed_images(pages, batch_size=SMOL_BATCH)     # ends on the host
+        return len(pages) / (time.perf_counter() - t0)
+
+    rate = interleaved(SCALE["embed_repeats"], {w: (lambda w=w: pages_s(w))
+                                                for w in ("mesh", "plain")})
+    require(all(np.array_equal(a, b) for a, b in zip(embs["mesh"], embs["plain"]))
+            and len(embs["mesh"]) == SMOL_PAGES,
+            "(b) the data-parallel embeddings differ from the mesh-less retriever's")
+    require(launches["vit_layer"] > 0 and launches["normalize"] > 0,
+            f"(b) the data-parallel embedding never launched K5a and K3: {launches}")
+    del retr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[scale-b] {COLSMOL} data-parallel over a 'data' axis of 1: {SMOL_PAGES} pages "
+          f"bit-equal to the mesh-less retriever | pages/s, median [min-max] of "
+          f"{SCALE['embed_repeats']} interleaved runs (mesh / mesh-less) {spread(rate['mesh'])} / "
+          f"{spread(rate['plain'])} | launches {json.dumps(launches)} | {card}",
+          flush=True)
+    return dict(launches=launches, pages_s=rate)
+
+
+def scale_serve(torch, engine, tok, kv_dtype: str, prompts):
+    """``prompts`` (chat texts) at once through a paged batcher and the
+    server over ``engine`` -> (token streams, decode tokens/s, launches)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multimodal_colpali_tpu_torch.generation import GenerationServer, PagedContinuousBatcher
+
+    c = SCALE
+    wrappers = kernel_wrappers()
+    bat = PagedContinuousBatcher(engine, batch_slots=c["slots"], max_seq_len=c["max_seq_len"],
+                                 chunk=c["chunk"], page_size=c["page"], kv_dtype=kv_dtype,
+                                 eos_id=tok.eos_id).serve()
+    srv = GenerationServer(bat, tok, model_name=GEN_MODEL, host="127.0.0.1", port=0).start()
+    body = lambda text: {"messages": [{"role": "user", "content": text}],  # noqa: E731
+                         "max_tokens": c["new_tokens"]}
+    try:
+        require(chat(srv.base_url, dict(body("warm"), max_tokens=2))[0] == 200,
+                "(c) warm-up request failed")
+        torch.cuda.synchronize()
+        bat.decode_s, bat.decode_tokens = 0.0, 0
+        reset_counts(wrappers)
+        with ThreadPoolExecutor(len(prompts)) as ex:
+            outs = list(ex.map(lambda p: chat(srv.base_url, body(p)), prompts))
+        torch.cuda.synchronize()
+        launches = read_counts(wrappers)
+    finally:
+        srv.stop()
+        bat.shutdown()
+    streams = []
+    for status, text, finish, _ in outs:
+        require(status == 200 and finish == "length", f"(c) a request failed: {status} {text!r}")
+        streams.append([int(t) for t in text.split()])
+    rate = bat.decode_tokens / bat.decode_s if bat.decode_s else 0.0
+    del srv, bat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return streams, rate, launches
+
+
+def scale_decode(torch, card: str, mesh, seed: int) -> dict:
+    """(c): tensor-parallel gemma-3-27b against the mesh-less engine."""
+    import numpy as np
+    from multimodal_colpali_tpu_torch.generation import (
+        GemmaDecodeEngine, ModuloTokenizer, render_chat_prompt)
+    from multimodal_colpali_tpu_torch.models.registry import GEMMA3_CONFIGS, load_gemma3_lm
+
+    c = SCALE
+    rng = np.random.default_rng(seed + 23)
+    prompts = [mcq_prompt(rng, n) for n in (320, 700, 1100, 1550)]
+    runs, notes, rates, decode = {}, [], {}, {}
+    for wd, kv in (("native", "native"), ("native", "int8"), ("int8", "native")):
+        if kv == "native":
+            with cut_depth(GEMMA3_CONFIGS, GEN_MODEL, c["depth"]):
+                cfg, params, _ = load_gemma3_lm(GEN_MODEL, device="cuda", dtype=torch.bfloat16,
+                                                seed=seed, weight_dtype=wd)
+            plain = GemmaDecodeEngine(cfg, params, dtype=torch.bfloat16, device="cuda")
+            tp = GemmaDecodeEngine(cfg, params, dtype=torch.bfloat16, device="cuda", mesh=mesh)
+            tok = ModuloTokenizer(cfg.vocab_size)
+            ids = [tok.encode(render_chat_prompt([{"role": "user", "content": p}]),
+                              add_special_tokens=True) for p in prompts]
+            want = plain.generate(ids, max_new_tokens=c["new_tokens"], eos_id=tok.eos_id)
+        tag = f"{wd} weights, {kv} pools"
+        got, rates[tag], runs[tag] = scale_serve(torch, tp, tok, kv, prompts)
+        if wd == kv == "native":    # decode alone, mesh against mesh-less, bf16 only
+            decode = scale_decode_rates(torch, {"mesh": tp, "plain": plain}, ids)
+        for i, (a, b) in enumerate(zip(got, want)):
+            div = first_divergence(plain, ids[i], a, b)
+            if div is not None:
+                require(div[1] <= 0.05, f"(c) {tag}: a {len(ids[i])}-token stream first "
+                                        f"differs at step {div[0]}, top-2 gap {div[1]:.4f}")
+                notes.append(f"{tag} {len(ids[i])} tok: differs at {div[0]} (gap {div[1]:.4f})")
+        if kv == "int8" or wd == "int8":
+            del plain, tp, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    # what a one-rank NCCL all-reduce costs in a step-like stream of work (the
+    # paths skip a collective over one rank, parallel/mesh): 16 small launches
+    # that hold the host, one matmul that holds the card, then the collective
+    import torch.distributed as dist
+
+    group = mesh.groups["model"]
+    xs = torch.randn(c["slots"], 1, K8["h"], device="cuda").to(torch.bfloat16)
+    xb = torch.randn(2048, K8["h"], device="cuda").to(torch.bfloat16)
+    w = torch.randn(K8["h"], K8["h"], device="cuda").to(torch.bfloat16)
+
+    def loop_ms(ar: bool) -> float:      # host ms an iteration of 100
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            for _ in range(16):
+                y = xs * 1.0
+            xb @ w
+            if ar:
+                dist.all_reduce(y, group=group)
+        torch.cuda.synchronize()
+        return 10 * (time.perf_counter() - t0)
+
+    loop_ms(True)
+    ar_ms = interleaved(3, {"with": lambda: loop_ms(True), "without": lambda: loop_ms(False)})
+    r = runs
+    require(r["native weights, native pools"]["paged_attention.tensor_core"] > 0,
+            "(c) the tensor-parallel engine never launched K7a's tensor-core path")
+    require(r["native weights, int8 pools"]["paged_attention_int8.tensor_core"] > 0,
+            "(c) the tensor-parallel engine never launched K7b's tensor-core path")
+    k8 = r["int8 weights, native pools"]
+    require(k8["int8_matmul_kn.decode"] > 0 and k8["int8_matmul_kn.prefill"] > 0
+            and k8["int8_matmul_nk"] > 0,
+            f"(c) the int8 tensor-parallel engine never launched both K8a tiles and K8b: {k8}")
+    print(f"[scale-c] {GEN_MODEL} full width, {c['depth']} layers, over a ('data', 'model') mesh "
+          f"of (1, 1): 4 greedy requests of {c['new_tokens']} tokens through "
+          f"PagedContinuousBatcher + GenerationServer equal the mesh-less generate "
+          f"({'; '.join(notes) or 'all identical'}) | served decode tokens/s (mesh): "
+          + ", ".join(f"{t} {rates[t]:.1f}" for t in runs)
+          + f" | bf16 decode alone, tokens/s, median [min-max] of {c['rate_repeats']} "
+          f"interleaved runs of 4 x {c['rate_tokens']} new tokens (mesh / mesh-less): "
+          f"{spread(decode['mesh'])} / {spread(decode['plain'])}"
+          + f" | a loop of 16 small launches and a [2048, {K8['h']}] x [{K8['h']}, {K8['h']}] "
+          f"matmul, host ms an iteration (median [min-max] of 3 interleaved runs of 100): with a "
+          f"1-rank NCCL all-reduce of [{c['slots']}, 1, {K8['h']}] bf16 after each "
+          f"{spread(ar_ms['with'])}, without {spread(ar_ms['without'])} | {card}", flush=True)
+    return dict(runs=runs, rates=rates, decode=decode, all_reduce_ms=ar_ms)
+
+
+def scale_decode_rates(torch, engines: dict, ids) -> dict:
+    """Decode tokens/s of the prompts ``ids`` through a paged batcher over
+    each of two engines, interleaved: ``rate_tokens`` greedy tokens a
+    request (no eos), the batcher's decode-step clock alone (no prefill)."""
+    from multimodal_colpali_tpu_torch.generation import PagedContinuousBatcher
+
+    c = SCALE
+    bats = {w: PagedContinuousBatcher(e, batch_slots=c["slots"], max_seq_len=c["max_seq_len"],
+                                      chunk=c["chunk"], page_size=c["page"])
+            for w, e in engines.items()}
+
+    def tokens_s(who):
+        b = bats[who]
+        b.decode_s, b.decode_tokens = 0.0, 0
+        b.generate(ids, max_new_tokens=c["rate_tokens"])
+        return b.decode_tokens / b.decode_s
+
+    for b in bats.values():
+        b.generate(ids[:1], max_new_tokens=2)      # warm-up
+    out = interleaved(c["rate_repeats"], {w: (lambda w=w: tokens_s(w)) for w in bats})
+    del bats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def scale_kernels(torch, g) -> dict:
+    """(d): the kernels at the shapes one rank of tp = 2 and 4 gives them ->
+    (rows, launches). One card runs no main path at these shapes, so a row's
+    ``launches`` are its checks' launches at its shape (the timing's are left
+    out), counted by the wrapper's counters around them."""
+    from multimodal_colpali_tpu_torch._timing import eager_ms, graph_ms
+    from multimodal_colpali_tpu_torch.ops import int8_matmul as IM
+    from multimodal_colpali_tpu_torch.ops import maxsim as M
+    from multimodal_colpali_tpu_torch.ops import paged_attention as PA
+
+    dev = torch.device("cuda")
+    results, launches, rtol = {}, {}, 2.0 ** -7
+    int8pack = library_op(torch, "_weight_int8pack_mm")
+    wrappers = kernel_wrappers()
+    d, page, nb, lengths = K7["d"], K7["page"], 128, [309, 709, 1109, 1509]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    scale = 168.0 ** -0.5
+    for tp, hq, hkv in ((2, 16, 8), (4, 8, 4)):
+        n_pages = 4 * nb + 1
+        q = torch.randn(4, hq, d, generator=g, device=dev).to(torch.bfloat16)
+        kp, vp = (torch.randn(n_pages, page, hkv, d, generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        bt = torch.randperm(n_pages, generator=g, device=dev)[: 4 * nb].reshape(4, nb).int()
+        i8 = (*PA.quantize_kv_rows(kp), *PA.quantize_kv_rows(vp))
+        for name, floor, atol, per_row, call, plain in (
+                ("paged_attention", 2e-2, 2e-3, 2 * d,
+                 lambda w: PA.paged_attention_cuda(q, kp, vp, bt, lens, scale=scale, window=w),
+                 lambda w: PA.paged_attention_reference(q, kp, vp, bt, lens, scale=scale,
+                                                        window=w)),
+                ("paged_attention_int8", 0.035, 4e-3, d + 4,
+                 lambda w: PA.paged_attention_int8_cuda(q, *i8, bt, lens, scale=scale, window=w),
+                 lambda w: PA.paged_attention_int8_reference(q, *i8, bt, lens, scale=scale,
+                                                             window=w))):
+            errs, before = [], wrappers[name].launches
+            for window in (0, 1024):
+                got, want = call(window).float(), plain(window).float()
+                diff = (got - want).abs()
+                errs.append(float(diff.max()))
+                excess = float((diff - rtol * want.abs()).max())
+                require(errs[-1] <= floor and excess <= atol,
+                        f"(d) {name} at {hq}/{hkv} heads window {window}: max|err| {errs[-1]}, "
+                        f"max(|err| - {rtol:.4g}|want|) {excess} > {atol}")
+            launches[f"{name}.tp{tp}"] = wrappers[name].launches - before
+            k_ms = graph_ms(lambda: call(0), iters=20)
+            _, p_ms = timed_pair(torch, lambda: call(0), lambda: plain(0), iters=5)
+            nbytes = sum(2 * n for n in lengths) * hkv * per_row + 2 * q.numel() * 2
+            r = row(max(errs), k_ms, p_ms, nbytes, 4.0 * hq * d * sum(lengths))
+            results[f"{name}.tp{tp}"] = r
+            print(f"[scale-d] {name} q {list(q.shape)} pools [{n_pages}, {page}, {hkv}, {d}] "
+                  f"lengths {lengths}, windows 0 and 1024: max|err| {max(errs):.3g} (floor "
+                  f"{floor}) | kernel {k_ms:.4f} ms (graph), plain {p_ms:.3f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+        del q, kp, vp, i8
+    h = K8["h"]
+    slices = [(h, 2048), (h, 1024), (h, 10752), (h, 5376),
+              (2048, h), (1024, h), (10752, h), (5376, h)]
+    for m, tile in ((8, "decode"), (512, "prefill")):
+        errs, first, n_checks = [], None, 0
+        for k, n in slices:
+            w = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+            sc = torch.rand(n, generator=g, device=dev) * 1e-3
+            x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+            before = getattr(IM.int8_matmul_kn_cuda, f"{tile}_launches")
+            got = IM.int8_matmul_kn_cuda(x, w, sc).float()
+            require(getattr(IM.int8_matmul_kn_cuda, f"{tile}_launches") == before + 1,
+                    f"(d) K8a [{m}, {k}] x [{k}, {n}] did not take its {tile} tile")
+            n_checks += 1
+            want = IM.int8_matmul_reference(x, w, sc).float()
+            err = float((got - want).abs().max())
+            require(err <= 0.02 * float(want.abs().max()),
+                    f"(d) K8a [{m}, {k}] x [{k}, {n}]: max|err| {err} > 2% of max")
+            errs.append(err)
+            if first is None:
+                k_ms = graph_ms(lambda: IM.int8_matmul_kn_cuda(x, w, sc), iters=20)
+                _, p_ms = timed_pair(torch, lambda: IM.int8_matmul_kn_cuda(x, w, sc),
+                                     lambda: IM.int8_matmul_reference(x, w, sc), iters=5)
+                lib_ms = None
+                if int8pack:    # the yardstick x @ w[N, K]^T * scale[N], timed only
+                    w_nk, s_x = w.t().contiguous(), sc.to(x.dtype)
+                    lib_ms = eager_ms(lambda: int8pack(x, w_nk, s_x), iters=10 if m <= 16 else 2)
+                first = (k, n, k_ms, p_ms, w.numel() + n * 4 + m * (k + n) * 2, 2.0 * m * k * n,
+                         lib_ms)
+        k, n, k_ms, p_ms, nbytes, flops, lib_ms = first
+        name = "int8_matmul_kn.tp" if tile == "decode" else "int8_matmul_kn.prefill.tp"
+        results[name] = row(max(errs), k_ms, p_ms, nbytes, flops, library_ms=lib_ms)
+        launches[name] = n_checks
+        print(f"[scale-d] K8a {tile} tile ([{m}, K] rows) on the column slices 5376 -> 2048, "
+              f"1024, 10752, 5376 and the row slices 2048, 1024, 10752, 5376 -> 5376: max|err| "
+              f"{max(errs):.3g} (limit 2% of max) | [{m}, {k}] x [{k}, {n}]: kernel {k_ms:.4f} ms "
+              f"(graph), plain {p_ms:.3f} ms, _weight_int8pack_mm "
+              f"{'none on this torch' if lib_ms is None else f'{lib_ms:.3f} ms'}, bound "
+              f"{results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']})", flush=True)
+    c = SCALE
+    q = torch.randn(1, c["nq"], c["dim"], generator=g, device=dev)
+    q = torch.nn.functional.normalize(q, dim=-1)
+    for p in (c["shard"], c["shard"] - 3):
+        pages = torch.nn.functional.normalize(torch.randn(p, c["nt"], c["dim"], generator=g,
+                                                          device=dev), dim=-1).to(torch.bfloat16)
+        dl = torch.randint(1, c["nt"] + 1, (p,), generator=g, device=dev, dtype=torch.int32)
+        codes, scales = M.quantize_corpus_int8(pages)
+        for name, call, plain, rt in (
+                ("maxsim", lambda: M.maxsim_scores_cuda(q.to(torch.bfloat16), pages, None, dl),
+                 lambda: M.maxsim_scores_reference(q.to(torch.bfloat16), pages, None, dl), 1e-3),
+                ("maxsim_int8", lambda: M.maxsim_scores_int8_cuda(q, codes, scales, None, dl),
+                 lambda: M.maxsim_scores_int8_reference(q, codes, scales, None, dl), 1e-4)):
+            before = wrappers[name].launches
+            got, want = call(), plain()
+            launches[f"{name}.shard"] = (launches.get(f"{name}.shard", 0)
+                                         + wrappers[name].launches - before)
+            require(torch.allclose(got, want, rtol=rt, atol=rt if name == "maxsim" else 0),
+                    f"(d) {name} on a shard of {p} pages differs beyond rtol {rt}")
+            err = float((got - want).abs().max())
+            if p == c["shard"]:
+                k_ms = graph_ms(call, iters=20)
+                _, p_ms = timed_pair(torch, call, plain, iters=3)
+                live = float(dl.sum())
+                per = c["dim"] * 2 if name == "maxsim" else c["dim"] + 4
+                results[f"{name}.shard"] = row(err, k_ms, p_ms, live * per + q.numel() * 4 + p * 4,
+                                               2.0 * c["dim"] * c["nq"] * live)
+            else:
+                results[f"{name}.shard"]["max_abs_err"] = max(
+                    results[f"{name}.shard"]["max_abs_err"], err)
+        del pages, codes, scales
+    for name in ("maxsim.shard", "maxsim_int8.shard"):
+        print(f"[scale-d] {name} one query of {c['nq']} over {c['shard']} and {c['shard'] - 3} "
+              f"pages of up to {c['nt']}: max|err| {results[name]['max_abs_err']:.3g} | kernel "
+              f"{results[name]['ms']:.4f} ms (graph), plain {results[name]['plain_ms']:.3f} ms, "
+              f"bound {results[name]['bound_ms']:.4f} ms", flush=True)
+    torch.cuda.empty_cache()
+    require(all(n > 0 for n in launches.values()), f"(d) a kernel never launched: {launches}")
+    return results, launches
+
+
+def phase_scaleout(torch, seed: int, card: str, work: str) -> dict:
+    """Phase 17: the mesh paths at world size 1 over NCCL, each against its
+    mesh-less twin, and the kernels at a rank's shapes of tp = 2 and 4."""
+    import torch.distributed as dist
+    from multimodal_colpali_tpu_torch.parallel import get_mesh, initialize_distributed
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    walls = {}
+    initialize_distributed(f"file://{work}/scaleout-rendezvous", 1, 0, device="cuda")
+    try:
+        require(dist.get_backend() == "nccl", "phase 17: the group is not NCCL")
+        corpus, dm = get_mesh(("corpus",)), get_mesh(("data", "model"), (1, 1))
+        out = {}
+        for part, fn, args in (("a", scale_store, (corpus, seed, g)),
+                               ("b", scale_embed, (dm, seed)),
+                               ("c", scale_decode, (dm, seed)),
+                               ("d", scale_kernels, None)):
+            t0 = time.perf_counter()
+            out[part] = fn(torch, g) if args is None else fn(torch, card, *args)
+            walls[part] = round(time.perf_counter() - t0, 1)
+    finally:
+        dist.destroy_process_group()
+    print(f"[scale] phase 17 parts wall s {json.dumps(walls)} | {card}", flush=True)
+    rows, launches = out["d"]
+    return dict(rows=rows, paths=[out["a"]["launches"], out["b"]["launches"],
+                                  *out["c"]["runs"].values()], launches=launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5888,6 +6432,7 @@ def main(argv=None) -> int:
         grid = run("13", phase_grid, torch, args.seed, card, work, ckpt)
         old = run("14", phase_old_models, torch, args.seed, card)
         mllama = run("15", phase_mllama, torch, args.seed, card)
+        scale = run("17", phase_scaleout, torch, args.seed, card, work)
         experiments = run("12", phase_experiments, torch, args.seed, card, work,
                           ckpt_path.parent)
     finally:
@@ -5955,15 +6500,21 @@ def main(argv=None) -> int:
     meta["paged_attention.mllama_decode"] = meta["paged_attention"]
     meta["paged_attention_int8.mllama_verify"] = meta["paged_attention_int8"]
     meta["int8_matmul_kn.mllama_cross_kv"] = meta["int8_matmul_kn"]
+    # phase 17 (d): a rank's shapes at tp = 2 and 4, and a corpus shard; their
+    # launches are (d)'s checks at those shapes (no main path runs them on one card)
+    for name in scale["launches"]:
+        meta[name] = meta[name.split(".")[0]]
     kernels.update(old["rows"])
     kernels.update(mllama["rows"])
     kernels.update(train["rows"])
+    kernels.update(scale["rows"])
     paths = [colpali, images["a"], images["b"], colsmol, gen["a"], gen["b"], gen["c"],
              gen["d"], gen["e"], colflor, g3["a"], g3["b"], dense, ingest, qwen["launches"],
-             *grid["paths"], *old["paths"], *mllama["paths"], *experiments, train["path"]]
+             *grid["paths"], *old["paths"], *mllama["paths"], *experiments, train["path"],
+             *scale["paths"]]
     shape_rows = ("attention.gemma3_tower", "attention.colqwen_window", "attention.colqwen_full",
                   "attention.granite_tower", *old["launches"], *mllama["launches"],
-                  *train["launches"])
+                  *train["launches"], *scale["launches"])
     launches = {name: sum(p[tile_of.get(name, name)] for p in paths) for name in meta
                 if name not in shape_rows}
     launches["attention.gemma3_tower"] = g3["a"]["attention"] + g3["b"]["attention"]
@@ -5973,6 +6524,7 @@ def main(argv=None) -> int:
     launches.update(old["launches"])
     launches.update(mllama["launches"])
     launches.update(train["launches"])
+    launches.update(scale["launches"])
     rows = [dict(name=name, route=route, source=src, replaces=rep, launches=launches[name],
                  **kernels[name])
             for name, (route, src, rep) in meta.items()]

@@ -37,6 +37,20 @@ Projections go through ``ops/quant.q_dense`` (K8a under
 ``q_logits`` (K8b for the int8 embed table of both quantized formats), and
 prefill attention through the plain masked einsum of ``models/layers``, as in
 the JAX engine.
+
+Over a mesh (``mesh=``, axes ``data`` and ``model``; engine.py:347-398) each
+rank of the ``model`` axis holds ``parallel.shard_params_for_tp``'s slices of
+the text tree: whole query heads, the KV heads that serve them, and a slice
+of the MLP's hidden units; the embedding and the head are replicated. The
+layer bodies all-reduce over the ``model`` group after ``o_proj`` and
+``down_proj`` (:func:`_row`). KV heads shard only where
+``num_key_value_heads`` divides the axis (JAX's pool rule, paged.py:170-171);
+otherwise every rank keeps the KV head its query heads read, and its query
+heads must lie within one GQA group. The engine's ``cfg`` is then the
+rank's (:class:`RankConfig`: its head counts), so caches and pools hold the
+rank's heads; ``model_cfg`` is the model's. ``generate`` pads the batch to a
+multiple of the ``data`` size, each data rank decodes its share of the rows,
+and the tokens are all-gathered (engine.py:577-598).
 """
 
 from __future__ import annotations
@@ -56,6 +70,8 @@ from multimodal_colpali_tpu_torch.ops.quant import (
     is_quantized, is_quantized_int4, q_dense, q_logits, q_take, quantize_lm_params,
     quantize_lm_params_int4)
 from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
+from multimodal_colpali_tpu_torch.parallel.mesh import (
+    all_reduce, batch_sharding, shard_params_for_tp)
 
 LOGPROB_K = 5   # top alternatives recorded per decode step (OpenAI cap)
 
@@ -82,6 +98,77 @@ def _dense(x: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tensor] =
 
 def _lin(x: torch.Tensor, p: Dict[str, Any]) -> torch.Tensor:
     return q_dense(x, p["kernel"], p.get("bias"), dense_fn=_dense)
+
+
+def _row(x: torch.Tensor, p: Dict[str, Any], c) -> torch.Tensor:
+    """A row-parallel projection (``o_proj``, ``down_proj``): on a mesh
+    (``c`` a :class:`RankConfig`) each rank multiplies its slice of the input
+    dimension, the partial products are summed over the ``model`` group, and
+    a bias is added once, after the sum."""
+    mesh = getattr(c, "mesh", None)
+    if mesh is None:
+        return _lin(x, p)
+    y = all_reduce(mesh, "model", q_dense(x, p["kernel"], None, dense_fn=_dense))
+    if p.get("bias") is not None:
+        y = (y.float() + p["bias"].float()).to(y.dtype)
+    return y
+
+
+class RankConfig:
+    """A text config as one rank of a tensor-parallel mesh sees it: its own
+    query and KV head counts and the ``mesh`` its row-parallel projections
+    reduce over; every other field reads through to ``model_cfg``."""
+
+    def __init__(self, model_cfg: Any, mesh: Any, num_attention_heads: int,
+                 num_key_value_heads: int):
+        self.model_cfg = model_cfg
+        self.mesh = mesh
+        self.num_attention_heads = num_attention_heads
+        self.num_key_value_heads = num_key_value_heads
+
+    def __getattr__(self, name: str) -> Any:
+        if name == "model_cfg":
+            raise AttributeError(name)
+        return getattr(self.model_cfg, name)
+
+
+def tp_head_plan(cfg: Any, tp: int, rank: int):
+    """(first query head, query heads, first KV head, KV heads) of ``rank``
+    among ``tp`` model ranks. KV heads split where their count divides
+    ``tp``; otherwise the rank keeps the one KV head its query heads share,
+    which needs its query heads within one GQA group."""
+    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    if hq % tp:
+        raise ValueError(f"{hq} query heads do not split over {tp} model ranks")
+    nq, group = hq // tp, hq // hkv
+    if hkv % tp == 0:
+        return rank * nq, nq, rank * (hkv // tp), hkv // tp
+    if group % nq == 0:
+        return rank * nq, nq, (rank * nq) // group, 1
+    raise ValueError(f"{hq} query heads over {hkv} KV heads: neither the KV heads nor the "
+                     f"GQA groups split over {tp} model ranks")
+
+
+def _cols(p: Any, lo: int, hi: int) -> Any:
+    """Output columns ``[lo, hi)`` of a projection subtree (kernel or int8
+    codes by column, bias or scale by entry)."""
+    if isinstance(p, dict):
+        return {k: _cols(v, lo, hi) for k, v in p.items()}
+    return p[..., lo:hi].contiguous()
+
+
+def tp_engine_params(params: Any, cfg: Any, mesh: Any):
+    """This rank's slices of an engine tree and its :class:`RankConfig`."""
+    q0, nq, k0, nkv = tp_head_plan(cfg, mesh.size("model"), mesh.index("model"))
+    if nkv * mesh.size("model") == cfg.num_key_value_heads:
+        return shard_params_for_tp(params, mesh, "model"), RankConfig(cfg, mesh, nq, nkv)
+    params = shard_params_for_tp(params, mesh, "model", replicated=("k_proj", "v_proj"))
+    d = cfg.head_dim
+    for i in range(cfg.num_hidden_layers):
+        att = params["language_model"][f"layers_{i}"]["self_attn"]
+        for name in ("k_proj", "v_proj"):
+            att[name] = _cols(att[name], k0 * d, (k0 + nkv) * d)
+    return params, RankConfig(cfg, mesh, nq, nkv)
 
 
 def _rope_tables(positions: torch.Tensor, theta: float, d: int):
@@ -205,11 +292,11 @@ def layer_stack(p, c, x: torch.Tensor, positions: torch.Tensor, kv_write, attend
         new_k.append(kc)
         new_v.append(vc)
         att = attend(i, q, kc, vc)
-        x = x + _lin(att.reshape(b, s, -1), lp["self_attn"]["o_proj"])
+        x = x + _row(att.reshape(b, s, -1), lp["self_attn"]["o_proj"], c)
         y = _rms(x, lp["post_attention_layernorm"]["weight"], c.rms_norm_eps)
         gate = _lin(y, lp["mlp"]["gate_proj"])
         up = _lin(y, lp["mlp"]["up_proj"])
-        x = x + _lin(F.gelu(gate, approximate="tanh") * up, lp["mlp"]["down_proj"])
+        x = x + _row(F.gelu(gate, approximate="tanh") * up, lp["mlp"]["down_proj"], c)
     x = _rms(x, p["language_model"]["norm"]["weight"], c.rms_norm_eps)
     return x, (tuple(new_k), tuple(new_v))
 
@@ -243,12 +330,12 @@ def _layer_stack_gemma3(p, c, x: torch.Tensor, positions: torch.Tensor, kv_write
         new_k.append(kc)
         new_v.append(vc)
         att = attend(i, q, kc, vc)
-        att_out = _lin(att.reshape(b, s, -1), lp["self_attn"]["o_proj"])
+        att_out = _row(att.reshape(b, s, -1), lp["self_attn"]["o_proj"], c)
         x = x + _rms(att_out, lp["post_attention_layernorm"]["weight"], c.rms_norm_eps)
         y = _rms(x, lp["pre_feedforward_layernorm"]["weight"], c.rms_norm_eps)
         gate = _lin(y, lp["mlp"]["gate_proj"])
         up = _lin(y, lp["mlp"]["up_proj"])
-        ff = _lin(F.gelu(gate, approximate="tanh") * up, lp["mlp"]["down_proj"])
+        ff = _row(F.gelu(gate, approximate="tanh") * up, lp["mlp"]["down_proj"], c)
         x = x + _rms(ff, lp["post_feedforward_layernorm"]["weight"], c.rms_norm_eps)
     x = _rms(x, p["language_model"]["norm"]["weight"], c.rms_norm_eps)
     return x, (tuple(new_k), tuple(new_v))
@@ -298,11 +385,11 @@ def _layer_stack_qwen2(p, c, x: torch.Tensor, positions: torch.Tensor, kv_write,
         new_k.append(kc)
         new_v.append(vc)
         att = attend(i, q, kc, vc)
-        x = x + _lin(att.reshape(b, s, -1), lp["self_attn"]["o_proj"])
+        x = x + _row(att.reshape(b, s, -1), lp["self_attn"]["o_proj"], c)
         y = _rms_plain(x, lp["post_attention_layernorm"]["weight"], c.rms_norm_eps)
         gate = _lin(y, lp["mlp"]["gate_proj"])
         up = _lin(y, lp["mlp"]["up_proj"])
-        x = x + _lin(F.silu(gate) * up, lp["mlp"]["down_proj"])
+        x = x + _row(F.silu(gate) * up, lp["mlp"]["down_proj"], c)
     if interleave is not None and c.num_hidden_layers in interleave:
         x = interleave[c.num_hidden_layers](x)
     x = _rms_plain(x, p["language_model"]["norm"]["weight"], c.rms_norm_eps)
@@ -338,8 +425,10 @@ class GemmaDecodeEngine:
     device (``ops/quant.quantize_lm_params``), ``"int4"`` the kernels
     group-wise int4 and the embed table int8 (``quantize_lm_params_int4``); a
     tree that is already quantized is used as it is, its format read from its
-    leaves (engine.py:360-393). ``mesh`` (tensor parallelism) is not ported:
-    it raises, in every format."""
+    leaves (engine.py:360-393). ``mesh`` (``parallel.get_mesh`` with
+    ``data`` and ``model`` axes) runs the engine tensor- and data-parallel
+    (see the module docstring) in native and int8 weights; int4 with a mesh
+    is a ``ValueError``, as in JAX (engine.py:387-393)."""
 
     cfg: Any
     params: Any
@@ -357,10 +446,8 @@ class GemmaDecodeEngine:
         if self.weight_dtype not in ("native", "int8", "int4"):
             raise ValueError(f"weight_dtype must be 'native', 'int8' or 'int4', "
                              f"got {self.weight_dtype!r}")
-        if self.mesh is not None:
-            raise NotImplementedError("tensor-parallel meshes (the mesh= path of "
-                                      "generation/engine.py) are not ported yet")
         self.device = resolve_device(self.device)
+        self.model_cfg = self.cfg
         keep = {"embed": self.params["embed"], "language_model": self.params["language_model"]}
         emb = keep["embed"]["embed_tokens"]
         if is_quantized(emb) or is_quantized_int4(emb):
@@ -374,6 +461,13 @@ class GemmaDecodeEngine:
                 params = quantize_lm_params(params)
             elif self.weight_dtype == "int4":
                 params = quantize_lm_params_int4(params)
+        if self.mesh is not None:
+            if self.weight_dtype == "int4":
+                # group packing does not split on arbitrary K boundaries
+                raise ValueError("weight_dtype='int4' does not support TP meshes; use 'int8' "
+                                 "or 'native' when sharding")
+            self.mesh.check(torch.empty(0, device=self.device))
+            params, self.cfg = tp_engine_params(params, self.cfg, self.mesh)
         self.params = params
 
     # -- layer math ----------------------------------------------------------
@@ -433,6 +527,20 @@ class GemmaDecodeEngine:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    def _data_rows(self, prompts: Sequence[Sequence[int]], pad_id: int) -> List[Sequence[int]]:
+        """This data rank's prompts: the batch padded with one-token pad
+        prompts to a multiple of the ``data`` size (engine.py:577-583), then
+        the rank's share; every prompt without a mesh."""
+        if self.mesh is None:
+            return list(prompts)
+        rows = list(prompts) + [[pad_id]] * ((-len(prompts)) % self.mesh.size("data"))
+        lo, hi = batch_sharding(self.mesh).bounds(len(rows))
+        return rows[lo:hi]
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of ``t``, in order (``t`` itself without a mesh)."""
+        return batch_sharding(self.mesh).gather(t) if self.mesh is not None else t
+
     # -- generation ----------------------------------------------------------
 
     @torch.inference_mode()
@@ -441,12 +549,14 @@ class GemmaDecodeEngine:
         """Prefill only: float32 next-token logits per prompt ``[B, V]``."""
         s = max(max(len(pr) for pr in prompts), 1)
         s = ((s + bucket - 1) // bucket) * bucket
-        ids, mask = (self._tensor(a) for a in left_pad(prompts, s, pad_id))
-        kc, vc = self._caches(len(prompts), s)
+        rows = self._data_rows(prompts, pad_id)
+        ids, mask = (self._tensor(a) for a in left_pad(rows, s, pad_id))
+        kc, vc = self._caches(len(rows), s)
         positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
         hidden, _ = self._chunk(self.params, self._embed(self.params, ids), positions,
                                 kc, vc, 0, mask.bool())
-        return self._logits(self.params, hidden[:, -1]).cpu().numpy()
+        logits = self._gather_rows(self._logits(self.params, hidden[:, -1]))
+        return logits[: len(prompts)].cpu().numpy()
 
     @torch.inference_mode()
     def generate(self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 64,
@@ -460,22 +570,26 @@ class GemmaDecodeEngine:
         p = self.params
         s = max(max(len(pr) for pr in prompts), 1)
         s = ((s + bucket - 1) // bucket) * bucket
-        b = len(prompts)
-        ids, mask = (self._tensor(a) for a in left_pad(prompts, s, pad_id))
+        rows = self._data_rows(prompts, pad_id)
+        b = len(rows)
+        ids, mask = (self._tensor(a) for a in left_pad(rows, s, pad_id))
         kc, vc = self._caches(b, s + max_new_tokens)
         positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
         kv_valid = torch.cat([mask.bool(), torch.ones((b, max_new_tokens), dtype=torch.bool,
                                                        device=self.device)], dim=1)
         hidden, _ = self._chunk(p, self._embed(p, ids), positions, kc, vc, 0, kv_valid)
-        return self._decode(hidden[:, -1], positions[:, -1], kc, vc, s, kv_valid,
-                            max_new_tokens, temperature, eos_id, pad_id, seed, top_p, top_k)
+        out = self._decode(hidden[:, -1], positions[:, -1], kc, vc, s, kv_valid,
+                           max_new_tokens, temperature, eos_id, pad_id, seed, top_p, top_k,
+                           gather=True)
+        return out[: len(prompts)]
 
     def _decode(self, last_hidden, last_pos, kc, vc, s: int, kv_valid, max_new_tokens: int,
                 temperature: float, eos_id: int, pad_id: int, seed: int, top_p: float,
-                top_k: int, interleave=None) -> List[List[int]]:
+                top_k: int, interleave=None, gather: bool = False) -> List[List[int]]:
         """Sample from the prefill's last hidden state, then decode one token
         a step into caches ``[B, s + max_new_tokens]`` at rows ``s``...,
-        every step through ``interleave``'s hooks; rows cut at ``eos_id``."""
+        every step through ``interleave``'s hooks; rows cut at ``eos_id``.
+        ``gather`` returns every data rank's rows, in order."""
         p = self.params
         b = last_hidden.shape[0]
         vec = lambda v, dt: torch.full((b,), v, dtype=dt, device=self.device)  # noqa: E731
@@ -506,9 +620,11 @@ class GemmaDecodeEngine:
             done = done | (nxt == eos_id)
             out.append(nxt)
             tok = nxt
-        rows = torch.stack(out, dim=1).cpu().numpy()
+        rows = torch.stack(out, dim=1)
+        rows = (self._gather_rows(rows) if gather else rows).cpu().numpy()
         if gaps:
-            self.top2_gaps = torch.stack(gaps, dim=1).cpu().numpy()
+            g = torch.stack(gaps, dim=1)
+            self.top2_gaps = (self._gather_rows(g) if gather else g).cpu().numpy()
         results: List[List[int]] = []
         for row in rows:
             toks = row.tolist()

@@ -404,11 +404,12 @@ class PagedContinuousBatcher(ContinuousBatcher):
     def _one_step(self, p):
         """One decode token per slot with paged K/V writes and paged attention
         (paged.py:648-728)."""
-        b, page = self.B, self.page
-        bt = self._bt
-        active = self._remaining > 0
-        rows = torch.arange(b, device=self.device)
-        length = self._len
+        page, sl = self.page, self._sl
+        bt = self._bt[sl]
+        active_all = self._remaining > 0
+        active = active_all[sl]
+        rows = torch.arange(bt.shape[0], device=self.device)
+        length = self._len[sl]
         blk = bt[rows, torch.clamp(length // page, max=self.NB - 1)]
         blk = torch.where(active, blk, torch.zeros_like(blk))   # write-off page
         off = length % page
@@ -440,7 +441,7 @@ class PagedContinuousBatcher(ContinuousBatcher):
                                        window=self._layer_window(i))
 
         out = self._decode_step(p, kv_write, attend)
-        self._len = length + active.long()
+        self._len = self._len + active_all.long()
         return out
 
     def _chunk_rows(self, rem: int) -> int:

@@ -30,6 +30,22 @@ The dense per-slot caches ``[B, max_seq_len, Hkv, D]`` are made by
 paged batcher never allocates them. The loop thread enters
 ``torch.inference_mode`` itself (it is thread-local), so no decode step keeps
 an autograd graph alive.
+
+Over an engine's mesh (scheduler.py:178-231) every rank runs the same host
+scheduler: the same submits, admissions, page grants and preemptions. A
+prefill (one prompt) runs on every data rank, tensor-parallel over
+``model``. When the ``data`` size divides ``batch_slots``, each data rank
+decodes its own slots (``_sl``) and a step ends with every rank holding the
+same next tokens (an all-gather), so the schedulers stay in lockstep; the
+sampler's noise is a pure function of (seed, step), and nothing in a step
+reads a clock. The caches and page pools hold every slot on every data rank
+(each rank writes only its slots' decode rows; a prompt's rows are written
+everywhere at install), so prefix pages and preemption need no traffic; JAX
+shards the dense caches' slots over ``data``, so a rank here holds ``data``
+times its dense-cache memory (ROADMAP §3). A
+multi-rank mesh refuses what would let the ranks drift apart: ``serve()``
+(its admissions follow each rank's own clock), ``admission_timeout`` and
+image requests (the image engines are not sharded).
 """
 
 from __future__ import annotations
@@ -51,6 +67,7 @@ from multimodal_colpali_tpu_torch.generation.engine import (
     LOGPROB_K, GemmaDecodeEngine, _step_logprobs, attn_scale, layer_stack, left_pad,
     sample_per_slot)
 from multimodal_colpali_tpu_torch.models import layers as L
+from multimodal_colpali_tpu_torch.parallel.mesh import batch_sharding
 
 class AdmissionQueueFull(RuntimeError):
     """Raised into a submitted future when the admission queue is at its
@@ -110,6 +127,16 @@ class ContinuousBatcher:
             raise ValueError(f"{type(mm_engine).__name__} is not batcher-compatible; serve its "
                              f"image requests through the engine's own generate")
         self._cross_mode = bool(getattr(mm_engine, "cross_decode", False))
+        self.mesh = getattr(engine, "mesh", None)
+        self._multi_rank = self.mesh is not None and self.mesh.devices.size > 1
+        if self._multi_rank and (mm_engine is not None or admission_timeout > 0):
+            raise ValueError("a multi-rank mesh serves text in lockstep: image requests and "
+                             "admission_timeout are not sharded")
+        self._sl = slice(None)            # the slots this rank decodes
+        if self.mesh is not None:
+            dp = self.mesh.size("data")
+            if dp > 1 and batch_slots % dp == 0:
+                self._sl = slice(*batch_sharding(self.mesh).bounds(batch_slots))
         self.engine = engine
         self.mm_engine = mm_engine
         self.cfg = engine.cfg
@@ -181,6 +208,10 @@ class ContinuousBatcher:
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every slot's rows of a per-slot result of this rank's slots."""
+        return t if self._sl == slice(None) else batch_sharding(self.mesh).gather(t)
 
     # -- prefill ----------------------------------------------------------------
 
@@ -318,24 +349,27 @@ class ContinuousBatcher:
 
     def _decode_step(self, p, kv_write, attend):
         """One decode token for every slot; the caller's ``kv_write`` and
-        ``attend`` decide where K/V live. Returns (token, logprob, top ids,
-        top logprobs) and advances the per-slot state."""
-        eng, c, b = self.engine, self.cfg, self.B
-        x = eng._embed(p, self._tok[:, None])
+        ``attend`` decide where K/V live (for this rank's slots ``_sl``).
+        Returns (token, logprob, top ids, top logprobs) of every slot and
+        advances the per-slot state."""
+        eng, c, sl = self.engine, self.cfg, self._sl
+        x = eng._embed(p, self._tok[sl][:, None])
+        b = x.shape[0]
         active = self._remaining > 0
-        xx, _ = layer_stack(p, c, x, self._pos[:, None], kv_write, attend,
+        xx, _ = layer_stack(p, c, x, self._pos[sl][:, None], kv_write, attend,
                             interleave=self._cross_hooks())
         logits = eng._logits(p, xx[:, 0])
         with_filter, with_logprobs = self._flags
-        nxt = sample_per_slot(logits, self._seed, self._gen_step, self._temp, self._top_p,
-                              self._top_k, use_filter=with_filter)
-        nxt = torch.where(active, nxt, torch.full_like(nxt, self.pad_id))
+        nxt = sample_per_slot(logits, self._seed[sl], self._gen_step[sl], self._temp[sl],
+                              self._top_p[sl], self._top_k[sl], use_filter=with_filter)
+        nxt = torch.where(active[sl], nxt, torch.full_like(nxt, self.pad_id))
         if with_logprobs:
             lp, tid, tlp = _step_logprobs(logits, nxt)
         else:
             lp = torch.zeros(b, dtype=torch.float32, device=self.device)
             tid = torch.zeros((b, 1), dtype=torch.int32, device=self.device)
             tlp = torch.zeros((b, 1), dtype=torch.float32, device=self.device)
+        nxt, lp, tid, tlp = (self._gather(t) for t in (nxt, lp, tid, tlp))
         self._advance(active, nxt)
         return nxt, lp, tid, tlp
 
@@ -351,10 +385,10 @@ class ContinuousBatcher:
 
     def _dense_step(self, p):
         """``_decode_step`` over the dense per-slot caches (scheduler.py:328-409)."""
-        c, b, t = self.cfg, self.B, self.T
-        rows = torch.arange(b, device=self.device)
+        c, b, t, sl = self.cfg, self.B, self.T, self._sl
+        rows = torch.arange(b, device=self.device)[sl]
         cols = torch.arange(t, device=self.device)
-        start, end = self._start, self._end
+        start, end = self._start[sl], self._end[sl]
         mask = ((cols[None, :] >= start[:, None]) & (cols[None, :] <= end[:, None]))[:, None,
                                                                                     None, :]
         types = c.layer_types_resolved if getattr(c, "is_gemma3", False) else None
@@ -369,7 +403,7 @@ class ContinuousBatcher:
 
         def attend(i, q, kc, vc):
             m = sl_mask if types is not None and types[i] == "sliding_attention" else mask
-            return L.attention(q, kc, vc, mask=m, scale=sc)
+            return L.attention(q, kc[sl], vc[sl], mask=m, scale=sc)
 
         return self._decode_step(p, kv_write, attend)
 
@@ -717,6 +751,10 @@ class ContinuousBatcher:
     # -- background serving ------------------------------------------------------
 
     def serve(self) -> "ContinuousBatcher":
+        if self._multi_rank:
+            raise RuntimeError("serve() admits by each rank's own clock; a multi-rank mesh "
+                               "needs a front end that broadcasts admissions (see ROADMAP.md) "
+                               "and drives the batcher with submit() and drain()")
         self._serving = True
 
         def loop():

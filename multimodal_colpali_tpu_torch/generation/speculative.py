@@ -36,7 +36,11 @@ queries with the block table repeated and per-row lengths ``length + i + 1``.
 A cross-decode engine's (Mllama's) blocks run in the verify forward over the
 slots' cross pools (speculative.py:378-416): every verify row is a generated
 token, so it attends all of its slot's cross rows, as a decode step does.
-Tensor-parallel meshes are not ported.
+Over an engine's mesh both batchers verify tensor-parallel, and each data
+rank verifies its own slots (the parent's ``_sl``); the emitted windows and
+accepted counts are all-gathered before the host state moves
+(speculative.py:360-372). ``speculative_generate`` over a mesh engine runs
+every row on every data rank.
 """
 
 from __future__ import annotations
@@ -236,17 +240,18 @@ class _SpecHostMixin:
     def _verify_step(self, p, with_filter: bool, sampled: bool):
         """One verify forward for every slot -> (emit, can ``[B, k]``, active
         ``[B]``); advances the per-slot state by each slot's accepted count."""
-        eng, c, b, k = self.engine, self.cfg, self.B, self.spec_k
+        eng, c, k, sl = self.engine, self.cfg, self.spec_k, self._sl
         dev = self.device
         active = self._remaining > 0
-        drafts = _draft(self._toks_dev, torch.zeros_like(self._nlen),
-                        torch.clamp(self._nlen, min=self.spec_ngram), k, self.spec_ngram,
+        drafts = _draft(self._toks_dev[sl], torch.zeros_like(self._nlen[sl]),
+                        torch.clamp(self._nlen[sl], min=self.spec_ngram), k, self.spec_ngram,
                         self.pad_id)
-        fed = torch.cat([self._tok.long()[:, None], drafts[:, : k - 1]], dim=1)
+        fed = torch.cat([self._tok[sl].long()[:, None], drafts[:, : k - 1]], dim=1)
+        b = fed.shape[0]
         ii = torch.arange(k, device=dev)[None]
         kv_write, attend = self._verify_kv(active)
-        xx, _ = layer_stack(p, c, eng._embed(p, fed), self._pos[:, None] + ii, kv_write, attend,
-                            interleave=self._cross_hooks())
+        xx, _ = layer_stack(p, c, eng._embed(p, fed), self._pos[sl][:, None] + ii, kv_write,
+                            attend, interleave=self._cross_hooks())
         logits = eng._logits(p, xx.reshape(b * k, -1)).reshape(b, k, -1)
         greedy = torch.argmax(logits, dim=-1)
         j = _accepted(drafts, greedy, k)
@@ -254,12 +259,13 @@ class _SpecHostMixin:
         if sampled:
             # sampled slots: no drafts, the first position's token sampled at
             # the slot's own step, as the plain batcher samples it
-            j = torch.where(self._temp > 0, torch.zeros_like(j), j)
-            corr_t = sample_per_slot(logits[:, 0], self._seed, self._gen_step, self._temp,
-                                     self._top_p, self._top_k, use_filter=with_filter).long()
-            correction = torch.where(self._temp > 0, corr_t,
-                                     torch.gather(greedy, 1, j[:, None])[:, 0])
-        emit = _emit(greedy, j, correction, k, self.pad_id)
+            temp = self._temp[sl]
+            j = torch.where(temp > 0, torch.zeros_like(j), j)
+            corr_t = sample_per_slot(logits[:, 0], self._seed[sl], self._gen_step[sl], temp,
+                                     self._top_p[sl], self._top_k[sl],
+                                     use_filter=with_filter).long()
+            correction = torch.where(temp > 0, corr_t, torch.gather(greedy, 1, j[:, None])[:, 0])
+        emit, j = self._gather(_emit(greedy, j, correction, k, self.pad_id)), self._gather(j)
         can = (ii <= j[:, None]) & active[:, None] & (ii < self._remaining[:, None])
         is_eos, clear = _before_eos(emit, self._eos[:, None])
         can = can & clear
@@ -324,17 +330,17 @@ class SpeculativeContinuousBatcher(_SpecHostMixin, ContinuousBatcher):
     tokens a slot and advances each slot by its own accepted count."""
 
     def _verify_kv(self, active):
-        c, t, k = self.cfg, self.T, self.spec_k
+        c, t, k, sl = self.cfg, self.T, self.spec_k, self._sl
         dev = self.device
-        rows = torch.arange(self.B, device=dev)[:, None]
-        wcols = self._end[:, None] + torch.arange(k, device=dev)[None]
+        rows = torch.arange(self.B, device=dev)[sl][:, None]
+        wcols = self._end[sl][:, None] + torch.arange(k, device=dev)[None]
         safe = torch.clamp(wcols, 0, t - 1)
         cols = torch.arange(t, device=dev)
-        base = ((cols[None, None, :] >= self._start[:, None, None])
+        base = ((cols[None, None, :] >= self._start[sl][:, None, None])
                 & (cols[None, None, :] <= wcols[:, :, None]))[:, None]     # [B, 1, k, T]
         types = c.layer_types_resolved if getattr(c, "is_gemma3", False) else None
         if types is not None:
-            sl = base & (cols[None, None, None, :] > (wcols[:, :, None] - c.sliding_window)
+            sw = base & (cols[None, None, None, :] > (wcols[:, :, None] - c.sliding_window)
                          [:, None])
         sc = attn_scale(c)
 
@@ -344,8 +350,8 @@ class SpeculativeContinuousBatcher(_SpecHostMixin, ContinuousBatcher):
             return self._kc[i], self._vc[i]
 
         def attend(i, q, kc, vc):
-            m = sl if types is not None and types[i] == "sliding_attention" else base
-            return L.attention(q, kc, vc, mask=m, scale=sc)
+            m = sw if types is not None and types[i] == "sliding_attention" else base
+            return L.attention(q, kc[sl], vc[sl], mask=m, scale=sc)
 
         return kv_write, attend
 
@@ -378,16 +384,18 @@ class SpeculativePagedContinuousBatcher(_SpecHostMixin, PagedContinuousBatcher):
         return min(self.chunk * self.spec_k, rem) + self.spec_k - 1
 
     def _verify_kv(self, active):
-        b, k, page, nb = self.B, self.spec_k, self.page, self.NB
+        k, page, nb, sl = self.spec_k, self.page, self.NB, self._sl
         dev = self.device
-        bt = self._bt
+        bt = self._bt[sl]
+        b = bt.shape[0]
+        active, length = active[sl], self._len[sl]
         ii = torch.arange(k, device=dev)[None]
-        wtok = self._len[:, None] + ii                  # logical row of verify token i
+        wtok = length[:, None] + ii                     # logical row of verify token i
         blk = bt[torch.arange(b, device=dev)[:, None], torch.clamp(wtok // page, 0, nb - 1)]
         blk = torch.where(active[:, None], blk, torch.zeros_like(blk))   # write-off page
         off = wtok % page
         # query i attends the slot's rows up to its own
-        att_len = torch.where(active[:, None], wtok + 1, self._len[:, None]).to(torch.int32)
+        att_len = torch.where(active[:, None], wtok + 1, length[:, None]).to(torch.int32)
         btf = bt.repeat_interleave(k, dim=0)            # [B * k, NB]
         alf = att_len.reshape(-1)
         sc = attn_scale(self.cfg)

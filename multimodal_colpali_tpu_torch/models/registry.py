@@ -57,6 +57,7 @@ from multimodal_colpali_tpu_torch.models.processing_qwen2vl import ColQwen2Proce
 from multimodal_colpali_tpu_torch.models.siglip import SiglipVisionTower
 from multimodal_colpali_tpu_torch.ops.preprocess import normalize_images
 from multimodal_colpali_tpu_torch.ops.quant import quantize_encoder_params, quantize_lm_leaf
+from multimodal_colpali_tpu_torch.parallel.mesh import Sharding, batch_sharding
 
 RETRIEVER_CONFIGS: Dict[str, Callable[[], ModelConfig]] = {
     "vidore/colpali-v1.2": ColPaliModelConfig.colpali_v1_3,
@@ -149,7 +150,15 @@ class Retriever:
     ``quantize="int8"`` makes every dense projection of the model W8A8
     (``ops/quant.quantize_encoder_params``, in place, from the weights in
     the model's dtype on its device, as registry.py:80-93 quantizes after
-    the cast); any other mode raises ``ValueError``."""
+    the cast); any other mode raises ``ValueError``.
+
+    ``mesh`` (``parallel.get_mesh``, a ``data`` axis) makes embedding
+    data-parallel (registry.py:46-169): every rank holds the same weights
+    (each builds them from the same checkpoint or seed), a batch is padded to
+    a multiple of the ``data`` size with copies of its last item, each rank
+    runs the forward on its share of the rows (``position_ids``' batch axis
+    is its second), and the outputs are all-gathered, so every rank returns
+    every embedding, in order. ``device`` must be the mesh's."""
 
     name: str
     model: torch.nn.Module
@@ -159,6 +168,7 @@ class Retriever:
     device_preprocess: bool = False
     family: str = "colpali"
     quantize: Optional[str] = None
+    mesh: Any = None
 
     def __post_init__(self):
         if self.device_preprocess and "device_preprocess" not in inspect.signature(
@@ -173,6 +183,14 @@ class Retriever:
             if self.quantize != "int8":
                 raise ValueError(f"unknown quantize mode {self.quantize!r}; only 'int8'")
             quantize_encoder_params(self.model)
+        if self.mesh is not None:
+            self.mesh.check(torch.empty(0, device=self.device))
+
+    def _pad_batch(self, items: List[Any]) -> List[Any]:
+        """``items`` padded with copies of the last to a multiple of the
+        ``data`` size (registry.py:163-170)."""
+        dp = self.mesh.size("data") if self.mesh is not None else 1
+        return items + items[-1:] * ((-len(items)) % dp)
 
     def _pixels(self, pv: Any) -> torch.Tensor:
         """Pixels (host arrays or device tensors) -> the model's pixel input
@@ -188,10 +206,18 @@ class Retriever:
         return x.to(torch.float32).to(self.dtype)
 
     @torch.inference_mode()
-    def _embed(self, batch: Dict[str, Any], with_image: bool) -> List[np.ndarray]:
-        ids = torch.from_numpy(batch["input_ids"]).to(self.device, torch.long)
+    def _embed(self, batch: Dict[str, Any], with_image: bool, n: Optional[int] = None
+               ) -> List[np.ndarray]:
+        """The first ``n`` rows' embeddings (all rows by default); on a mesh
+        this rank embeds its share of the rows and gathers the rest."""
         mask_np = batch["attention_mask"]
-        mask = torch.from_numpy(mask_np).to(self.device)
+        n = mask_np.shape[0] if n is None else n
+        if self.mesh is not None:
+            batch = {k: v if k == "grid" else Sharding(
+                self.mesh, "data", 1 if k == "position_ids" else 0).local(v)
+                for k, v in batch.items()}
+        ids = torch.from_numpy(batch["input_ids"]).to(self.device, torch.long)
+        mask = torch.from_numpy(batch["attention_mask"]).to(self.device)
         pix = self._pixels(batch["pixel_values"]) if with_image else None
         if self.family == "colqwen2":
             pos = torch.from_numpy(batch["position_ids"]).to(self.device)
@@ -200,8 +226,10 @@ class Retriever:
             out = self.model(ids, mask, pix, tiles=batch["grid"])
         else:
             out = self.model(ids, mask, pix)
+        if self.mesh is not None:
+            out = batch_sharding(self.mesh, "data").gather(out)
         emb = out.float().cpu().numpy()
-        return [emb[i][mask_np[i] == 1] for i in range(emb.shape[0])]
+        return [emb[i][mask_np[i] == 1] for i in range(n)]
 
     def embed_images(self, images: Sequence[Any], batch_size: int = 32) -> List[np.ndarray]:
         """Page images -> list of ``[n_tokens, dim]`` float32 arrays, in the
@@ -211,26 +239,29 @@ class Retriever:
             for grid, idxs in self.processor.group_by_grid(images):
                 for start in range(0, len(idxs), batch_size):
                     sel = idxs[start: start + batch_size]
-                    batch = self.processor.process_images([images[i] for i in sel], grid=grid,
-                                                          device=self.device)
-                    for i, emb in zip(sel, self._embed(batch, with_image=True)):
+                    batch = self.processor.process_images(
+                        self._pad_batch([images[i] for i in sel]), grid=grid,
+                        device=self.device)
+                    for i, emb in zip(sel, self._embed(batch, with_image=True, n=len(sel))):
                         grouped[i] = emb
             return grouped
         out: List[np.ndarray] = []
         for start in range(0, len(images), batch_size):
             chunk = list(images[start: start + batch_size])
-            batch = (self.processor.process_images(chunk, device_preprocess=True,
+            padded = self._pad_batch(chunk)
+            batch = (self.processor.process_images(padded, device_preprocess=True,
                                                    device=self.device)
                      if self.device_preprocess
-                     else self.processor.process_images(chunk, device=self.device))
-            out += self._embed(batch, with_image=True)
+                     else self.processor.process_images(padded, device=self.device))
+            out += self._embed(batch, with_image=True, n=len(chunk))
         return out
 
     def embed_queries(self, queries: Sequence[str], batch_size: int = 64) -> List[np.ndarray]:
         out: List[np.ndarray] = []
         for start in range(0, len(queries), batch_size):
-            batch = self.processor.process_queries(list(queries[start: start + batch_size]))
-            out += self._embed(batch, with_image=False)
+            chunk = list(queries[start: start + batch_size])
+            batch = self.processor.process_queries(self._pad_batch(chunk))
+            out += self._embed(batch, with_image=False, n=len(chunk))
         return out
 
 
@@ -307,6 +338,7 @@ def load_retriever(
     device_preprocess: Optional[bool] = None,
     dynamic_resolution: bool = False,
     checkpoint_dir: Optional[str] = None,
+    mesh: Any = None,
 ) -> Retriever:
     """Load a late-interaction retriever by name (reference surface).
 
@@ -325,7 +357,8 @@ def load_retriever(
     :class:`Retriever`). ``dynamic_resolution=True`` gives colqwen2 its
     smart-resize grids, colidefics3 SmolVLM's image splitting and colgranite
     LLaVA-Next's anyres tiles; ColPali and ColFlor have one layout and
-    ignore it, as in JAX."""
+    ignore it, as in JAX. ``mesh`` makes embedding data-parallel over its
+    ``data`` axis (see :class:`Retriever`)."""
     if name not in RETRIEVER_CONFIGS:
         raise KeyError(f"unknown retriever {name!r}; known: {sorted(RETRIEVER_CONFIGS)}")
     if quantize is None:
@@ -356,7 +389,8 @@ def load_retriever(
                       f"set COLPALI_TPU_CKPT_DIR to load real weights)", stacklevel=2)
         init_random_params_(model, seed, family)
     return Retriever(name=name, model=model, processor=processor, device=device, dtype=dtype,
-                     device_preprocess=bool(device_preprocess), family=family, quantize=quantize)
+                     device_preprocess=bool(device_preprocess), family=family, quantize=quantize,
+                     mesh=mesh)
 
 
 # -- Gemma-3 generator LMs (not retrievers) -----------------------------------

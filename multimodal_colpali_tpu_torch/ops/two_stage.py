@@ -14,8 +14,8 @@ in float32 with a float32 query (not through K1, which would round the query
 to bf16 for a bf16 corpus). Candidate selection keeps ``lax.top_k``'s tie
 rule, the lower index first, through a stable sort.
 
-The sharded variant (``sharded_two_stage_maxsim_topk``) waits for the
-multi-rank port (the JAX package's ``parallel/mesh`` and ``store/distributed``).
+``sharded_two_stage_maxsim_topk`` runs both stages over a page-sharded
+corpus and returns what the single-device function returns on the whole one.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ from typing import Optional, Tuple
 import torch
 
 from multimodal_colpali_tpu_torch.ops.maxsim import MASK_VALUE, quantize_corpus_int8
-from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
+from multimodal_colpali_tpu_torch.ops.topk import (
+    _merge_candidates, rescore_owned, row_dots, topk_with_stable_ties)
+from multimodal_colpali_tpu_torch.parallel.mesh import Mesh, all_gather
 
 
 def _valid(lens: torch.Tensor, n: int) -> torch.Tensor:
@@ -75,22 +77,24 @@ def _coarse_scores(q: torch.Tensor, q_len: int, pooled: torch.Tensor,
     qf = q.float()
     qmask = (torch.arange(nq, device=q.device) < q_len).float()
     qsum = (qf * qmask[:, None]).sum(dim=0).to(pooled.dtype).float()
+    # on the CPU a page's score must not depend on its place (ops/topk.row_dots)
+    coarse = row_dots(pooled, qsum) if pooled.device.type == "cpu" else pooled.float() @ qsum
     if pooled.dim() == 3:
-        coarse = (pooled.float() @ qsum).amax(dim=-1)
-    else:
-        coarse = pooled.float() @ qsum
+        coarse = coarse.amax(dim=-1)
     return torch.where(d_lens > 0, coarse, torch.full_like(coarse, MASK_VALUE)), qf, qmask
 
 
 def _rescore(qf: torch.Tensor, qmask: torch.Tensor, pages: torch.Tensor,
              lens: torch.Tensor, scales: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Exact MaxSim of ``pages [C, NT, DIM]`` in float32 -> ``[C]``."""
+    """Exact MaxSim of ``pages [C, NT, DIM]`` in float32 -> ``[C]``; each
+    page's maxima are summed along its row (a matrix-vector product on the
+    CPU rounds a row by its place, ``ops/topk.row_dots``)."""
     sim = torch.einsum("qd,ctd->cqt", qf, pages.float())
     if scales is not None:
         sim = sim * scales.float()[:, None, :]
     tok_valid = _valid(lens, pages.shape[1])[:, None, :]
     sim = sim.masked_fill(~tok_valid, MASK_VALUE)
-    return sim.amax(dim=-1) @ qmask
+    return (sim.amax(dim=-1) * qmask).sum(dim=-1)
 
 
 def _exact_rescore(qf: torch.Tensor, qmask: torch.Tensor, cand: torch.Tensor,
@@ -115,6 +119,39 @@ def two_stage_maxsim_topk(q: torch.Tensor, q_len: int, pooled: torch.Tensor,
     coarse, qf, qmask = _coarse_scores(q, q_len, pooled, d_lens)
     cand = _top_indices(coarse, n_candidates)
     exact = _exact_rescore(qf, qmask, cand, d_int8, d_scale, d_lens, d_full)
+    vals, order = topk_with_stable_ties(exact[None, :], k)
+    return vals[0], cand[order[0].long()]
+
+
+def sharded_two_stage_maxsim_topk(mesh: Mesh, axis: str, q: torch.Tensor, q_len: int,
+                                  pooled: torch.Tensor, d_int8: torch.Tensor,
+                                  d_scale: torch.Tensor, d_lens: torch.Tensor, k: int = 5,
+                                  n_candidates: int = 32, d_full: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-stage MaxSim over a page-sharded corpus (two_stage.py:163-230):
+    ``pooled``, ``d_int8``, ``d_scale``, ``d_lens`` (and ``d_full``) are this
+    rank's pages, ``q [NQ, DIM]`` is replicated. Equals
+    :func:`two_stage_maxsim_topk` on the unsharded corpus, on every rank.
+
+    Each rank takes its local top ``min(C, p_local)`` coarse pages, the
+    candidates of every rank are all-gathered and ordered by id, then by
+    score (``lax.top_k``'s tie rule over the whole coarse vector), and the
+    global top ``min(C, p_total)`` are rescored by the rank that owns each
+    (``ops/topk.rescore_owned``). The traffic is O(C) a rank, whatever the
+    corpus size."""
+    n_shards, rank = mesh.size(axis), mesh.index(axis)
+    p_local = pooled.shape[0]
+    c_local = min(n_candidates, p_local)
+    c_global = min(n_candidates, p_local * n_shards)
+    coarse, qf, qmask = _coarse_scores(q, q_len, pooled, d_lens)
+    li = _top_indices(coarse, c_local)
+    lv = coarse[li]
+    start = rank * p_local
+    gv = all_gather(mesh, axis, lv).reshape(-1)     # [S * c_local]
+    gi = all_gather(mesh, axis, li + start).reshape(-1)
+    _, cand = _merge_candidates(gv, gi, c_global)   # [C] global page ids
+    exact = rescore_owned(mesh, axis, cand, start, p_local, lambda local: _exact_rescore(
+        qf, qmask, local, d_int8, d_scale, d_lens, d_full))
     vals, order = topk_with_stable_ties(exact[None, :], k)
     return vals[0], cand[order[0].long()]
 

@@ -31,11 +31,18 @@ class VectorClient:
         ``save()`` and loaded when the client is created). ``None`` keeps
         everything in memory.
       device: where collections keep their corpus and run their search.
+      mesh: optional mesh (``parallel.get_mesh``); collections shard their
+        page or row axis over ``mesh_axis`` and queries take the sharded
+        path. An on_disk collection is made and loaded without it
+        (client.py:34-94).
     """
 
-    def __init__(self, path: Optional[str] = None, device: Any = "cuda"):
+    def __init__(self, path: Optional[str] = None, device: Any = "cuda", mesh: Any = None,
+                 mesh_axis: str = "corpus"):
         self.path = path
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
         self._collections: Dict[str, Store] = {}
         if path:
             os.makedirs(path, exist_ok=True)
@@ -56,7 +63,8 @@ class VectorClient:
             with open(meta_path) as f:
                 kind = json.load(f).get("kind", "dense")
             cls = MultiVectorStore if kind == "multivector" else DenseVectorStore
-            self._collections[name] = cls.load(self._coll_dir(name), device=self.device)
+            self._collections[name] = cls.load(self._coll_dir(name), device=self.device,
+                                               mesh=self.mesh, mesh_axis=self.mesh_axis)
 
     def collection_exists(self, collection_name: str) -> bool:
         return collection_name in self._collections
@@ -70,13 +78,15 @@ class VectorClient:
         if vectors_config.multivector_config is None:
             self._collections[collection_name] = DenseVectorStore(
                 name=collection_name, dim=vectors_config.size,
-                distance=vectors_config.distance, device=self.device)
+                distance=vectors_config.distance, device=self.device, mesh=self.mesh,
+                mesh_axis=self.mesh_axis)
             return True
+        on_disk = bool(getattr(vectors_config, "on_disk", False))
         self._collections[collection_name] = MultiVectorStore(
             name=collection_name, dim=vectors_config.size, max_tokens=max_tokens,
             distance=vectors_config.distance, device=self.device,
-            quantized=quantized, prefilter=prefilter,
-            on_disk=bool(getattr(vectors_config, "on_disk", False)),
+            quantized=quantized, prefilter=prefilter, on_disk=on_disk,
+            mesh=None if on_disk else self.mesh, mesh_axis=self.mesh_axis,
         )
         return True
 

@@ -22,8 +22,11 @@ query, then a top-k whose ties go to the lower index, as in the JAX store
   ``vectors.npz`` (compressed) and ``meta.json`` (``kind: "dense"``), so a
   store saved by either package loads in the other.
 
-Sharding the rows over a mesh raises ``NotImplementedError``, as the
-multivector store's does.
+- **Sharded over a mesh** (``mesh=``, ``mesh_axis="corpus"``, dense.py:40-48,
+  :123-131): each rank uploads only its rows, the row count padded to
+  ``lcm(axis size, 8)``; a query is the rank's float32 product and top-k,
+  merged over the axis by ``ops/topk.sharded_topk`` into global ids, the same
+  on every rank.
 """
 
 from __future__ import annotations
@@ -37,16 +40,20 @@ import torch
 
 from multimodal_colpali_tpu_torch._device import resolve_device
 from multimodal_colpali_tpu_torch.ops.quant import bf16_matmul_f32
-from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
+from multimodal_colpali_tpu_torch.ops.topk import row_dots, sharded_topk, topk_with_stable_ties
+from multimodal_colpali_tpu_torch.parallel.mesh import rank_rows, shard_range
 from multimodal_colpali_tpu_torch.store import types as t
 
 _FILTERED = -1e28
-_ROW_MULTIPLE = 8
 
 
 def scores_f32(corpus: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """``corpus [N, D] @ q [D]`` in float32: for a bf16 corpus, bf16 products
-    summed and returned in float32 (``ops/quant.bf16_matmul_f32``)."""
+    summed and returned in float32 (``ops/quant.bf16_matmul_f32`` on the card).
+    On the CPU each row is reduced on its own (``ops/topk.row_dots``), so a
+    row shard ranks exact ties as the whole corpus does."""
+    if corpus.device.type == "cpu":
+        return row_dots(corpus, q.to(corpus.dtype) if corpus.dtype == torch.bfloat16 else q)
     if corpus.dtype == torch.bfloat16:
         return bf16_matmul_f32(q[None], corpus)[0]
     return corpus.float() @ q.float()
@@ -63,16 +70,17 @@ class DenseVectorStore:
         dtype: torch.dtype = torch.bfloat16,
         device: Any = "cuda",
         mesh: Any = None,
+        mesh_axis: str = "corpus",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh sharding is not ported to the PyTorch store yet (see ROADMAP.md: "
-                "the sharded store waits for the multi-rank port)")
         self.name = name
         self.dim = dim
         self.distance = distance
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        if mesh is not None:
+            mesh.check(torch.empty(0, device=self.device))
 
         self._vectors = np.zeros((0, dim), dtype=np.float32)
         self._ids: List[Union[int, str]] = []
@@ -151,13 +159,11 @@ class DenseVectorStore:
         a change."""
         if self._device_cache is not None and not self._dirty:
             return self._device_cache
-        n = self._vectors.shape[0]
-        pad = (-n) % _ROW_MULTIPLE
-        d = torch.from_numpy(self._vectors).to(self.device).to(self.dtype)
-        if pad:
-            d = torch.cat([d, d.new_zeros((pad, self.dim))])
-        mask = torch.zeros(n + pad, dtype=torch.float32)
-        mask[n:] = _FILTERED * 2
+        n = self._vectors.shape[0]     # on a mesh only this rank's rows reach its device
+        self._lo, hi, self._total = shard_range(self.mesh, self.mesh_axis, n)
+        d = rank_rows(self._vectors, self._lo, hi, self.device).to(self.dtype)
+        mask = torch.zeros(hi - self._lo, dtype=torch.float32)
+        mask[max(n - self._lo, 0):] = _FILTERED * 2
         self._device_cache = d
         self._pad_mask = mask.to(self.device)
         self._dirty = False
@@ -171,17 +177,22 @@ class DenseVectorStore:
         if len(self._ids) == 0:
             return t.QueryResponse(points=[])
         d = self._ensure_device()
+        lo = self._lo
         if query_filter is not None:
-            m = np.full(d.shape[0], _FILTERED * 2, np.float32)
+            m = np.full(max(lo + d.shape[0], len(self._payloads)), _FILTERED * 2, np.float32)
             for i, p in enumerate(self._payloads):
                 if query_filter.matches(p):
                     m[i] = 0.0
-            mask = torch.from_numpy(m).to(self.device)
+            mask = torch.from_numpy(m[lo: lo + d.shape[0]]).to(self.device)
         else:
             mask = self._pad_mask   # padded rows must never win
         qd = torch.from_numpy(q).to(self.device).to(self.dtype)
         scores = scores_f32(d, qd) + mask
-        vv, vi = topk_with_stable_ties(scores[None, :], min(limit, d.shape[0]))
+        if self.mesh is not None:
+            vv, vi = sharded_topk(self.mesh, self.mesh_axis, scores[None, :],
+                                  min(limit, self._total))
+        else:
+            vv, vi = topk_with_stable_ties(scores[None, :], min(limit, self._total))
         points = []
         for score, idx in zip(vv[0].cpu().tolist(), vi[0].cpu().tolist()):
             if idx >= len(self._ids) or score < _FILTERED:
@@ -202,11 +213,13 @@ class DenseVectorStore:
             json.dump(meta, f)
 
     @classmethod
-    def load(cls, directory: str, device: Any = "cuda") -> "DenseVectorStore":
+    def load(cls, directory: str, device: Any = "cuda", mesh: Any = None,
+             mesh_axis: str = "corpus") -> "DenseVectorStore":
         with open(os.path.join(directory, "meta.json")) as f:
             meta = json.load(f)
         store = cls(name=meta["name"], dim=meta["dim"],
-                    distance=t.Distance(meta["distance"]), device=device)
+                    distance=t.Distance(meta["distance"]), device=device, mesh=mesh,
+                    mesh_axis=mesh_axis)
         with np.load(os.path.join(directory, "vectors.npz")) as data:
             store._vectors = data["vectors"]
         store._ids = meta["ids"]

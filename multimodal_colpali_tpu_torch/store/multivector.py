@@ -27,8 +27,18 @@ COSINE multivectors with the MAX_SIM comparator.
   ``meta.json``), so a store saved by either package loads in the other in
   the same mode.
 
-Sharding the page axis over a mesh raises ``NotImplementedError``: the
-multi-rank store (the JAX package's ``store/distributed``) is not ported.
+- **Sharded over a mesh** (``mesh=``, ``mesh_axis="corpus"``,
+  multivector.py:111-146, :258-340): every rank holds the same host copy
+  (each runs the same upserts) and uploads only its pages, the page axis
+  padded to ``lcm(axis size, 8)``; a query returns global page ids, the same
+  on every rank. The exact scan is ``ops/topk.sharded_maxsim_topk``, the
+  pooled prefilter ``ops/two_stage.sharded_two_stage_maxsim_topk``. JAX's
+  int8 prefilter has no sharded function (GSPMD gathers the global scores);
+  here it is shard-local: K4 on each shard, the candidates merged by
+  ``ops/topk.sharded_topk``, each rescored with K1 by the rank that owns it
+  and joined by an all-reduce (max), so its ids equal the single-device
+  store's. ``on_disk`` keeps the originals on the host and refuses a mesh
+  (``ValueError``, as in JAX).
 """
 
 from __future__ import annotations
@@ -46,7 +56,9 @@ import torch
 from multimodal_colpali_tpu_torch.ops import two_stage
 from multimodal_colpali_tpu_torch.ops.maxsim import (
     maxsim_scores, maxsim_scores_int8, quantize_corpus_int8)
-from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
+from multimodal_colpali_tpu_torch.ops.topk import (
+    rescore_owned, sharded_maxsim_topk, sharded_topk, topk_with_stable_ties)
+from multimodal_colpali_tpu_torch.parallel.mesh import rank_rows, shard_range
 from multimodal_colpali_tpu_torch.store import types as t
 
 _FILTERED_SCORE_FLOOR = -1e28  # anything below this is a masked or padded page
@@ -105,12 +117,6 @@ def _pad_pages(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch store yet (see ROADMAP.md: the "
-        f"sharded store waits for the multi-rank port)")
-
-
 class MultiVectorStore:
     """One named collection of multi-vector points with MaxSim search."""
 
@@ -127,12 +133,16 @@ class MultiVectorStore:
         pooled_centroids: int = 1,
         on_disk: bool = False,
         mesh: Any = None,
+        mesh_axis: str = "corpus",
     ):
         """``prefilter`` picks the quantized first stage ("int8" or
         "pooled"); ``on_disk`` implies ``quantized`` and ``prefilter="pooled"``,
-        as in the JAX store (multivector.py:138-139)."""
-        if mesh is not None:
-            raise _not_ported("mesh sharding")
+        as in the JAX store (multivector.py:138-139). ``mesh`` shards the
+        page axis over ``mesh_axis`` (``parallel.get_mesh``); ``device`` must
+        be the mesh's."""
+        if on_disk and mesh is not None:
+            raise ValueError("on_disk and mesh corpus sharding are mutually exclusive (shard "
+                             "the host tier instead)")
         if prefilter not in ("int8", "pooled"):
             raise ValueError(f"prefilter must be 'int8' or 'pooled', got {prefilter!r}")
         self.name = name
@@ -145,6 +155,10 @@ class MultiVectorStore:
         self.prefilter = "pooled" if on_disk else prefilter
         self.pooled_centroids = pooled_centroids
         self.on_disk = on_disk
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        if mesh is not None:
+            mesh.check(torch.empty(0, device=self.device))
 
         self._vectors = np.zeros((0, max_tokens, dim), dtype=np.float32)
         self._lens = np.zeros((0,), dtype=np.int32)
@@ -249,9 +263,11 @@ class MultiVectorStore:
         """The padded corpus and token counts on ``device`` and, for a
         quantized store, its int8 codes and pooled index, all derived from
         the uploaded corpus (multivector.py:296-327)."""
-        if self._device_cache is None:
-            d = _pad_pages(torch.from_numpy(self._vectors).to(self.device, self.dtype))
-            dl = _pad_pages(torch.from_numpy(self._lens).to(self.device))
+        if self._device_cache is None:   # on a mesh only this rank's pages reach its device
+            self._lo, hi, self._total = shard_range(self.mesh, self.mesh_axis, len(self._lens),
+                                                    _PAGE_MULTIPLE)
+            d = rank_rows(self._vectors, self._lo, hi, self.device, self.dtype)
+            dl = rank_rows(self._lens, self._lo, hi, self.device)
             self._device_cache = (d, dl)
             if self.quantized:
                 self._device_cache_int8 = quantize_corpus_int8(d)
@@ -277,12 +293,15 @@ class MultiVectorStore:
         return self._device_cache_pooled, self._device_cache[1]
 
     def _filter_lens(self, dl: torch.Tensor, flt: Optional[t.Filter]) -> torch.Tensor:
+        """Token counts with the pages ``flt`` rejects zeroed (this rank's
+        pages on a mesh)."""
         if flt is None:
             return dl
-        keep = np.zeros(dl.shape[0], dtype=np.int32)
+        lo = self._lo if self.mesh is not None else 0    # on_disk keeps no _lo
+        keep = np.zeros(max(lo + dl.shape[0], len(self._payloads)), dtype=np.int32)
         for i, payload in enumerate(self._payloads):
             keep[i] = flt.matches(payload)
-        return dl * torch.from_numpy(keep).to(dl.device)
+        return dl * torch.from_numpy(keep[lo: lo + dl.shape[0]]).to(dl.device)
 
     # -- search ------------------------------------------------------------
 
@@ -311,6 +330,9 @@ class MultiVectorStore:
         d, dl = self._ensure_device()
         dl_eff = self._filter_lens(dl, query_filter)
         qt = torch.from_numpy(q[None]).to(self.device, self.dtype)
+        if self.mesh is not None:
+            vals, inds = self._query_sharded(q, qt, d, dl_eff, limit, quant, oversampling)
+            return self._response(vals.tolist(), inds.tolist(), limit, with_vectors)
         n_pages = d.shape[0]
         if self.quantized and not (quant and quant.ignore) and self.prefilter == "pooled":
             n_cand = min(max(math.ceil(limit * max(oversampling, 1.0)), limit), n_pages)
@@ -336,6 +358,34 @@ class MultiVectorStore:
             vv, vi = topk_with_stable_ties(scores, min(limit, n_pages))
             vals, inds = vv[0], vi[0]
         return self._response(vals.tolist(), inds.tolist(), limit, with_vectors)
+
+    def _query_sharded(self, q: np.ndarray, qt: torch.Tensor, d: torch.Tensor,
+                       dl_eff: torch.Tensor, limit: int, quant: Any, oversampling: float):
+        """The modes of :meth:`query` over this rank's pages -> (scores, global
+        page ids), the same on every rank (multivector.py:368-425)."""
+        mesh, axis, total = self.mesh, self.mesh_axis, self._total
+        k = min(limit, total)
+        if self.quantized and not (quant and quant.ignore) and self.prefilter == "pooled":
+            n_cand = min(max(math.ceil(limit * max(oversampling, 1.0)), limit), total)
+            dq, ds = self._device_cache_int8
+            return two_stage.sharded_two_stage_maxsim_topk(
+                mesh, axis, torch.from_numpy(q).to(self.device), q.shape[0],
+                self._device_cache_pooled, dq, ds, dl_eff, k=k, n_candidates=n_cand, d_full=d)
+        if self.quantized and not (quant and quant.ignore):
+            n_cand = min(math.ceil(limit * max(oversampling, 1.0)), total)
+            dq, ds = self._device_cache_int8
+            approx = maxsim_scores_int8(torch.from_numpy(q[None]).to(self.device), dq, ds,
+                                        None, dl_eff)
+            cv, ci = sharded_topk(mesh, axis, approx, n_cand)   # K4 on each shard, merged
+            cand = ci[0].long()
+            if quant is not None and not quant.rescore:
+                return cv[0][:limit], cand[:limit]
+            exact = rescore_owned(mesh, axis, cand, self._lo, d.shape[0], lambda local:
+                                  maxsim_scores(qt, d[local], None, dl_eff[local]))  # K1
+            vv, vi = topk_with_stable_ties(exact, min(limit, n_cand))
+            return vv[0], cand[vi[0].long()]
+        vv, vi = sharded_maxsim_topk(mesh, axis, qt, d, dl_eff, k)
+        return vv[0], vi[0]
 
     def _response(self, vals: List[float], inds: List[int], limit: int,
                   with_vectors: bool) -> t.QueryResponse:
@@ -424,7 +474,10 @@ class MultiVectorStore:
             json.dump(meta, f)
 
     @classmethod
-    def load(cls, directory: str, device: Any = "cpu") -> "MultiVectorStore":
+    def load(cls, directory: str, device: Any = "cpu", mesh: Any = None,
+             mesh_axis: str = "corpus") -> "MultiVectorStore":
+        """A saved collection; ``mesh`` shards it, except an on_disk one
+        (multivector.py:598-611)."""
         with open(os.path.join(directory, "meta.json")) as f:
             meta = json.load(f)
         store = cls(
@@ -434,6 +487,7 @@ class MultiVectorStore:
             pooled_centroids=meta.get("pooled_centroids", 1),
             on_disk=meta.get("on_disk", False),
             dtype=getattr(torch, meta.get("dtype", "bfloat16")), device=device,
+            mesh=None if meta.get("on_disk", False) else mesh, mesh_axis=mesh_axis,
         )
         if store.on_disk:
             # a memory map: host RAM holds only the pages a query touches

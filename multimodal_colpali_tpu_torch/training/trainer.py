@@ -22,9 +22,10 @@ float32 (``fast_random_params`` gives float32 leaves and it never casts),
 and on the card SigLIP's attention is K2 with its backward kernel, which
 take float32 only (``ops/attention.fused_attention``).
 
-A mesh (DP x TP, trainer.py:88-101) raises ``NotImplementedError``:
-``parallel/mesh`` comes to the port with the scale-out slice (ROADMAP.md
-queue 1, item 8).
+A mesh (DP x TP, trainer.py:88-101) raises ``NotImplementedError``: the
+data-parallel step must score every rank's queries against all the gathered
+pages (``colbert_loss`` is in-batch), which is the next slice (ROADMAP.md
+queue 1, item 2.4).
 """
 
 from __future__ import annotations
@@ -65,8 +66,8 @@ def colbert_loss(q_emb: torch.Tensor, d_emb: torch.Tensor, q_mask: torch.Tensor,
 def _refuse_mesh(mesh: Any, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            f"{what}(mesh=...): DP x TP training waits for parallel/mesh on "
-            "torch.distributed (ROADMAP.md queue 1, item 8); the port trains on one device")
+            f"{what}(mesh=...): DP x TP training is not ported yet (ROADMAP.md queue 1, "
+            "item 2.4); the port trains on one device")
 
 
 def make_training_setup(model: torch.nn.Module, learning_rate: float = 1e-4,

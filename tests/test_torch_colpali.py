@@ -353,6 +353,7 @@ def test_source_scan_covers_the_client_and_statistics_modules():
     assert {"config.py", "generation/client.py", "utils/health.py", "utils/housekeeping.py",
             "utils/io.py", "utils/userops.py", "evalstats/ci.py", "evalstats/wilcoxon.py",
             "evalstats/summary.py", "drivers/stat_test.py", "drivers/experiment01_eval.py",
+            "parallel/__init__.py", "parallel/mesh.py", "store/distributed.py",
             "drivers/experiment02_eval.py", "drivers/create_context.py",
             *(f"ingest/{m}.py" for m in (
                 "__init__", "annotate", "chunker", "imageops", "ocr", "ocr_conv", "pdf_loader",

@@ -215,8 +215,14 @@ def test_scores_are_float32_sums_of_bf16_products():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.DenseVectorStore("d", dim=DIM, mesh=object(), device="cpu")
+    """The rows shard over a mesh now; a mesh whose backend does not carry
+    the store's device raises (a CPU store on an NCCL mesh)."""
+    from multimodal_colpali_tpu_torch.parallel import Mesh
+
+    nccl = Mesh.__new__(Mesh)
+    nccl.backend = "nccl"
+    with pytest.raises(ValueError, match="cpu tensor on a nccl group"):
+        ts.DenseVectorStore("d", dim=DIM, mesh=nccl, device="cpu")
 
 
 # -- files and the client ---------------------------------------------------------------

@@ -381,21 +381,33 @@ def test_engine_tree_from_a_retrievers_state_dict():
         assert torch.equal(flat_g[k], flat_w[k]), k
 
 
-def test_unported_paths_raise(monkeypatch):
+def test_unported_paths_raise(monkeypatch, tmp_path):
+    """The engines take a mesh now (here a one-rank gloo mesh, the card's
+    world size) and decode as without one; a checkpoint_dir without weights
+    is no checkpoint."""
+    import parallel_worker
+
     cfg = TC.Gemma3TextConfig.tiny(vocab_size=64)
     params = TR.gemma3_random_params(cfg, seed=0, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="generation/engine.py"):
-        TE.GemmaDecodeEngine(cfg, params, device="cpu", mesh=object())
+    prompts = [[5, 9, 17], [3, 4]]
+    with parallel_worker.one_rank_mesh(tmp_path, ("data", "model")) as mesh:
+        eng = TE.GemmaDecodeEngine(cfg, params, device="cpu", mesh=mesh)
+        assert eng.cfg.num_attention_heads == 2 and eng.model_cfg is cfg
+        assert eng.generate(prompts, max_new_tokens=5) == TE.GemmaDecodeEngine(
+            cfg, params, device="cpu").generate(prompts, max_new_tokens=5)
+        for qcfg in (TC.Qwen2TextConfig.tiny(), TC.LlamaTextConfig.tiny_lm()):
+            qparams = TR.qwen2vl_random_params(qcfg, seed=0, dtype=torch.float32, device="cpu")
+            got = TE.Qwen2DecodeEngine(qcfg, qparams, device="cpu", mesh=mesh)
+            assert got.generate(prompts, max_new_tokens=4) == TE.Qwen2DecodeEngine(
+                qcfg, qparams, device="cpu").generate(prompts, max_new_tokens=4)
     # a checkpoint_dir without weights is no checkpoint: random init, as in JAX
     monkeypatch.delenv("COLPALI_TPU_CKPT_DIR", raising=False)
     with pytest.warns(UserWarning, match="random init"):
         TR.load_gemma3_lm("tiny-gemma3", device="cpu", checkpoint_dir="/nonexistent")
 
-    # the Qwen2/Llama body runs now; the engines over it refuse a mesh too
+    # the Qwen2/Llama body runs through layer_stack
     for qcfg in (TC.Qwen2TextConfig.tiny(), TC.LlamaTextConfig.tiny_lm()):
         qparams = TR.qwen2vl_random_params(qcfg, seed=0, dtype=torch.float32, device="cpu")
-        with pytest.raises(NotImplementedError, match="generation/engine.py"):
-            TE.Qwen2DecodeEngine(qcfg, qparams, device="cpu", mesh=object())
         hidden, (ks, vs) = TE.layer_stack(
             qparams, qcfg, torch.randn(1, 3, qcfg.hidden_size), torch.arange(3)[None],
             lambda i, k, v: (k, v), lambda i, q, k, v: q)

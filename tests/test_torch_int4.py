@@ -343,8 +343,9 @@ def test_engine_params_from_jax_carries_an_int4_tree():
 
 
 def test_int4_with_a_mesh_raises():
+    """JAX's refusal (engine.py:387-393): group packing does not split."""
     params = TR.gemma3_random_params(TCFG, seed=0, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="int4.*TP meshes"):
         GemmaDecodeEngine(TCFG, params, device="cpu", weight_dtype="int4", mesh=object())
 
 

@@ -184,25 +184,50 @@ def test_client_delete_selectors():
 
 @pytest.mark.parametrize("kwargs", [dict(quantized=True), dict(prefilter="pooled"),
                                     dict(on_disk=True), {}])
-def test_unported_store_modes_raise(kwargs):
-    """Every mode is ported except page-axis sharding over a mesh, which
-    still raises in each of them (the sharded two-stage search waits for the
-    multi-rank port)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.MultiVectorStore("c", dim=DIM, mesh=object(), **kwargs)
+def test_unported_store_modes_raise(kwargs, tmp_path):
+    """Every mode shards its page axis over a mesh now (here a one-rank gloo
+    mesh, the card's world size) and answers as the mesh-less store does;
+    what raises is JAX's refusal of on_disk with a mesh (multivector.py:
+    140-142)."""
+    import parallel_worker
+
+    with parallel_worker.one_rank_mesh(tmp_path) as mesh:
+        if kwargs.get("on_disk"):
+            with pytest.raises(ValueError, match="mutually exclusive"):
+                ts.MultiVectorStore("c", dim=DIM, mesh=mesh, device="cpu", **kwargs)
+            return
+        got, want = (ts.MultiVectorStore("c", dim=DIM, max_tokens=MAX_TOKENS, mesh=m,
+                                         device="cpu", **kwargs) for m in (mesh, None))
+        for store in (got, want):
+            store.upsert(_points(ts))
+        q = np.random.default_rng(9).standard_normal((3, DIM)).astype(np.float32)
+        a, b = got.query(q, limit=6).points, want.query(q, limit=6).points
+        assert [p.id for p in a] == [p.id for p in b] and len(a) == 6
+        assert [p.score for p in a] == [p.score for p in b]
 
 
-def test_dense_collections_raise():
-    """Dense collections are ported: the client makes one, and what still
-    raises is what raises in JAX's (a vector of another size) or is not
-    ported (sharding over a mesh)."""
+def test_dense_collections_raise(tmp_path):
+    """Dense collections are ported: the client makes one, and what raises is
+    what raises in JAX's (a vector of another size). A client over a mesh
+    (one gloo rank) makes a sharded dense collection that answers as the
+    mesh-less one."""
+    import parallel_worker
+
     client = ts.VectorClient(device="cpu")
     client.create_collection("d", ts.VectorParams(size=DIM))
     assert isinstance(client._get("d"), ts.DenseVectorStore)
     with pytest.raises(ValueError, match="expected dim"):
         client.upsert("d", [ts.PointStruct(id=0, vector=np.zeros(DIM + 1, np.float32))])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.DenseVectorStore("d", dim=DIM, device="cpu", mesh=object())
+    vecs = np.random.default_rng(8).standard_normal((11, DIM)).astype(np.float32)
+    with parallel_worker.one_rank_mesh(tmp_path) as mesh:
+        sharded = ts.VectorClient(device="cpu", mesh=mesh)
+        sharded.create_collection("d", ts.VectorParams(size=DIM))
+        assert sharded._get("d").mesh is mesh
+        for c in (client, sharded):
+            c.upsert("d", [ts.PointStruct(id=i, vector=v) for i, v in enumerate(vecs)])
+        a = sharded.query_points("d", vecs[3], limit=4).points
+        b = client.query_points("d", vecs[3], limit=4).points
+        assert [(p.id, p.score) for p in a] == [(p.id, p.score) for p in b]
 
 
 def test_upsert_rejects_bad_shapes_and_missing_collections():

@@ -584,10 +584,10 @@ def test_adamw_state_from_optax_refuses_a_state_without_adam():
 
 def test_training_refuses_a_mesh():
     model = ColPaliModel(ColPaliModelConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 2.4"):
         make_training_setup(model, mesh=object())
     opt = make_training_setup(model)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 2.4"):
         make_train_step(model, opt, mesh=object())
 
 
