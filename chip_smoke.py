@@ -406,10 +406,21 @@ result.
     windows 0 and 1,024), K8a's decode and prefill tiles on the column
     slices 5,376 -> 2,048, 1,024, 10,752, 5,376 and the row slices 2,048,
     1,024, 10,752, 5,376 -> 5,376, K1/K4 on a shard of 2,048 pages and on an
-    odd one, each against its plain version at phase 2's limits.
+    odd one, each against its plain version at phase 2's limits. (e) DP x TP
+    training on a ``(data, model)`` = (1, 1) mesh, float32 (phase 16's
+    numerics): at phase 16 (b)'s 2 SigLIP + 2 Gemma layers, full width, 2
+    steps of ``make_training_setup(mesh=)`` / ``make_train_step(mesh=)``
+    equal the mesh-less steps (losses and parameters; bit-equal expected),
+    their step walls side by side in interleaved repeats; a (1, 1)
+    checkpoint saved after step 2 resumes step 3 bit for bit; then the
+    full-width, full-depth model takes 2 mesh steps on phase 16's batch
+    (the main path: loss finite and falling, K2's forward and backward 27
+    launches each a step); K2's float32 forward and backward at a rank's
+    ``[3, 1024, 8, 72]`` and ``[3, 1024, 4, 72]`` (tp = 2, 4) against their
+    plain versions, SDPA's times beside (``k2_training_rows``).
 
 Phases 10 and 12 (host-bound) run at half the depth they had before phase 16
-was added (8 papers, 12 questions), which keeps the script under 17 minutes.
+was added (8 papers, 12 questions), which keeps the script within its 1,200 s.
 """
 
 from __future__ import annotations
@@ -5230,7 +5241,7 @@ def grads_close(got: dict, want: dict, rel: float, floor: float) -> tuple:
     return worst
 
 
-def k2_training_rows(torch, g) -> dict:
+def k2_training_rows(torch, g, heads: int = K2_TRAIN["h"], tag: str = "") -> dict:
     """K2's float32 forward and its backward, both on the tensor cores in
     3xTF32, at the training path's ``[3, 1024, 16, 72]`` against their plain
     versions (1e-4: the forward's atol, the backward's share of each
@@ -5243,13 +5254,16 @@ def k2_training_rows(torch, g) -> dict:
     and the float32 one at 67 TFLOP/s (``bound_f32_ms``), the registers and
     spills ptxas reported for the launched instantiations; SDPA's forward
     and its backward (one ``autograd.grad`` of its float32 output) on the
-    same tensors as yardsticks, timed only. -> the two kernel rows."""
+    same tensors as yardsticks, timed only. ``heads`` < 16 gives a rank's
+    shape under tensor parallelism, and ``tag`` ends the rows' names. -> the
+    two kernel rows, each with ``check_launches``: its checks' launches (the
+    timing's left out)."""
     import torch.nn.functional as F
     from multimodal_colpali_tpu_torch import _build
     from multimodal_colpali_tpu_torch._timing import eager_ms
     from multimodal_colpali_tpu_torch.ops import attention as A
 
-    c = K2_TRAIN
+    c = dict(K2_TRAIN, h=heads)
     dev = torch.device("cuda")
     shape = (c["b"], c["s"], c["h"], c["d"])
     q, k, v, do = (torch.randn(shape, generator=g, device=dev) for _ in range(4))
@@ -5275,8 +5289,11 @@ def k2_training_rows(torch, g) -> dict:
                 f"K2 float32 {label}: a repeated call differs")
         return got, err
 
+    checks = {"fwd": A.fused_attention_cuda.launches,
+              "bwd": A.fused_attention_backward_cuda.launches}
     out, f_err = fwd_check({}, "at the path's shape")
     _, fm_err = fwd_check(masked, "masked")
+    checks["fwd"] = A.fused_attention_cuda.launches - checks["fwd"]
     f_ms, f_plain = timed_pair(torch, lambda: A.fused_attention_cuda(q, k, v, scale=scale),
                                lambda: A.attention_reference(q, k, v, scale=scale), iters=5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -5305,6 +5322,7 @@ def k2_training_rows(torch, g) -> dict:
 
     _, b_err = bwd_check({}, "at the path's shape")
     (dq, dk, dv), m_err = bwd_check(masked, "masked")
+    checks["bwd"] = A.fused_attention_backward_cuda.launches - checks["bwd"]
     require(not dq[0, 0].any(), "K2 backward: the fully masked row has a dq")
     print(f"[train] K2 backward (3xTF32) against attention_backward_reference: max|err| "
           f"{b_err:.3g} at {list(shape)}, {m_err:.3g} with kv_lens, kv_valid, causal and a "
@@ -5323,6 +5341,7 @@ def k2_training_rows(torch, g) -> dict:
               library_ms=b_lib)
     fwd["bound_f32_ms"] = 4.0 * pairs / F32_FLOPS * 1e3
     bwd["bound_f32_ms"] = 10.0 * pairs / F32_FLOPS * 1e3
+    fwd["check_launches"], bwd["check_launches"] = checks["fwd"], checks["bwd"]
 
     # against float64, unmasked: the kernel's error beside the plain version's
     q64, k64, v64, o64, do64 = (x.double() for x in (q, k, v, out, do))
@@ -5359,7 +5378,7 @@ def k2_training_rows(torch, g) -> dict:
                       for n in ("dq", "dk", "dv")), flush=True)
     del q, k, v, do, out, xs, lib_out, dq, dk, dv
     torch.cuda.empty_cache()
-    return {"attention.training": fwd, "attention_backward": bwd}
+    return {f"attention.training{tag}": fwd, f"attention_backward{tag}": bwd}
 
 
 def phase_training(torch, seed: int, card: str, work: str) -> dict:
@@ -5525,6 +5544,8 @@ def phase_training(torch, seed: int, card: str, work: str) -> dict:
 
         # (c) the kernels against their plain versions at the path's shape
         rows = k2_training_rows(torch, torch.Generator(device="cuda").manual_seed(seed + 16))
+        for r in rows.values():      # the path's launches count here, not the checks'
+            del r["check_launches"]
     print(f"[train] phase 16 {time.perf_counter() - t_phase:.1f} s | {card}", flush=True)
     return {"path": path, "rows": rows,
             "launches": {"attention.training": path["attention"],
@@ -6337,6 +6358,133 @@ def scale_kernels(torch, g) -> dict:
     return results, launches
 
 
+def params_of(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def scale_training(torch, card: str, mesh, seed: int, work: str) -> dict:
+    """(e): DP x TP training at world size 1 (``training/`` on ``mesh``, the
+    (1, 1) ``data`` x ``model`` mesh) -> {"launches": the full-depth path's
+    counts, "rows", "row_launches": the K2 rows at tp = 2 and 4 and their
+    checks' launches}."""
+    import statistics
+
+    from multimodal_colpali_tpu_torch.models.colpali import ColPaliModel
+    from multimodal_colpali_tpu_torch.models.registry import (RETRIEVER_CONFIGS,
+                                                              init_random_params_)
+    from multimodal_colpali_tpu_torch.training import make_train_step, make_training_setup
+    from multimodal_colpali_tpu_torch.training.checkpoint import (
+        make_checkpoint_manager, restore_train_state, save_train_state)
+
+    wrappers = kernel_wrappers()
+    cfg = RETRIEVER_CONFIGS[COLPALI]()
+    sv, st = TRAIN["depth"]
+    small = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=sv),
+        text=dataclasses.replace(cfg.text, num_hidden_layers=st))
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Float32Numerics(torch):
+        batch = train_batch(torch, cfg, seed)
+
+        def trainer(config, on_mesh: bool):
+            model = ColPaliModel(config, device="cuda", dtype=torch.float32)
+            init_random_params_(model, seed)
+            m = mesh if on_mesh else None
+            opt = make_training_setup(model, learning_rate=TRAIN["lr"], mesh=m)
+            return model, opt, make_train_step(model, opt, mesh=m)
+
+        # the (1, 1) mesh step against the mesh-less one, 2 + 2 layers
+        runs = {who: trainer(small, who == "mesh") for who in ("plain", "mesh")}
+        losses = {who: [float(stp(batch)) for _ in range(2)] for who, (_, _, stp) in runs.items()}
+        p_plain, p_mesh = (params_of(runs[who][0]) for who in ("plain", "mesh"))
+        diff = max(float((p_mesh[n] - w).abs().max()) for n, w in p_plain.items())
+        bit = losses["mesh"] == losses["plain"] and diff == 0.0
+        del p_plain, p_mesh
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["plain"]))
+        require(rel <= TRAIN["loss_rel"] and diff <= 1e-6,
+                f"(e) the (1, 1) mesh step differs from the mesh-less one: losses "
+                f"{losses['mesh']} against {losses['plain']}, parameters by {diff}")
+        mgr = make_checkpoint_manager(Path(work) / "mesh-ckpt", max_to_keep=1)
+        model, opt, stp = runs["mesh"]
+        save_train_state(mgr, 2, model, opt)
+
+        def wall(who):
+            t0 = time.perf_counter()
+            runs[who][2](batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        first3 = float(runs["mesh"][2](batch))     # the uninterrupted step 3
+        want = params_of(runs["mesh"][0])
+        walls = interleaved(4, {w: (lambda w=w: wall(w)) for w in ("plain", "mesh")})
+        del runs, model, opt, stp
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = ColPaliModel(small, device="cuda", dtype=torch.float32)
+        opt = make_training_setup(model, learning_rate=TRAIN["lr"], mesh=mesh)
+        require(restore_train_state(mgr, model, opt) == 2, "(e) restored the wrong step")
+        r3 = float(make_train_step(model, opt, mesh=mesh)(batch))
+        same = all(torch.equal(p.detach(), want[n]) for n, p in model.named_parameters())
+        require(r3 == first3 and same, f"(e) the (1, 1) checkpoint's step 3 differs: loss {r3} "
+                f"against {first3}, parameters {'equal' if same else 'differ'}")
+        del model, opt, want
+        shutil.rmtree(mgr.directory, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[scale-e] {sv} SigLIP + {st} Gemma layers, full width, float32: (1, 1) mesh "
+              f"losses {losses['mesh']} against mesh-less {losses['plain']} (rel {rel:.2g}), "
+              f"parameters within {diff:.3g} ({'bit-equal' if bit else 'not bit-equal'}); step "
+              f"ms mesh {spread(walls['mesh'])}, mesh-less {spread(walls['plain'])} (median "
+              f"[range] of 4 interleaved, steps 4-11); a (1, 1) checkpoint of step 2 resumed "
+              f"step 3 bit for bit | {card}", flush=True)
+
+        # the main path: the full model through the mesh step
+        t0 = time.perf_counter()
+        model, opt, stp = trainer(cfg, True)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        full, steps_s = [], []
+        for i in range(2):
+            t0 = time.perf_counter()
+            full.append(float(stp(batch)))
+            torch.cuda.synchronize()
+            steps_s.append(time.perf_counter() - t0)
+        path = read_counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+        require(finite and all(math.isfinite(x) for x in full) and full[1] < full[0],
+                f"(e) full-depth mesh steps: losses {full}, gradients "
+                f"{'finite' if finite else 'not finite'}")
+        layers = cfg.vision.num_hidden_layers
+        require(path["attention"] == path["attention.tf32"] == path["attention_backward"]
+                == 2 * layers,
+                f"(e) K2 launches: forward {path['attention']} (3xTF32 {path['attention.tf32']}), "
+                f"backward {path['attention_backward']}, not {2 * layers} each")
+        others = {k: n for k, n in path.items() if n and not k.startswith("attention")}
+        require(not others, f"(e) unexpected kernels on the training path: {others}")
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"[scale-e] {COLPALI} full depth on the (1, 1) mesh, {n_params / 1e9:.3f}B "
+              f"parameters (built in {setup_s:.1f} s): 2 steps, losses {full}, step s "
+              f"{[round(x, 3) for x in steps_s]}, peak {peak:.2f} GiB, K2 {path['attention']} "
+              f"forward + {path['attention_backward']} backward launches | {card}", flush=True)
+        del model, opt, stp, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        rows, row_launches = {}, {}
+        g = torch.Generator(device="cuda").manual_seed(seed + 23)
+        for tp in (2, 4):
+            got = k2_training_rows(torch, g, heads=K2_TRAIN["h"] // tp, tag=f".tp{tp}")
+            for name, r in got.items():
+                row_launches[name] = r.pop("check_launches")
+                require(row_launches[name] > 0, f"(e) {name}: no launch")
+            rows.update(got)
+    return {"launches": path, "rows": rows, "row_launches": row_launches}
+
+
 def phase_scaleout(torch, seed: int, card: str, work: str) -> dict:
     """Phase 17: the mesh paths at world size 1 over NCCL, each against its
     mesh-less twin, and the kernels at a rank's shapes of tp = 2 and 4."""
@@ -6353,7 +6501,8 @@ def phase_scaleout(torch, seed: int, card: str, work: str) -> dict:
         for part, fn, args in (("a", scale_store, (corpus, seed, g)),
                                ("b", scale_embed, (dm, seed)),
                                ("c", scale_decode, (dm, seed)),
-                               ("d", scale_kernels, None)):
+                               ("d", scale_kernels, None),
+                               ("e", scale_training, (dm, seed, work))):
             t0 = time.perf_counter()
             out[part] = fn(torch, g) if args is None else fn(torch, card, *args)
             walls[part] = round(time.perf_counter() - t0, 1)
@@ -6361,8 +6510,11 @@ def phase_scaleout(torch, seed: int, card: str, work: str) -> dict:
         dist.destroy_process_group()
     print(f"[scale] phase 17 parts wall s {json.dumps(walls)} | {card}", flush=True)
     rows, launches = out["d"]
+    rows.update(out["e"]["rows"])
+    launches.update(out["e"]["row_launches"])
     return dict(rows=rows, paths=[out["a"]["launches"], out["b"]["launches"],
-                                  *out["c"]["runs"].values()], launches=launches)
+                                  *out["c"]["runs"].values(), out["e"]["launches"]],
+                launches=launches, training=out["e"]["launches"])
 
 
 def main(argv=None) -> int:
@@ -6524,6 +6676,9 @@ def main(argv=None) -> int:
     launches.update(old["launches"])
     launches.update(mllama["launches"])
     launches.update(train["launches"])
+    # K2's training rows: phase 16 (a)'s launches and phase 17 (e)'s mesh path's
+    launches["attention.training"] += scale["training"]["attention"]
+    launches["attention_backward"] += scale["training"]["attention_backward"]
     launches.update(scale["launches"])
     rows = [dict(name=name, route=route, source=src, replaces=rep, launches=launches[name],
                  **kernels[name])

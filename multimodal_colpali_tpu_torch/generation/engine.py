@@ -71,7 +71,7 @@ from multimodal_colpali_tpu_torch.ops.quant import (
     quantize_lm_params_int4)
 from multimodal_colpali_tpu_torch.ops.topk import topk_with_stable_ties
 from multimodal_colpali_tpu_torch.parallel.mesh import (
-    all_reduce, batch_sharding, shard_params_for_tp)
+    all_reduce, batch_sharding, shard_params_for_tp, tp_head_plan)
 
 LOGPROB_K = 5   # top alternatives recorded per decode step (OpenAI cap)
 
@@ -130,23 +130,6 @@ class RankConfig:
         if name == "model_cfg":
             raise AttributeError(name)
         return getattr(self.model_cfg, name)
-
-
-def tp_head_plan(cfg: Any, tp: int, rank: int):
-    """(first query head, query heads, first KV head, KV heads) of ``rank``
-    among ``tp`` model ranks. KV heads split where their count divides
-    ``tp``; otherwise the rank keeps the one KV head its query heads share,
-    which needs its query heads within one GQA group."""
-    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
-    if hq % tp:
-        raise ValueError(f"{hq} query heads do not split over {tp} model ranks")
-    nq, group = hq // tp, hq // hkv
-    if hkv % tp == 0:
-        return rank * nq, nq, rank * (hkv // tp), hkv // tp
-    if group % nq == 0:
-        return rank * nq, nq, (rank * nq) // group, 1
-    raise ValueError(f"{hq} query heads over {hkv} KV heads: neither the KV heads nor the "
-                     f"GQA groups split over {tp} model ranks")
 
 
 def _cols(p: Any, lo: int, hi: int) -> Any:

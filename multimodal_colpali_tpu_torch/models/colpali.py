@@ -7,6 +7,10 @@ MaxSim scores reproduce ``processor.score_multi_vector``.
 Module and parameter names follow the flax tree (``layers_3`` becomes
 ``layers.3``; a flax ``kernel`` becomes a transposed ``weight``), so
 ``models/convert.params_from_flax`` maps one onto the other by name.
+
+:func:`shard_model_for_tp` makes a model one rank's part of a tensor-parallel
+ColPali (the JAX trainer's ``shard_params_for_tp``, parallel/mesh.py:112-133,
+on module weights).
 """
 
 from __future__ import annotations
@@ -64,3 +68,31 @@ class ColPaliModel(nn.Module):
         proj = self.embedding_proj_layer(h).float()
         proj = proj / torch.linalg.vector_norm(proj, dim=-1, keepdim=True).clamp_min(1e-12)
         return proj * attention_mask[..., None].float()
+
+
+def shard_model_for_tp(model: ColPaliModel, mesh, axis: str = "model") -> ColPaliModel:
+    """Make ``model`` (whole, on the mesh's device) this rank's part of a
+    tensor-parallel ColPali over ``mesh``'s ``axis``, in place -> ``model``.
+
+    Every SigLIP and Gemma layer keeps its rank's slices (``shard_`` of
+    ``siglip.SiglipEncoderLayer`` and ``gemma.GemmaDecoderLayer``): column
+    projections cut on the weight's dim 0 (``[out, in]``) with their bias,
+    row projections on dim 1 with their bias whole, the attention's local
+    head counts set. The embeddings, norms, projector and 128-d head stay
+    replicated. The mesh and the axis are recorded on the model
+    (``model.mesh``, ``model.tp_axis``; also for an axis of one rank, which
+    cuts nothing), where the trainer, ``training/checkpoint`` and
+    ``adamw_state_from_optax`` find them; :func:`layers.tp_plan` lists the
+    split parameters. Sharding it again over the same axis does nothing;
+    over another mesh or axis raises."""
+    if getattr(model, "mesh", None) is not None:
+        if model.mesh is mesh and model.tp_axis == axis:
+            return model
+        raise ValueError(f"the model is already on a mesh: {model.mesh}, axis "
+                         f"{model.tp_axis!r}")
+    mesh.check(model.embedding_proj_layer.weight)
+    if mesh.size(axis) > 1:
+        for layer in (*model.vision_tower.layers, *model.language_model.layers):
+            layer.shard_(mesh, axis)
+    model.mesh, model.tp_axis = mesh, axis
+    return model

@@ -16,6 +16,7 @@ from torch import nn
 
 from multimodal_colpali_tpu_torch.models import layers as L
 from multimodal_colpali_tpu_torch.models.configs import GemmaTextConfig
+from multimodal_colpali_tpu_torch.parallel.mesh import tp_head_plan
 
 
 class GemmaMLP(nn.Module):
@@ -37,6 +38,8 @@ class GemmaAttention(nn.Module):
         self.cfg = cfg
         kw = dict(bias=False, device=device, dtype=dtype)
         hd = cfg.head_dim
+        # this rank's query and KV heads on a tensor-parallel mesh
+        self.heads, self.kv_heads = cfg.num_attention_heads, cfg.num_key_value_heads
         self.q_proj = L.Dense(cfg.hidden_size, cfg.num_attention_heads * hd, **kw)
         self.k_proj = L.Dense(cfg.hidden_size, cfg.num_key_value_heads * hd, **kw)
         self.v_proj = L.Dense(cfg.hidden_size, cfg.num_key_value_heads * hd, **kw)
@@ -46,13 +49,13 @@ class GemmaAttention(nn.Module):
                 mask: Optional[torch.Tensor]) -> torch.Tensor:
         c = self.cfg
         b, s, _ = x.shape
-        q = self.q_proj(x).view(b, s, c.num_attention_heads, c.head_dim)
-        k = self.k_proj(x).view(b, s, c.num_key_value_heads, c.head_dim)
-        v = self.v_proj(x).view(b, s, c.num_key_value_heads, c.head_dim)
+        q = self.q_proj(x).view(b, s, self.heads, c.head_dim)
+        k = self.k_proj(x).view(b, s, self.kv_heads, c.head_dim)
+        v = self.v_proj(x).view(b, s, self.kv_heads, c.head_dim)
         q = L.rope(q, positions, theta=c.rope_theta)
         k = L.rope(k, positions, theta=c.rope_theta)
         out = L.attention(q, k, v, mask=mask, scale=c.head_dim ** -0.5)
-        return self.o_proj(out.reshape(b, s, c.num_attention_heads * c.head_dim))
+        return self.o_proj(out.reshape(b, s, self.heads * c.head_dim))
 
 
 class GemmaDecoderLayer(nn.Module):
@@ -63,10 +66,32 @@ class GemmaDecoderLayer(nn.Module):
         self.self_attn = GemmaAttention(cfg, **kw)
         self.post_attention_layernorm = L.RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
         self.mlp = GemmaMLP(cfg, **kw)
+        self.tp = None       # (mesh, axis) once :meth:`shard_` made it a rank's part
+
+    def shard_(self, mesh, axis: str = "model") -> None:
+        """Make this layer one rank's part of a tensor-parallel layer over
+        ``axis`` (``parallel.tp_head_plan``): whole query heads (``q_proj``
+        columns, ``o_proj`` rows), a slice of the MLP's hidden units
+        (``gate_proj`` / ``up_proj`` columns, ``down_proj`` rows). KV heads
+        split where their count divides the axis; a single KV head (Gemma-2B's
+        MQA) stays whole on every rank, where every query head reads it, and
+        the trainer sums its gradients over the axis."""
+        a, m, tp = self.self_attn, self.mlp, mesh.size(axis)
+        _, nq, _, nkv = tp_head_plan(a.cfg, tp, mesh.index(axis))
+        kv = "col" if nkv * tp == a.kv_heads else "sum"
+        if kv == "sum" and a.kv_heads != 1:
+            raise ValueError(f"{a.kv_heads} KV heads over {tp} model ranks: training splits the "
+                             f"KV heads evenly or keeps a single one whole")
+        for proj, split in ((a.q_proj, "col"), (a.k_proj, kv), (a.v_proj, kv),
+                            (a.o_proj, "row"), (m.gate_proj, "col"), (m.up_proj, "col"),
+                            (m.down_proj, "row")):
+            proj.shard_(split, mesh, axis)
+        a.heads, a.kv_heads = nq, nkv
+        self.tp = (mesh, axis)
 
     def forward(self, x, positions, mask):
-        x = x + self.self_attn(self.input_layernorm(x), positions, mask)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        x = x + self.self_attn(L.tp_input(self.input_layernorm(x), self.tp), positions, mask)
+        return x + self.mlp(L.tp_input(self.post_attention_layernorm(x), self.tp))
 
 
 class GemmaModel(nn.Module):

@@ -8,7 +8,7 @@ whatever the activation dtype, as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -16,6 +16,7 @@ from torch import nn
 
 from multimodal_colpali_tpu_torch.ops.attention import attention_reference, fused_attention
 from multimodal_colpali_tpu_torch.ops.quant import w8a8_dense
+from multimodal_colpali_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 
 
 def empty_param(*shape: int, device, dtype) -> nn.Parameter:
@@ -45,9 +46,26 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = 
     return F.linear(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
+def _cut(p: nn.Parameter, dim: int, size: int, rank: int) -> nn.Parameter:
+    """This rank's ``1/size`` of ``p`` along ``dim``, a parameter of its own."""
+    n = p.shape[dim]
+    if n % size:
+        raise ValueError(f"dimension {dim} of {tuple(p.shape)} does not split over {size} "
+                         f"model ranks")
+    part = p.detach().narrow(dim, rank * (n // size), n // size).clone()
+    return nn.Parameter(part, requires_grad=p.requires_grad)
+
+
 class Dense(nn.Module):
     """A dense projection; ``ops/quant.quantize_encoder_params`` turns its
-    weight into int8 codes and sets ``weight_scale``."""
+    weight into int8 codes and sets ``weight_scale``.
+
+    :meth:`shard_` makes it one rank's part of a tensor-parallel layer
+    (``tp_split``): "col" keeps a slice of the output features (weight rows
+    and bias entries), "row" a slice of the input features, whose partial
+    products are summed over the axis before the whole bias is added once,
+    and "sum" keeps it whole while each rank uses part of its output, so its
+    gradients are summed over the axis by the trainer."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
                  device, dtype):
@@ -55,9 +73,55 @@ class Dense(nn.Module):
         self.weight = empty_param(out_features, in_features, device=device, dtype=dtype)
         self.bias = empty_param(out_features, device=device, dtype=dtype) if bias else None
         self.register_buffer("weight_scale", None)
+        self.tp_split: Optional[str] = None
+        self.tp = None                     # (mesh, axis) of a row-parallel projection
+
+    def shard_(self, split: str, mesh, axis: str) -> None:
+        if self.weight.dtype == torch.int8:
+            raise ValueError("int8 (W8A8) projections do not shard")
+        size, rank = mesh.size(axis), mesh.index(axis)
+        if split == "col":
+            self.weight = _cut(self.weight, 0, size, rank)
+            if self.bias is not None:
+                self.bias = _cut(self.bias, 0, size, rank)
+        elif split == "row":
+            self.weight = _cut(self.weight, 1, size, rank)
+            self.tp = (mesh, axis)
+        elif split != "sum":
+            raise ValueError(f"tensor-parallel split must be col/row/sum, got {split!r}")
+        self.tp_split = split
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.weight, self.bias, self.weight_scale)
+        if self.tp is None:
+            return dense(x, self.weight, self.bias, self.weight_scale)
+        y = reduce_from_model(self.tp[0], dense(x, self.weight), self.tp[1])
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+def tp_input(x: torch.Tensor, tp) -> torch.Tensor:
+    """A layer's normalized input entering its tensor-parallel projections
+    (``tp`` the layer's (mesh, axis), None off a mesh): once a block, so the
+    gradient that reaches the norm and the residual stream is the sum of
+    every rank's heads or hidden units, equal on every rank."""
+    return x if tp is None else copy_to_model(tp[0], x, tp[1])
+
+
+def tp_plan(model: nn.Module) -> Dict[str, Tuple[Optional[int], bool]]:
+    """``{parameter name: (split dim, gradient summed over the model axis)}``
+    of ``model``'s tensor-parallel projections: dim 0 for a column slice and
+    its bias, 1 for a row slice, None for a projection kept whole whose
+    gradient every rank holds a part of. Every other parameter is replicated
+    and absent."""
+    plan: Dict[str, Tuple[Optional[int], bool]] = {}
+    for name, mod in model.named_modules():
+        split = getattr(mod, "tp_split", None) if isinstance(mod, Dense) else None
+        if split is None:
+            continue
+        prefix = f"{name}." if name else ""
+        plan[prefix + "weight"] = ({"col": 0, "row": 1}.get(split), split == "sum")
+        if mod.bias is not None and split != "row":
+            plan[prefix + "bias"] = (0 if split == "col" else None, split == "sum")
+    return plan
 
 
 class RMSNorm(nn.Module):

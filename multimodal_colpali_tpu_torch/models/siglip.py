@@ -40,6 +40,7 @@ class SiglipAttention(nn.Module):
     def __init__(self, cfg: SiglipVisionConfig, *, device, dtype):
         super().__init__()
         self.cfg = cfg
+        self.heads = cfg.num_attention_heads      # this rank's, on a tensor-parallel mesh
         h = cfg.hidden_size
         self.q_proj = L.Dense(h, h, device=device, dtype=dtype)
         self.k_proj = L.Dense(h, h, device=device, dtype=dtype)
@@ -50,12 +51,12 @@ class SiglipAttention(nn.Module):
         c = self.cfg
         head_dim = c.hidden_size // c.num_attention_heads
         b, s, _ = x.shape
-        shape = (b, s, c.num_attention_heads, head_dim)
+        shape = (b, s, self.heads, head_dim)
         q = self.q_proj(x).view(shape)
         k = self.k_proj(x).view(shape)
         v = self.v_proj(x).view(shape)
         out = L.attention(q, k, v, mask=None, scale=head_dim ** -0.5)
-        return self.out_proj(out.reshape(b, s, c.hidden_size))
+        return self.out_proj(out.reshape(b, s, self.heads * head_dim))
 
 
 class SiglipEncoderLayer(nn.Module):
@@ -67,6 +68,22 @@ class SiglipEncoderLayer(nn.Module):
         self.self_attn = SiglipAttention(cfg, **kw)
         self.layer_norm2 = L.LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **kw)
         self.mlp = SiglipMLP(cfg, **kw)
+        self.tp = None       # (mesh, axis) once :meth:`shard_` made it a rank's part
+
+    def shard_(self, mesh, axis: str = "model") -> None:
+        """Make this layer one rank's part of a tensor-parallel layer over
+        ``axis``: whole heads of the attention (q/k/v columns, ``out_proj``
+        rows) and a slice of the MLP's hidden units (``fc1`` columns, ``fc2``
+        rows); the norms and the row projections' biases stay whole."""
+        a, m, tp = self.self_attn, self.mlp, mesh.size(axis)
+        if a.heads % tp:
+            raise ValueError(f"{a.heads} SigLIP heads do not split over {tp} model ranks")
+        for proj in (a.q_proj, a.k_proj, a.v_proj, m.fc1):
+            proj.shard_("col", mesh, axis)
+        for proj in (a.out_proj, m.fc2):
+            proj.shard_("row", mesh, axis)
+        a.heads //= tp
+        self.tp = (mesh, axis)
 
     def _attn_params(self):
         a, ln = self.self_attn, self.layer_norm1
@@ -82,9 +99,12 @@ class SiglipEncoderLayer(nn.Module):
         c = self.cfg
         parts = None
         # int8 (W8A8) projections never take K5a-c (siglip.py:52-84); the
-        # quantizer gives every projection its weight_scale at once
-        if (L._fused_layer_enabled(x, c.hidden_size, c.intermediate_size, c.num_attention_heads)
-                and self.mlp.fc1.weight_scale is None):
+        # quantizer gives every projection its weight_scale at once. Nor does
+        # a rank's part of a tensor-parallel layer: the kernels hold a whole
+        # layer and have no backward.
+        if (self.tp is None and self.mlp.fc1.weight_scale is None
+                and L._fused_layer_enabled(x, c.hidden_size, c.intermediate_size,
+                                           c.num_attention_heads)):
             parts = L._FUSED_PARTS
         kw = dict(eps=c.layer_norm_eps)
         if parts == "both":
@@ -94,10 +114,10 @@ class SiglipEncoderLayer(nn.Module):
             x = FL.fused_vit_attention_block(x, *self._attn_params(),
                                              heads=c.num_attention_heads, **kw)
         else:
-            x = x + self.self_attn(self.layer_norm1(x))
+            x = x + self.self_attn(L.tp_input(self.layer_norm1(x), self.tp))
         if parts == "mlp":
             return FL.fused_mlp_block(x, *self._mlp_params(), **kw)
-        return x + self.mlp(self.layer_norm2(x))
+        return x + self.mlp(L.tp_input(self.layer_norm2(x), self.tp))
 
 
 class SiglipVisionTower(nn.Module):

@@ -5,8 +5,8 @@ The parallelism axes are the JAX package's (mesh.py:1-15):
 
 - ``data``: the batch axis of page and query embedding and of the decode
   slots (DP);
-- ``model``: the tensor-parallel axis of the decode engines (TP over
-  attention heads and the MLP's hidden units);
+- ``model``: the tensor-parallel axis of the decode engines and of
+  training (TP over attention heads and the MLP's hidden units);
 - ``corpus``: the page axis of the vector stores; MaxSim and top-k reduce
   over it (``ops/topk``, ``ops/two_stage``).
 
@@ -24,6 +24,12 @@ tensors, and each all-reduce and all-gather is visible where it happens.
 The backend follows the device: NCCL for CUDA, gloo for the CPU. A CUDA
 tensor on a gloo group, a CPU tensor on an NCCL group, or a mesh without an
 initialised process group raises; nothing probes or falls back.
+
+Training needs collectives with a gradient: :func:`copy_to_model` (into a
+tensor-parallel region: identity, its backward an all-reduce),
+:func:`reduce_from_model` (out of it: an all-reduce, its backward the
+identity) and :func:`gather_rows` (every rank's rows, each rank's gradient
+summed back to the rank that owns them).
 
 A collective over an axis of one rank is its input, and is not called: on
 the card a one-rank NCCL all-reduce held the host until the card caught up,
@@ -192,6 +198,86 @@ def all_reduce(mesh: Mesh, axis: Optional[str], t: torch.Tensor, op: str = "sum"
         dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
                         group=mesh.groups[axis])
     return t
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(ctx.mesh, ctx.axis, g.contiguous().clone()), None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce (sum) forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(mesh, axis, x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows concatenated in axis order; the backward sums the
+    gathered gradient over the axis and keeps this rank's rows (an
+    all-reduce and a slice: gloo has no reduce-scatter, and one code path
+    serves both backends)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis, ctx.rows = mesh, axis, x.shape[0]
+        return torch.cat(list(all_gather(mesh, axis, x).unbind(0)))
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(ctx.mesh, ctx.axis, g.contiguous().clone())
+        return g.narrow(0, ctx.mesh.index(ctx.axis) * ctx.rows, ctx.rows), None, None
+
+
+def copy_to_model(mesh: Mesh, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """Enter a tensor-parallel region: ``x`` itself forward, while its
+    gradient is summed over ``axis`` (each rank's heads or hidden units add
+    their part). ``x`` on an axis of one rank."""
+    return x if mesh.size(axis) == 1 else _CopyToModel.apply(x, mesh, axis)
+
+
+def reduce_from_model(mesh: Mesh, x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """Leave a tensor-parallel region: the partial products summed over
+    ``axis`` forward, the gradient passed through. ``x`` on an axis of one
+    rank."""
+    return x if mesh.size(axis) == 1 else _ReduceFromModel.apply(x, mesh, axis)
+
+
+def gather_rows(mesh: Mesh, x: torch.Tensor, axis: str = "data") -> torch.Tensor:
+    """Every rank's rows of ``x`` along ``axis``, concatenated on dim 0, with
+    the gradient each rank's rows receive from every rank's use of them
+    (``x`` on an axis of one rank)."""
+    return x if mesh.size(axis) == 1 else _GatherRows.apply(x, mesh, axis)
+
+
+def tp_head_plan(cfg: Any, tp: int, rank: int):
+    """(first query head, query heads, first KV head, KV heads) of ``rank``
+    among ``tp`` model ranks. KV heads split where their count divides
+    ``tp``; otherwise the rank keeps the one KV head its query heads share,
+    which needs its query heads within one GQA group."""
+    hq, hkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    if hq % tp:
+        raise ValueError(f"{hq} query heads do not split over {tp} model ranks")
+    nq, group = hq // tp, hq // hkv
+    if hkv % tp == 0:
+        return rank * nq, nq, rank * (hkv // tp), hkv // tp
+    if group % nq == 0:
+        return rank * nq, nq, (rank * nq) // group, 1
+    raise ValueError(f"{hq} query heads over {hkv} KV heads: neither the KV heads nor the "
+                     f"GQA groups split over {tp} model ranks")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -582,13 +582,32 @@ def test_adamw_state_from_optax_refuses_a_state_without_adam():
         adamw_state_from_optax((optax.EmptyState(),), ColPaliModel(TCFG, device="cpu"))
 
 
-def test_training_refuses_a_mesh():
-    model = ColPaliModel(ColPaliModelConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 2.4"):
-        make_training_setup(model, mesh=object())
-    opt = make_training_setup(model)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2.4"):
-        make_train_step(model, opt, mesh=object())
+def test_training_refuses_a_mesh(jparams, tmp_path):
+    """The mesh path that replaced the refusal (DP x TP training): on a
+    one-rank (data, model) = (1, 1) gloo mesh, the card's world size,
+    ``make_training_setup(mesh=)`` records the mesh and cuts nothing, and
+    two steps of ``make_train_step(mesh=)`` equal the mesh-less steps (loss
+    and every parameter bit for bit: no collective runs on axes of one
+    rank). A mesh the model was not set up on is refused. The multi-rank
+    meshes are tests/test_torch_tp_training.py's."""
+    import parallel_worker
+
+    batch = _tbatch(_batch(5))
+    runs = []
+    with parallel_worker.one_rank_mesh(tmp_path, ("data", "model"), (1, 1)) as mesh:
+        for on_mesh in (False, True):
+            model = _port_model(jparams)
+            opt = make_training_setup(model, learning_rate=LR, mesh=mesh if on_mesh else None)
+            assert (getattr(model, "mesh", None) is mesh) == on_mesh
+            if not on_mesh:
+                with pytest.raises(ValueError, match="make_training_setup"):
+                    make_train_step(model, opt, mesh=mesh)
+            step = make_train_step(model, opt, mesh=mesh if on_mesh else None)
+            runs.append(([float(step(batch)) for _ in range(2)],
+                         {n: p.detach().clone() for n, p in model.named_parameters()}))
+    assert runs[1][0] == runs[0][0]
+    for name, p in runs[0][1].items():
+        assert torch.equal(runs[1][1][name], p), name
 
 
 def test_jax_fused_attention_has_no_gradient():
