@@ -417,7 +417,22 @@ result.
     (the main path: loss finite and falling, K2's forward and backward 27
     launches each a step); K2's float32 forward and backward at a rank's
     ``[3, 1024, 8, 72]`` and ``[3, 1024, 4, 72]`` (tp = 2, 4) against their
-    plain versions, SDPA's times beside (``k2_training_rows``).
+    plain versions, SDPA's times beside (``k2_training_rows``). (f), run
+    after (c) on its bf16 engines: serving through the batchers' admission
+    records on the (1, 1) mesh's leader path. ``Gemma3MMEngine`` over (c)'s
+    mesh engine with SigLIP-So400m at 896 px (random, from ``seed``) behind
+    ``PagedContinuousBatcher`` + ``GenerationServer``: a 1-image and a
+    5-image request, two text requests and an MCQ over the 5 images sent at
+    once through the port's client (``generation/client``); the replies
+    equal the mesh-less server's under phase 5's tie rule, the records and
+    the constrained forward were applied, K2 and K7a ran on their tensor
+    cores; TTFT and decode tokens/s beside the mesh-less server's in
+    interleaved bursts. Llama-3.2-11B-Vision cut to 8 self and 2 cross
+    layers (its whole tower) behind the dense ``ContinuousBatcher`` on the
+    mesh: a 2-image request equals the mesh-less one; the dense caches and
+    cross pools take the mesh-less batcher's bytes, and the bytes a rank
+    would hold at dp = 2 and 4 are printed (and gemma-3-27b's at 8 slots
+    of 8,192, by its config).
 
 Phases 10 and 12 (host-bound) run at half the depth they had before phase 16
 was added (8 papers, 12 questions), which keeps the script within its 1,200 s.
@@ -3254,11 +3269,11 @@ IMG = dict(slots=4, max_seq_len=6144, chunk=8, page=16, max_tokens=32)
 QUESTION = "Which binding constant do these pages report for sialyl Lewis x? Answer briefly."
 
 
-def check_greedy(tag: str, key: str, got, want, gap_at) -> str:
-    """A greedy reply against the isolated engine's: identical, or first
-    different where the engine's top two logits are within 0.05
-    (``gap_at(step)``)."""
-    require(len(got) == IMG["max_tokens"], f"[{tag}] {key}: {len(got)} tokens")
+def check_greedy(tag: str, key: str, got, want, gap_at, n: int = IMG["max_tokens"]) -> str:
+    """A greedy reply of ``n`` tokens against the isolated engine's:
+    identical, or first different where the engine's top two logits are
+    within 0.05 (``gap_at(step)``)."""
+    require(len(got) == n, f"[{tag}] {key}: {len(got)} tokens")
     i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
     if i is None:
         require(len(got) == len(want), f"[{tag}] {key}: {len(got)} tokens, the isolated "
@@ -6125,7 +6140,7 @@ def scale_decode(torch, card: str, mesh, seed: int) -> dict:
     c = SCALE
     rng = np.random.default_rng(seed + 23)
     prompts = [mcq_prompt(rng, n) for n in (320, 700, 1100, 1550)]
-    runs, notes, rates, decode = {}, [], {}, {}
+    runs, notes, rates, decode, kept = {}, [], {}, {}, {}
     for wd, kv in (("native", "native"), ("native", "int8"), ("int8", "native")):
         if kv == "native":
             with cut_depth(GEMMA3_CONFIGS, GEN_MODEL, c["depth"]):
@@ -6141,6 +6156,7 @@ def scale_decode(torch, card: str, mesh, seed: int) -> dict:
         got, rates[tag], runs[tag] = scale_serve(torch, tp, tok, kv, prompts)
         if wd == kv == "native":    # decode alone, mesh against mesh-less, bf16 only
             decode = scale_decode_rates(torch, {"mesh": tp, "plain": plain}, ids)
+            kept = {"mesh": tp, "plain": plain, "tok": tok}     # part (f) serves on them
         for i, (a, b) in enumerate(zip(got, want)):
             div = first_divergence(plain, ids[i], a, b)
             if div is not None:
@@ -6196,7 +6212,7 @@ def scale_decode(torch, card: str, mesh, seed: int) -> dict:
           f"matmul, host ms an iteration (median [min-max] of 3 interleaved runs of 100): with a "
           f"1-rank NCCL all-reduce of [{c['slots']}, 1, {K8['h']}] bf16 after each "
           f"{spread(ar_ms['with'])}, without {spread(ar_ms['without'])} | {card}", flush=True)
-    return dict(runs=runs, rates=rates, decode=decode, all_reduce_ms=ar_ms)
+    return dict(runs=runs, rates=rates, decode=decode, all_reduce_ms=ar_ms, engines=kept)
 
 
 def scale_decode_rates(torch, engines: dict, ids) -> dict:
@@ -6358,6 +6374,271 @@ def scale_kernels(torch, g) -> dict:
     return results, launches
 
 
+# phase 17 (f): the batchers' admission records on the mesh's leader. Gemma-3
+# with images on part (c)'s engines (4 slots of 2,048; SigLIP-So400m at 896
+# px); Llama-3.2-11B-Vision cut to the first 10 of its 40 decoder layers (8
+# self, the cross layers at 3 and 8; its whole tower) behind the dense batcher
+SERVE_MM = dict(slots=4, max_seq_len=2048, chunk=8, page=16, new_tokens=16, mcq_tokens=8,
+                text_tokens=(300, 700), repeats=8, mllama_self=8, mllama_cross=(3, 8),
+                mllama_slots=4, mllama_seq=512, mllama_tokens=8, mllama_images=2,
+                g3_slots=8, g3_seq=8192)
+
+
+def serve_burst(torch, bat, mm, pre, tok, requests, name: str, count: bool = False):
+    """``requests`` ([(key, chat body)]) at once through the port's client
+    to a ``GenerationServer`` over ``bat`` (started with ``serve()``) ->
+    (key -> reply text, {"ttft_ms": median TTFT of the burst's generations,
+    "tokens_s": decode tokens/s, "step_ms": ms a decode step, "live": decode
+    tokens a step (the slots live on average), "records", "forwards"}, launch
+    counts or None). Stops the server and the batcher. tokens/s = live *
+    1,000 / step_ms: a burst whose requests reach their slots at other
+    times decodes with fewer slots live at the same step time."""
+    import asyncio
+    import statistics
+
+    from multimodal_colpali_tpu_torch.generation import (
+        GenerationServer, post_request_with_retries_raising, run_sync)
+    from multimodal_colpali_tpu_torch.generation.client import ClientSession
+
+    wrappers = kernel_wrappers()
+    srv = GenerationServer(bat, tok, model_name=name, host="127.0.0.1", port=0, mm_engine=mm,
+                           image_preprocessor=pre).start()
+    url, headers = srv.base_url + "/chat/completions", {"Content-Type": "application/json"}
+
+    async def burst():
+        async with ClientSession(limit=len(requests)) as session:
+            return await asyncio.gather(*(post_request_with_retries_raising(
+                session, url, headers, dict(body, model=name), retries=1)
+                for _, body in requests))
+
+    launches = None
+    try:
+        torch.cuda.synchronize()
+        if count:
+            reset_counts(wrappers)
+        replies = run_sync(burst())
+        torch.cuda.synchronize()
+        if count:
+            launches = read_counts(wrappers)
+    finally:
+        srv.stop()
+        bat.shutdown()
+    stats = {"ttft_ms": 1e3 * statistics.median(bat.ttft_s),
+             "tokens_s": bat.decode_tokens / bat.decode_s if bat.decode_s else 0.0,
+             "step_ms": 1e3 * bat.decode_s / max(bat.decode_steps, 1),
+             "live": bat.decode_tokens / max(bat.decode_steps, 1), "records": bat.records, "forwards": bat.constrained_forwards}
+    return dict(zip([k for k, _ in requests], replies)), stats, launches
+
+
+def served_alike(tag: str, mm, tok, pre, requests, got: dict, want: dict, n_tokens: int) -> str:
+    """The mesh server's replies against the mesh-less server's: each greedy
+    stream identical, or first different where the mesh-less engine's top
+    two logits are within 0.05 (phase 5's tie rule); the MCQ the same
+    choice, or one whose two best choices are within 0.05."""
+    import numpy as np
+    from multimodal_colpali_tpu_torch.generation import GenerationServer, extract_chat_content
+
+    notes, probe = [], None
+    for key, body in requests:
+        a, b = got[key], want[key]
+        if key == "mcq":
+            require(json.loads(a).get("answer") in ("A", "B", "C", "D"),
+                    f"[{tag}] the MCQ reply is not a choice: {a!r}")
+        else:
+            require(len(a.split()) == n_tokens, f"[{tag}] {key}: {len(a.split())} tokens")
+        if a == b:
+            notes.append(f"{key}: identical")
+            continue
+        if probe is None:        # an unstarted server over the mesh-less engine: its prompts
+            probe = GenerationServer(mm.lm, tok, host="127.0.0.1", port=0, mm_engine=mm,
+                                     image_preprocessor=pre)
+            probe._httpd.server_close()
+        prompt, images = extract_chat_content(body["messages"])
+        if key == "mcq":
+            field, choices = probe._schema_enum(body)
+            scaffold, ids, firsts = probe._constrained_prompt(prompt, field, choices)
+            if images:
+                ids = mm.build_mm_prompt(probe._encode(scaffold), bos_id=tok.bos_id,
+                                         n_images=len(images))
+                logits = mm.next_token_logits([ids], pre(images)[None])[0]
+            else:
+                logits = mm.lm.next_token_logits([ids])[0]
+            top2 = np.sort(logits[firsts])[-2:]
+            require(top2[1] - top2[0] <= 0.05, f"[{tag}] the MCQ answers {a!r} / {b!r}, its "
+                                               f"choices {top2[1] - top2[0]:.4f} apart (> 0.05)")
+            notes.append(f"mcq: differs (choices {top2[1] - top2[0]:.4f} apart)")
+            continue
+        ids, pix = probe._prepare_ids(prompt, images)
+        eng = mm.lm
+        eng.record_top2 = True
+        (eng.generate([ids], max_new_tokens=n_tokens, eos_id=tok.eos_id) if pix is None
+         else mm.generate([ids], pix[None], max_new_tokens=n_tokens, eos_id=tok.eos_id))
+        gaps, eng.record_top2 = eng.top2_gaps[0], False
+        notes.append(check_greedy(tag, key, [int(t) for t in a.split()],
+                                  [int(t) for t in b.split()], lambda i: float(gaps[i]),
+                                  n=n_tokens))
+    return "; ".join(notes)
+
+
+def dense_bytes(bat) -> int:
+    """The bytes of a dense batcher's caches and cross pools on this rank."""
+    ts = [*bat._kc, *bat._vc, *(getattr(bat, n) for n in ("_cross_k", "_cross_v")
+                                if hasattr(bat, n))]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def per_rank(nbytes: int, slots: int, dp: int) -> float:
+    """GiB a data rank holds of dense caches of ``nbytes`` over ``slots``:
+    its ``slots / dp`` slots, or every slot where ``dp`` does not divide them."""
+    return nbytes * (slots // dp if slots % dp == 0 else slots) / slots / 2**30
+
+
+def scale_serving(torch, card: str, mesh, seed: int, engines: dict) -> dict:
+    """(f): ``GenerationServer`` over batchers on the (1, 1) mesh's leader
+    path against the mesh-less server. Gemma-3 with images on part (c)'s
+    engines, a 1-image, a 5-image, two text requests and an MCQ over the 5
+    images sent at once through the port's client; Llama-3.2-11B-Vision cut
+    in depth, a 2-image request behind the dense batcher; the dense caches'
+    bytes. -> {"launches", "mllama"} (the two mesh runs' counts)."""
+    import warnings
+
+    import numpy as np
+    from multimodal_colpali_tpu_torch.generation import (
+        ContinuousBatcher, Gemma3MMEngine, LlamaDecodeEngine, MllamaImagePreprocessor,
+        MllamaMMEngine, PagedContinuousBatcher)
+    from multimodal_colpali_tpu_torch.models import registry as R
+    from multimodal_colpali_tpu_torch.models.processing import ImagePreprocessor
+
+    c, bf16 = SERVE_MM, torch.bfloat16
+    t0 = time.perf_counter()
+    tok = engines["tok"]
+    with cut_depth(R.GEMMA3_MM_CONFIGS, GEN_MODEL, SCALE["depth"]):
+        g3 = R.GEMMA3_MM_CONFIGS[GEN_MODEL]()
+    require(g3.text == engines["plain"].cfg, "(f) part (c)'s engine is not gemma-3-27b's LM")
+    tower, projector = R._vision_parts(g3, torch.device("cuda"), bf16, seed=seed)
+    mms = {w: Gemma3MMEngine(g3, tower, projector, lm=engines[w]) for w in ("mesh", "plain")}
+    pre = ImagePreprocessor(g3.vision.image_size)
+    rng = np.random.default_rng(seed + 29)
+    pages = [png_url(p) for p in synthetic_pages(5, g3.vision.image_size, seed + 30)]
+
+    def with_images(n, text):
+        return [{"type": "image_url", "image_url": {"url": u}} for u in pages[:n]] + [
+            {"type": "text", "text": text}]
+
+    requests = [("1 image", with_images(1, QUESTION)), ("5 images", with_images(5, QUESTION)),
+                *((f"text {n}", mcq_prompt(rng, n)) for n in c["text_tokens"])]
+    requests = [(k, {"messages": [{"role": "user", "content": m}], "max_tokens": c["new_tokens"]})
+                for k, m in requests]
+    requests.append(("mcq", {"messages": [{"role": "user", "content": with_images(
+        5, mcq_prompt(rng, 200))}], "max_tokens": c["mcq_tokens"], "response_format": MCQ_FORMAT}))
+
+    def batcher(who):
+        return PagedContinuousBatcher(mms[who].lm, batch_slots=c["slots"],
+                                      max_seq_len=c["max_seq_len"], chunk=c["chunk"],
+                                      page_size=c["page"], mm_engine=mms[who],
+                                      eos_id=tok.eos_id).serve()
+
+    # the main path: the mesh server's first burst, its launches counted
+    got, first, launches = serve_burst(torch, batcher("mesh"), mms["mesh"], pre, tok, requests,
+                                       GEN_MODEL, count=True)
+    want, _, _ = serve_burst(torch, batcher("plain"), mms["plain"], pre, tok, requests,
+                             GEN_MODEL)
+    notes = served_alike("scale-f", mms["plain"], tok, pre, requests, got, want,
+                         c["new_tokens"])
+    require(first["records"] > 0 and first["forwards"] == 1,
+            f"(f) the mesh batcher applied {first['records']} records, "
+            f"{first['forwards']} constrained forwards")
+    require(launches["attention.tensor_core"] > 0 and launches["paged_attention.tensor_core"] > 0,
+            f"(f) the mesh server never launched K2's or K7a's tensor-core path: {launches}")
+    readings = interleaved(c["repeats"], {w: (lambda w=w: serve_burst(
+        torch, batcher(w), mms[w], pre, tok, requests, GEN_MODEL)[1]) for w in ("mesh", "plain")})
+    del mms, tower, projector, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    g3_s = time.perf_counter() - t0
+
+    # Llama-3.2-11B-Vision, cut in depth, behind the dense batcher
+    t1 = time.perf_counter()
+    full = R.MLLAMA_CONFIGS[MLLAMA]
+    cut = dataclasses.replace(full(), text=dataclasses.replace(
+        full().text, num_hidden_layers=c["mllama_self"]), cross_attention_layers=c["mllama_cross"])
+    R.MLLAMA_CONFIGS[MLLAMA] = lambda: cut
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")             # random weights: the init warns
+            cfg, params, _ = R.load_mllama_mm(MLLAMA, device="cuda", dtype=bf16, seed=seed)
+    finally:
+        R.MLLAMA_CONFIGS[MLLAMA] = full
+    mpre = MllamaImagePreprocessor(cfg, tiles=(1, 1), device="cuda")
+    mm_ll = {w: MllamaMMEngine(cfg, params["vision_tower"], params["multi_modal_projector"],
+                               params["cross_layers"],
+                               LlamaDecodeEngine(cfg.text, params, dtype=bf16, device="cuda",
+                                                 mesh=mesh if w == "mesh" else None),
+                               tiles=(1, 1)) for w in ("mesh", "plain")}
+    n_img = c["mllama_images"]
+    mreq = [("2 images", {"messages": [{"role": "user", "content": [
+        *({"type": "image_url", "image_url": {"url": png_url(p)}}
+          for p in synthetic_pages(n_img, OLD_SIZE["mllama"], seed + 31)),
+        {"type": "text", "text": QUESTION}]}], "max_tokens": c["mllama_tokens"]})]
+    bats = {w: ContinuousBatcher(mm_ll[w].lm, batch_slots=c["mllama_slots"],
+                                 max_seq_len=c["mllama_seq"], chunk=c["chunk"], mm_engine=mm_ll[w],
+                                 cross_max_images=n_img, eos_id=tok.eos_id)
+            for w in ("mesh", "plain")}
+    nbytes = {w: dense_bytes(b) for w, b in bats.items()}
+    require(nbytes["mesh"] == nbytes["plain"] and bats["mesh"]._kc[0].shape[0] == c["mllama_slots"],
+            f"(f) the (1, 1) mesh's dense batcher holds {nbytes['mesh']} bytes, the mesh-less "
+            f"one {nbytes['plain']}")
+    mtok = type(tok)(cfg.text.vocab_size)
+    mgot, mstats, mlaunch = serve_burst(torch, bats["mesh"].serve(), mm_ll["mesh"], mpre, mtok,
+                                        mreq, MLLAMA, count=True)
+    mwant, _, _ = serve_burst(torch, bats["plain"].serve(), mm_ll["plain"], mpre, mtok, mreq,
+                              MLLAMA)
+    mnote = served_alike("scale-f", mm_ll["plain"], mtok, mpre, mreq, mgot, mwant,
+                         c["mllama_tokens"])
+    require(mstats["records"] > 0, "(f) the Mllama mesh batcher applied no record")
+    del bats, mm_ll, params, mpre
+    gc.collect()
+    torch.cuda.empty_cache()
+    ll_s = time.perf_counter() - t1
+
+    gfull = R.GEMMA3_CONFIGS[GEN_MODEL]()
+    g3_bytes = (2 * gfull.num_hidden_layers * c["g3_slots"] * c["g3_seq"]
+                * gfull.num_key_value_heads * gfull.head_dim * 2)
+    ms = c["mllama_slots"]
+    print(f"[scale-f] {GEN_MODEL} ({SCALE['depth']} layers, part (c)'s engines) with "
+          f"SigLIP-So400m at {g3.vision.image_size} px: a 1-image, a 5-image, two text requests "
+          f"of {c['new_tokens']} tokens and an MCQ over the 5 images at once through the port's "
+          f"client, PagedContinuousBatcher + GenerationServer over the (1, 1) mesh's leader path "
+          f"against the mesh-less server: {notes} | {first['records']} records, "
+          f"{first['forwards']} constrained forward | TTFT ms (median of a burst's 4 "
+          f"generations), median [min-max] of {c['repeats']} interleaved bursts (mesh / "
+          f"mesh-less) {spread([r['ttft_ms'] for r in readings['mesh']])} / "
+          f"{spread([r['ttft_ms'] for r in readings['plain']])} | decode tokens/s "
+          f"{spread([r['tokens_s'] for r in readings['mesh']])} / "
+          f"{spread([r['tokens_s'] for r in readings['plain']])} | ms a decode step "
+          f"{spread([r['step_ms'] for r in readings['mesh']])} / "
+          f"{spread([r['step_ms'] for r in readings['plain']])} | slots live a step "
+          f"{spread([r['live'] for r in readings['mesh']])} / "
+          f"{spread([r['live'] for r in readings['plain']])} | launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} | {g3_s:.1f} s | {card}",
+          flush=True)
+    print(f"[scale-f] {MLLAMA} cut to {cfg.text.num_hidden_layers} self + "
+          f"{len(cfg.cross_attention_layers)} cross layers (cross at "
+          f"{list(cfg.cross_attention_layers)}; of 32 + 8), its whole tower "
+          f"({cfg.vision.num_hidden_layers} + {cfg.vision.num_global_layers} layers), tiles 1x1: a "
+          f"{n_img}-image request of {c['mllama_tokens']} tokens behind ContinuousBatcher "
+          f"({ms} slots of {c['mllama_seq']}, cross pools of {n_img} images) + GenerationServer "
+          f"on the mesh against the mesh-less server: {mnote}; {mstats['records']} records | "
+          f"dense caches and cross pools {nbytes['mesh'] / 2**20:.1f} MiB on the (1, 1) mesh = "
+          f"the mesh-less batcher's; a rank would hold {per_rank(nbytes['mesh'], ms, 2) * 1024:.1f}"
+          f" / {per_rank(nbytes['mesh'], ms, 4) * 1024:.1f} MiB at dp = 2 / 4 | {GEN_MODEL} at "
+          f"{gfull.num_hidden_layers} layers, {c['g3_slots']} slots of {c['g3_seq']} (by its "
+          f"config, not allocated): {g3_bytes / 2**30:.2f} GiB of dense cache, a rank "
+          f"{per_rank(g3_bytes, c['g3_slots'], 2):.2f} / {per_rank(g3_bytes, c['g3_slots'], 4):.2f}"
+          f" GiB at dp = 2 / 4 | {ll_s:.1f} s | {card}", flush=True)
+    return {"launches": launches, "mllama": mlaunch}
+
+
 def params_of(model) -> dict:
     return {n: p.detach().clone() for n, p in model.named_parameters()}
 
@@ -6487,7 +6768,8 @@ def scale_training(torch, card: str, mesh, seed: int, work: str) -> dict:
 
 def phase_scaleout(torch, seed: int, card: str, work: str) -> dict:
     """Phase 17: the mesh paths at world size 1 over NCCL, each against its
-    mesh-less twin, and the kernels at a rank's shapes of tp = 2 and 4."""
+    mesh-less twin (serving over the batchers' admission records too), and
+    the kernels at a rank's shapes of tp = 2 and 4."""
     import torch.distributed as dist
     from multimodal_colpali_tpu_torch.parallel import get_mesh, initialize_distributed
 
@@ -6498,13 +6780,15 @@ def phase_scaleout(torch, seed: int, card: str, work: str) -> dict:
         require(dist.get_backend() == "nccl", "phase 17: the group is not NCCL")
         corpus, dm = get_mesh(("corpus",)), get_mesh(("data", "model"), (1, 1))
         out = {}
-        for part, fn, args in (("a", scale_store, (corpus, seed, g)),
-                               ("b", scale_embed, (dm, seed)),
-                               ("c", scale_decode, (dm, seed)),
+        # (f) serves on (c)'s engines, and frees them before (d) and (e)
+        for part, fn, args in (("a", scale_store, lambda: (corpus, seed, g)),
+                               ("b", scale_embed, lambda: (dm, seed)),
+                               ("c", scale_decode, lambda: (dm, seed)),
+                               ("f", scale_serving, lambda: (dm, seed, out["c"].pop("engines"))),
                                ("d", scale_kernels, None),
-                               ("e", scale_training, (dm, seed, work))):
+                               ("e", scale_training, lambda: (dm, seed, work))):
             t0 = time.perf_counter()
-            out[part] = fn(torch, g) if args is None else fn(torch, card, *args)
+            out[part] = fn(torch, g) if args is None else fn(torch, card, *args())
             walls[part] = round(time.perf_counter() - t0, 1)
     finally:
         dist.destroy_process_group()
@@ -6513,7 +6797,8 @@ def phase_scaleout(torch, seed: int, card: str, work: str) -> dict:
     rows.update(out["e"]["rows"])
     launches.update(out["e"]["row_launches"])
     return dict(rows=rows, paths=[out["a"]["launches"], out["b"]["launches"],
-                                  *out["c"]["runs"].values(), out["e"]["launches"]],
+                                  *out["c"]["runs"].values(), out["f"]["launches"],
+                                  out["f"]["mllama"], out["e"]["launches"]],
                 launches=launches, training=out["e"]["launches"])
 
 

@@ -51,6 +51,12 @@ rank's (:class:`RankConfig`: its head counts), so caches and pools hold the
 rank's heads; ``model_cfg`` is the model's. ``generate`` pads the batch to a
 multiple of the ``data`` size, each data rank decodes its share of the rows,
 and the tokens are all-gathered (engine.py:577-598).
+
+An image engine's ``lm`` may be such an engine. Its tower and projector run
+whole on every rank (JAX replicates their leaves), and its prompt goes
+through the LM's layers at the rank's heads (the ``lm.cfg`` it reads);
+Mllama's cross blocks are cut like the LM's layers. The batchers serve it
+over the mesh through their admission records (``generation/scheduler``).
 """
 
 from __future__ import annotations
@@ -140,15 +146,20 @@ def _cols(p: Any, lo: int, hi: int) -> Any:
     return p[..., lo:hi].contiguous()
 
 
-def tp_engine_params(params: Any, cfg: Any, mesh: Any):
-    """This rank's slices of an engine tree and its :class:`RankConfig`."""
+def tp_engine_params(params: Any, cfg: Any, mesh: Any, attention=None):
+    """This rank's slices of an engine tree and its :class:`RankConfig`.
+    ``attention(tree)`` lists the tree's attention subtrees (default: the
+    LM's ``self_attn`` of every layer), whose K/V projections keep the
+    rank's KV head where the KV heads do not split."""
     q0, nq, k0, nkv = tp_head_plan(cfg, mesh.size("model"), mesh.index("model"))
     if nkv * mesh.size("model") == cfg.num_key_value_heads:
         return shard_params_for_tp(params, mesh, "model"), RankConfig(cfg, mesh, nq, nkv)
     params = shard_params_for_tp(params, mesh, "model", replicated=("k_proj", "v_proj"))
     d = cfg.head_dim
-    for i in range(cfg.num_hidden_layers):
-        att = params["language_model"][f"layers_{i}"]["self_attn"]
+    if attention is None:
+        attention = lambda t: [t["language_model"][f"layers_{i}"]["self_attn"]  # noqa: E731
+                               for i in range(cfg.num_hidden_layers)]
+    for att in attention(params):
         for name in ("k_proj", "v_proj"):
             att[name] = _cols(att[name], k0 * d, (k0 + nkv) * d)
     return params, RankConfig(cfg, mesh, nq, nkv)

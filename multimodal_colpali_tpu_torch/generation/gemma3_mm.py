@@ -113,8 +113,10 @@ class Gemma3MMEngine(_ImageEngine):
         every layer (gemma3_mm.py:152-185), K/V written into the caches'
         first ``s`` rows -> (hidden, (k, v) rows per layer, positions).
         Global layers attend to ``valid & (causal | span)``, sliding ones to
-        ``valid & ((causal & in window) | span)``."""
-        c, eng = self.cfg.text, self.lm
+        ``valid & ((causal & in window) | span)``. The layers run at the
+        heads ``lm.cfg`` gives (a rank's over a tensor-parallel mesh)."""
+        eng = self.lm
+        c = eng.cfg
         s = ids.shape[1]
         positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
         cols = torch.arange(s, device=ids.device)

@@ -26,6 +26,13 @@ as JAX's ``layers.attention`` takes it; projections go through ``q_dense``
 each image's real-tile rows (:meth:`MllamaMMEngine.packed_cross_kv`) and run
 the same blocks in their decode and verify steps (``generation/scheduler``).
 
+Over an ``lm`` with a tensor-parallel mesh the cross blocks are cut as the
+LM's layers are (``engine.tp_engine_params``): the rank's query and KV heads
+of ``q/k/v_proj`` and a slice of the MLP's hidden units, ``o_proj`` and
+``down_proj`` row-parallel (their products all-reduced over ``model``); the
+norms and the tanh gates stay whole. The tower and the projector run whole
+on every rank.
+
 ``pixel_values`` are tile stacks ``[B, T, H, W, 3]`` or ``[B, N, T, H, W, 3]``
 (``image_rank = 4``: one image is ``[T, H, W, 3]``), as
 :class:`MllamaImagePreprocessor` makes them.
@@ -40,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_colpali_tpu_torch.generation.engine import (
-    LlamaDecodeEngine, _dense, _ImageEngine, _lin, _rms_plain)
+    LlamaDecodeEngine, _dense, _ImageEngine, _lin, _rms_plain, _row, tp_engine_params)
 from multimodal_colpali_tpu_torch.models.mllama import MllamaMMConfig, gqa_attention
 from multimodal_colpali_tpu_torch.models.processing import _upload, image_device, normalize_on
 from multimodal_colpali_tpu_torch.ingest.imageops import resize
@@ -147,6 +154,10 @@ class MllamaMMEngine(_ImageEngine):
         cross = _cast_tree(cross_layers, lm.device, lm.dtype)
         if lm.weight_dtype != "native":
             cross = quantize_kernels(cross, lm.weight_dtype)
+        if lm.mesh is not None:
+            cross, _ = tp_engine_params(
+                cross, lm.model_cfg, lm.mesh,
+                attention=lambda t: [t[str(g)]["cross_attn"] for g in cfg.cross_attention_layers])
         self.cross_params = cross
 
     @property
@@ -187,8 +198,9 @@ class MllamaMMEngine(_ImageEngine):
         return self._project(self._tower(pix), pix.shape[0])
 
     def _cross_kv(self, states: torch.Tensor) -> Dict[int, Tuple[torch.Tensor, torch.Tensor]]:
-        """Per cross layer (k, v) ``[B, Skv, Hkv, D]``, ``k_norm`` applied."""
-        c = self.cfg.text
+        """Per cross layer (k, v) ``[B, Skv, Hkv, D]`` at ``lm.cfg``'s heads
+        (a rank's over a mesh), ``k_norm`` applied."""
+        c = self.lm.cfg
         b, skv, _ = states.shape
         out = {}
         for g in self.cfg.cross_attention_layers:
@@ -205,8 +217,9 @@ class MllamaMMEngine(_ImageEngine):
         """HF ``MllamaCrossAttentionDecoderLayer`` (mllama_mm.py:210-240):
         gated cross attention and gated MLP; ``mask`` bool broadcastable to
         ``[B, 1, S, Skv]``, ``full_row [B, S, 1]`` (0: the row attends no
-        image, its MLP output is zeroed) or None."""
-        c = self.cfg.text
+        image, its MLP output is zeroed) or None. At ``lm.cfg``'s heads; over
+        a mesh ``o_proj`` and ``down_proj`` reduce over ``model``."""
+        c = self.lm.cfg
         b, s, _ = x.shape
         y = _rms_plain(x, lp["input_layernorm"]["weight"], c.rms_norm_eps)
         q = _lin(y, lp["cross_attn"]["q_proj"]).reshape(b, s, c.num_attention_heads, c.head_dim)
@@ -215,11 +228,11 @@ class MllamaMMEngine(_ImageEngine):
         block = max(1, CROSS_LOGITS_BUDGET // per_row) if s * per_row > CROSS_LOGITS_BUDGET \
             else None
         att = gqa_attention(q, ck, cv, mask, c.head_dim ** -0.5, block=block)
-        att = _lin(att.reshape(b, s, -1), lp["cross_attn"]["o_proj"])
+        att = _row(att.reshape(b, s, -1), lp["cross_attn"]["o_proj"], c)
         x = x + torch.tanh(lp["gate_attn"].float()).to(x.dtype) * att
         y = _rms_plain(x, lp["post_attention_layernorm"]["weight"], c.rms_norm_eps)
-        mlp = _lin(F.silu(_lin(y, lp["mlp"]["gate_proj"])) * _lin(y, lp["mlp"]["up_proj"]),
-                   lp["mlp"]["down_proj"])
+        mlp = _row(F.silu(_lin(y, lp["mlp"]["gate_proj"])) * _lin(y, lp["mlp"]["up_proj"]),
+                   lp["mlp"]["down_proj"], c)
         if full_row is not None:
             mlp = mlp * full_row.to(mlp.dtype)
         return x + torch.tanh(lp["gate_mlp"].float()).to(x.dtype) * mlp

@@ -31,21 +31,37 @@ paged batcher never allocates them. The loop thread enters
 ``torch.inference_mode`` itself (it is thread-local), so no decode step keeps
 an autograd graph alive.
 
-Over an engine's mesh (scheduler.py:178-231) every rank runs the same host
-scheduler: the same submits, admissions, page grants and preemptions. A
-prefill (one prompt) runs on every data rank, tensor-parallel over
-``model``. When the ``data`` size divides ``batch_slots``, each data rank
-decodes its own slots (``_sl``) and a step ends with every rank holding the
-same next tokens (an all-gather), so the schedulers stay in lockstep; the
-sampler's noise is a pure function of (seed, step), and nothing in a step
-reads a clock. The caches and page pools hold every slot on every data rank
-(each rank writes only its slots' decode rows; a prompt's rows are written
-everywhere at install), so prefix pages and preemption need no traffic; JAX
-shards the dense caches' slots over ``data``, so a rank here holds ``data``
-times its dense-cache memory (ROADMAP §3). A
-multi-rank mesh refuses what would let the ranks drift apart: ``serve()``
-(its admissions follow each rank's own clock), ``admission_timeout`` and
-image requests (the image engines are not sharded).
+Every scheduling point starts with an *admission record*
+(:meth:`ContinuousBatcher._sync`): the requests submitted since the last one
+(prompt ids, sampling settings, eos, logprobs, an image request's pixels),
+the queued requests ``admission_timeout`` expired by the
+clock of the rank that built it, the constrained forwards
+(:meth:`ContinuousBatcher.submit_logits`) and whether to stop. The batcher
+applies it, then admits and decodes from its own state alone.
+
+Over an engine's mesh (scheduler.py:178-231; JAX runs one controller over
+every device) the mesh's first rank is the leader: its submits fill the
+records, and it broadcasts each one to the other ranks
+(``parallel.broadcast_object``), which run :meth:`ContinuousBatcher.follow`
+in place of :meth:`ContinuousBatcher.serve`. Every rank applies the same
+records and runs the same ``_admit`` / ``_step_chunk``, so admissions, page
+grants, preemptions and counters are the same everywhere with no other
+traffic: each is a pure function of the record sequence, the sampler's noise
+a function of (seed, step), and nothing past the record reads a clock.
+Futures and ``on_token`` callbacks resolve on the leader (a rank that
+submitted the same calls itself, as ``generate`` on every rank does, gets its
+own resolved too). At one rank the leader builds and applies the same
+records without the broadcast.
+
+A prefill (one prompt) runs on every data rank, tensor-parallel over
+``model``: its logits keep the schedulers in lockstep. When the ``data``
+size divides ``batch_slots``, each data rank decodes its own slots (``_sl``)
+and a step ends with every rank holding the same next tokens (an
+all-gather). The dense caches and Mllama's cross pools then hold only the
+rank's ``batch_slots / data`` slots, as JAX shards them (scheduler.py:
+216-233): a prompt's rows and a decode row are written by the rank that owns
+the slot. The paged pools hold every slot on every data rank (JAX splits
+only their heads), so prefix pages and preemption need no traffic.
 """
 
 from __future__ import annotations
@@ -56,7 +72,7 @@ import queue
 import threading
 import time
 import traceback
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -67,7 +83,8 @@ from multimodal_colpali_tpu_torch.generation.engine import (
     LOGPROB_K, GemmaDecodeEngine, _step_logprobs, attn_scale, layer_stack, left_pad,
     sample_per_slot)
 from multimodal_colpali_tpu_torch.models import layers as L
-from multimodal_colpali_tpu_torch.parallel.mesh import batch_sharding
+from multimodal_colpali_tpu_torch.parallel.mesh import batch_sharding, broadcast_object
+
 
 class AdmissionQueueFull(RuntimeError):
     """Raised into a submitted future when the admission queue is at its
@@ -80,7 +97,7 @@ class _Request:
     max_new_tokens: int
     temperature: float
     seed: int
-    future: Future
+    future: Optional[Future]         # None on a rank that did not submit it
     eos_id: int = -1
     t_submit: float = 0.0           # monotonic clock at submit()
     tokens: List[int] = dataclasses.field(default_factory=list)
@@ -93,6 +110,38 @@ class _Request:
     pix_digest: Optional[str] = None               # _pixel_digest(pixel_values)
     lps: List[float] = dataclasses.field(default_factory=list)
     tops: List[Any] = dataclasses.field(default_factory=list)
+    rid: int = -1                    # its place in the record sequence
+
+
+@dataclasses.dataclass
+class _Forward:
+    """A constrained forward: next-token logits of one prompt (with its
+    pixels), run by every rank at one scheduling point."""
+
+    prompt: List[int]
+    future: Optional[Future]
+    pixel_values: Any = None
+
+
+# the fields of a request that travel in a record
+_WIRE = ("rid", "prompt", "max_new_tokens", "temperature", "seed", "eos_id", "top_p", "top_k",
+         "want_logprobs", "pixel_values", "pix_digest")
+
+
+def _settle(fut: Optional[Future], result: Any = None,
+            exc: Optional[BaseException] = None) -> None:
+    """Resolve ``fut`` where this rank holds it (None: another rank's request)."""
+    if fut is None or fut.done():
+        return
+    if exc is not None:
+        fut.set_exception(exc)
+    else:
+        fut.set_result(result)
+
+
+def _host(x: Any) -> Any:
+    """A tensor as a host numpy array (what a record may carry); else ``x``."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
 
 
 def _pixel_digest(pix: torch.Tensor) -> str:
@@ -129,14 +178,14 @@ class ContinuousBatcher:
         self._cross_mode = bool(getattr(mm_engine, "cross_decode", False))
         self.mesh = getattr(engine, "mesh", None)
         self._multi_rank = self.mesh is not None and self.mesh.devices.size > 1
-        if self._multi_rank and (mm_engine is not None or admission_timeout > 0):
-            raise ValueError("a multi-rank mesh serves text in lockstep: image requests and "
-                             "admission_timeout are not sharded")
-        self._sl = slice(None)            # the slots this rank decodes
+        self.leader = getattr(self.mesh, "is_leader", True)
+        self._sl = slice(None)            # the slots this rank decodes and caches
+        self._lo, self._b_local = 0, batch_slots
         if self.mesh is not None:
             dp = self.mesh.size("data")
             if dp > 1 and batch_slots % dp == 0:
-                self._sl = slice(*batch_sharding(self.mesh).bounds(batch_slots))
+                lo, hi = batch_sharding(self.mesh).bounds(batch_slots)
+                self._sl, self._lo, self._b_local = slice(lo, hi), lo, hi - lo
         self.engine = engine
         self.mm_engine = mm_engine
         self.cfg = engine.cfg
@@ -151,7 +200,10 @@ class ContinuousBatcher:
         self.max_queue = int(max_queue)
         self.admission_timeout = float(admission_timeout)
         self.expired = 0
-        self.rejected = 0
+        self.rejected = 0                 # the leader's: a refused submit enters no record
+        self.admissions = 0
+        self.records = 0
+        self.constrained_forwards = 0
         self._chunked: Optional[Dict[str, Any]] = None
         self.chunked_prefill_segments = 0
         # host-clock counters: decode chunks (each ends in a device sync) and
@@ -179,14 +231,20 @@ class ContinuousBatcher:
             # install; a slot's rows in use on the host (0: a text slot)
             c = self.cfg
             self._cross_skv = int(cross_max_images) * mm_engine.packed_cross_tokens_per_image
-            pool = (len(mm_engine.cfg.cross_attention_layers), b, self._cross_skv,
+            pool = (len(mm_engine.cfg.cross_attention_layers), self._b_local, self._cross_skv,
                     c.num_key_value_heads, c.head_dim)
             self._cross_k = torch.zeros(pool, dtype=engine.dtype, device=dev)
             self._cross_v = torch.zeros(pool, dtype=engine.dtype, device=dev)
             self._cross_len = [0] * b
 
         self._slots: List[Optional[_Request]] = [None] * self.B
+        # submits not yet in a record; the requests the records brought, in order
         self._queue: "queue.Queue[_Request]" = queue.Queue()
+        self._pending: "deque[_Request]" = deque()
+        self._forwards: "queue.Queue[_Forward]" = queue.Queue()
+        self._next_rid = 0
+        self._stopped = False
+        self._wake = threading.Event()
         # preempted requests and admissions deferred for lack of capacity
         self._readmit: List[_Request] = []
         # exact-prompt prefill cache (LRU): (k, v, logits, last_pos) per prompt
@@ -198,9 +256,11 @@ class ContinuousBatcher:
         self._thread: Optional[threading.Thread] = None
 
     def _init_kv(self) -> None:
-        """The dense per-slot caches, one [B, T, Hkv, D] pair per layer."""
+        """The dense per-slot caches of this rank's slots, one ``[B / data,
+        T, Hkv, D]`` pair per layer (``[B, ...]`` where ``data`` does not
+        divide ``B``)."""
         c = self.cfg
-        shape = (self.B, self.T, c.num_key_value_heads, c.head_dim)
+        shape = (self._b_local, self.T, c.num_key_value_heads, c.head_dim)
         self._kc = [torch.zeros(shape, dtype=self.engine.dtype, device=self.device)
                     for _ in range(c.num_hidden_layers)]
         self._vc = [torch.zeros(shape, dtype=self.engine.dtype, device=self.device)
@@ -208,6 +268,12 @@ class ContinuousBatcher:
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def _own(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's dense caches and cross pools, or
+        None where another data rank holds it."""
+        i = slot - self._lo
+        return i if 0 <= i < self._b_local else None
 
     def _gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every slot's rows of a per-slot result of this rank's slots."""
@@ -325,7 +391,7 @@ class ContinuousBatcher:
         if not self._cross_mode or not any(self._cross_len):
             return None
         n = max(self._cross_len)
-        clen = self._tensor(self._cross_len, torch.int64)
+        clen = self._tensor(self._cross_len[self._sl], torch.int64)
         return self.mm_engine.pool_hooks(self._cross_k[:, :, :n], self._cross_v[:, :, :n], clen)
 
     def _install_cross(self, slot: int, cross) -> None:
@@ -337,9 +403,10 @@ class ContinuousBatcher:
             self._cross_len[slot] = 0
             return
         ks, vs = cross
-        rows = ks.shape[2]
-        self._cross_k[:, slot, :rows] = ks[:, 0]
-        self._cross_v[:, slot, :rows] = vs[:, 0]
+        rows, mine = ks.shape[2], self._own(slot)
+        if mine is not None:
+            self._cross_k[:, mine, :rows] = ks[:, 0]
+            self._cross_v[:, mine, :rows] = vs[:, 0]
         self._cross_len[slot] = rows
 
     def _reset_cross(self, slot: Optional[int] = None) -> None:
@@ -384,9 +451,10 @@ class ContinuousBatcher:
         self._tok = nxt
 
     def _dense_step(self, p):
-        """``_decode_step`` over the dense per-slot caches (scheduler.py:328-409)."""
-        c, b, t, sl = self.cfg, self.B, self.T, self._sl
-        rows = torch.arange(b, device=self.device)[sl]
+        """``_decode_step`` over the dense per-slot caches (scheduler.py:328-409),
+        this rank's rows of them."""
+        c, t, sl = self.cfg, self.T, self._sl
+        rows = torch.arange(self._b_local, device=self.device)
         cols = torch.arange(t, device=self.device)
         start, end = self._start[sl], self._end[sl]
         mask = ((cols[None, :] >= start[:, None]) & (cols[None, :] <= end[:, None]))[:, None,
@@ -403,7 +471,7 @@ class ContinuousBatcher:
 
         def attend(i, q, kc, vc):
             m = sl_mask if types is not None and types[i] == "sliding_attention" else mask
-            return L.attention(q, kc[sl], vc[sl], mask=m, scale=sc)
+            return L.attention(q, kc, vc, mask=m, scale=sc)
 
         return self._decode_step(p, kv_write, attend)
 
@@ -416,12 +484,15 @@ class ContinuousBatcher:
                temperature: float = 0.0, seed: int = 0, eos_id: Optional[int] = None,
                pixel_values: Optional[Any] = None, on_token: Optional[Any] = None,
                top_p: float = 1.0, top_k: int = 0, logprobs: int = 0) -> Future:
-        """Queue a request. ``on_token(token_id)`` streams each generated
-        token as the scheduler syncs it (never eos or anything past it);
-        ``logprobs=N`` makes the future resolve to ``(tokens, logprobs,
-        top_lists)`` and the stream carry ``(token, logprob, top)`` triples."""
+        """Queue a request for the next record. ``on_token(token_id)``
+        streams each generated token as the scheduler syncs it (never eos or
+        anything past it); ``logprobs=N`` makes the future resolve to
+        ``(tokens, logprobs, top_lists)`` and the stream carry ``(token,
+        logprob, top)`` triples. ``max_queue`` bounds the requests still
+        waiting for a slot: those not yet in a record and those a record
+        brought (``_pending``)."""
         fut: Future = Future()
-        if self.max_queue > 0 and self._queue.qsize() >= self.max_queue:
+        if self.max_queue > 0 and self._queue.qsize() + len(self._pending) >= self.max_queue:
             self.rejected += 1
             fut.set_exception(AdmissionQueueFull(
                 f"admission queue at its bound ({self.max_queue}); retry with backoff"))
@@ -439,15 +510,13 @@ class ContinuousBatcher:
             # the prompt carries N * num_patches image tokens. The pixels stay
             # where they are (a card tensor is not copied back and forth); the
             # digest is taken once, here, off the scheduling loop.
-            if not isinstance(pixel_values, torch.Tensor):
-                pixel_values = torch.from_numpy(np.asarray(pixel_values))
-            if pixel_values.dim() == getattr(self.mm_engine, "image_rank", 3):
-                pixel_values = pixel_values[None]
+            pixel_values = self._stacked(pixel_values)
+            n_img = pixel_values.shape[0]
             if self._cross_mode:
-                need = pixel_values.shape[0] * self.mm_engine.packed_cross_tokens_per_image
+                need = n_img * self.mm_engine.packed_cross_tokens_per_image
                 if need > self._cross_skv:
                     fut.set_exception(ValueError(
-                        f"{pixel_values.shape[0]} images need {need} cross-KV rows > pool "
+                        f"{n_img} images need {need} cross-KV rows > pool "
                         f"{self._cross_skv}; raise cross_max_images"))
                     return fut
         self._queue.put(_Request(
@@ -456,6 +525,31 @@ class ContinuousBatcher:
             on_token=on_token, top_p=float(top_p), top_k=int(top_k),
             want_logprobs=max(0, min(int(logprobs), LOGPROB_K)), pixel_values=pixel_values,
             pix_digest=None if pixel_values is None else _pixel_digest(pixel_values)))
+        self._wake.set()
+        return fut
+
+    def _stacked(self, pixel_values) -> torch.Tensor:
+        """Pixels as a tensor stack of the request's images ``[N, ...]``."""
+        if not isinstance(pixel_values, torch.Tensor):
+            pixel_values = torch.from_numpy(np.asarray(pixel_values))
+        if pixel_values.dim() == getattr(self.mm_engine, "image_rank", 3):
+            pixel_values = pixel_values[None]
+        return pixel_values
+
+    def submit_logits(self, prompt: Sequence[int], pixel_values: Optional[Any] = None) -> Future:
+        """A constrained forward: the future resolves to the float32
+        next-token logits ``[V]`` of ``prompt`` (through ``mm_engine`` with
+        the request's pixels). It runs at the next
+        scheduling point, one forward at a time, on every rank of the mesh
+        (the text engine's ``next_token_logits`` or the image engine's), and
+        the leader's logits resolve it."""
+        fut: Future = Future()
+        if pixel_values is not None and self.mm_engine is None:
+            fut.set_exception(ValueError("multimodal request but no mm_engine configured"))
+            return fut
+        self._forwards.put(_Forward(
+            list(prompt), fut, None if pixel_values is None else self._stacked(pixel_values)))
+        self._wake.set()
         return fut
 
     @property
@@ -463,20 +557,103 @@ class ContinuousBatcher:
         return self.mm_engine is not None
 
     def _pop_live(self) -> Optional[_Request]:
-        """Next queued request within the admission deadline; expired ones
-        fail with TimeoutError in queue order."""
+        """Next request the records brought (expired ones left with the
+        record that expired them)."""
+        return self._pending.popleft() if self._pending else None
+
+    # -- admission records --------------------------------------------------------
+
+    @staticmethod
+    def _drained(q: "queue.Queue") -> list:
+        out = []
         while True:
             try:
-                req = self._queue.get_nowait()
+                out.append(q.get_nowait())
             except queue.Empty:
-                return None
-            if (self.admission_timeout > 0 and not req.tokens
-                    and time.monotonic() - req.t_submit > self.admission_timeout):
+                return out
+
+    def _record(self, stop: bool) -> Dict[str, Any]:
+        """The leader's record of this scheduling point (scheduler.py:
+        515-531): the submits since the last one (numbered in order), the
+        queued requests ``admission_timeout`` expired by this clock, the
+        constrained forwards, and whether to stop."""
+        if stop:
+            return {"new": [], "expired": [], "forwards": [], "stop": True}
+        new = self._drained(self._queue)
+        for req in new:
+            req.rid, self._next_rid = self._next_rid, self._next_rid + 1
+        expired = []
+        if self.admission_timeout > 0:
+            now = time.monotonic()
+            expired = [r.rid for r in (*self._pending, *new)
+                       if not r.tokens and now - r.t_submit > self.admission_timeout]
+        return {"new": new, "expired": expired, "forwards": self._drained(self._forwards),
+                "stop": False}
+
+    def _wire(self, rec: Dict[str, Any]) -> Dict[str, Any]:
+        """A record as the other ranks receive it: plain values, pixels on the host."""
+        return dict(rec, new=[{f: _host(getattr(r, f)) for f in _WIRE} for r in rec["new"]],
+                    forwards=[(f.prompt, _host(f.pixel_values)) for f in rec["forwards"]])
+
+    def _unwire(self, rec: Dict[str, Any]) -> Dict[str, Any]:
+        """A received record as requests of this rank. A rank that submitted
+        the same calls itself (every rank driving the batcher alike) pairs
+        its own submits with the record's, in order, so their futures
+        resolve here too."""
+        new = []
+        for spec in rec["new"]:
+            pix = spec.pop("pixel_values")
+            req = _Request(future=None, t_submit=time.monotonic(), **spec,
+                           pixel_values=None if pix is None else torch.from_numpy(pix))
+            if not self._queue.empty():
+                mine = self._queue.get_nowait()
+                if mine.prompt != req.prompt:
+                    raise RuntimeError("this rank's submits differ from the leader's")
+                req.future, req.on_token = mine.future, mine.on_token
+            new.append(req)
+        forwards = [_Forward(prompt, None, None if pix is None else torch.from_numpy(pix))
+                    for prompt, pix in rec["forwards"]]
+        return dict(rec, new=new, forwards=forwards)
+
+    def _sync(self, stop: bool = False) -> bool:
+        """The scheduling point: the leader builds the record and broadcasts
+        it over the mesh (at one rank it only builds it), every rank applies
+        it. False when the record stops the loop."""
+        rec = self._record(stop) if self.leader else None
+        if self._multi_rank:
+            got = broadcast_object(self.mesh, self._wire(rec) if self.leader else None)
+            if not self.leader:
+                rec = self._unwire(got)
+        self.records += 1
+        if rec["stop"]:
+            self._stopped = True
+            return False
+        self._pending.extend(rec["new"])
+        if rec["expired"]:
+            gone = set(rec["expired"])
+            for req in [r for r in self._pending if r.rid in gone]:
+                self._pending.remove(req)
                 self.expired += 1
-                req.future.set_exception(TimeoutError(
+                _settle(req.future, exc=TimeoutError(
                     f"request waited > {self.admission_timeout:.1f}s for admission"))
-                continue
-            return req
+        for fwd in rec["forwards"]:
+            self._run_forward(fwd)
+        return True
+
+    def _run_forward(self, fwd: _Forward) -> None:
+        """One constrained forward (server.py:167-203) on this rank; its
+        failure fails its future alone."""
+        self.constrained_forwards += 1
+        try:
+            if fwd.pixel_values is None:
+                logits = self.engine.next_token_logits([fwd.prompt])[0]
+            else:
+                logits = self.mm_engine.next_token_logits([fwd.prompt],
+                                                          fwd.pixel_values[None])[0]
+        except Exception as exc:  # noqa: BLE001 - the request's failure, not the loop's
+            _settle(fwd.future, exc=exc)
+            return
+        _settle(fwd.future, logits)
 
     # Hooks the paged batcher overrides ------------------------------------------
 
@@ -495,10 +672,13 @@ class ContinuousBatcher:
 
     def _install_slot(self, slot: int, s: int, n_prompt: int, k, v, tokens=None, ctx=None,
                       hint=None) -> None:
-        """Copy prefill K/V rows (left-padded to ``s``) into the slot."""
-        for i in range(self.cfg.num_hidden_layers):
-            self._kc[i][slot, :s] = k[i][0]
-            self._vc[i][slot, :s] = v[i][0]
+        """Copy prefill K/V rows (left-padded to ``s``) into the slot, on the
+        rank whose dense caches hold it."""
+        mine = self._own(slot)
+        if mine is not None:
+            for i in range(self.cfg.num_hidden_layers):
+                self._kc[i][mine, :s] = k[i][0]
+                self._vc[i][mine, :s] = v[i][0]
         self._start[slot] = s - n_prompt
         self._end[slot] = s
 
@@ -534,8 +714,11 @@ class ContinuousBatcher:
 
     def _admit(self) -> None:
         """Fill free slots, readmissions first, then the queue
-        (scheduler.py:758-843). A readmitted request re-prefills its prompt
-        with the tokens generated so far and samples on from its own step."""
+        (scheduler.py:758-843), after the scheduling point's record. A
+        readmitted request re-prefills its prompt with the tokens generated
+        so far and samples on from its own step."""
+        if not self._sync():
+            return
         self._advance_chunked()
         for slot in range(self.B):
             if self._slots[slot] is not None:
@@ -564,7 +747,7 @@ class ContinuousBatcher:
             if not self._can_admit(s, len(prompt_eff), req.max_new_tokens - len(req.tokens),
                                    tokens=prompt_eff, mm=mm, ctx=req.pix_digest):
                 if not any(r is not None for r in self._slots):
-                    req.future.set_exception(ValueError(
+                    _settle(req.future, exc=ValueError(
                         f"prompt of {len(prompt_eff)} tokens (+ decode budget) exceeds the "
                         f"KV capacity of an empty scheduler"))
                     continue
@@ -602,6 +785,7 @@ class ContinuousBatcher:
                 use_filter=req.top_p < 1.0 or req.top_k > 0)[0])
         else:
             tok0 = int(torch.argmax(logits))
+        self.admissions += 1
         if n0 == 0:
             self.ttft_s.append(time.monotonic() - req.t_submit)
         req.tokens.append(tok0)
@@ -636,34 +820,25 @@ class ContinuousBatcher:
         toks = req.tokens
         if req.eos_id in toks:
             toks = toks[: toks.index(req.eos_id)]
-        if req.want_logprobs:
-            req.future.set_result((toks, req.lps[: len(toks)], req.tops[: len(toks)]))
-        else:
-            req.future.set_result(toks)
+        _settle(req.future, (toks, req.lps[: len(toks)], req.tops[: len(toks)])
+                if req.want_logprobs else toks)
 
     def _fail_all(self, exc: BaseException) -> None:
-        """Fail every active, chunked, readmitted and queued request with ``exc``."""
+        """Fail every active, chunked, readmitted, pending and queued request
+        and every queued constrained forward with ``exc``."""
         if self._chunked is not None:
             req = self._chunked["req"]
             self._chunked = None
-            if not req.future.done():
-                req.future.set_exception(exc)
+            _settle(req.future, exc=exc)
         for slot, req in enumerate(self._slots):
             if req is not None:
                 self._slots[slot] = None
-                if not req.future.done():
-                    req.future.set_exception(exc)
-        for req in self._readmit:
-            if not req.future.done():
-                req.future.set_exception(exc)
+                _settle(req.future, exc=exc)
+        for req in (*self._readmit, *self._pending, *self._drained(self._queue),
+                    *self._drained(self._forwards)):
+            _settle(req.future, exc=exc)
         self._readmit.clear()
-        while True:
-            try:
-                req = self._queue.get_nowait()
-            except queue.Empty:
-                break
-            if not req.future.done():
-                req.future.set_exception(exc)
+        self._pending.clear()
         self._remaining = torch.zeros_like(self._remaining)
         self._reset_cross()
 
@@ -733,14 +908,19 @@ class ContinuousBatcher:
     def _busy(self) -> bool:
         return any(r is not None for r in self._slots)
 
+    def _has_work(self) -> bool:
+        return (not self._queue.empty() or not self._forwards.empty() or bool(self._pending)
+                or bool(self._readmit) or self._chunked is not None or self._busy())
+
     @torch.inference_mode()
     def drain(self) -> None:
         """Run until every queued and active request completes. A failure
-        fails every in-flight and queued future before it re-raises."""
+        fails every in-flight and queued future before it re-raises. Over a
+        multi-rank mesh the other ranks run :meth:`follow`, or drain the
+        same submits themselves."""
         with self._lock:
             try:
-                while (not self._queue.empty() or self._readmit or self._chunked is not None
-                       or self._busy()):
+                while self._has_work():
                     self._admit()
                     if self._busy():
                         self._step_chunk()
@@ -751,18 +931,26 @@ class ContinuousBatcher:
     # -- background serving ------------------------------------------------------
 
     def serve(self) -> "ContinuousBatcher":
-        if self._multi_rank:
-            raise RuntimeError("serve() admits by each rank's own clock; a multi-rank mesh "
-                               "needs a front end that broadcasts admissions (see ROADMAP.md) "
-                               "and drives the batcher with submit() and drain()")
-        self._serving = True
+        """Run the scheduling loop on a background thread. On the mesh's
+        leader (or without a mesh) it takes the submits; on every other rank
+        it runs :meth:`follow`."""
+        self._serving, self._stopped = True, False
+        if not self.leader:
+            self._thread = threading.Thread(target=self._follow_loop, daemon=True)
+            self._thread.start()
+            return self
 
         def loop():
             with torch.inference_mode():   # thread-local: enter it on this thread
-                while self._serving:
+                while True:
+                    stopping = not self._serving
+                    self._wake.clear()
                     busy = False
                     try:
                         with self._lock:
+                            if stopping:      # the last record stops the followers
+                                self._sync(stop=True)
+                                return
                             self._admit()
                             busy = self._chunked is not None or self._busy()
                             if self._busy():
@@ -771,17 +959,53 @@ class ContinuousBatcher:
                         traceback.print_exc()
                         with self._lock:
                             self._fail_all(exc)
+                        if stopping:
+                            return
                     if not busy:
-                        time.sleep(0.005)
+                        self._wake.wait(0.05)   # a submit wakes it
 
         self._thread = threading.Thread(target=loop, daemon=True)
         self._thread.start()
         return self
 
+    def _follow_loop(self) -> None:
+        with torch.inference_mode():
+            while not self._stopped:
+                try:
+                    with self._lock:
+                        self._admit()
+                        if not self._stopped and self._busy():
+                            self._step_chunk()
+                except Exception as exc:  # noqa: BLE001 - the leader's loop goes on too
+                    traceback.print_exc()
+                    with self._lock:
+                        self._fail_all(exc)
+
+    def follow(self) -> "ContinuousBatcher":
+        """A rank other than the leader: apply the leader's records and run
+        the same admissions and decode steps until the leader stops (its
+        ``shutdown``). Returns then; if :meth:`serve` already runs the loop
+        on a thread, waits for that thread."""
+        if self.leader:
+            raise RuntimeError("follow() runs on the mesh's other ranks; the leader runs serve() "
+                               "or drain()")
+        if self._thread is not None and self._thread.is_alive():
+            self._thread.join()
+        else:
+            self._stopped = False
+            self._follow_loop()
+        return self
+
     def shutdown(self) -> None:
+        """Stop the loop. The leader's last record stops the followers (also
+        for a leader that drained without serving)."""
         self._serving = False
+        self._wake.set()
         if self._thread:
             self._thread.join(timeout=60)
+        elif self._multi_rank and self.leader and not self._stopped:
+            with self._lock:
+                self._sync(stop=True)
 
     # GenerationServer protocol: generate through the batcher. ``pixel_values``
     # holds one image array (or None) a prompt, built with build_mm_prompt.

@@ -17,6 +17,11 @@ batcher), 429/504 back-pressure from the batcher's bounded queue and
 admission deadline, ``/health``, and ``/stats``: the requests served, the
 images decoded and skipped, and how many requests carried each number of
 decoded images.
+
+Over a batcher whose engine carries a multi-rank mesh, the server is the
+mesh's front end: the leader binds HTTP and submits, and every other rank
+builds the same server, binds nothing and runs the batcher's ``follow`` in
+``start()`` (``generation/scheduler``'s admission records).
 """
 
 from __future__ import annotations
@@ -91,10 +96,19 @@ class GenerationServer:
     ``engine`` must expose ``generate(prompts, max_new_tokens, temperature,
     eos_id, seed) -> [[token_id, ...]]`` (a batcher also ``submit``);
     ``tokenizer`` must expose ``encode``/``decode`` (and optionally
-    ``eos_id``). ``mm_engine`` (a ``PaliGemmaEngine`` or ``Gemma3MMEngine``) and
-    ``image_preprocessor`` (images -> normalized ``[N, H, W, 3]``) answer
-    requests with images; a batcher built with the same ``mm_engine`` serves
-    them in its slot batch, otherwise the engine generates them itself.
+    ``eos_id``). ``mm_engine`` (an image engine: ``PaliGemmaEngine``,
+    ``Gemma3MMEngine``, ``Qwen2VLMMEngine``, ``LlavaNextMMEngine`` or
+    ``MllamaMMEngine``) and ``image_preprocessor`` (images -> the engine's
+    normalized pixels, run on the request's handler thread) answer requests
+    with images; a batcher built with the same ``mm_engine`` serves them in
+    its slot batch, otherwise the engine generates them itself. A batcher
+    also runs the constrained forwards, as entries of its admission records.
+
+    Over a batcher whose engine has a multi-rank mesh, only the mesh's
+    leader binds ``host:port``; on every other rank ``base_url`` is None and
+    :meth:`start` runs the batcher's ``follow`` until the leader's batcher
+    shuts down. ``/stats`` counts the leader's requests. A bare engine over
+    a multi-rank mesh is refused.
     """
 
     def __init__(self, engine: Any, tokenizer: Any, model_name: str = "local",
@@ -107,10 +121,16 @@ class GenerationServer:
         self.default_max_new = max_new_tokens
         self.mm_engine = mm_engine
         self.image_preprocessor = image_preprocessor
-        # constrained requests run their prefill outside the batcher, each
+        mesh = getattr(engine, "mesh", None)
+        multi_rank = mesh is not None and mesh.devices.size > 1
+        if multi_rank and not hasattr(engine, "submit_logits"):
+            raise ValueError("a multi-rank engine serves through a batcher (its admission "
+                             "records keep the ranks in step)")
+        self.follower = multi_rank and not mesh.is_leader
+        # a bare engine's constrained requests run their prefill here, each
         # with caches of its own: one at a time, or a burst of them (an MCQ
         # sweep sends 120 at once) holds all their caches on the card at
-        # once and runs out of memory
+        # once and runs out of memory (a batcher runs them one at a time too)
         self._constrained_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self._stats = {"requests": 0, "images_decoded": 0, "images_skipped": 0,
@@ -169,10 +189,14 @@ class GenerationServer:
             request_queue_size = 512
             daemon_threads = True
 
+        self._thread: Optional[threading.Thread] = None
+        if self.follower:             # a follower opens no socket
+            self._httpd = None
+            self.host = self.port = self.base_url = None
+            return
         self._httpd = Server((host, port), Handler)
         self.host, self.port = self._httpd.server_address
         self.base_url = f"http://{self.host}:{self.port}/v1"
-        self._thread: Optional[threading.Thread] = None
 
     # -- protocol ------------------------------------------------------------
 
@@ -212,17 +236,27 @@ class GenerationServer:
         prompt text and pick the choice whose first token the model scores
         highest (server.py:167-203); with images and an ``mm_engine``, the
         logits are conditioned on all of them. The forwards run one at a
-        time (``_constrained_lock``); the JAX server runs them all at once."""
+        time: a batcher runs each as an entry of its admission record (on
+        every rank of its mesh, the leader's logits picking), a bare engine
+        under ``_constrained_lock``; the JAX server runs them all at once."""
         scaffold, ids, first_tokens = self._constrained_prompt(prompt, field, choices)
+        pix = None
         if images and self.mm_engine is not None:
             pix = self.image_preprocessor(images)        # [N, H, W, 3]
             ids = self.mm_engine.build_mm_prompt(
                 self._encode(scaffold), bos_id=getattr(self.tokenizer, "bos_id", 2),
                 n_images=len(images))
+        bat = self.engine
+        if hasattr(bat, "submit_logits") and (pix is None or bat.supports_multimodal):
+            fut = bat.submit_logits(ids, pixel_values=pix)
+            if not bat._serving:
+                bat.drain()
+            logits = fut.result(timeout=self.request_timeout)
+        elif pix is not None:
             with self._constrained_lock:
                 logits = self.mm_engine.next_token_logits([ids], pix[None])[0]
         else:
-            engine = getattr(self.engine, "engine", self.engine)  # unwrap a batcher
+            engine = getattr(bat, "engine", bat)           # unwrap a batcher
             with self._constrained_lock:
                 logits = engine.next_token_logits([ids])[0]
         best = choices[int(np.argmax([logits[t] for t in first_tokens]))]
@@ -532,12 +566,19 @@ class GenerationServer:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> "GenerationServer":
+        """Serve HTTP on a thread; on a follower, run the batcher's
+        ``follow`` here until the leader's batcher shuts down."""
+        if self.follower:
+            self.engine.follow()
+            return self
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True)
         self._thread.start()
         return self
 
     def stop(self) -> None:
+        if self._httpd is None:
+            return
         self._httpd.shutdown()
         if self._thread:
             self._thread.join(timeout=5)

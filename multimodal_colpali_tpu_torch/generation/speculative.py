@@ -37,10 +37,12 @@ A cross-decode engine's (Mllama's) blocks run in the verify forward over the
 slots' cross pools (speculative.py:378-416): every verify row is a generated
 token, so it attends all of its slot's cross rows, as a decode step does.
 Over an engine's mesh both batchers verify tensor-parallel, and each data
-rank verifies its own slots (the parent's ``_sl``); the emitted windows and
-accepted counts are all-gathered before the host state moves
-(speculative.py:360-372). ``speculative_generate`` over a mesh engine runs
-every row on every data rank.
+rank verifies its own slots (the parent's ``_sl``), writing the dense
+batcher's rows into its own slots' caches; the emitted windows and accepted
+counts are all-gathered before the host state moves (speculative.py:
+360-372). Admission records, the leader and ``follow`` are the parent's.
+``speculative_generate`` over a mesh engine runs every row on every data
+rank.
 """
 
 from __future__ import annotations
@@ -332,7 +334,7 @@ class SpeculativeContinuousBatcher(_SpecHostMixin, ContinuousBatcher):
     def _verify_kv(self, active):
         c, t, k, sl = self.cfg, self.T, self.spec_k, self._sl
         dev = self.device
-        rows = torch.arange(self.B, device=dev)[sl][:, None]
+        rows = torch.arange(self._b_local, device=dev)[:, None]   # this rank's cache rows
         wcols = self._end[sl][:, None] + torch.arange(k, device=dev)[None]
         safe = torch.clamp(wcols, 0, t - 1)
         cols = torch.arange(t, device=dev)
@@ -351,7 +353,7 @@ class SpeculativeContinuousBatcher(_SpecHostMixin, ContinuousBatcher):
 
         def attend(i, q, kc, vc):
             m = sw if types is not None and types[i] == "sliding_attention" else base
-            return L.attention(q, kc[sl], vc[sl], mask=m, scale=sc)
+            return L.attention(q, kc, vc, mask=m, scale=sc)
 
         return kv_write, attend
 

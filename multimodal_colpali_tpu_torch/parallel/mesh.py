@@ -31,6 +31,11 @@ tensor-parallel region: identity, its backward an all-reduce),
 identity) and :func:`gather_rows` (every rank's rows, each rank's gradient
 summed back to the rank that owns them).
 
+Serving over a mesh has one front end: the mesh's first rank (its
+``leader``) takes the requests and hands each scheduling point's admissions
+to the other ranks with :func:`broadcast_object`, over a group of every rank
+of the mesh (``Mesh.group``).
+
 A collective over an axis of one rank is its input, and is not called: on
 the card a one-rank NCCL all-reduce held the host until the card caught up,
 which made a host-bound decode step pay its device time on top (chip_smoke
@@ -110,11 +115,15 @@ class Mesh:
     and ``mesh.shape.get(axis, 1)`` read as with a JAX mesh; ``devices``
     holds the global ranks in the mesh's shape. :meth:`index` is this rank's
     coordinate on an axis (``lax.axis_index``), :meth:`size` an axis' size
-    (1 for an axis the mesh lacks, whose collectives are no-ops)."""
+    (1 for an axis the mesh lacks, whose collectives are no-ops). ``group``
+    spans every rank of the mesh; ``leader`` is its first rank."""
 
     def __init__(self, ranks: np.ndarray, axis_names: Sequence[str], groups: Dict[str, Any],
-                 device: torch.device, backend: str):
+                 device: torch.device, backend: str, group: Any = None):
         self.devices = ranks
+        self.group = group
+        self.leader = int(ranks.flat[0])
+        self.is_leader = dist.get_rank() == self.leader
         self.axis_names = tuple(axis_names)
         self.shape: "OrderedDict[str, int]" = OrderedDict(zip(self.axis_names, ranks.shape))
         coord = np.argwhere(ranks == dist.get_rank())[0]
@@ -168,15 +177,30 @@ def get_mesh(axis_names: Sequence[str] = ("data",), shape: Optional[Sequence[int
             g = dist.new_group([int(r) for r in line])
             if me in line:
                 groups[name] = g
+    everyone = dist.new_group(sorted(int(r) for r in grid.flat))
     backend = dist.get_backend()
     device = (torch.device("cuda", torch.cuda.current_device()) if backend == "nccl"
               else torch.device("cpu"))
-    return Mesh(grid, axis_names, groups, device, backend)
+    return Mesh(grid, axis_names, groups, device, backend, everyone)
 
 
 def global_corpus_mesh(axis: str = "corpus") -> Mesh:
     """A one-axis mesh over every rank, in rank order (mesh.py:68-71)."""
     return get_mesh((axis,))
+
+
+def broadcast_object(mesh: Mesh, obj: Any, src: Optional[int] = None) -> Any:
+    """``obj`` as rank ``src`` (a global rank; default the mesh's leader)
+    holds it, on every rank of the mesh: pickled and sent over ``mesh.group``
+    (``dist.broadcast_object_list``, its bytes a CUDA tensor on NCCL and a
+    CPU one on gloo). Another rank's ``obj`` is ignored. A mesh of one rank
+    returns ``obj`` and calls nothing."""
+    if mesh.devices.size == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=mesh.leader if src is None else int(src),
+                               group=mesh.group, device=mesh.device)
+    return box[0]
 
 
 def all_gather(mesh: Mesh, axis: Optional[str], t: torch.Tensor) -> torch.Tensor:

@@ -339,8 +339,10 @@ _FORBIDDEN = re.compile(
     re.M)
 
 
+# the gloo worlds' workers run the port alone in their own processes
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(REPO)) for p in
-                                        [*PORT_DIR.rglob("*.py"), REPO / "chip_smoke.py"]))
+                                        [*PORT_DIR.rglob("*.py"), REPO / "chip_smoke.py",
+                                         *(REPO / "tests").glob("*_worker.py")]))
 def test_port_source_imports_no_jax(path):
     text = (REPO / path).read_text()
     hits = _FORBIDDEN.findall(text)

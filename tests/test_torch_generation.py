@@ -300,6 +300,42 @@ def test_queue_bound_and_admission_deadline(lm):
     assert late.expired == 1
 
 
+@pytest.mark.parametrize("cls", [ContinuousBatcher, PagedContinuousBatcher])
+def test_queue_bound_counts_requests_waiting_for_a_slot(lm, cls):
+    """With the loop running and every slot busy, ``max_queue`` bounds the
+    requests still waiting for a slot, also those a record already took
+    from the queue: a submit past it fails however soon the loop drains the
+    queue, and the accepted ones complete."""
+    import time
+    *_, teng = lm
+
+    class SlowDecode(cls):          # a slow decode step: the slots stay busy
+        def _step_chunk(self):
+            time.sleep(0.02)
+            super()._step_chunk()
+
+    kw = dict(page_size=8) if cls is PagedContinuousBatcher else {}
+    bat = SlowDecode(teng, batch_slots=2, max_seq_len=128, chunk=2, max_queue=3, **kw).serve()
+    deadline = time.monotonic() + 60
+    try:
+        busy = [bat.submit([5, 9, i], max_new_tokens=100) for i in range(2)]
+        while bat.admissions < 2 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        waiting = []
+        for i in range(6):
+            waiting.append(bat.submit([6, 9, i], max_new_tokens=3))
+            while not bat._queue.empty() and time.monotonic() < deadline:
+                time.sleep(0.005)   # the loop takes the submit into a record
+        assert bat.admissions == 2, "the busy slots finished before the burst ended"
+        for fut in waiting[3:]:
+            with pytest.raises(AdmissionQueueFull):
+                fut.result(0)
+        assert bat.rejected == 3
+        assert [len(f.result(60)) for f in busy + waiting[:3]] == [100, 100, 3, 3, 3]
+    finally:
+        bat.shutdown()
+
+
 def test_filter_top_p_top_k_identical_to_jax():
     rng = np.random.default_rng(9)
     logits = (rng.standard_normal((6, 64)) * 3).astype(np.float32)
